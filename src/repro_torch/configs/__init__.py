@@ -1,8 +1,8 @@
 """Architecture configs of the port: ``get_config(arch)`` returns the
 full (published) config, ``get_smoke_config(arch)`` a tiny same-family
-variant for CPU tests. Only the dense minitron-4b is ported so far; the
-other architectures of the JAX package come with their families
-(ROADMAP queue A)."""
+variant for CPU tests. The dense minitron-4b and the Mamba2 (ssm)
+mamba2-1.3b are ported so far; the other architectures of the JAX
+package come with their families (ROADMAP queue A)."""
 from __future__ import annotations
 
 import importlib
@@ -10,7 +10,7 @@ import importlib
 from repro_torch.models import ModelConfig
 
 # canonical ids as assigned (dashes/dots) -> module names
-ARCH_IDS = {"minitron-4b": "minitron_4b"}
+ARCH_IDS = {"minitron-4b": "minitron_4b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
 def _module(arch: str):

@@ -41,9 +41,11 @@ from .ssa import SSAResult, build_ssa
 from .telemetry import telemetry
 from .torchgen import TorchCodeGenerator, GeneratedKernel, GenStats
 
-# The port's emitters: "torch" (the plain version, core/torchgen.py) and
-# "triton" (the Hopper tile kernel, core/tritongen.py).
-EMITTER_NAMES = ("torch", "triton")
+# The port's emitters: "torch" (the plain version, core/torchgen.py),
+# "triton" (the Hopper tile kernel, core/tritongen.py) and
+# "triton_pipelined" (its persistent, software-pipelined form, the
+# counterpart of the TPU's "pallas_pipelined").
+EMITTER_NAMES = ("torch", "triton", "triton_pipelined")
 # Not in this slice of the port (ROADMAP queue A, "saturation cache and
 # static verifier"): configs asking for them are rejected.
 _NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md, queue A)"

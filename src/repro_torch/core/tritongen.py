@@ -34,6 +34,19 @@ reduction hold a whole row per program (``BLOCK_D = next_pow2(d)``);
 the others also tile columns, so a wide ``d`` (9216 for swiglu) does not
 waste masked lanes up to the next power of two.
 
+The ``"triton_pipelined"`` emitter (:class:`TritonPipelinedGenerator`)
+replaces the TPU's pipelined tile kernel, ``PipelinedPallasGenerator``
+with the scratch-buffer and DMA-semaphore branch of ``_apply_tile_op``:
+there every whole-tile input load is an async copy started at its
+scheduled slot and waited on at its first consumer, two semaphores
+alternating. On Hopper the same overlap is a persistent kernel: a grid
+of at most :data:`PROGRAMS_PER_SM` programs per SM, each walking its
+blocks in ``tl.range(..., num_stages=2)``, so Triton's software pipeliner
+keeps the loads of the next block in flight while this one computes. The
+loop body is the sync kernel's, under the same extraction and an
+explicit schedule, with loads issued in the schedule's order; the sync
+kernel generated under that schedule is kept beside it as its twin.
+
 The source is generated once per program and compiled by Triton at the
 first launch for each operand layout; ``triton`` is imported only there.
 """
@@ -51,7 +64,9 @@ from repro_torch.runtime import chaos
 
 from .dsl import KernelProgram
 from .extract import ExtractionResult
+from .hardware import H100_SXM
 from .pipeline import SaturatorConfig, saturate_program
+from .schedule import compute_schedule
 from .ssa import LoopRegion, Region, SSAResult, StoreEffect
 from .torchgen import GenStats, TorchCodeGenerator
 
@@ -66,6 +81,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 TILE_ELEMS_BUDGET = 8192
 # Column tile of programs without a reduction.
 MAX_BLOCK_D_NO_REDUCE = 1024
+# Persistent (pipelined) kernels: programs launched per SM, and the
+# depth of Triton's software pipeline over a program's blocks (a double
+# buffer, as the TPU kernel's two alternating DMA semaphores).
+PROGRAMS_PER_SM = 4
+NUM_STAGES = 2
 
 _REDUCTIONS = ("rsum", "rmean", "rmax")
 
@@ -118,6 +138,10 @@ class TritonKernel:
     bulk: bool
     schedule_mode: str = "bulk"
     schedule: Optional[Any] = None
+    # persistent kernel over row blocks (the "triton_pipelined" emitter),
+    # with the sync kernel of the same schedule as its twin
+    pipelined: bool = False
+    twin: Optional["TritonKernel"] = None
     _compiled: Dict[Tuple[str, ...], Any] = dataclasses.field(
         default_factory=dict, repr=False)
     _lock: Any = dataclasses.field(default_factory=threading.Lock,
@@ -152,9 +176,22 @@ class TritonKernel:
             "",
             f"@triton.jit(do_not_specialize={dynamic!r})",
             f"def {self.kernel_name}({', '.join(params)}):",
-            f"{ind}_rows = (tl.program_id(0) * BLOCK_R"
+        ]
+        row_block, col_block = "tl.program_id(0)", "tl.program_id(1)"
+        if self.pipelined:
+            # persistent: program p takes blocks p, p + n_programs, ...;
+            # the loop's next loads are issued while this block computes
+            lines += [
+                f"{ind}_n_cb = tl.cdiv(D, BLOCK_D)",
+                f"{ind}_n_blocks = tl.cdiv(n_rows, BLOCK_R) * _n_cb",
+                f"{ind}for _blk in tl.range(tl.program_id(0), _n_blocks, "
+                f"tl.num_programs(0), num_stages={NUM_STAGES}):"]
+            row_block, col_block = "(_blk // _n_cb)", "(_blk % _n_cb)"
+            ind = "        "
+        lines += [
+            f"{ind}_rows = ({row_block} * BLOCK_R"
             f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]",
-            f"{ind}_cols = tl.program_id(1) * BLOCK_D"
+            f"{ind}_cols = {col_block} * BLOCK_D"
             f" + tl.arange(0, BLOCK_D)[None, :]",
             f"{ind}_cmask = _cols < D",
             f"{ind}_mask = (_rows < n_rows) & _cmask",
@@ -176,7 +213,9 @@ class TritonKernel:
             if a in self.rotated:
                 lines.append(f"{ind}{a}_roff = {row}_rcols")
             lines.append(f"{ind}{a}_mask = {mask}")
-        lines += self.body
+        # the body is emitted at one level of indent
+        extra = ind[4:]
+        lines += [extra + ln for ln in self.body]
         return "\n".join(lines) + "\n"
 
     def compiled(self, kinds: Tuple[str, ...]):
@@ -208,6 +247,8 @@ def _import_kernel(src: str, fn_name: str):
 
 class TritonGenerator(TorchCodeGenerator):
     """The ``"triton"`` emitter: the body of a Triton tile kernel."""
+
+    PIPELINED = False
 
     def __init__(self, ssa: SSAResult, extraction: ExtractionResult, *,
                  bulk: bool = True, fn_name: Optional[str] = None,
@@ -370,23 +411,65 @@ class TritonGenerator(TorchCodeGenerator):
             has_reduction=any(op in self.stats.instruction_mix
                               for op in _REDUCTIONS),
             stats=self.stats, bulk=self.bulk,
-            schedule_mode=self.schedule_mode, schedule=sched)
+            schedule_mode=self.schedule_mode, schedule=sched,
+            pipelined=self.PIPELINED)
         # syntax check of the generated source (no triton import needed)
         compile(tk.source, f"<triton:{self.fn_name}>", "exec")
+        return tk
+
+
+class TritonPipelinedGenerator(TritonGenerator):
+    """The ``"triton_pipelined"`` emitter: the persistent, software-
+    pipelined form of the tile kernel (see the module docstring).
+
+    Emission always follows an explicit schedule: a named order (source
+    or bulk) is reconstructed searchlessly when no cost schedule is
+    attached, as the TPU's pipelined emitter does, so every load has a
+    defined slot. The sync kernel generated under that same schedule is
+    attached as :attr:`TritonKernel.twin`."""
+
+    PIPELINED = True
+
+    def __init__(self, ssa: SSAResult, extraction: ExtractionResult, **kw):
+        super().__init__(ssa, extraction, **kw)
+        self._extraction = extraction
+        self._options = kw
+
+    def _resolve_schedule(self):
+        sched = super()._resolve_schedule()
+        if sched is None:
+            cm = self._sched_cm if hasattr(self._sched_cm, "latency") \
+                else None
+            if cm is not None and hasattr(cm, "bind_egraph"):
+                cm.bind_egraph(self.eg)
+            self._explicit = compute_schedule(
+                self.ssa, self.choice, mode=self.schedule_mode,
+                cost_model=cm, move_budget=0)
+        return self._explicit
+
+    def generate_triton(self) -> TritonKernel:
+        tk = super().generate_triton()
+        opts = dict(self._options, schedule=tk.schedule)
+        tk.twin = TritonGenerator(self.ssa, self._extraction,
+                                  **opts).generate_triton()
         return tk
 
 
 @dataclasses.dataclass(frozen=True)
 class TileCallPlan:
     """Launch geometry of one tile-op call: the ``(rows, d)`` view, the
-    operand kinds, block sizes and grid."""
+    operand kinds, block sizes and grid. ``n_blocks`` counts the
+    ``(block_r, block_d)`` blocks; a pipelined kernel's grid is persistent
+    (one axis, at most :data:`PROGRAMS_PER_SM` programs per SM), any
+    other's has one program per block."""
     rows: int
     d: int
     kinds: Tuple[str, ...]       # per input: "row" | "cycle" | "bcast"
     periods: Tuple[int, ...]     # per input: rows a "cycle" operand repeats
     block_r: int
     block_d: int
-    grid: Tuple[int, int]
+    n_blocks: int
+    grid: Tuple[int, ...]
     num_warps: int
 
 
@@ -431,9 +514,13 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
         raise ValueError(f"{tk.name}: rothalf needs an even width, got {d}")
     br = max(1, min(TILE_ELEMS_BUDGET // bd, _next_pow2(rows)))
     grid = (-(-rows // br), -(-d // bd))
+    n_blocks = grid[0] * grid[1]
+    if tk.pipelined:
+        grid = (min(n_blocks, PROGRAMS_PER_SM * H100_SXM.sm_count),)
     return TileCallPlan(rows=rows, d=d, kinds=tuple(kinds),
                         periods=tuple(periods), block_r=br, block_d=bd,
-                        grid=grid, num_warps=8 if br * bd >= 4096 else 4)
+                        n_blocks=n_blocks, grid=grid,
+                        num_warps=8 if br * bd >= 4096 else 4)
 
 
 @dataclasses.dataclass
@@ -516,13 +603,15 @@ def make_tile_op(prog: KernelProgram,
     # build carries its cheap config, and re-running the full schedule
     # search here would re-hit whatever failed
     ecfg = sk.config
-    if ecfg.emitter not in (None, "triton"):
-        raise ValueError(f"make_tile_op needs the triton emitter, got "
-                         f"{ecfg.emitter!r}")
+    if cfg.emitter not in (None, "triton", "triton_pipelined"):
+        raise ValueError(f"make_tile_op needs a triton emitter, got "
+                         f"{cfg.emitter!r}")
+    gen_cls = TritonPipelinedGenerator \
+        if cfg.emitter == "triton_pipelined" else TritonGenerator
     tk = None
     if sk.ladder_level != "ref":
         try:
-            tk = TritonGenerator(
+            tk = gen_cls(
                 sk.ssa, sk.extraction, bulk=ecfg.use_bulk,
                 reuse_temps=ecfg.use_cse,
                 schedule=sk.kernel.schedule

@@ -5,85 +5,34 @@ Replaces the TPU kernel ``_attn_kernel`` of
 ``repro/kernels/flash_attention.py`` (launched by ``flash_attention``
 there). The kernel source is ``csrc/flash_attention.cu``; its header says
 what bounds it on the H100 and what its design does about that. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, under a build directory that ``.gitignore``
-lists, and called through ``ctypes`` on PyTorch's current stream.
+built by :mod:`repro_torch.kernels.cuda_build` at first use and called
+through ``ctypes`` on PyTorch's current stream.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
+import functools
 from typing import Optional
 
 import torch
 
+from . import cuda_build
 from . import ref as _ref
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                     "flash_attention.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build", "cuda")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the flash-attention kernel is "
-                           "built on a machine with the CUDA toolkit")
-    return found
-
-
-def build() -> str:
-    """Compile ``csrc/flash_attention.cu`` (once per source content) and
-    return the shared library's path. What ptxas reports (registers,
-    shared memory, spills) is kept beside it in ``<library>.log``."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libflash_attention_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _CSRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(f"{out}.log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
+@functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i,
-                                                ctypes.c_float, i, i, p]
-            lib.flash_attention_fwd.restype = i
-            lib.flash_attention_error_string.argtypes = [i]
-            lib.flash_attention_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    lib = cuda_build.load("flash_attention.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i,
+                                        ctypes.c_float, i, i, p]
+    lib.flash_attention_fwd.restype = i
+    lib.flash_attention_error_string.argtypes = [i]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,

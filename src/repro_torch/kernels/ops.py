@@ -5,15 +5,18 @@ implementations:
 
   * ``triton`` — the generated Triton tile kernels of
                  :mod:`repro_torch.core.tritongen` and the hand-written CUDA
-                 flash-attention kernel;
+                 flash-attention and SSD-scan kernels;
   * ``torch``  — the *saturated generated torch code* (the paper's
                  optimized output as plain torch; each kernel's plain
-                 version) and masked f32 softmax attention;
+                 version), masked f32 softmax attention and the chunked
+                 torch SSD scan;
   * ``ref``    — the independent oracles in :mod:`repro_torch.kernels.ref`.
 
 Default: ``triton`` for CUDA tensors, ``torch`` for CPU tensors.
 ``set_impl(...)`` overrides globally (the tests and chip_smoke.py's
-parity phase use it).
+parity phase use it). ``set_tile_emitter(...)`` picks the form of the
+tile kernels the ``triton`` implementation launches: the sync kernels
+(default) or their persistent, pipelined form.
 
 No fallback on the card: on CUDA tensors an op runs what it was asked
 to run and raises if that fails. The runtime floor of the JAX package
@@ -29,16 +32,21 @@ from repro_torch.runtime.guard import breaker_for
 
 from . import ref as _ref
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_decode_step, ssd_scan, ssd_scan_plain
 from .tile_programs import get_tile_op
 
 IMPLS = ("triton", "torch", "ref")
+TILE_EMITTERS = ("triton", "triton_pipelined")
 _IMPL: Optional[str] = None  # None = auto
+_TILE_EMITTER: Optional[str] = None  # None = "triton"
 
 # runtime degradation floor on CPU tensors: the named oracle each tile op
 # falls back to when building or applying the saturated op fails
-# (the ops of the dense family; the other tile programs get their op
-# wrappers with the families that call them, ROADMAP queue A)
-_REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref, "swiglu": _ref.swiglu_ref}
+# (the ops of the dense and ssm families; the other tile programs get
+# their op wrappers with the families that call them, ROADMAP queue A)
+_REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
+                  "rmsnorm_gated": _ref.rmsnorm_gated_ref,
+                  "swiglu": _ref.swiglu_ref}
 
 
 def set_impl(impl: Optional[str]):
@@ -48,6 +56,20 @@ def set_impl(impl: Optional[str]):
         raise ValueError(f"impl must be one of {IMPLS} or None/'auto', "
                          f"got {impl!r}")
     _IMPL = None if impl == "auto" else impl
+
+
+def set_tile_emitter(emitter: Optional[str]):
+    """emitter in {None, 'triton', 'triton_pipelined'}: the tile kernels
+    launched on CUDA tensors (their plain versions are the same)."""
+    global _TILE_EMITTER
+    if emitter not in (None,) + TILE_EMITTERS:
+        raise ValueError(f"emitter must be one of {TILE_EMITTERS} or None, "
+                         f"got {emitter!r}")
+    _TILE_EMITTER = emitter
+
+
+def _kernel_op(name: str):
+    return get_tile_op(name, emitter=_TILE_EMITTER)
 
 
 def current_impl(x) -> str:
@@ -86,7 +108,7 @@ def _tile(name: str, *arrays, **scalars):
         return ref_fn(*arrays, **scalars)
     if impl == "triton":
         return _guarded(name, x,
-                        lambda: get_tile_op(name).apply(*arrays, **scalars),
+                        lambda: _kernel_op(name).apply(*arrays, **scalars),
                         lambda: ref_fn(*arrays, **scalars))
     return _guarded(name, x,
                     lambda: get_tile_op(name).torch_ref(*arrays, **scalars),
@@ -96,6 +118,10 @@ def _tile(name: str, *arrays, **scalars):
 # -- saturated tile ops ---------------------------------------------------------
 def rmsnorm(x, g, eps=1e-6):
     return _tile("rmsnorm", x, g, eps=eps)
+
+
+def rmsnorm_gated(x, z, g, eps=1e-6):
+    return _tile("rmsnorm_gated", x, z, g, eps=eps)
 
 
 def swiglu(a, b):
@@ -111,10 +137,10 @@ def rotary(q, cos, sin):
         return _ref.rotary_ref(q, cos, sin)
 
     def _opt():
-        op = get_tile_op("rotary")
         if impl == "triton":
-            return op.apply(q, cos, sin)
-        return op.torch_ref(q, cos.expand(q.shape), sin.expand(q.shape))
+            return _kernel_op("rotary").apply(q, cos, sin)
+        return get_tile_op("rotary").torch_ref(q, cos.expand(q.shape),
+                                               sin.expand(q.shape))
 
     return _guarded("rotary", q, _opt, lambda: _ref.rotary_ref(q, cos, sin))
 
@@ -124,3 +150,23 @@ def attention(q, k, v, *, causal=True, scale=None):
     if current_impl(q) == "triton":
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return _ref.attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128,
+        return_state=False):
+    """Chunked SSD scan: the CUDA kernel on CUDA tensors, the plain torch
+    scan on the CPU (the sequential oracle under ``set_impl("ref")``,
+    which has no final state). With ``return_state`` also the final
+    (B,H,N,P) state, which seeds decode."""
+    impl = current_impl(x)
+    if impl == "triton":
+        return ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
+                        return_state=return_state)
+    if impl == "ref" and not return_state:
+        return _ref.ssd_ref(x, dt, a_log, b_mat, c_mat, d_skip)
+    return ssd_scan_plain(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
+                          return_state=return_state)
+
+
+def ssd_decode(h, x_t, dt_t, a_log, b_t, c_t, d_skip):
+    return ssd_decode_step(h, x_t, dt_t, a_log, b_t, c_t, d_skip)

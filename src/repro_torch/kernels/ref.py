@@ -96,3 +96,25 @@ def attention_ref(q, k, v, *, causal=True, scale=None):
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, d_skip):
+    """Mamba2 SSD oracle: the sequential recurrence, one step at a time.
+
+    x:(B,S,H,P) dt:(B,S,H) a_log:(H,) b_mat/c_mat:(B,S,N) d_skip:(H,)
+    h_t = exp(dt*A)·h_{t-1} + dt·(B_t ⊗ x_t);  y_t = C_t·h_t + D·x_t
+    """
+    Bsz, S, H, P = x.shape
+    N = b_mat.shape[-1]
+    A = -torch.exp(a_log.float())                  # (H,)
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        xt, dtt = x[:, t].float(), dt[:, t].float()
+        bt, ct = b_mat[:, t].float(), c_mat[:, t].float()
+        decay = torch.exp(dtt * A)                 # (B,H)
+        dbx = torch.einsum("bn,bh,bhp->bhnp", bt, dtt, xt)
+        h = decay[..., None, None] * h + dbx
+        ys.append(torch.einsum("bn,bhnp->bhp", ct, h))
+    y = torch.stack(ys, 1)                         # (B,S,H,P)
+    return (y + x.float() * d_skip.float()[None, None, :, None]).to(x.dtype)

@@ -12,7 +12,7 @@ on FMA opportunities, shared subexpressions, and front-loadable loads.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from repro_torch.core import (KernelProgram, SaturatorConfig,
                               ScheduleConfig, TileOp, c, exp, gelu_tanh,
@@ -232,19 +232,28 @@ PROGRAMS: Dict[str, Callable[[], KernelProgram]] = {
 }
 
 
-@functools.lru_cache(maxsize=None)
 def get_tile_op(name: str, mode: str = "accsat",
-                schedule: str = None) -> TileOp:
+                schedule: str = None, emitter: str = None) -> TileOp:
     """Build (and cache) the saturated TileOp for a named program, with
     the JAX package's ``get_tile_op`` configuration: the flat TPU-weight
     extraction model (relative op weights, so the port extracts the same
     terms as the reference) with the TPU rule set in the saturating
     modes. ``schedule`` picks the statement order of the emitted kernel
     (``"source" | "bulk" | "cost"``; None keeps the mode's default —
-    bulk for accsat). The persistent cache and the static verifier of
-    the JAX version are not ported (ROADMAP queue A)."""
+    bulk for accsat). ``emitter`` picks the kernel's form
+    (``"triton" | "triton_pipelined"``; None = the sync ``"triton"``).
+    The persistent cache and the static verifier of the JAX version are
+    not ported (ROADMAP queue A). One op (and one launch counter) per
+    distinct configuration, however the arguments are passed."""
+    return _tile_op(name, mode, schedule,
+                    None if emitter == "triton" else emitter)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_op(name: str, mode: str, schedule: Optional[str],
+             emitter: Optional[str]) -> TileOp:
     cfg = SaturatorConfig(
         mode=mode, cost_model="tpu_v5e",
         tpu_rules=(mode in ("cse_sat", "accsat")),
-        schedule_cfg=ScheduleConfig(schedule=schedule))
+        schedule_cfg=ScheduleConfig(schedule=schedule, emitter=emitter))
     return make_tile_op(PROGRAMS[name](), cfg)

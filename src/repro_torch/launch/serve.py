@@ -10,6 +10,7 @@ The port of :mod:`repro.launch.serve`:
 
 Runs on the GPU unless ``device="cpu"`` is passed:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full
 """
 from __future__ import annotations
 
@@ -102,7 +103,8 @@ class Server:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minitron-4b")
+    ap.add_argument("--arch", default="minitron-4b",
+                    help=f"one of {sorted(ARCH_IDS)}")
     ap.add_argument("--full", action="store_true",
                     help="serve the full-width config (default: smoke)")
     ap.add_argument("--device", default=None,

@@ -11,11 +11,27 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 block geometry, as :class:`repro.models.common.SSMConfig`."""
+    state_dim: int = 128        # N
+    head_dim: int = 64          # P
+    expand: int = 2             # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of :class:`repro.models.common.ModelConfig`, with a
-    torch dtype. The port serves the ``dense`` family; the ``moe``/``ssm``
-    sub-configs of the other families stay opaque until they are ported
-    (ROADMAP queue A)."""
+    torch dtype. The port serves the ``dense`` and ``ssm`` families; the
+    ``moe`` sub-config stays opaque until that family is ported (ROADMAP
+    queue A)."""
     name: str
     family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -29,7 +45,7 @@ class ModelConfig:
     act: str = "swiglu"         # swiglu | gelu
     rope_theta: float = 10_000.0
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     shared_attn_every: int = 0
     n_enc_layers: int = 0
     mrope_sections: Optional[Tuple[int, int, int]] = None
@@ -52,15 +68,22 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family (embeddings +
-        layers)."""
-        if self.family != "dense":
-            raise NotImplementedError(f"family {self.family!r}")
+        """Analytic parameter count of the dense and ssm families
+        (embeddings, layers and the final norm)."""
         d, v = self.d_model, self.vocab
         n = v * d if self.tie_embeddings else 2 * v * d
-        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
-        return n + self.n_layers * (attn + mlp + 2 * d) + d
+        if self.family == "dense":
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
+            return n + self.n_layers * (attn + mlp + 2 * d) + d
+        if self.family == "ssm":
+            sc = self.ssm
+            di, nh, ns = sc.d_inner(d), sc.n_heads(d), sc.state_dim
+            # in_proj: z, x, B, C, dt; out_proj; conv; A, D, dt_bias; norm
+            block = (d * (2 * di + 2 * ns + nh) + di * d
+                     + sc.conv_width * (di + 2 * ns) + 3 * nh + di)
+            return n + self.n_layers * (block + d) + d
+        raise NotImplementedError(f"family {self.family!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,7 +138,7 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
     numpy arrays (layer-stacked leading axis on ``layers``). Weights keep
     the ``x @ w`` layout; the layer stack becomes a list of per-layer
     dicts. Dtypes are kept as given."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r}")
     device = torch.device(device)
 

@@ -12,6 +12,7 @@ import torch
 from repro_torch.core import KernelProgram, c, make_tile_op
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 from repro_torch.launch.serve import Request, Server
 
@@ -38,21 +39,39 @@ def _close(got, want, tol):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", sorted(PROGRAMS))
-def test_tile_kernel_matches_plain(name, dtype, cuda):
-    gen = torch.Generator(device=cuda).manual_seed(0)
+def _tile_inputs(name, rows, d, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(0)
     prog = PROGRAMS[name]()
     xs = []
     for a in prog.arrays.values():
         if a.role == "out":
             continue
-        shape = (96,) if a.shape == (1, 128) else (13, 96)
-        x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+        shape = (d,) if a.shape == (1, 128) else (rows, d)
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
         xs.append(x.abs() * 0.01 if a.name == "v" else x)
-    sc = {s: SCALARS[s] for s in prog.scalars}
+    return xs, {s: SCALARS[s] for s in prog.scalars}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_tile_kernel_matches_plain(name, dtype, cuda):
+    xs, sc = _tile_inputs(name, 13, 96, dtype, cuda)
     op = get_tile_op(name)
+    before = op.launches
+    _close(op.apply(*xs, **sc), op.torch_ref(*xs, **sc), TILE_TOL[dtype])
+    assert op.launches == before + 1
+
+
+@pytest.mark.parametrize("rows,d", [(13, 96), (1500, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_pipelined_tile_kernel_matches_plain(name, dtype, rows, d, cuda):
+    """The persistent kernels, at one block and at more blocks than the
+    persistent grid has programs."""
+    xs, sc = _tile_inputs(name, rows, d, dtype, cuda)
+    op = get_tile_op(name, emitter="triton_pipelined")
     before = op.launches
     _close(op.apply(*xs, **sc), op.torch_ref(*xs, **sc), TILE_TOL[dtype])
     assert op.launches == before + 1
@@ -94,6 +113,47 @@ def test_flash_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros((1, 8, 2, 16), device=cuda).transpose(1, 2)
         flash_attention(x, x, x)
+
+
+def _ssd_inputs(B, S, H, P, N, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    dt = torch.rand((B, S, H), generator=gen, device=device) * 0.29 + 0.01
+    a_log = torch.rand((H,), generator=gen, device=device) * 2 - 1
+    return (rn(B, S, H, P), dt, a_log, rn(B, S, N, scale=0.3),
+            rn(B, S, N, scale=0.3), rn(H))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 2, 16, 16, 16), (2, 100, 3, 16, 8, 32), (1, 7, 2, 8, 4, 16),
+    (2, 1, 2, 8, 4, 16), (1, 300, 4, 64, 128, 128)])
+def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, cuda):
+    """y and the final state, at a chunk multiple, a ragged S, S < chunk,
+    S = 1 and the serve widths (f32 2e-4, the SSD tolerance)."""
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    before = ssd_scan.launches
+    got = ssd_scan(*xs, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    _close(got, ssd_scan_plain(*xs, chunk=chunk, return_state=True), 2e-4)
+    _close(ssd_scan(*xs, chunk=chunk), got[0], 0.0)
+
+
+def test_ssd_rejects_what_it_cannot_run(cuda):
+    x, dt, a_log, bm, cm, d = _ssd_inputs(1, 16, 2, 8, 4, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x.bfloat16(), dt, a_log, bm, cm, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a_log,
+                 bm, cm, d)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_scan(x, dt, a_log, bm, cm[:, :, :3].contiguous(), d)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ssd_inputs(1, 256, 1, 128, 256, cuda)
+        ssd_scan(*big, chunk=256)
 
 
 def test_degraded_tile_op_raises_on_the_card(cuda):
@@ -139,3 +199,32 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def test_mamba_smoke_server_on_the_card_matches_cpu(cuda):
+    """The mamba2 smoke config in f32: greedy tokens on the card (the SSD
+    and tile kernels) equal those on the CPU (plain versions)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"),
+                              dtype=torch.float32)
+    cpu = Server("mamba2-1.3b", device="cpu")
+    gpu = Server("mamba2-1.3b", device=cuda)
+    for srv in (cpu, gpu):
+        srv.cfg, srv.model = cfg, LM(cfg, device=srv.device)
+        srv._decode = srv.model.decode_step
+    cpu.params = cpu.model.init(0)
+    gpu.params = _to(cpu.params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=40 - i).astype(np.int32)
+               for i in range(3)]
+    before = ssd_scan.launches
+    want = cpu.generate([Request(i, p.copy(), 6)
+                         for i, p in enumerate(prompts)])
+    got = gpu.generate([Request(i, p.copy(), 6)
+                        for i, p in enumerate(prompts)])
+    assert got == want
+    # one prefill batch (3 requests, max_batch 4): one scan per layer
+    assert ssd_scan.launches == before + cfg.n_layers

@@ -74,7 +74,7 @@ def test_torchgen_matches_saturated_jax(name, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("name", ["rmsnorm", "swiglu"])
+@pytest.mark.parametrize("name", ["rmsnorm", "rmsnorm_gated", "swiglu"])
 def test_path_ops_match_pallas_interpret(name, dt):
     rng = np.random.default_rng(1)
     xs, sc = _inputs(name, 12, 192, rng)
