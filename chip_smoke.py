@@ -37,7 +37,8 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
-              "float32": 67e12}           # f32 outside the tensor cores
+              "float32": 67e12,           # f32 outside the tensor cores
+              "tf32x3": 495e12 / 3}       # f32 as 3 TF32 tensor-core products
 TILE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
@@ -130,20 +131,41 @@ def phase_env(torch):
     return smi
 
 
+def _hmma_counts(lib):
+    """HMMA (tensor-core) instructions in each kernel of a library, from
+    ``cuobjdump -sass``, by kernel name (with the head_dim template
+    argument where there is one)."""
+    import re
+    from repro_torch.kernels.cuda_build import nvcc
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc()), "cuobjdump"), "-sass", lib],
+        capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        m = re.match(
+            r"\S*?\d((?:flash_fwd|ssd)_[a-z0-9]+_kernel)(?:ILi(\d+)E)?", body)
+        name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") \
+            if m else body.split()[0]
+        counts[name] = body.count("HMMA")
+    return counts
+
+
 def phase_build():
     """Both CUDA libraries, one nvcc each, all started together."""
     from repro_torch.kernels.cuda_build import build
     t0 = time.perf_counter()
     libs = build(*CUDA_SOURCES)
     secs = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, hmma = {}, {}
     for src, lib in zip(CUDA_SOURCES, libs):
         with open(f"{lib}.log") as f:
             ptxas[src] = [ln.strip() for ln in f if "registers" in ln
                           or "spill" in ln or "smem" in ln]
+        hmma[src] = _hmma_counts(lib)
     emit({"phase": "build", "nvcc_s": secs,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "hmma": hmma})
+    return hmma
 
 
 def _err(a, b):
@@ -315,10 +337,14 @@ def phase_kernels(torch, timer):
             if lib is not None else None}
 
     # flash attention: full width causal (the path) and not, a ragged S,
-    # and a small f32 head_dim-16 case
+    # the bf16 kernel's tile edges (one row, one past a 64-row tile, one
+    # past two), and a small f32 head_dim-16 case
     flash_cases = [((4, 24, 8, 512, 128), torch.bfloat16, True),
                    ((4, 24, 8, 512, 128), torch.bfloat16, False),
                    ((4, 24, 8, 100, 128), torch.bfloat16, True),
+                   ((2, 8, 8, 1, 64), torch.bfloat16, True),
+                   ((2, 8, 8, 65, 64), torch.bfloat16, True),
+                   ((2, 8, 8, 129, 64), torch.bfloat16, True),
                    ((2, 4, 2, 128, 16), torch.float32, True),
                    ((2, 4, 2, 128, 16), torch.float32, False)]
     for (b, h, kh, s, d), dt, causal in flash_cases:
@@ -349,9 +375,12 @@ def phase_kernels(torch, timer):
                 "library_ms": timer.ms(_sdpa(F, fq, fk, fv))}
 
     # SSD scan, y and the final state: the serve shape (the path), ragged
-    # S and S below a chunk at full width, and a small case
+    # S and S below a chunk at full width, the tile edges (one step, one
+    # chunk, five chunks) at full width, and a small case
     ssd_cases = [((4, 512, 64, 64, 128), 128), ((4, 510, 64, 64, 128), 128),
-                 ((4, 100, 64, 64, 128), 128), ((2, 64, 2, 16, 16), 16)]
+                 ((4, 100, 64, 64, 128), 128), ((1, 1, 64, 64, 128), 128),
+                 ((1, 128, 64, 64, 128), 128), ((1, 640, 64, 64, 128), 128),
+                 ((2, 64, 2, 16, 16), 16)]
     for (b, s, h, p, n), chunk in ssd_cases:
         sx, sb, sc_ = randn(b, s, h, p), randn(b, s, n) * 0.3, \
             randn(b, s, n) * 0.3
@@ -366,7 +395,7 @@ def phase_kernels(torch, timer):
                      SSD_TOL, checks)
         if (b, s) == (4, 512):
             nbytes, flops = _ssd_work(b, s, h, p, n, chunk)
-            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+            t_ops = flops / PEAK_FLOPS["tf32x3"] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             rows["ssd_scan"] = {
                 "route": "cuda",
@@ -380,6 +409,9 @@ def phase_kernels(torch, timer):
                     *args, chunk=chunk, return_state=True)),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                # the first kernel's reckoning: f32 on the CUDA cores
+                "bound_cuda_core_ms": max(
+                    flops / PEAK_FLOPS["float32"] * 1e3, t_bytes),
                 "library_ms": None}
     emit({"phase": "kernels", "checks": checks, "timings": rows,
           "other_programs": others})
@@ -617,9 +649,9 @@ def phase_pipelined(torch, srv, tokens, sync_logits, names, phase):
 
 def _kernel_group(name: str) -> str:
     from repro_torch.kernels.tile_programs import PROGRAMS
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:            # flash_fwd_{bf16,f32}_kernel
         return "flash_attention"
-    if "ssd_scan_kernel" in name:
+    if "ssd_cb_kernel" in name or "ssd_scan_kernel" in name:
         return "ssd_scan"
     if any(name.startswith(f"{p}_kernel") for p in PROGRAMS):
         return "tile"
@@ -690,7 +722,7 @@ def main() -> int:
     launches = {}
     try:
         smi = phase_env(torch)
-        phase_build()
+        hmma = phase_build()
         timer = Timer(torch)
         rows = phase_kernels(torch, timer)
         del timer
@@ -727,13 +759,18 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
     kernels = []
     for name, r in rows.items():
+        src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],
                         "source": r["source"], "replaces": r["replaces"],
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        # tensor-core instructions by kernel (CUDA routes)
+                        "sass": {"HMMA": hmma[src]} if src in hmma else None,
+                        **({"bound_cuda_core_ms": r["bound_cuda_core_ms"]}
+                           if "bound_cuda_core_ms" in r else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})
     emit({"kernels": kernels})

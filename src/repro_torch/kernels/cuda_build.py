@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library at first use, under a
 build directory that ``.gitignore`` lists, and loaded with ``ctypes``.
-A library's file name carries a hash of its source and the flags, so an
-edited source builds anew and an unchanged one is reused. What ptxas
+A library's file name carries a hash of its source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an edited source or header
+builds anew and an unchanged one is reused. What ptxas
 reports (registers, shared memory, spills) is kept beside the library in
 ``<library>.log``.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -39,11 +41,16 @@ def nvcc() -> str:
     return found
 
 
-def _library_path(source: str) -> str:
-    """Where the library of ``csrc/<source>`` is built."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+def _library_path(source: str, csrc: str = CSRC) -> str:
+    """Where the library of ``<csrc>/<source>`` is built: its name hashes
+    the source, the headers beside it and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(csrc, source)] + sorted(
+            glob.glob(os.path.join(csrc, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

@@ -7,6 +7,12 @@ there). The kernel source is ``csrc/flash_attention.cu``; its header says
 what bounds it on the H100 and what its design does about that. It is
 built by :mod:`repro_torch.kernels.cuda_build` at first use and called
 through ``ctypes`` on PyTorch's current stream.
+
+The wrapper picks the kernel by dtype before it launches: bf16 (the
+model's path) runs on the bf16 tensor cores (``mma.sync``), f32 on the
+CUDA cores, whose full f32 products hold the f32 tolerance that TF32
+would miss. Neither is a fallback for the other: a launch that fails
+raises.
 """
 from __future__ import annotations
 
@@ -20,16 +26,18 @@ from . import cuda_build
 from . import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY = {torch.float32: "flash_attention_fwd_f32",
+          torch.bfloat16: "flash_attention_fwd_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     lib = cuda_build.load("flash_attention.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i,
-                                        ctypes.c_float, i, i, p]
-    lib.flash_attention_fwd.restype = i
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -61,7 +69,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention: dtype {q.dtype} (float32 or "
                         "bfloat16)")
     B, H, S, D = q.shape
@@ -77,9 +85,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if o.numel() == 0:
         return o
     lib = _load()
-    err = lib.flash_attention_fwd(
+    err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KH,
-        S, D, scale, int(causal), _DTYPES[q.dtype],
+        S, D, scale, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel: "

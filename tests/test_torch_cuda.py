@@ -12,7 +12,8 @@ import torch
 from repro_torch.core import KernelProgram, c, make_tile_op
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (ssd_cb_kernel, ssd_chunks_plain,
+                                          ssd_scan, ssd_scan_plain)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 from repro_torch.launch.serve import Request, Server
 
@@ -91,7 +92,13 @@ def test_rotary_cycle_operands(cuda):
     ((2, 4, 2, 128, 16), torch.float32, 2e-3),
     ((1, 6, 2, 100, 64), torch.float32, 2e-3),
     ((2, 8, 8, 192, 32), torch.bfloat16, 5e-2),
-    ((1, 3, 1, 70, 128), torch.bfloat16, 5e-2)])
+    ((1, 3, 1, 70, 128), torch.bfloat16, 5e-2),
+    # the bf16 kernel's tile edges: one row, one past a 64-row tile, one
+    # past two
+    ((1, 4, 4, 1, 64), torch.bfloat16, 5e-2),
+    ((1, 4, 4, 65, 64), torch.bfloat16, 5e-2),
+    ((1, 4, 4, 129, 64), torch.bfloat16, 5e-2),
+    ((2, 4, 2, 96, 16), torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(shape, dtype, tol, causal, cuda):
     B, H, KH, S, D = shape
@@ -104,6 +111,21 @@ def test_flash_kernel_matches_plain(shape, dtype, tol, causal, cuda):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     _close(got, flash_attention_plain(q, k, v, causal=causal), tol)
+
+
+def test_flash_bf16_and_f32_both_launch(cuda):
+    """The wrapper picks the tensor-core kernel for bf16 and the CUDA-core
+    one for f32; each launches and holds its own tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = [torch.randn((2, 8, 130, 64), generator=gen, device=cuda)
+           for _ in range(3)]
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-3)):
+        q, k, v = (t.to(dtype) for t in qkv)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1 and got.dtype == dtype
+        _close(got, flash_attention_plain(q, k, v), tol)
 
 
 def test_flash_rejects_what_it_cannot_run(cuda):
@@ -129,10 +151,14 @@ def _ssd_inputs(B, S, H, P, N, device):
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (2, 64, 2, 16, 16, 16), (2, 100, 3, 16, 8, 32), (1, 7, 2, 8, 4, 16),
-    (2, 1, 2, 8, 4, 16), (1, 300, 4, 64, 128, 128)])
+    (2, 1, 2, 8, 4, 16), (1, 300, 4, 64, 128, 128), (1, 7, 2, 6, 4, 16),
+    # the tile edges at full width (64 heads of P 64, N 128, chunk 128)
+    (1, 1, 64, 64, 128, 128), (1, 128, 64, 64, 128, 128),
+    (1, 640, 64, 64, 128, 128)])
 def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, cuda):
     """y and the final state, at a chunk multiple, a ragged S, S < chunk,
-    S = 1 and the serve widths (f32 2e-4, the SSD tolerance)."""
+    S = 1, a P that is not a multiple of 4 and the serve widths (f32
+    2e-4, the SSD tolerance)."""
     xs = _ssd_inputs(B, S, H, P, N, cuda)
     before = ssd_scan.launches
     got = ssd_scan(*xs, chunk=chunk, return_state=True)
@@ -140,6 +166,16 @@ def test_ssd_kernel_matches_plain(B, S, H, P, N, chunk, cuda):
     assert ssd_scan.launches == before + 1
     _close(got, ssd_scan_plain(*xs, chunk=chunk, return_state=True), 2e-4)
     _close(ssd_scan(*xs, chunk=chunk), got[0], 0.0)
+
+
+@pytest.mark.parametrize("B,S,N,chunk", [(2, 300, 128, 128),
+                                         (1, 7, 4, 16), (2, 100, 8, 32)])
+def test_ssd_cb_matches_plain_decomposition(B, S, N, chunk, cuda):
+    """The scan's first launch, C·Bᵀ once per (batch, chunk), equals the
+    lower triangle of ssd_chunks_plain's (f32 2e-4: 3xTF32 products)."""
+    xs = _ssd_inputs(B, S, 2, 8, N, cuda)
+    cb, _, _, _ = ssd_chunks_plain(*xs, chunk=chunk)
+    _close(ssd_cb_kernel(xs[3], xs[4], chunk=chunk), cb, 2e-4)
 
 
 def test_ssd_rejects_what_it_cannot_run(cuda):

@@ -12,8 +12,8 @@ from repro.kernels.ssd_scan import ssd_decode_step as jax_decode_step
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan import ssd_scan_jnp
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ssd_scan import (ssd_decode_step, ssd_scan,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_decode_step,
+                                          ssd_scan, ssd_scan_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -64,6 +64,39 @@ def test_ragged_scan_and_final_state_match_jnp(B, S, H, P, N, chunk):
     assert got_h.shape == (B, H, N, P) and got_h.dtype == torch.float32
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 96, 3, 16, 8, 32), (2, 100, 3, 16, 8, 32), (1, 7, 2, 8, 4, 16)])
+def test_kernel_decomposition_matches_jnp(B, S, H, P, N, chunk):
+    """The CUDA kernel's algebra in plain torch: C·Bᵀ once per (batch,
+    chunk), the state entering chunk c equal to ssd_scan_jnp's final
+    state over the first c·chunk steps, and y and the final state equal
+    to ssd_scan_jnp's, at a chunk multiple, a ragged S and S < chunk."""
+    xs = _inputs(B, S, H, P, N, seed=5)
+    cb, states, y, h = ssd_chunks_plain(*_t(xs), chunk=chunk)
+    L = min(chunk, S)
+    n_chunks = -(-S // L)
+    assert cb.shape == (B, n_chunks, L, L)
+    assert states.shape == (B, n_chunks, H, N, P)
+    x, _, _, bm, cm, _ = xs
+    for c in range(n_chunks):
+        t0, t1 = c * L, min(S, c * L + L)
+        want = np.zeros((B, L, L), np.float32)
+        want[:, :t1 - t0, :t1 - t0] = np.tril(np.einsum(
+            "btn,bsn->bts", cm[:, t0:t1], bm[:, t0:t1]))
+        np.testing.assert_allclose(cb[:, c].numpy(), want, **TOL)
+        if c == 0:
+            assert not states[:, 0].any()
+            continue
+        _, want_h = ssd_scan_jnp(*_j([a[:, :t0] if a.ndim > 1 else a
+                                     for a in xs]),
+                                 chunk=chunk, return_state=True)
+        np.testing.assert_allclose(states[:, c].numpy(), np.asarray(want_h),
+                                   **TOL)
+    want_y, want_h = ssd_scan_jnp(*_j(xs), chunk=chunk, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **TOL)
 
 
 def test_decode_step_matches_jax():
