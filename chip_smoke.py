@@ -15,11 +15,16 @@ Server at full width with random seeded weights:
   a kernel prefill and two decode ticks fed from its state with the
   plain versions, the pipelined prefill, and a trace.
 
-Each path's launch counts are zeroed just before it and read just after.
-Each phase prints one JSON line; the line before the last lists every
-kernel, and the last line is ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero. Without a CUDA device, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+Each path's launch counts are zeroed just before it and read just after,
+and split by the step (prefill or decode) that launched them. The tile
+kernels on the paths also report their shared memory, registers and the
+width of each global load, store and async copy in their PTX, and each
+is checked and timed at its decode shape too (rotary also at k in
+prefill and at a 510-token prompt). Each phase prints one JSON line;
+the line before the last lists every kernel, and the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
+CUDA device, or outside a checkout of the repository, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -103,6 +108,25 @@ class Timer:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return statistics.median(times)
+
+    def device_ms(self, fn, kernel, iters=10):
+        """Mean device duration of the launches of kernels whose name
+        contains ``kernel`` that ``fn`` makes, each after the L2 flush,
+        from torch.profiler: the kernel alone, without the launch and
+        event costs that ``ms`` includes."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        n = sum(e.count for e in evs)
+        return sum(getattr(e, "self_device_time_total", 0.0) for e in evs) \
+            / n / 1e3 if n else None
 
 
 def phase_env(torch):
@@ -198,6 +222,47 @@ def _tile_bound(op, args):
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _ptx_counts(ptx):
+    """Bytes per thread of each global load, store and global-to-shared
+    async copy in a PTX listing (``ld.global.v4.b32`` is 16), counted by
+    width."""
+    import re
+    counts = {"ld": {}, "st": {}, "cp.async": {}}
+    for m in re.finditer(r"\b(ld|st)\.global((?:\.[\w:]+)+)", ptx):
+        parts = m.group(2).split(".")
+        vec = next((int(p[1:]) for p in parts if p in ("v2", "v4", "v8")), 1)
+        bits = next((int(p[1:]) for p in parts
+                     if re.fullmatch(r"[bfsu](8|16|32|64)", p)), 0)
+        key = f"{vec * bits // 8}B"
+        counts[m.group(1)][key] = counts[m.group(1)].get(key, 0) + 1
+    for m in re.finditer(r"\bcp\.async\.c[ag]\.shared\.global[\w.:]*\s+"
+                         r"\[[^\]]*\],\s*\[[^\]]*\],\s*(0x[0-9a-fA-F]+|\d+)",
+                         ptx):
+        key = f"{int(m.group(1), 0)}B"
+        counts["cp.async"][key] = counts["cp.async"].get(key, 0) + 1
+    return counts
+
+
+def _kernel_info(ck):
+    """Shared memory, registers and the PTX's global access widths of a
+    Triton compiled kernel (after its first launch)."""
+    return {"shared_bytes": ck.metadata.shared,
+            "registers": getattr(ck, "n_regs", None),
+            "spills": getattr(ck, "n_spills", None),
+            **_ptx_counts(ck.asm["ptx"])}
+
+
+def _compiled_info(op, args, sc):
+    """``_kernel_info`` of the tile kernel compiled for these operands'
+    layout: one launch, outside the op's counter."""
+    from repro_torch.core.tritongen import (launch_tile_kernel,
+                                            prepare_tile_call)
+    plan, ins, outs = prepare_tile_call(op.tk, args, op.name)
+    return _kernel_info(launch_tile_kernel(
+        op.tk.compiled(plan.kinds), plan, ins, outs,
+        [float(sc[s]) for s in op.tk.scalars]))
+
+
 def _ssd_work(B, S, H, P, N, chunk):
     """Bytes and operations one SSD scan with its final state needs: x,
     dt, B, C, a_log, d_skip read once, y and the state written once; per
@@ -274,21 +339,32 @@ def phase_kernels(torch, timer):
     yg, zg, gg = randn(B * S, DI, dtype=torch.bfloat16), \
         randn(B * S, DI, dtype=torch.bfloat16), randn(DI, dtype=torch.bfloat16)
 
-    def tile_row(tag, op, args, sc, lib, replaces):
+    def tile_row(tag, op, args, sc, lib, replaces=None):
         want = op.torch_ref(*(a.expand(args[0].shape) for a in args), **sc)
         err = _check(f"{tag}/path", op.apply(*args, **sc), want,
                      TILE_TOL[str(args[0].dtype)[6:]], checks)
         bound, by = _tile_bound(op, args)
-        return {
-            "route": "triton", "source": "src/repro_torch/core/tritongen.py",
-            "replaces": replaces,
+        dst = torch.empty_like(args[0])
+        row = {
             "shape": [list(a.shape) for a in args],
             "dtype": str(args[0].dtype)[6:], "max_abs_err": err,
             "ms": timer.ms(lambda: op.apply(*args, **sc)),
+            # the profiler's duration of the kernel itself
+            "device_ms": timer.device_ms(lambda: op.apply(*args, **sc),
+                                         op.tk.kernel_name),
             "plain_ms": timer.ms(lambda: op.torch_ref(
                 *(a.expand(args[0].shape) for a in args), **sc)),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": timer.ms(lib) if lib is not None else None}
+            "library_ms": timer.ms(lib) if lib is not None else None,
+            # a yardstick, not the same function: Tensor.copy_ of the
+            # lead (its bytes read and written once, no other operand)
+            "copy_ms": timer.ms(lambda: dst.copy_(args[0])),
+            "compiled": _compiled_info(op, args, sc)}
+        if replaces is None:
+            return row
+        return {"route": "triton",
+                "source": "src/repro_torch/core/tritongen.py",
+                "replaces": replaces, **row}
 
     cases = {
         "rmsnorm": ((x, gain), {"eps": 1e-6},
@@ -297,16 +373,42 @@ def phase_kernels(torch, timer):
         "swiglu": ((a_, b_), {}, None),
         "rmsnorm_gated": ((yg, zg, gg), {"eps": 1e-6}, None),
     }
+    # the other shapes of the path's tile kernels: rotary's k in
+    # prefill and its 510-token prompt (positions ragged against the
+    # block), and every kernel's decode tick (batch 4, one token; rotary
+    # with one broadcast cos/sin row), in the model's bf16; each with its
+    # library call where there is one
+    bf = torch.bfloat16
+    cos1, sin1 = cos[:, :, 7:8].contiguous(), sin[:, :, 7:8].contiguous()
+    xd, gd = randn(B, D, dtype=bf), randn(D, dtype=bf)
+    other_shapes = {
+        "rotary": {
+            "k": ((kk, cos, sin), {}, None),
+            "q_510": ((randn(B, H, S - 2, 128, dtype=bf),
+                       cos[:, :, :S - 2].contiguous(),
+                       sin[:, :, :S - 2].contiguous()), {}, None),
+            "decode_q": ((randn(B, H, 1, 128, dtype=bf), cos1, sin1), {},
+                         None),
+            "decode_k": ((randn(B, KH, 1, 128, dtype=bf), cos1, sin1), {},
+                         None)},
+        "rmsnorm": {"decode": ((xd, gd), {"eps": 1e-6},
+                               lambda: F.rms_norm(xd, (D,), gd, 1e-6))},
+        "swiglu": {"decode": ((randn(B, F_, dtype=bf), randn(B, F_, dtype=bf)),
+                              {}, None)},
+        "rmsnorm_gated": {"decode": ((randn(B, DI, dtype=bf),
+                                      randn(B, DI, dtype=bf),
+                                      randn(DI, dtype=bf)), {"eps": 1e-6},
+                                     None)}}
     for emitter, replaces in ((None, "src/repro/core/pallasgen.py:554"),
                               (PIPELINED, "src/repro/core/pallasgen.py:546")):
         for name, (args, sc, lib) in cases.items():
             tag = name if emitter is None else f"{name}@{emitter}"
-            rows[tag] = tile_row(tag, get_tile_op(name, emitter=emitter),
-                                 args, sc, lib, replaces)
-    rot = get_tile_op("rotary")
-    _check("rotary/path-k", rot.apply(kk, cos, sin),
-           rot.torch_ref(kk, cos.expand(kk.shape), sin.expand(kk.shape)),
-           TILE_TOL["bfloat16"], checks)
+            op = get_tile_op(name, emitter=emitter)
+            rows[tag] = tile_row(tag, op, args, sc, lib, replaces)
+            rows[tag]["shapes"] = {
+                shape: tile_row(f"{tag}/{shape}", op, sargs, ssc, slib)
+                for shape, (sargs, ssc, slib)
+                in other_shapes[name].items()}
 
     # the tile programs on no path yet: kernel, plain and library times
     # beside the bound at one stated shape, f32 (2048, 4096)
@@ -413,8 +515,12 @@ def phase_kernels(torch, timer):
                 "bound_cuda_core_ms": max(
                     flops / PEAK_FLOPS["float32"] * 1e3, t_bytes),
                 "library_ms": None}
+    # what one launch costs under this timer, whatever its bytes: a
+    # one-element copy
+    one = torch.zeros(1, device="cuda")
+    floor = timer.ms(lambda: one.copy_(x[0, :1]))
     emit({"phase": "kernels", "checks": checks, "timings": rows,
-          "other_programs": others})
+          "other_programs": others, "timer_floor_ms": floor})
     bad = [c["name"] for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -464,24 +570,30 @@ def phase_serve(torch, serve, phase):
     init_s = time.perf_counter() - t0
     prefill_ms, decode_ms = [], []
     prefill, decode = srv._prefill_batch, srv._decode
+    counters = _counters(serve["arch"])
+    # each kernel's launches, split by the step that made them
+    by_step = {"prefill": dict.fromkeys(counters, 0),
+               "decode": dict.fromkeys(counters, 0)}
 
-    def timed(fn, out):
+    def timed(fn, out, step):
         def run(*a):
+            before = {n: c.launches for n, c in counters.items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             r = fn(*a)
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t) * 1e3)
+            for n, c in counters.items():
+                by_step[step][n] += c.launches - before[n]
             return r
         return run
 
-    srv._prefill_batch = timed(prefill, prefill_ms)
-    srv._decode = timed(decode, decode_ms)
+    srv._prefill_batch = timed(prefill, prefill_ms, "prefill")
+    srv._decode = timed(decode, decode_ms, "decode")
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(
         1, srv.cfg.vocab, size=serve["prompt_len"] - (i % 3)).astype(np.int32),
         max_new=serve["max_new"]) for i in range(serve["requests"])]
-    counters = _counters(serve["arch"])
     reset_telemetry()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -505,7 +617,8 @@ def phase_serve(torch, serve, phase):
           "tokens": srv.metrics["tokens"] + len(reqs),
           "tokens_per_s": (srv.metrics["tokens"] + len(reqs)) / wall,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches, "ladder_levels": levels,
+          "launches": launches, "launches_by_step": by_step,
+          "ladder_levels": levels,
           "runtime_fallbacks": sum(guard["runtime_fallbacks"].values()),
           "degradations": guard["degradations"],
           "first_tokens": {r.rid: out[r.rid][:8] for r in reqs}})
@@ -517,7 +630,7 @@ def phase_serve(torch, serve, phase):
     if guard["runtime_fallbacks"] or guard["degradations"] or \
             set(levels.values()) != {"cold"}:
         raise AssertionError(f"fallbacks/degradations on the card: {guard}")
-    return srv, reqs, launches
+    return srv, reqs, launches, by_step
 
 
 def _prefill_tokens(torch, serve, reqs):
@@ -675,19 +788,22 @@ def phase_trace(torch, srv, tokens, phase):
             out = fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        groups, n_launch, top = {}, 0, []
+        groups, tiles, n_launch, top = {}, {}, 0, []
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0.0)
             if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             g = _kernel_group(e.key)
             groups[g] = groups.get(g, 0.0) + us / 1e3
+            if g == "tile":
+                tiles[e.key] = [us / 1e3, e.count]
             n_launch += e.count
             top.append((us / 1e3, e.count, g, e.key[:70]))
         busy = sum(groups.values())
         return out, {"wall_ms": wall_ms, "device_ms": busy,
                      "busy_share": busy / wall_ms, "device_launches": n_launch,
                      "device_ms_by_group": groups,
+                     "tile_ms_and_launches": tiles,
                      "top_kernels": sorted(top, reverse=True)[:8]}
 
     (logits, cache), pre = profiled(
@@ -727,7 +843,7 @@ def main() -> int:
         rows = phase_kernels(torch, timer)
         del timer
         # minitron-4b: the dense path
-        srv, reqs, dense = phase_serve(torch, SERVE, "serve")
+        srv, reqs, dense, dense_steps = phase_serve(torch, SERVE, "serve")
         tokens = _prefill_tokens(torch, SERVE, reqs)
         sync_logits = phase_parity(torch, srv, tokens)
         piped = phase_pipelined(torch, srv, tokens, sync_logits,
@@ -738,7 +854,8 @@ def main() -> int:
         gc.collect()    # the serve phase's timing wrappers hold a cycle
         torch.cuda.empty_cache()
         # mamba2-1.3b: the ssm path
-        srv, reqs, ssm = phase_serve(torch, SERVE_MAMBA, "serve_mamba2")
+        srv, reqs, ssm, ssm_steps = phase_serve(torch, SERVE_MAMBA,
+                                                "serve_mamba2")
         if ssm["ssd_scan"] != srv.cfg.n_layers * 2:
             raise AssertionError(f"ssd_scan launched {ssm['ssd_scan']} "
                                  f"times, expected one per layer and "
@@ -754,23 +871,30 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    steps = {"prefill": {}, "decode": {}}
     for paths in (dense, ssm, piped):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
+    for paths in (dense_steps, ssm_steps, {"prefill": piped}):
+        for step, counts in paths.items():
+            for name, n in counts.items():
+                steps[step][name] = steps[step].get(name, 0) + n
     kernels = []
+    extra = ("compiled", "shapes", "bound_cuda_core_ms")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],
                         "source": r["source"], "replaces": r["replaces"],
                         "launches": launches[name],
+                        "launches_prefill": steps["prefill"].get(name, 0),
+                        "launches_decode": steps["decode"].get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         # tensor-core instructions by kernel (CUDA routes)
                         "sass": {"HMMA": hmma[src]} if src in hmma else None,
-                        **({"bound_cuda_core_ms": r["bound_cuda_core_ms"]}
-                           if "bound_cuda_core_ms" in r else {})})
+                        **{k: r[k] for k in extra if k in r}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})
     emit({"kernels": kernels})

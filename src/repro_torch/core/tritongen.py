@@ -14,16 +14,27 @@ One program instance owns ``BLOCK_R`` rows × ``BLOCK_D`` columns of the
 * whole-tile loads become masked ``tl.load``s converted to f32, in the
   schedule's order — in bulk mode every load precedes the first compute;
 * an operand that :func:`plan_tile_call` calls a broadcast row is loaded
-  once per program, at column offsets only; a ``cycle`` operand (the
-  port's addition: an operand that broadcasts over the lead's leading
-  axes, such as RoPE's cos/sin against ``(B, H, S, hd)`` queries) reads
-  row ``r % period``, so it is never materialised at the lead's size;
+  once per program, at column offsets only;
 * ``rsum``/``rmean``/``rmax`` mask at the reduction (neutral 0, or −inf
   for the max) and ``rmean`` divides by the true ``d``;
-* ``rothalf`` of a loaded input, its only use in the programs, is a
-  second load at column ``(c + d/2) % d`` with sign −1 on the first half;
+* a program that uses ``rothalf`` is emitted in *half tiles*: every tile
+  value is a pair of ``(BLOCK_R, BLOCK_D // 2)`` halves, columns
+  ``[0, d/2)`` and ``[d/2, d)``. A load or store is two contiguous half
+  accesses, an elementwise op applies to each half, a reduction combines
+  both, and ``rothalf(x)`` is the pair ``(−x_hi, x_lo)`` in registers —
+  each input element is loaded once, through addresses with no modulo,
+  so the loads vectorise to 16 bytes a thread;
 * ``fma`` is ``tl.fma``; all compute is f32 and stores cast to the
   output's dtype (the lead operand's, as in the Pallas call).
+
+A ``cycle`` operand (the port's addition: an operand that broadcasts
+over the lead's leading axes, such as RoPE's cos/sin of ``(1, 1, S, hd)``
+against ``(B, H, S, hd)`` queries) is never materialised at the lead's
+size. Its launch sees the lead's rows as groups of ``n_pos`` positions:
+program ``(g, p, c)`` owns the ``p``-th block of :data:`CYCLE_BLOCK_R`
+positions of group ``g``, reads the cycle operand at those positions and
+the rows at ``g * n_pos + position``. The cycle operand's re-reads for
+each group come from L2.
 
 What bounds it on the H100: every instance is a streaming pass with at
 most a last-axis reduction, so bytes (each input read once, each output
@@ -42,10 +53,14 @@ scheduled slot and waited on at its first consumer, two semaphores
 alternating. On Hopper the same overlap is a persistent kernel: a grid
 of at most :data:`PROGRAMS_PER_SM` programs per SM, each walking its
 blocks in ``tl.range(..., num_stages=2)``, so Triton's software pipeliner
-keeps the loads of the next block in flight while this one computes. The
-loop body is the sync kernel's, under the same extraction and an
-explicit schedule, with loads issued in the schedule's order; the sync
-kernel generated under that schedule is kept beside it as its twin.
+keeps the loads of the next block in flight while this one computes. A
+cycle layout is the exception: its pipelined form launches the sync
+kernel's grid with no loop, because a persistent walk over its small
+blocks measured slower on the H100, so nothing there is double-buffered
+beyond what the resident programs overlap. The loop body is the sync
+kernel's, under the same extraction and an explicit schedule, with loads
+issued in the schedule's order; the sync kernel generated under that
+schedule is kept beside it as its twin.
 
 The source is generated once per program and compiled by Triton at the
 first launch for each operand layout; ``triton`` is imported only there.
@@ -86,6 +101,14 @@ MAX_BLOCK_D_NO_REDUCE = 1024
 # buffer, as the TPU kernel's two alternating DMA semaphores).
 PROGRAMS_PER_SM = 4
 NUM_STAGES = 2
+# Cycle layouts: positions per program and warps, chosen on the H100 for
+# RoPE's prefill shapes (q (4, 24, 512, 128) and k (4, 8, 512, 128),
+# bf16): 16 positions at 4 warps give each thread 8 bf16 (16 bytes) of
+# each half of q, and many small programs keep more bytes in flight.
+CYCLE_BLOCK_R = 16
+CYCLE_NUM_WARPS = 4
+# CUDA's limit on a grid's second and third axes
+MAX_GRID_YZ = 65535
 
 _REDUCTIONS = ("rsum", "rmean", "rmax")
 
@@ -106,6 +129,16 @@ _UNARY_FMT = {
     "rsum": "tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]",
     "rmean": "(tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None] / D)",
     "rmax": "tl.max(tl.where(_mask, {0}, float(\"-inf\")), axis=1)[:, None]",
+}
+# reductions of a half-tile pair (lo, hi) over both halves
+_HALF_REDUCE_FMT = {
+    "rsum": "(tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]"
+            " + tl.sum(tl.where(_mask, {1}, 0.0), axis=1)[:, None])",
+    "rmean": "((tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]"
+             " + tl.sum(tl.where(_mask, {1}, 0.0), axis=1)[:, None]) / D)",
+    "rmax": "tl.maximum(tl.max(tl.where(_mask, {0}, float(\"-inf\")), "
+            "axis=1)[:, None], tl.max(tl.where(_mask, {1}, "
+            "float(\"-inf\")), axis=1)[:, None])",
 }
 _BIN_FMT = {
     "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -132,7 +165,7 @@ class TritonKernel:
     in_arrays: List[str]
     out_arrays: List[str]
     scalars: List[str]
-    rotated: Tuple[str, ...]   # inputs read through rothalf
+    halves: bool               # emitted in half tiles (uses rothalf)
     has_reduction: bool
     stats: GenStats
     bulk: bool
@@ -159,16 +192,18 @@ class TritonKernel:
     def render(self, kinds: Sequence[str]) -> str:
         """Full kernel source for one operand layout: ``kinds[i]`` is
         ``"row"``, ``"cycle"`` or ``"bcast"`` for input ``i``."""
+        cycle = "cycle" in kinds
+        pos = ["n_pos"] if cycle else []
         params = ([f"{a}_ptr" for a in self.in_arrays]
                   + [f"{a}_optr" for a in self.out_arrays] + self.scalars
                   + ["n_rows"] + [f"{a}_period" for a in self.in_arrays]
-                  + ["D: tl.constexpr", "BLOCK_R: tl.constexpr",
-                     "BLOCK_D: tl.constexpr"])
+                  + pos + ["D: tl.constexpr", "BLOCK_R: tl.constexpr",
+                           "BLOCK_D: tl.constexpr"])
         ind = "    "
         # row counts and periods vary with the batch and the prompt length:
         # keep them out of Triton's specialisation key so a new length
         # does not recompile the kernel
-        dynamic = ["n_rows"] + [f"{a}_period" for a in self.in_arrays]
+        dynamic = ["n_rows"] + [f"{a}_period" for a in self.in_arrays] + pos
         lines = [
             "import triton",
             "import triton.language as tl",
@@ -177,8 +212,23 @@ class TritonKernel:
             f"@triton.jit(do_not_specialize={dynamic!r})",
             f"def {self.kernel_name}({', '.join(params)}):",
         ]
+        # a half-tile program owns columns c and c + D // 2 for each c of
+        # its column block
+        width, block = ("D // 2", "BLOCK_D // 2") if self.halves \
+            else ("D", "BLOCK_D")
         row_block, col_block = "tl.program_id(0)", "tl.program_id(1)"
-        if self.pipelined:
+        rows, in_range = None, "_rows < n_rows"
+        if cycle:
+            # the rows are groups of n_pos positions; program (g, p, c)
+            # owns the p-th block of positions of group g, so a cycle
+            # operand is read at its position, and both forms launch one
+            # program per block: pipelining a persistent walk of these
+            # blocks measured slower on the H100
+            lines.append(f"{ind}_pos = (tl.program_id(1) * BLOCK_R"
+                         f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]")
+            rows, in_range = "tl.program_id(0) * n_pos + _pos", "_pos < n_pos"
+            col_block = "tl.program_id(2)"
+        elif self.pipelined:
             # persistent: program p takes blocks p, p + n_programs, ...;
             # the loop's next loads are issued while this block computes
             lines += [
@@ -188,30 +238,27 @@ class TritonKernel:
                 f"tl.num_programs(0), num_stages={NUM_STAGES}):"]
             row_block, col_block = "(_blk // _n_cb)", "(_blk % _n_cb)"
             ind = "        "
+        if rows is None:
+            rows = (f"({row_block} * BLOCK_R"
+                    f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]")
         lines += [
-            f"{ind}_rows = ({row_block} * BLOCK_R"
-            f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]",
-            f"{ind}_cols = {col_block} * BLOCK_D"
-            f" + tl.arange(0, BLOCK_D)[None, :]",
-            f"{ind}_cmask = _cols < D",
-            f"{ind}_mask = (_rows < n_rows) & _cmask",
-            f"{ind}_zero = tl.zeros((BLOCK_R, BLOCK_D), tl.float32)",
+            f"{ind}_rows = {rows}",
+            f"{ind}_cols = {col_block} * {_paren(block)}"
+            f" + tl.arange(0, {block})[None, :]",
+            f"{ind}_cmask = _cols < {width}",
+            f"{ind}_mask = ({in_range}) & _cmask",
+            f"{ind}_zero = tl.zeros((BLOCK_R, {block}), tl.float32)",
         ]
-        if self.rotated:
-            lines += [f"{ind}_rcols = (_cols + D // 2) % D",
-                      f"{ind}_rsign = tl.where(_cols < D // 2, -1.0, 1.0)"]
         for a, kind in zip(self.in_arrays, kinds):
             if kind == "bcast":
                 row, mask = "", "_cmask"
             elif kind == "cycle":
-                row, mask = f"(_rows % {a}_period) * D + ", "_mask"
+                row, mask = f"(_pos % {a}_period) * D + ", "_mask"
             elif kind == "row":
                 row, mask = "_rows * D + ", "_mask"
             else:
                 raise ValueError(f"unknown operand kind {kind!r}")
             lines.append(f"{ind}{a}_off = {row}_cols")
-            if a in self.rotated:
-                lines.append(f"{ind}{a}_roff = {row}_rcols")
             lines.append(f"{ind}{a}_mask = {mask}")
         # the body is emitted at one level of indent
         extra = ind[4:]
@@ -228,6 +275,10 @@ class TritonKernel:
                 fn = _import_kernel(self.render(kinds), self.kernel_name)
                 self._compiled[kinds] = fn
             return fn
+
+
+def _paren(expr: str) -> str:
+    return expr if expr.isidentifier() else f"({expr})"
 
 
 def _import_kernel(src: str, fn_name: str):
@@ -258,7 +309,8 @@ class TritonGenerator(TorchCodeGenerator):
                          reuse_temps=reuse_temps, schedule=schedule,
                          sched_cost_model=sched_cost_model)
         self._inputs: Dict[str, str] = {}   # bound ref name -> input array
-        self._rotated: List[str] = []
+        self.halves = False
+        self._pairs: Dict[str, Tuple[str, str]] = {}   # temp -> (lo, hi)
 
     def _check_tilable(self):
         def walk(region: Region):
@@ -278,16 +330,23 @@ class TritonGenerator(TorchCodeGenerator):
             if n.op == "call":
                 raise ValueError("calls not supported in Triton tile programs")
 
-    def _input_of(self, load_cid: int) -> str:
-        """The input array a whole-tile load reads; raises for a re-read
-        of an output that was never written."""
-        n = self.node(load_cid)
-        arr = self.node(n.children[0])
-        bound = self.scope.get_sym(arr.payload) if arr.op == "array" \
-            else None
-        if bound not in self._inputs:
-            raise ValueError(f"load of {arr.payload!r} before any store")
-        return self._inputs[bound]
+    def _uses_rothalf(self) -> bool:
+        seen, stack = set(), list(self.ssa.roots())
+        while stack:
+            cid = self.eg.find(stack.pop())
+            if cid in seen:
+                continue
+            seen.add(cid)
+            n = self.node(cid)
+            if n.op == "rothalf":
+                return True
+            stack.extend(n.children)
+        return False
+
+    def _half(self, name: str) -> Tuple[str, str]:
+        """The (lo, hi) halves of a value; a scalar or a per-row value
+        (a reduction's result) is the same in both."""
+        return self._pairs.get(name, (name, name))
 
     def _arg(self, cid: int, lines: List[str], indent: str,
              lift: bool) -> str:
@@ -326,8 +385,14 @@ class TritonGenerator(TorchCodeGenerator):
             self.stats.n_loads += 1
             self.stats.instruction_mix["load"] = \
                 self.stats.instruction_mix.get("load", 0) + 1
-            lines.append(f"{indent}{name} = tl.load({a}_ptr + {a}_off, "
-                         f"mask={a}_mask, other=0.0).to(tl.float32)")
+            halves = (("_lo", ""), ("_hi", " + D // 2")) if self.halves \
+                else (("", ""),)
+            for suffix, shift in halves:
+                lines.append(f"{indent}{name}{suffix} = tl.load({a}_ptr + "
+                             f"{a}_off{shift}, mask={a}_mask, "
+                             f"other=0.0).to(tl.float32)")
+            if self.halves:
+                self._pairs[name] = (f"{name}_lo", f"{name}_hi")
             self.scope.bind(cid, name)
             return name
         name = self._fresh()
@@ -336,32 +401,35 @@ class TritonGenerator(TorchCodeGenerator):
         self.stats.instruction_mix[op] = \
             self.stats.instruction_mix.get(op, 0) + 1
         if op == "rothalf":
-            child = self.node(n.children[0])
-            if child.op != "load":
-                raise ValueError("rothalf is only supported on a loaded "
-                                 "input tile")
-            a = self._input_of(n.children[0])
-            if a not in self._rotated:
-                self._rotated.append(a)
-            expr = (f"_rsign * tl.load({a}_ptr + {a}_roff, mask={a}_mask, "
-                    f"other=0.0).to(tl.float32)")
-        elif op in _UNARY_FMT:
-            kids = [self._arg(c, lines, indent, op in _CALL_OPS)
-                    for c in n.children]
-            expr = _UNARY_FMT[op].format(*kids)
+            # half tiles: rothalf(x) = (-x_hi, x_lo), no load, no shuffle
+            lo, hi = self._half(self.emit_value(n.children[0], lines,
+                                                indent))
+            lines.append(f"{indent}{name}_lo = (-{hi})")
+            self._pairs[name] = (f"{name}_lo", lo)
+            self.scope.bind(cid, name)
+            return name
+        if op in _UNARY_FMT:
+            fmt = _UNARY_FMT[op]
         elif op in _BIN_FMT:
-            kids = [self._arg(c, lines, indent, op in _CALL_OPS)
-                    for c in n.children]
-            expr = _BIN_FMT[op].format(*kids)
+            fmt = _BIN_FMT[op]
         elif op in _TERN_FMT:
-            kids = [self._arg(c, lines, indent, op in _CALL_OPS)
-                    for c in n.children]
+            fmt = _TERN_FMT[op]
             if op == "fma":
                 self.stats.n_fma += 1
-            expr = _TERN_FMT[op].format(*kids)
         else:
             raise NotImplementedError(f"Triton emission for op {op!r}")
-        lines.append(f"{indent}{name} = {expr}")
+        kids = [self._arg(c, lines, indent, op in _CALL_OPS)
+                for c in n.children]
+        if self.halves and op in _REDUCTIONS:
+            expr = _HALF_REDUCE_FMT[op].format(*self._half(kids[0]))
+            lines.append(f"{indent}{name} = {expr}")
+        elif any(k in self._pairs for k in kids):
+            for i, suffix in enumerate(("_lo", "_hi")):
+                args = [self._half(k)[i] for k in kids]
+                lines.append(f"{indent}{name}{suffix} = {fmt.format(*args)}")
+            self._pairs[name] = (f"{name}_lo", f"{name}_hi")
+        else:
+            lines.append(f"{indent}{name} = {fmt.format(*kids)}")
         self.scope.bind(cid, name)
         return name
 
@@ -371,9 +439,12 @@ class TritonGenerator(TorchCodeGenerator):
                              "Triton tile programs")
         val = self.emit_value(eff.value_cid, lines, indent)
         ptr = f"{eff.array}_optr"
-        lines.append(f"{indent}tl.store({ptr} + _rows * D + _cols, "
-                     f"({val} + _zero).to({ptr}.dtype.element_ty), "
-                     f"mask=_mask)")
+        halves = zip(self._half(val), ("", " + D // 2")) if self.halves \
+            else ((val, ""),)
+        for part, shift in halves:
+            lines.append(f"{indent}tl.store({ptr} + _rows * D + _cols{shift}, "
+                         f"({part} + _zero).to({ptr}.dtype.element_ty), "
+                         f"mask=_mask)")
         # later loads of this array read the value just stored
         self.scope.bind_sym(eff.version_out, val)
         self.stats.n_stores += 1
@@ -389,7 +460,7 @@ class TritonGenerator(TorchCodeGenerator):
         params = ([f"{n}_ptr" for n in in_arrays]
                   + [f"{n}_optr" for n in out_arrays] + scalars
                   + [f"{n}_period" for n in in_arrays]
-                  + ["n_rows", "D", "BLOCK_R", "BLOCK_D"])
+                  + ["n_rows", "n_pos", "D", "BLOCK_R", "BLOCK_D"])
         if len(set(params)) != len(params):
             raise ValueError(f"kernel {prog.name!r}: parameter names "
                              f"collide: {params}")
@@ -398,6 +469,7 @@ class TritonGenerator(TorchCodeGenerator):
             self._inputs[f"{a}_ref"] = a
         for a in out_arrays:
             self.scope.bind_sym(f"{a}@undef", f"{a}_oref")
+        self.halves = self._uses_rothalf()
         lines: List[str] = []
         sched = self._resolve_schedule()
         if sched is None and self.bulk:
@@ -406,8 +478,7 @@ class TritonGenerator(TorchCodeGenerator):
         chaos.maybe_raise("exec_fail", prog.name, "generated Triton source")
         tk = TritonKernel(
             name=self.fn_name, body=lines, in_arrays=in_arrays,
-            out_arrays=out_arrays, scalars=scalars,
-            rotated=tuple(self._rotated),
+            out_arrays=out_arrays, scalars=scalars, halves=self.halves,
             has_reduction=any(op in self.stats.instruction_mix
                               for op in _REDUCTIONS),
             stats=self.stats, bulk=self.bulk,
@@ -461,7 +532,10 @@ class TileCallPlan:
     operand kinds, block sizes and grid. ``n_blocks`` counts the
     ``(block_r, block_d)`` blocks; a pipelined kernel's grid is persistent
     (one axis, at most :data:`PROGRAMS_PER_SM` programs per SM), any
-    other's has one program per block."""
+    other's has one program per block. With a cycle operand the rows are
+    groups of ``n_pos`` positions (the periods' least common multiple)
+    and the grid is (groups, position blocks, column blocks) in both
+    forms; otherwise ``n_pos`` is ``rows``."""
     rows: int
     d: int
     kinds: Tuple[str, ...]       # per input: "row" | "cycle" | "bcast"
@@ -471,6 +545,7 @@ class TileCallPlan:
     n_blocks: int
     grid: Tuple[int, ...]
     num_warps: int
+    n_pos: int
 
 
 def _next_pow2(x: int) -> int:
@@ -485,7 +560,9 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     lead operand's row count tile over rows, and an input of ``d`` (or
     one) elements is a broadcast row. The port adds ``cycle``: an input
     of shape ``T`` where the lead's shape ends with ``T`` (leading ones
-    dropped) reads row ``r % prod(T[:-1])``."""
+    dropped) reads row ``r % prod(T[:-1])``; such a launch takes
+    blocks of :data:`CYCLE_BLOCK_R` positions at :data:`CYCLE_NUM_WARPS`
+    warps."""
     lead = tuple(in_shapes[0])
     d = lead[-1]
     rows = math.prod(lead[:-1]) if len(lead) > 1 else 1
@@ -510,17 +587,30 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     bd = _next_pow2(d)
     if not tk.has_reduction:
         bd = min(bd, MAX_BLOCK_D_NO_REDUCE)
-    if tk.rotated and d % 2:
+    if tk.halves and d % 2:
         raise ValueError(f"{tk.name}: rothalf needs an even width, got {d}")
+    common = dict(rows=rows, d=d, kinds=tuple(kinds), periods=tuple(periods),
+                  block_d=bd)
+    if "cycle" in kinds:
+        n_pos = math.lcm(*(p for k, p in zip(kinds, periods)
+                           if k == "cycle"))
+        br = max(1, min(CYCLE_BLOCK_R, TILE_ELEMS_BUDGET // bd,
+                        _next_pow2(n_pos)))
+        grid = (rows // n_pos, -(-n_pos // br), -(-d // bd))
+        if grid[1] > MAX_GRID_YZ:
+            raise ValueError(f"{tk.name}: {n_pos} positions need "
+                             f"{grid[1]} blocks, over the grid's "
+                             f"{MAX_GRID_YZ}")
+        return TileCallPlan(**common, block_r=br, n_blocks=math.prod(grid),
+                            grid=grid, num_warps=CYCLE_NUM_WARPS,
+                            n_pos=n_pos)
     br = max(1, min(TILE_ELEMS_BUDGET // bd, _next_pow2(rows)))
     grid = (-(-rows // br), -(-d // bd))
     n_blocks = grid[0] * grid[1]
     if tk.pipelined:
         grid = (min(n_blocks, PROGRAMS_PER_SM * H100_SXM.sm_count),)
-    return TileCallPlan(rows=rows, d=d, kinds=tuple(kinds),
-                        periods=tuple(periods), block_r=br, block_d=bd,
-                        n_blocks=n_blocks, grid=grid,
-                        num_warps=8 if br * bd >= 4096 else 4)
+    return TileCallPlan(**common, block_r=br, n_blocks=n_blocks, grid=grid,
+                        num_warps=8 if br * bd >= 4096 else 4, n_pos=rows)
 
 
 @dataclasses.dataclass
@@ -561,34 +651,48 @@ class TileOp:
 
 
 def _apply_tile_op(op: TileOp, arrays, scalars):
+    tk = op.tk
+    plan, ins, outs = prepare_tile_call(tk, arrays, op.name)
+    if plan.rows > 0:
+        launch_tile_kernel(tk.compiled(plan.kinds), plan, ins, outs,
+                           [float(scalars[s]) for s in tk.scalars])
+        op.launches += 1
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def prepare_tile_call(tk: TritonKernel, arrays, name: str):
+    """The plan of one call, its inputs as the kernel reads them
+    (contiguous; a one-element broadcast widened to ``d``) and its
+    outputs, allocated in the lead's shape and dtype."""
     import torch
 
-    tk = op.tk
     lead = arrays[0]
     if len(arrays) != len(tk.in_arrays):
-        raise ValueError(f"{op.name}: expected {len(tk.in_arrays)} inputs "
+        raise ValueError(f"{name}: expected {len(tk.in_arrays)} inputs "
                          f"{tk.in_arrays}, got {len(arrays)}")
     if not lead.dtype.is_floating_point:
-        raise TypeError(f"{op.name}: lead operand dtype {lead.dtype}")
+        raise TypeError(f"{name}: lead operand dtype {lead.dtype}")
     plan = plan_tile_call(tk, [tuple(a.shape) for a in arrays])
     ins = []
     for kind, a in zip(plan.kinds, arrays):
         if a.device != lead.device:
-            raise ValueError(f"{op.name}: operands on {a.device} and "
+            raise ValueError(f"{name}: operands on {a.device} and "
                              f"{lead.device}")
         if kind == "bcast" and a.numel() == 1:
             a = a.reshape(1).expand(plan.d)
         ins.append(a.contiguous())
     outs = [torch.empty(lead.shape, dtype=lead.dtype, device=lead.device)
             for _ in tk.out_arrays]
-    if plan.rows > 0:
-        kern = tk.compiled(plan.kinds)
-        svals = [float(scalars[s]) for s in tk.scalars]
-        kern[plan.grid](*ins, *outs, *svals, plan.rows, *plan.periods,
-                        D=plan.d, BLOCK_R=plan.block_r,
-                        BLOCK_D=plan.block_d, num_warps=plan.num_warps)
-        op.launches += 1
-    return outs[0] if len(outs) == 1 else tuple(outs)
+    return plan, ins, outs
+
+
+def launch_tile_kernel(kern, plan: TileCallPlan, ins, outs, svals):
+    """Launch a compiled tile kernel over ``plan``; returns what the
+    launch returns (Triton's compiled kernel)."""
+    pos = (plan.n_pos,) if "cycle" in plan.kinds else ()
+    return kern[plan.grid](*ins, *outs, *svals, plan.rows, *plan.periods,
+                           *pos, D=plan.d, BLOCK_R=plan.block_r,
+                           BLOCK_D=plan.block_d, num_warps=plan.num_warps)
 
 
 def make_tile_op(prog: KernelProgram,

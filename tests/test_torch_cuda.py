@@ -88,6 +88,48 @@ def test_rotary_cycle_operands(cuda):
            op.torch_ref(q, cos.expand(q.shape), sin.expand(q.shape)), 2e-5)
 
 
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+@pytest.mark.parametrize("d", [32, 96, 200])
+@pytest.mark.parametrize("groups", [3, 33])
+@pytest.mark.parametrize("period", [5, 510])
+def test_rotary_cycle_layouts(period, groups, d, emitter, cuda):
+    """The half-tile rotary kernel in its cycle layout, at the ragged
+    layouts of the CPU executor test (tests/test_torch_tile_exec.py)."""
+    from repro_torch.core.tritongen import plan_tile_call
+    gen = torch.Generator(device=cuda).manual_seed(period + d)
+    lead = (1, 3, period, d) if groups == 3 else (3, 11, period, d)
+    q = torch.randn(lead, generator=gen, device=cuda)
+    cos, sin = (torch.randn((1, 1, period, d), generator=gen, device=cuda)
+                for _ in range(2))
+    op = get_tile_op("rotary", emitter=emitter)
+    plan = plan_tile_call(op.tk, [lead, cos.shape, sin.shape])
+    assert (plan.n_pos, plan.grid[0]) == (period, groups)
+    before = op.launches
+    _close(op.apply(q, cos, sin),
+           op.torch_ref(q, cos.expand(lead), sin.expand(lead)), 2e-5)
+    assert op.launches == before + 1
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+@pytest.mark.parametrize("lead,pos", [
+    ((4, 24, 510, 128), (1, 1, 510, 128)), ((4, 8, 512, 128),
+                                            (1, 1, 512, 128)),
+    ((4, 24, 1, 128), (1, 1, 1, 128)), ((4, 8, 1, 128), (1, 1, 1, 128))])
+def test_rotary_path_shapes(lead, pos, emitter, cuda):
+    """bf16 q and k with f32 cos/sin at the model's prefill and decode
+    shapes, as ``ops.rotary`` is called."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(lead, generator=gen, device=cuda).bfloat16()
+    cos, sin = (torch.randn(pos, generator=gen, device=cuda)
+                for _ in range(2))
+    op = get_tile_op("rotary", emitter=emitter)
+    got = op.apply(q, cos, sin)
+    assert got.dtype == torch.bfloat16
+    _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)), 3e-2)
+
+
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 4, 2, 128, 16), torch.float32, 2e-3),
     ((1, 6, 2, 100, 64), torch.float32, 2e-3),

@@ -23,10 +23,11 @@ SCALARS = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
 
 def _renumbered(body):
     """The body with its temporaries renamed in order of definition, so
-    two emissions compare by statement order, not by temp numbering."""
+    two emissions compare by statement order, not by temp numbering (a
+    half-tile temporary's two halves, ``_vN_lo``/``_vN_hi``, are one)."""
     names = {}
     for ln in body:
-        m = re.match(r"\s*(_v\d+) = ", ln)
+        m = re.match(r"\s*(_v\d+)(?:_lo|_hi)? = ", ln)
         if m:
             names.setdefault(m.group(1), f"_t{len(names)}")
     return [re.sub(r"_v\d+", lambda m: names[m.group(0)], ln) for ln in body]
@@ -100,3 +101,17 @@ def test_pipelined_plan_is_persistent():
     sw = plan_tile_call(get_tile_op("swiglu", emitter="triton_pipelined").tk,
                         [(2048, 9216)] * 2)
     assert sw.n_blocks == (2048 // sw.block_r) * 9 and sw.grid == (cap,)
+
+
+def test_pipelined_cycle_layout_is_the_sync_launch():
+    """A cycle layout's pipelined form launches the sync kernel's grid,
+    one program per (group, block of positions), with no block loop."""
+    tk = get_tile_op("rotary", emitter="triton_pipelined").tk
+    shapes = [(4, 24, 512, 128), (1, 1, 512, 128), (1, 1, 512, 128)]
+    plan = plan_tile_call(tk, shapes)
+    assert plan == plan_tile_call(get_tile_op("rotary").tk, shapes)
+    assert plan.grid == (96, 512 // plan.block_r, 1)
+    src = tk.render(plan.kinds)
+    fn = ast.parse(src).body[-1]
+    assert not [n for n in ast.walk(fn) if isinstance(n, ast.For)]
+    assert src == tk.twin.render(plan.kinds)

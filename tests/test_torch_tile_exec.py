@@ -1,0 +1,432 @@
+"""The emitted Triton tile kernels, executed on the CPU.
+
+A small numpy stand-in for the part of ``triton`` / ``triton.language``
+that the emitter uses is installed in ``sys.modules``; the source that
+``TritonKernel.render`` gives for a layout is then executed over the grid
+of ``plan_tile_call``, one program instance after another, with the
+arguments ``launch_tile_kernel`` passes on the card. Every masked-in
+address must lie inside its tensor, and every output element must be
+written exactly once. The results are compared with the kernel's plain
+version (``torch_ref``) at the tile tolerances (f32 2e-5, bf16 3e-2), and
+rotary also with the JAX package's Pallas op in interpret mode. This
+checks the kernels' indexing (half tiles, cycle layouts, ragged edges,
+the persistent block walk) without a card; the card checks the same
+layouts in tests/test_torch_cuda.py.
+"""
+import itertools
+import math
+import sys
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.tile_programs import get_tile_op as jax_tile_op
+from repro_torch.core import (KernelProgram, SaturatorConfig, ScheduleConfig,
+                              make_tile_op, rmax, rmean, rothalf, rsqrt,
+                              rsum)
+from repro_torch.core import tritongen
+from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
+                                        launch_tile_kernel, prepare_tile_call)
+from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
+
+PIPE = "triton_pipelined"
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SCALARS = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
+           "wd": 0.1, "inv_bc1": 1.3, "inv_bc2": 1.1, "mu": 0.9,
+           "bias": 0.1, "norm": 3.0, "max_norm": 1.0}
+
+
+# -- the stand-in -------------------------------------------------------------
+def _round_bf16(x):
+    """f32 values rounded to the nearest bf16 (ties to even), as f32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+class _Dtype:
+    def __init__(self, name, cast):
+        self.name, self.cast = name, cast
+
+    def __repr__(self):
+        return f"tl.{self.name}"
+
+
+_F32 = _Dtype("float32", lambda x: np.asarray(x, dtype=np.float32))
+_BF16 = _Dtype("bfloat16", _round_bf16)
+_I64 = _Dtype("int64", lambda x: np.asarray(x, dtype=np.int64))
+
+
+def _tile(x):
+    return np.asarray(x).view(_Tile)
+
+
+class _Tile(np.ndarray):
+    """A block value: a numpy array with Triton's ``.to``."""
+
+    def to(self, dtype):
+        if not isinstance(dtype, _Dtype):
+            raise TypeError(f"to({dtype!r}): not a tl dtype")
+        return _tile(dtype.cast(np.asarray(self)))
+
+
+class _Ptr:
+    """A tensor's flat buffer plus a block of element offsets."""
+
+    def __init__(self, buf, element_ty, offs=0, writes=None):
+        self.buf, self.offs = buf, offs
+        self.dtype = types.SimpleNamespace(element_ty=element_ty)
+        self.writes = writes if writes is not None \
+            else np.zeros(buf.size, np.int64)
+
+    def __add__(self, off):
+        return _Ptr(self.buf, self.dtype.element_ty,
+                    np.asarray(self.offs) + np.asarray(off), self.writes)
+
+    __radd__ = __add__
+
+    def _masked(self, mask):
+        offs = np.asarray(self.offs)
+        mask = np.ones(offs.shape, bool) if mask is None \
+            else np.broadcast_to(np.asarray(mask, bool), offs.shape)
+        live = offs[mask]
+        if live.size and (live.min() < 0 or live.max() >= self.buf.size):
+            raise IndexError(f"masked-in offsets {live.min()}..{live.max()} "
+                             f"outside a buffer of {self.buf.size}")
+        return offs, mask, live
+
+
+class _Launch:
+    grid = (1, 1, 1)
+    pid = (0, 0, 0)
+
+
+def _jit(fn=None, *, do_not_specialize=()):
+    if fn is None:
+        return lambda f: _Kernel(f, do_not_specialize)
+    return _Kernel(fn, do_not_specialize)
+
+
+class _Kernel:
+    def __init__(self, fn, do_not_specialize):
+        self.fn = fn
+        self.do_not_specialize = list(do_not_specialize)
+        self.writes = []
+
+    def __getitem__(self, grid):
+        grid = tuple(int(g) for g in grid) + (1,) * (3 - len(grid))
+
+        def launch(*args, num_warps=4, num_stages=None, **consts):
+            assert num_warps in (1, 2, 4, 8, 16, 32)
+            ptrs, call = [], []
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    ty = {torch.float32: _F32,
+                          torch.bfloat16: _BF16}[a.dtype]
+                    ptrs.append((a, _Ptr(a.detach().float().numpy()
+                                         .reshape(-1).copy(), ty)))
+                    call.append(ptrs[-1][1])
+                else:
+                    call.append(a)
+            _Launch.grid = grid
+            # masked-off lanes compute on fill values, as on the card
+            with np.errstate(divide="ignore", over="ignore",
+                             invalid="ignore"):
+                for pid in itertools.product(*(range(g) for g in grid)):
+                    _Launch.pid = pid
+                    self.fn(*call, **consts)
+            for t, p in ptrs:
+                if p.writes.any():
+                    t.copy_(torch.from_numpy(p.buf).view(t.shape))
+            self.writes = [p.writes for _, p in ptrs]
+        return launch
+
+
+def _program_id(axis):
+    return _Launch.pid[axis]
+
+
+def _num_programs(axis):
+    return _Launch.grid[axis]
+
+
+def _arange(start, end):
+    n = end - start
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"tl.arange({start}, {end}): a power of two only")
+    return _tile(np.arange(start, end, dtype=np.int32))
+
+
+def _range(start, end, step=1, num_stages=None):
+    assert num_stages is None or int(num_stages) >= 1
+    return range(int(start), int(end), int(step))
+
+
+def _f32(x):
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype == np.float64 else x
+
+
+def _load(ptr, mask=None, other=None, eviction_policy=""):
+    if eviction_policy not in ("", "evict_first", "evict_last"):
+        raise ValueError(f"eviction_policy={eviction_policy!r}")
+    offs, mask, live = ptr._masked(mask)
+    out = np.full(offs.shape, 0.0 if other is None else other, np.float32)
+    out[mask] = ptr.buf[live]
+    return _tile(out)
+
+
+def _store(ptr, value, mask=None):
+    offs, mask, live = ptr._masked(mask)
+    value = np.broadcast_to(np.asarray(value, np.float32), offs.shape)
+    ptr.buf[live] = value[mask]
+    np.add.at(ptr.writes, live, 1)
+
+
+def _unary(f):
+    return lambda x: _tile(_f32(f(np.asarray(x, np.float32))))
+
+
+def _binary(f):
+    return lambda x, y: _tile(_f32(f(x, y)))
+
+
+def _standin_modules():
+    tl = types.ModuleType("triton.language")
+    fns = dict(
+        constexpr=type("constexpr", (), {}), float32=_F32, int64=_I64,
+        program_id=_program_id, num_programs=_num_programs,
+        cdiv=lambda a, b: -(-a // b), arange=_arange, range=_range,
+        zeros=lambda shape, dtype: _tile(np.zeros(shape, np.float32)),
+        full=lambda shape, value, dtype: _tile(
+            np.full(shape, value, np.float32)),
+        load=_load, store=_store,
+        where=lambda c, x, y: _tile(_f32(np.where(c, x, y))),
+        fma=lambda a, b, c: _tile(_f32(np.asarray(a) * b + c)),
+        sum=lambda x, axis: _tile(np.sum(x, axis=axis, dtype=np.float32)),
+        max=lambda x, axis: _tile(np.max(x, axis=axis)),
+        minimum=_binary(np.minimum), maximum=_binary(np.maximum),
+        exp=_unary(np.exp), log=_unary(np.log), sqrt=_unary(np.sqrt),
+        rsqrt=_unary(lambda x: 1.0 / np.sqrt(x)), abs=_unary(np.abs),
+        floor=_unary(np.floor),
+        sigmoid=_unary(lambda x: 1.0 / (1.0 + np.exp(-x))))
+    for k, v in fns.items():
+        setattr(tl, k, v)
+
+    def lacks(name):
+        raise AttributeError(f"the triton stand-in lacks tl.{name}")
+    tl.__getattr__ = lacks
+    triton = types.ModuleType("triton")
+    triton.jit = _jit
+    triton.language = tl
+    return triton, tl
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    triton, tl = _standin_modules()
+    monkeypatch.setitem(sys.modules, "triton", triton)
+    monkeypatch.setitem(sys.modules, "triton.language", tl)
+
+
+# -- running an emitted kernel ------------------------------------------------
+def _run(tk, arrays, scalars):
+    """Execute ``tk``'s emitted source for these operands' layout, as
+    ``_apply_tile_op`` launches it on the card. Returns the outputs and
+    the plan."""
+    plan, ins, outs = prepare_tile_call(tk, arrays, tk.name)
+    ns = {}
+    exec(compile(tk.render(plan.kinds), f"<{tk.kernel_name}>", "exec"), ns)
+    kern = ns[tk.kernel_name]
+    launch_tile_kernel(kern, plan, ins, outs,
+                       [float(scalars[s]) for s in tk.scalars])
+    n_in = len(ins)
+    for w in kern.writes[:n_in]:
+        assert not w.any(), "a kernel wrote to an input"
+    for w in kern.writes[n_in:]:
+        assert (w == 1).all(), \
+            f"outputs written {w.min()}..{w.max()} times, not once"
+    return (outs[0] if len(outs) == 1 else tuple(outs)), plan
+
+
+def _close(got, want, tol):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+def _tile_inputs(name, rows, d, dtype, rng):
+    prog = PROGRAMS[name]()
+    xs = []
+    for a in prog.arrays.values():
+        if a.role == "out":
+            continue
+        x = rng.normal(size=(d,) if a.shape == (1, 128) else (rows, d))
+        xs.append(np.abs(x) * 0.01 if a.name == "v" else x)
+    return ([torch.from_numpy(x.astype(np.float32)).to(dtype) for x in xs],
+            {s: SCALARS[s] for s in prog.scalars})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_emitted_kernel_matches_plain(name, emitter, dtype, standin):
+    """All 13 programs at a ragged (37, 200): rows and columns past a
+    block edge, broadcast rows at column offsets only."""
+    xs, sc = _tile_inputs(name, 37, 200, dtype, np.random.default_rng(0))
+    op = get_tile_op(name, emitter=emitter)
+    got, plan = _run(op.tk, xs, sc)
+    assert plan.grid[0] * plan.block_r >= 37 or emitter == PIPE
+    _close(got, op.torch_ref(*(x.expand(xs[0].shape) for x in xs), **sc),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_pipelined_kernel_walks_several_blocks(name, dtype, standin,
+                                               monkeypatch):
+    """A persistent grid smaller than the block count (one program per
+    SM against 135 blocks of a (4300, 200) view): programs walk more than
+    one block each, and every block is computed once."""
+    monkeypatch.setattr(tritongen, "PROGRAMS_PER_SM", 1)
+    xs, sc = _tile_inputs(name, 4300, 200, dtype, np.random.default_rng(1))
+    op = get_tile_op(name, emitter=PIPE)
+    got, plan = _run(op.tk, xs, sc)
+    assert plan.n_blocks > plan.grid[0]
+    _close(got, op.torch_ref(*(x.expand(xs[0].shape) for x in xs), **sc),
+           TOL[dtype])
+
+
+def _rope(lead, pos_shape, dtype, seed):
+    """q of shape ``lead`` in ``dtype`` and f32 cos/sin of ``pos_shape``
+    (the path's dtypes), seeded."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=lead).astype(np.float32)).to(dtype)
+    cos, sin = (torch.from_numpy(rng.normal(size=pos_shape)
+                                 .astype(np.float32)) for _ in range(2))
+    return q, cos, sin
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("d", [32, 96, 200])
+@pytest.mark.parametrize("groups", [3, 33])
+@pytest.mark.parametrize("period", [5, 510])
+def test_rotary_cycle_layout(period, groups, d, emitter, standin):
+    """Rotary's prefill layout: cos/sin of (1, 1, S, d) against q of
+    (B, H, S, d), with S not a multiple of the position block (5, 510),
+    over 3 or 33 (b, h) groups."""
+    lead = (1, 3, period, d) if groups == 3 else (3, 11, period, d)
+    q, cos, sin = _rope(lead, (1, 1, period, d), torch.float32, period + d)
+    op = get_tile_op("rotary", emitter=emitter)
+    got, plan = _run(op.tk, (q, cos, sin), {})
+    assert plan.kinds == ("row", "cycle", "cycle")
+    assert plan.n_pos == period and plan.num_warps == CYCLE_NUM_WARPS
+    assert plan.block_r == min(CYCLE_BLOCK_R, 8 if period == 5 else 512)
+    assert plan.grid == (groups, math.ceil(period / plan.block_r), 1)
+    _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)),
+           TOL[torch.float32])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("heads", [24, 8])
+def test_rotary_path_dtypes(heads, emitter, standin):
+    """bf16 q with f32 cos/sin, as the model calls it: the prefill at a
+    ragged 510 positions, and the decode tick's broadcast cos/sin."""
+    op = get_tile_op("rotary", emitter=emitter)
+    for lead, pos, kinds in (((1, heads, 510, 128), (1, 1, 510, 128),
+                              ("row", "cycle", "cycle")),
+                             ((4, heads, 1, 128), (1, 1, 1, 128),
+                              ("row", "bcast", "bcast"))):
+        q, cos, sin = _rope(lead, pos, torch.bfloat16, heads)
+        got, plan = _run(op.tk, (q, cos, sin), {})
+        assert plan.kinds == kinds
+        _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)),
+               TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_rotary_mixed_periods(emitter, standin):
+    """Two cycle operands of different periods: the plan's positions are
+    their least common multiple."""
+    q, _, _ = _rope((2, 2, 5, 32), (1,), torch.float32, 3)
+    rng = np.random.default_rng(4)
+    cos = torch.from_numpy(rng.normal(size=(2, 5, 32)).astype(np.float32))
+    sin = torch.from_numpy(rng.normal(size=(5, 32)).astype(np.float32))
+    op = get_tile_op("rotary", emitter=emitter)
+    got, plan = _run(op.tk, (q, cos, sin), {})
+    assert plan.periods[1:] == (10, 5) and plan.n_pos == 10
+    _close(got, op.torch_ref(q, cos.expand(q.shape), sin.expand(q.shape)),
+           TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_rotary_kernel_matches_pallas_interpret(emitter, dt, standin):
+    """The emitted rotary kernel in its cycle layout against the JAX
+    package's Pallas op in interpret mode (cos/sin in the lead's dtype:
+    the Pallas body stores in it)."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(2, 3, 5, 32)).astype(np.float32)
+    cos = rng.normal(size=(1, 1, 5, 32)).astype(np.float32)
+    sin = rng.normal(size=(1, 1, 5, 32)).astype(np.float32)
+    qj = jnp.asarray(q, jdt)
+    want = jax_tile_op("rotary").apply(
+        qj, jnp.broadcast_to(jnp.asarray(cos, jdt), qj.shape),
+        jnp.broadcast_to(jnp.asarray(sin, jdt), qj.shape), interpret=True)
+    got, plan = _run(get_tile_op("rotary", emitter=emitter).tk,
+                     [torch.from_numpy(x).to(tdt) for x in (q, cos, sin)],
+                     {})
+    assert plan.kinds == ("row", "cycle", "cycle")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[tdt], rtol=TOL[tdt])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("shape", [(37, 200), (4, 3, 9, 32)])
+def test_rothalf_with_reductions(shape, emitter, standin):
+    """A program with both rothalf and the three reductions: each
+    reduction combines the two half tiles of a row."""
+    p = KernelProgram("rot_norm")
+    x = p.array_in("x")
+    g = p.array_in("g")
+    p.array_out("o")
+    eps = p.scalar("eps")
+    xv = x.load()
+    p.store("o", rothalf(xv) * rsqrt(rmean(xv * xv) + eps) * g.load()
+            + rmax(xv) - rsum(xv))
+    op = make_tile_op(p, SaturatorConfig(
+        mode="accsat", cost_model="tpu_v5e", tpu_rules=True,
+        schedule_cfg=ScheduleConfig(emitter=emitter)))
+    assert op.tk.halves and op.tk.has_reduction
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for s in (shape, shape[-1:])]
+    got, plan = _run(op.tk, xs, {"eps": 1e-6})
+    assert plan.kinds == ("row", "bcast")
+    _close(got, op.torch_ref(xs[0], xs[1].expand(shape), eps=1e-6),
+           TOL[torch.float32])
+
+
+def test_standin_refuses_what_triton_would(standin):
+    """The stand-in raises where Triton would: an unknown name, a block
+    that is not a power of two, a masked-in address outside its tensor."""
+    tl = sys.modules["triton.language"]
+    with pytest.raises(AttributeError, match="stand-in lacks"):
+        tl.flip
+    with pytest.raises(ValueError, match="power of two"):
+        tl.arange(0, 48)
+    ptr = _Ptr(np.zeros(8, np.float32), _F32)
+    with pytest.raises(IndexError):
+        tl.load(ptr + np.arange(4) + 6, mask=np.ones(4, bool))
+    assert tl.load(ptr + np.arange(4) + 6,
+                   mask=np.arange(4) + 6 < 8).shape == (4,)

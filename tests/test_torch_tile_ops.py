@@ -5,7 +5,8 @@ kernel's plain version, the CPU path) is compared with ``repro``'s
 saturated jnp function on the same seeded numpy inputs; rmsnorm, rotary
 and swiglu are also compared with the Pallas op in interpret mode. The
 generated Triton sources are checked for syntax and for the masked
-reductions. Tolerances are those of tests/test_kernels.py."""
+reductions, rotary's half tiles and its cycle layout. Tolerances are
+those of tests/test_kernels.py."""
 import ast
 
 import jax.numpy as jnp
@@ -16,7 +17,8 @@ import torch
 from repro.kernels.tile_programs import get_tile_op as jax_tile_op
 from repro_torch.core import KernelProgram, c, make_tile_op
 from repro_torch.core.telemetry import reset_telemetry, telemetry
-from repro_torch.core.tritongen import plan_tile_call
+from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
+                                        plan_tile_call)
 from repro_torch.kernels import ops
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
@@ -121,10 +123,26 @@ def test_triton_masked_reductions_golden():
     assert 'tl.max(tl.where(_mask, ' in soft and 'float("-inf"))' in soft
     assert "tl.sum(tl.where(_mask, " in soft
     rot = get_tile_op("rotary").tk
-    assert rot.rotated == ("q",)
-    assert "_rcols = (_cols + D // 2) % D" in rot.source
-    assert "_rsign * tl.load(q_ptr + q_roff" in rot.source
-    assert "tl.fma(" in rot.source
+    # half tiles: q is loaded once, as two contiguous halves, and
+    # rothalf is a register negation — no second load, no modulo
+    assert rot.halves and not get_tile_op("rmsnorm").tk.halves
+    for src in (rot.source, rot.render(("row", "bcast", "bcast"))):
+        assert src.count("tl.load(q_ptr") == 2
+        assert "tl.load(q_ptr + q_off, " in src
+        assert "tl.load(q_ptr + q_off + D // 2, " in src
+        assert "_rcols" not in src and "% D" not in src
+        assert "tl.arange(0, BLOCK_D // 2)" in src and "tl.fma(" in src
+        assert src.count("tl.store(o_optr") == 2
+    # the cycle layout: a program owns a block of positions of one
+    # group; cos/sin are read at the position, each input in two half
+    # loads, in one pass with no loop
+    cyc = rot.render(("row", "cycle", "cycle"))
+    for arr in ("cos", "sin", "q"):
+        assert cyc.count(f"tl.load({arr}_ptr") == 2
+    assert "_rows = tl.program_id(0) * n_pos + _pos" in cyc
+    assert "cos_off = (_pos % cos_period) * D + _cols" in cyc
+    assert "q_off = _rows * D + _cols" in cyc
+    assert "for " not in cyc and "% D" not in cyc
 
 
 def test_plan_tile_call_kinds():
@@ -135,9 +153,23 @@ def test_plan_tile_call_kinds():
     assert plan.periods == (4 * 24 * 512, 512, 512)
     assert plan.rows == 4 * 24 * 512 and plan.block_d == 128
     assert plan.block_r * plan.block_d <= 8192
+    # one program per (group, block of positions)
+    assert plan.n_pos == 512 and plan.block_r == CYCLE_BLOCK_R and \
+        plan.num_warps == CYCLE_NUM_WARPS
+    assert plan.grid == (96, 512 // CYCLE_BLOCK_R, 1)
+    k510 = plan_tile_call(tk, [(4, 8, 510, 128), (1, 1, 510, 128),
+                               (1, 1, 510, 128)])
+    assert k510.n_pos == 510 and k510.grid == (32, -(-510 // CYCLE_BLOCK_R), 1)
+    # positions past what the grid's second axis holds are refused
+    with pytest.raises(ValueError, match="over the grid"):
+        plan_tile_call(tk, [(2, 2 ** 21, 128), (2 ** 21, 128),
+                            (2 ** 21, 128)])
+    # row and broadcast layouts keep their plan
     dec = plan_tile_call(tk, [(4, 24, 1, 128), (1, 1, 1, 128),
                               (1, 1, 1, 128)])
     assert dec.kinds == ("row", "bcast", "bcast")
+    assert (dec.block_r, dec.block_d, dec.grid, dec.num_warps, dec.n_pos) == \
+        (64, 128, (2, 1), 8, 96)
     rms = plan_tile_call(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
     assert rms.kinds == ("row", "bcast") and rms.block_d == 4096
     assert rms.grid == (2048 // rms.block_r, 1)
@@ -146,6 +178,8 @@ def test_plan_tile_call_kinds():
     assert sw.block_d == 1024 and sw.grid[1] == 9
     with pytest.raises(ValueError):
         plan_tile_call(tk, [(4, 6, 128), (5, 128), (5, 128)])
+    with pytest.raises(ValueError, match="even width"):
+        plan_tile_call(tk, [(4, 6, 127), (6, 127), (6, 127)])
 
 
 def test_emission_failure_degrades_and_keeps_cpu_path():
