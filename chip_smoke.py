@@ -5,7 +5,7 @@
 
 Builds the port's kernels from this checkout (the CUDA libraries in
 parallel), checks each against its plain PyTorch version at the main
-paths' shapes and times it, then drives two paths through the port's
+paths' shapes and times it, then drives four paths through the port's
 Server at full width with random seeded weights:
 
 * minitron-4b (32 layers, d_model 3072, vocab 256k): serve, parity of a
@@ -13,7 +13,14 @@ Server at full width with random seeded weights:
   pipelined tile kernels, and a profiler trace;
 * mamba2-1.3b (48 layers, d_model 2048, 64 SSD heads): serve, parity of
   a kernel prefill and two decode ticks fed from its state with the
-  plain versions, the pipelined prefill, and a trace.
+  plain versions, the pipelined prefill, and a trace;
+* zamba2-2.7b (54 Mamba2 layers of 80 SSD heads at N 64, d_model 2560,
+  one shared attention+MLP block of 32 heads at head_dim 80 after every
+  6): serve, parity of a prefill and two decode ticks in f32, a trace;
+* dbrx-132b at full width (d_model 6144, 48/8 heads, 16 experts of d_ff
+  10752, top 4, vocab 100,352) and 4 of its 40 layers, the depth one
+  80 GB card holds: serve, parity of a prefill and two decode ticks of
+  its first 2 layers in f32, a trace.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
@@ -28,6 +35,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -49,6 +57,9 @@ FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
 CUDA_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 PIPELINED = "triton_pipelined"
+# the tile ops whose pipelined kernels a path drives (the minitron and
+# mamba2 prefills under ops.set_tile_emitter)
+PIPELINED_OPS = ("rmsnorm", "rotary", "swiglu", "rmsnorm_gated")
 # Last-position logits of the full-width prefill, kernels vs plain
 # versions. Both run the same bf16 model; they differ only where values
 # are rounded to bf16 (the kernels compute in f32 and round once; the
@@ -69,10 +80,26 @@ PARITY_TOL = 0.5
 # state handed to decode, a wrong chunk carry or a mask error moves the
 # logits by O(1).
 MAMBA_PARITY_TOL = 0.02
+# zamba2-2.7b, the same comparison for the same reason: its 54 Mamba2
+# layers amplify bf16 rounding as mamba2's 48 do, so it runs in f32 (the
+# f32 flash kernel at head_dim 80 included).
+ZAMBA_PARITY_TOL = 0.02
+# dbrx-132b's first 2 served layers in f32, kernels vs plain versions:
+# logits of a 4 x 510 prefill and two decode ticks. In bf16 a rounding
+# difference can flip a token's top-4 experts and move the logits by
+# O(1); in f32 the two paths differ in summation order only (the router
+# softmax, swiglu, flash, and the combine's index_add_, whose atomics on
+# the card add in varying order), ~1e-6 relative, and the same 0.02 holds.
+# A wrong expert, weight, capacity drop or combine moves them by O(1).
+DBRX_PARITY_TOL = 0.02
+DBRX_LAYERS = 4           # of 40: 14.3 B parameters, 28.6 GB in bf16
+DBRX_PARITY_LAYERS = 2    # f32 copy of 2 layers and the embeddings, ~31 GB
 
 SERVE = dict(arch="minitron-4b", max_batch=4, requests=6, prompt_len=512,
              max_new=32, seed=0)
 SERVE_MAMBA = dict(SERVE, arch="mamba2-1.3b")
+SERVE_ZAMBA = dict(SERVE, arch="zamba2-2.7b")
+SERVE_DBRX = dict(SERVE, arch="dbrx-132b")
 
 
 def emit(obj):
@@ -110,10 +137,11 @@ class Timer:
         return statistics.median(times)
 
     def device_ms(self, fn, kernel, iters=10):
-        """Mean device duration of the launches of kernels whose name
-        contains ``kernel`` that ``fn`` makes, each after the L2 flush,
-        from torch.profiler: the kernel alone, without the launch and
-        event costs that ``ms`` includes."""
+        """Device time per call of ``fn`` in the kernels whose name
+        contains ``kernel`` (summed where a call launches several, as the
+        SSD scan's two), each call after the L2 flush, from
+        torch.profiler: the kernels alone, without the launch and event
+        costs that ``ms`` includes."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         fn()
@@ -124,9 +152,10 @@ class Timer:
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if kernel in e.key]
-        n = sum(e.count for e in evs)
-        return sum(getattr(e, "self_device_time_total", 0.0) for e in evs) \
-            / n / 1e3 if n else None
+        if not sum(e.count for e in evs):
+            return None
+        return sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in evs) / iters / 1e3
 
 
 def phase_env(torch):
@@ -366,12 +395,16 @@ def phase_kernels(torch, timer):
                 "source": "src/repro_torch/core/tritongen.py",
                 "replaces": replaces, **row}
 
+    # dbrx-132b's router logits at its prefill: 32 groups of 64 tokens
+    # (4 x 512) over 16 experts, f32
+    logits = randn(32, 64, 16)
     cases = {
         "rmsnorm": ((x, gain), {"eps": 1e-6},
                     lambda: F.rms_norm(x, (D,), gain, 1e-6)),
         "rotary": ((q, cos, sin), {}, None),
         "swiglu": ((a_, b_), {}, None),
         "rmsnorm_gated": ((yg, zg, gg), {"eps": 1e-6}, None),
+        "moe_router": ((logits,), {}, lambda: torch.softmax(logits, -1)),
     }
     # the other shapes of the path's tile kernels: rotary's k in
     # prefill and its 510-token prompt (positions ragged against the
@@ -381,6 +414,16 @@ def phase_kernels(torch, timer):
     bf = torch.bfloat16
     cos1, sin1 = cos[:, :, 7:8].contiguous(), sin[:, :, 7:8].contiguous()
     xd, gd = randn(B, D, dtype=bf), randn(D, dtype=bf)
+    # zamba2-2.7b (d_model 2560, d_inner 5120, d_ff 10240, 32 heads of
+    # head_dim 80) and dbrx-132b (d_model 6144, 48/8 heads of 128; the
+    # experts' swiglu on (E, G*C, d_ff): 16 experts x 32 groups x capacity
+    # 20 in prefill, 4 groups x capacity 1 at a decode tick)
+    cos80, sin80 = cos[..., :80].contiguous(), sin[..., :80].contiguous()
+    xz, gz = randn(B * S, 2560), randn(2560)
+    xb, gb = randn(B * S, 6144), randn(6144)
+    ex_a, ex_b = randn(16, 640, 10752, dtype=bf), randn(16, 640, 10752,
+                                                         dtype=bf)
+    logits_d = randn(4, 1, 16)      # the router at a decode tick
     other_shapes = {
         "rotary": {
             "k": ((kk, cos, sin), {}, None),
@@ -390,18 +433,43 @@ def phase_kernels(torch, timer):
             "decode_q": ((randn(B, H, 1, 128, dtype=bf), cos1, sin1), {},
                          None),
             "decode_k": ((randn(B, KH, 1, 128, dtype=bf), cos1, sin1), {},
-                         None)},
+                         None),
+            "zamba2_q": ((randn(B, 32, S, 80, dtype=bf), cos80, sin80), {},
+                         None),
+            "zamba2_decode_q": ((randn(B, 32, 1, 80, dtype=bf),
+                                 cos80[:, :, 7:8].contiguous(),
+                                 sin80[:, :, 7:8].contiguous()), {}, None),
+            "dbrx_q": ((randn(B, 48, S, 128, dtype=bf), cos, sin), {},
+                       None)},
         "rmsnorm": {"decode": ((xd, gd), {"eps": 1e-6},
-                               lambda: F.rms_norm(xd, (D,), gd, 1e-6))},
+                               lambda: F.rms_norm(xd, (D,), gd, 1e-6)),
+                    "zamba2": ((xz, gz), {"eps": 1e-6},
+                               lambda: F.rms_norm(xz, (2560,), gz, 1e-6)),
+                    "dbrx": ((xb, gb), {"eps": 1e-6},
+                             lambda: F.rms_norm(xb, (6144,), gb, 1e-6))},
         "swiglu": {"decode": ((randn(B, F_, dtype=bf), randn(B, F_, dtype=bf)),
-                              {}, None)},
+                              {}, None),
+                   "zamba2": ((randn(B * S, 10240, dtype=bf),
+                               randn(B * S, 10240, dtype=bf)), {}, None),
+                   "dbrx_experts": ((ex_a, ex_b), {}, None),
+                   "dbrx_experts_decode": ((randn(16, 4, 10752, dtype=bf),
+                                            randn(16, 4, 10752, dtype=bf)),
+                                           {}, None)},
         "rmsnorm_gated": {"decode": ((randn(B, DI, dtype=bf),
                                       randn(B, DI, dtype=bf),
                                       randn(DI, dtype=bf)), {"eps": 1e-6},
-                                     None)}}
+                                     None),
+                          "zamba2": ((randn(B * S, 5120, dtype=bf),
+                                      randn(B * S, 5120, dtype=bf),
+                                      randn(5120, dtype=bf)), {"eps": 1e-6},
+                                     None)},
+        "moe_router": {"decode": ((logits_d,), {},
+                                  lambda: torch.softmax(logits_d, -1))}}
     for emitter, replaces in ((None, "src/repro/core/pallasgen.py:554"),
                               (PIPELINED, "src/repro/core/pallasgen.py:546")):
         for name, (args, sc, lib) in cases.items():
+            if emitter == PIPELINED and name not in PIPELINED_OPS:
+                continue
             tag = name if emitter is None else f"{name}@{emitter}"
             op = get_tile_op(name, emitter=emitter)
             rows[tag] = tile_row(tag, op, args, sc, lib, replaces)
@@ -440,7 +508,9 @@ def phase_kernels(torch, timer):
 
     # flash attention: full width causal (the path) and not, a ragged S,
     # the bf16 kernel's tile edges (one row, one past a 64-row tile, one
-    # past two), and a small f32 head_dim-16 case
+    # past two), and a small f32 head_dim-16 case; zamba2's head_dim 80
+    # (its prefill in bf16 and, as its f32 parity runs it, in f32; the
+    # tile edges in both, MHA and GQA) and dbrx's prefill
     flash_cases = [((4, 24, 8, 512, 128), torch.bfloat16, True),
                    ((4, 24, 8, 512, 128), torch.bfloat16, False),
                    ((4, 24, 8, 100, 128), torch.bfloat16, True),
@@ -448,7 +518,19 @@ def phase_kernels(torch, timer):
                    ((2, 8, 8, 65, 64), torch.bfloat16, True),
                    ((2, 8, 8, 129, 64), torch.bfloat16, True),
                    ((2, 4, 2, 128, 16), torch.float32, True),
-                   ((2, 4, 2, 128, 16), torch.float32, False)]
+                   ((2, 4, 2, 128, 16), torch.float32, False),
+                   ((4, 32, 32, 512, 80), torch.bfloat16, True),
+                   ((4, 32, 32, 510, 80), torch.float32, True),
+                   ((4, 32, 32, 512, 80), torch.bfloat16, False),
+                   ((4, 48, 8, 512, 128), torch.bfloat16, True)] + [
+        ((2, 8, kh, s, 80), dt, True)
+        for dt in (torch.bfloat16, torch.float32) for kh in (8, 2)
+        for s in (1, 63, 64, 65, 129)]
+    flash_rows = {(4, 24, 8, 512, 128, torch.bfloat16): None,
+                  (4, 32, 32, 512, 80, torch.bfloat16): "zamba2_d80",
+                  (4, 32, 32, 510, 80, torch.float32): "zamba2_d80_f32",
+                  (4, 48, 8, 512, 128, torch.bfloat16): "dbrx"}
+    flash_timed = {}
     for (b, h, kh, s, d), dt, causal in flash_cases:
         fq, fk, fv = randn(b, h, s, d, dtype=dt), randn(b, kh, s, d, dtype=dt), \
             randn(b, kh, s, d, dtype=dt)
@@ -457,32 +539,40 @@ def phase_kernels(torch, timer):
         err = _check(tag, flash_attention(fq, fk, fv, causal=causal),
                      flash_attention_plain(fq, fk, fv, causal=causal),
                      FLASH_TOL[str(dt)[6:]], checks)
-        if (b, h, kh, s, d) == (4, 24, 8, 512, 128) and causal:
+        if causal and (b, h, kh, s, d, dt) in flash_rows:
             pairs = s * (s + 1) // 2
             flops = 4 * d * pairs * b * h
             nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size()
             t_ops = flops / PEAK_FLOPS[str(dt)[6:]] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            rows["flash_attention"] = {
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:147",
+            flash_timed[flash_rows[(b, h, kh, s, d, dt)]] = {
                 "shape": [b, h, kh, s, d], "dtype": str(dt)[6:],
                 "max_abs_err": err,
                 "ms": timer.ms(lambda: flash_attention(fq, fk, fv)),
+                "device_ms": timer.device_ms(
+                    lambda: flash_attention(fq, fk, fv), "flash_fwd_"),
                 "plain_ms": timer.ms(
                     lambda: flash_attention_plain(fq, fk, fv)),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": timer.ms(_sdpa(F, fq, fk, fv))}
+    rows["flash_attention"] = {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:147",
+        **flash_timed.pop(None), "shapes": flash_timed}
 
     # SSD scan, y and the final state: the serve shape (the path), ragged
     # S and S below a chunk at full width, the tile edges (one step, one
-    # chunk, five chunks) at full width, and a small case
+    # chunk, five chunks) at full width, a small case, and zamba2's 80
+    # heads at N 64 (its prefill, a ragged S, one step)
     ssd_cases = [((4, 512, 64, 64, 128), 128), ((4, 510, 64, 64, 128), 128),
                  ((4, 100, 64, 64, 128), 128), ((1, 1, 64, 64, 128), 128),
                  ((1, 128, 64, 64, 128), 128), ((1, 640, 64, 64, 128), 128),
-                 ((2, 64, 2, 16, 16), 16)]
+                 ((2, 64, 2, 16, 16), 16), ((4, 512, 80, 64, 64), 128),
+                 ((4, 510, 80, 64, 64), 128), ((1, 1, 80, 64, 64), 128)]
+    ssd_rows = {(4, 512, 64, 64, 128): None, (4, 512, 80, 64, 64): "zamba2_n64"}
+    ssd_timed = {}
     for (b, s, h, p, n), chunk in ssd_cases:
         sx, sb, sc_ = randn(b, s, h, p), randn(b, s, n) * 0.3, \
             randn(b, s, n) * 0.3
@@ -495,18 +585,20 @@ def phase_kernels(torch, timer):
                      ssd_scan(*args, chunk=chunk, return_state=True),
                      ssd_scan_plain(*args, chunk=chunk, return_state=True),
                      SSD_TOL, checks)
-        if (b, s) == (4, 512):
+        if (b, s, h, p, n) in ssd_rows:
             nbytes, flops = _ssd_work(b, s, h, p, n, chunk)
             t_ops = flops / PEAK_FLOPS["tf32x3"] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            rows["ssd_scan"] = {
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                "replaces": "src/repro/kernels/ssd_scan.py:127",
+
+            def run():
+                return ssd_scan(*args, chunk=chunk, return_state=True)
+
+            ssd_timed[ssd_rows[(b, s, h, p, n)]] = {
                 "shape": [b, s, h, p, n], "chunk": chunk, "dtype": "float32",
                 "max_abs_err": err, "bytes": nbytes, "flops": flops,
-                "ms": timer.ms(lambda: ssd_scan(*args, chunk=chunk,
-                                                return_state=True)),
+                "ms": timer.ms(run),
+                # both launches of a call: C·Bᵀ and the scan
+                "device_ms": timer.device_ms(run, "ssd_"),
                 "plain_ms": timer.ms(lambda: ssd_scan_plain(
                     *args, chunk=chunk, return_state=True)),
                 "bound_ms": max(t_ops, t_bytes),
@@ -515,6 +607,10 @@ def phase_kernels(torch, timer):
                 "bound_cuda_core_ms": max(
                     flops / PEAK_FLOPS["float32"] * 1e3, t_bytes),
                 "library_ms": None}
+    rows["ssd_scan"] = {
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:127",
+        **ssd_timed.pop(None), "shapes": ssd_timed}
     # what one launch costs under this timer, whatever its bytes: a
     # one-element copy
     one = torch.zeros(1, device="cuda")
@@ -548,16 +644,20 @@ def _counters(arch):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.tile_programs import get_tile_op
-    if arch == "mamba2-1.3b":
-        return {"ssd_scan": ssd_scan,
-                "rmsnorm_gated": get_tile_op("rmsnorm_gated"),
-                "rmsnorm": get_tile_op("rmsnorm")}
-    return {"rmsnorm": get_tile_op("rmsnorm"), "rotary": get_tile_op("rotary"),
-            "swiglu": get_tile_op("swiglu"),
-            "flash_attention": flash_attention}
+    names = {"minitron-4b": ("rmsnorm", "rotary", "swiglu", "flash_attention"),
+             "mamba2-1.3b": ("ssd_scan", "rmsnorm_gated", "rmsnorm"),
+             "zamba2-2.7b": ("ssd_scan", "rmsnorm_gated", "rmsnorm",
+                             "rotary", "swiglu", "flash_attention"),
+             "dbrx-132b": ("rmsnorm", "rotary", "swiglu", "flash_attention",
+                           "moe_router")}[arch]
+    structured = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    return {n: structured[n] if n in structured else get_tile_op(n)
+            for n in names}
 
 
-def phase_serve(torch, serve, phase):
+def phase_serve(torch, serve, phase, cfg=None, reduced=None):
+    """Serve the ``SERVE`` traffic at full width; ``cfg`` serves a given
+    config in place of the arch's (a cut depth, listed in ``reduced``)."""
     import numpy as np
     from repro_torch.core.telemetry import reset_telemetry
     from repro_torch.launch.serve import Request, Server
@@ -565,7 +665,7 @@ def phase_serve(torch, serve, phase):
 
     t0 = time.perf_counter()
     srv = Server(serve["arch"], smoke=False, max_batch=serve["max_batch"],
-                 seed=serve["seed"])
+                 seed=serve["seed"], cfg=cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prefill_ms, decode_ms = [], []
@@ -610,10 +710,13 @@ def phase_serve(torch, serve, phase):
                     and all(0 <= t < srv.cfg.vocab for t in out[r.rid])
                     for r in reqs)
     emit({"phase": phase, "config": srv.cfg.name,
-          "params": srv.cfg.param_count(),
+          **({"reduced": reduced} if reduced else {}),
+          "n_layers": srv.cfg.n_layers, "params": srv.cfg.param_count(),
           "param_bytes": tree_bytes(srv.params), "init_s": init_s, **serve,
           "wall_s": wall, "prefill_ms": prefill_ms,
           "decode_ms_per_token": statistics.median(decode_ms),
+          "prefills": srv.metrics["prefills"],
+          "decode_ticks": srv.metrics["decode_ticks"],
           "tokens": srv.metrics["tokens"] + len(reqs),
           "tokens_per_s": (srv.metrics["tokens"] + len(reqs)) / wall,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -681,19 +784,21 @@ def _f32(tree):
     return tree.float()
 
 
-def phase_parity_mamba2(torch, srv, tokens):
+def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None):
     """A 4 x 510 prefill and two decode ticks of the served model with
-    its weights in f32, through the kernels, then through the plain
-    versions with the same tokens; each decode starts from its own
-    prefill's state, so the kernel's final state is checked, not only
-    its output."""
-    import dataclasses
+    its weights in f32 (its first ``n_layers`` layers, where given),
+    through the kernels, then through the plain versions with the same
+    tokens; each decode starts from its own prefill's state, so the
+    kernels' caches (the SSD scan's final state, the prefill's k/v) are
+    checked, not only their outputs."""
     from repro_torch.kernels import ops
     from repro_torch.models import LM
 
-    model = LM(dataclasses.replace(srv.cfg, dtype=torch.float32),
-               device="cuda")
-    params = _f32(srv.params)
+    cut = n_layers or srv.cfg.n_layers
+    model = LM(dataclasses.replace(srv.cfg, dtype=torch.float32,
+                                   n_layers=cut), device="cuda")
+    params = _f32({k: v[:cut] if k == "layers" else v
+                   for k, v in srv.params.items()})
     feed = []
 
     def run():
@@ -712,21 +817,21 @@ def phase_parity_mamba2(torch, srv, tokens):
         plain, plain_ms = _timed_ms(torch, run)
     finally:
         ops.set_impl(None)
+    del params, model
     errs = [_err(k, p) for k, p in zip(kern, plain, strict=True)]
-    ok = max(errs) <= MAMBA_PARITY_TOL and \
-        all(bool(k.isfinite().all()) for k in kern)
-    emit({"phase": "parity_mamba2", "shape": list(tokens.shape),
-          "dtype": "float32", "prefill_and_2_ticks_ms": kern_ms,
+    ok = max(errs) <= tol and all(bool(k.isfinite().all()) for k in kern)
+    emit({"phase": phase, "shape": list(tokens.shape), "dtype": "float32",
+          "n_layers": cut, "prefill_and_2_ticks_ms": kern_ms,
           "plain_prefill_and_2_ticks_ms": plain_ms,
           "max_abs_logit_diff": {"prefill": errs[0], "tick1": errs[1],
                                  "tick2": errs[2]},
-          "tol": MAMBA_PARITY_TOL,
+          "tol": tol,
           "logit_std": kern[0].float().std().item(),
           "argmax_agree": [(k.argmax(-1) == p.argmax(-1)).float().mean()
                            .item() for k, p in zip(kern, plain)],
           "ok": ok})
     if not ok:
-        raise AssertionError(f"kernel and plain mamba2 logits differ by "
+        raise AssertionError(f"{phase}: kernel and plain logits differ by "
                              f"{errs}")
 
 
@@ -861,26 +966,67 @@ def main() -> int:
                                  f"times, expected one per layer and "
                                  f"prefill batch")
         tokens = _prefill_tokens(torch, SERVE_MAMBA, reqs)
-        phase_parity_mamba2(torch, srv, tokens)
+        phase_parity_f32(torch, srv, tokens, "parity_mamba2",
+                         MAMBA_PARITY_TOL)
         sync_logits = srv.model.prefill(srv.params, tokens)[0]
         for name, n in phase_pipelined(
                 torch, srv, tokens, sync_logits, ("rmsnorm", "rmsnorm_gated"),
                 "pipelined_mamba2").items():
             piped[name] = piped.get(name, 0) + n
         phase_trace(torch, srv, tokens, "trace_mamba2")
+        del srv, sync_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        # zamba2-2.7b: the hybrid path
+        srv, reqs, hybrid, hybrid_steps = phase_serve(torch, SERVE_ZAMBA,
+                                                      "serve_zamba2")
+        n_shared = srv.cfg.n_layers // srv.cfg.shared_attn_every
+        want = {"ssd_scan": srv.cfg.n_layers * 2,
+                "flash_attention": n_shared * 2}
+        if {k: hybrid[k] for k in want} != want:
+            raise AssertionError(f"zamba2 launched {hybrid}, expected "
+                                 f"{want}: one scan per layer and one flash "
+                                 f"per shared block, per prefill batch")
+        tokens = _prefill_tokens(torch, SERVE_ZAMBA, reqs)
+        phase_parity_f32(torch, srv, tokens, "parity_zamba2",
+                         ZAMBA_PARITY_TOL)
+        phase_trace(torch, srv, tokens, "trace_zamba2")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # dbrx-132b at full width and 4 of its 40 layers: the moe path
+        from repro_torch.configs import get_config
+        full = get_config("dbrx-132b")
+        srv, reqs, moe, moe_steps = phase_serve(
+            torch, SERVE_DBRX, "serve_dbrx",
+            cfg=dataclasses.replace(full, n_layers=DBRX_LAYERS),
+            reduced={"n_layers": [full.n_layers, DBRX_LAYERS]})
+        steps_run = srv.metrics["prefills"] + srv.metrics["decode_ticks"]
+        want = {"moe_router": DBRX_LAYERS * steps_run,
+                "flash_attention": DBRX_LAYERS * srv.metrics["prefills"]}
+        if {k: moe[k] for k in want} != want:
+            raise AssertionError(f"dbrx launched {moe}, expected {want}: "
+                                 f"one router softmax per layer and step")
+        tokens = _prefill_tokens(torch, SERVE_DBRX, reqs)
+        phase_parity_f32(torch, srv, tokens, "parity_dbrx", DBRX_PARITY_TOL,
+                         n_layers=DBRX_PARITY_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_trace(torch, srv, tokens, "trace_dbrx")
     except Exception:
         traceback.print_exc()
         return 1
     steps = {"prefill": {}, "decode": {}}
-    for paths in (dense, ssm, piped):
+    for paths in (dense, ssm, hybrid, moe, piped):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
-    for paths in (dense_steps, ssm_steps, {"prefill": piped}):
+    for paths in (dense_steps, ssm_steps, hybrid_steps, moe_steps,
+                  {"prefill": piped}):
         for step, counts in paths.items():
             for name, n in counts.items():
                 steps[step][name] = steps[step].get(name, 0) + n
     kernels = []
-    extra = ("compiled", "shapes", "bound_cuda_core_ms")
+    extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],

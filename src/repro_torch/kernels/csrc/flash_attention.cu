@@ -9,7 +9,15 @@
 // KH 8, S 512, D 128, causal) the work is 6.45 GFLOP against 33.6 MB of q, k,
 // v and o, so memory bounds it on paper (0.0100 ms at 3.35 TB/s; the
 // operations take 0.0065 ms at 989 TFLOP/s bf16) and, in practice, how fast
-// the tensor cores are fed.
+// the tensor cores are fed. At zamba2's prefill (bf16, B 4, H = KH = 32,
+// S 512, D 80, causal) q, k, v and o are 41.9 MB (0.0125 ms at 3.35 TB/s)
+// against 5.4 GFLOP (0.0054 ms at 989 TFLOP/s): bytes bound it there too.
+//
+// Head dims 16, 32, 64, 80 and 128, each its own template instance. D = 80
+// (not a multiple of 64) needs nothing of its own: a row is 10 16-byte
+// chunks (5 per thread for a 64-row tile), the 88-bf16 pitch puts the 8 row
+// addresses of an ldmatrix 176 bytes apart, in distinct bank quads, and the
+// products take 5 k-steps of 16 and 10 n-tiles of 8.
 //
 // Two entry points, chosen by the wrapper from the input dtype before it
 // launches (never as a fallback after a failure):
@@ -22,7 +30,7 @@
 //   filled by 16-byte cp.async, so tile j + 1 loads while tile j computes.
 //   Rows are padded by 8 bf16 (16 bytes), which makes the 8 row addresses
 //   of every ldmatrix fall in distinct banks. (64 + 4 * 64) x (D + 8) bf16
-//   = 87 KB at D = 128: 2 blocks per SM.
+//   = 87 KB at D = 128 (56 KB at D = 80): 2 blocks per SM.
 // - S = Q K^T and O += P V run on the bf16 tensor cores with f32
 //   accumulators; K is read with ldmatrix, V with ldmatrix.trans.
 // - The online softmax works on the accumulator fragments: row max and sum
@@ -425,21 +433,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
                                int, int, int, int, float, int, cudaStream_t);
 
-cudaError_t dispatch(const Launch (&by_d)[4], const void* q, const void* k,
+cudaError_t dispatch(const Launch (&by_d)[5], const void* q, const void* k,
                      const void* v, void* o, int B, int H, int KH, int S,
                      int D, float scale, int causal, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
     return cudaErrorInvalidValue;
-  const int i = D == 16 ? 0 : D == 32 ? 1 : D == 64 ? 2 : D == 128 ? 3 : -1;
+  const int i = D == 16    ? 0
+                : D == 32  ? 1
+                : D == 64  ? 2
+                : D == 80  ? 3
+                : D == 128 ? 4
+                           : -1;
   if (i < 0) return cudaErrorInvalidValue;
   return by_d[i](q, k, v, o, B, H, KH, S, scale, causal,
                  static_cast<cudaStream_t>(stream));
 }
 
-constexpr Launch kBf16[4] = {launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
-                             launch_bf16<128>};
-constexpr Launch kF32[4] = {launch_f32<16>, launch_f32<32>, launch_f32<64>,
-                            launch_f32<128>};
+constexpr Launch kBf16[5] = {launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
+                             launch_bf16<80>, launch_bf16<128>};
+constexpr Launch kF32[5] = {launch_f32<16>, launch_f32<32>, launch_f32<64>,
+                            launch_f32<80>, launch_f32<128>};
 
 }  // namespace
 

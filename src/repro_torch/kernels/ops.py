@@ -42,11 +42,12 @@ _TILE_EMITTER: Optional[str] = None  # None = "triton"
 
 # runtime degradation floor on CPU tensors: the named oracle each tile op
 # falls back to when building or applying the saturated op fails
-# (the ops of the dense and ssm families; the other tile programs get
-# their op wrappers with the families that call them, ROADMAP queue A)
+# (the ops of the ported families; the other tile programs get their op
+# wrappers with the families that call them, ROADMAP queue A)
 _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "rmsnorm_gated": _ref.rmsnorm_gated_ref,
-                  "swiglu": _ref.swiglu_ref}
+                  "swiglu": _ref.swiglu_ref,
+                  "moe_router": _ref.softmax_ref}
 
 
 def set_impl(impl: Optional[str]):
@@ -126,6 +127,12 @@ def rmsnorm_gated(x, z, g, eps=1e-6):
 
 def swiglu(a, b):
     return _tile("swiglu", a, b)
+
+
+def moe_router_probs(logits):
+    """Router logits (..., E) -> softmax probabilities, the saturated
+    ``moe_router`` program (one row per token, E columns)."""
+    return _tile("moe_router", logits)
 
 
 def rotary(q, cos, sin):

@@ -11,6 +11,12 @@ The port of :mod:`repro.launch.serve`:
 Runs on the GPU unless ``device="cpu"`` is passed:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
+
+(``--arch`` takes minitron-4b, mamba2-1.3b, zamba2-2.7b and dbrx-132b;
+dbrx-132b's full 40 layers do not fit one 80 GB card, so serve it through
+``Server(..., cfg=...)`` with a cut depth.)
 """
 from __future__ import annotations
 
@@ -18,14 +24,14 @@ import argparse
 import dataclasses
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.telemetry import telemetry
-from repro_torch.models import get_model, resolve_device
+from repro_torch.models import ModelConfig, get_model, resolve_device
 
 
 @dataclasses.dataclass
@@ -39,10 +45,16 @@ class Request:
 
 class Server:
     def __init__(self, arch: str, *, smoke: bool = True, max_batch: int = 4,
-                 max_seq: int = 128, seed: int = 0, device=None):
+                 max_seq: int = 128, seed: int = 0, device=None,
+                 cfg: Optional[ModelConfig] = None):
+        """``cfg``, when given, is served in place of ``arch``'s config
+        (a full-width config at a cut depth, for one card)."""
         self.device = resolve_device(device)
         arch = ARCH_IDS.get(arch, arch)
-        self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if cfg is not None:
+            self.cfg = cfg
+        else:
+            self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
         self.model = get_model(self.cfg, device=self.device)
         self.params = self.model.init(seed)
         self.max_batch = max_batch

@@ -1,7 +1,7 @@
-"""Model zoo of the port: the dense and Mamba2 (ssm) decoder families
-(see ``lm``)."""
-from .common import (ModelConfig, SSMConfig, params_from_reference,
-                     resolve_device)
+"""Model zoo of the port: the dense, Mamba2 (ssm), Zamba2 hybrid and MoE
+decoder families (see ``lm``)."""
+from .common import (ModelConfig, MoEConfig, SSMConfig,
+                     params_from_reference, resolve_device)
 from .lm import LM
 
 
@@ -9,5 +9,5 @@ def get_model(cfg: ModelConfig, device=None) -> LM:
     return LM(cfg, device=device)
 
 
-__all__ = ["ModelConfig", "SSMConfig", "LM", "get_model", "params_from_reference",
-           "resolve_device"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "LM", "get_model",
+           "params_from_reference", "resolve_device"]

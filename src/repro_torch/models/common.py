@@ -11,6 +11,16 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Expert geometry, as :class:`repro.models.common.MoEConfig`."""
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # Arctic-style dense residual MLP running in parallel with the experts
+    residual_ffn_dim: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 block geometry, as :class:`repro.models.common.SSMConfig`."""
     state_dim: int = 128        # N
@@ -29,9 +39,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of :class:`repro.models.common.ModelConfig`, with a
-    torch dtype. The port serves the ``dense`` and ``ssm`` families; the
-    ``moe`` sub-config stays opaque until that family is ported (ROADMAP
-    queue A)."""
+    torch dtype. The port serves the ``dense``, ``ssm``, ``hybrid`` and
+    ``moe`` families (ROADMAP queue A for the others)."""
     name: str
     family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -44,8 +53,10 @@ class ModelConfig:
     norm: str = "rmsnorm"       # rmsnorm | layernorm
     act: str = "swiglu"         # swiglu | gelu
     rope_theta: float = 10_000.0
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one *shared* attention+MLP block applied every k SSM
+    # blocks (parameter tying)
     shared_attn_every: int = 0
     n_enc_layers: int = 0
     mrope_sections: Optional[Tuple[int, int, int]] = None
@@ -68,22 +79,34 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense and ssm families
-        (embeddings, layers and the final norm)."""
+        """Analytic parameter count (embeddings, layers, the hybrid's
+        shared block and the final norm): the JAX package's count plus
+        the final norm."""
         d, v = self.d_model, self.vocab
         n = v * d if self.tie_embeddings else 2 * v * d
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
         if self.family == "dense":
-            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-            mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
-            return n + self.n_layers * (attn + mlp + 2 * d) + d
-        if self.family == "ssm":
-            sc = self.ssm
-            di, nh, ns = sc.d_inner(d), sc.n_heads(d), sc.state_dim
-            # in_proj: z, x, B, C, dt; out_proj; conv; A, D, dt_bias; norm
-            block = (d * (2 * di + 2 * ns + nh) + di * d
-                     + sc.conv_width * (di + 2 * ns) + 3 * nh + di)
-            return n + self.n_layers * (block + d) + d
-        raise NotImplementedError(f"family {self.family!r}")
+            n += self.n_layers * (attn + mlp + 2 * d)
+        elif self.family == "moe":
+            mc = self.moe
+            experts = mc.n_experts * 3 * d * self.d_ff + d * mc.n_experts
+            res = 3 * d * mc.residual_ffn_dim
+            n += self.n_layers * (attn + experts + res + 2 * d)
+        elif self.family in ("ssm", "hybrid"):
+            n += self.n_layers * (self._ssm_block_params() + d)
+            if self.family == "hybrid":
+                n += attn + mlp + 2 * d          # one shared block
+        else:
+            raise NotImplementedError(f"family {self.family!r}")
+        return n + d
+
+    def _ssm_block_params(self) -> int:
+        sc, d = self.ssm, self.d_model
+        di, nh, ns = sc.d_inner(d), sc.n_heads(d), sc.state_dim
+        # in_proj: z, x, B, C, dt; out_proj; conv; A, D, dt_bias; norm
+        return (d * (2 * di + 2 * ns + nh) + di * d
+                + sc.conv_width * (di + 2 * ns) + 3 * nh + di)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -137,8 +160,10 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
     """The port's parameters from the JAX ``LM.init`` pytree given as
     numpy arrays (layer-stacked leading axis on ``layers``). Weights keep
     the ``x @ w`` layout; the layer stack becomes a list of per-layer
-    dicts. Dtypes are kept as given."""
-    if cfg.family not in ("dense", "ssm"):
+    dicts. The hybrid's ``shared`` block is one unstacked dict, used by
+    every application, and passes through as it is. Dtypes are kept as
+    given."""
+    if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         raise NotImplementedError(f"family {cfg.family!r}")
     device = torch.device(device)
 

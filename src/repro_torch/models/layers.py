@@ -1,15 +1,17 @@
-"""Model building blocks of the dense and ssm families: attention (GQA +
-RoPE) with prefill/decode cache paths, the SwiGLU MLP, the Mamba2 (SSD)
-block with its prefill/decode state paths, and RMSNorm.
+"""Model building blocks of the dense, ssm, hybrid and moe families:
+attention (GQA + RoPE) with prefill/decode cache paths, the SwiGLU MLP,
+the capacity-sorted MoE, the Mamba2 (SSD) block with its prefill/decode
+state paths, and RMSNorm.
 
-The port of the dense and Mamba2 parts of :mod:`repro.models.layers`. Every
-elementwise hot-spot routes through the saturated kernels in
+The port of the dense, MoE and Mamba2 parts of :mod:`repro.models.layers`.
+Every elementwise hot-spot routes through the saturated kernels in
 :mod:`repro_torch.kernels.ops`; matmuls stay plain ``@`` products, as the
-JAX package leaves them to XLA. There is no device mesh in this slice, so
-heads are not padded and no sharding constraint is applied.
+JAX package leaves them to XLA. There is no device mesh in the port yet,
+so heads are not padded and no sharding constraint is applied.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -103,11 +105,11 @@ def attn_decode(p, x1, kv_cache, pos: int, cfg: ModelConfig,
     return _merge_heads(o) @ p["wo"], (k_c, v_c)
 
 
-def mlp_init(gen, cfg: ModelConfig, device):
+def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
     if cfg.act != "swiglu":
         raise NotImplementedError(f"act {cfg.act!r} (the gelu MLP comes "
                                   "with whisper, ROADMAP queue A)")
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"wg": dense_init(gen, (d, f), cfg.dtype, device),
             "wu": dense_init(gen, (d, f), cfg.dtype, device),
             "wd": dense_init(gen, (f, d), cfg.dtype, device,
@@ -118,6 +120,90 @@ def mlp_apply(p, x, cfg: ModelConfig):
     if cfg.act != "swiglu":
         raise NotImplementedError(f"act {cfg.act!r}")
     return ops.swiglu(x @ p["wg"], x @ p["wu"]) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based sorted dispatch)
+# ---------------------------------------------------------------------------
+def moe_init(gen, cfg: ModelConfig, device) -> Dict[str, Any]:
+    mc = cfg.moe
+    d, f, e = cfg.d_model, cfg.d_ff, mc.n_experts
+    p = {"router": dense_init(gen, (d, e), torch.float32, device),
+         "wg": dense_init(gen, (e, d, f), cfg.dtype, device),
+         "wu": dense_init(gen, (e, d, f), cfg.dtype, device),
+         "wd": dense_init(gen, (e, f, d), cfg.dtype, device,
+                          scale=init_std_out(f, cfg.n_layers))}
+    if mc.residual_ffn_dim:
+        p["res"] = mlp_init(gen, cfg, device, d_ff=mc.residual_ffn_dim)
+    return p
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """Grouped token-capacity MoE (GShard-style, dropless up to the
+    capacity factor), as the JAX ``moe_apply``: the tokens split into G
+    groups, each token's top-k experts, each expert taking at most C
+    tokens of a group in token order (the rest dropped). Returns
+    ``(out, aux)``, aux the load-balancing loss.
+
+    The expert products run as one batched product per weight, experts
+    leading ((E, G*C, D) @ (E, D, F)); the JAX einsums compute the same
+    sums. The combine adds each token's K weighted expert outputs with
+    ``index_add_`` into the model dtype, as the JAX ``.at[tok].add``. On
+    CUDA that add uses atomics, which sum a token's contributions in an
+    order that changes from run to run, so a bf16 result may differ by a
+    rounding between runs; f32 comparisons are unaffected beyond
+    summation order."""
+    mc = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = mc.n_experts, mc.top_k
+    G = 32
+    while T % G:
+        G //= 2
+    TG = T // G
+    C = max(int(math.ceil(TG * K / E * mc.capacity_factor)), 1)
+    dev = x.device
+    xf = x.reshape(G, TG, D)
+    logits = xf.float() @ p["router"]                   # (G,TG,E)
+    probs = ops.moe_router_probs(logits)                # saturated softmax
+    wts, idx = torch.topk(probs, K, dim=-1)             # (G,TG,K)
+    wts = wts / torch.clamp(wts.sum(-1, keepdim=True), min=1e-9)
+
+    fe = idx.reshape(G, TG * K)                         # expert ids
+    # a stable sort, as jnp.argsort: slots of one expert stay in token
+    # order, so the same tokens overflow the capacity
+    order = torch.argsort(fe, dim=-1, stable=True)      # (G,TG*K)
+    garange = torch.arange(G, device=dev)[:, None]
+    counts = torch.bincount((fe + E * garange).reshape(-1),
+                            minlength=G * E).reshape(G, E)
+    starts = torch.cumsum(counts, dim=-1) - counts
+    eidx = torch.arange(E, device=dev).repeat_interleave(C)   # (E*C,)
+    cpos = torch.arange(C, device=dev).repeat(E)
+    gpos = starts[:, eidx] + cpos[None]                 # (G,E*C)
+    valid = cpos[None] < counts[:, eidx]                # (G,E*C)
+    # an empty capacity slot reads sorted slot 0 and carries weight 0
+    gpos = torch.where(valid, gpos, 0)
+    slot = torch.gather(order, 1, gpos)                 # (G,E*C) into TG*K
+    tok = torch.div(slot, K, rounding_mode="floor")     # (G,E*C) into TG
+
+    xg = xf[garange, tok] * valid[..., None].to(xf.dtype)     # (G,E*C,D)
+    xe = xg.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    a = ops.swiglu(torch.bmm(xe, p["wg"]), torch.bmm(xe, p["wu"]))
+    y = torch.bmm(a, p["wd"])                           # (E,G*C,D)
+    y = y.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    w_flat = torch.gather(wts.reshape(G, TG * K), 1, slot)
+    y = y * (w_flat * valid)[..., None].to(y.dtype)
+    out = torch.zeros((G * TG, D), dtype=x.dtype, device=dev)
+    out.index_add_(0, (tok + TG * garange).reshape(-1),
+                   y.reshape(G * E * C, D).to(x.dtype))
+    out = out.reshape(G, TG, D)
+    # router aux loss (load balancing)
+    me = probs.mean((0, 1))                             # (E,)
+    ce = counts.sum(0).float() / (T * K)
+    aux = E * torch.sum(me * ce)
+    if mc.residual_ffn_dim:
+        out = out + mlp_apply(p["res"], xf, cfg)
+    return out.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

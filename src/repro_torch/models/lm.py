@@ -1,19 +1,22 @@
-"""Decoder-only language models: the dense GQA and Mamba2 SSD families.
+"""Decoder-only language models: the dense GQA, MoE, Mamba2 SSD and
+Zamba2 hybrid families.
 
-The port of the dense and ssm families of :mod:`repro.models.lm`. The API
-follows the JAX ``LM``:
+The port of the dense, moe, ssm and hybrid families of
+:mod:`repro.models.lm`. The API follows the JAX ``LM``:
 
   init(seed) -> params
-  forward(params, tokens) / logits(params, tokens)
+  forward(params, tokens) -> (hidden, aux) / logits(params, tokens)
   init_cache(batch, max_seq) -> cache
   prefill(params, tokens) -> (logits, cache)
   decode_step(params, cache, token) -> (logits, cache)
 
 ``lax.scan`` over the stacked layers becomes a Python loop over a list of
-per-layer parameter dicts. The decode cache (the KV cache, or the conv
-histories and SSM states) is updated in place. The other families (moe,
-hybrid, vlm, encdec) raise ``NotImplementedError``: they are item 11 of
-ROADMAP queue A.
+per-layer parameter dicts; the hybrid's groups of ``shared_attn_every``
+Mamba2 layers, each followed by the one shared attention+MLP block, are
+a loop over the groups. The decode cache (the KV cache, the conv
+histories and SSM states, or both for the hybrid) is updated in place.
+The vlm and encdec families raise ``NotImplementedError``: they are
+item 11 of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -24,23 +27,27 @@ import torch
 from . import layers as L
 from .common import ModelConfig, dense_init, resolve_device, rope_cos_sin
 
-_PORTED = ("dense", "ssm")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "moe": "ROADMAP queue A item 11 (the other families: MoE)",
-    "hybrid": "ROADMAP queue A item 11 (the other families: zamba2)",
     "vlm": "ROADMAP queue A item 11 (the other families: VLM)",
     "encdec": "ROADMAP queue A item 11 (the other families: whisper)",
 }
 
 
 class LM:
-    """Dense or Mamba2 decoder-only LM on one device."""
+    """Dense, MoE, Mamba2 or hybrid decoder-only LM on one device."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in _PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet: "
                 f"{_NOT_PORTED.get(cfg.family, 'ROADMAP queue A')}")
+        if cfg.family == "hybrid" and (
+                cfg.shared_attn_every <= 0
+                or cfg.n_layers % cfg.shared_attn_every):
+            # the JAX model reshapes the layer stack into groups of k
+            raise ValueError(f"hybrid: {cfg.n_layers} layers do not split "
+                             f"into groups of {cfg.shared_attn_every}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -60,15 +67,34 @@ class LM:
                                            cfg.dtype, dev)
         params["layers"] = [self._layer_init(gen)
                             for _ in range(cfg.n_layers)]
+        if cfg.family == "hybrid":
+            params["shared"] = self._shared_block_init(gen)
         return params
 
     def _layer_init(self, gen):
         cfg, dev = self.cfg, self.device
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             return {"ln1": L.norm_init(cfg, dev),
                     "mamba": L.mamba_init(gen, cfg, dev)}
+        if cfg.family == "moe":
+            return {"ln1": L.norm_init(cfg, dev),
+                    "attn": L.attn_init(gen, cfg, dev),
+                    "ln2": L.norm_init(cfg, dev),
+                    "moe": L.moe_init(gen, cfg, dev)}
+        return self._shared_block_init(gen)
+
+    def _shared_block_init(self, gen):
+        """One attention+MLP block: a dense layer, or the hybrid's shared
+        block."""
+        cfg, dev = self.cfg, self.device
         return {"ln1": L.norm_init(cfg, dev), "attn": L.attn_init(gen, cfg, dev),
                 "ln2": L.norm_init(cfg, dev), "mlp": L.mlp_init(gen, cfg, dev)}
+
+    def _groups(self):
+        """The hybrid's groups of layer indices, one per application of
+        the shared block."""
+        k = self.cfg.shared_attn_every
+        return [range(i, i + k) for i in range(0, self.cfg.n_layers, k)]
 
     # -- rope ---------------------------------------------------------------------
     def _cos_sin(self, positions: torch.Tensor):
@@ -77,23 +103,49 @@ class LM:
         return cos[None], sin[None]       # (1, S, hd)
 
     # -- forward (full sequence) ------------------------------------------------------
+    def _mlp_or_moe(self, lp, h):
+        """The feed-forward half of an attention layer: (output, aux)."""
+        cfg = self.cfg
+        xn = L.norm_apply(lp["ln2"], h, cfg)
+        if cfg.family == "moe":
+            return L.moe_apply(lp["moe"], xn, cfg)
+        return L.mlp_apply(lp["mlp"], xn, cfg), None
+
+    def _attn_block(self, lp, h, cos, sin):
+        """Full-sequence attention layer (dense, moe, the hybrid's shared
+        block): (h, aux)."""
+        cfg = self.cfg
+        h = h + L.attn_apply(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
+                             cos, sin, cfg)
+        y, aux = self._mlp_or_moe(lp, h)
+        return h + y, aux
+
     def forward(self, params, tokens):
-        """tokens (B, S) -> final hidden (B, S, D)."""
+        """tokens (B, S) -> (final hidden (B, S, D), aux loss), aux the sum
+        of the MoE layers' load-balancing losses (0 for the others)."""
         cfg = self.cfg
         h = params["embed"][tokens]
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "ssm":
             for lp in params["layers"]:
                 h = h + L.mamba_apply(lp["mamba"],
                                       L.norm_apply(lp["ln1"], h, cfg), cfg)
-            return L.norm_apply(params["final_norm"], h, cfg)
+            return L.norm_apply(params["final_norm"], h, cfg), aux
         cos, sin = self._cos_sin(torch.arange(tokens.shape[1],
                                               device=h.device))
+        if cfg.family == "hybrid":
+            for group in self._groups():
+                for i in group:
+                    lp = params["layers"][i]
+                    h = h + L.mamba_apply(
+                        lp["mamba"], L.norm_apply(lp["ln1"], h, cfg), cfg)
+                h, _ = self._attn_block(params["shared"], h, cos, sin)
+            return L.norm_apply(params["final_norm"], h, cfg), aux
         for lp in params["layers"]:
-            h = h + L.attn_apply(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
-                                 cos, sin, cfg)
-            h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, cfg),
-                                cfg)
-        return L.norm_apply(params["final_norm"], h, cfg)
+            h, a = self._attn_block(lp, h, cos, sin)
+            if a is not None:
+                aux = aux + a
+        return L.norm_apply(params["final_norm"], h, cfg), aux
 
     def _unembed(self, params):
         if self.cfg.tie_embeddings:
@@ -101,7 +153,7 @@ class LM:
         return params["unembed"]
 
     def logits(self, params, tokens):
-        h = self.forward(params, tokens)
+        h, _ = self.forward(params, tokens)
         return h.float() @ self._unembed(params).float()
 
     # -- caches ------------------------------------------------------------------------
@@ -111,22 +163,45 @@ class LM:
 
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         cfg = self.cfg
+        cache: Dict[str, Any] = {"pos": 0}
+        if cfg.family in ("ssm", "hybrid"):
+            cache["ssm"] = L.mamba_init_state(cfg, cfg.n_layers, batch,
+                                              cfg.dtype, self.device)
         if cfg.family == "ssm":
-            return {"pos": 0,
-                    "ssm": L.mamba_init_state(cfg, cfg.n_layers, batch,
-                                              cfg.dtype, self.device)}
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-        return {"pos": 0,
-                "k": torch.zeros(shape, dtype=self._cache_dtype(),
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=self._cache_dtype(),
-                                 device=self.device)}
+            return cache
+        # one KV slot per attention layer, or per application of the
+        # hybrid's shared block
+        n_kv = cfg.n_layers // cfg.shared_attn_every \
+            if cfg.family == "hybrid" else cfg.n_layers
+        shape = (n_kv, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=self._cache_dtype(),
+                                 device=self.device)
+        cache["v"] = torch.zeros(shape, dtype=self._cache_dtype(),
+                                 device=self.device)
+        return cache
 
     def _layer_state(self, cache, i: int) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s views of the stacked ssm decode state."""
         return {k: v[i] for k, v in cache["ssm"].items()}
 
     # -- prefill ---------------------------------------------------------------------------
+    def _attn_prefill(self, lp, h, cos, sin, cache, slot: int):
+        """An attention layer's prefill; its k/v go to KV slot ``slot``."""
+        cfg = self.cfg
+        S = h.shape[1]
+        a, (k, v) = L.attn_prefill(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
+                                   cos, sin, cfg)
+        h = h + a
+        h = h + self._mlp_or_moe(lp, h)[0]
+        cache["k"][slot, :, :, :S] = k
+        cache["v"][slot, :, :, :S] = v
+        return h
+
+    def _mamba_prefill(self, lp, h, cache, i: int):
+        cfg = self.cfg
+        return h + L.mamba_apply(lp["mamba"], L.norm_apply(lp["ln1"], h, cfg),
+                                 cfg, state=self._layer_state(cache, i))
+
     def prefill(self, params, tokens, max_seq: Optional[int] = None):
         """Full-sequence pass building a decode cache; returns last logits
         (B, 1, V). ``max_seq`` reserves KV-cache room for decode growth
@@ -141,24 +216,38 @@ class LM:
         cache["pos"] = S
         if cfg.family == "ssm":
             for i, lp in enumerate(params["layers"]):
-                h = h + L.mamba_apply(lp["mamba"],
-                                      L.norm_apply(lp["ln1"], h, cfg), cfg,
-                                      state=self._layer_state(cache, i))
+                h = self._mamba_prefill(lp, h, cache, i)
         else:
             cos, sin = self._cos_sin(torch.arange(S, device=h.device))
-            for i, lp in enumerate(params["layers"]):
-                xn = L.norm_apply(lp["ln1"], h, cfg)
-                a, (k, v) = L.attn_prefill(lp["attn"], xn, cos, sin, cfg)
-                h = h + a
-                h = h + L.mlp_apply(lp["mlp"],
-                                    L.norm_apply(lp["ln2"], h, cfg), cfg)
-                cache["k"][i, :, :, :S] = k
-                cache["v"][i, :, :, :S] = v
+            if cfg.family == "hybrid":
+                for g, group in enumerate(self._groups()):
+                    for i in group:
+                        h = self._mamba_prefill(params["layers"][i], h,
+                                                cache, i)
+                    h = self._attn_prefill(params["shared"], h, cos, sin,
+                                           cache, g)
+            else:
+                for i, lp in enumerate(params["layers"]):
+                    h = self._attn_prefill(lp, h, cos, sin, cache, i)
         h = L.norm_apply(params["final_norm"], h, cfg)
         logits = h[:, -1:].float() @ self._unembed(params).float()
         return logits, cache
 
     # -- decode -------------------------------------------------------------------------------
+    def _attn_decode(self, lp, h, cache, slot: int, pos: int, cos1, sin1):
+        cfg = self.cfg
+        a, _ = L.attn_decode(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
+                             (cache["k"][slot], cache["v"][slot]), pos, cfg,
+                             cos1, sin1)
+        h = h + a
+        return h + self._mlp_or_moe(lp, h)[0]
+
+    def _mamba_decode(self, lp, h, cache, i: int):
+        cfg = self.cfg
+        y, _ = L.mamba_decode(lp["mamba"], L.norm_apply(lp["ln1"], h, cfg),
+                              self._layer_state(cache, i), cfg)
+        return h + y
+
     def decode_step(self, params, cache, token):
         """token (B, 1) int64; returns (logits (B,1,V), cache), the cache
         advanced in place."""
@@ -167,20 +256,19 @@ class LM:
         pos = cache["pos"]
         if cfg.family == "ssm":
             for i, lp in enumerate(params["layers"]):
-                y, _ = L.mamba_decode(lp["mamba"],
-                                      L.norm_apply(lp["ln1"], h, cfg),
-                                      self._layer_state(cache, i), cfg)
-                h = h + y
+                h = self._mamba_decode(lp, h, cache, i)
         else:
             cos1, sin1 = self._cos_sin(torch.tensor([pos], device=h.device))
-            for i, lp in enumerate(params["layers"]):
-                xn = L.norm_apply(lp["ln1"], h, cfg)
-                a, _ = L.attn_decode(lp["attn"], xn,
-                                     (cache["k"][i], cache["v"][i]), pos,
-                                     cfg, cos1, sin1)
-                h = h + a
-                h = h + L.mlp_apply(lp["mlp"],
-                                    L.norm_apply(lp["ln2"], h, cfg), cfg)
+            if cfg.family == "hybrid":
+                for g, group in enumerate(self._groups()):
+                    for i in group:
+                        h = self._mamba_decode(params["layers"][i], h, cache,
+                                               i)
+                    h = self._attn_decode(params["shared"], h, cache, g, pos,
+                                          cos1, sin1)
+            else:
+                for i, lp in enumerate(params["layers"]):
+                    h = self._attn_decode(lp, h, cache, i, pos, cos1, sin1)
         cache["pos"] = pos + 1
         h = L.norm_apply(params["final_norm"], h, cfg)
         logits = h.float() @ self._unembed(params).float()

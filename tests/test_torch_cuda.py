@@ -155,6 +155,25 @@ def test_flash_kernel_matches_plain(shape, dtype, tol, causal, cuda):
     _close(got, flash_attention_plain(q, k, v, causal=causal), tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-3)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("H,KH", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 510])
+def test_flash_head_dim_80_matches_plain(S, H, KH, dtype, tol, cuda):
+    """zamba2's head_dim 80 (not a multiple of 64) at the tile edges and a
+    510-token prompt, MHA as zamba2's shared block and GQA, causal."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, H, S, 80), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, KH, S, 80), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, KH, S, 80), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    _close(got, flash_attention_plain(q, k, v), tol)
+
+
 def test_flash_bf16_and_f32_both_launch(cuda):
     """The wrapper picks the tensor-core kernel for bf16 and the CUDA-core
     one for f32; each launches and holds its own tolerance."""
@@ -306,3 +325,59 @@ def test_mamba_smoke_server_on_the_card_matches_cpu(cuda):
     assert got == want
     # one prefill batch (3 requests, max_batch 4): one scan per layer
     assert ssd_scan.launches == before + cfg.n_layers
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_zamba2_and_dbrx_tile_shapes(emitter, cuda):
+    """rotary at zamba2's head_dim 80 (bf16 q, f32 cos/sin; prefill and
+    decode) and the router softmax at dbrx's 16 experts (f32 logits;
+    prefill (32, 64, 16) and decode (4, 1, 16))."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    rot = get_tile_op("rotary", emitter=emitter)
+    for lead, pos in (((4, 32, 510, 80), (1, 1, 510, 80)),
+                      ((4, 32, 1, 80), (1, 1, 1, 80))):
+        q = torch.randn(lead, generator=gen, device=cuda).bfloat16()
+        cos, sin = (torch.randn(pos, generator=gen, device=cuda)
+                    for _ in range(2))
+        _close(rot.apply(q, cos, sin),
+               rot.torch_ref(q, cos.expand(lead), sin.expand(lead)), 3e-2)
+    router = get_tile_op("moe_router", emitter=emitter)
+    for lead in ((32, 64, 16), (4, 1, 16)):
+        x = torch.randn(lead, generator=gen, device=cuda) * 3
+        before = router.launches
+        _close(router.apply(x), router.torch_ref(x), 2e-5)
+        assert router.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "dbrx-132b"])
+def test_family_smoke_server_on_the_card_matches_cpu(arch, cuda):
+    """The hybrid and MoE smoke configs in f32: greedy tokens on the card
+    (flash, SSD and tile kernels) equal those on the CPU (plain
+    versions)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cpu = Server(arch, device="cpu")
+    gpu = Server(arch, device=cuda)
+    for srv in (cpu, gpu):
+        srv.cfg, srv.model = cfg, LM(cfg, device=srv.device)
+        srv._decode = srv.model.decode_step
+    cpu.params = cpu.model.init(0)
+    gpu.params = _to(cpu.params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=40 - i).astype(np.int32)
+               for i in range(3)]
+    before = flash_attention.launches
+    want = cpu.generate([Request(i, p.copy(), 6)
+                         for i, p in enumerate(prompts)])
+    got = gpu.generate([Request(i, p.copy(), 6)
+                        for i, p in enumerate(prompts)])
+    assert got == want
+    # one prefill batch: one flash launch per attention layer (zamba2:
+    # per application of the shared block)
+    n_attn = cfg.n_layers // cfg.shared_attn_every \
+        if cfg.family == "hybrid" else cfg.n_layers
+    assert flash_attention.launches == before + n_attn

@@ -352,6 +352,38 @@ def test_rotary_path_dtypes(heads, emitter, standin):
 
 
 @pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_rotary_head_dim_80(emitter, standin):
+    """zamba2's head_dim 80 (the half tiles 40 wide in blocks of 64
+    lanes): bf16 q with f32 cos/sin in its 510-token prefill and its
+    decode tick, 32 heads."""
+    op = get_tile_op("rotary", emitter=emitter)
+    for lead, pos, kinds in (((1, 32, 510, 80), (1, 1, 510, 80),
+                              ("row", "cycle", "cycle")),
+                             ((4, 32, 1, 80), (1, 1, 1, 80),
+                              ("row", "bcast", "bcast"))):
+        q, cos, sin = _rope(lead, pos, torch.bfloat16, 80)
+        got, plan = _run(op.tk, (q, cos, sin), {})
+        assert plan.kinds == kinds and plan.block_d == 128
+        _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)),
+               TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("lead", [(32, 64, 16), (4, 1, 16), (3, 7, 16)])
+def test_moe_router_width_16(lead, emitter, standin):
+    """The router softmax at dbrx's 16 experts, f32 (G, TG, E) logits: its
+    prefill (32 groups of 64 tokens), its decode tick (4 groups of one)
+    and a ragged count of rows."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=lead).astype(np.float32) * 3)
+    op = get_tile_op("moe_router", emitter=emitter)
+    got, plan = _run(op.tk, (x,), {})
+    assert plan.kinds == ("row",) and plan.block_d == 16
+    _close(got, op.torch_ref(x), TOL[torch.float32])
+    _close(got, torch.softmax(x, -1), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
 def test_rotary_mixed_periods(emitter, standin):
     """Two cycle operands of different periods: the plan's positions are
     their least common multiple."""

@@ -102,6 +102,37 @@ def test_rotary_matches_pallas_interpret(dt):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dt])
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rotary_head_dim_80_matches_pallas_interpret(dt):
+    """zamba2's head_dim 80: q (B, H, S, 80) against cos/sin of
+    (1, 1, S, 80), as the shared attention block calls it."""
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(2, 4, 6, 80)).astype(np.float32)
+    cos = rng.normal(size=(1, 1, 6, 80)).astype(np.float32)
+    sin = rng.normal(size=(1, 1, 6, 80)).astype(np.float32)
+    qj = _to_jax(q, dt)
+    want = jax_tile_op("rotary").apply(
+        qj, jnp.broadcast_to(_to_jax(cos, dt), qj.shape),
+        jnp.broadcast_to(_to_jax(sin, dt), qj.shape), interpret=True)
+    got = ops.rotary(_to_torch(q, dt), _to_torch(cos, dt),
+                     _to_torch(sin, dt))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dt])
+
+
+@pytest.mark.parametrize("lead", [(32, 4, 16), (4, 1, 16)])
+def test_moe_router_probs_match_pallas_interpret(lead):
+    """The router softmax op on f32 (G, TG, E) logits at 16 experts
+    against the Pallas op in interpret mode (rows flattened)."""
+    rng = np.random.default_rng(9)
+    x = (rng.normal(size=lead) * 3).astype(np.float32)
+    want = jax_tile_op("moe_router").apply(
+        jnp.asarray(x.reshape(-1, lead[-1])), interpret=True)
+    got = ops.moe_router_probs(torch.from_numpy(x))
+    assert tuple(got.shape) == lead
+    np.testing.assert_allclose(_np(got).reshape(-1, lead[-1]), _np(want),
+                               **TOL["f32"])
+
+
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_triton_source_parses(name):
     op = get_tile_op(name)
