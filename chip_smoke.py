@@ -5,7 +5,7 @@
 
 Builds the port's kernels from this checkout (the CUDA libraries in
 parallel), checks each against its plain PyTorch version at the main
-paths' shapes and times it, then drives four paths through the port's
+paths' shapes and times it, then drives six paths through the port's
 Server at full width with random seeded weights:
 
 * minitron-4b (32 layers, d_model 3072, vocab 256k): serve, parity of a
@@ -20,7 +20,14 @@ Server at full width with random seeded weights:
 * dbrx-132b at full width (d_model 6144, 48/8 heads, 16 experts of d_ff
   10752, top 4, vocab 100,352) and 4 of its 40 layers, the depth one
   80 GB card holds: serve, parity of a prefill and two decode ticks of
-  its first 2 layers in f32, a trace.
+  its first 2 layers in f32, a trace;
+* qwen2-vl-2b (28 layers, d_model 1536, 12/2 heads of 128, M-RoPE):
+  serve, a prefill with per-batch vision positions (the rotary kernel on
+  one cos/sin table per batch row) checked against the plain path,
+  parity of that prefill and two decode ticks in f32, a trace;
+* whisper-small (12 encoder + 12 decoder layers, d_model 768, 12 heads
+  of 64, LayerNorm + GELU; the encoder and cross-attention non-causal):
+  serve, parity of a prefill and two decode ticks in f32, a trace.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
@@ -94,16 +101,44 @@ ZAMBA_PARITY_TOL = 0.02
 DBRX_PARITY_TOL = 0.02
 DBRX_LAYERS = 4           # of 40: 14.3 B parameters, 28.6 GB in bf16
 DBRX_PARITY_LAYERS = 2    # f32 copy of 2 layers and the embeddings, ~31 GB
+# qwen2-vl-2b and whisper-small in f32, kernels vs plain versions, for
+# the reason of the Mamba2 paths: in f32 the two paths differ in summation
+# order only (~1e-6 relative), and 28 (or 12 + 12) layers of random
+# weights leave that far below 0.02; a wrong per-batch cos/sin row, a
+# causal mask on the encoder or a wrong cross-attention k/v moves the
+# logits by O(1). qwen2-vl's runs with the vision positions below.
+QWEN_PARITY_TOL = 0.02
+WHISPER_PARITY_TOL = 0.02
+# Stand-in for Qwen2-VL's vision frontend, one image per batch row: an
+# image of one temporal frame and gh x gw patches opens the row (t 0,
+# h the patch row, w its column), text follows with t = h = w running on
+# from max(gh, gw). Each row has its own grid, so each has its own table.
+VISION_GRIDS = ((16, 16), (8, 32), (32, 8), (12, 20))
 
 SERVE = dict(arch="minitron-4b", max_batch=4, requests=6, prompt_len=512,
              max_new=32, seed=0)
 SERVE_MAMBA = dict(SERVE, arch="mamba2-1.3b")
 SERVE_ZAMBA = dict(SERVE, arch="zamba2-2.7b")
 SERVE_DBRX = dict(SERVE, arch="dbrx-132b")
+SERVE_QWEN = dict(SERVE, arch="qwen2-vl-2b")
+SERVE_WHISPER = dict(SERVE, arch="whisper-small")
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def vision_positions(S, grids):
+    """(3, B, S) M-RoPE positions for ``VISION_GRIDS``-style images (see
+    there), as a numpy array."""
+    import numpy as np
+    pos = np.zeros((3, len(grids), S), np.int64)
+    for b, (gh, gw) in enumerate(grids):
+        n = gh * gw
+        pos[1, b, :n] = np.arange(n) // gw
+        pos[2, b, :n] = np.arange(n) % gw
+        pos[:, b, n:] = max(gh, gw) + np.arange(S - n)
+    return pos
 
 
 class Timer:
@@ -351,7 +386,8 @@ def phase_kernels(torch, timer):
                        checks)
 
     # the main paths' shapes: B=4 requests x S=512 tokens of minitron-4b
-    # (rmsnorm, rotary, swiglu) and of mamba2-1.3b (rmsnorm_gated)
+    # (rmsnorm, rotary, swiglu), of mamba2-1.3b (rmsnorm_gated) and of
+    # whisper-small (layernorm: f32 rows of 768; gelu: bf16 rows of 3072)
     B, S, D, H, KH, F_ = 4, 512, 3072, 24, 8, 9216
     DI = 4096
     x, gain = randn(B * S, D), randn(D)
@@ -398,6 +434,8 @@ def phase_kernels(torch, timer):
     # dbrx-132b's router logits at its prefill: 32 groups of 64 tokens
     # (4 x 512) over 16 experts, f32
     logits = randn(32, 64, 16)
+    xl, gl, bl = randn(B * S, 768), randn(768), randn(768)
+    ag = randn(B * S, 3072, dtype=torch.bfloat16)
     cases = {
         "rmsnorm": ((x, gain), {"eps": 1e-6},
                     lambda: F.rms_norm(x, (D,), gain, 1e-6)),
@@ -405,6 +443,9 @@ def phase_kernels(torch, timer):
         "swiglu": ((a_, b_), {}, None),
         "rmsnorm_gated": ((yg, zg, gg), {"eps": 1e-6}, None),
         "moe_router": ((logits,), {}, lambda: torch.softmax(logits, -1)),
+        "layernorm": ((xl, gl, bl), {"eps": 1e-6},
+                      lambda: F.layer_norm(xl, (768,), gl, bl, 1e-6)),
+        "gelu": ((ag,), {}, lambda: F.gelu(ag, approximate="tanh")),
     }
     # the other shapes of the path's tile kernels: rotary's k in
     # prefill and its 510-token prompt (positions ragged against the
@@ -424,6 +465,18 @@ def phase_kernels(torch, timer):
     ex_a, ex_b = randn(16, 640, 10752, dtype=bf), randn(16, 640, 10752,
                                                          dtype=bf)
     logits_d = randn(4, 1, 16)      # the router at a decode tick
+    # qwen2-vl-2b's M-RoPE with vision positions: one f32 cos/sin table
+    # per batch row, (4, 1, 512, 128), against bf16 q (12 heads) and k (2)
+    from repro_torch.models.common import mrope_cos_sin
+    vcos, vsin = (t[:, None].contiguous() for t in mrope_cos_sin(
+        torch.from_numpy(vision_positions(S, VISION_GRIDS)).cuda(), 128,
+        1e6, (16, 24, 24)))
+    # qwen2-vl-2b's rmsnorm (f32, as norm_apply runs it) and swiglu (bf16;
+    # 8960 ends on a ragged column block) in prefill and at a decode tick
+    xq, gq, xqd = randn(B * S, 1536), randn(1536), randn(B, 1536)
+    # whisper-small's decode tick: 4 rows
+    xld, gld, bld = randn(B, 768), randn(768), randn(768)
+    agd = randn(B, 3072, dtype=bf)
     other_shapes = {
         "rotary": {
             "k": ((kk, cos, sin), {}, None),
@@ -440,13 +493,22 @@ def phase_kernels(torch, timer):
                                  cos80[:, :, 7:8].contiguous(),
                                  sin80[:, :, 7:8].contiguous()), {}, None),
             "dbrx_q": ((randn(B, 48, S, 128, dtype=bf), cos, sin), {},
-                       None)},
+                       None),
+            "qwen2vl_q_per_batch": ((randn(B, 12, S, 128, dtype=bf), vcos,
+                                     vsin), {}, None),
+            "qwen2vl_k_per_batch": ((randn(B, 2, S, 128, dtype=bf), vcos,
+                                     vsin), {}, None)},
         "rmsnorm": {"decode": ((xd, gd), {"eps": 1e-6},
                                lambda: F.rms_norm(xd, (D,), gd, 1e-6)),
                     "zamba2": ((xz, gz), {"eps": 1e-6},
                                lambda: F.rms_norm(xz, (2560,), gz, 1e-6)),
                     "dbrx": ((xb, gb), {"eps": 1e-6},
-                             lambda: F.rms_norm(xb, (6144,), gb, 1e-6))},
+                             lambda: F.rms_norm(xb, (6144,), gb, 1e-6)),
+                    "qwen2vl": ((xq, gq), {"eps": 1e-6},
+                                lambda: F.rms_norm(xq, (1536,), gq, 1e-6)),
+                    "qwen2vl_decode": ((xqd, gq), {"eps": 1e-6},
+                                       lambda: F.rms_norm(xqd, (1536,), gq,
+                                                          1e-6))},
         "swiglu": {"decode": ((randn(B, F_, dtype=bf), randn(B, F_, dtype=bf)),
                               {}, None),
                    "zamba2": ((randn(B * S, 10240, dtype=bf),
@@ -454,7 +516,11 @@ def phase_kernels(torch, timer):
                    "dbrx_experts": ((ex_a, ex_b), {}, None),
                    "dbrx_experts_decode": ((randn(16, 4, 10752, dtype=bf),
                                             randn(16, 4, 10752, dtype=bf)),
-                                           {}, None)},
+                                           {}, None),
+                   "qwen2vl": ((randn(B * S, 8960, dtype=bf),
+                                randn(B * S, 8960, dtype=bf)), {}, None),
+                   "qwen2vl_decode": ((randn(B, 8960, dtype=bf),
+                                       randn(B, 8960, dtype=bf)), {}, None)},
         "rmsnorm_gated": {"decode": ((randn(B, DI, dtype=bf),
                                       randn(B, DI, dtype=bf),
                                       randn(DI, dtype=bf)), {"eps": 1e-6},
@@ -464,7 +530,12 @@ def phase_kernels(torch, timer):
                                       randn(5120, dtype=bf)), {"eps": 1e-6},
                                      None)},
         "moe_router": {"decode": ((logits_d,), {},
-                                  lambda: torch.softmax(logits_d, -1))}}
+                                  lambda: torch.softmax(logits_d, -1))},
+        "layernorm": {"decode": ((xld, gld, bld), {"eps": 1e-6},
+                                 lambda: F.layer_norm(xld, (768,), gld, bld,
+                                                      1e-6))},
+        "gelu": {"decode": ((agd,), {},
+                            lambda: F.gelu(agd, approximate="tanh"))}}
     for emitter, replaces in ((None, "src/repro/core/pallasgen.py:554"),
                               (PIPELINED, "src/repro/core/pallasgen.py:546")):
         for name, (args, sc, lib) in cases.items():
@@ -510,7 +581,9 @@ def phase_kernels(torch, timer):
     # the bf16 kernel's tile edges (one row, one past a 64-row tile, one
     # past two), and a small f32 head_dim-16 case; zamba2's head_dim 80
     # (its prefill in bf16 and, as its f32 parity runs it, in f32; the
-    # tile edges in both, MHA and GQA) and dbrx's prefill
+    # tile edges in both, MHA and GQA), dbrx's prefill, whisper's MHA at
+    # head_dim 64 (non-causal: the encoder and cross-attention; causal:
+    # the decoder) and qwen2-vl's GQA 12/2
     flash_cases = [((4, 24, 8, 512, 128), torch.bfloat16, True),
                    ((4, 24, 8, 512, 128), torch.bfloat16, False),
                    ((4, 24, 8, 100, 128), torch.bfloat16, True),
@@ -522,14 +595,20 @@ def phase_kernels(torch, timer):
                    ((4, 32, 32, 512, 80), torch.bfloat16, True),
                    ((4, 32, 32, 510, 80), torch.float32, True),
                    ((4, 32, 32, 512, 80), torch.bfloat16, False),
-                   ((4, 48, 8, 512, 128), torch.bfloat16, True)] + [
+                   ((4, 48, 8, 512, 128), torch.bfloat16, True),
+                   ((4, 12, 12, 512, 64), torch.bfloat16, False),
+                   ((4, 12, 12, 512, 64), torch.bfloat16, True),
+                   ((4, 12, 2, 512, 128), torch.bfloat16, True)] + [
         ((2, 8, kh, s, 80), dt, True)
         for dt in (torch.bfloat16, torch.float32) for kh in (8, 2)
         for s in (1, 63, 64, 65, 129)]
-    flash_rows = {(4, 24, 8, 512, 128, torch.bfloat16): None,
-                  (4, 32, 32, 512, 80, torch.bfloat16): "zamba2_d80",
-                  (4, 32, 32, 510, 80, torch.float32): "zamba2_d80_f32",
-                  (4, 48, 8, 512, 128, torch.bfloat16): "dbrx"}
+    flash_rows = {(4, 24, 8, 512, 128, bf, True): None,
+                  (4, 32, 32, 512, 80, bf, True): "zamba2_d80",
+                  (4, 32, 32, 510, 80, torch.float32, True): "zamba2_d80_f32",
+                  (4, 48, 8, 512, 128, bf, True): "dbrx",
+                  (4, 12, 12, 512, 64, bf, False): "whisper_d64_full",
+                  (4, 12, 12, 512, 64, bf, True): "whisper_d64",
+                  (4, 12, 2, 512, 128, bf, True): "qwen2vl"}
     flash_timed = {}
     for (b, h, kh, s, d), dt, causal in flash_cases:
         fq, fk, fv = randn(b, h, s, d, dtype=dt), randn(b, kh, s, d, dtype=dt), \
@@ -539,23 +618,26 @@ def phase_kernels(torch, timer):
         err = _check(tag, flash_attention(fq, fk, fv, causal=causal),
                      flash_attention_plain(fq, fk, fv, causal=causal),
                      FLASH_TOL[str(dt)[6:]], checks)
-        if causal and (b, h, kh, s, d, dt) in flash_rows:
-            pairs = s * (s + 1) // 2
+        if (b, h, kh, s, d, dt, causal) in flash_rows:
+            pairs = s * (s + 1) // 2 if causal else s * s
             flops = 4 * d * pairs * b * h
             nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size()
             t_ops = flops / PEAK_FLOPS[str(dt)[6:]] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            flash_timed[flash_rows[(b, h, kh, s, d, dt)]] = {
+
+            def run(fq=fq, fk=fk, fv=fv, causal=causal):
+                return flash_attention(fq, fk, fv, causal=causal)
+
+            flash_timed[flash_rows[(b, h, kh, s, d, dt, causal)]] = {
                 "shape": [b, h, kh, s, d], "dtype": str(dt)[6:],
-                "max_abs_err": err,
-                "ms": timer.ms(lambda: flash_attention(fq, fk, fv)),
-                "device_ms": timer.device_ms(
-                    lambda: flash_attention(fq, fk, fv), "flash_fwd_"),
-                "plain_ms": timer.ms(
-                    lambda: flash_attention_plain(fq, fk, fv)),
+                "causal": causal, "max_abs_err": err,
+                "ms": timer.ms(run),
+                "device_ms": timer.device_ms(run, "flash_fwd_"),
+                "plain_ms": timer.ms(lambda: flash_attention_plain(
+                    fq, fk, fv, causal=causal)),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": timer.ms(_sdpa(F, fq, fk, fv))}
+                "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
     rows["flash_attention"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -624,19 +706,19 @@ def phase_kernels(torch, timer):
     return rows
 
 
-def _sdpa(F, q, k, v):
-    """PyTorch's fused attention on the same inputs, causal (the
-    yardstick; the port never calls it)."""
+def _sdpa(F, q, k, v, causal=True):
+    """PyTorch's fused attention on the same inputs (the yardstick; the
+    port never calls it)."""
     try:
-        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                        enable_gqa=True)
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     except TypeError:   # a torch without enable_gqa: repeat kv beforehand
         rep = q.shape[1] // k.shape[1]
         k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
         return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=True)
+                                                      is_causal=causal)
 
 
 def _counters(arch):
@@ -649,7 +731,10 @@ def _counters(arch):
              "zamba2-2.7b": ("ssd_scan", "rmsnorm_gated", "rmsnorm",
                              "rotary", "swiglu", "flash_attention"),
              "dbrx-132b": ("rmsnorm", "rotary", "swiglu", "flash_attention",
-                           "moe_router")}[arch]
+                           "moe_router"),
+             "qwen2-vl-2b": ("rmsnorm", "rotary", "swiglu",
+                             "flash_attention"),
+             "whisper-small": ("layernorm", "gelu", "flash_attention")}[arch]
     structured = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
     return {n: structured[n] if n in structured else get_tile_op(n)
             for n in names}
@@ -736,6 +821,17 @@ def phase_serve(torch, serve, phase, cfg=None, reduced=None):
     return srv, reqs, launches, by_step
 
 
+def _expect_steps(arch, srv, by_step, per_prefill, per_tick):
+    """Each kernel's launches in a serve run, per step: ``per_prefill``
+    in every prefill batch and ``per_tick`` in every decode tick."""
+    want = {"prefill": {n: c * srv.metrics["prefills"]
+                        for n, c in per_prefill.items()},
+            "decode": {n: c * srv.metrics["decode_ticks"]
+                       for n, c in per_tick.items()}}
+    if by_step != want:
+        raise AssertionError(f"{arch} launched {by_step}, expected {want}")
+
+
 def _prefill_tokens(torch, serve, reqs):
     import numpy as np
     prompts = np.stack([r.prompt[:serve["prompt_len"] - 2]
@@ -784,25 +880,29 @@ def _f32(tree):
     return tree.float()
 
 
-def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None):
+def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None,
+                     prefill_arg=None):
     """A 4 x 510 prefill and two decode ticks of the served model with
     its weights in f32 (its first ``n_layers`` layers, where given),
     through the kernels, then through the plain versions with the same
     tokens; each decode starts from its own prefill's state, so the
-    kernels' caches (the SSD scan's final state, the prefill's k/v) are
-    checked, not only their outputs."""
+    kernels' caches (the SSD scan's final state, the prefill's k/v, the
+    encoder's cross-attention k/v) are checked, not only their outputs.
+    ``prefill_arg`` is the prefill's third argument where the model takes
+    one (vlm positions3, encdec frames)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import LM
+    from repro_torch.models import get_model
 
     cut = n_layers or srv.cfg.n_layers
-    model = LM(dataclasses.replace(srv.cfg, dtype=torch.float32,
-                                   n_layers=cut), device="cuda")
+    model = get_model(dataclasses.replace(srv.cfg, dtype=torch.float32,
+                                          n_layers=cut), device="cuda")
     params = _f32({k: v[:cut] if k == "layers" else v
                    for k, v in srv.params.items()})
+    extra = () if prefill_arg is None else (prefill_arg,)
     feed = []
 
     def run():
-        logits, cache = model.prefill(params, tokens)
+        logits, cache = model.prefill(params, tokens, *extra)
         outs = [logits]
         for i in range(2):
             if len(feed) == i:
@@ -833,6 +933,53 @@ def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None):
     if not ok:
         raise AssertionError(f"{phase}: kernel and plain logits differ by "
                              f"{errs}")
+
+
+def phase_mrope(torch, srv, tokens, positions3, counters):
+    """qwen2-vl's prefill at full width with per-batch vision positions:
+    the rotary kernel reads one cos/sin table per batch row in place (the
+    plan's ``bcycle`` layout), two launches per layer, and the logits
+    agree with the plain path's on the same positions (bf16, as the
+    served model; the tolerance of the dense parity phase). The plan
+    kinds are those the prefill's rotary launches were made with."""
+    from repro_torch.kernels import ops
+
+    cfg = srv.cfg
+    for c in counters.values():
+        c.launches = 0
+    counters["rotary"].launches_by_kinds.clear()
+    kern, kern_ms = _timed_ms(torch, lambda: srv.model.prefill(
+        srv.params, tokens, positions3)[0])
+    launches = {n: c.launches for n, c in counters.items()}
+    kinds = {",".join(k): n for k, n
+             in counters["rotary"].launches_by_kinds.items()}
+    ops.set_impl("torch")
+    try:
+        plain, plain_ms = _timed_ms(torch, lambda: srv.model.prefill(
+            srv.params, tokens, positions3)[0])
+        text = srv.model.prefill(srv.params, tokens)[0]
+    finally:
+        ops.set_impl(None)
+    err = _err(kern, plain)
+    want = {"rotary": 2 * cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1,
+            "swiglu": cfg.n_layers, "flash_attention": cfg.n_layers}
+    ok = (err <= PARITY_TOL and bool(kern.isfinite().all())
+          and kinds == {"row,bcycle,bcycle": want["rotary"]}
+          and launches == want)
+    emit({"phase": "mrope_qwen2vl", "shape": list(tokens.shape),
+          "grids": VISION_GRIDS, "rotary_launches_by_plan_kinds": kinds,
+          "prefill_ms": kern_ms,
+          "plain_prefill_ms": plain_ms, "launches": launches,
+          "max_abs_logit_diff": err, "tol": PARITY_TOL,
+          "logit_std": kern.float().std().item(),
+          "argmax_agree": (kern.argmax(-1) == plain.argmax(-1)).float()
+          .mean().item(),
+          # the positions matter: against a text-position prefill
+          "max_abs_diff_vs_text_positions": _err(plain, text), "ok": ok})
+    if not ok:
+        raise AssertionError(f"mrope_qwen2vl: plan {kinds}, launches "
+                             f"{launches} (expected {want}), logits differ "
+                             f"by {err}")
 
 
 def phase_pipelined(torch, srv, tokens, sync_logits, names, phase):
@@ -1013,15 +1160,56 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_trace(torch, srv, tokens, "trace_dbrx")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # qwen2-vl-2b: the vlm path (the dense stack with M-RoPE)
+        srv, reqs, vlm, vlm_steps = phase_serve(torch, SERVE_QWEN,
+                                                "serve_qwen2vl")
+        n = srv.cfg.n_layers
+        _expect_steps("qwen2-vl", srv, vlm_steps,
+                      {"rmsnorm": 2 * n + 1, "rotary": 2 * n, "swiglu": n,
+                       "flash_attention": n},
+                      {"rmsnorm": 2 * n + 1, "rotary": 2 * n, "swiglu": n,
+                       "flash_attention": 0})
+        tokens = _prefill_tokens(torch, SERVE_QWEN, reqs)
+        pos3 = torch.from_numpy(vision_positions(tokens.shape[1],
+                                                 VISION_GRIDS)).cuda()
+        phase_mrope(torch, srv, tokens, pos3, _counters("qwen2-vl-2b"))
+        for name, c in _counters("qwen2-vl-2b").items():
+            vlm[name] += c.launches
+            vlm_steps["prefill"][name] += c.launches
+        phase_parity_f32(torch, srv, tokens, "parity_qwen2vl",
+                         QWEN_PARITY_TOL, prefill_arg=pos3)
+        phase_trace(torch, srv, tokens, "trace_qwen2vl")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # whisper-small: the encdec path
+        srv, reqs, encdec, encdec_steps = phase_serve(torch, SERVE_WHISPER,
+                                                      "serve_whisper")
+        n, ne = srv.cfg.n_layers, srv.cfg.n_enc_layers
+        _expect_steps("whisper", srv, encdec_steps,
+                      {"layernorm": 2 * ne + 1 + 3 * n + 1, "gelu": ne + n,
+                       "flash_attention": ne + 2 * n},
+                      {"layernorm": 3 * n + 1, "gelu": n,
+                       "flash_attention": 0})
+        tokens = _prefill_tokens(torch, SERVE_WHISPER, reqs)
+        frames = torch.randn((*tokens.shape, srv.cfg.d_model),
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+        phase_parity_f32(torch, srv, tokens, "parity_whisper",
+                         WHISPER_PARITY_TOL, prefill_arg=frames)
+        phase_trace(torch, srv, tokens, "trace_whisper")
     except Exception:
         traceback.print_exc()
         return 1
     steps = {"prefill": {}, "decode": {}}
-    for paths in (dense, ssm, hybrid, moe, piped):
+    for paths in (dense, ssm, hybrid, moe, piped, vlm, encdec):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
     for paths in (dense_steps, ssm_steps, hybrid_steps, moe_steps,
-                  {"prefill": piped}):
+                  {"prefill": piped}, vlm_steps, encdec_steps):
         for step, counts in paths.items():
             for name, n in counts.items():
                 steps[step][name] = steps[step].get(name, 0) + n

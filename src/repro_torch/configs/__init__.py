@@ -1,9 +1,9 @@
 """Architecture configs of the port: ``get_config(arch)`` returns the
 full (published) config, ``get_smoke_config(arch)`` a tiny same-family
 variant for CPU tests. Ported so far: the dense minitron-4b, the Mamba2
-(ssm) mamba2-1.3b, the hybrid zamba2-2.7b and the MoE dbrx-132b; the
-other architectures of the JAX package come with their families (ROADMAP
-queue A)."""
+(ssm) mamba2-1.3b, the hybrid zamba2-2.7b, the MoE dbrx-132b, the VLM
+backbone qwen2-vl-2b and the encoder-decoder whisper-small; the other
+architectures of the JAX package follow (ROADMAP queue A)."""
 from __future__ import annotations
 
 import importlib
@@ -12,7 +12,8 @@ from repro_torch.models import ModelConfig
 
 # canonical ids as assigned (dashes/dots) -> module names
 ARCH_IDS = {"minitron-4b": "minitron_4b", "mamba2-1.3b": "mamba2_1p3b",
-            "zamba2-2.7b": "zamba2_2p7b", "dbrx-132b": "dbrx_132b"}
+            "zamba2-2.7b": "zamba2_2p7b", "dbrx-132b": "dbrx_132b",
+            "qwen2-vl-2b": "qwen2_vl_2b", "whisper-small": "whisper_small"}
 
 
 def _module(arch: str):

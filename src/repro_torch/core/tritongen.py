@@ -34,7 +34,11 @@ size. Its launch sees the lead's rows as groups of ``n_pos`` positions:
 program ``(g, p, c)`` owns the ``p``-th block of :data:`CYCLE_BLOCK_R`
 positions of group ``g``, reads the cycle operand at those positions and
 the rows at ``g * n_pos + position``. The cycle operand's re-reads for
-each group come from L2.
+each group come from L2. A ``bcycle`` operand (a per-batch table, such as
+M-RoPE's cos/sin of ``(B, 1, S, hd)`` against ``(B, H, S, hd)``) is a
+cycle offset by its batch row: lead row ``r`` reads its row
+``(r // span) * period + r % period`` (``span`` = H·S lead rows per batch
+row, ``period`` = S), in place, in the same launch.
 
 What bounds it on the H100: every instance is a streaming pass with at
 most a last-axis reduction, so bytes (each input read once, each output
@@ -73,6 +77,7 @@ import importlib.util
 import math
 import os
 import threading
+from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.runtime import chaos
@@ -191,9 +196,12 @@ class TritonKernel:
 
     def render(self, kinds: Sequence[str]) -> str:
         """Full kernel source for one operand layout: ``kinds[i]`` is
-        ``"row"``, ``"cycle"`` or ``"bcast"`` for input ``i``."""
-        cycle = "cycle" in kinds
-        pos = ["n_pos"] if cycle else []
+        ``"row"``, ``"cycle"``, ``"bcycle"`` or ``"bcast"`` for input
+        ``i``."""
+        cycle = _by_position(kinds)
+        pos = (["n_pos"] if cycle else []) + [
+            f"{a}_span" for a, k in zip(self.in_arrays, kinds)
+            if k == "bcycle"]
         params = ([f"{a}_ptr" for a in self.in_arrays]
                   + [f"{a}_optr" for a in self.out_arrays] + self.scalars
                   + ["n_rows"] + [f"{a}_period" for a in self.in_arrays]
@@ -254,6 +262,11 @@ class TritonKernel:
                 row, mask = "", "_cmask"
             elif kind == "cycle":
                 row, mask = f"(_pos % {a}_period) * D + ", "_mask"
+            elif kind == "bcycle":
+                # the batch row's table, read at the position
+                row = (f"((_rows // {a}_span) * {a}_period"
+                       f" + _pos % {a}_period) * D + ")
+                mask = "_mask"
             elif kind == "row":
                 row, mask = "_rows * D + ", "_mask"
             else:
@@ -275,6 +288,11 @@ class TritonKernel:
                 fn = _import_kernel(self.render(kinds), self.kernel_name)
                 self._compiled[kinds] = fn
             return fn
+
+
+def _by_position(kinds: Sequence[str]) -> bool:
+    """Whether a layout launches over positions (a cycle operand)."""
+    return "cycle" in kinds or "bcycle" in kinds
 
 
 def _paren(expr: str) -> str:
@@ -460,6 +478,7 @@ class TritonGenerator(TorchCodeGenerator):
         params = ([f"{n}_ptr" for n in in_arrays]
                   + [f"{n}_optr" for n in out_arrays] + scalars
                   + [f"{n}_period" for n in in_arrays]
+                  + [f"{n}_span" for n in in_arrays]
                   + ["n_rows", "n_pos", "D", "BLOCK_R", "BLOCK_D"])
         if len(set(params)) != len(params):
             raise ValueError(f"kernel {prog.name!r}: parameter names "
@@ -532,20 +551,22 @@ class TileCallPlan:
     operand kinds, block sizes and grid. ``n_blocks`` counts the
     ``(block_r, block_d)`` blocks; a pipelined kernel's grid is persistent
     (one axis, at most :data:`PROGRAMS_PER_SM` programs per SM), any
-    other's has one program per block. With a cycle operand the rows are
-    groups of ``n_pos`` positions (the periods' least common multiple)
-    and the grid is (groups, position blocks, column blocks) in both
-    forms; otherwise ``n_pos`` is ``rows``."""
+    other's has one program per block. With a cycle or bcycle operand the
+    rows are groups of ``n_pos`` positions (the periods' least common
+    multiple) and the grid is (groups, position blocks, column blocks) in
+    both forms; otherwise ``n_pos`` is ``rows``."""
     rows: int
     d: int
-    kinds: Tuple[str, ...]       # per input: "row" | "cycle" | "bcast"
-    periods: Tuple[int, ...]     # per input: rows a "cycle" operand repeats
+    kinds: Tuple[str, ...]       # per input: row | cycle | bcycle | bcast
+    periods: Tuple[int, ...]     # per input: rows a (b)cycle operand repeats
     block_r: int
     block_d: int
     n_blocks: int
     grid: Tuple[int, ...]
     num_warps: int
     n_pos: int
+    # per input: lead rows per batch row of a "bcycle" operand, else 0
+    spans: Tuple[int, ...] = ()
 
 
 def _next_pow2(x: int) -> int:
@@ -560,13 +581,17 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     lead operand's row count tile over rows, and an input of ``d`` (or
     one) elements is a broadcast row. The port adds ``cycle``: an input
     of shape ``T`` where the lead's shape ends with ``T`` (leading ones
-    dropped) reads row ``r % prod(T[:-1])``; such a launch takes
-    blocks of :data:`CYCLE_BLOCK_R` positions at :data:`CYCLE_NUM_WARPS`
-    warps."""
+    dropped) reads row ``r % prod(T[:-1])``, and ``bcycle``: an input
+    that equals the lead on its leading axes, is one on a middle run of
+    axes and equals it again after (``(B, 1, S, d)`` against
+    ``(B, H, S, d)``) reads row ``(r // span) * period + r % period``
+    with ``span`` the lead rows of one leading index and ``period`` the
+    rows after the run. Such a launch takes blocks of
+    :data:`CYCLE_BLOCK_R` positions at :data:`CYCLE_NUM_WARPS` warps."""
     lead = tuple(in_shapes[0])
     d = lead[-1]
     rows = math.prod(lead[:-1]) if len(lead) > 1 else 1
-    kinds, periods = [], []
+    kinds, periods, spans = [], [], []
     for name, shp in zip(tk.in_arrays, in_shapes):
         shp = tuple(shp)
         core = shp
@@ -581,19 +606,25 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
         elif core[-1] == d and lead[len(lead) - len(core):] == core:
             kinds.append("cycle")
             periods.append(math.prod(core[:-1]))
+        elif (batch := _batch_cycle(lead, shp)) is not None:
+            kinds.append("bcycle")
+            periods.append(batch[0])
+            spans.append(batch[1])
+            continue
         else:
             raise ValueError(f"{tk.name}: operand {name!r} of shape {shp} "
                              f"does not tile against the lead {lead}")
+        spans.append(0)
     bd = _next_pow2(d)
     if not tk.has_reduction:
         bd = min(bd, MAX_BLOCK_D_NO_REDUCE)
     if tk.halves and d % 2:
         raise ValueError(f"{tk.name}: rothalf needs an even width, got {d}")
     common = dict(rows=rows, d=d, kinds=tuple(kinds), periods=tuple(periods),
-                  block_d=bd)
-    if "cycle" in kinds:
+                  block_d=bd, spans=tuple(spans))
+    if _by_position(kinds):
         n_pos = math.lcm(*(p for k, p in zip(kinds, periods)
-                           if k == "cycle"))
+                           if k in ("cycle", "bcycle")))
         br = max(1, min(CYCLE_BLOCK_R, TILE_ELEMS_BUDGET // bd,
                         _next_pow2(n_pos)))
         grid = (rows // n_pos, -(-n_pos // br), -(-d // bd))
@@ -613,6 +644,26 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
                         num_warps=8 if br * bd >= 4096 else 4, n_pos=rows)
 
 
+def _batch_cycle(lead: Tuple[int, ...], shp: Tuple[int, ...]
+                 ) -> Optional[Tuple[int, int]]:
+    """``(period, span)`` of an operand that equals ``lead`` on its first
+    axes, is one on a middle run of axes where ``lead`` is not, and
+    equals ``lead`` on the rest (``(B, 1, S, d)`` against
+    ``(B, H, S, d)``: period S, span H·S); None for any other shape."""
+    if len(shp) > len(lead):
+        return None
+    shp = (1,) * (len(lead) - len(shp)) + tuple(shp)
+    k = 0
+    while k < len(lead) - 1 and shp[k] == lead[k]:
+        k += 1
+    m = k
+    while m < len(lead) - 1 and shp[m] == 1:
+        m += 1
+    if k == 0 or m == k or shp[m:] != lead[m:]:
+        return None
+    return math.prod(shp[m:-1]), math.prod(lead[k:-1])
+
+
 @dataclasses.dataclass
 class TileOp:
     """A saturated tile program as an op: the Triton kernel on CUDA
@@ -623,13 +674,15 @@ class TileOp:
     ``ref`` rung, or Triton emission failed). On CPU tensors it still
     runs through ``torch_ref``; on CUDA tensors it raises — the card
     never runs a silent substitute for its kernel. ``launches`` counts
-    kernel launches."""
+    kernel launches, and ``launches_by_kinds`` the same launches by their
+    plan's operand kinds (``TileCallPlan.kinds``)."""
     name: str
     tk: Optional[TritonKernel]
     torch_ref: Callable
     source: str
     sk: Optional[Any] = None
     launches: int = 0
+    launches_by_kinds: Counter = dataclasses.field(default_factory=Counter)
 
     def __call__(self, *arrays, **scalars):
         return self.apply(*arrays, **scalars)
@@ -657,6 +710,7 @@ def _apply_tile_op(op: TileOp, arrays, scalars):
         launch_tile_kernel(tk.compiled(plan.kinds), plan, ins, outs,
                            [float(scalars[s]) for s in tk.scalars])
         op.launches += 1
+        op.launches_by_kinds[plan.kinds] += 1
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
@@ -689,9 +743,10 @@ def prepare_tile_call(tk: TritonKernel, arrays, name: str):
 def launch_tile_kernel(kern, plan: TileCallPlan, ins, outs, svals):
     """Launch a compiled tile kernel over ``plan``; returns what the
     launch returns (Triton's compiled kernel)."""
-    pos = (plan.n_pos,) if "cycle" in plan.kinds else ()
+    pos = (plan.n_pos,) if _by_position(plan.kinds) else ()
+    spans = tuple(s for k, s in zip(plan.kinds, plan.spans) if k == "bcycle")
     return kern[plan.grid](*ins, *outs, *svals, plan.rows, *plan.periods,
-                           *pos, D=plan.d, BLOCK_R=plan.block_r,
+                           *pos, *spans, D=plan.d, BLOCK_R=plan.block_r,
                            BLOCK_D=plan.block_d, num_warps=plan.num_warps)
 
 

@@ -53,7 +53,10 @@
 // buffer (~81 KB at D = 128). TF32 tensor cores would miss the 2e-3 f32
 // tolerance, and this path is not on the model's bf16 path.
 //
-// Layout: q, o (B, H, S, D); k, v (B, KH, S, D); all contiguous.
+// Layout: q, o (B, H, S, D); k, v (B, KH, S, D); all contiguous. k and v
+// have q's length S, as in the Pallas kernel: cross-attention over an
+// encoder output of another length is not taken (whisper serves encoder
+// outputs of the prompt's length, as the JAX server does; ROADMAP A13.6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -76,7 +76,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     KH = k.shape[1]
     if tuple(k.shape) != (B, KH, S, D) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: k and v "
+                         "must be (B, KH, S, D) with q's batch, length S "
+                         "and head_dim (no cross-attention over another "
+                         "length yet)")
     if D not in HEAD_DIMS or H % KH:
         raise ValueError(f"flash_attention: head_dim {D} (one of "
                          f"{HEAD_DIMS}) and {H} heads over {KH} kv heads")

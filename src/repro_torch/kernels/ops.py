@@ -31,7 +31,7 @@ from repro_torch.core.telemetry import telemetry
 from repro_torch.runtime.guard import breaker_for
 
 from . import ref as _ref
-from .flash_attention import flash_attention
+from .flash_attention import decode_attention, flash_attention
 from .ssd_scan import ssd_decode_step, ssd_scan, ssd_scan_plain
 from .tile_programs import get_tile_op
 
@@ -42,11 +42,13 @@ _TILE_EMITTER: Optional[str] = None  # None = "triton"
 
 # runtime degradation floor on CPU tensors: the named oracle each tile op
 # falls back to when building or applying the saturated op fails
-# (the ops of the ported families; the other tile programs get their op
-# wrappers with the families that call them, ROADMAP queue A)
+# (the ops the model families call; the optimizer's tile programs get
+# their op wrappers with training, ROADMAP queue A)
 _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "rmsnorm_gated": _ref.rmsnorm_gated_ref,
+                  "layernorm": _ref.layernorm_ref,
                   "swiglu": _ref.swiglu_ref,
+                  "gelu": _ref.gelu_ref,
                   "moe_router": _ref.softmax_ref}
 
 
@@ -125,8 +127,17 @@ def rmsnorm_gated(x, z, g, eps=1e-6):
     return _tile("rmsnorm_gated", x, z, g, eps=eps)
 
 
+def layernorm(x, g, b, eps=1e-6):
+    return _tile("layernorm", x, g, b, eps=eps)
+
+
 def swiglu(a, b):
     return _tile("swiglu", a, b)
+
+
+def gelu(a):
+    """GELU in its tanh form (the saturated ``gelu`` program)."""
+    return _tile("gelu", a)
 
 
 def moe_router_probs(logits):
@@ -137,8 +148,9 @@ def moe_router_probs(logits):
 
 def rotary(q, cos, sin):
     """q:(..., d); cos/sin broadcastable to q. Tile rows = flattened lead.
-    The kernel reads cos/sin in place (``cycle`` operands), without
-    materialising their broadcast to q's shape."""
+    The kernel reads cos/sin in place (``cycle`` operands, or ``bcycle``
+    for M-RoPE's one table per batch row), without materialising their
+    broadcast to q's shape."""
     impl = current_impl(q)
     if impl == "ref":
         return _ref.rotary_ref(q, cos, sin)
@@ -157,6 +169,12 @@ def attention(q, k, v, *, causal=True, scale=None):
     if current_impl(q) == "triton":
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return _ref.attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def attention_decode(q, k_cache, v_cache, *, scale=None):
+    """One query token against a cache, in torch on every device (as the
+    JAX package's, a GEMV-shaped op with no kernel of its own)."""
+    return decode_attention(q, k_cache, v_cache, scale=scale)
 
 
 def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128,

@@ -13,10 +13,14 @@ Runs on the GPU unless ``device="cpu"`` is passed:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --full
 
-(``--arch`` takes minitron-4b, mamba2-1.3b, zamba2-2.7b and dbrx-132b;
-dbrx-132b's full 40 layers do not fit one 80 GB card, so serve it through
-``Server(..., cfg=...)`` with a cut depth.)
+(``--arch`` takes minitron-4b, mamba2-1.3b, zamba2-2.7b, dbrx-132b,
+qwen2-vl-2b and whisper-small; dbrx-132b's full 40 layers do not fit one
+80 GB card, so serve it through ``Server(..., cfg=...)`` with a cut
+depth. qwen2-vl-2b is served on text positions, whisper-small on zero
+audio frames of the prompt's length, as the JAX server does.)
 """
 from __future__ import annotations
 

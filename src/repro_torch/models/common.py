@@ -39,8 +39,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of :class:`repro.models.common.ModelConfig`, with a
-    torch dtype. The port serves the ``dense``, ``ssm``, ``hybrid`` and
-    ``moe`` families (ROADMAP queue A for the others)."""
+    torch dtype. The port serves all six families."""
     name: str
     family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -81,12 +80,20 @@ class ModelConfig:
     def param_count(self) -> int:
         """Analytic parameter count (embeddings, layers, the hybrid's
         shared block and the final norm): the JAX package's count plus
-        the final norm."""
+        the final norm; for encdec, every parameter the model holds (the
+        JAX count leaves out the learned decoder positions, the LayerNorm
+        biases and final norms, and counts an unembedding that whisper's
+        tied output does not have)."""
         d, v = self.d_model, self.vocab
         n = v * d if self.tie_embeddings else 2 * v * d
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
-        if self.family == "dense":
+        if self.family == "encdec":
+            norm = 2 * d if self.norm == "layernorm" else d
+            return (v * d + self.max_seq * d
+                    + self.n_layers * (2 * attn + mlp + 3 * norm)
+                    + self.n_enc_layers * (attn + mlp + 2 * norm) + 2 * norm)
+        if self.family in ("dense", "vlm"):
             n += self.n_layers * (attn + mlp + 2 * d)
         elif self.family == "moe":
             mc = self.moe
@@ -135,6 +142,27 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]):
+    """Qwen2-VL M-RoPE. positions (3, B, S) for (t, h, w); sections sum to
+    head_dim/2. Frequency slice ``i`` takes its angle from axis ``i``'s
+    positions. Text tokens use identical t/h/w positions (1-D RoPE);
+    vision patches get distinct h/w. Returns cos/sin (B, S, head_dim) in
+    rotate-half layout."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {head_dim // 2}")
+    freqs = rope_freqs(head_dim, theta, positions.device)      # (hd/2,)
+    ang = positions.to(torch.float32)[..., None] * freqs       # (3,B,S,hd/2)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang[i, ..., start:start + sec])
+        start += sec
+    ang1 = torch.cat(parts, dim=-1)                            # (B,S,hd/2)
+    ang2 = torch.cat([ang1, ang1], dim=-1)
+    return torch.cos(ang2), torch.sin(ang2)
+
+
 # -- init ------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
@@ -157,14 +185,16 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
                           device) -> Dict[str, Any]:
-    """The port's parameters from the JAX ``LM.init`` pytree given as
-    numpy arrays (layer-stacked leading axis on ``layers``). Weights keep
-    the ``x @ w`` layout; the layer stack becomes a list of per-layer
-    dicts. The hybrid's ``shared`` block is one unstacked dict, used by
-    every application, and passes through as it is. Dtypes are kept as
-    given."""
-    if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r}")
+    """The port's parameters from the JAX ``LM.init`` (or, for encdec,
+    ``EncDecLM.init``) pytree given as numpy arrays, each layer stack
+    (``layers``; ``enc_layers`` and ``dec_layers``) with a leading layer
+    axis. Weights keep the ``x @ w`` layout; each stack becomes a list of
+    per-layer dicts. The hybrid's ``shared`` block is one unstacked dict,
+    used by every application, and passes through as it is, as do
+    whisper's ``dec_pos`` and its norms. Dtypes are kept as given."""
+    stacks = {"encdec": {"enc_layers": cfg.n_enc_layers,
+                         "dec_layers": cfg.n_layers}}.get(
+        cfg.family, {"layers": cfg.n_layers})
     device = torch.device(device)
 
     def conv(tree):
@@ -172,15 +202,15 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
             return {k: conv(v) for k, v in tree.items()}
         return _to_tensor(tree, device)
 
-    out = {k: conv(v) for k, v in np_params.items() if k != "layers"}
-    stacked = conv(np_params["layers"])
-
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i].contiguous()
 
-    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    out = {k: conv(v) for k, v in np_params.items() if k not in stacks}
+    for name, n in stacks.items():
+        stacked = conv(np_params[name])
+        out[name] = [layer(stacked, i) for i in range(n)]
     return out
 
 

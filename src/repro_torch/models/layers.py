@@ -1,9 +1,10 @@
-"""Model building blocks of the dense, ssm, hybrid and moe families:
-attention (GQA + RoPE) with prefill/decode cache paths, the SwiGLU MLP,
-the capacity-sorted MoE, the Mamba2 (SSD) block with its prefill/decode
-state paths, and RMSNorm.
+"""Model building blocks of every family of the port: attention (GQA +
+RoPE, or cross-attention over encoder states) with prefill/decode cache
+paths, the SwiGLU and GELU MLPs, the capacity-sorted MoE, the Mamba2
+(SSD) block with its prefill/decode state paths, RMSNorm and LayerNorm.
 
-The port of the dense, MoE and Mamba2 parts of :mod:`repro.models.layers`.
+The port of :mod:`repro.models.layers` (its jnp ``blocked_attention`` and
+training's backward aside).
 Every elementwise hot-spot routes through the saturated kernels in
 :mod:`repro_torch.kernels.ops`; matmuls stay plain ``@`` products, as the
 JAX package leaves them to XLA. There is no device mesh in the port yet,
@@ -44,20 +45,25 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
-def _qkv(p, x, cos, sin, cfg: ModelConfig):
+def _qkv(p, x, cos, sin, cfg: ModelConfig, kv_x=None):
+    """q from ``x``; k and v from ``kv_x`` (encoder states) where given,
+    else from ``x``. RoPE applies to self-attention only."""
+    src = x if kv_x is None else kv_x
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
-    if cos is not None:
+    k = _split_heads(src @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(src @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if cos is not None and kv_x is None:
         q = ops.rotary(q, cos[:, None], sin[:, None]).to(x.dtype)
         k = ops.rotary(k, cos[:, None], sin[:, None]).to(x.dtype)
     return q, k, v
 
 
-def attn_apply(p, x, cos, sin, cfg: ModelConfig, *, causal=True):
-    """Full-sequence self-attention."""
-    q, k, v = _qkv(p, x, cos, sin, cfg)
-    o = ops.attention(q, k, v, causal=causal)
+def attn_apply(p, x, cos, sin, cfg: ModelConfig, *, causal=True,
+               kv_x: Optional[torch.Tensor] = None):
+    """Full-sequence attention. ``kv_x`` (encoder states) makes it
+    cross-attention: k and v from ``kv_x``, no RoPE, never causal."""
+    q, k, v = _qkv(p, x, cos, sin, cfg, kv_x)
+    o = ops.attention(q, k, v, causal=causal and kv_x is None)
     return _merge_heads(o) @ p["wo"]
 
 
@@ -74,8 +80,13 @@ def attn_decode(p, x1, kv_cache, pos: int, cfg: ModelConfig,
     pos: current position. The JAX version returns an updated copy of the
     cache (``lax.dynamic_update_slice``); here the new key and value are
     written into the cache tensors in place, and the same tensors are
-    returned."""
+    returned. A ``pos`` past the cache raises ``ValueError``: the JAX
+    update clamps it to the last slot, and a torch slice past the end
+    would drop the new key and value without a word."""
     k_c, v_c = kv_cache
+    if pos >= k_c.shape[2]:
+        raise ValueError(f"attn_decode: position {pos} is past the KV "
+                         f"cache of length {k_c.shape[2]}")
     q, k1, v1 = _qkv(p, x1, cos1, sin1, cfg)
     k_c[:, :, pos:pos + 1] = k1.to(k_c.dtype)
     v_c[:, :, pos:pos + 1] = v1.to(v_c.dtype)
@@ -106,20 +117,18 @@ def attn_decode(p, x1, kv_cache, pos: int, cfg: ModelConfig,
 
 
 def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act {cfg.act!r} (the gelu MLP comes "
-                                  "with whisper, ROADMAP queue A)")
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"wg": dense_init(gen, (d, f), cfg.dtype, device),
-            "wu": dense_init(gen, (d, f), cfg.dtype, device),
-            "wd": dense_init(gen, (f, d), cfg.dtype, device,
-                             scale=init_std_out(f, cfg.n_layers))}
+    names = ("wg", "wu") if cfg.act == "swiglu" else ("wi",)
+    p = {n: dense_init(gen, (d, f), cfg.dtype, device) for n in names}
+    p["wd"] = dense_init(gen, (f, d), cfg.dtype, device,
+                         scale=init_std_out(f, cfg.n_layers))
+    return p
 
 
 def mlp_apply(p, x, cfg: ModelConfig):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act {cfg.act!r}")
-    return ops.swiglu(x @ p["wg"], x @ p["wu"]) @ p["wd"]
+    if cfg.act == "swiglu":
+        return ops.swiglu(x @ p["wg"], x @ p["wu"]) @ p["wd"]
+    return ops.gelu(x @ p["wi"]) @ p["wd"]
 
 
 # ---------------------------------------------------------------------------
@@ -336,14 +345,17 @@ def mamba_decode(p, x1, state: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 
 def norm_init(cfg: ModelConfig, device):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} (layernorm comes "
-                                  "with whisper, ROADMAP queue A)")
-    return {"g": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device)}
+    g = torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device)
+    if cfg.norm == "layernorm":
+        return {"g": g, "b": torch.zeros_like(g)}
+    return {"g": g}
 
 
 def norm_apply(p, x, cfg: ModelConfig):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}")
-    out = ops.rmsnorm(x.float(), p["g"].float())
+    """RMSNorm or LayerNorm in f32 math, cast back to ``x``'s dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        out = ops.layernorm(xf, p["g"].float(), p["b"].float())
+    else:
+        out = ops.rmsnorm(xf, p["g"].float())
     return out.to(x.dtype)

@@ -1,13 +1,13 @@
-"""Decoder-only language models: the dense GQA, MoE, Mamba2 SSD and
-Zamba2 hybrid families.
+"""Decoder-only language models: the dense GQA, MoE, Mamba2 SSD, Zamba2
+hybrid and Qwen2-VL (vlm) families.
 
-The port of the dense, moe, ssm and hybrid families of
-:mod:`repro.models.lm`. The API follows the JAX ``LM``:
+The port of :mod:`repro.models.lm`. The API follows the JAX ``LM``:
 
   init(seed) -> params
-  forward(params, tokens) -> (hidden, aux) / logits(params, tokens)
+  forward(params, tokens, positions3=None) -> (hidden, aux)
+  logits(params, tokens, positions3=None)
   init_cache(batch, max_seq) -> cache
-  prefill(params, tokens) -> (logits, cache)
+  prefill(params, tokens, positions3=None, max_seq=None) -> (logits, cache)
   decode_step(params, cache, token) -> (logits, cache)
 
 ``lax.scan`` over the stacked layers becomes a Python loop over a list of
@@ -15,8 +15,13 @@ per-layer parameter dicts; the hybrid's groups of ``shared_attn_every``
 Mamba2 layers, each followed by the one shared attention+MLP block, are
 a loop over the groups. The decode cache (the KV cache, the conv
 histories and SSM states, or both for the hybrid) is updated in place.
-The vlm and encdec families raise ``NotImplementedError``: they are
-item 11 of ROADMAP queue A.
+
+The vlm family is the dense stack with M-RoPE: ``positions3`` (3, B, S)
+gives each token its (t, h, w) position (the vision frontend is a stub in
+both packages), and without it every axis takes the token's index (1-D
+RoPE). Decode takes 1-D positions from ``cache["pos"]``, as the JAX
+model does. The encoder-decoder family is :class:`repro_torch.models.
+whisper.EncDecLM`.
 """
 from __future__ import annotations
 
@@ -25,23 +30,20 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import layers as L
-from .common import ModelConfig, dense_init, resolve_device, rope_cos_sin
+from .common import (ModelConfig, dense_init, mrope_cos_sin, resolve_device,
+                     rope_cos_sin)
 
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "vlm": "ROADMAP queue A item 11 (the other families: VLM)",
-    "encdec": "ROADMAP queue A item 11 (the other families: whisper)",
-}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 class LM:
-    """Dense, MoE, Mamba2 or hybrid decoder-only LM on one device."""
+    """Dense, MoE, Mamba2, hybrid or VLM decoder-only LM on one device."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family not in _PORTED:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet: "
-                f"{_NOT_PORTED.get(cfg.family, 'ROADMAP queue A')}")
+        if cfg.family not in _FAMILIES:
+            raise ValueError(
+                f"family {cfg.family!r} is not a decoder-only LM (encdec: "
+                "repro_torch.models.whisper.EncDecLM, or get_model)")
         if cfg.family == "hybrid" and (
                 cfg.shared_attn_every <= 0
                 or cfg.n_layers % cfg.shared_attn_every):
@@ -97,10 +99,24 @@ class LM:
         return [range(i, i + k) for i in range(0, self.cfg.n_layers, k)]
 
     # -- rope ---------------------------------------------------------------------
-    def _cos_sin(self, positions: torch.Tensor):
+    def _cos_sin(self, positions: torch.Tensor, batch_positions=None):
+        """cos/sin (1, S, hd), or (B, S, hd) from vlm ``batch_positions``
+        (3, B, S)."""
         cfg = self.cfg
+        if cfg.family == "vlm":
+            pos3 = batch_positions
+            if pos3 is None:
+                pos3 = positions[None, None, :].expand(3, 1, -1)
+            return mrope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta,
+                                 cfg.mrope_sections)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         return cos[None], sin[None]       # (1, S, hd)
+
+    def _check_positions3(self, positions3):
+        """Every family but vlm refuses M-RoPE positions."""
+        if positions3 is not None and self.cfg.family != "vlm":
+            raise ValueError(f"positions3 is for the vlm family, not "
+                             f"{self.cfg.family!r}")
 
     # -- forward (full sequence) ------------------------------------------------------
     def _mlp_or_moe(self, lp, h):
@@ -120,9 +136,10 @@ class LM:
         y, aux = self._mlp_or_moe(lp, h)
         return h + y, aux
 
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, positions3=None):
         """tokens (B, S) -> (final hidden (B, S, D), aux loss), aux the sum
         of the MoE layers' load-balancing losses (0 for the others)."""
+        self._check_positions3(positions3)
         cfg = self.cfg
         h = params["embed"][tokens]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -132,7 +149,7 @@ class LM:
                                       L.norm_apply(lp["ln1"], h, cfg), cfg)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         cos, sin = self._cos_sin(torch.arange(tokens.shape[1],
-                                              device=h.device))
+                                              device=h.device), positions3)
         if cfg.family == "hybrid":
             for group in self._groups():
                 for i in group:
@@ -152,8 +169,8 @@ class LM:
             return params["embed"].T
         return params["unembed"]
 
-    def logits(self, params, tokens):
-        h, _ = self.forward(params, tokens)
+    def logits(self, params, tokens, positions3=None):
+        h, _ = self.forward(params, tokens, positions3)
         return h.float() @ self._unembed(params).float()
 
     # -- caches ------------------------------------------------------------------------
@@ -202,10 +219,13 @@ class LM:
         return h + L.mamba_apply(lp["mamba"], L.norm_apply(lp["ln1"], h, cfg),
                                  cfg, state=self._layer_state(cache, i))
 
-    def prefill(self, params, tokens, max_seq: Optional[int] = None):
+    def prefill(self, params, tokens, positions3=None,
+                max_seq: Optional[int] = None):
         """Full-sequence pass building a decode cache; returns last logits
-        (B, 1, V). ``max_seq`` reserves KV-cache room for decode growth
-        (default S+256; the ssm state has a fixed size)."""
+        (B, 1, V). ``positions3`` (vlm): M-RoPE positions (3, B, S).
+        ``max_seq`` reserves KV-cache room for decode growth (default
+        S+256; the ssm state has a fixed size)."""
+        self._check_positions3(positions3)
         cfg = self.cfg
         B, S = tokens.shape
         max_seq = max_seq or (S + 256)
@@ -218,7 +238,8 @@ class LM:
             for i, lp in enumerate(params["layers"]):
                 h = self._mamba_prefill(lp, h, cache, i)
         else:
-            cos, sin = self._cos_sin(torch.arange(S, device=h.device))
+            cos, sin = self._cos_sin(torch.arange(S, device=h.device),
+                                     positions3)
             if cfg.family == "hybrid":
                 for g, group in enumerate(self._groups()):
                     for i in group:

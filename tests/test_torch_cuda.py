@@ -381,3 +381,119 @@ def test_family_smoke_server_on_the_card_matches_cpu(arch, cuda):
     n_attn = cfg.n_layers // cfg.shared_attn_every \
         if cfg.family == "hybrid" else cfg.n_layers
     assert flash_attention.launches == before + n_attn
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+@pytest.mark.parametrize("d", [128, 80])
+@pytest.mark.parametrize("S", [1, 63, 65])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_rotary_per_batch_tables(B, S, d, emitter, cuda):
+    """M-RoPE's per-batch cos/sin (B, 1, S, d) against q (B, 3, S, d),
+    read in place, at the layouts of the CPU executor test
+    (tests/test_torch_tile_exec.py)."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * B + S + d)
+    lead = (B, 3, S, d)
+    q = torch.randn(lead, generator=gen, device=cuda)
+    cos, sin = (torch.randn((B, 1, S, d), generator=gen, device=cuda)
+                for _ in range(2))
+    # the plan's kinds: a cycle offset by the batch row; at B 1 a plain
+    # cycle, or one broadcast row at S 1
+    if B > 1:
+        kinds = ("row", "bcycle", "bcycle")
+    else:
+        kinds = ("row",) + (("cycle",) * 2 if S > 1 else ("bcast",) * 2)
+    op = get_tile_op("rotary", emitter=emitter)
+    before = op.launches
+    by_kinds = op.launches_by_kinds[kinds]
+    _close(op.apply(q, cos, sin),
+           op.torch_ref(q, cos.expand(lead), sin.expand(lead)), 2e-5)
+    assert op.launches == before + 1
+    assert op.launches_by_kinds[kinds] == by_kinds + 1
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_qwen2vl_and_whisper_tile_shapes(emitter, cuda):
+    """rotary at qwen2-vl's q and k (bf16, 12 and 2 heads of 128) against
+    f32 per-batch cos/sin at a ragged 510 positions; layernorm (f32,
+    d 768) and gelu (bf16, d 3072) at whisper's prefill and decode rows;
+    rmsnorm (f32, d 1536) and swiglu (bf16, d 8960) at qwen2-vl's."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    rot = get_tile_op("rotary", emitter=emitter)
+    for heads in (12, 2):
+        lead = (4, heads, 510, 128)
+        q = torch.randn(lead, generator=gen, device=cuda).bfloat16()
+        cos, sin = (torch.randn((4, 1, 510, 128), generator=gen,
+                                device=cuda) for _ in range(2))
+        _close(rot.apply(q, cos, sin),
+               rot.torch_ref(q, cos.expand(lead), sin.expand(lead)), 3e-2)
+    ln = get_tile_op("layernorm", emitter=emitter)
+    gelu = get_tile_op("gelu", emitter=emitter)
+    for rows in (2040, 4):
+        x, g, b = (torch.randn(shape, generator=gen, device=cuda)
+                   for shape in ((rows, 768), (768,), (768,)))
+        _close(ln.apply(x, g, b, eps=1e-6),
+               ln.torch_ref(x, g.expand(x.shape), b.expand(x.shape),
+                            eps=1e-6), 2e-5)
+        a = torch.randn((rows, 3072), generator=gen, device=cuda).bfloat16()
+        _close(gelu.apply(a), gelu.torch_ref(a), 3e-2)
+    # qwen2-vl's rmsnorm (f32, d 1536) and swiglu (bf16, d_ff 8960)
+    rms = get_tile_op("rmsnorm", emitter=emitter)
+    swiglu = get_tile_op("swiglu", emitter=emitter)
+    for rows in (2040, 4):
+        x = torch.randn((rows, 1536), generator=gen, device=cuda)
+        g = torch.randn((1536,), generator=gen, device=cuda)
+        _close(rms.apply(x, g, eps=1e-6),
+               rms.torch_ref(x, g.expand(x.shape), eps=1e-6), 2e-5)
+        a, b = (torch.randn((rows, 8960), generator=gen, device=cuda)
+                .bfloat16() for _ in range(2))
+        _close(swiglu.apply(a, b), swiglu.torch_ref(a, b), 3e-2)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 510])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_whisper_and_qwen2vl_shapes(S, causal, cuda):
+    """whisper's MHA 12/12 at head_dim 64, non-causal (the encoder and
+    cross-attention) and causal (the decoder), and qwen2-vl's GQA 12/2 at
+    head_dim 128, at the bf16 kernel's tile edges and a 510-token
+    prompt."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    for kh, d in ((12, 64), (2, 128)):
+        q = torch.randn((2, 12, S, d), generator=gen, device=cuda).bfloat16()
+        k = torch.randn((2, kh, S, d), generator=gen, device=cuda).bfloat16()
+        v = torch.randn((2, kh, S, d), generator=gen, device=cuda).bfloat16()
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        _close(got, flash_attention_plain(q, k, v, causal=causal), 5e-2)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-small"])
+def test_new_family_smoke_server_on_the_card_matches_cpu(arch, cuda):
+    """The vlm and encdec smoke configs in f32: one short request's greedy
+    tokens on the card (flash and tile kernels) equal those on the CPU
+    (plain versions)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cpu = Server(arch, device="cpu")
+    gpu = Server(arch, device=cuda)
+    for srv in (cpu, gpu):
+        srv.cfg, srv.model = cfg, get_model(cfg, device=srv.device)
+        srv._decode = srv.model.decode_step
+    cpu.params = cpu.model.init(0)
+    gpu.params = _to(cpu.params, cuda)
+    prompt = np.random.default_rng(0).integers(1, cfg.vocab, size=24)
+    before = flash_attention.launches
+    want = cpu.generate([Request(0, prompt.astype(np.int32), 6)])
+    got = gpu.generate([Request(0, prompt.astype(np.int32), 6)])
+    assert got == want
+    # one prefill: a flash launch per attention (whisper: the encoder's
+    # self-attention, the decoder's self- and cross-attention)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers \
+        if cfg.family == "encdec" else cfg.n_layers
+    assert flash_attention.launches == before + n_attn

@@ -90,3 +90,46 @@ def test_server_tokens_match_jax(pair):
     assert srv.metrics["prefills"] == 2 and srv.metrics["tokens"] == 3 * 4
     guard = srv.metrics["saturation"]["guard"]
     assert sum(guard["runtime_fallbacks"].values()) == 0
+
+
+def test_decode_up_to_the_cache_end_matches_jax_then_raises(pair):
+    """A prefill that reserves two decode positions (max_seq = S + 2): the
+    two ticks that fill them match the JAX model's; the third, at
+    position == cache length, raises instead of dropping its key and
+    value (JAX clamps it onto the last slot)."""
+    _, jmodel, jparams, cfg, model, params = pair
+    rng = np.random.default_rng(5)
+    S = 8
+    tokens = rng.integers(1, cfg.vocab, size=(2, S)).astype(np.int32)
+    jl, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), max_seq=S + 2)
+    tl, cache = model.prefill(params, torch.from_numpy(tokens).long(),
+                              max_seq=S + 2)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    jdecode = jax.jit(jmodel.decode_step)
+    for step in range(2):
+        nxt = rng.integers(1, cfg.vocab, size=(2, 1)).astype(np.int32)
+        jl, jcache = jdecode(jparams, jcache, jnp.asarray(nxt))
+        tl, cache = model.decode_step(params, cache,
+                                      torch.from_numpy(nxt).long())
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   err_msg=f"decode step {step}")
+    with pytest.raises(ValueError, match=f"position {S + 2} is past the KV "
+                                         f"cache of length {S + 2}"):
+        model.decode_step(params, cache, torch.ones((2, 1), dtype=torch.long))
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "dbrx-132b", "zamba2-2.7b",
+                                  "qwen2-vl-2b", "whisper-small"])
+def test_every_attention_family_refuses_decode_past_the_cache(arch):
+    """Every family that decodes attention goes through attn_decode: at
+    position == cache length a tick raises ValueError."""
+    from repro_torch.models import get_model
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg, device="cpu")
+    params = model.init(0)
+    tokens = torch.arange(1, 7).reshape(1, 6)
+    _, cache = model.prefill(params, tokens, max_seq=7)
+    _, cache = model.decode_step(params, cache, tokens[:, :1])
+    assert cache["pos"] == 7
+    with pytest.raises(ValueError, match="past the KV cache"):
+        model.decode_step(params, cache, tokens[:, :1])

@@ -424,6 +424,67 @@ def test_rotary_kernel_matches_pallas_interpret(emitter, dt, standin):
 
 
 @pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("d", [128, 80])
+@pytest.mark.parametrize("S", [1, 63, 65])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_rotary_per_batch_tables(B, S, d, emitter, standin):
+    """M-RoPE's per-batch cos/sin: one (S, d) table per batch row, passed
+    as (B, 1, S, d) against q of (B, H, S, d), read in place (a cycle of
+    period S offset by the batch row; a plain cycle at B 1), against the
+    plain version and the JAX package's Pallas op in interpret mode on
+    the tables broadcast to q's shape (f32). At B 1 the table is a plain
+    cycle, or a broadcast row at S 1."""
+    H = 3
+    lead = (B, H, S, d)
+    q, cos, sin = _rope(lead, (B, 1, S, d), torch.float32, 10 * B + S + d)
+    op = get_tile_op("rotary", emitter=emitter)
+    got, plan = _run(op.tk, (q, cos, sin), {})
+    if B > 1:
+        assert plan.kinds == ("row", "bcycle", "bcycle")
+        assert plan.spans[1:] == (H * S, H * S)
+    else:   # one table: a cycle, or one broadcast row at S 1
+        assert plan.kinds[1:] == (("cycle",) * 2 if S > 1 else ("bcast",) * 2)
+    if plan.kinds[1] != "bcast":
+        assert plan.n_pos == S and plan.grid[0] == B * H
+    _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)),
+           TOL[torch.float32])
+    want = jax_tile_op("rotary").apply(
+        *(jnp.asarray(t.expand(lead).numpy()) for t in (q, cos, sin)),
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_rotary_per_batch_path_dtypes(emitter, standin):
+    """qwen2-vl's call: bf16 q and k (12 and 2 heads of 128) against f32
+    per-batch cos/sin, a ragged 510 positions, 4 batch rows."""
+    op = get_tile_op("rotary", emitter=emitter)
+    for heads in (12, 2):
+        lead = (4, heads, 510, 128)
+        q, cos, sin = _rope(lead, (4, 1, 510, 128), torch.bfloat16, heads)
+        got, plan = _run(op.tk, (q, cos, sin), {})
+        assert plan.kinds == ("row", "bcycle", "bcycle")
+        _close(got, op.torch_ref(q, cos.expand(lead), sin.expand(lead)),
+               TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("name,d,dtype", [
+    ("rmsnorm", 1536, torch.float32), ("swiglu", 8960, torch.bfloat16)],
+    ids=["rmsnorm-1536-f32", "swiglu-8960-bf16"])
+def test_qwen2vl_widths(name, d, dtype, emitter, standin):
+    """qwen2-vl's rmsnorm (f32, as norm_apply runs it) and swiglu (bf16,
+    d_ff 8960: a ragged last column block) at a few prefill rows."""
+    xs, sc = _tile_inputs(name, 5, d, dtype, np.random.default_rng(d))
+    op = get_tile_op(name, emitter=emitter)
+    got, _ = _run(op.tk, xs, sc)
+    _close(got, op.torch_ref(*(x.expand(xs[0].shape) for x in xs), **sc),
+           TOL[dtype])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
 @pytest.mark.parametrize("shape", [(37, 200), (4, 3, 9, 32)])
 def test_rothalf_with_reductions(shape, emitter, standin):
     """A program with both rothalf and the three reductions: each

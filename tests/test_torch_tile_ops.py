@@ -213,6 +213,31 @@ def test_plan_tile_call_kinds():
         plan_tile_call(tk, [(4, 6, 127), (6, 127), (6, 127)])
 
 
+def test_plan_tile_call_per_batch_tables():
+    """M-RoPE's per-batch cos/sin (B, 1, S, d) against q (B, H, S, d): a
+    cycle of period S offset by the batch row (span H·S), launched over
+    positions as a cycle is, and read in place at
+    ``(row // span) * S + position``."""
+    tk = get_tile_op("rotary").tk
+    plan = plan_tile_call(tk, [(4, 12, 512, 128), (4, 1, 512, 128),
+                               (4, 1, 512, 128)])
+    assert plan.kinds == ("row", "bcycle", "bcycle")
+    assert plan.periods[1:] == (512, 512) and plan.spans == (0, 6144, 6144)
+    assert plan.n_pos == 512 and plan.grid == (48, 512 // CYCLE_BLOCK_R, 1)
+    # one table per batch row at one position (a prefill of one token)
+    one = plan_tile_call(tk, [(3, 2, 1, 128), (3, 1, 1, 128),
+                              (3, 1, 1, 128)])
+    assert one.kinds[1:] == ("bcycle", "bcycle") and one.spans[1:] == (2, 2)
+    src = tk.render(plan.kinds)
+    assert ("cos_off = ((_rows // cos_span) * cos_period + _pos % "
+            "cos_period) * D + _cols") in src
+    assert "'cos_span', 'sin_span']" in src and "for " not in src
+    # a table that varies over the heads but not the batch stays refused
+    with pytest.raises(ValueError, match="does not tile"):
+        plan_tile_call(tk, [(4, 12, 8, 128), (1, 12, 1, 128),
+                            (1, 12, 1, 128)])
+
+
 def test_emission_failure_degrades_and_keeps_cpu_path():
     """Ladder contract: a program the Triton emitter cannot take builds a
     degraded op (no kernel, degradation recorded) whose CPU path still
