@@ -20,21 +20,24 @@ Server at full width with random seeded weights:
 * dbrx-132b at full width (d_model 6144, 48/8 heads, 16 experts of d_ff
   10752, top 4, vocab 100,352) and 4 of its 40 layers, the depth one
   80 GB card holds: serve, parity of a prefill and two decode ticks of
-  its first 2 layers in f32, a trace;
+  its first 2 layers in f32, the pipelined prefill, a trace;
 * qwen2-vl-2b (28 layers, d_model 1536, 12/2 heads of 128, M-RoPE):
   serve, a prefill with per-batch vision positions (the rotary kernel on
   one cos/sin table per batch row) checked against the plain path,
   parity of that prefill and two decode ticks in f32, a trace;
 * whisper-small (12 encoder + 12 decoder layers, d_model 768, 12 heads
   of 64, LayerNorm + GELU; the encoder and cross-attention non-causal):
-  serve, parity of a prefill and two decode ticks in f32, a trace.
+  serve, parity of a prefill and two decode ticks in f32, the pipelined
+  prefill, a trace.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
-kernels on the paths also report their shared memory, registers and the
-width of each global load, store and async copy in their PTX, and each
-is checked and timed at its decode shape too (rotary also at k in
-prefill and at a 510-token prompt). Each phase prints one JSON line;
+kernels on the paths also report their launch plan (rows and column
+pieces a program, grid, warps), shared memory, registers and the width
+of each global load, store and async copy in their PTX, and each is
+checked and timed at its decode shape too (rotary also at k in prefill
+and at a 510-token prompt; the router also at arctic's 128 experts, on
+no path yet). Each phase prints one JSON line;
 the line before the last lists every kernel, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -64,9 +67,10 @@ FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
 CUDA_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 PIPELINED = "triton_pipelined"
-# the tile ops whose pipelined kernels a path drives (the minitron and
-# mamba2 prefills under ops.set_tile_emitter)
-PIPELINED_OPS = ("rmsnorm", "rotary", "swiglu", "rmsnorm_gated")
+# the tile ops whose pipelined kernels a path drives (the minitron,
+# mamba2, dbrx and whisper prefills under ops.set_tile_emitter)
+PIPELINED_OPS = ("rmsnorm", "rotary", "swiglu", "rmsnorm_gated",
+                 "moe_router", "layernorm", "gelu")
 # Last-position logits of the full-width prefill, kernels vs plain
 # versions. Both run the same bf16 model; they differ only where values
 # are rounded to bf16 (the kernels compute in f32 and round once; the
@@ -153,6 +157,8 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 * 2**20, dtype=torch.uint8,
                                  device="cuda")
+        self.profiler = {"sessions": 0, "empty": 0, "launches_made": 0,
+                         "launches_recorded": 0, "seen_when_empty": []}
 
     def ms(self, fn, iters=20, warmup=3):
         torch = self.torch
@@ -171,26 +177,42 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
-    def device_ms(self, fn, kernel, iters=10):
+    def device_ms(self, fn, kernel, iters=10, sessions=3):
         """Device time per call of ``fn`` in the kernels whose name
-        contains ``kernel`` (summed where a call launches several, as the
-        SSD scan's two), each call after the L2 flush, from
-        torch.profiler: the kernels alone, without the launch and event
-        costs that ``ms`` includes."""
+        contains ``kernel`` (summed over names where a call launches
+        several, as the SSD scan's two), each call after the L2 flush,
+        from torch.profiler: the kernels alone, without the launch and
+        event costs that ``ms`` includes. A profiler session can lose some
+        or all of a kernel's records, so each name's time is averaged over
+        the launches it recorded, and a session that recorded none is
+        repeated, up to ``sessions`` sessions; ``self.profiler`` counts
+        the sessions, the launches made and recorded, and keeps what the
+        first few empty sessions saw."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
+        log = self.profiler
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if kernel in e.key]
-        if not sum(e.count for e in evs):
-            return None
-        return sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in evs) / iters / 1e3
+        for _ in range(sessions):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            avg = prof.key_averages()
+            evs = [e for e in avg if kernel in e.key and e.count]
+            log["sessions"] += 1
+            log["launches_made"] += iters
+            log["launches_recorded"] += min((e.count for e in evs),
+                                            default=0)
+            if evs:
+                return sum(getattr(e, "self_device_time_total", 0.0)
+                           / e.count for e in evs) / 1e3
+            log["empty"] += 1
+            if len(log["seen_when_empty"]) < 3:
+                log["seen_when_empty"].append(
+                    {"kernel": kernel, "keys": {e.key: e.count for e in avg}})
+        return None
 
 
 def phase_env(torch):
@@ -323,7 +345,7 @@ def _compiled_info(op, args, sc):
                                             prepare_tile_call)
     plan, ins, outs = prepare_tile_call(op.tk, args, op.name)
     return _kernel_info(launch_tile_kernel(
-        op.tk.compiled(plan.kinds), plan, ins, outs,
+        op.tk.compiled(plan.layout), plan, ins, outs,
         [float(sc[s]) for s in op.tk.scalars]))
 
 
@@ -350,6 +372,7 @@ def phase_kernels(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.core.tritongen import plan_tile_call
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
@@ -410,9 +433,15 @@ def phase_kernels(torch, timer):
                      TILE_TOL[str(args[0].dtype)[6:]], checks)
         bound, by = _tile_bound(op, args)
         dst = torch.empty_like(args[0])
+        plan = plan_tile_call(op.tk, [a.shape for a in args])
         row = {
             "shape": [list(a.shape) for a in args],
             "dtype": str(args[0].dtype)[6:], "max_abs_err": err,
+            # the launch: rows and column pieces a program, grid, warps
+            "plan": {"block_r": plan.block_r, "block_d": plan.block_d,
+                     "pieces": list(plan.pieces), "grid": list(plan.grid),
+                     "num_warps": plan.num_warps,
+                     "persistent": plan.persistent},
             "ms": timer.ms(lambda: op.apply(*args, **sc)),
             # the profiler's duration of the kernel itself
             "device_ms": timer.device_ms(lambda: op.apply(*args, **sc),
@@ -465,6 +494,8 @@ def phase_kernels(torch, timer):
     ex_a, ex_b = randn(16, 640, 10752, dtype=bf), randn(16, 640, 10752,
                                                          dtype=bf)
     logits_d = randn(4, 1, 16)      # the router at a decode tick
+    # the router at arctic's 128 experts: not on a path yet (A11.3)
+    logits_a = randn(2048, 128)
     # qwen2-vl-2b's M-RoPE with vision positions: one f32 cos/sin table
     # per batch row, (4, 1, 512, 128), against bf16 q (12 heads) and k (2)
     from repro_torch.models.common import mrope_cos_sin
@@ -530,7 +561,10 @@ def phase_kernels(torch, timer):
                                       randn(5120, dtype=bf)), {"eps": 1e-6},
                                      None)},
         "moe_router": {"decode": ((logits_d,), {},
-                                  lambda: torch.softmax(logits_d, -1))},
+                                  lambda: torch.softmax(logits_d, -1)),
+                       "arctic_not_on_a_path": (
+                           (logits_a,), {},
+                           lambda: torch.softmax(logits_a, -1))},
         "layernorm": {"decode": ((xld, gld, bld), {"eps": 1e-6},
                                  lambda: F.layer_norm(xld, (768,), gld, bld,
                                                       1e-6))},
@@ -698,7 +732,8 @@ def phase_kernels(torch, timer):
     one = torch.zeros(1, device="cuda")
     floor = timer.ms(lambda: one.copy_(x[0, :1]))
     emit({"phase": "kernels", "checks": checks, "timings": rows,
-          "other_programs": others, "timer_floor_ms": floor})
+          "other_programs": others, "timer_floor_ms": floor,
+          "profiler": timer.profiler})
     bad = [c["name"] for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
@@ -1159,6 +1194,13 @@ def main() -> int:
                          n_layers=DBRX_PARITY_LAYERS)
         gc.collect()
         torch.cuda.empty_cache()
+        sync_logits = srv.model.prefill(srv.params, tokens)[0]
+        for name, n in phase_pipelined(
+                torch, srv, tokens, sync_logits,
+                ("rmsnorm", "rotary", "swiglu", "moe_router"),
+                "pipelined_dbrx").items():
+            piped[name] = piped.get(name, 0) + n
+        del sync_logits
         phase_trace(torch, srv, tokens, "trace_dbrx")
         del srv
         gc.collect()
@@ -1200,6 +1242,12 @@ def main() -> int:
                              .manual_seed(0), device="cuda")
         phase_parity_f32(torch, srv, tokens, "parity_whisper",
                          WHISPER_PARITY_TOL, prefill_arg=frames)
+        sync_logits = srv.model.prefill(srv.params, tokens)[0]
+        for name, n in phase_pipelined(
+                torch, srv, tokens, sync_logits, ("layernorm", "gelu"),
+                "pipelined_whisper").items():
+            piped[name] = piped.get(name, 0) + n
+        del sync_logits
         phase_trace(torch, srv, tokens, "trace_whisper")
     except Exception:
         traceback.print_exc()

@@ -15,8 +15,18 @@ One program instance owns ``BLOCK_R`` rows × ``BLOCK_D`` columns of the
   schedule's order — in bulk mode every load precedes the first compute;
 * an operand that :func:`plan_tile_call` calls a broadcast row is loaded
   once per program, at column offsets only;
-* ``rsum``/``rmean``/``rmax`` mask at the reduction (neutral 0, or −inf
-  for the max) and ``rmean`` divides by the true ``d``;
+* ``rsum``/``rmean``/``rmax`` mask padded lanes at the reduction
+  (neutral 0, or −inf for the max) and ``rmean`` divides by the true
+  ``d``;
+* a program with a reduction is emitted as a template over column
+  *pieces*: every tile value is a tuple of ``(BLOCK_R, w)`` tiles whose
+  widths are powers of two (``$p`` in a template line stands for the
+  piece, ``$rsum[x]`` for a reduction over all of them). The plan picks
+  the pieces by shape: a row of 768 is two pieces, 512 + 256, each
+  loaded, computed and stored with no masked column lane, and a
+  reduction combines the pieces' partial results; a width that is no
+  sum of at most :data:`MAX_PIECES` powers of two is one masked piece of
+  ``next_pow2(d)``;
 * a program that uses ``rothalf`` is emitted in *half tiles*: every tile
   value is a pair of ``(BLOCK_R, BLOCK_D // 2)`` halves, columns
   ``[0, d/2)`` and ``[d/2, d)``. A load or store is two contiguous half
@@ -45,9 +55,12 @@ most a last-axis reduction, so bytes (each input read once, each output
 written once over 3.35 TB/s) bound it, not operations. The design keeps
 the traffic at that minimum: one pass over each operand, broadcast rows
 read once per program, no intermediate in device memory. Programs with a
-reduction hold a whole row per program (``BLOCK_D = next_pow2(d)``);
-the others also tile columns, so a wide ``d`` (9216 for swiglu) does not
-waste masked lanes up to the next power of two.
+reduction hold whole rows, few a program, so that the grid holds at
+least :data:`REDUCE_PROGRAMS_PER_SM` programs per SM where the rows
+allow: many resident programs overlap one's stores with another's loads,
+where a register-sized block left a router softmax 4 programs for 132
+SMs. The others also tile columns, so a wide ``d`` (9216 for swiglu)
+does not waste masked lanes up to the next power of two.
 
 The ``"triton_pipelined"`` emitter (:class:`TritonPipelinedGenerator`)
 replaces the TPU's pipelined tile kernel, ``PipelinedPallasGenerator``
@@ -57,9 +70,10 @@ scheduled slot and waited on at its first consumer, two semaphores
 alternating. On Hopper the same overlap is a persistent kernel: a grid
 of at most :data:`PROGRAMS_PER_SM` programs per SM, each walking its
 blocks in ``tl.range(..., num_stages=2)``, so Triton's software pipeliner
-keeps the loads of the next block in flight while this one computes. A
-cycle layout is the exception: its pipelined form launches the sync
-kernel's grid with no loop, because a persistent walk over its small
+keeps the loads of the next block in flight while this one computes.
+Where the blocks fit in that grid, and for a cycle layout, the pipelined
+form launches the sync kernel's grid with no loop: a walk of one block
+has nothing to pipeline, and a persistent walk over a cycle's small
 blocks measured slower on the H100, so nothing there is double-buffered
 beyond what the resident programs overlap. The loop body is the sync
 kernel's, under the same extraction and an explicit schedule, with loads
@@ -67,7 +81,8 @@ issued in the schedule's order; the sync kernel generated under that
 schedule is kept beside it as its twin.
 
 The source is generated once per program and compiled by Triton at the
-first launch for each operand layout; ``triton`` is imported only there.
+first launch for each layout (operand kinds, pieces, persistent walk);
+``triton`` is imported only there.
 """
 from __future__ import annotations
 
@@ -76,6 +91,7 @@ import hashlib
 import importlib.util
 import math
 import os
+import re
 import threading
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -114,8 +130,23 @@ CYCLE_BLOCK_R = 16
 CYCLE_NUM_WARPS = 4
 # CUDA's limit on a grid's second and third axes
 MAX_GRID_YZ = 65535
+# Programs with a reduction (outside cycle layouts), chosen on the H100
+# (tools/tile_time.py): a row block of at most REDUCE_TILE_ELEMS elements
+# (a persistent walk's block TILE_ELEMS_BUDGET), halved until the grid
+# holds REDUCE_PROGRAMS_PER_SM programs per SM where the rows allow; a
+# warp for each REDUCE_WARP_ELEMS elements of the block where the grid
+# fills the card, for half as many where it does not (a decode tick), at
+# most REDUCE_MAX_WARPS; widths that are a sum of at most MAX_PIECES
+# powers of two are emitted in pieces, with no masked column lane.
+REDUCE_TILE_ELEMS = 2048
+REDUCE_PROGRAMS_PER_SM = 2
+REDUCE_WARP_ELEMS = 768
+REDUCE_MAX_WARPS = 8
+MAX_PIECES = 2
 
 _REDUCTIONS = ("rsum", "rmean", "rmax")
+# a template's reduction over all pieces of a tile value: $rsum[x]
+_REDUCE_MARK = re.compile(r"\$(rsum|rmean|rmax)\[(.*?)\]")
 
 _UNARY_FMT = {
     "neg": "(-{0})",
@@ -131,19 +162,6 @@ _UNARY_FMT = {
     "recip": "(1.0 / {0})",
     "floor": "tl.floor({0})",
     "square": "({0} * {0})",
-    "rsum": "tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]",
-    "rmean": "(tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None] / D)",
-    "rmax": "tl.max(tl.where(_mask, {0}, float(\"-inf\")), axis=1)[:, None]",
-}
-# reductions of a half-tile pair (lo, hi) over both halves
-_HALF_REDUCE_FMT = {
-    "rsum": "(tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]"
-            " + tl.sum(tl.where(_mask, {1}, 0.0), axis=1)[:, None])",
-    "rmean": "((tl.sum(tl.where(_mask, {0}, 0.0), axis=1)[:, None]"
-             " + tl.sum(tl.where(_mask, {1}, 0.0), axis=1)[:, None]) / D)",
-    "rmax": "tl.maximum(tl.max(tl.where(_mask, {0}, float(\"-inf\")), "
-            "axis=1)[:, None], tl.max(tl.where(_mask, {1}, "
-            "float(\"-inf\")), axis=1)[:, None])",
 }
 _BIN_FMT = {
     "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -162,11 +180,60 @@ _CALL_OPS = {"exp", "log", "sqrt", "rsqrt", "abs", "sigmoid", "floor",
              "tanh", "min", "max", "fma"}
 
 
+def _reduce_expr(op: str, parts: Sequence[Tuple[str, str]],
+                 masked: bool) -> str:
+    """A row reduction over the column pieces of one tile value, ``parts``
+    as (value, piece suffix): each piece's partial result, combined.
+    ``masked`` pieces hold padded lanes, set to the neutral value (0, or
+    −inf for the max) first; ``rmean`` divides by the true width ``D``."""
+    neutral = 'float("-inf")' if op == "rmax" else "0.0"
+    red = "tl.max" if op == "rmax" else "tl.sum"
+    terms = [f"{red}(tl.where(_mask{s}, {x}, {neutral}), axis=1)[:, None]"
+             if masked else f"{red}({x}, axis=1)[:, None]"
+             for x, s in parts]
+    if op == "rmax":
+        expr = terms[0]
+        for t in terms[1:]:
+            expr = f"tl.maximum({expr}, {t})"
+        return expr
+    expr = terms[0] if len(terms) == 1 else f"({' + '.join(terms)})"
+    return f"({expr} / D)" if op == "rmean" else expr
+
+
+def _suffixes(n_pieces: int) -> List[str]:
+    """The names' suffix of each column piece (none for one piece)."""
+    return [""] if n_pieces == 1 else [f"_p{i}" for i in range(n_pieces)]
+
+
+def _expand(template: Sequence[str], n_pieces: int, masked: bool
+            ) -> List[str]:
+    """A template body for ``n_pieces`` column pieces: a line holding
+    ``$p`` is repeated once per piece (suffix ``_p{i}``, none for one
+    piece), and ``$rsum[x]`` (``rmean``, ``rmax``) becomes the reduction
+    over the pieces of ``x``."""
+    sfx = _suffixes(n_pieces)
+    out = []
+    for ln in template:
+        m = _REDUCE_MARK.search(ln)
+        if m:
+            parts = [(m.group(2).replace("$p", s), s) for s in sfx]
+            out.append(ln[:m.start()] + _reduce_expr(m.group(1), parts,
+                                                      masked)
+                       + ln[m.end():])
+        elif "$p" in ln:
+            out += [ln.replace("$p", s) for s in sfx]
+        else:
+            out.append(ln)
+    return out
+
+
 @dataclasses.dataclass
 class TritonKernel:
     """One saturated tile program as a Triton kernel source."""
     name: str
-    body: List[str]            # the saturated body, kind-independent
+    # the saturated body, layout-independent: a template over column
+    # pieces (see the module docstring) unless it is in half tiles
+    template: List[str]
     in_arrays: List[str]
     out_arrays: List[str]
     scalars: List[str]
@@ -180,7 +247,7 @@ class TritonKernel:
     # with the sync kernel of the same schedule as its twin
     pipelined: bool = False
     twin: Optional["TritonKernel"] = None
-    _compiled: Dict[Tuple[str, ...], Any] = dataclasses.field(
+    _compiled: Dict[Tuple[Any, ...], Any] = dataclasses.field(
         default_factory=dict, repr=False)
     _lock: Any = dataclasses.field(default_factory=threading.Lock,
                                    repr=False)
@@ -190,15 +257,29 @@ class TritonKernel:
         return f"{self.name}_kernel"
 
     @property
+    def body(self) -> List[str]:
+        """The body in one masked piece (the layout of ``source``)."""
+        return _expand(self.template, 1, masked=True)
+
+    @property
     def source(self) -> str:
         """The kernel source for all-row operands (the common layout)."""
         return self.render(("row",) * len(self.in_arrays))
 
-    def render(self, kinds: Sequence[str]) -> str:
-        """Full kernel source for one operand layout: ``kinds[i]`` is
-        ``"row"``, ``"cycle"``, ``"bcycle"`` or ``"bcast"`` for input
-        ``i``."""
+    def render(self, kinds: Sequence[str], pieces: Sequence[int] = (),
+               persistent: Optional[bool] = None) -> str:
+        """Full kernel source for one layout: ``kinds[i]`` is ``"row"``,
+        ``"cycle"``, ``"bcycle"`` or ``"bcast"`` for input ``i``;
+        ``pieces`` the widths of the column pieces that cover ``D``
+        exactly (none: one masked block of ``BLOCK_D``); ``persistent``
+        whether programs walk blocks in a loop (by default, a pipelined
+        kernel outside a cycle layout)."""
         cycle = _by_position(kinds)
+        if persistent is None:
+            persistent = self.pipelined and not cycle
+        if pieces and (self.halves or cycle or not self.has_reduction):
+            raise ValueError(f"{self.name}: column pieces are for row "
+                             f"reductions in whole tiles")
         pos = (["n_pos"] if cycle else []) + [
             f"{a}_span" for a, k in zip(self.in_arrays, kinds)
             if k == "bcycle"]
@@ -229,14 +310,12 @@ class TritonKernel:
         if cycle:
             # the rows are groups of n_pos positions; program (g, p, c)
             # owns the p-th block of positions of group g, so a cycle
-            # operand is read at its position, and both forms launch one
-            # program per block: pipelining a persistent walk of these
-            # blocks measured slower on the H100
+            # operand is read at its position
             lines.append(f"{ind}_pos = (tl.program_id(1) * BLOCK_R"
                          f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]")
             rows, in_range = "tl.program_id(0) * n_pos + _pos", "_pos < n_pos"
             col_block = "tl.program_id(2)"
-        elif self.pipelined:
+        elif persistent:
             # persistent: program p takes blocks p, p + n_programs, ...;
             # the loop's next loads are issued while this block computes
             lines += [
@@ -249,45 +328,80 @@ class TritonKernel:
         if rows is None:
             rows = (f"({row_block} * BLOCK_R"
                     f" + tl.arange(0, BLOCK_R)).to(tl.int64)[:, None]")
-        lines += [
-            f"{ind}_rows = {rows}",
-            f"{ind}_cols = {col_block} * {_paren(block)}"
-            f" + tl.arange(0, {block})[None, :]",
-            f"{ind}_cmask = _cols < {width}",
-            f"{ind}_mask = ({in_range}) & _cmask",
-            f"{ind}_zero = tl.zeros((BLOCK_R, {block}), tl.float32)",
-        ]
-        for a, kind in zip(self.in_arrays, kinds):
-            if kind == "bcast":
-                row, mask = "", "_cmask"
-            elif kind == "cycle":
-                row, mask = f"(_pos % {a}_period) * D + ", "_mask"
-            elif kind == "bcycle":
-                # the batch row's table, read at the position
-                row = (f"((_rows // {a}_span) * {a}_period"
-                       f" + _pos % {a}_period) * D + ")
-                mask = "_mask"
-            elif kind == "row":
-                row, mask = "_rows * D + ", "_mask"
-            else:
-                raise ValueError(f"unknown operand kind {kind!r}")
-            lines.append(f"{ind}{a}_off = {row}_cols")
-            lines.append(f"{ind}{a}_mask = {mask}")
+        lines.append(f"{ind}_rows = {rows}")
+        if pieces:
+            lines += self._piece_preamble(kinds, pieces, in_range, ind)
+        else:
+            lines += [
+                f"{ind}_cols = {col_block} * {_paren(block)}"
+                f" + tl.arange(0, {block})[None, :]",
+                f"{ind}_cmask = _cols < {width}",
+                f"{ind}_mask = ({in_range}) & _cmask",
+                f"{ind}_zero = tl.zeros((BLOCK_R, {block}), tl.float32)",
+            ]
+            for a, kind in zip(self.in_arrays, kinds):
+                row, mask = _operand_row(a, kind)
+                lines.append(f"{ind}{a}_off = {row}_cols")
+                lines.append(f"{ind}{a}_mask = {mask}")
         # the body is emitted at one level of indent
         extra = ind[4:]
-        lines += [extra + ln for ln in self.body]
+        body = _expand(self.template, max(1, len(pieces)),
+                       masked=not pieces)
+        lines += [extra + ln for ln in body]
         return "\n".join(lines) + "\n"
 
-    def compiled(self, kinds: Tuple[str, ...]):
-        """The ``@triton.jit`` function for one operand layout, built on
-        first use. Triton reads a kernel's source from its file, so the
-        source is written under :data:`BUILD_DIR` and imported."""
+    def _piece_preamble(self, kinds, pieces, in_range, ind) -> List[str]:
+        """Offsets of each column piece: piece ``i`` covers columns
+        ``[start_i, start_i + pieces[i])`` of every row of the block, with
+        a row mask only (a broadcast row a column mask that holds
+        everywhere: Triton takes a load's fill value only with a mask)."""
+        lines = [f"{ind}_mask = {in_range}"]
+        start = 0
+        for p, w in zip(_suffixes(len(pieces)), pieces):
+            at = f"{start} + " if start else ""
+            lines += [
+                f"{ind}_cols{p} = {at}tl.arange(0, {w})[None, :]",
+                f"{ind}_zero{p} = tl.zeros((BLOCK_R, {w}), tl.float32)"]
+            if p:
+                lines.append(f"{ind}_mask{p} = _mask")
+            for a, kind in zip(self.in_arrays, kinds):
+                if kind not in ("row", "bcast"):
+                    raise ValueError(f"{self.name}: column pieces take row "
+                                     f"and broadcast operands, not {kind!r}")
+                row, mask = ("_rows * D + ", "_mask") if kind == "row" \
+                    else ("", f"_cols{p} < D")
+                lines.append(f"{ind}{a}_off{p} = {row}_cols{p}")
+                lines.append(f"{ind}{a}_mask{p} = {mask}")
+            start += w
+        return lines
+
+    def compiled(self, layout: Tuple[Any, ...]):
+        """The ``@triton.jit`` function for one layout (a plan's
+        :attr:`TileCallPlan.layout`), built on first use. Triton reads a
+        kernel's source from its file, so the source is written under
+        :data:`BUILD_DIR` and imported."""
         with self._lock:
-            fn = self._compiled.get(kinds)
+            fn = self._compiled.get(layout)
             if fn is None:
-                fn = _import_kernel(self.render(kinds), self.kernel_name)
-                self._compiled[kinds] = fn
+                fn = _import_kernel(self.render(*layout), self.kernel_name)
+                self._compiled[layout] = fn
             return fn
+
+
+def _operand_row(a: str, kind: str) -> Tuple[str, str]:
+    """The row part of input ``a``'s offsets, and its mask, for its kind
+    in a layout of one column block."""
+    if kind == "bcast":
+        return "", "_cmask"
+    if kind == "cycle":
+        return f"(_pos % {a}_period) * D + ", "_mask"
+    if kind == "bcycle":
+        # the batch row's table, read at the position
+        return (f"((_rows // {a}_span) * {a}_period"
+                f" + _pos % {a}_period) * D + "), "_mask"
+    if kind == "row":
+        return "_rows * D + ", "_mask"
+    raise ValueError(f"unknown operand kind {kind!r}")
 
 
 def _by_position(kinds: Sequence[str]) -> bool:
@@ -329,6 +443,9 @@ class TritonGenerator(TorchCodeGenerator):
         self._inputs: Dict[str, str] = {}   # bound ref name -> input array
         self.halves = False
         self._pairs: Dict[str, Tuple[str, str]] = {}   # temp -> (lo, hi)
+        # temps that hold a tile value (one per column piece), in a
+        # template body; the others are per-row values or scalars
+        self._tiles: set = set()
 
     def _check_tilable(self):
         def walk(region: Region):
@@ -403,14 +520,17 @@ class TritonGenerator(TorchCodeGenerator):
             self.stats.n_loads += 1
             self.stats.instruction_mix["load"] = \
                 self.stats.instruction_mix.get("load", 0) + 1
-            halves = (("_lo", ""), ("_hi", " + D // 2")) if self.halves \
-                else (("", ""),)
-            for suffix, shift in halves:
-                lines.append(f"{indent}{name}{suffix} = tl.load({a}_ptr + "
-                             f"{a}_off{shift}, mask={a}_mask, "
-                             f"other=0.0).to(tl.float32)")
             if self.halves:
+                for suffix, shift in (("_lo", ""), ("_hi", " + D // 2")):
+                    lines.append(f"{indent}{name}{suffix} = tl.load({a}_ptr"
+                                 f" + {a}_off{shift}, mask={a}_mask, "
+                                 f"other=0.0).to(tl.float32)")
                 self._pairs[name] = (f"{name}_lo", f"{name}_hi")
+            else:
+                lines.append(f"{indent}{name}$p = tl.load({a}_ptr + "
+                             f"{a}_off$p, mask={a}_mask$p, "
+                             f"other=0.0).to(tl.float32)")
+                self._tiles.add(name)
             self.scope.bind(cid, name)
             return name
         name = self._fresh()
@@ -426,7 +546,9 @@ class TritonGenerator(TorchCodeGenerator):
             self._pairs[name] = (f"{name}_lo", lo)
             self.scope.bind(cid, name)
             return name
-        if op in _UNARY_FMT:
+        if op in _REDUCTIONS:
+            fmt = None
+        elif op in _UNARY_FMT:
             fmt = _UNARY_FMT[op]
         elif op in _BIN_FMT:
             fmt = _BIN_FMT[op]
@@ -439,8 +561,19 @@ class TritonGenerator(TorchCodeGenerator):
         kids = [self._arg(c, lines, indent, op in _CALL_OPS)
                 for c in n.children]
         if self.halves and op in _REDUCTIONS:
-            expr = _HALF_REDUCE_FMT[op].format(*self._half(kids[0]))
+            expr = _reduce_expr(op, [(x, "") for x in self._half(kids[0])],
+                                masked=True)
             lines.append(f"{indent}{name} = {expr}")
+        elif op in _REDUCTIONS:
+            # over every piece of the tile (a per-row value or a scalar
+            # is first broadcast to the piece)
+            x = kids[0]
+            x = f"{x}$p" if x in self._tiles else f"({x} + _zero$p)"
+            lines.append(f"{indent}{name} = ${op}[{x}]")
+        elif not self.halves and any(k in self._tiles for k in kids):
+            args = [f"{k}$p" if k in self._tiles else k for k in kids]
+            lines.append(f"{indent}{name}$p = {fmt.format(*args)}")
+            self._tiles.add(name)
         elif any(k in self._pairs for k in kids):
             for i, suffix in enumerate(("_lo", "_hi")):
                 args = [self._half(k)[i] for k in kids]
@@ -457,12 +590,15 @@ class TritonGenerator(TorchCodeGenerator):
                              "Triton tile programs")
         val = self.emit_value(eff.value_cid, lines, indent)
         ptr = f"{eff.array}_optr"
-        halves = zip(self._half(val), ("", " + D // 2")) if self.halves \
-            else ((val, ""),)
-        for part, shift in halves:
+        # (value, column shift, piece suffix) of each store
+        if self.halves:
+            parts = zip(self._half(val), ("", " + D // 2"), ("", ""))
+        else:
+            parts = ((f"{val}$p" if val in self._tiles else val, "$p", "$p"),)
+        for part, shift, p in parts:
             lines.append(f"{indent}tl.store({ptr} + _rows * D + _cols{shift}, "
-                         f"({part} + _zero).to({ptr}.dtype.element_ty), "
-                         f"mask=_mask)")
+                         f"({part} + _zero{p}).to({ptr}.dtype.element_ty), "
+                         f"mask=_mask{p})")
         # later loads of this array read the value just stored
         self.scope.bind_sym(eff.version_out, val)
         self.stats.n_stores += 1
@@ -496,7 +632,7 @@ class TritonGenerator(TorchCodeGenerator):
         self.emit_region(self.ssa.region, (), lines, "    ")
         chaos.maybe_raise("exec_fail", prog.name, "generated Triton source")
         tk = TritonKernel(
-            name=self.fn_name, body=lines, in_arrays=in_arrays,
+            name=self.fn_name, template=lines, in_arrays=in_arrays,
             out_arrays=out_arrays, scalars=scalars, halves=self.halves,
             has_reduction=any(op in self.stats.instruction_mix
                               for op in _REDUCTIONS),
@@ -549,12 +685,15 @@ class TritonPipelinedGenerator(TritonGenerator):
 class TileCallPlan:
     """Launch geometry of one tile-op call: the ``(rows, d)`` view, the
     operand kinds, block sizes and grid. ``n_blocks`` counts the
-    ``(block_r, block_d)`` blocks; a pipelined kernel's grid is persistent
-    (one axis, at most :data:`PROGRAMS_PER_SM` programs per SM), any
-    other's has one program per block. With a cycle or bcycle operand the
+    ``(block_r, block_d)`` blocks. A pipelined kernel whose blocks
+    outnumber :data:`PROGRAMS_PER_SM` programs per SM is ``persistent``:
+    one grid axis of that many programs, each walking blocks; any other
+    launch has one program per block. With a cycle or bcycle operand the
     rows are groups of ``n_pos`` positions (the periods' least common
     multiple) and the grid is (groups, position blocks, column blocks) in
-    both forms; otherwise ``n_pos`` is ``rows``."""
+    both forms; otherwise ``n_pos`` is ``rows``. ``pieces``, where set,
+    are the widths of the column pieces that cover ``d`` exactly (then
+    ``block_d`` is ``d``)."""
     rows: int
     d: int
     kinds: Tuple[str, ...]       # per input: row | cycle | bcycle | bcast
@@ -567,10 +706,56 @@ class TileCallPlan:
     n_pos: int
     # per input: lead rows per batch row of a "bcycle" operand, else 0
     spans: Tuple[int, ...] = ()
+    pieces: Tuple[int, ...] = ()
+    persistent: bool = False
+
+    @property
+    def layout(self) -> Tuple[Tuple[str, ...], Tuple[int, ...], bool]:
+        """What the kernel's source depends on: the arguments of
+        :meth:`TritonKernel.render` and the key of its compiled form."""
+        return self.kinds, self.pieces, self.persistent
 
 
 def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
+
+
+def _prev_pow2(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def _pow2_pieces(d: int) -> Tuple[int, ...]:
+    """``d`` as a sum of distinct powers of two, widest first."""
+    return tuple(1 << b for b in reversed(range(d.bit_length()))
+                 if d >> b & 1)
+
+
+def _reduction_block(rows: int, width: int, pieces: Sequence[int],
+                     elems: int) -> Tuple[int, int]:
+    """Rows a program and warps of a program that reduces whole rows of
+    ``width`` lanes, in a block of at most ``elems`` elements.
+
+    The block is halved until the grid holds
+    :data:`REDUCE_PROGRAMS_PER_SM` programs per SM where the rows allow:
+    many resident programs overlap one's stores with another's loads. A
+    warp takes about :data:`REDUCE_WARP_ELEMS` elements (24 f32 a
+    thread) where the grid fills the card, so the whole grid is resident
+    at once, and half that where it does not, so each of few programs
+    ends sooner. Warps stay at most a smallest piece's 16-byte f32
+    vectors over 32 lanes, so every piece takes the same register layout
+    and the pieces' partial reductions combine with no exchange through
+    shared memory."""
+    br = min(_prev_pow2(elems // width), _next_pow2(rows))
+    while br > 1 and -(-rows // br) < (REDUCE_PROGRAMS_PER_SM
+                                       * H100_SXM.sm_count):
+        br //= 2
+    per_warp = REDUCE_WARP_ELEMS
+    if -(-rows // br) < H100_SXM.sm_count:
+        per_warp //= 2
+    warps = 1 << max(0, math.floor(math.log2(br * width / per_warp) + 0.5))
+    if pieces:
+        warps = min(warps, max(1, min(pieces) // (4 * 32)))
+    return br, min(warps, REDUCE_MAX_WARPS)
 
 
 def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
@@ -587,7 +772,10 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     ``(B, H, S, d)``) reads row ``(r // span) * period + r % period``
     with ``span`` the lead rows of one leading index and ``period`` the
     rows after the run. Such a launch takes blocks of
-    :data:`CYCLE_BLOCK_R` positions at :data:`CYCLE_NUM_WARPS` warps."""
+    :data:`CYCLE_BLOCK_R` positions at :data:`CYCLE_NUM_WARPS` warps. A
+    program with a reduction otherwise takes the block of
+    :func:`_reduction_block`, in column pieces (whole tiles only) where
+    ``d`` is a sum of at most :data:`MAX_PIECES` powers of two."""
     lead = tuple(in_shapes[0])
     d = lead[-1]
     rows = math.prod(lead[:-1]) if len(lead) > 1 else 1
@@ -621,7 +809,7 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     if tk.halves and d % 2:
         raise ValueError(f"{tk.name}: rothalf needs an even width, got {d}")
     common = dict(rows=rows, d=d, kinds=tuple(kinds), periods=tuple(periods),
-                  block_d=bd, spans=tuple(spans))
+                  spans=tuple(spans))
     if _by_position(kinds):
         n_pos = math.lcm(*(p for k, p in zip(kinds, periods)
                            if k in ("cycle", "bcycle")))
@@ -632,16 +820,30 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
             raise ValueError(f"{tk.name}: {n_pos} positions need "
                              f"{grid[1]} blocks, over the grid's "
                              f"{MAX_GRID_YZ}")
-        return TileCallPlan(**common, block_r=br, n_blocks=math.prod(grid),
-                            grid=grid, num_warps=CYCLE_NUM_WARPS,
-                            n_pos=n_pos)
-    br = max(1, min(TILE_ELEMS_BUDGET // bd, _next_pow2(rows)))
+        return TileCallPlan(**common, block_r=br, block_d=bd,
+                            n_blocks=math.prod(grid), grid=grid,
+                            num_warps=CYCLE_NUM_WARPS, n_pos=n_pos)
+    pieces = ()
+    if tk.has_reduction:
+        if not tk.halves and len(_pow2_pieces(d)) <= MAX_PIECES:
+            pieces, bd = _pow2_pieces(d), d
+        # a persistent walk's blocks take the register budget: smaller
+        # ones measured slower on the H100
+        br, warps = _reduction_block(
+            rows, bd, pieces,
+            TILE_ELEMS_BUDGET if tk.pipelined else REDUCE_TILE_ELEMS)
+    else:
+        br = max(1, min(TILE_ELEMS_BUDGET // bd, _next_pow2(rows)))
+        warps = 8 if br * bd >= 4096 else 4
     grid = (-(-rows // br), -(-d // bd))
     n_blocks = grid[0] * grid[1]
-    if tk.pipelined:
-        grid = (min(n_blocks, PROGRAMS_PER_SM * H100_SXM.sm_count),)
-    return TileCallPlan(**common, block_r=br, n_blocks=n_blocks, grid=grid,
-                        num_warps=8 if br * bd >= 4096 else 4, n_pos=rows)
+    cap = PROGRAMS_PER_SM * H100_SXM.sm_count
+    persistent = tk.pipelined and n_blocks > cap
+    if persistent:
+        grid = (cap,)
+    return TileCallPlan(**common, block_r=br, block_d=bd, n_blocks=n_blocks,
+                        grid=grid, num_warps=warps, n_pos=rows,
+                        pieces=pieces, persistent=persistent)
 
 
 def _batch_cycle(lead: Tuple[int, ...], shp: Tuple[int, ...]
@@ -707,7 +909,7 @@ def _apply_tile_op(op: TileOp, arrays, scalars):
     tk = op.tk
     plan, ins, outs = prepare_tile_call(tk, arrays, op.name)
     if plan.rows > 0:
-        launch_tile_kernel(tk.compiled(plan.kinds), plan, ins, outs,
+        launch_tile_kernel(tk.compiled(plan.layout), plan, ins, outs,
                            [float(scalars[s]) for s in tk.scalars])
         op.launches += 1
         op.launches_by_kinds[plan.kinds] += 1

@@ -78,6 +78,42 @@ def test_pipelined_tile_kernel_matches_plain(name, dtype, rows, d, cuda):
     assert op.launches == before + 1
 
 
+# the CPU executor's row-reduction cases (tests/test_torch_tile_exec.py)
+REDUCTION_CASES = [
+    ("moe_router", (32, 64, 16)), ("moe_router", (4, 1, 16)),
+    ("moe_router", (2048, 128)), ("moe_router", (3, 7, 16)),
+    ("layernorm", (2048, 768)), ("layernorm", (4, 768)),
+    ("layernorm", (37, 200)), ("layernorm", (37, 768)),
+    ("rmsnorm", (5, 3072)), ("rmsnorm", (5, 2560)),
+    ("rmsnorm_gated", (5, 5120))]
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+@pytest.mark.parametrize("name,lead", REDUCTION_CASES, ids=[
+    f"{n}-{'x'.join(map(str, s))}" for n, s in REDUCTION_CASES])
+def test_row_reductions_on_the_card(name, lead, emitter, cuda):
+    """The row reductions in the layouts their plans pick (column pieces,
+    or one masked block at 200), f32, against the plain version, and the
+    router and layernorm also against torch.softmax and F.layer_norm."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=cuda).manual_seed(sum(lead))
+    d = lead[-1]
+    xs = [torch.randn((d,) if a.shape == (1, 128) else lead, generator=gen,
+                      device=cuda) for a in PROGRAMS[name]().arrays.values()
+          if a.role != "out"]
+    sc = {s: SCALARS[s] for s in PROGRAMS[name]().scalars}
+    op = get_tile_op(name, emitter=emitter)
+    before = op.launches
+    got = op.apply(*xs, **sc)
+    assert op.launches == before + 1
+    _close(got, op.torch_ref(*(x.expand(lead) for x in xs), **sc), 2e-5)
+    if name == "moe_router":
+        _close(got, torch.softmax(xs[0], -1), 2e-5)
+    elif name == "layernorm":
+        _close(got, F.layer_norm(xs[0], (d,), xs[1], xs[2], 1e-6), 2e-5)
+
+
 def test_rotary_cycle_operands(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn((2, 3, 5, 32), generator=gen, device=cuda)

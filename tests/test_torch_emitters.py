@@ -13,7 +13,7 @@ import torch
 from repro_torch.core import EMITTER_NAMES, SaturatorConfig, ScheduleConfig
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tritongen import (NUM_STAGES, PROGRAMS_PER_SM,
-                                        plan_tile_call)
+                                        TILE_ELEMS_BUDGET, plan_tile_call)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
 SCALARS = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
@@ -92,11 +92,19 @@ def test_pipelined_plan_is_persistent():
     rms = get_tile_op("rmsnorm", emitter="triton_pipelined").tk
     big = plan_tile_call(rms, [(2048, 3072), (3072,)])
     sync = plan_tile_call(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
-    assert big.n_blocks == sync.n_blocks == sync.grid[0] * sync.grid[1]
-    assert (big.block_r, big.block_d) == (sync.block_r, sync.block_d)
+    assert sync.n_blocks == sync.grid[0] * sync.grid[1]
+    assert not sync.persistent
+    # a persistent walk's row blocks take the register budget, the sync
+    # kernel's the smaller REDUCE_TILE_ELEMS
+    assert big.block_d == sync.block_d and big.block_r >= sync.block_r
+    assert big.block_r * big.block_d <= TILE_ELEMS_BUDGET
+    assert big.persistent and big.n_blocks == 2048 // big.block_r
     assert big.grid == (min(big.n_blocks, cap),) and big.n_blocks > cap
+    # blocks that fit in the persistent grid: the sync launch, no loop
     small = plan_tile_call(rms, [(37, 200), (200,)])
-    assert small.grid == (small.n_blocks,)
+    assert not small.persistent and small.grid == (small.n_blocks, 1)
+    fn = ast.parse(rms.render(*small.layout)).body[-1]
+    assert not [n for n in ast.walk(fn) if isinstance(n, ast.For)]
     # no reduction: column blocks are walked too
     sw = plan_tile_call(get_tile_op("swiglu", emitter="triton_pipelined").tk,
                         [(2048, 9216)] * 2)

@@ -174,6 +174,8 @@ def _f32(x):
 def _load(ptr, mask=None, other=None, eviction_policy=""):
     if eviction_policy not in ("", "evict_first", "evict_last"):
         raise ValueError(f"eviction_policy={eviction_policy!r}")
+    if mask is None and other is not None:
+        raise ValueError("tl.load: a fill value without a mask")
     offs, mask, live = ptr._masked(mask)
     out = np.full(offs.shape, 0.0 if other is None else other, np.float32)
     out[mask] = ptr.buf[live]
@@ -240,7 +242,7 @@ def _run(tk, arrays, scalars):
     the plan."""
     plan, ins, outs = prepare_tile_call(tk, arrays, tk.name)
     ns = {}
-    exec(compile(tk.render(plan.kinds), f"<{tk.kernel_name}>", "exec"), ns)
+    exec(compile(tk.render(*plan.layout), f"<{tk.kernel_name}>", "exec"), ns)
     kern = ns[tk.kernel_name]
     launch_tile_kernel(kern, plan, ins, outs,
                        [float(scalars[s]) for s in tk.scalars])
@@ -381,6 +383,55 @@ def test_moe_router_width_16(lead, emitter, standin):
     assert plan.kinds == ("row",) and plan.block_d == 16
     _close(got, op.torch_ref(x), TOL[torch.float32])
     _close(got, torch.softmax(x, -1), TOL[torch.float32])
+
+
+# the row reductions at the paths' shapes (dbrx's router, whisper's
+# layernorm, minitron's and zamba2's rmsnorm, zamba2's gated norm),
+# arctic's router width, and ragged rows and widths
+REDUCTION_CASES = [
+    ("moe_router", (32, 64, 16)), ("moe_router", (4, 1, 16)),
+    ("moe_router", (2048, 128)), ("moe_router", (3, 7, 16)),
+    ("layernorm", (2048, 768)), ("layernorm", (4, 768)),
+    ("layernorm", (37, 200)), ("layernorm", (37, 768)),
+    ("rmsnorm", (5, 3072)), ("rmsnorm", (5, 2560)),
+    ("rmsnorm_gated", (5, 5120))]
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("name,lead", REDUCTION_CASES, ids=[
+    f"{n}-{'x'.join(map(str, s))}" for n, s in REDUCTION_CASES])
+def test_row_reductions_match_plain_and_pallas(name, lead, emitter,
+                                               standin):
+    """Each row reduction in the layout its plan picks by shape: column
+    pieces of powers of two that cover the row exactly where d allows
+    (768 = 512 + 256; 16 and 128 one piece), one masked block of
+    next_pow2(d) at 200; f32, against the plain version and the JAX
+    package's Pallas op in interpret mode (rows flattened)."""
+    d = lead[-1]
+    rng = np.random.default_rng(math.prod(lead))
+    prog = PROGRAMS[name]()
+    xs = [rng.normal(size=(d,) if a.shape == (1, 128) else lead)
+          .astype(np.float32) * (3.0 if name == "moe_router" else 1.0)
+          for a in prog.arrays.values() if a.role != "out"]
+    sc = {s: SCALARS[s] for s in prog.scalars}
+    op = get_tile_op(name, emitter=emitter)
+    got, plan = _run(op.tk, [torch.from_numpy(x) for x in xs], sc)
+    if d == 200:    # 128 + 64 + 8: more pieces than MAX_PIECES
+        assert plan.pieces == () and plan.block_d == 256
+    else:
+        assert sum(plan.pieces) == d and plan.block_d == d
+        assert all(p & (p - 1) == 0 for p in plan.pieces)
+        assert list(plan.pieces) == sorted(set(plan.pieces), reverse=True)
+    assert plan.persistent == (emitter == PIPE and plan.n_blocks > (
+        tritongen.PROGRAMS_PER_SM * tritongen.H100_SXM.sm_count))
+    tol = TOL[torch.float32]
+    _close(got, op.torch_ref(*(torch.from_numpy(x).expand(lead)
+                               for x in xs), **sc), tol)
+    want = jax_tile_op(name).apply(
+        *(jnp.asarray(x.reshape(-1, d) if x.ndim > 1 else x) for x in xs),
+        interpret=True, **sc)
+    np.testing.assert_allclose(got.numpy().reshape(-1, d), np.asarray(want),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])

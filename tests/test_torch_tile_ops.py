@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels.tile_programs import get_tile_op as jax_tile_op
 from repro_torch.core import KernelProgram, c, make_tile_op
+from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.telemetry import reset_telemetry, telemetry
 from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
                                         plan_tile_call)
@@ -202,7 +203,8 @@ def test_plan_tile_call_kinds():
     assert (dec.block_r, dec.block_d, dec.grid, dec.num_warps, dec.n_pos) == \
         (64, 128, (2, 1), 8, 96)
     rms = plan_tile_call(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
-    assert rms.kinds == ("row", "bcast") and rms.block_d == 4096
+    assert rms.kinds == ("row", "bcast") and rms.block_d == 3072
+    assert rms.pieces == (2048, 1024)
     assert rms.grid == (2048 // rms.block_r, 1)
     # no reduction: swiglu also tiles columns
     sw = plan_tile_call(get_tile_op("swiglu").tk, [(2048, 9216)] * 2)
@@ -236,6 +238,91 @@ def test_plan_tile_call_per_batch_tables():
     with pytest.raises(ValueError, match="does not tile"):
         plan_tile_call(tk, [(4, 12, 8, 128), (1, 12, 1, 128),
                             (1, 12, 1, 128)])
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_router_plan_covers_the_card(emitter):
+    """dbrx's router logits (32, 64, 16): at least two programs per SM of
+    the H100, each of one warp over whole rows of 16 (one piece, no
+    masked lane), launched as the sync grid in both forms; the decode
+    tick one row a program."""
+    tk = get_tile_op("moe_router", emitter=emitter).tk
+    plan = plan_tile_call(tk, [(32, 64, 16)])
+    assert plan.grid[0] >= 2 * H100_SXM.sm_count and len(plan.grid) == 2
+    assert plan.grid[0] * plan.block_r == 2048 and plan.num_warps == 1
+    assert plan.pieces == (16,) and plan.block_d == 16
+    assert not plan.persistent
+    dec = plan_tile_call(tk, [(4, 1, 16)])
+    assert (dec.block_r, dec.grid, dec.num_warps) == (1, (4, 1), 1)
+    src = tk.render(*plan.layout)
+    assert "tl.where" not in src and "_cmask" not in src
+    assert "tl.arange(0, BLOCK_D)" not in src and "for " not in src
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_layernorm_pieces_cover_the_row(emitter):
+    """whisper's layernorm at (2048, 768): pieces 512 + 256 that cover
+    the row exactly, with no overlap; every operand loaded and the output
+    stored once per piece, with no column mask on a row operand; the
+    reductions sum both pieces' partial sums and divide by the true
+    width."""
+    tk = get_tile_op("layernorm", emitter=emitter).tk
+    plan = plan_tile_call(tk, [(2048, 768), (768,), (768,)])
+    assert plan.pieces == (512, 256) and plan.block_d == 768
+    assert plan.grid[0] * plan.block_r >= 2048 or plan.persistent
+    assert plan.n_blocks >= 2 * H100_SXM.sm_count
+    src = tk.render(*plan.layout)
+    assert "_cols_p0 = tl.arange(0, 512)[None, :]" in src
+    assert "_cols_p1 = 512 + tl.arange(0, 256)[None, :]" in src
+    assert "x_mask_p0 = _mask" in src and "x_mask_p1 = _mask" in src
+    assert "_mask = _rows < n_rows" in src and "_cmask" not in src
+    for arr in ("x", "g", "b"):
+        assert src.count(f"tl.load({arr}_ptr") == 2
+    assert src.count("tl.store(o_optr") == 2 and "tl.where" not in src
+    assert ("((tl.sum(_v3_p0, axis=1)[:, None] + tl.sum(_v3_p1, "
+            "axis=1)[:, None]) / D)") in src
+    # the source without pieces (one masked block) stays what it was
+    assert "(tl.sum(tl.where(_mask, _v3, 0.0), axis=1)[:, None] / D)" \
+        in tk.source
+    with pytest.raises(ValueError, match="column pieces"):
+        get_tile_op("swiglu").tk.render(("row", "row"), (512, 256))
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_cycle_plans_unchanged(emitter):
+    """Rotary's cycle (cos/sin by position) and bcycle (per batch row)
+    plans: blocks of CYCLE_BLOCK_R positions at CYCLE_NUM_WARPS warps,
+    one program per (group, block of positions), no pieces, no loop, in
+    both forms."""
+    tk = get_tile_op("rotary", emitter=emitter).tk
+    for lead, tab, kinds in (
+            ((4, 24, 512, 128), (1, 1, 512, 128), ("row", "cycle", "cycle")),
+            ((4, 12, 512, 128), (4, 1, 512, 128),
+             ("row", "bcycle", "bcycle"))):
+        plan = plan_tile_call(tk, [lead, tab, tab])
+        assert plan.kinds == kinds and plan.n_pos == 512
+        assert (plan.block_r, plan.block_d, plan.num_warps) == \
+            (CYCLE_BLOCK_R, 128, CYCLE_NUM_WARPS)
+        assert plan.grid == (lead[0] * lead[1], 512 // CYCLE_BLOCK_R, 1)
+        assert plan.pieces == () and not plan.persistent
+
+
+def test_redesigned_programs_keep_their_terms():
+    """The router softmax and layernorm compute what they computed before
+    their kernels took column pieces: the same extracted term, op for op,
+    in both emitters."""
+    mixes = {"moe_router": {"exp": 1, "load": 1, "mul": 1, "recip": 1,
+                            "rmax": 1, "rsum": 1, "sub": 1},
+             "layernorm": {"add": 1, "fma": 1, "load": 3, "mul": 2,
+                           "rmean": 2, "rsqrt": 1, "sub": 1}}
+    for name, mix in mixes.items():
+        for emitter in (None, "triton_pipelined"):
+            op = get_tile_op(name, emitter=emitter)
+            assert op.tk.stats.instruction_mix == mix
+            assert op.sk.extraction.predicted["n_ops"] == sum(mix.values())
 
 
 def test_emission_failure_degrades_and_keeps_cpu_path():

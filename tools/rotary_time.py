@@ -67,8 +67,8 @@ def _compiled(op, args):
     per-device kernel cache, so it works for any tree's emitter)."""
     from chip_smoke import _kernel_info
     from repro_torch.core.tritongen import plan_tile_call
-    jit = op.tk.compiled(plan_tile_call(op.tk, [a.shape for a in args])
-                         .kinds)
+    plan = plan_tile_call(op.tk, [a.shape for a in args])
+    jit = op.tk.compiled(getattr(plan, "layout", plan.kinds))
     try:
         return [_kernel_info(ck) for cache in jit.device_caches.values()
                 for ck in cache[0].values()]
