@@ -6,7 +6,7 @@
 Builds the port's kernels from this checkout (the CUDA libraries in
 parallel), checks each against its plain PyTorch version at the main
 paths' shapes and times it, then drives six paths through the port's
-Server at full width with random seeded weights:
+Server at full width with random seeded weights, and a training path:
 
 * minitron-4b (32 layers, d_model 3072, vocab 256k): serve, parity of a
   kernel prefill with a plain one, the same prefill through the
@@ -29,6 +29,14 @@ Server at full width with random seeded weights:
   of 64, LayerNorm + GELU; the encoder and cross-attention non-causal):
   serve, parity of a prefill and two decode ticks in f32, the pipelined
   prefill, a trace.
+* minitron-4b training at full width and 16 of its 32 layers (bf16,
+  remat, B 2 x S 4096, 8 steps of the trainer's step function: LM.loss,
+  its gradient through the flash backward kernel and the tile ops'
+  backwards, AdamW through the adamw and l2_clip kernels), its launches
+  per step asserted; the same step's gradients and update on 2 layers in
+  f32 against the plain versions; the smoke trainer through
+  build_trainer with an injected host loss, whose losses equal a clean
+  run's; a trace of one step.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
@@ -46,8 +54,10 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -64,6 +74,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "tf32x3": 495e12 / 3}       # f32 as 3 TF32 tensor-core products
 TILE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+# the backward's gradients, norm-relative (whole tensor and each 64-row
+# block): bf16 rounds P and dS for the tensor cores, a few 1e-3
+FLASH_BWD_REL_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
 CUDA_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 PIPELINED = "triton_pipelined"
@@ -118,6 +131,19 @@ WHISPER_PARITY_TOL = 0.02
 # h the patch row, w its column), text follows with t = h = w running on
 # from max(gh, gw). Each row has its own grid, so each has its own table.
 VISION_GRIDS = ((16, 16), (8, 32), (32, 8), (12, 20))
+
+# Training: minitron-4b at full width, 16 of its 32 layers (bf16 weights,
+# grads and f32 moments of 32 layers would be 61 GB before any
+# activation or update transient), B 2 x S 4096, 8 steps.
+TRAIN = dict(arch="minitron-4b", layers=16, batch=2, seq=4096, steps=8,
+             seed=0)
+# The kernel path's training step against the plain versions on the card,
+# 2 layers at full width in f32: gradients within flash's f32 2e-3 of each
+# leaf's max |g| (every gradient passes through the attention of the
+# layers above it), the loss within 2e-5 relative, and one AdamW step
+# from the same gradients within the tile ops' 2e-5 of each leaf's max |p|.
+PARITY_TRAIN = dict(layers=2, batch=1, seq=512)
+PARITY_TRAIN_TOL = {"grads": 2e-3, "loss": 2e-5, "update": 2e-5}
 
 SERVE = dict(arch="minitron-4b", max_batch=4, requests=6, prompt_len=512,
              max_new=32, seed=0)
@@ -253,7 +279,8 @@ def _hmma_counts(lib):
     counts = {}
     for body in sass.split("Function : ")[1:]:
         m = re.match(
-            r"\S*?\d((?:flash_fwd|ssd)_[a-z0-9]+_kernel)(?:ILi(\d+)E)?", body)
+            r"\S*?\d((?:flash_fwd|flash_bwd|ssd)_[a-z0-9_]+?_kernel)"
+            r"(?:ILi(\d+)E)?", body)
         name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") \
             if m else body.split()[0]
         counts[name] = body.count("HMMA")
@@ -365,6 +392,148 @@ def _ssd_work(B, S, H, P, N, chunk):
         macs += B * H * (tri * P + (L * N * P if k else 0) + L * N * P)
         macs += B * tri * N
     return nbytes, 2 * macs
+
+
+def _optimizer_row(torch, timer, name, shape, checks):
+    """One optimizer tile kernel at one f32 leaf shape: checked against
+    its plain version, timed, its bound (each input read once, each
+    output written once)."""
+    from repro_torch.kernels.tile_programs import get_tile_op
+    op = get_tile_op(name)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(shape, generator=g, device="cuda")
+          for _ in op.tk.in_arrays]
+    if name == "adamw":
+        xs[3] = xs[3].abs() * 0.01          # v >= 0
+        sc = {"lr": 3e-4, "b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.1,
+              "inv_bc1": 10.0, "inv_bc2": 20.0}
+    else:
+        sc = {"norm": 3.0, "max_norm": 1.0, "eps": 1e-9}
+    tag = f"{name}/float32/{'x'.join(map(str, shape))}"
+    err = _check(tag, op.apply(*xs, **sc), op.torch_ref(*xs, **sc),
+                 TILE_TOL["float32"], checks)
+    bound, by = _tile_bound(op, xs)
+    row = {"shape": list(shape), "dtype": "float32", "max_abs_err": err,
+           "ms": timer.ms(lambda: op.apply(*xs, **sc), iters=10),
+           "device_ms": timer.device_ms(lambda: op.apply(*xs, **sc),
+                                        op.tk.kernel_name, iters=5),
+           "plain_ms": timer.ms(lambda: op.torch_ref(*xs, **sc), iters=5),
+           "bound_ms": bound, "bound_by": by}
+    if name == "l2_clip":
+        scale = min(1.0, sc["max_norm"] / (sc["norm"] + sc["eps"]))
+        row["library_ms"] = timer.ms(lambda: torch.mul(xs[0], scale),
+                                     iters=10)
+    else:
+        row["library_ms"] = None
+        p = xs[0].clone().requires_grad_()
+        p.grad = xs[1]
+        opt = torch.optim.AdamW([p], lr=sc["lr"], betas=(0.9, 0.95),
+                                eps=1e-8, weight_decay=0.1, fused=True)
+        row["nearest_call_ms"] = {
+            "torch.optim.AdamW(fused=True).step": timer.ms(opt.step,
+                                                           iters=10)}
+        del opt, p
+    return row
+
+
+def _norm_rel(torch, F, got, want, ref, rows=64):
+    """``||got - want|| / ||want||`` of an (..., S, D) gradient over the
+    whole tensor and, the largest, over each 64-row block of each leading
+    index. Each denominator is at least a thousandth of ``ref``'s rms
+    over as many elements: dq and dk of a query that sees one key are zero
+    in exact arithmetic, and their blocks are held to that floor."""
+    S, D = want.shape[-2:]
+    pad = -S % rows
+    nb = (S + pad) // rows
+    d, w = (F.pad(t.float(), (0, 0, 0, pad)).reshape(-1, nb, rows * D)
+            for t in (got.float() - want.float(), want))
+    n = torch.full((nb,), float(rows * D), device=want.device)
+    n[-1] = (S - (nb - 1) * rows) * D
+    floor = 1e-3 * ref.float().square().mean().sqrt()
+    whole = d.norm() / torch.maximum(w.norm(), floor * want.numel() ** 0.5)
+    block = d.norm(dim=-1) / torch.maximum(w.norm(dim=-1), floor * n.sqrt())
+    return [whole.item(), block.max().item()]
+
+
+def _flash_bwd_work(b, h, kh, s, d, dt, causal):
+    """Operations and bytes of one attention backward: 5 products of
+    2 x pairs x D each per (b, h) (S, dP, dV, dK, dQ), pairs the (q, k)
+    pairs the mask keeps; q, k, v, o, dO read and dq, dk, dv written once,
+    lse read once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 5 * 2 * pairs * d * b * h
+    el = 2 if dt == "bfloat16" else 4
+    nbytes = (4 * b * h * s * d + 4 * b * kh * s * d) * el + 4 * b * h * s
+    return flops, nbytes
+
+
+def _flash_bwd_rows(torch, F, timer, randn, checks):
+    """The backward kernels against their plain version at the training
+    path's shape (the row), the serve shape, a small f32 case and the
+    head_dim 80 and 64 tile edges; times, bound and the library's
+    backward (autograd of scaled_dot_product_attention) at the timed
+    shapes."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention_bwd, flash_attention_bwd_plain)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [((2, 24, 8, 4096, 128), bf, True, None),
+             ((4, 24, 8, 512, 128), bf, True, "serve_shape"),
+             ((2, 4, 2, 128, 16), f32, True, "small_f32"),
+             ((2, 4, 2, 128, 16), f32, False, None)] + [
+        ((2, 8, kh, s_, d), dt, True, None)
+        for d in (80, 64) for dt in (bf, f32) for kh in (8, 2)
+        for s_ in (1, 63, 65, 129)]
+    out = {}
+    for (b, h, kh, s_, d), dt, causal, key in cases:
+        q, k, v, do = (randn(b, n, s_, d, dtype=dt)
+                       for n in (h, kh, kh, h))
+        o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+        name = str(dt)[6:]
+        tag = f"flash_attention_bwd/{name}/{b}x{h}x{kh}x{s_}x{d}/" \
+              f"{'causal' if causal else 'full'}"
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        err = _check(tag, got, want, FLASH_TOL[name], checks)
+        # norm-relative, [whole tensor, worst 64-row block] for each
+        # gradient: an element-wise limit of tol (1 + |want|) is as large
+        # as a typical gradient at S 4096
+        rel = {n_: _norm_rel(torch, F, a, b_, want[2])
+               for n_, a, b_ in zip(("dq", "dk", "dv"), got, want)}
+        checks.append({"name": f"{tag}/norm_rel", "norm_rel_err": rel,
+                       "tol": FLASH_BWD_REL_TOL[name],
+                       "ok": max(max(r) for r in rel.values())
+                       <= FLASH_BWD_REL_TOL[name]})
+        del got, want
+        if (b, h, kh, s_, d) != (2, 24, 8, 4096, 128) and key is None:
+            continue
+        flops, nbytes = _flash_bwd_work(b, h, kh, s_, d, name, causal)
+        t_ops = flops / PEAK_FLOPS[name] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def run(q=q, k=k, v=v, o=o, lse=lse, do=do, causal=causal):
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lo = _sdpa(F, lq, lk, lv, causal)()
+        out[key] = {
+            "shape": [b, h, kh, s_, d], "dtype": name, "causal": causal,
+            "max_abs_err": err, "norm_rel_err": rel,
+            "norm_rel_tol": FLASH_BWD_REL_TOL[name],
+            "flops": flops, "bytes": nbytes,
+            "ms": timer.ms(run), "device_ms": timer.device_ms(run,
+                                                              "flash_bwd_"),
+            "plain_ms": timer.ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal), iters=5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": timer.ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), do, retain_graph=True))}
+        del lo, lq, lk, lv
+    row = out.pop(None)
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/models/layers.py:151 (_flash_bwd, jnp; "
+                        "no TPU kernel)", **row, "shapes": out}
 
 
 def phase_kernels(torch, timer):
@@ -508,6 +677,16 @@ def phase_kernels(torch, timer):
     # whisper-small's decode tick: 4 rows
     xld, gld, bld = randn(B, 768), randn(768), randn(768)
     agd = randn(B, 3072, dtype=bf)
+    # the training path's shapes (minitron-4b, B 2 x S 4096): rmsnorm on
+    # f32 (B, S, 3072) as norm_apply runs it, swiglu on bf16 (B, S, 9216),
+    # rotary on bf16 q and k against one (1, 1, S, 128) f32 table, and
+    # rotary's backward: the same kernel on a bf16 gradient with -sin
+    TB, TS = TRAIN["batch"], TRAIN["seq"]
+    angt = torch.arange(TS, device="cuda", dtype=torch.float32)[:, None] \
+        * inv
+    angt = torch.cat([angt, angt], -1)[None, None]
+    cost, sint = torch.cos(angt), torch.sin(angt)
+    xt = randn(TB, TS, D)
     other_shapes = {
         "rotary": {
             "k": ((kk, cos, sin), {}, None),
@@ -528,7 +707,15 @@ def phase_kernels(torch, timer):
             "qwen2vl_q_per_batch": ((randn(B, 12, S, 128, dtype=bf), vcos,
                                      vsin), {}, None),
             "qwen2vl_k_per_batch": ((randn(B, 2, S, 128, dtype=bf), vcos,
-                                     vsin), {}, None)},
+                                     vsin), {}, None),
+            "train_q": ((randn(TB, H, TS, 128, dtype=bf), cost, sint), {},
+                        None),
+            "train_k": ((randn(TB, KH, TS, 128, dtype=bf), cost, sint), {},
+                        None),
+            "train_q_backward": ((randn(TB, H, TS, 128, dtype=bf), cost,
+                                  -sint), {}, None),
+            "train_k_backward": ((randn(TB, KH, TS, 128, dtype=bf), cost,
+                                  -sint), {}, None)},
         "rmsnorm": {"decode": ((xd, gd), {"eps": 1e-6},
                                lambda: F.rms_norm(xd, (D,), gd, 1e-6)),
                     "zamba2": ((xz, gz), {"eps": 1e-6},
@@ -539,7 +726,9 @@ def phase_kernels(torch, timer):
                                 lambda: F.rms_norm(xq, (1536,), gq, 1e-6)),
                     "qwen2vl_decode": ((xqd, gq), {"eps": 1e-6},
                                        lambda: F.rms_norm(xqd, (1536,), gq,
-                                                          1e-6))},
+                                                          1e-6)),
+                    "train": ((xt, gain), {"eps": 1e-6},
+                              lambda: F.rms_norm(xt, (D,), gain, 1e-6))},
         "swiglu": {"decode": ((randn(B, F_, dtype=bf), randn(B, F_, dtype=bf)),
                               {}, None),
                    "zamba2": ((randn(B * S, 10240, dtype=bf),
@@ -551,7 +740,9 @@ def phase_kernels(torch, timer):
                    "qwen2vl": ((randn(B * S, 8960, dtype=bf),
                                 randn(B * S, 8960, dtype=bf)), {}, None),
                    "qwen2vl_decode": ((randn(B, 8960, dtype=bf),
-                                       randn(B, 8960, dtype=bf)), {}, None)},
+                                       randn(B, 8960, dtype=bf)), {}, None),
+                   "train": ((randn(TB, TS, F_, dtype=bf),
+                              randn(TB, TS, F_, dtype=bf)), {}, None)},
         "rmsnorm_gated": {"decode": ((randn(B, DI, dtype=bf),
                                       randn(B, DI, dtype=bf),
                                       randn(DI, dtype=bf)), {"eps": 1e-6},
@@ -583,6 +774,25 @@ def phase_kernels(torch, timer):
                 for shape, (sargs, ssc, slib)
                 in other_shapes[name].items()}
 
+    # the optimizer's tile kernels on the training path (f32, as
+    # apply_updates runs them): minitron's embedding (256000, 3072) and an
+    # MLP weight (3072, 9216); l2_clip's library call is the same function
+    # (a multiply by the host scale); adamw has none (torch's fused AdamW
+    # decays before the moment step, another function: its time stands
+    # beside as the nearest call)
+    for name, replaces in (("adamw", "src/repro/core/pallasgen.py:554"),
+                           ("l2_clip", "src/repro/core/pallasgen.py:554")):
+        rows[name] = None
+        for shape in ((256000, 3072), (3072, 9216)):
+            row = _optimizer_row(torch, timer, name, shape, checks)
+            if rows[name] is None:
+                rows[name] = {"route": "triton",
+                              "source": "src/repro_torch/core/tritongen.py",
+                              "replaces": replaces, **row, "shapes": {}}
+            else:
+                rows[name]["shapes"]["x".join(map(str, shape))] = row
+            torch.cuda.empty_cache()
+
     # the tile programs on no path yet: kernel, plain and library times
     # beside the bound at one stated shape, f32 (2048, 4096)
     libs = {
@@ -593,11 +803,9 @@ def phase_kernels(torch, timer):
         "moe_router": lambda xs, sc: torch.softmax(xs[0], -1),
         "residual_scale": lambda xs, sc: torch.add(xs[0], xs[1],
                                                    alpha=sc["alpha"]),
-        "l2_clip": lambda xs, sc: torch.mul(
-            xs[0], min(1.0, sc["max_norm"] / (sc["norm"] + sc["eps"]))),
     }
     others = {}
-    for name in sorted(set(PROGRAMS) - set(cases)):
+    for name in sorted(set(PROGRAMS) - set(cases) - set(rows)):
         op = get_tile_op(name)
         xs, sc = tile_inputs(name, 2048, 4096, torch.float32)
         bound, by = _tile_bound(op, xs)
@@ -677,6 +885,8 @@ def phase_kernels(torch, timer):
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:147",
         **flash_timed.pop(None), "shapes": flash_timed}
+    rows["flash_attention_bwd"] = _flash_bwd_rows(torch, F, timer, randn,
+                                                  checks)
 
     # SSD scan, y and the final state: the serve shape (the path), ragged
     # S and S below a chunk at full width, the tile edges (one step, one
@@ -1109,6 +1319,275 @@ def phase_trace(torch, srv, tokens, phase):
     emit({"phase": phase, "prefill": pre, "decode_3_ticks": dec})
 
 
+def _train_counters():
+    """The launch counters of the training path's kernels."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.tile_programs import get_tile_op
+    out = {n: get_tile_op(n) for n in ("rmsnorm", "rotary", "swiglu",
+                                       "adamw", "l2_clip")}
+    out.update(flash_attention=flash_attention,
+               flash_attention_bwd=flash_attention_bwd)
+    return out
+
+
+def _expected_train_launches(cfg, params):
+    """Each kernel's launches in one train step, as the code implies:
+    every layer runs its forward twice (the step's forward and its remat
+    recompute in the backward), the final norm once; per layer 2 rmsnorm,
+    2 rotary (q, k), 1 swiglu, 1 flash forward; the backward launches
+    rotary once more for q and k (the same kernel with -sin) and the flash
+    backward once; the optimizer launches adamw on every leaf and l2_clip
+    on the leaves of ndim >= 2 in the JAX package's stacked layout."""
+    from repro_torch import tree as T
+    from repro_torch.models.common import reference_ndim
+    n = cfg.n_layers
+    paths, leaves = T.flatten(params)
+    return {"rmsnorm": 2 * 2 * n + 1, "rotary": 2 * 2 * n + 2 * n,
+            "swiglu": 2 * n, "flash_attention": 2 * n,
+            "flash_attention_bwd": n, "adamw": len(leaves),
+            "l2_clip": sum(reference_ndim(cfg, pa, p) >= 2
+                           for pa, p in zip(paths, leaves))}
+
+
+def phase_train(torch):
+    """minitron-4b at full width and 16 of its 32 layers, bf16, seeded
+    weights, remat on: 8 steps of B 2 x S 4096 from the ported pipeline,
+    through the trainer's step function (``make_train_step``: LM.loss,
+    its gradient, apply_updates at the default OptConfig with f32
+    moments). Each step's launches are read against what the code
+    implies."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import reset_telemetry, telemetry
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.models.common import tree_bytes
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    full = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"])
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda")
+    params = model.init(TRAIN["seed"])
+    steps = TRAIN["steps"]
+    ocfg = OptConfig(warmup_steps=max(steps // 10, 1), total_steps=steps)
+    state = init_opt_state(params, ocfg)
+    step = make_train_step(model, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = ShardedTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+        seed=TRAIN["seed"]))
+    counters = _train_counters()
+    want = _expected_train_launches(cfg, params)
+    reset_telemetry()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, ms, per_step = [], [], []
+    for i in range(steps):
+        before = {n: c.launches for n, c in counters.items()}
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({n: c.launches - before[n]
+                         for n, c in counters.items()})
+    launches = {n: c.launches for n, c in counters.items()}
+    guard = telemetry().snapshot()["guard"]
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and all(ps == want for ps in per_step)
+          and not guard["runtime_fallbacks"] and not guard["degradations"])
+    emit({"phase": "train", "config": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "dtype": "bfloat16", "remat": cfg.remat, **TRAIN,
+          "params": sum(p.numel() for p in T.leaves(params)),
+          "param_bytes": tree_bytes(params), "init_s": init_s,
+          "step_ms": ms, "ms_per_step_median_2_8": step_ms,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_ms * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "losses": losses, "launches_per_step": per_step[-1],
+          "launches_per_step_expected": want, "launches": launches,
+          "runtime_fallbacks": sum(guard["runtime_fallbacks"].values()),
+          "degradations": guard["degradations"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"train: losses {losses}, launches per step "
+                             f"{per_step} (expected {want}), guard {guard}")
+    return model, params, state, step, pipe, launches
+
+
+def phase_parity_train(torch):
+    """Two layers of minitron-4b at full width in f32, B 1 x S 512: the
+    loss and every gradient through the kernels against the plain
+    versions on the card (``ops.set_impl("torch")``), then one
+    apply_updates from the same gradients both ways, on every leaf but
+    the two (256000, 3072) ones: the plain update of one of those holds
+    ~50 GB of f32 temporaries, more than the card has beside the model
+    (the kernels phase checks the adamw kernel at that shape against
+    it)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import batch_to_device, value_and_grad
+    from repro_torch.models import LM
+    from repro_torch.models.common import reference_ndim
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=PARITY_TRAIN["layers"],
+                              dtype=torch.float32)
+    model = LM(cfg, device="cuda")
+    params = model.init(TRAIN["seed"])
+    batch = batch_to_device(ShardedTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=PARITY_TRAIN["seq"],
+        global_batch=PARITY_TRAIN["batch"], seed=1)).batch_at(0), "cuda")
+    loss_k, grads_k = value_and_grad(model, params, batch)
+    ops.set_impl("torch")
+    try:
+        loss_p, grads_p = value_and_grad(model, params, batch)
+    finally:
+        ops.set_impl(None)
+    paths = ["/".join(map(str, pa)) for pa in T.flatten(params)[0]]
+    rel = {pa: _err(a, b) / max(b.abs().max().item(), 1e-30)
+           for pa, a, b in zip(paths, T.leaves(grads_k), T.leaves(grads_p))}
+    del grads_k
+    ocfg, ndim = OptConfig(warmup_steps=1), \
+        functools.partial(reference_ndim, cfg)
+    sub = {k: v for k, v in params.items() if k not in ("embed", "unembed")}
+    sub_g = {k: grads_p[k] for k in sub}
+    del grads_p
+    updated = T.tree_map(torch.clone, sub)
+    apply_updates(updated, sub_g, init_opt_state(updated, ocfg), ocfg,
+                  ndim=ndim)
+    ops.set_impl("torch")
+    try:
+        apply_updates(sub, sub_g, init_opt_state(sub, ocfg), ocfg,
+                      ndim=ndim)
+    finally:
+        ops.set_impl(None)
+    upd = {"/".join(map(str, pa)): _err(a, b) / max(b.abs().max().item(),
+                                                    1e-30)
+           for pa, a, b in zip(T.flatten(sub)[0], T.leaves(updated),
+                               T.leaves(sub))}
+    loss_err = abs(loss_k.item() - loss_p.item())
+    ok = (max(rel.values()) <= PARITY_TRAIN_TOL["grads"]
+          and max(upd.values()) <= PARITY_TRAIN_TOL["update"]
+          and loss_err <= PARITY_TRAIN_TOL["loss"] * abs(loss_p.item())
+          and math.isfinite(loss_k.item()))
+    worst = max(rel, key=rel.get)
+    emit({"phase": "parity_train", "dtype": "float32",
+          "n_layers": cfg.n_layers, **PARITY_TRAIN,
+          "loss": loss_k.item(), "plain_loss": loss_p.item(),
+          "loss_abs_diff": loss_err, "tol": PARITY_TRAIN_TOL,
+          "grad_rel_err_max": rel[worst], "grad_rel_err_worst_leaf": worst,
+          "grad_rel_err": {k: rel[k] for k in
+                           ("embed", "unembed", "final_norm/g",
+                            "layers/0/attn/wq", "layers/1/mlp/wd",
+                            "layers/1/ln1/g")},
+          "update_rel_err_max": max(upd.values()),
+          "update_leaves": len(upd), "ok": ok})
+    if not ok:
+        raise AssertionError(f"parity_train: loss {loss_err}, grads "
+                             f"{rel[worst]} ({worst}), update "
+                             f"{max(upd.values())}")
+
+
+def phase_elastic_train(torch):
+    """The smoke minitron on the card through build_trainer, 8 steps with
+    checkpoints every 2: a clean run, and a run that loses a host at step
+    5 and recovers from the step-4 checkpoint. The recovered run's losses
+    equal the clean run's."""
+    import shutil
+    from repro_torch.launch.train import build_trainer
+    ckpt = os.path.join(SRC, "repro_torch", "_build", "elastic_ckpt")
+    kw = dict(smoke=True, steps=8, batch=4, seq=64, device="cuda")
+    try:
+        t = time.perf_counter()
+        clean = build_trainer("minitron-4b", ckpt_dir=f"{ckpt}/clean",
+                              **kw).run()
+        clean_s = time.perf_counter() - t
+        t = time.perf_counter()
+        failed = build_trainer("minitron-4b", ckpt_dir=f"{ckpt}/failed",
+                               inject={5: ("node_loss", 1)}, **kw).run()
+        failed_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ok = (failed["losses"] == clean["losses"] and failed["recoveries"] == 1
+          and clean["losses"][-1] < clean["losses"][0])
+    emit({"phase": "elastic_train", "config": "minitron-4b-smoke", **kw,
+          "clean_losses": clean["losses"], "losses": failed["losses"],
+          "recoveries": failed["recoveries"],
+          "elastic_events": failed["elastic_events"],
+          "clean_s": clean_s, "recovered_s": failed_s, "ok": ok})
+    if not ok:
+        raise AssertionError(f"elastic_train: {failed['losses']} against "
+                             f"{clean['losses']}")
+
+
+def _train_kernel_group(name: str) -> str:
+    """A kernel of a training step by its name: the flash kernels, the
+    optimizer's and the other tile kernels, bf16 and f32 matmuls (the f32
+    ones are the loss's: the rest of the step is bf16), other."""
+    from repro_torch.kernels.tile_programs import PROGRAMS
+    if "flash_bwd_" in name:
+        return "flash_backward"
+    if "flash_fwd_" in name:
+        return "flash_forward"
+    if name.startswith(("adamw_kernel", "l2_clip_kernel")):
+        return "adamw_l2_clip"
+    if any(name.startswith(f"{p}_kernel") for p in PROGRAMS):
+        return "tile_kernels"
+    if _kernel_group(name) == "matmul":
+        low = name.lower()
+        return "matmul_f32_xent" if any(t in low for t in (
+            "sgemm", "f32f32_f32f32", "simt")) else "matmul"
+    return "other"
+
+
+def phase_trace_train(torch, step, params, state, batch):
+    """One full-width train step under torch.profiler: host wall, device
+    time, busy share, launches, and device ms by group; the analytic
+    rmsnorm and swiglu backwards (torch, no kernel of their own) read
+    from their record_function ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups, n_launch, top, ranges = {}, 0, [], {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key in ("rmsnorm_backward", "swiglu_backward"):
+            # the ranges' spans on the device (their kernels are counted
+            # under "other" by name)
+            ranges[e.key] = {"calls": e.count, "device_ms": us / 1e3}
+            continue
+        g = _train_kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        n_launch += e.count
+        top.append((us / 1e3, e.count, g, e.key[:70]))
+    busy = sum(groups.values())
+    emit({"phase": "trace_train", "wall_ms": wall_ms, "device_ms": busy,
+          "busy_share": busy / wall_ms, "device_launches": n_launch,
+          "device_ms_by_group": groups,
+          "torch_tile_backward_ranges": ranges,
+          "top_kernels": sorted(top, reverse=True)[:10]})
+    return params, state
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1249,11 +1728,25 @@ def main() -> int:
             piped[name] = piped.get(name, 0) + n
         del sync_logits
         phase_trace(torch, srv, tokens, "trace_whisper")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # minitron-4b training at full width, 16 of its 32 layers
+        model, params, state, step, pipe, train = phase_train(torch)
+        phase_trace_train(torch, step, params, state,
+                          pipe.batch_at(TRAIN["steps"]))
+        del model, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_parity_train(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_elastic_train(torch)
     except Exception:
         traceback.print_exc()
         return 1
-    steps = {"prefill": {}, "decode": {}}
-    for paths in (dense, ssm, hybrid, moe, piped, vlm, encdec):
+    steps = {"prefill": {}, "decode": {}, "train": train}
+    for paths in (dense, ssm, hybrid, moe, piped, vlm, encdec, train):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
     for paths in (dense_steps, ssm_steps, hybrid_steps, moe_steps,
@@ -1262,7 +1755,8 @@ def main() -> int:
             for name, n in counts.items():
                 steps[step][name] = steps[step].get(name, 0) + n
     kernels = []
-    extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms")
+    extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms",
+             "nearest_call_ms")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],
@@ -1270,6 +1764,7 @@ def main() -> int:
                         "launches": launches[name],
                         "launches_prefill": steps["prefill"].get(name, 0),
                         "launches_decode": steps["decode"].get(name, 0),
+                        "launches_train": train.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -1,4 +1,5 @@
-// Flash attention forward for NVIDIA Hopper (sm_90a), plain C interface.
+// Flash attention, forward and backward, for NVIDIA Hopper (sm_90a), plain C
+// interface.
 //
 // Replaces the TPU kernel `_attn_kernel` of src/repro/kernels/flash_attention.py
 // (launched by `flash_attention` there): o = softmax(q k^T * scale) v, causal
@@ -53,6 +54,12 @@
 // buffer (~81 KB at D = 128). TF32 tensor cores would miss the 2e-3 f32
 // tolerance, and this path is not on the model's bf16 path.
 //
+// Both forward entries also write each query row's natural-log log-sum-exp
+// (m + log l, as the JAX package's blocked forward) into an f32 (B, H, S)
+// lse when the caller passes one (training); the serve path passes null,
+// and then nothing else of the forward changes. The backward, for
+// training, follows the forward kernels below.
+//
 // Layout: q, o (B, H, S, D); k, v (B, KH, S, D); all contiguous. k and v
 // have q's length S, as in the Pallas kernel: cross-attention over an
 // encoder output of another length is not taken (whisper serves encoder
@@ -68,6 +75,31 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// natural-log log-sum-exp of a row from its running max m (natural log
+// domain) and sum l = sum exp(s - m): m + log(l). A row with nothing
+// unmasked (l = 0; never one of S rows of self-attention over S keys)
+// stores +inf, so the backward's exp(s - lse) gives it no gradient.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l == 0.f ? INFINITY : m + logf(l);
+}
+
+// One call's operands: q, o, dout, dq (B, H, S, D); k, v, dk, dv
+// (B, KH, S, D); lse and delta (B, H, S) f32. The forward reads q, k, v
+// and writes o (and lse where it is not null); the backward reads q, k,
+// v, o, dout and lse and writes delta (scratch), dq, dk and dv.
+struct Args {
+  const void *q, *k, *v, *dout;
+  void *o, *dq, *dk, *dv;
+  float *lse, *delta;
+  int B, H, KH, S;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
 
 // ---------------------------------------------------------------- bf16 --
 
@@ -100,8 +132,9 @@ __device__ __forceinline__ void load_tile_async(bf16* dst,
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                      int KH, int S, float scale_log2, int causal) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int H, int KH, int S,
+                      float scale_log2, int causal) {
   constexpr int PITCH = D + 8;
   constexpr int KD = D / 16;  // k-steps of Q K^T
   constexpr int ND = D / 8;   // n-tiles of the output
@@ -259,23 +292,23 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(op + static_cast<int64_t>(row) * D + n * 8 +
                                    2 * qd) =
           mma::pack_bf16(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+    if (lse != nullptr && qd == 0)
+      lse[static_cast<int64_t>(bh) * S + row] = row_lse(m[r] * kLn2, l[r]);
   }
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KH, int S, float scale, int causal,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const Args& a) {
   constexpr size_t smem = tc_smem_bytes<D>();
   auto kern = flash_fwd_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + TC_BM - 1) / TC_BM);
-  kern<<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KH, S,
-      scale * 1.4426950408889634f, causal);
+  const dim3 grid(a.B * a.H, (a.S + TC_BM - 1) / TC_BM);
+  kern<<<grid, TC_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.H,
+      a.KH, a.S, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
@@ -300,8 +333,9 @@ __device__ __forceinline__ void load_tile(float* dst,
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H,
-                     int KH, int S, float scale, int causal) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int KH, int S, float scale,
+                     int causal) {
   constexpr int DC = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                  // BM x (D + 1)
@@ -412,34 +446,715 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       op[static_cast<int64_t>(qi) * D + tx + 16 * c] = acc[a][c] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<int64_t>(bh) * S + qi] = row_lse(m[a], l[a]);
   }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KH, int S, float scale, int causal,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const Args& a) {
   constexpr size_t smem =
       sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BM * (BN + 1));
   auto kern = flash_fwd_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BM - 1) / BM, B * H);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KH, S, scale,
-      causal);
+  const dim3 grid((a.S + BM - 1) / BM, a.B * a.H);
+  kern<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.H,
+      a.KH, a.S, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
-                               int, int, int, int, float, int, cudaStream_t);
+// ------------------------------------------------------------ backward --
+//
+// The gradient of o = softmax(q k^T * scale) v, as `_flash_bwd` of
+// src/repro/models/layers.py computes it (the TPU package's backward is
+// jnp, not Pallas; this kernel has no TPU counterpart). From the saved
+// q, k, v, o and the forward's row log-sum-exp lse (natural log):
+//   delta = rowsum(dO * O)                       (one f32 per query row)
+//   P     = exp(S * scale - lse),  S = Q K^T     (recomputed, never stored)
+//   dS    = P * (dP - delta) * scale,  dP = dO V^T
+//   dV = P^T dO,  dK = dS^T Q,  dQ = dS K.
+// Three launches:
+// - flash_bwd_delta_kernel: one warp per query row.
+// - dk/dv: one block per (b, kv head, 64-row kv tile). It walks the H / KH
+//   query heads of its kv head and, causal, only the query tiles at or
+//   past its own, and keeps dK and dV in f32 registers, written once: the
+//   GQA sum over the group stays inside the block, with no atomics.
+// - dq: one block per (b * H + h, 64-row query tile), walking the kv
+//   tiles up to the diagonal, dQ in f32 registers.
+// bf16: each warp owns 16 rows (kv rows in dk/dv, query rows in dq). The
+// four products of a tile run on mma.sync with f32 accumulators: in dk/dv,
+// S^T = K Q^T and dP^T = V dO^T (K and V as A fragments by ldmatrix, Q and
+// dO as B), then dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded
+// to bf16 in registers as A fragments and dO, Q read by ldmatrix.trans; in
+// dq, S = Q K^T, dP = dO V^T, dQ += dS K. The plain version and the JAX
+// backward keep P and dS in f32; their bf16 rounding here is the one the
+// forward makes of P before P V. The query (or kv) tiles of the walk are
+// double-buffered by 16-byte cp.async, as the forward's kv tiles.
+// f32: the same blocks on the CUDA cores (16 x 16 threads, a 4 x 4 tile of
+// each score block and a 4 x D/16 tile of each gradient a thread), for the
+// f32 parity runs, as the forward.
+//
+// What bounds it on the H100: at the dense training path's attention
+// (bf16, B 2, H 24, KH 8, S 4096, D 128, causal) the backward is 5 products
+// of 2 * S(S+1)/2 * D MACs each per (b, h), 515 GFLOP (0.52 ms at
+// 989 TFLOP/s), against 269 MB read and written once (0.080 ms at
+// 3.35 TB/s): the operations bound it. This design issues mma.sync from 4
+// warps with no warp specialisation; wgmma and TMA are later work.
+//
+// Ragged S: rows past S load as zeros and are masked or not stored; a
+// query column past S gets P = 0.
 
-cudaError_t dispatch(const Launch (&by_d)[5], const void* q, const void* k,
-                     const void* v, void* o, int B, int H, int KH, int S,
-                     int D, float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_bf16_kernel(const bf16* __restrict__ o,
+                            const bf16* __restrict__ dout,
+                            float* __restrict__ delta, int64_t rows, int D) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32)
+    s += __bfloat162float(o[row * D + d]) * __bfloat162float(dout[row * D + d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_f32_kernel(const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           float* __restrict__ delta, int64_t rows, int D) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += o[row * D + d] * dout[row * D + d];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// 64 floats of a (rows,) vector into shared memory, zero past S
+__device__ __forceinline__ void load_vec_async(float* dst,
+                                               const float* __restrict__ src,
+                                               int row0, int S, int i) {
+  const bool ok = row0 + i < S;
+  mma::cp_async4(dst + i, src + (ok ? row0 + i : 0), ok ? 4 : 0);
+}
+
+template <int D>
+constexpr size_t tc_bwd_smem_bytes() {
+  return sizeof(bf16) * 6 * TC_BM * (D + 8) + sizeof(float) * 4 * TC_BM;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                           int KH, int S, float scale, int causal) {
+  constexpr int PITCH = D + 8;
+  constexpr int KD = D / 16;  // k-steps of the score products
+  constexpr int ND = D / 8;   // n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // BN x PITCH
+  bf16* v_s = k_s + TC_BN * PITCH;                // BN x PITCH
+  bf16* q_s = v_s + TC_BN * PITCH;                // 2 stages x BM x PITCH
+  bf16* do_s = q_s + 2 * TC_BM * PITCH;           // 2 stages x BM x PITCH
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * TC_BM * PITCH);  // 2 x BM
+  float* dl_s = lse_s + 2 * TC_BM;                                    // 2 x BM
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int bkh = blockIdx.x, b = bkh / KH, kh = bkh % KH, rep = H / KH;
+  const int kv0 = blockIdx.y * TC_BN;  // the heaviest tiles (first) first
+  const int n_qt = (S + TC_BM - 1) / TC_BM;
+  const int qt0 = causal ? kv0 / TC_BM : 0;  // query tiles that see this one
+  const int nq = n_qt - qt0, n_it = rep * nq;
+  const float sl2 = scale * kLog2e;
+
+  auto load_q = [&](int it, int st) {
+    const int bh = b * H + kh * rep + it / nq, q0 = (qt0 + it % nq) * TC_BM;
+    const int64_t off = static_cast<int64_t>(bh) * S * D;
+    load_tile_async<D, TC_BM>(q_s + st * TC_BM * PITCH, q + off, q0, S, tid);
+    load_tile_async<D, TC_BM>(do_s + st * TC_BM * PITCH, dout + off, q0, S,
+                              tid);
+    if (tid < TC_BM)
+      load_vec_async(lse_s + st * TC_BM, lse + static_cast<int64_t>(bh) * S,
+                     q0, S, tid);
+    else
+      load_vec_async(dl_s + st * TC_BM, delta + static_cast<int64_t>(bh) * S,
+                     q0, S, tid - TC_BM);
+  };
+  const int64_t kv_off = static_cast<int64_t>(bkh) * S * D;
+  load_tile_async<D, TC_BN>(k_s, k + kv_off, kv0, S, tid);
+  load_tile_async<D, TC_BN>(v_s, v + kv_off, kv0, S, tid);
+  load_q(0, 0);
+  mma::cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+  const int kr0 = kv0 + warp * 16 + g;  // this thread's kv rows: kr0, kr0 + 8
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      load_q(it + 1, st ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qt0 + it % nq) * TC_BM;
+    const bf16* qs = q_s + st * TC_BM * PITCH;
+    const bf16* dos = do_s + st * TC_BM * PITCH;
+    const float* ls = lse_s + st * TC_BM;
+    const float* ds = dl_s + st * TC_BM;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 64 query columns a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      const int a_off = (warp * 16 + (lane & 15)) * PITCH + kk * 16 +
+                        (lane >> 4) * 8;
+      mma::ldmatrix_x4(ka, k_s + a_off);
+      mma::ldmatrix_x4(va, v_s + a_off);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const int b_off = (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * PITCH +
+                          kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t r[4];
+        mma::ldmatrix_x4(r, qs + b_off);
+        mma::mma_bf16(s[2 * nn], ka, r[0], r[1]);
+        mma::mma_bf16(s[2 * nn + 1], ka, r[2], r[3]);
+        mma::ldmatrix_x4(r, dos + b_off);
+        mma::mma_bf16(dp[2 * nn], va, r[0], r[1]);
+        mma::mma_bf16(dp[2 * nn + 1], va, r[2], r[3]);
+      }
+    }
+
+    // P^T and dS^T, rounded to bf16 as the A fragments of the updates
+    const bool need_mask = q0 + TC_BM > S || (causal && kv0 + TC_BN - 1 > q0);
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4], d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = n * 8 + 2 * qd + (i & 1);
+        p[i] = exp2f(s[n][i] * sl2 - ls[c] * kLog2e);
+        if (need_mask) {
+          const int qc = q0 + c, kr = kr0 + (i >> 1) * 8;
+          if (qc >= S || (causal && kr > qc)) p[i] = 0.f;
+        }
+        d[i] = p[i] * (dp[n][i] - ds[c]) * scale;
+      }
+      pf[n / 2][(n & 1) * 2] = mma::pack_bf16(p[0], p[1]);
+      pf[n / 2][(n & 1) * 2 + 1] = mma::pack_bf16(p[2], p[3]);
+      dsf[n / 2][(n & 1) * 2] = mma::pack_bf16(d[0], d[1]);
+      dsf[n / 2][(n & 1) * 2 + 1] = mma::pack_bf16(d[2], d[3]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: 4 k-steps of 16 query rows, D / 8 n-tiles
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        const int t_off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              PITCH +
+                          dd * 16 + (lane >> 4) * 8;
+        uint32_t r[4];
+        mma::ldmatrix_x4_trans(r, dos + t_off);
+        mma::mma_bf16(dv_acc[2 * dd], pf[kk], r[0], r[1]);
+        mma::mma_bf16(dv_acc[2 * dd + 1], pf[kk], r[2], r[3]);
+        mma::ldmatrix_x4_trans(r, qs + t_off);
+        mma::mma_bf16(dk_acc[2 * dd], dsf[kk], r[0], r[1]);
+        mma::mma_bf16(dk_acc[2 * dd + 1], dsf[kk], r[2], r[3]);
+      }
+    }
+    __syncthreads();  // stage st is refilled by the next iteration's load
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr0 + r * 8;
+    if (row >= S) continue;
+    const int64_t base = kv_off + static_cast<int64_t>(row) * D + 2 * qd;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + base + n * 8) =
+          mma::pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + n * 8) =
+          mma::pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int KH, int S,
+                         float scale, int causal) {
+  constexpr int PITCH = D + 8;
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BM x PITCH
+  bf16* do_s = q_s + TC_BM * PITCH;               // BM x PITCH
+  bf16* k_s = do_s + TC_BM * PITCH;               // 2 stages x BN x PITCH
+  bf16* v_s = k_s + 2 * TC_BN * PITCH;            // 2 stages x BN x PITCH
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;  // heaviest first
+  const int64_t q_off = static_cast<int64_t>(bh) * S * D;
+  const bf16* kp = k + (static_cast<int64_t>(b) * KH + kh) * S * D;
+  const bf16* vp = v + (static_cast<int64_t>(b) * KH + kh) * S * D;
+  const int kv_end = causal ? min(S, q0 + TC_BM) : S;
+  const int n_tiles = (kv_end + TC_BN - 1) / TC_BN;
+  const float sl2 = scale * kLog2e;
+
+  load_tile_async<D, TC_BM>(q_s, q + q_off, q0, S, tid);
+  load_tile_async<D, TC_BM>(do_s, dout + q_off, q0, S, tid);
+  load_tile_async<D, TC_BN>(k_s, kp, 0, S, tid);
+  load_tile_async<D, TC_BN>(v_s, vp, 0, S, tid);
+  mma::cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + g;  // this thread's query rows: r0, r0 + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    const int64_t i = static_cast<int64_t>(bh) * S + (row < S ? row : 0);
+    lse2[r] = lse[i] * kLog2e;
+    dl[r] = delta[i];
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile_async<D, TC_BN>(k_s + (st ^ 1) * TC_BN * PITCH, kp,
+                                (j + 1) * TC_BN, S, tid);
+      load_tile_async<D, TC_BN>(v_s + (st ^ 1) * TC_BN * PITCH, vp,
+                                (j + 1) * TC_BN, S, tid);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = k_s + st * TC_BN * PITCH;
+    const bf16* vs = v_s + st * TC_BN * PITCH;
+
+    // S = Q K^T and dP = dO V^T: 16 query rows x 64 kv columns a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], da[4];
+      const int a_off = (warp * 16 + (lane & 15)) * PITCH + kk * 16 +
+                        (lane >> 4) * 8;
+      mma::ldmatrix_x4(qa, q_s + a_off);
+      mma::ldmatrix_x4(da, do_s + a_off);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const int b_off = (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * PITCH +
+                          kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t r[4];
+        mma::ldmatrix_x4(r, ks + b_off);
+        mma::mma_bf16(s[2 * nn], qa, r[0], r[1]);
+        mma::mma_bf16(s[2 * nn + 1], qa, r[2], r[3]);
+        mma::ldmatrix_x4(r, vs + b_off);
+        mma::mma_bf16(dp[2 * nn], da, r[0], r[1]);
+        mma::mma_bf16(dp[2 * nn + 1], da, r[2], r[3]);
+      }
+    }
+
+    // dS, rounded to bf16 as the A fragments of dQ += dS K
+    const int k0 = j * TC_BN;
+    const bool need_mask = k0 + TC_BN > S || (causal && k0 + TC_BN - 1 > q0);
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = exp2f(s[n][i] * sl2 - lse2[i >> 1]);
+        if (need_mask) {
+          const int col = k0 + n * 8 + 2 * qd + (i & 1), row = r0 + (i >> 1) * 8;
+          if (col >= S || (causal && col > row)) p = 0.f;
+        }
+        d[i] = p * (dp[n][i] - dl[i >> 1]) * scale;
+      }
+      dsf[n / 2][(n & 1) * 2] = mma::pack_bf16(d[0], d[1]);
+      dsf[n / 2][(n & 1) * 2 + 1] = mma::pack_bf16(d[2], d[3]);
+    }
+
+    // dQ += dS K: 4 k-steps of 16 kv rows, D / 8 n-tiles
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t r[4];
+        mma::ldmatrix_x4_trans(
+            r, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PITCH +
+                   dd * 16 + (lane >> 4) * 8);
+        mma::mma_bf16(acc[2 * dd], dsf[kk], r[0], r[1]);
+        mma::mma_bf16(acc[2 * dd + 1], dsf[kk], r[2], r[3]);
+      }
+    }
+    __syncthreads();  // stage st is refilled by the next iteration's load
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dq + q_off + static_cast<int64_t>(row) * D +
+                                   n * 8 + 2 * qd) =
+          mma::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const Args& a) {
+  constexpr size_t smem = tc_bwd_smem_bytes<D>();
+  auto dkdv = flash_bwd_dkdv_bf16_kernel<D>;
+  auto dqk = flash_bwd_dq_bf16_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.S;
+  const auto* q = static_cast<const bf16*>(a.q);
+  const auto* k = static_cast<const bf16*>(a.k);
+  const auto* v = static_cast<const bf16*>(a.v);
+  const auto* dout = static_cast<const bf16*>(a.dout);
+  flash_bwd_delta_bf16_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const bf16*>(a.o), dout, a.delta, rows, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int tiles = (a.S + TC_BM - 1) / TC_BM;
+  dkdv<<<dim3(a.B * a.KH, tiles), TC_THREADS, smem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.KH, a.S, a.scale, a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<dim3(a.B * a.H, tiles), TC_THREADS, smem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.H, a.KH, a.S,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int H,
+                          int KH, int S, float scale, int causal) {
+  constexpr int DC = D / 16;  // gradient columns per thread
+  extern __shared__ float smem[];
+  float* k_s = smem;                  // BN x (D + 1)
+  float* v_s = k_s + BN * (D + 1);    // BN x (D + 1)
+  float* q_s = v_s + BN * (D + 1);    // BM x (D + 1)
+  float* do_s = q_s + BM * (D + 1);   // BM x (D + 1)
+  float* p_s = do_s + BM * (D + 1);   // BN x (BM + 1): P^T
+  float* ds_s = p_s + BN * (BM + 1);  // BN x (BM + 1): dS^T
+  float* lse_s = ds_s + BN * (BM + 1);
+  float* dl_s = lse_s + BM;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int kv0 = blockIdx.x * BN;
+  const int bkh = blockIdx.y, b = bkh / KH, kh = bkh % KH, rep = H / KH;
+  const int64_t kv_off = static_cast<int64_t>(bkh) * S * D;
+  load_tile<D>(k_s, k + kv_off, kv0, S, tid);
+  load_tile<D>(v_s, v + kv_off, kv0, S, tid);
+
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+
+  const int qt0 = causal ? kv0 / BM : 0;
+  for (int hh = 0; hh < rep; ++hh) {
+    const int bh = b * H + kh * rep + hh;
+    const int64_t q_off = static_cast<int64_t>(bh) * S * D;
+    for (int q0 = qt0 * BM; q0 < S; q0 += BM) {
+      __syncthreads();  // the previous tile's updates are done with q_s
+      load_tile<D>(q_s, q + q_off, q0, S, tid);
+      load_tile<D>(do_s, dout + q_off, q0, S, tid);
+      if (tid < BM) {
+        const bool ok = q0 + tid < S;
+        lse_s[tid] = ok ? lse[static_cast<int64_t>(bh) * S + q0 + tid] : 0.f;
+        dl_s[tid] = ok ? delta[static_cast<int64_t>(bh) * S + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          kv[a] = k_s[(ty * 4 + a) * (D + 1) + d];
+          vv[a] = v_s[(ty * 4 + a) * (D + 1) + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = q_s[(tx + 16 * j) * (D + 1) + d];
+          ov[j] = do_s[(tx + 16 * j) * (D + 1) + d];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[a][j] = fmaf(kv[a], qv[j], s[a][j]);
+            dp[a][j] = fmaf(vv[a], ov[j], dp[a][j]);
+          }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int kr = kv0 + ty * 4 + a;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, qc = q0 + c;
+          const bool ok = qc < S && (!causal || kr <= qc);
+          const float p = ok ? expf(s[a][j] * scale - lse_s[c]) : 0.f;
+          p_s[(ty * 4 + a) * (BM + 1) + c] = p;
+          ds_s[(ty * 4 + a) * (BM + 1) + c] = p * (dp[a][j] - dl_s[c]) * scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int i = 0; i < BM; ++i) {
+        float pv[4], dsv[4], ov[DC], qv[DC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pv[a] = p_s[(ty * 4 + a) * (BM + 1) + i];
+          dsv[a] = ds_s[(ty * 4 + a) * (BM + 1) + i];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          ov[c] = do_s[i * (D + 1) + tx + 16 * c];
+          qv[c] = q_s[i * (D + 1) + tx + 16 * c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            dv_acc[a][c] = fmaf(pv[a], ov[c], dv_acc[a][c]);
+            dk_acc[a][c] = fmaf(dsv[a], qv[c], dk_acc[a][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = kv0 + ty * 4 + a;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int64_t i = kv_off + static_cast<int64_t>(row) * D + tx + 16 * c;
+      dk[i] = dk_acc[a][c];
+      dv[i] = dv_acc[a][c];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int KH, int S,
+                        float scale, int causal) {
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // BM x (D + 1)
+  float* do_s = q_s + BM * (D + 1);   // BM x (D + 1)
+  float* k_s = do_s + BM * (D + 1);   // BN x (D + 1)
+  float* v_s = k_s + BN * (D + 1);    // BN x (D + 1)
+  float* ds_s = v_s + BN * (D + 1);   // BM x (BN + 1)
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int64_t q_off = static_cast<int64_t>(bh) * S * D;
+  const float* kp = k + (static_cast<int64_t>(b) * KH + kh) * S * D;
+  const float* vp = v + (static_cast<int64_t>(b) * KH + kh) * S * D;
+  load_tile<D>(q_s, q + q_off, q0, S, tid);
+  load_tile<D>(do_s, dout + q_off, q0, S, tid);
+
+  float lr[4], dl[4], acc[4][DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + ty * 4 + a;
+    const int64_t i = static_cast<int64_t>(bh) * S + (row < S ? row : 0);
+    lr[a] = lse[i];
+    dl[a] = delta[i];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+  }
+
+  const int kv_end = causal ? min(S, q0 + BM) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += BN) {
+    __syncthreads();  // the previous tile's dQ update is done with k_s
+    load_tile<D>(k_s, kp, k0, S, tid);
+    load_tile<D>(v_s, vp, k0, S, tid);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qv[a] = q_s[(ty * 4 + a) * (D + 1) + d];
+        ov[a] = do_s[(ty * 4 + a) * (D + 1) + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = k_s[(tx + 16 * j) * (D + 1) + d];
+        vv[j] = v_s[(tx + 16 * j) * (D + 1) + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
+          dp[a][j] = fmaf(ov[a], vv[j], dp[a][j]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int qi = q0 + ty * 4 + a;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const bool ok = kj < S && (!causal || kj <= qi);
+        const float p = ok ? expf(s[a][j] * scale - lr[a]) : 0.f;
+        ds_s[(ty * 4 + a) * (BN + 1) + tx + 16 * j] =
+            p * (dp[a][j] - dl[a]) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int i = 0; i < BN; ++i) {
+      float dsv[4], kv[DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dsv[a] = ds_s[(ty * 4 + a) * (BN + 1) + i];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kv[c] = k_s[i * (D + 1) + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(dsv[a], kv[c], acc[a][c]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + ty * 4 + a;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      dq[q_off + static_cast<int64_t>(row) * D + tx + 16 * c] = acc[a][c];
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_f32(const Args& a) {
+  constexpr size_t smem_kv =
+      sizeof(float) * (4 * BM * (D + 1) + 2 * BN * (BM + 1) + 2 * BM);
+  constexpr size_t smem_q = sizeof(float) * (4 * BM * (D + 1) + BM * (BN + 1));
+  auto dkdv = flash_bwd_dkdv_f32_kernel<D>;
+  auto dqk = flash_bwd_dq_f32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_kv));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.S;
+  const auto* q = static_cast<const float*>(a.q);
+  const auto* k = static_cast<const float*>(a.k);
+  const auto* v = static_cast<const float*>(a.v);
+  const auto* dout = static_cast<const float*>(a.dout);
+  flash_bwd_delta_f32_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.o), dout, a.delta, rows, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int tiles = (a.S + BM - 1) / BM;
+  dkdv<<<dim3(tiles, a.B * a.KH), THREADS, smem_kv, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.H, a.KH, a.S, a.scale, a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<dim3(tiles, a.B * a.H), THREADS, smem_q, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KH,
+      a.S, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ dispatch --
+
+using Launch = cudaError_t (*)(const Args&);
+
+cudaError_t dispatch(const Launch (&by_d)[5], const Args& a, int D) {
+  if (a.B <= 0 || a.H <= 0 || a.KH <= 0 || a.S <= 0 || a.H % a.KH != 0)
     return cudaErrorInvalidValue;
   const int i = D == 16    ? 0
                 : D == 32  ? 1
@@ -448,33 +1163,83 @@ cudaError_t dispatch(const Launch (&by_d)[5], const void* q, const void* k,
                 : D == 128 ? 4
                            : -1;
   if (i < 0) return cudaErrorInvalidValue;
-  return by_d[i](q, k, v, o, B, H, KH, S, scale, causal,
-                 static_cast<cudaStream_t>(stream));
+  return by_d[i](a);
 }
 
 constexpr Launch kBf16[5] = {launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
                              launch_bf16<80>, launch_bf16<128>};
 constexpr Launch kF32[5] = {launch_f32<16>, launch_f32<32>, launch_f32<64>,
                             launch_f32<80>, launch_f32<128>};
+constexpr Launch kBwdBf16[5] = {launch_bwd_bf16<16>, launch_bwd_bf16<32>,
+                                launch_bwd_bf16<64>, launch_bwd_bf16<80>,
+                                launch_bwd_bf16<128>};
+constexpr Launch kBwdF32[5] = {launch_bwd_f32<16>, launch_bwd_f32<32>,
+                               launch_bwd_f32<64>, launch_bwd_f32<80>,
+                               launch_bwd_f32<128>};
+
+Args fwd_args(const void* q, const void* k, const void* v, void* o, void* lse,
+              int B, int H, int KH, int S, float scale, int causal,
+              void* stream) {
+  return Args{q, k, v, nullptr, o, nullptr, nullptr, nullptr,
+              static_cast<float*>(lse), nullptr, B, H, KH, S, scale, causal,
+              static_cast<cudaStream_t>(stream)};
+}
+
+Args bwd_args(const void* q, const void* k, const void* v, const void* o,
+              const void* lse, const void* dout, void* delta, void* dq,
+              void* dk, void* dv, int B, int H, int KH, int S, float scale,
+              int causal, void* stream) {
+  return Args{q, k, v, dout, const_cast<void*>(o), dq, dk, dv,
+              static_cast<float*>(const_cast<void*>(lse)),
+              static_cast<float*>(delta), B, H, KH, S, scale, causal,
+              static_cast<cudaStream_t>(stream)};
+}
 
 }  // namespace
 
 extern "C" {
 
-// bf16 q, k, v, o on the tensor cores. Returns a cudaError_t (0 = success).
+// bf16 q, k, v, o on the tensor cores; lse (B, H, S) f32, or null to skip
+// it. Returns a cudaError_t (0 = success).
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int KH, int S, int D,
-                             float scale, int causal, void* stream) {
+                             void* o, void* lse, int B, int H, int KH, int S,
+                             int D, float scale, int causal, void* stream) {
   if ((S + TC_BM - 1) / TC_BM > 65535) return cudaErrorInvalidValue;
-  return dispatch(kBf16, q, k, v, o, B, H, KH, S, D, scale, causal, stream);
+  return dispatch(kBf16, fwd_args(q, k, v, o, lse, B, H, KH, S, scale, causal,
+                                  stream), D);
 }
 
-// f32 q, k, v, o on the CUDA cores. Returns a cudaError_t (0 = success).
+// f32 q, k, v, o on the CUDA cores; lse as above. Returns a cudaError_t.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                            void* o, int B, int H, int KH, int S, int D,
-                            float scale, int causal, void* stream) {
+                            void* o, void* lse, int B, int H, int KH, int S,
+                            int D, float scale, int causal, void* stream) {
   if (B * H > 65535) return cudaErrorInvalidValue;
-  return dispatch(kF32, q, k, v, o, B, H, KH, S, D, scale, causal, stream);
+  return dispatch(kF32, fwd_args(q, k, v, o, lse, B, H, KH, S, scale, causal,
+                                 stream), D);
+}
+
+// The backward of a bf16 call: dq (B, H, S, D), dk and dv (B, KH, S, D),
+// from q, k, v, o, the forward's lse and dout; delta is an f32 scratch of
+// B * H * S. Three launches. Returns a cudaError_t (0 = success).
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* o, const void* lse, const void* dout,
+                             void* delta, void* dq, void* dk, void* dv, int B,
+                             int H, int KH, int S, int D, float scale,
+                             int causal, void* stream) {
+  if ((S + TC_BM - 1) / TC_BM > 65535) return cudaErrorInvalidValue;
+  return dispatch(kBwdBf16, bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv,
+                                     B, H, KH, S, scale, causal, stream), D);
+}
+
+// The same for an f32 call, on the CUDA cores. Returns a cudaError_t.
+int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* o, const void* lse, const void* dout,
+                            void* delta, void* dq, void* dk, void* dv, int B,
+                            int H, int KH, int S, int D, float scale,
+                            int causal, void* stream) {
+  if (B * H > 65535) return cudaErrorInvalidValue;
+  return dispatch(kBwdF32, bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv,
+                                    B, H, KH, S, scale, causal, stream), D);
 }
 
 const char* flash_attention_error_string(int err) {

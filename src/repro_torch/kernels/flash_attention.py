@@ -13,6 +13,13 @@ model's path) runs on the bf16 tensor cores (``mma.sync``), f32 on the
 CUDA cores, whose full f32 products hold the f32 tolerance that TF32
 would miss. Neither is a fallback for the other: a launch that fails
 raises.
+
+Training differentiates it as the JAX package's ``jax.custom_vjp`` of
+``blocked_attention`` (``src/repro/models/layers.py:88-201``): the
+forward also stores each row's log-sum-exp, and the backward is the
+hand-written backward kernel of the same source (no TPU kernel: the JAX
+package's backward is jnp), with ``flash_attention_bwd_plain`` its
+plain version.
 """
 from __future__ import annotations
 
@@ -26,21 +33,75 @@ from . import cuda_build
 from . import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
-_ENTRY = {torch.float32: "flash_attention_fwd_f32",
-          torch.bfloat16: "flash_attention_fwd_bf16"}
+_FWD = {torch.float32: "flash_attention_fwd_f32",
+        torch.bfloat16: "flash_attention_fwd_bf16"}
+_BWD = {torch.float32: "flash_attention_bwd_f32",
+        torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     lib = cuda_build.load("flash_attention.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry in _ENTRY.values():
+    for entry in _FWD.values():
         fn = getattr(lib, entry)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = i
+    for entry in _BWD.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, i, p]
         fn.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel: "
+                           + lib.flash_attention_error_string(err).decode())
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check(q, k, v, *more):
+    """The launch's shape (B, H, KH, S, D), or an error for what the
+    kernels do not take. ``more`` are further (name, tensor) operands
+    shaped like q (o, dout) or lse-shaped (B, H, S) f32."""
+    B, H, S, D = q.shape if q.dim() == 4 else (0, 0, 0, 0)
+    for name, t in (("q", q), ("k", k), ("v", v)) + more:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, "
+                             f"q on {q.device}")
+        want = torch.float32 if name == "lse" else q.dtype
+        if t.dtype != want:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, "
+                            f"expected {want}")
+        if t.dim() != (3 if name == "lse" else 4) or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"{3 if name == 'lse' else 4}-d tensor, got "
+                             f"shape {tuple(t.shape)}")
+    if q.dtype not in _FWD:
+        raise TypeError(f"flash_attention: dtype {q.dtype} (float32 or "
+                        "bfloat16)")
+    KH = k.shape[1]
+    if tuple(k.shape) != (B, KH, S, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: k and v "
+                         "must be (B, KH, S, D) with q's batch, length S "
+                         "and head_dim (no cross-attention over another "
+                         "length yet)")
+    for name, t in more:
+        want = (B, H, S) if name == "lse" else (B, H, S, D)
+        if tuple(t.shape) != want:
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)}, "
+                             f"expected {want}")
+    if D not in HEAD_DIMS or H % KH:
+        raise ValueError(f"flash_attention: head_dim {D} (one of "
+                         f"{HEAD_DIMS}) and {H} heads over {KH} kv heads")
+    return B, H, KH, S, D
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -50,56 +111,154 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return _ref.attention_ref(q, k, v, causal=causal, scale=scale)
 
 
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None):
+    """``(o, lse)``: the plain version's output and each query row's
+    log-sum-exp of its scaled, masked f32 logits, natural log, (B, H, S)
+    f32 (the ``m + log(l)`` of the JAX package's blocked forward,
+    ``src/repro/models/layers.py:137``)."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    scale = (D ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          k.float().repeat_interleave(rep, 1)) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, -1e30)
+    return (flash_attention_plain(q, k, v, causal=causal, scale=scale),
+            torch.logsumexp(logits, dim=-1))
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
+                              scale: Optional[float] = None,
+                              block: int = 512):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` for the output
+    gradient ``dout``, from the saved ``o`` and ``lse``: the port of
+    ``_flash_bwd`` (``src/repro/models/layers.py:151-201``), blocked
+    recomputation in f32 over ``block`` x ``block`` tiles (the last one
+    ragged; causal tiles wholly above the diagonal add nothing and are
+    skipped). GQA: k and v are repeated to H heads, and their gradients
+    summed back over each group."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    rep = H // KH
+    scale = (D ** -0.5) if scale is None else scale
+    qf, dof = q.float(), dout.float()
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    delta = (dof * o.float()).sum(-1)                       # (B,H,S)
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for k0 in range(0, S, block):
+        k1 = min(k0 + block, S)
+        kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        for q0 in range(k0 if causal else 0, S, block):
+            q1 = min(q0 + block, S)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q0:q1], kt) * scale
+            if causal:
+                keep = (torch.arange(q0, q1, device=q.device)[:, None]
+                        >= torch.arange(k0, k1, device=q.device)[None])
+                s = torch.where(keep, s, -1e30)
+            p = torch.exp(s - lse[:, :, q0:q1, None])
+            dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, q0:q1], vt)
+            ds = p * (dp - delta[:, :, q0:q1, None]) * scale
+            dk[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", ds,
+                                            qf[:, :, q0:q1])
+            dv[:, :, k0:k1] += torch.einsum("bhqk,bhqd->bhkd", p,
+                                            dof[:, :, q0:q1])
+            dq[:, :, q0:q1] += torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+    dk = dk.reshape(B, KH, rep, S, D).sum(2)
+    dv = dv.reshape(B, KH, rep, S, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
+                with_lse: bool):
+    """One forward launch: ``(o, lse)``, lse None unless asked for (the
+    serve path asks for none, and the kernel then stores none)."""
+    B, H, KH, S, D = _check(q, k, v)
+    scale = (D ** -0.5) if scale is None else float(scale)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if o.numel() == 0:
+        return o, lse
+    lib = _load()
+    _raise_on(lib, getattr(lib, _FWD[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, KH, S, D, scale,
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention")
+    flash_attention.launches += 1
+    return o, lse
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernel under autograd, as ``jax.custom_vjp`` holds ``_flash``:
+    the forward launches with ``lse`` and saves ``(q, k, v, o, lse)`` (as
+    ``_flash_fwd``); the backward launches the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _launch_fwd(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
     """q:(B,H,S,D) k/v:(B,KH,S,D) → (B,H,S,D); GQA when KH < H.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise. ``flash_attention.launches`` counts kernel launches."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    CPU tensors take the plain version (which autograd differentiates);
+    CUDA tensors launch the kernel or raise, under autograd through
+    ``_FlashFn`` (whose backward is :func:`flash_attention_bwd`) where a
+    gradient is wanted. ``flash_attention.launches`` counts forward
+    launches."""
+    if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {t.device}, "
-                             f"q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}, "
-                            f"q is {q.dtype}")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"4-d tensor, got shape {tuple(t.shape)}")
-    if q.dtype not in _ENTRY:
-        raise TypeError(f"flash_attention: dtype {q.dtype} (float32 or "
-                        "bfloat16)")
-    B, H, S, D = q.shape
-    KH = k.shape[1]
-    if tuple(k.shape) != (B, KH, S, D) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}: k and v "
-                         "must be (B, KH, S, D) with q's batch, length S "
-                         "and head_dim (no cross-attention over another "
-                         "length yet)")
-    if D not in HEAD_DIMS or H % KH:
-        raise ValueError(f"flash_attention: head_dim {D} (one of "
-                         f"{HEAD_DIMS}) and {H} heads over {KH} kv heads")
-    scale = (D ** -0.5) if scale is None else float(scale)
-    o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    lib = _load()
-    err = getattr(lib, _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KH,
-        S, D, scale, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_attention kernel: "
-                           + lib.flash_attention_error_string(err).decode())
-    flash_attention.launches += 1
-    return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashFn.apply(q, k, v, causal, scale)
+    return _launch_fwd(q, k, v, causal, scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)``: the plain
+    version on CPU tensors, else the backward kernels (delta, dk/dv, dq:
+    three launches, counted once in ``flash_attention_bwd.launches``) or
+    an error."""
+    if _on_cpu(q, k, v, o, lse, dout):
+        return flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                         causal=causal, scale=scale)
+    B, H, KH, S, D = _check(q, k, v, ("o", o), ("dout", dout), ("lse", lse))
+    scale = (D ** -0.5) if scale is None else float(scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _load()
+    _raise_on(lib, getattr(lib, _BWD[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, KH, S, D, scale, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def decode_attention(q, k_cache, v_cache, *, scale: Optional[float] = None):

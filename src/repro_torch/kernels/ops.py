@@ -22,10 +22,25 @@ No fallback on the card: on CUDA tensors an op runs what it was asked
 to run and raises if that fails. The runtime floor of the JAX package
 (catch, fall back to the oracle, count a runtime fallback, trip the
 breaker) applies to CPU tensors only.
+
+Gradients. On CPU tensors autograd differentiates the saturated torch
+code (``torch_ref``) directly, as JAX differentiates ``jax_ref``. Under
+the ``triton`` implementation (CUDA tensors) that want a gradient,
+rmsnorm, rotary and swiglu launch their kernels through
+``torch.autograd.Function``s: rotary's backward is
+the same kernel with ``-sin`` (exact: both RoPE tables repeat their
+first half), rmsnorm's and swiglu's are the analytic derivatives in f32
+torch (:func:`rmsnorm_backward`, :func:`swiglu_backward`; the JAX
+package's gradient of these ops is XLA's autodiff of ``jax_ref``, no
+kernel either). The other tile ops and the SSD scan have no backward on
+the card yet and raise there rather than return a result with no
+gradient (ROADMAP A12).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch.core.telemetry import telemetry
 from repro_torch.runtime.guard import breaker_for
@@ -41,15 +56,22 @@ _IMPL: Optional[str] = None  # None = auto
 _TILE_EMITTER: Optional[str] = None  # None = "triton"
 
 # runtime degradation floor on CPU tensors: the named oracle each tile op
-# falls back to when building or applying the saturated op fails
-# (the ops the model families call; the optimizer's tile programs get
-# their op wrappers with training, ROADMAP queue A)
+# falls back to when building or applying the saturated op fails (the
+# ops the model families and the optimizer call)
 _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "rmsnorm_gated": _ref.rmsnorm_gated_ref,
                   "layernorm": _ref.layernorm_ref,
                   "swiglu": _ref.swiglu_ref,
                   "gelu": _ref.gelu_ref,
-                  "moe_router": _ref.softmax_ref}
+                  "moe_router": _ref.softmax_ref,
+                  "adamw": _ref.adamw_ref,
+                  "l2_clip": _ref.l2_clip_ref}
+# the queue item that brings each op a backward on the card
+_NO_BACKWARD = {"rmsnorm_gated": "A12 (rmsnorm_gated backward)",
+                "layernorm": "A12 (layernorm backward)",
+                "gelu": "A12 (gelu backward)",
+                "moe_router": "A12 (moe_router backward)",
+                "ssd": "A12 (SSD-scan backward)"}
 
 
 def set_impl(impl: Optional[str]):
@@ -103,6 +125,19 @@ def _guarded(name: str, x, optimized: Callable, reference: Callable):
     return out
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors):
+    """A kernel with no backward, asked for a gradient on the card."""
+    if tensors[0].is_cuda and _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: no backward on the card yet (ROADMAP "
+            f"{_NO_BACKWARD[name]}); its kernel would return a result with "
+            "no gradient")
+
+
 def _tile(name: str, *arrays, **scalars):
     x = arrays[0]
     impl = current_impl(x)
@@ -110,6 +145,8 @@ def _tile(name: str, *arrays, **scalars):
     if impl == "ref":
         return ref_fn(*arrays, **scalars)
     if impl == "triton":
+        if name in _NO_BACKWARD:
+            _refuse_grad(name, *arrays)
         return _guarded(name, x,
                         lambda: _kernel_op(name).apply(*arrays, **scalars),
                         lambda: ref_fn(*arrays, **scalars))
@@ -118,8 +155,86 @@ def _tile(name: str, *arrays, **scalars):
                     lambda: ref_fn(*arrays, **scalars))
 
 
+# -- backward of the tile ops on the card ---------------------------------------
+def rmsnorm_backward(x, g, dy, eps=1e-6):
+    """``(dx, dg)`` of ``y = x * r * g``, ``r = rsqrt(mean(x^2) + eps)``,
+    in f32: ``dx = r (g dy) - x r^3 mean(x g dy)``, ``dg = sum over rows of
+    dy x r``; cast to the dtypes of x and g."""
+    xf, gf, dyf = x.float(), g.float(), dy.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gdy = gf * dyf
+    dx = r * gdy - xf * (r * r * r) * torch.mean(xf * gdy, dim=-1,
+                                                 keepdim=True)
+    dg = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dg.reshape(g.shape).to(g.dtype)
+
+
+def swiglu_backward(a, b, dy):
+    """``(da, db)`` of ``y = silu(a) b`` in f32: ``da = dy b s (1 + a (1 -
+    s))``, ``db = dy a s`` with ``s = sigmoid(a)``; cast to a's and b's
+    dtypes."""
+    af, bf, dyf = a.float(), b.float(), dy.float()
+    s = torch.sigmoid(af)
+    da = dyf * bf * s * (1.0 + af * (1.0 - s))
+    return da.to(a.dtype), (dyf * af * s).to(b.dtype)
+
+
+class _RmsnormFn(torch.autograd.Function):
+    """The rmsnorm kernel forward, :func:`rmsnorm_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _kernel_op("rmsnorm").apply(x, g, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        with torch.profiler.record_function("rmsnorm_backward"):
+            dx, dg = rmsnorm_backward(x, g, dy, ctx.eps)
+        return dx, dg, None
+
+
+class _SwigluFn(torch.autograd.Function):
+    """The swiglu kernel forward, :func:`swiglu_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _kernel_op("swiglu").apply(a, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        with torch.profiler.record_function("swiglu_backward"):
+            return swiglu_backward(a, b, dy)
+
+
+class _RotaryFn(torch.autograd.Function):
+    """The rotary kernel both ways. RoPE is linear in q, and its cos/sin
+    tables repeat their first half (``rope_cos_sin``, M-RoPE's
+    ``ang2``), so ``rotate_half(dy * sin) = rotate_half(dy) * sin`` and
+    the gradient ``dy cos + rotate_half^T(dy sin)`` is
+    ``rotary(dy, cos, -sin)``: the same kernel, in the same ``cycle`` or
+    ``bcycle`` layout. cos and sin take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _kernel_op("rotary").apply(q, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cos, sin = ctx.saved_tensors
+        return _kernel_op("rotary").apply(dy.contiguous(), cos, -sin), \
+            None, None
+
+
 # -- saturated tile ops ---------------------------------------------------------
 def rmsnorm(x, g, eps=1e-6):
+    if current_impl(x) == "triton" and _wants_grad(x, g):
+        return _RmsnormFn.apply(x, g, eps)
     return _tile("rmsnorm", x, g, eps=eps)
 
 
@@ -132,6 +247,8 @@ def layernorm(x, g, b, eps=1e-6):
 
 
 def swiglu(a, b):
+    if current_impl(a) == "triton" and _wants_grad(a, b):
+        return _SwigluFn.apply(a, b)
     return _tile("swiglu", a, b)
 
 
@@ -154,6 +271,8 @@ def rotary(q, cos, sin):
     impl = current_impl(q)
     if impl == "ref":
         return _ref.rotary_ref(q, cos, sin)
+    if impl == "triton" and _wants_grad(q):
+        return _RotaryFn.apply(q, cos, sin)
 
     def _opt():
         if impl == "triton":
@@ -162,6 +281,20 @@ def rotary(q, cos, sin):
                                                sin.expand(q.shape))
 
     return _guarded("rotary", q, _opt, lambda: _ref.rotary_ref(q, cos, sin))
+
+
+def adamw_update(param, grad, m, v, *, lr, b1, b2, eps, wd, inv_bc1,
+                 inv_bc2):
+    """Returns (m_new, v_new, param_new): the saturated fused update, the
+    generated kernel on CUDA tensors. The scalars are host floats."""
+    return _tile("adamw", param, grad, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                 wd=wd, inv_bc1=inv_bc1, inv_bc2=inv_bc2)
+
+
+def l2_clip(g, *, norm, max_norm, eps=1e-9):
+    """``g * min(1, max_norm / (norm + eps))``: the saturated ``l2_clip``
+    program, the generated kernel on CUDA tensors."""
+    return _tile("l2_clip", g, norm=norm, max_norm=max_norm, eps=eps)
 
 
 # -- structured kernels -----------------------------------------------------------
@@ -185,6 +318,7 @@ def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128,
     (B,H,N,P) state, which seeds decode."""
     impl = current_impl(x)
     if impl == "triton":
+        _refuse_grad("ssd", x, dt, a_log, b_mat, c_mat, d_skip)
         return ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
                         return_state=return_state)
     if impl == "ref" and not return_state:

@@ -257,3 +257,7 @@ def _tile_op(name: str, mode: str, schedule: Optional[str],
         tpu_rules=(mode in ("cse_sat", "accsat")),
         schedule_cfg=ScheduleConfig(schedule=schedule, emitter=emitter))
     return make_tile_op(PROGRAMS[name](), cfg)
+
+
+# drop every built op (a simulated host restart re-saturates)
+get_tile_op.cache_clear = _tile_op.cache_clear

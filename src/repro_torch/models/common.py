@@ -1,5 +1,5 @@
 """Model configuration and shared utilities (device, RoPE, init, loading
-the JAX package's parameters)."""
+the JAX package's parameters, the chunked cross-entropy loss)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +8,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +165,57 @@ def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     return torch.cos(ang2), torch.sin(ang2)
 
 
+# -- loss ------------------------------------------------------------------------
+def _chunk_nll(h, unembed, labels, mask, vocab: int):
+    """Summed masked NLL of one chunk: f32 logits over the padded vocab,
+    the padding masked to -1e30."""
+    logits = h.float() @ unembed
+    if unembed.shape[-1] != vocab:
+        col = torch.arange(unembed.shape[-1], device=logits.device)
+        logits = torch.where(col < vocab, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materializing the (B, S, V) logits: the port
+    of :func:`repro.models.common.chunked_softmax_xent`.
+
+    The sequence runs in chunks (``chunk``, or ``gcd(S, chunk)`` where it
+    does not divide S); each chunk's (B, chunk, V) f32 logits live only
+    inside a ``torch.utils.checkpoint`` region, so the backward recomputes
+    them instead of keeping every chunk's softmax. The vocab is padded to
+    a multiple of 2048 (the JAX package pads it so the logits' V axis
+    shards evenly), the padded columns masked to -1e30. The unembedding is
+    cast to f32 (and padded) once per call, not once per chunk: the same
+    arithmetic, without a (D, V) f32 copy per chunk (at minitron's
+    256,000 x 3072, 3.1 GB each).
+    hidden: (B, S, D) f32/bf16; unembed: (D, V); labels/mask: (B, S)."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = math.gcd(S, chunk) or S
+    V = unembed.shape[-1]
+    Vp = (V + 2047) // 2048 * 2048
+    w = unembed.float()
+    if Vp != V:
+        w = F.pad(w, (0, Vp - V))
+    mask = mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (hidden[:, sl], w, labels[:, sl], mask[:, sl], V)
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            tot = tot + _chunk_nll(*args)
+    return tot / torch.clamp(mask.sum(), min=1.0)
+
+
 # -- init ------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
@@ -183,6 +236,22 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)   # a writable copy
 
 
+def reference_stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """The parameter tree's layer stacks and their depths: the subtrees
+    the JAX package stacks along a leading layer axis and the port keeps
+    as lists of per-layer dicts."""
+    return {"encdec": {"enc_layers": cfg.n_enc_layers,
+                       "dec_layers": cfg.n_layers}}.get(
+        cfg.family, {"layers": cfg.n_layers})
+
+
+def reference_ndim(cfg: ModelConfig, path, p: torch.Tensor) -> int:
+    """``p``'s ``ndim`` in the JAX package's stacked layout: one more
+    under a layer stack (the hybrid's unstacked ``shared`` block and the
+    final norm keep their own)."""
+    return p.ndim + (1 if path and path[0] in reference_stacks(cfg) else 0)
+
+
 def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
                           device) -> Dict[str, Any]:
     """The port's parameters from the JAX ``LM.init`` (or, for encdec,
@@ -192,9 +261,7 @@ def params_from_reference(np_params: Dict[str, Any], cfg: ModelConfig,
     per-layer dicts. The hybrid's ``shared`` block is one unstacked dict,
     used by every application, and passes through as it is, as do
     whisper's ``dec_pos`` and its norms. Dtypes are kept as given."""
-    stacks = {"encdec": {"enc_layers": cfg.n_enc_layers,
-                         "dec_layers": cfg.n_layers}}.get(
-        cfg.family, {"layers": cfg.n_layers})
+    stacks = reference_stacks(cfg)
     device = torch.device(device)
 
     def conv(tree):

@@ -5,6 +5,7 @@ The port of :mod:`repro.models.lm`. The API follows the JAX ``LM``:
 
   init(seed) -> params
   forward(params, tokens, positions3=None) -> (hidden, aux)
+  loss(params, batch) -> scalar            batch: tokens/labels[/mask/positions]
   logits(params, tokens, positions3=None)
   init_cache(batch, max_seq) -> cache
   prefill(params, tokens, positions3=None, max_seq=None) -> (logits, cache)
@@ -22,16 +23,22 @@ both packages), and without it every axis takes the token's index (1-D
 RoPE). Decode takes 1-D positions from ``cache["pos"]``, as the JAX
 model does. The encoder-decoder family is :class:`repro_torch.models.
 whisper.EncDecLM`.
+
+Under autograd with ``cfg.remat``, ``forward`` runs each layer (each
+Mamba2 layer and each application of the hybrid's shared block) inside
+``torch.utils.checkpoint``: the backward recomputes the layer from its
+input, as the JAX model's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .common import (ModelConfig, dense_init, mrope_cos_sin, resolve_device,
-                     rope_cos_sin)
+from .common import (ModelConfig, chunked_softmax_xent, dense_init,
+                     mrope_cos_sin, resolve_device, rope_cos_sin)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -136,6 +143,20 @@ class LM:
         y, aux = self._mlp_or_moe(lp, h)
         return h + y, aux
 
+    def _mamba_block(self, lp, h):
+        cfg = self.cfg
+        return h + L.mamba_apply(lp["mamba"], L.norm_apply(lp["ln1"], h, cfg),
+                                 cfg)
+
+    def _layer(self, fn, *args):
+        """One layer, rematerialised in the backward under autograd with
+        ``cfg.remat`` (a layer has no randomness, so no RNG state is
+        kept)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
     def forward(self, params, tokens, positions3=None):
         """tokens (B, S) -> (final hidden (B, S, D), aux loss), aux the sum
         of the MoE layers' load-balancing losses (0 for the others)."""
@@ -145,21 +166,19 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "ssm":
             for lp in params["layers"]:
-                h = h + L.mamba_apply(lp["mamba"],
-                                      L.norm_apply(lp["ln1"], h, cfg), cfg)
+                h = self._layer(self._mamba_block, lp, h)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         cos, sin = self._cos_sin(torch.arange(tokens.shape[1],
                                               device=h.device), positions3)
         if cfg.family == "hybrid":
             for group in self._groups():
                 for i in group:
-                    lp = params["layers"][i]
-                    h = h + L.mamba_apply(
-                        lp["mamba"], L.norm_apply(lp["ln1"], h, cfg), cfg)
-                h, _ = self._attn_block(params["shared"], h, cos, sin)
+                    h = self._layer(self._mamba_block, params["layers"][i], h)
+                h, _ = self._layer(self._attn_block, params["shared"], h, cos,
+                                   sin)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         for lp in params["layers"]:
-            h, a = self._attn_block(lp, h, cos, sin)
+            h, a = self._layer(self._attn_block, lp, h, cos, sin)
             if a is not None:
                 aux = aux + a
         return L.norm_apply(params["final_norm"], h, cfg), aux
@@ -168,6 +187,21 @@ class LM:
         if self.cfg.tie_embeddings:
             return params["embed"].T
         return params["unembed"]
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean masked next-token cross-entropy + 0.01 x the MoE aux loss,
+        as the JAX ``LM.loss``. ``batch``: tokens and labels (B, S) int64,
+        optional mask (B, S) and vlm positions (3, B, S), on the model's
+        device."""
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        h, aux = self.forward(params, batch["tokens"], batch.get("positions"))
+        xent = chunked_softmax_xent(h, self._unembed(params), labels, mask,
+                                    chunk=self.cfg.loss_chunk)
+        return xent + 0.01 * aux
 
     def logits(self, params, tokens, positions3=None):
         h, _ = self.forward(params, tokens, positions3)

@@ -1,6 +1,8 @@
 """The port's attention against the JAX package's: the flash kernel's
 plain version against ``repro``'s Pallas flash attention in interpret
-mode, and decode attention against its jnp twin. The CUDA kernel itself
+mode, decode attention against its jnp twin, and the plain forward's
+log-sum-exp and the plain backward against the JAX package's custom VJP
+of ``blocked_attention``. The CUDA kernel itself
 is checked on the card (tests/test_torch_cuda.py, chip_smoke.py).
 Tolerances are those of tests/test_kernels.py."""
 import jax.numpy as jnp
@@ -11,8 +13,9 @@ import torch
 from repro.kernels.flash_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (decode_attention,
-                                                 flash_attention)
+from repro_torch.kernels.flash_attention import (
+    decode_attention, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd_plain)
 
 
 def _qkv(B, H, KH, S, D, seed=0):
@@ -58,3 +61,64 @@ def test_decode_attention_matches_jax(B, H, KH, S, D):
     full = ops.attention(*(torch.from_numpy(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy()[:, :, 0], full.numpy()[:, :, -1],
                                atol=2e-5, rtol=2e-5)
+
+
+# -- the backward (training) ------------------------------------------------------
+# The JAX package differentiates blocked_attention through its custom_vjp
+# (_flash_fwd_impl saves the row log-sum-exp, _flash_bwd recomputes the
+# blocks in f32); the port's plain versions hold it at flash's f32 2e-3.
+BWD_CASES = [(2, 4, 2, 64, 16), (1, 4, 4, 96, 64), (2, 6, 2, 64, 80),
+             (1, 8, 1, 128, 64)]
+
+
+@pytest.mark.parametrize("B,H,KH,S,D", BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_plain_lse_matches_jax(B, H, KH, S, D, causal):
+    from repro.models.layers import _flash_fwd_impl
+    q, k, v = _qkv(B, H, KH, S, D, seed=4)
+    rep = H // KH
+    jo, jlse = _flash_fwd_impl(jnp.asarray(q),
+                               jnp.repeat(jnp.asarray(k), rep, axis=1),
+                               jnp.repeat(jnp.asarray(v), rep, axis=1),
+                               causal, D ** -0.5, 32, 32)
+    o, lse = flash_attention_fwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-3,
+                               rtol=2e-3)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D", BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_matches_jax_vjp(B, H, KH, S, D, causal):
+    import jax
+    from repro.models.layers import blocked_attention
+    q, k, v = _qkv(B, H, KH, S, D, seed=5)
+    do = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: blocked_attention(
+        a, b, c, causal=causal, q_block=32, kv_block=32),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = flash_attention_fwd_plain(tq, tk, tv, causal=causal)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(do),
+                                    causal=causal, block=48)
+    for g, w, name in zip(got, want, "qkv"):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-3,
+                                   rtol=2e-3, err_msg=f"d{name}")
+
+
+def test_bwd_wrapper_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors flash_attention_bwd is its plain version and counts
+    no launch."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 40, 16, seed=7))
+    do = torch.ones_like(q)
+    o, lse = flash_attention_fwd_plain(q, k, v)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    assert flash_attention_bwd.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

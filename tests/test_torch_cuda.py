@@ -5,13 +5,17 @@ the fixture, never at import). On the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import KernelProgram, c, make_tile_op
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    _launch_fwd, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd_plain,
+    flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (ssd_cb_kernel, ssd_chunks_plain,
                                           ssd_scan, ssd_scan_plain)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
@@ -232,6 +236,135 @@ def test_flash_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros((1, 8, 2, 16), device=cuda).transpose(1, 2)
         flash_attention(x, x, x)
+
+
+FLASH_BWD_CASES = [
+    # (B, H, KH, S, D): every head_dim, GQA and MHA, the tile edges (one
+    # row, one past a 64-row tile, one past two) and a ragged S
+    (2, 4, 2, 128, 16), (1, 4, 4, 65, 32), (2, 8, 2, 100, 64),
+    (1, 4, 1, 129, 64), (2, 4, 4, 63, 80), (1, 8, 2, 130, 80),
+    (1, 3, 1, 70, 128), (2, 4, 2, 1, 128), (1, 6, 2, 192, 128),
+    # long and ragged: far query tiles of each kv tile, late rows
+    (1, 6, 2, 1000, 128)]
+# the backward's gradients, norm-relative over the whole tensor and each
+# 64-row block (bf16 rounds P and dS for the tensor cores)
+FLASH_BWD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
+
+
+def _norm_rel_close(got, want, tol, rows=64):
+    """``||got - want|| <= tol ||want||`` for each (..., S, D) gradient,
+    over the whole tensor and each 64-row block of each leading index;
+    each ``||want||`` at least a thousandth of dv's rms over as many
+    elements (dq and dk of a query that sees one key are zero in exact
+    arithmetic)."""
+    floor = 1e-3 * want[2].float().square().mean().sqrt()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        S, D = w.shape[-2:]
+        d = (g.float() - w.float()).reshape(-1, S, D)
+        w = w.float().reshape(-1, S, D)
+        assert d.norm() <= tol * torch.maximum(w.norm(),
+                                               floor * w.numel() ** 0.5), name
+        for r0 in range(0, S, rows):
+            db, wb = d[:, r0:r0 + rows], w[:, r0:r0 + rows]
+            n = wb[0].numel()
+            lim = tol * torch.maximum(wb.norm(dim=(1, 2)), floor * n ** 0.5)
+            assert (db.norm(dim=(1, 2)) <= lim).all(), (name, r0)
+
+
+def _flash_grad_inputs(shape, dtype, device, seed=7):
+    B, H, KH, S, D = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*sh):
+        return torch.randn(sh, generator=gen, device=device).to(dtype)
+
+    return rn(B, H, S, D), rn(B, KH, S, D), rn(B, KH, S, D), rn(B, H, S, D)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-3)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BWD_CASES,
+                         ids=["x".join(map(str, c)) for c in FLASH_BWD_CASES])
+def test_flash_bwd_kernel_matches_plain(shape, causal, dtype, tol, cuda):
+    """The backward kernels against their plain version on the same saved
+    o and lse (the kernel forward's), over head_dim, GQA, causal and
+    ragged S."""
+    q, k, v, do = _flash_grad_inputs(shape, dtype, cuda)
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _close(got, want, tol)
+    _norm_rel_close(got, want, FLASH_BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-3)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_BWD_CASES,
+                         ids=["x".join(map(str, c)) for c in FLASH_BWD_CASES])
+def test_flash_lse_matches_plain_and_leaves_the_forward(shape, causal, dtype,
+                                                        tol, cuda):
+    """The forward's lse against the plain version's (f32, natural log,
+    2e-3 absolute: it is a log), and its output bit for bit the same with
+    and without lse."""
+    q, k, v, _ = _flash_grad_inputs(shape, dtype, cuda)
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    o_serve, none = _launch_fwd(q, k, v, causal, None, with_lse=False)
+    torch.cuda.synchronize()
+    assert none is None and lse.dtype == torch.float32
+    assert torch.equal(o, o_serve)
+    want_o, want_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    _close(o, want_o, tol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-3)],
+                         ids=["bf16", "f32"])
+def test_flash_autograd_on_the_card(dtype, tol, cuda):
+    """loss.backward() through the kernel (forward with lse, backward
+    kernels) against autograd of the plain attention."""
+    q, k, v, do = _flash_grad_inputs((2, 8, 2, 130, 64), dtype, cuda)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        (fn(*leaves) * do).float().sum().backward()
+        torch.cuda.synchronize()
+        after = (flash_attention.launches, flash_attention_bwd.launches)
+        assert after == (tuple(b + 1 for b in before)
+                         if fn is flash_attention else before)
+        grads.append(tuple(t.grad for t in leaves))
+    _close(grads[0], grads[1], tol)
+    _norm_rel_close(grads[0], grads[1], FLASH_BWD_REL[dtype])
+
+
+def test_flash_bwd_rejects_what_it_cannot_run(cuda):
+    """The wrapper refuses operands the kernels do not take, and a launch
+    the library refuses (here a head_dim it has no instance for) raises
+    with the CUDA error rather than return unwritten gradients."""
+    from repro_torch.kernels.flash_attention import _BWD, _load, _raise_on
+    q, k, v, do = _flash_grad_inputs((1, 2, 2, 8, 16), torch.float32, cuda)
+    o, lse = _launch_fwd(q, k, v, True, None, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse[:, :, :4].contiguous(), do)
+    with pytest.raises(TypeError, match="dout"):
+        flash_attention_bwd(q, k, v, o, lse, do.bfloat16())
+    lib = _load()
+    dq = torch.empty_like(q)
+    err = getattr(lib, _BWD[torch.float32])(
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, lse, dq, dq, dq)),
+        1, 2, 2, 8, 48, 0.25, 1, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="flash_attention_bwd kernel"):
+        _raise_on(lib, err, "flash_attention_bwd")
 
 
 def _ssd_inputs(B, S, H, P, N, device):
@@ -533,3 +666,155 @@ def test_new_family_smoke_server_on_the_card_matches_cpu(arch, cuda):
     n_attn = cfg.n_enc_layers + 2 * cfg.n_layers \
         if cfg.family == "encdec" else cfg.n_layers
     assert flash_attention.launches == before + n_attn
+
+
+# -- training --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(3072,), (5,), (37, 200), (3, 4, 96)],
+                         ids=["1d", "1d_small", "2d", "3d"])
+def test_optimizer_kernels_match_plain(shape, cuda):
+    """The generated adamw and l2_clip kernels (f32, as the optimizer runs
+    them) at 1-D and n-D leaves, each launch counted."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    p, g, m = (torch.randn(shape, generator=gen, device=cuda)
+               for _ in range(3))
+    v = torch.rand(shape, generator=gen, device=cuda) * 0.01
+    sc = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, inv_bc1=1.3,
+              inv_bc2=1.1)
+    adamw, clip = get_tile_op("adamw"), get_tile_op("l2_clip")
+    before = (adamw.launches, clip.launches)
+    got = ops.adamw_update(p, g, m, v, **sc)
+    clipped = ops.l2_clip(g, norm=3.0, max_norm=1.0)
+    torch.cuda.synchronize()
+    assert (adamw.launches, clip.launches) == (before[0] + 1, before[1] + 1)
+    _close(got, adamw.torch_ref(p, g, m, v, **sc), 2e-5)
+    _close(clipped, clip.torch_ref(g, norm=3.0, max_norm=1.0, eps=1e-9),
+           2e-5)
+
+
+def _smoke_f32(arch="minitron-4b"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                               remat=True)
+
+
+def test_apply_updates_on_the_card_matches_cpu(cuda):
+    """One AdamW step on the f32 smoke weights: the kernels (adamw on
+    every leaf, l2_clip on the leaves the JAX package clips through the
+    op) against the CPU's plain versions."""
+    from repro_torch import tree as T
+    from repro_torch.models import LM
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.models.common import reference_ndim
+    cfg, ocfg = _smoke_f32(), OptConfig(warmup_steps=1)
+    ndim = functools.partial(reference_ndim, cfg)
+    cpu = LM(cfg, device="cpu").init(0)
+    grads = T.tree_map(lambda p: torch.randn_like(p) * 0.05, cpu)
+    gpu = _to(cpu, cuda)
+    adamw, clip = get_tile_op("adamw"), get_tile_op("l2_clip")
+    before = (adamw.launches, clip.launches)
+    apply_updates(gpu, _to(grads, cuda), init_opt_state(gpu, ocfg), ocfg,
+                  ndim=ndim)
+    torch.cuda.synchronize()
+    paths, leaves = T.flatten(cpu)
+    n_op = sum(ndim(pa, p) >= 2 for pa, p in zip(paths, leaves))
+    assert (adamw.launches - before[0], clip.launches - before[1]) == (
+        len(leaves), n_op)
+    apply_updates(cpu, grads, init_opt_state(cpu, ocfg), ocfg, ndim=ndim)
+    for a, b in zip(T.leaves(gpu), T.leaves(cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "qwen2-vl-2b"])
+def test_smoke_train_steps_on_the_card_match_cpu(arch, cuda):
+    """Two train steps of the f32 smoke config with remat: the losses and
+    parameters on the card (flash forward and backward kernels, tile
+    kernels under autograd, adamw and l2_clip) against the CPU's plain
+    versions, within the model tests' 1e-4."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg, ocfg = _smoke_f32(arch), OptConfig(warmup_steps=1)
+    pipe = ShardedTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                           global_batch=2))
+    runs = []
+    for device in ("cpu", cuda):
+        model = LM(cfg, device=device)
+        params = _to(LM(cfg, device="cpu").init(0), device)
+        state = init_opt_state(params, ocfg)
+        step = make_train_step(model, ocfg)
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        losses = []
+        for i in range(2):
+            params, state, loss = step(params, state, pipe.batch_at(i))
+            losses.append(loss.item())
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1])
+        runs.append((losses, [p.cpu() for p in T.leaves(params)], launched))
+    (cl, cp, c_launch), (gl, gp, g_launch) = runs
+    assert c_launch == (0, 0)
+    # per step: a forward and its remat recompute per layer, a backward
+    assert g_launch == (2 * 2 * cfg.n_layers, 2 * cfg.n_layers)
+    np.testing.assert_allclose(gl, cl, atol=1e-4, rtol=1e-4)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_autograd_tile_ops_on_the_card(cuda):
+    """rmsnorm, swiglu and rotary under autograd on the card (the kernels
+    forward; the analytic backwards and rotary's kernel with -sin) against
+    autograd of their plain versions on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import rope_cos_sin
+    gen = torch.Generator().manual_seed(9)
+    x, dy = torch.randn(7, 96, generator=gen), torch.randn(7, 96,
+                                                           generator=gen)
+    g = torch.randn(96, generator=gen)
+    q, dq = torch.randn(2, 3, 10, 32, generator=gen), \
+        torch.randn(2, 3, 10, 32, generator=gen)
+    cos, sin = (t[None, None] for t in rope_cos_sin(torch.arange(10), 32,
+                                                    1e4))
+    cases = [(lambda a, b: ops.rmsnorm(a, b), (x, g), dy),
+             (ops.swiglu, (x, dy), x),
+             (lambda a: ops.rotary(a, cos.to(a.device), sin.to(a.device)),
+              (q,), dq)]
+    for fn, args, out_grad in cases:
+        grads = []
+        for device in ("cpu", cuda):
+            leaves = [a.detach().to(device, copy=True).requires_grad_()
+                      for a in args]
+            (fn(*leaves) * out_grad.to(device)).sum().backward()
+            grads.append([t.grad.cpu() for t in leaves])
+        _close(tuple(grads[1]), tuple(grads[0]), 2e-5)
+
+
+def test_no_backward_no_gradient_on_the_card(cuda):
+    """A kernel with no backward yet raises when asked for a gradient on
+    the card, rather than return a result that carries none."""
+    from repro_torch.kernels import ops
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    ones = torch.ones(64, device=cuda)
+    with pytest.raises(NotImplementedError, match="layernorm backward"):
+        ops.layernorm(x, ones, ones * 0)
+    with pytest.raises(NotImplementedError, match="moe_router backward"):
+        ops.moe_router_probs(x)
+    with torch.no_grad():   # serving takes no gradient: the kernel runs
+        assert ops.layernorm(x, ones, ones * 0).shape == x.shape
+
+
+def test_failure_replay_on_the_card_equals_a_clean_run(cuda, tmp_path):
+    """The smoke trainer on the card (bf16) with a host lost at step 5:
+    its losses equal a clean run's bit for bit (every kernel on the path
+    sums in a fixed order)."""
+    from repro_torch.launch.train import build_trainer
+    kw = dict(smoke=True, steps=8, batch=4, seq=64, device=cuda)
+    clean = build_trainer("minitron-4b", ckpt_dir=str(tmp_path / "a"),
+                          **kw).run()
+    failed = build_trainer("minitron-4b", ckpt_dir=str(tmp_path / "b"),
+                           inject={5: ("node_loss", 1)}, **kw).run()
+    assert failed["recoveries"] == 1
+    assert failed["losses"] == clean["losses"]
