@@ -74,11 +74,15 @@ PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
               "tf32x3": 495e12 / 3}       # f32 as 3 TF32 tensor-core products
 TILE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
-# the backward's gradients, norm-relative (whole tensor and each 64-row
-# block): bf16 rounds P and dS for the tensor cores, a few 1e-3
-FLASH_BWD_REL_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# flash's output and the backward's gradients, norm-relative (whole
+# tensor and each 64-row block): bf16 rounds P (and dS) for the tensor
+# cores, a few 1e-3
+FLASH_REL_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
 CUDA_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
+# the kernels of a library that a row of the kernels line launches
+SASS_PREFIX = {"flash_attention": "flash_fwd_",
+               "flash_attention_bwd": "flash_bwd_"}
 PIPELINED = "triton_pipelined"
 # the tile ops whose pipelined kernels a path drives (the minitron,
 # mamba2, dbrx and whisper prefills under ops.set_tile_emitter)
@@ -267,10 +271,24 @@ def phase_env(torch):
     return smi
 
 
-def _hmma_counts(lib):
-    """HMMA (tensor-core) instructions in each kernel of a library, from
-    ``cuobjdump -sass``, by kernel name (with the head_dim template
-    argument where there is one)."""
+_KERNEL_NAME = (r"\S*?\d((?:flash_fwd|flash_bwd|ssd)_[a-z0-9_]+?_kernel)"
+                r"(?:ILi(\d+)E)?")
+
+
+def _kernel_name(mangled):
+    """A kernel's name in a library, with its head_dim template argument
+    where there is one (``flash_bwd_dkdv_sm90_kernel<128>``)."""
+    import re
+    m = re.match(_KERNEL_NAME, mangled)
+    if m is None:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def _tensor_core_counts(lib):
+    """Tensor-core instructions in each kernel of a library, from
+    ``cuobjdump -sass``, by kernel name: HMMA (``mma.sync``) and HGMMA
+    (``wgmma``)."""
     import re
     from repro_torch.kernels.cuda_build import nvcc
     sass = subprocess.run(
@@ -278,31 +296,61 @@ def _hmma_counts(lib):
         capture_output=True, text=True, check=True).stdout
     counts = {}
     for body in sass.split("Function : ")[1:]:
-        m = re.match(
-            r"\S*?\d((?:flash_fwd|flash_bwd|ssd)_[a-z0-9_]+?_kernel)"
-            r"(?:ILi(\d+)E)?", body)
-        name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") \
-            if m else body.split()[0]
-        counts[name] = body.count("HMMA")
+        counts[_kernel_name(body.split()[0])] = {
+            "HMMA": len(re.findall(r"\bHMMA\b", body)),
+            "HGMMA": len(re.findall(r"\bHGMMA\b", body))}
     return counts
 
 
+def _ptxas_by_kernel(log):
+    """Registers and spill bytes of each kernel from ptxas's ``-v``
+    report: ``{name: {"registers", "spill_stores", "spill_loads"}}``."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
-    """Both CUDA libraries, one nvcc each, all started together."""
+    """Both CUDA libraries, one nvcc each, all started together. The
+    wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions and
+    spill nothing."""
     from repro_torch.kernels.cuda_build import build
     t0 = time.perf_counter()
     libs = build(*CUDA_SOURCES)
     secs = time.perf_counter() - t0
-    ptxas, hmma = {}, {}
+    ptxas, tc = {}, {}
     for src, lib in zip(CUDA_SOURCES, libs):
         with open(f"{lib}.log") as f:
-            ptxas[src] = [ln.strip() for ln in f if "registers" in ln
-                          or "spill" in ln or "smem" in ln]
-        hmma[src] = _hmma_counts(lib)
+            ptxas[src] = _ptxas_by_kernel(f.read())
+        tc[src] = _tensor_core_counts(lib)
     emit({"phase": "build", "nvcc_s": secs,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
-          "ptxas": ptxas, "hmma": hmma})
-    return hmma
+          "ptxas": ptxas, "tensor_core": tc})
+    wgmma = {name: (tc[src][name], ptxas[src][name])
+             for src in CUDA_SOURCES for name in tc[src] if "_sm90_" in name}
+    bad = [name for name, (n, info) in wgmma.items()
+           if n["HGMMA"] == 0 or info.get("spill_stores", 0)
+           or info.get("spill_loads", 0)]
+    if not wgmma or bad:
+        raise AssertionError(f"wgmma kernels without HGMMA or with spills: "
+                             f"{bad or 'none built'}")
+    return tc
 
 
 def _err(a, b):
@@ -467,63 +515,133 @@ def _flash_bwd_work(b, h, kh, s, d, dt, causal):
     return flops, nbytes
 
 
-def _flash_bwd_rows(torch, F, timer, randn, checks):
-    """The backward kernels against their plain version at the training
-    path's shape (the row), the serve shape, a small f32 case and the
-    head_dim 80 and 64 tile edges; times, bound and the library's
-    backward (autograd of scaled_dot_product_attention) at the timed
-    shapes."""
+def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal):
+    """A callable running the bf16 backward on the mma.sync kernels (the
+    library's entry at every head_dim; the design the wgmma kernels
+    replaced at head_dim 64 and 128, their yardstick) on these operands."""
+    from repro_torch.kernels.flash_attention import _load, _raise_on
+    lib = _load()
+    B, H, S, D = q.shape
+    scratch = torch.empty(B * H * S, device="cuda")
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+
+    def run():
+        _raise_on(lib, lib.flash_attention_bwd_bf16(
+            *(t.data_ptr() for t in (q, k, v, o, lse, do, scratch, *grads)),
+            B, H, k.shape[1], S, D, D ** -0.5, int(causal),
+            torch.cuda.current_stream().cuda_stream),
+            "flash_attention_bwd_mma_sync")
+        return grads
+
+    return run
+
+
+def _check_norm_rel(torch, F, tag, named, ref, dtype, checks):
+    """``_norm_rel`` of each ``(name, got, want)`` against the dtype's
+    ``FLASH_REL_TOL``, as one check: ``{name: [whole, worst block]}``.
+    An element-wise limit of tol (1 + |want|) is as large as a typical
+    value at S 4096 (an output's |o| ~ (e / keys) ** 0.5, a gradient's
+    likewise), so this is the check that sees a wrong or missing tile."""
+    rel = {n: _norm_rel(torch, F, a, b, ref) for n, a, b in named}
+    checks.append({"name": f"{tag}/norm_rel", "norm_rel_err": rel,
+                   "tol": FLASH_REL_TOL[dtype],
+                   "ok": max(max(r) for r in rel.values())
+                   <= FLASH_REL_TOL[dtype]})
+    return rel
+
+
+# the backward's timed shapes, by their key under the row's "shapes"
+# (None: the row itself, the train path's shape; d64: head_dim 64, where
+# the wgmma kernels are timed against the mma.sync ones, on no path)
+FLASH_BWD_TIMED = {(2, 24, 8, 4096, 128): None,
+                   (4, 24, 8, 512, 128): "serve_shape",
+                   (2, 12, 2, 4096, 128): "qwen2vl",
+                   (2, 16, 16, 4096, 64): "d64"}
+# two calls must give the same bits at these (the training shapes)
+FLASH_BWD_BITWISE = ((2, 24, 8, 4096, 128), (2, 12, 2, 4096, 128))
+# (B, H, KH, S, D), dtype, causal: the timed shapes; small f32 cases;
+# the head_dim 80 and 64 tile edges; the wgmma kernels' edges at head_dim
+# 128 (S around their 128-row work items and 64-row steps, a long ragged
+# S, qwen2-vl's group of 6, MHA), causal and not
+FLASH_BWD_CASES = [(shape, "bfloat16", True) for shape in FLASH_BWD_TIMED] + [
+    ((2, 4, 2, 128, 16), "float32", True),
+    ((2, 4, 2, 128, 16), "float32", False)] + [
+    ((2, 8, kh, s_, d), dt, True)
+    for d in (80, 64) for dt in ("bfloat16", "float32") for kh in (8, 2)
+    for s_ in (1, 63, 65, 129)] + [
+    ((b, h, kh, s_, 128), "bfloat16", causal)
+    for b, h, kh, s_ in ((1, 4, 2, 127), (1, 4, 2, 128), (1, 4, 2, 129),
+                         (1, 4, 2, 255), (1, 4, 2, 257), (2, 6, 2, 1000),
+                         (2, 12, 2, 1001), (1, 4, 4, 257))
+    for causal in (True, False)]
+
+
+def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks):
+    """One backward case: the kernels against their plain version,
+    element-wise and norm-relative, and at ``FLASH_BWD_BITWISE`` two calls
+    bitwise equal. ``(operands, max_abs_err, norm_rel, bitwise)``, the
+    operands ``(q, k, v, o, lse, dout)``, bitwise None where unchecked."""
     from repro_torch.kernels.flash_attention import (
         _launch_fwd, flash_attention_bwd, flash_attention_bwd_plain)
-    bf, f32 = torch.bfloat16, torch.float32
-    cases = [((2, 24, 8, 4096, 128), bf, True, None),
-             ((4, 24, 8, 512, 128), bf, True, "serve_shape"),
-             ((2, 4, 2, 128, 16), f32, True, "small_f32"),
-             ((2, 4, 2, 128, 16), f32, False, None)] + [
-        ((2, 8, kh, s_, d), dt, True, None)
-        for d in (80, 64) for dt in (bf, f32) for kh in (8, 2)
-        for s_ in (1, 63, 65, 129)]
+    b, h, kh, s_, d = shape
+    dt = getattr(torch, dtype)
+    q, k, v, do = (randn(b, n, s_, d, dtype=dt) for n in (h, kh, kh, h))
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    ops = (q, k, v, o, lse, do)
+    tag = f"flash_attention_bwd/{dtype}/{b}x{h}x{kh}x{s_}x{d}/" \
+          f"{'causal' if causal else 'full'}"
+    got = flash_attention_bwd(*ops, causal=causal)
+    want = flash_attention_bwd_plain(*ops, causal=causal)
+    err = _check(tag, got, want, FLASH_TOL[dtype], checks)
+    rel = _check_norm_rel(torch, F, tag, zip(("dq", "dk", "dv"), got, want),
+                          want[2], dtype, checks)
+    bitwise = None
+    if shape in FLASH_BWD_BITWISE and dtype == "bfloat16":
+        again = flash_attention_bwd(*ops, causal=causal)
+        bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+        checks.append({"name": f"{tag}/bitwise_repeat", "ok": bitwise})
+    return ops, err, rel, bitwise
+
+
+def _flash_bwd_rows(torch, F, timer, randn, checks):
+    """The backward kernels against their plain version at
+    ``FLASH_BWD_CASES`` (the row: minitron-4b's training shape); times,
+    bound, the mma.sync kernels' time (the earlier design) and the
+    library's backward (autograd of scaled_dot_product_attention) at the
+    timed shapes."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_kernel, flash_attention_bwd, flash_attention_bwd_plain)
     out = {}
-    for (b, h, kh, s_, d), dt, causal, key in cases:
-        q, k, v, do = (randn(b, n, s_, d, dtype=dt)
-                       for n in (h, kh, kh, h))
-        o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
-        name = str(dt)[6:]
-        tag = f"flash_attention_bwd/{name}/{b}x{h}x{kh}x{s_}x{d}/" \
-              f"{'causal' if causal else 'full'}"
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-        err = _check(tag, got, want, FLASH_TOL[name], checks)
-        # norm-relative, [whole tensor, worst 64-row block] for each
-        # gradient: an element-wise limit of tol (1 + |want|) is as large
-        # as a typical gradient at S 4096
-        rel = {n_: _norm_rel(torch, F, a, b_, want[2])
-               for n_, a, b_ in zip(("dq", "dk", "dv"), got, want)}
-        checks.append({"name": f"{tag}/norm_rel", "norm_rel_err": rel,
-                       "tol": FLASH_BWD_REL_TOL[name],
-                       "ok": max(max(r) for r in rel.values())
-                       <= FLASH_BWD_REL_TOL[name]})
-        del got, want
-        if (b, h, kh, s_, d) != (2, 24, 8, 4096, 128) and key is None:
+    for shape, name, causal in FLASH_BWD_CASES:
+        ops, err, rel, bitwise = _flash_bwd_case(torch, F, randn, shape,
+                                                 name, causal, checks)
+        key = FLASH_BWD_TIMED.get(shape, "untimed")
+        if key == "untimed" or name != "bfloat16" or not causal:
             continue
+        b, h, kh, s_, d = shape
+        q, k, v, o, lse, do = ops
         flops, nbytes = _flash_bwd_work(b, h, kh, s_, d, name, causal)
         t_ops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
 
-        def run(q=q, k=k, v=v, o=o, lse=lse, do=do, causal=causal):
-            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        def run(ops=ops, causal=causal):
+            return flash_attention_bwd(*ops, causal=causal)
 
         lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
         lo = _sdpa(F, lq, lk, lv, causal)()
         out[key] = {
-            "shape": [b, h, kh, s_, d], "dtype": name, "causal": causal,
-            "max_abs_err": err, "norm_rel_err": rel,
-            "norm_rel_tol": FLASH_BWD_REL_TOL[name],
-            "flops": flops, "bytes": nbytes,
+            "shape": list(shape), "dtype": name, "causal": causal,
+            "kernels": bwd_kernel(d, q.dtype), "max_abs_err": err,
+            "norm_rel_err": rel, "norm_rel_tol": FLASH_REL_TOL[name],
+            "bitwise_repeat": bitwise, "flops": flops, "bytes": nbytes,
             "ms": timer.ms(run), "device_ms": timer.device_ms(run,
                                                               "flash_bwd_"),
+            "device_ms_by_kernel": {
+                k_: timer.device_ms(run, k_) for k_ in (
+                    "flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")},
+            "mma_sync_ms": timer.ms(_mma_sync_bwd(torch, *ops, causal)),
             "plain_ms": timer.ms(lambda: flash_attention_bwd_plain(
-                q, k, v, o, lse, do, causal=causal), iters=5),
+                *ops, causal=causal), iters=5),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": timer.ms(lambda: torch.autograd.grad(
@@ -539,8 +657,9 @@ def _flash_bwd_rows(torch, F, timer, randn, checks):
 def phase_kernels(torch, timer):
     """Every kernel against its plain version on the card."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention, flash_attention_fwd_plain,
+        flash_attention_plain)
     from repro_torch.core.tritongen import plan_tile_call
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
@@ -857,9 +976,12 @@ def phase_kernels(torch, timer):
             randn(b, kh, s, d, dtype=dt)
         tag = f"flash_attention/{str(dt)[6:]}/{b}x{h}x{kh}x{s}x{d}/" \
               f"{'causal' if causal else 'full'}"
-        err = _check(tag, flash_attention(fq, fk, fv, causal=causal),
-                     flash_attention_plain(fq, fk, fv, causal=causal),
-                     FLASH_TOL[str(dt)[6:]], checks)
+        got = flash_attention(fq, fk, fv, causal=causal)
+        want = flash_attention_plain(fq, fk, fv, causal=causal)
+        err = _check(tag, got, want, FLASH_TOL[str(dt)[6:]], checks)
+        rel = _check_norm_rel(torch, F, tag, [("o", got, want)], want,
+                              str(dt)[6:], checks)["o"]
+        del got, want
         if (b, h, kh, s, d, dt, causal) in flash_rows:
             pairs = s * (s + 1) // 2 if causal else s * s
             flops = 4 * d * pairs * b * h
@@ -872,7 +994,7 @@ def phase_kernels(torch, timer):
 
             flash_timed[flash_rows[(b, h, kh, s, d, dt, causal)]] = {
                 "shape": [b, h, kh, s, d], "dtype": str(dt)[6:],
-                "causal": causal, "max_abs_err": err,
+                "causal": causal, "max_abs_err": err, "norm_rel_err": rel,
                 "ms": timer.ms(run),
                 "device_ms": timer.device_ms(run, "flash_fwd_"),
                 "plain_ms": timer.ms(lambda: flash_attention_plain(
@@ -880,6 +1002,41 @@ def phase_kernels(torch, timer):
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
+    # the forward with the row lse at the training path's shape (the
+    # train step's launches): card and device time, bound, SDPA's forward
+    b, h, kh, s, d = 2, 24, 8, 4096, 128
+    fq, fk, fv = (randn(b, n, s, d, dtype=bf) for n in (h, kh, kh))
+
+    def run_lse():
+        return _launch_fwd(fq, fk, fv, True, None, with_lse=True)
+
+    o, lse = run_lse()
+    want_o, want_lse = flash_attention_fwd_plain(fq, fk, fv, causal=True)
+    tag = f"flash_attention/bfloat16/{b}x{h}x{kh}x{s}x{d}/causal/lse"
+    err = _check(tag, o, want_o, FLASH_TOL["bfloat16"], checks)
+    rel = _check_norm_rel(torch, F, tag, [("o", o, want_o)], want_o,
+                          "bfloat16", checks)["o"]
+    lse_err = _err(lse, want_lse)
+    checks.append({"name": f"{tag}/lse", "max_abs_err": lse_err,
+                   "tol": 2e-3, "ok": lse_err <= 2e-3})
+    del o, lse, want_o, want_lse
+    flops = 4 * d * (s * (s + 1) // 2) * b * h
+    nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size() \
+        + 4 * b * h * s
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flash_timed["train_with_lse"] = {
+        "shape": [b, h, kh, s, d], "dtype": "bfloat16", "causal": True,
+        "with_lse": True, "max_abs_err": err, "norm_rel_err": rel,
+        "lse_max_abs_err": lse_err,
+        "flops": flops, "ms": timer.ms(run_lse),
+        "device_ms": timer.device_ms(run_lse, "flash_fwd_"),
+        "plain_ms": timer.ms(lambda: flash_attention_fwd_plain(
+            fq, fk, fv, causal=True), iters=5),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": timer.ms(_sdpa(F, fq, fk, fv, True))}
+    del fq, fk, fv
     rows["flash_attention"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1604,7 +1761,7 @@ def main() -> int:
     launches = {}
     try:
         smi = phase_env(torch)
-        hmma = phase_build()
+        tensor_core = phase_build()
         timer = Timer(torch)
         rows = phase_kernels(torch, timer)
         del timer
@@ -1756,7 +1913,8 @@ def main() -> int:
                 steps[step][name] = steps[step].get(name, 0) + n
     kernels = []
     extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms",
-             "nearest_call_ms")
+             "nearest_call_ms", "mma_sync_ms", "device_ms_by_kernel",
+             "bitwise_repeat", "norm_rel_err")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],
@@ -1770,7 +1928,9 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         # tensor-core instructions by kernel (CUDA routes)
-                        "sass": {"HMMA": hmma[src]} if src in hmma else None,
+                        "sass": {k: n for k, n in tensor_core[src].items()
+                                 if k.startswith(SASS_PREFIX.get(name, ""))}
+                        if src in tensor_core else None,
                         **{k: r[k] for k in extra if k in r}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

@@ -70,6 +70,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -99,6 +100,10 @@ struct Args {
   float scale;
   int causal;
   cudaStream_t stream;
+  // the wgmma backward's work lists (int32 [starts | items]) and grids
+  const int* dkdv_work = nullptr;
+  const int* dq_work = nullptr;
+  int dkdv_programs = 0, dq_programs = 0;
 };
 
 // ---------------------------------------------------------------- bf16 --
@@ -503,7 +508,9 @@ cudaError_t launch_f32(const Args& a) {
 // of 2 * S(S+1)/2 * D MACs each per (b, h), 515 GFLOP (0.52 ms at
 // 989 TFLOP/s), against 269 MB read and written once (0.080 ms at
 // 3.35 TB/s): the operations bound it. This design issues mma.sync from 4
-// warps with no warp specialisation; wgmma and TMA are later work.
+// warps with no warp specialisation. Its bf16 entry runs at every
+// head_dim; the wrapper sends 64 and 128 to the wgmma kernels further
+// down.
 //
 // Ragged S: rows past S load as zeros and are masked or not stored; a
 // query column past S gets P = 0.
@@ -1149,6 +1156,621 @@ cudaError_t launch_bwd_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- backward, wgmma (sm90) --
+//
+// The bf16 backward at head_dim 64 and 128, entry
+// flash_attention_bwd_bf16_sm90 (the wrapper, flash_attention.bwd_kernel,
+// chooses the entry by head_dim before the launch; 16, 32 and 80 keep the
+// mma.sync kernels above, entry flash_attention_bwd_bf16, which runs at
+// every head_dim). Three launches, as there: a prep launch, dk/dv, dq.
+// Head_dim 64 takes them because they are faster there too (chip_smoke.py
+// times both at (2, 16, 16, 4096, 64); PERF.md §6).
+//
+// What bounds it: at the dense training path's attention (B 2, H 24, KH 8,
+// S 4096, D 128, causal) the five products the algorithm needs are
+// 515 GFLOP (0.52 ms at 989 TFLOP/s), the bytes 0.080 ms: the tensor
+// cores, and how well they are kept fed. What the design does about what
+// held the mma.sync kernels back:
+// 1. Seven products for five: S and dP are still computed in both the
+//    dk/dv and the dq launch (722 GFLOP, a 0.73 ms floor). A dQ summed
+//    in the dk/dv block, from each kv tile's part, would drop two; to be
+//    bitwise reproducible those parts have to be added in a fixed order
+//    (a turn counter per query tile), and that ordered f32 traffic cost
+//    more than the two products save on the H100 (PERF.md §6).
+// 2. Every product is a wgmma from one warpgroup (4 warps, 64 rows):
+//    the tensor cores read Q, dO, K and V from shared memory through
+//    descriptors (128-byte swizzle, as TMA writes them); the transposed
+//    products (dV += P^T dO, dK += dS^T Q, dQ += dS K) take the same
+//    tiles MN-major, with no transposed copy and no ldmatrix. P^T and
+//    dS^T (and dS in dq) go back in as register A operands: the f32
+//    accumulator of one product, rounded to bf16, is the A fragment of
+//    the next (the rounding of the mma.sync kernels and of the forward).
+// 3. Warp specialisation: 3 warpgroups a block. One producer thread keeps
+//    the walk's tiles in flight (TMA boxes of Q and dO, bulk copies of
+//    their lse and delta rows; K and V in dq) in a 3-stage ring, one
+//    full and one empty mbarrier a stage. The producer's warpgroup gives
+//    up its registers (setmaxnreg) to the two consumer warpgroups, which
+//    hold a 64-row slice of the block's tile with dK and dV (or dQ) in
+//    f32 registers (2 x D / 2 a thread) beside the two 64 x 64 score
+//    tiles. A consumer releases a stage with one arrival a warp, not one
+//    a thread (PERF.md §6: the dq kernel went from 0.75 to 0.57 ms
+//    with that and ex2.approx.ftz for exp2). In dq a tile's dQ product is
+//    waited for, and its stage released, in the next tile, so it runs
+//    while that tile's S and dP are started.
+// 4. 128-row work items: a dk/dv block owns 128 kv rows (64 a consumer),
+//    so each Q + dO tile brought in from L2 feeds twice the rows it fed;
+//    a dq block owns 128 query rows and walks 64-row K, V tiles.
+// 5. A persistent grid of one block an SM: the host orders the work
+//    items (b, kv head, kv tile) and (b, head, query tile) heaviest
+//    first and deals them to the programs, each to the least loaded so
+//    far (`flash_attention.bwd_schedule`), and passes the lists as an
+//    int32 tensor [starts (programs + 1) | items]. A block walks its
+//    list; the producer loads the next item's K and V (or Q and dO)
+//    while the consumers write the last item's gradients.
+// Causal: a dk/dv block starts at the query tile of its own first row; a
+// consumer warpgroup whose 64 rows are all past a tile's last query (or,
+// in dq, before its first key) skips the products and still releases
+// the stage; masks are applied only on tiles that cross the diagonal.
+// Ragged S: TMA zero-fills rows past S; a prep launch writes
+// delta = rowsum(dO * O) and lse * log2(e) into rows padded to a
+// multiple of 128, +inf past S, so a padded query gets P = 0 with no
+// mask; kv rows past S are not stored.
+// Deterministic: every gradient element is summed by one warpgroup in one
+// order, with no atomics; two calls give the same bits.
+// ptxas (sm_90a, CUDA 12.9): 168 registers at entry, no spill in either
+// kernel at either head_dim (chip_smoke.py's build phase checks it).
+
+constexpr int SM90_BN = 128;     // kv rows per dk/dv work item
+constexpr int SM90_BM = 64;      // query rows per step of the dk/dv walk
+constexpr int SM90_DQ_BM = 128;  // query rows per dq work item
+constexpr int SM90_DQ_BN = 64;   // kv rows per step of the dq walk
+static_assert(SM90_BM == 64 && SM90_DQ_BN == 64,
+              "the products below take 64 x 64 score tiles");
+constexpr int SM90_PAD = 128;    // lse / delta rows padded to this
+constexpr int SM90_STAGES = 3;   // the rings of both walks
+constexpr int SM90_THREADS = 384;   // 2 consumer warpgroups + 1 producer
+constexpr int SM90_CONSUMERS = 256;
+// registers a thread after setmaxnreg (2 x 128 x consumer + 128 x
+// producer <= 65,536): the producer's copies need few, a consumer's
+// accumulators many (at D 128: 2 x 64 of dK and dV, or 64 of dQ, beside
+// two 64 x 64 score tiles)
+__host__ __device__ constexpr int sm90_producer_regs(int D) {
+  return D == 128 ? 24 : 40;
+}
+__host__ __device__ constexpr int sm90_consumer_regs(int D) {
+  return D == 128 ? 240 : 232;
+}
+
+// delta = rowsum(dO * O) and lse2 = lse * log2(e) of every query row into
+// (B * H, S_pad) rows; rows past S get delta 0 and lse2 +inf (P = 0).
+// D / 8 threads a row, 16 bytes of O and of dO each.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_bf16_kernel(const bf16* __restrict__ o,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ delta, float* __restrict__ lse2,
+                           int S, int S_pad, int64_t rows) {
+  constexpr int TPR = D / 8;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (256 / TPR) + threadIdx.x / TPR;
+  const int t = threadIdx.x % TPR;
+  if (row >= rows) return;  // whole blocks: rows is a multiple of 128
+  const int64_t bh = row / S_pad;
+  const int i = static_cast<int>(row % S_pad);
+  const int64_t src = bh * S + i;
+  float s = 0.f;
+  if (i < S) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + src * D + 8 * t);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + src * D + 8 * t);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&av[j]));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&bv[j]));
+      s += x.x * y.x + x.y * y.y;
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (t == 0) {
+    delta[row] = s;
+    lse2[row] = i < S ? lse[src] * kLog2e : INFINITY;
+  }
+}
+
+// Shared memory of a dk/dv block: each tile is D / 64 boxes of rows x 64
+// bf16, every box at a 1024-byte boundary
+template <int D>
+struct DkdvSmem {
+  static constexpr int NB = D / 64;
+  bf16 k[NB][SM90_BN][64];
+  bf16 v[NB][SM90_BN][64];
+  bf16 q[SM90_STAGES][NB][SM90_BM][64];
+  bf16 dout[SM90_STAGES][NB][SM90_BM][64];
+  float lse2[SM90_STAGES][SM90_BM];
+  float delta[SM90_STAGES][SM90_BM];
+  uint64_t kv_full, kv_empty, q_full[SM90_STAGES], q_empty[SM90_STAGES];
+};
+
+template <int D>
+struct DqSmem {
+  static constexpr int NB = D / 64;
+  bf16 q[NB][SM90_DQ_BM][64];
+  bf16 dout[NB][SM90_DQ_BM][64];
+  bf16 k[SM90_STAGES][NB][SM90_DQ_BN][64];
+  bf16 v[SM90_STAGES][NB][SM90_DQ_BN][64];
+  float lse2[SM90_DQ_BM];
+  float delta[SM90_DQ_BM];
+  uint64_t q_full, q_empty, kv_full[SM90_STAGES], kv_empty[SM90_STAGES];
+};
+
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
+}
+
+template <typename T>
+constexpr size_t sm90_smem_bytes() {
+  return sizeof(T) + 1024;  // room to align the base to 1024
+}
+
+// a 64 x 64 f32 accumulator (32 a thread) as bf16 register A fragments:
+// n-blocks 2kk, 2kk + 1 of each warp's rows are k-step kk
+__device__ __forceinline__ void acc_to_a(const float (&c)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = mma::pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = mma::pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = mma::pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = mma::pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// d (64 x D) += a (64 x 64, four k-steps in registers) . b (64 x D bf16
+// in shared memory, MN-major, boxes of `box_bytes`)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t b, uint32_t box_bytes) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = hopper::desc_sw128(b + kk * 2048, box_bytes, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128k16_rs(d, a[kk], db);
+    else
+      hopper::wgmma_m64n64k16_rs(d, a[kk], db);
+  }
+}
+
+// d (64 x 64) = a (64 x D) . b (64 x D)^T, both K-major in shared memory,
+// boxes of a_box and b_box bytes
+template <int D>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
+                                         uint32_t a_box, uint32_t b,
+                                         uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in = (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(
+        d, hopper::desc_sw128(a + (kk / 4) * a_box + in, 0, 1024),
+        hopper::desc_sw128(b + (kk / 4) * b_box + in, 0, 1024), kk > 0);
+  }
+}
+
+// rows row and row + 8 of a thread's f32 (64 x D) accumulator as bf16 into
+// an (S, D) matrix, rows at or past S skipped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
+                                           const float (&acc)[D / 2], int row,
+                                           int S, int qd) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= S) continue;
+    bf16* p = out + static_cast<int64_t>(row + 8 * h) * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          mma::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ work,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int KH, int S, int S_pad, float scale,
+                           int causal) {
+  using Smem = DkdvSmem<D>;
+  constexpr int NB = Smem::NB;
+  constexpr uint32_t KV_BOX = SM90_BN * 128, Q_BOX = SM90_BM * 128;
+  constexpr uint32_t KV_BYTES = 2 * NB * KV_BOX;
+  constexpr uint32_t Q_BYTES = 2 * NB * Q_BOX + 2 * SM90_BM * 4;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    hopper::mbar_init(&sm.kv_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < SM90_STAGES; ++s) {
+      hopper::mbar_init(&sm.q_full[s], 1);
+      hopper::mbar_init(&sm.q_empty[s], SM90_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_kt = (S + SM90_BN - 1) / SM90_BN;
+  const int n_qt = (S + SM90_BM - 1) / SM90_BM;
+  const int rep = H / KH;
+  const int first = work[blockIdx.x], last = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<sm90_producer_regs(D)>();
+    if (tid == SM90_CONSUMERS) {
+      int stage = 0;
+      uint32_t q_par = 1, kv_par = 1;  // empty barriers: the first waits pass
+      for (int w = first; w < last; ++w) {
+        const int bkh = items[w] / n_kt, kv0 = items[w] % n_kt * SM90_BN;
+        const int b = bkh / KH, kh = bkh % KH;
+        const int qt0 = causal ? kv0 / SM90_BM : 0, nq = n_qt - qt0;
+        hopper::mbar_wait(&sm.kv_empty, kv_par);
+        kv_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.kv_full, KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(sm.k[c], &tm_k, &sm.kv_full, 64 * c, kv0, bkh);
+          hopper::tma_load_3d(sm.v[c], &tm_v, &sm.kv_full, 64 * c, kv0, bkh);
+        }
+        for (int it = 0; it < rep * nq; ++it) {
+          const int bh = b * H + kh * rep + it / nq;
+          const int q0 = (qt0 + it % nq) * SM90_BM;
+          hopper::mbar_wait(&sm.q_empty[stage], q_par);
+          hopper::mbar_arrive_expect_tx(&sm.q_full[stage], Q_BYTES);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_3d(sm.q[stage][c], &tm_q, &sm.q_full[stage],
+                                64 * c, q0, bh);
+            hopper::tma_load_3d(sm.dout[stage][c], &tm_do, &sm.q_full[stage],
+                                64 * c, q0, bh);
+          }
+          const int64_t row = static_cast<int64_t>(bh) * S_pad + q0;
+          hopper::bulk_load(sm.lse2[stage], lse2 + row, SM90_BM * 4,
+                            &sm.q_full[stage]);
+          hopper::bulk_load(sm.delta[stage], delta + row, SM90_BM * 4,
+                            &sm.q_full[stage]);
+          if (++stage == SM90_STAGES) {
+            stage = 0;
+            q_par ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 kv rows each
+    hopper::reg_alloc<sm90_consumer_regs(D)>();
+    const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const float sl2 = scale * kLog2e;
+    const uint32_t k_s = hopper::smem_u32(&sm.k[0][64 * wg][0]);
+    const uint32_t v_s = hopper::smem_u32(&sm.v[0][64 * wg][0]);
+    int stage = 0;
+    uint32_t q_par = 0, kv_par = 0;
+    for (int w = first; w < last; ++w) {
+      const int bkh = items[w] / n_kt, kv0 = items[w] % n_kt * SM90_BN;
+      const int qt0 = causal ? kv0 / SM90_BM : 0, nq = n_qt - qt0;
+      const int r_lo = kv0 + 64 * wg;          // this warpgroup's first row
+      const int row0 = r_lo + 16 * warp + g;   // this thread's: row0, row0 + 8
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      hopper::mbar_wait(&sm.kv_full, kv_par);
+      kv_par ^= 1;
+      for (int it = 0; it < rep * nq; ++it) {
+        const int q0 = (qt0 + it % nq) * SM90_BM;
+        hopper::mbar_wait(&sm.q_full[stage], q_par);
+        if (!causal || q0 + SM90_BM - 1 >= r_lo) {
+          const uint32_t q_s = hopper::smem_u32(sm.q[stage][0]);
+          const uint32_t do_s = hopper::smem_u32(sm.dout[stage][0]);
+          const float* ls = sm.lse2[stage];
+          const float* dl = sm.delta[stage];
+          // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x 64 queries
+          float st[32], dpt[32];
+          hopper::wgmma_fence();
+          wgmma_ss<D>(st, k_s, KV_BOX, q_s, Q_BOX);
+          hopper::wgmma_commit();
+          wgmma_ss<D>(dpt, v_s, KV_BOX, do_s, Q_BOX);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          hopper::fence_operand(st);
+          // P^T = exp2(S^T * scale * log2(e) - lse2[query]); padded
+          // queries have lse2 = +inf
+          const bool mask = causal && r_lo + 63 > q0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j +
+                                                               2 * qd);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = 8 * j + 2 * qd + (i & 1);
+              float p = hopper::exp2_ftz(st[4 * j + i] * sl2 -
+                                         (i & 1 ? l.y : l.x));
+              if (mask && row0 + 8 * (i >> 1) > q0 + c) p = 0.f;
+              st[4 * j + i] = p;
+            }
+          }
+          uint32_t pa[4][4], da[4][4];
+          acc_to_a(st, pa);
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(dpt);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j +
+                                                               2 * qd);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              dpt[4 * j + i] =
+                  st[4 * j + i] * (dpt[4 * j + i] - (i & 1 ? d.y : d.x)) *
+                  scale;
+          }
+          acc_to_a(dpt, da);
+          // dV += P^T dO, dK += dS^T Q: the tiles MN-major
+          hopper::fence_operand(dv_acc);
+          hopper::fence_operand(dk_acc);
+          hopper::wgmma_fence();
+          wgmma_rs<D>(dv_acc, pa, do_s, Q_BOX);
+          wgmma_rs<D>(dk_acc, da, q_s, Q_BOX);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(dv_acc);
+          hopper::fence_operand(dk_acc);
+        }
+        hopper::mbar_arrive_warp(&sm.q_empty[stage]);
+        if (++stage == SM90_STAGES) {
+          stage = 0;
+          q_par ^= 1;
+        }
+      }
+      hopper::mbar_arrive_warp(&sm.kv_empty);  // K and V reloaded meanwhile
+      const int64_t off = static_cast<int64_t>(bkh) * S * D;
+      store_rows<D>(dk + off, dk_acc, row0, S, qd);
+      store_rows<D>(dv + off, dv_acc, row0, S, qd);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ work, bf16* __restrict__ dq,
+                         int H, int KH, int S, int S_pad, float scale,
+                         int causal) {
+  using Smem = DqSmem<D>;
+  constexpr int NB = Smem::NB;
+  constexpr uint32_t Q_BOX = SM90_DQ_BM * 128, KV_BOX = SM90_DQ_BN * 128;
+  constexpr uint32_t Q_BYTES = 2 * NB * Q_BOX + 2 * SM90_DQ_BM * 4;
+  constexpr uint32_t KV_BYTES = 2 * NB * KV_BOX;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < SM90_STAGES; ++s) {
+      hopper::mbar_init(&sm.kv_full[s], 1);
+      hopper::mbar_init(&sm.kv_empty[s], SM90_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + SM90_DQ_BM - 1) / SM90_DQ_BM;
+  const int rep = H / KH;
+  const int first = work[blockIdx.x], last = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+  // kv tiles a query tile walks: up to its last row if causal
+  auto n_kv = [&](int q0) {
+    return ((causal ? min(S, q0 + SM90_DQ_BM) : S) + SM90_DQ_BN - 1) /
+           SM90_DQ_BN;
+  };
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<sm90_producer_regs(D)>();
+    if (tid == SM90_CONSUMERS) {
+      int stage = 0;
+      uint32_t kv_par = 1, q_par = 1;
+      for (int w = first; w < last; ++w) {
+        const int bh = items[w] / n_qt, q0 = items[w] % n_qt * SM90_DQ_BM;
+        const int bkh = bh / H * KH + bh % H / rep;
+        hopper::mbar_wait(&sm.q_empty, q_par);
+        q_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.q_full, Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(sm.q[c], &tm_q, &sm.q_full, 64 * c, q0, bh);
+          hopper::tma_load_3d(sm.dout[c], &tm_do, &sm.q_full, 64 * c, q0, bh);
+        }
+        const int64_t row = static_cast<int64_t>(bh) * S_pad + q0;
+        hopper::bulk_load(sm.lse2, lse2 + row, SM90_DQ_BM * 4, &sm.q_full);
+        hopper::bulk_load(sm.delta, delta + row, SM90_DQ_BM * 4, &sm.q_full);
+        const int nk = n_kv(q0);
+        for (int j = 0; j < nk; ++j) {
+          hopper::mbar_wait(&sm.kv_empty[stage], kv_par);
+          hopper::mbar_arrive_expect_tx(&sm.kv_full[stage], KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_3d(sm.k[stage][c], &tm_k, &sm.kv_full[stage],
+                                64 * c, j * SM90_DQ_BN, bkh);
+            hopper::tma_load_3d(sm.v[stage][c], &tm_v, &sm.kv_full[stage],
+                                64 * c, j * SM90_DQ_BN, bkh);
+          }
+          if (++stage == SM90_STAGES) {
+            stage = 0;
+            kv_par ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 query rows each
+    hopper::reg_alloc<sm90_consumer_regs(D)>();
+    const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const float sl2 = scale * kLog2e;
+    const uint32_t q_s = hopper::smem_u32(&sm.q[0][64 * wg][0]);
+    const uint32_t do_s = hopper::smem_u32(&sm.dout[0][64 * wg][0]);
+    int stage = 0;
+    uint32_t kv_par = 0, q_par = 0;
+    for (int w = first; w < last; ++w) {
+      const int bh = items[w] / n_qt, q0 = items[w] % n_qt * SM90_DQ_BM;
+      const int r_lo = q0 + 64 * wg;          // this warpgroup's first row
+      const int row0 = r_lo + 16 * warp + g;  // this thread's: row0, row0 + 8
+      hopper::mbar_wait(&sm.q_full, q_par);
+      q_par ^= 1;
+      float lr[2], dl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lr[h] = sm.lse2[row0 - q0 + 8 * h];
+        dl[h] = sm.delta[row0 - q0 + 8 * h];
+      }
+      float dq_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+      constexpr int BN = SM90_DQ_BN;
+      const int nk = n_kv(q0);
+      int pending = -1;  // the stage whose dQ product is in flight
+      for (int j = 0; j < nk; ++j) {
+        const int k0 = j * BN;
+        hopper::mbar_wait(&sm.kv_full[stage], kv_par);
+        if (!causal || k0 <= r_lo + 63) {
+          const uint32_t k_s = hopper::smem_u32(sm.k[stage][0]);
+          const uint32_t v_s = hopper::smem_u32(sm.v[stage][0]);
+          // S = Q K^T and dP = dO V^T: 64 queries x BN kv rows
+          float s[BN / 2], dp[BN / 2];
+          hopper::wgmma_fence();
+          wgmma_ss<D>(s, q_s, Q_BOX, k_s, KV_BOX);
+          hopper::wgmma_commit();
+          wgmma_ss<D>(dp, do_s, Q_BOX, v_s, KV_BOX);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // and the previous tile's dQ
+          hopper::fence_operand(s);
+          if (pending >= 0) hopper::mbar_arrive_warp(&sm.kv_empty[pending]);
+          const bool mask = (causal && k0 + BN - 1 > r_lo) || k0 + BN > S;
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = k0 + 8 * jj + 2 * qd + (i & 1);
+              const int row = row0 + 8 * (i >> 1);
+              float p = hopper::exp2_ftz(s[4 * jj + i] * sl2 - lr[i >> 1]);
+              if (mask && (col >= S || (causal && col > row))) p = 0.f;
+              s[4 * jj + i] = p;
+            }
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(dp);
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              dp[4 * jj + i] =
+                  s[4 * jj + i] * (dp[4 * jj + i] - dl[i >> 1]) * scale;
+          uint32_t da[4][4];
+          acc_to_a(dp, da);
+          // dQ += dS K: K MN-major
+          hopper::fence_operand(dq_acc);
+          hopper::wgmma_fence();
+          wgmma_rs<D>(dq_acc, da, k_s, KV_BOX);
+          hopper::wgmma_commit();  // waited for in the next tile
+          pending = stage;
+        } else {
+          hopper::mbar_arrive_warp(&sm.kv_empty[stage]);
+        }
+        if (++stage == SM90_STAGES) {
+          stage = 0;
+          kv_par ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dq_acc);
+      if (pending >= 0) hopper::mbar_arrive_warp(&sm.kv_empty[pending]);
+      hopper::mbar_arrive_warp(&sm.q_empty);  // the next Q, dO load meanwhile
+      store_rows<D>(dq + static_cast<int64_t>(bh) * S * D, dq_acc, row0, S,
+                    qd);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_sm90(const Args& a) {
+  static_assert(D % 64 == 0, "head_dim a multiple of 64");
+  if (a.dkdv_work == nullptr || a.dq_work == nullptr ||
+      a.dkdv_programs <= 0 || a.dq_programs <= 0)
+    return cudaErrorInvalidValue;
+  using SK = DkdvSmem<D>;
+  using SQ = DqSmem<D>;
+  constexpr size_t smem_kv = sm90_smem_bytes<SK>();
+  constexpr size_t smem_q = sm90_smem_bytes<SQ>();
+  auto dkdv = flash_bwd_dkdv_sm90_kernel<D>;
+  auto dqk = flash_bwd_dq_sm90_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_kv));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H, BKH = a.B * a.KH;
+  CUtensorMap q_kv, do_kv, k_kv, v_kv, q_q, do_q, k_q, v_q;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int n, rows;
+  } maps[8] = {{&q_kv, a.q, BH, SM90_BM},      {&do_kv, a.dout, BH, SM90_BM},
+               {&k_kv, a.k, BKH, SM90_BN},     {&v_kv, a.v, BKH, SM90_BN},
+               {&q_q, a.q, BH, SM90_DQ_BM},    {&do_q, a.dout, BH, SM90_DQ_BM},
+               {&k_q, a.k, BKH, SM90_DQ_BN},   {&v_q, a.v, BKH, SM90_DQ_BN}};
+  for (const auto& m : maps)
+    if ((err = hopper::bf16_tile_map(m.map, m.base, D, a.S, m.n, m.rows)) !=
+        cudaSuccess)
+      return err;
+  const int S_pad = (a.S + SM90_PAD - 1) / SM90_PAD * SM90_PAD;
+  const int64_t rows = static_cast<int64_t>(BH) * S_pad;
+  float* delta = a.delta;
+  float* lse2 = a.delta + rows;
+  constexpr int rows_a_block = 256 / (D / 8);
+  flash_bwd_prep_bf16_kernel<D>
+      <<<(rows + rows_a_block - 1) / rows_a_block, 256, 0, a.stream>>>(
+          static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+          a.lse, delta, lse2, a.S, S_pad, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkdv<<<a.dkdv_programs, SM90_THREADS, smem_kv, a.stream>>>(
+      q_kv, do_kv, k_kv, v_kv, lse2, delta, a.dkdv_work,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.KH, a.S,
+      S_pad, a.scale, a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<a.dq_programs, SM90_THREADS, smem_q, a.stream>>>(
+      q_q, do_q, k_q, v_q, lse2, delta, a.dq_work, static_cast<bf16*>(a.dq),
+      a.H, a.KH, a.S, S_pad, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ dispatch --
 
 using Launch = cudaError_t (*)(const Args&);
@@ -1218,9 +1840,10 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                  stream), D);
 }
 
-// The backward of a bf16 call: dq (B, H, S, D), dk and dv (B, KH, S, D),
-// from q, k, v, o, the forward's lse and dout; delta is an f32 scratch of
-// B * H * S. Three launches. Returns a cudaError_t (0 = success).
+// The backward of a bf16 call on the mma.sync kernels: dq (B, H, S, D),
+// dk and dv (B, KH, S, D), from q, k, v, o, the forward's lse and dout;
+// delta is an f32 scratch of B * H * S. Three launches. Returns a
+// cudaError_t (0 = success).
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* lse, const void* dout,
                              void* delta, void* dq, void* dk, void* dv, int B,
@@ -1229,6 +1852,31 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   if ((S + TC_BM - 1) / TC_BM > 65535) return cudaErrorInvalidValue;
   return dispatch(kBwdBf16, bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv,
                                      B, H, KH, S, scale, causal, stream), D);
+}
+
+// The same on the wgmma kernels, at head_dim 64 and 128 only: delta is an
+// f32 scratch of 2 * B * H * S_pad (S_pad: S rounded up to 128), and the
+// persistent grids walk the work lists (int32 [starts (programs + 1) |
+// items]). Three launches. Returns a cudaError_t.
+int flash_attention_bwd_bf16_sm90(const void* q, const void* k, const void* v,
+                                  const void* o, const void* lse,
+                                  const void* dout, void* delta, void* dq,
+                                  void* dk, void* dv, int B, int H, int KH,
+                                  int S, int D, float scale, int causal,
+                                  const int* dkdv_work, int dkdv_programs,
+                                  const int* dq_work, int dq_programs,
+                                  void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
+    return cudaErrorInvalidValue;
+  Args a = bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KH, S,
+                    scale, causal, stream);
+  a.dkdv_work = dkdv_work;
+  a.dq_work = dq_work;
+  a.dkdv_programs = dkdv_programs;
+  a.dq_programs = dq_programs;
+  return D == 64    ? launch_bwd_sm90<64>(a)
+         : D == 128 ? launch_bwd_sm90<128>(a)
+                    : cudaErrorInvalidValue;
 }
 
 // The same for an f32 call, on the CUDA cores. Returns a cudaError_t.

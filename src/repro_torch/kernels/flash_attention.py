@@ -19,13 +19,18 @@ Training differentiates it as the JAX package's ``jax.custom_vjp`` of
 forward also stores each row's log-sum-exp, and the backward is the
 hand-written backward kernel of the same source (no TPU kernel: the JAX
 package's backward is jnp), with ``flash_attention_bwd_plain`` its
-plain version.
+plain version. In bf16 the backward runs Hopper's warpgroup products
+(``wgmma``, tiles brought in by TMA, a persistent grid) at the head dims
+of ``WGMMA_BWD_HEAD_DIMS`` and ``mma.sync`` at the others
+(:func:`bwd_kernel`); the wgmma kernels walk work lists that
+:func:`bwd_schedule` orders on the host.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import heapq
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -35,8 +40,18 @@ from . import ref as _ref
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _FWD = {torch.float32: "flash_attention_fwd_f32",
         torch.bfloat16: "flash_attention_fwd_bf16"}
-_BWD = {torch.float32: "flash_attention_bwd_f32",
-        torch.bfloat16: "flash_attention_bwd_bf16"}
+# the backward's library entry of each kind of kernels (:func:`bwd_kernel`)
+_BWD = {"cuda_cores": "flash_attention_bwd_f32",
+        "mma_sync": "flash_attention_bwd_bf16",
+        "wgmma": "flash_attention_bwd_bf16_sm90"}
+# head dims whose bf16 backward runs the wgmma kernels (rows of 64-column
+# TMA boxes); the others run the mma.sync kernels
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+BWD_KV_ITEM = 128    # kv rows of a dk/dv work item
+BWD_KV_STEP = 64     # query rows per step of its walk
+BWD_Q_ITEM = 128     # query rows of a dq work item
+BWD_Q_STEP = 64      # kv rows per step of its walk
+BWD_PAD = 128        # the wgmma kernels' lse and delta rows, padded
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,9 +62,10 @@ def _load() -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = i
-    for entry in _BWD.values():
+    bwd = [p] * 10 + [i] * 5 + [ctypes.c_float, i]
+    for kind, entry in _BWD.items():
         fn = getattr(lib, entry)
-        fn.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_float, i, p]
+        fn.argtypes = bwd + ([p, i, p, i, p] if kind == "wgmma" else [p])
         fn.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -171,6 +187,81 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
+    """Which backward kernels a call of this head_dim and dtype launches:
+    ``"wgmma"`` (bf16 at ``WGMMA_BWD_HEAD_DIMS``), ``"mma_sync"`` (bf16
+    at the other head dims) or ``"cuda_cores"`` (f32), decided before the
+    launch, never after a failure."""
+    if head_dim not in HEAD_DIMS or dtype not in (torch.float32,
+                                                 torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: head_dim {head_dim}, "
+                         f"dtype {dtype}")
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if head_dim in WGMMA_BWD_HEAD_DIMS else "mma_sync"
+
+
+def _lpt(work: List[int], programs: int) -> Tuple[List[int], List[int]]:
+    """Items ``0 .. len(work) - 1`` dealt to at most ``programs`` programs
+    heaviest first (ties by index), each to the program with the least
+    work so far (ties to the lowest program): ``(starts, items)``, program
+    ``p``'s items ``items[starts[p]:starts[p + 1]]`` in the order dealt,
+    so in non-increasing work."""
+    n = min(programs, len(work))
+    heap = [(0, p) for p in range(n)]
+    lists: List[List[int]] = [[] for _ in range(n)]
+    for i in sorted(range(len(work)), key=lambda i: (-work[i], i)):
+        load, p = heapq.heappop(heap)
+        lists[p].append(i)
+        heapq.heappush(heap, (load + work[i], p))
+    starts = [0]
+    for items in lists:
+        starts.append(starts[-1] + len(items))
+    return starts, [i for items in lists for i in items]
+
+
+def bwd_work(B: int, H: int, KH: int, S: int, causal: bool):
+    """The wgmma backward's work items and their work in steps of 64 rows:
+    ``{"dkdv": [...], "dq": [...]}``. A dk/dv item ``bkh * n + t`` (b, kv
+    head, ``BWD_KV_ITEM``-row kv tile t of n) walks its group's H / KH
+    query heads over the query tiles that see its rows; a dq item
+    ``bh * n + t`` walks the kv tiles up to its tile's last row."""
+    n_q = -(-S // BWD_KV_STEP)
+    n_kt = -(-S // BWD_KV_ITEM)
+    dkdv = [H // KH * (n_q - (t * BWD_KV_ITEM // BWD_KV_STEP if causal
+                              else 0))
+            for _ in range(B * KH) for t in range(n_kt)]
+    n_qt = -(-S // BWD_Q_ITEM)
+    dq = [-(-(min(S, (t + 1) * BWD_Q_ITEM) if causal else S) // BWD_Q_STEP)
+          for _ in range(B * H) for t in range(n_qt)]
+    return {"dkdv": dkdv, "dq": dq}
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_schedule(B: int, H: int, KH: int, S: int, causal: bool,
+                 programs: int):
+    """``{"dkdv": (starts, items), "dq": (starts, items)}``: each launch's
+    work items (:func:`bwd_work`) dealt to at most ``programs`` programs
+    of a persistent grid (one block an SM), heaviest first, each to the
+    least loaded program (:func:`_lpt`), so that the causal triangle
+    leaves no tail. Items of equal work keep their index order, which
+    puts the heads of a group side by side."""
+    return {name: _lpt(work, programs)
+            for name, work in bwd_work(B, H, KH, S, causal).items()}
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_work_tensors(B, H, KH, S, causal, device):
+    """``bwd_schedule`` on the card as int32 ``[starts | items]`` tensors,
+    with their program counts, for the dk/dv and the dq launch."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = []
+    for starts, items in bwd_schedule(B, H, KH, S, causal, sms).values():
+        out += [torch.tensor(starts + items, dtype=torch.int32,
+                             device=device), len(starts) - 1]
+    return out
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
                 with_lse: bool):
     """One forward launch: ``(o, lse)``, lse None unless asked for (the
@@ -235,9 +326,9 @@ flash_attention.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         scale: Optional[float] = None):
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)``: the plain
-    version on CPU tensors, else the backward kernels (delta, dk/dv, dq:
-    three launches, counted once in ``flash_attention_bwd.launches``) or
-    an error."""
+    version on CPU tensors, else the backward kernels (:func:`bwd_kernel`;
+    a prep or delta launch, dk/dv, dq: three launches, counted once in
+    ``flash_attention_bwd.launches``) or an error."""
     if _on_cpu(q, k, v, o, lse, dout):
         return flash_attention_bwd_plain(q, k, v, o, lse, dout,
                                          causal=causal, scale=scale)
@@ -246,13 +337,22 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kernel = bwd_kernel(D, q.dtype)
+    # delta (and, for the wgmma kernels, lse * log2 e), rows padded there
+    rows = B * H * (-(-S // BWD_PAD) * BWD_PAD if kernel == "wgmma" else S)
+    scratch = torch.empty(rows * (2 if kernel == "wgmma" else 1),
+                          dtype=torch.float32, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, D,
+            scale, int(causal)]
+    if kernel == "wgmma":
+        dkdv_work, n_dkdv, dq_work, n_dq = _bwd_work_tensors(
+            B, H, KH, S, bool(causal), q.device)
+        args += [dkdv_work.data_ptr(), n_dkdv, dq_work.data_ptr(), n_dq]
     lib = _load()
-    _raise_on(lib, getattr(lib, _BWD[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, KH, S, D, scale, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream),
+    _raise_on(lib, getattr(lib, _BWD[kernel])(
+        *args, torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -245,7 +245,13 @@ FLASH_BWD_CASES = [
     (1, 4, 1, 129, 64), (2, 4, 4, 63, 80), (1, 8, 2, 130, 80),
     (1, 3, 1, 70, 128), (2, 4, 2, 1, 128), (1, 6, 2, 192, 128),
     # long and ragged: far query tiles of each kv tile, late rows
-    (1, 6, 2, 1000, 128)]
+    (1, 6, 2, 1000, 128),
+    # the wgmma kernels' edges at head_dim 128: S around their 128-row
+    # work items and 64-row steps, a long ragged S with qwen2-vl's group
+    # of 6 (GQA 12/2), MHA
+    (1, 4, 2, 127, 128), (1, 4, 2, 128, 128), (1, 4, 2, 129, 128),
+    (1, 4, 2, 255, 128), (1, 4, 2, 257, 128), (2, 12, 2, 1001, 128),
+    (1, 4, 4, 257, 128)]
 # the backward's gradients, norm-relative over the whole tensor and each
 # 64-row block (bf16 rounds P and dS for the tensor cores)
 FLASH_BWD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
@@ -346,6 +352,52 @@ def test_flash_autograd_on_the_card(dtype, tol, cuda):
     _norm_rel_close(grads[0], grads[1], FLASH_BWD_REL[dtype])
 
 
+@pytest.mark.parametrize("shape", [(2, 24, 8, 4096, 128),
+                                   (2, 12, 2, 4096, 128)],
+                         ids=["minitron_train", "qwen2vl_train"])
+def test_flash_bwd_is_deterministic(shape, cuda):
+    """Two calls of the bf16 backward at the training paths' shapes give
+    the same bits: every gradient element is summed in one fixed order
+    (no atomics), which a recovered training run's bitwise replay needs."""
+    q, k, v, do = _flash_grad_inputs(shape, torch.bfloat16, cuda)
+    o, lse = _launch_fwd(q, k, v, True, None, with_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second, strict=True):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D,with_lists", [(128, False), (80, True)],
+                         ids=["missing_work_list", "head_dim_80"])
+def test_flash_bwd_wgmma_refuses_a_missing_work_list(D, with_lists, cuda):
+    """The library's wgmma entry refuses a call without its work lists,
+    and a head_dim it has no instance for (an error, not unwritten
+    gradients); the mma.sync entry takes every head_dim."""
+    from repro_torch.kernels.flash_attention import (_bwd_work_tensors,
+                                                     _load, _raise_on)
+    q, k, v, do = _flash_grad_inputs((1, 2, 2, 64, D), torch.bfloat16, cuda)
+    o, lse = _launch_fwd(q, k, v, True, None, with_lse=True)
+    lib = _load()
+    scratch = torch.empty(2 * 2 * 128, device=cuda)
+    dq = torch.empty_like(q)
+    lists = [None, 0, None, 0]
+    if with_lists:
+        dkdv_work, n_dkdv, dq_work, n_dq = _bwd_work_tensors(
+            1, 2, 2, 64, True, q.device)
+        lists = [dkdv_work.data_ptr(), n_dkdv, dq_work.data_ptr(), n_dq]
+    err = lib.flash_attention_bwd_bf16_sm90(
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, scratch, dq, dq, dq)),
+        1, 2, 2, 64, D, 0.25, 1, *lists,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="flash_attention_bwd kernel"):
+        _raise_on(lib, err, "flash_attention_bwd")
+    assert lib.flash_attention_bwd_bf16(
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, scratch, dq, dq, dq)),
+        1, 2, 2, 64, D, 0.25, 1, torch.cuda.current_stream().cuda_stream) == 0
+
+
 def test_flash_bwd_rejects_what_it_cannot_run(cuda):
     """The wrapper refuses operands the kernels do not take, and a launch
     the library refuses (here a head_dim it has no instance for) raises
@@ -359,7 +411,7 @@ def test_flash_bwd_rejects_what_it_cannot_run(cuda):
         flash_attention_bwd(q, k, v, o, lse, do.bfloat16())
     lib = _load()
     dq = torch.empty_like(q)
-    err = getattr(lib, _BWD[torch.float32])(
+    err = getattr(lib, _BWD["cuda_cores"])(
         *(t.data_ptr() for t in (q, k, v, o, lse, do, lse, dq, dq, dq)),
         1, 2, 2, 8, 48, 0.25, 1, torch.cuda.current_stream().cuda_stream)
     assert err != 0
