@@ -52,6 +52,7 @@
 //
 // Layout: x, y (B, S, H, P); dt (B, S, H); b, c (B, S, N); a_log, d_skip
 // (H,); cb scratch (B, n_chunks, L, ssd_cb_pitch(L)); h_out (B, H, N, P) or
+// null; states (B, n_chunks, H, N, P), the state entering each chunk, or
 // null. All f32 and contiguous.
 
 #include <cuda_runtime.h>
@@ -93,6 +94,29 @@ __device__ __forceinline__ float2 ld2(const float* p, int avail, bool vec) {
 // the neighbouring columns 2q and 2q + 1 of the operands in memory, for A
 // and B alike, which leaves the sum unchanged and makes each lane's two A
 // elements one 8-byte load.
+
+// seg = inclusive cumsum of dt A over a chunk's Lc steps, by one warp:
+// each lane sums a run of steps, a warp scan of the run totals gives each
+// run its offset
+__device__ __forceinline__ void chunk_seg(const float* dts, float A, int Lc,
+                                          float* seg) {
+  const int lane = threadIdx.x % 32;
+  const int per = (Lc + 31) / 32;
+  const int lo = min(lane * per, Lc), hi = min(lo + per, Lc);
+  float run = 0.f;
+  for (int t = lo; t < hi; ++t) run += dts[t] * A;
+  float inc = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  float acc = inc - run;
+  for (int t = lo; t < hi; ++t) {
+    acc += dts[t] * A;
+    seg[t] = acc;
+  }
+}
 
 // (a) cb[b, c, t, s] = C_t . B_s for s <= t < Lc; nothing else is written
 // (or read by the scan). One block of 4 warps per (chunk, b, 16 x 32
@@ -179,8 +203,8 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a_log, const float* __restrict__ bm,
                 const float* __restrict__ cm, const float* __restrict__ cb,
                 const float* __restrict__ d_skip, float* __restrict__ y,
-                float* __restrict__ h_out, int S, int H, int P, int N, int L,
-                int xvec, int nvec) {
+                float* __restrict__ h_out, float* __restrict__ states, int S,
+                int H, int P, int N, int L, int xvec, int nvec) {
   const int Lp = round_up(L, 16), Pp = round_up(P, 8), pitch = Pp + 4;
   const int Lq = cb_pitch(L);
   extern __shared__ __align__(16) float smem[];
@@ -251,26 +275,14 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
     const float* xs = x_s + st * Lp * pitch;
     const float* dts = dt_s + st * Lp;
-
-    // seg = inclusive cumsum of dt A: each lane sums a run of steps, a
-    // warp scan of the run totals gives each run its offset
-    if (warp == 0) {
-      const int per = (Lc + 31) / 32;
-      const int lo = min(lane * per, Lc), hi = min(lo + per, Lc);
-      float run = 0.f;
-      for (int t = lo; t < hi; ++t) run += dts[t] * A;
-      float inc = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, inc, off);
-        if (lane >= off) inc += v;
-      }
-      float acc = inc - run;
-      for (int t = lo; t < hi; ++t) {
-        acc += dts[t] * A;
-        seg_s[t] = acc;
-      }
+    if (states != nullptr) {  // the state entering chunk c, for the backward
+      float* sb = states + ((static_cast<int64_t>(b) * n_chunks + c) * H + h) *
+                               static_cast<int64_t>(N) * P;
+      for (int e = tid; e < N * P; e += THREADS)
+        sb[e] = h_s[(e / P) * pitch + e % P];
     }
+
+    if (warp == 0) chunk_seg(dts, A, Lc, seg_s);
     __syncthreads();
     const float total = seg_s[Lc - 1];
     for (int t = tid; t < Lp; t += THREADS)
@@ -387,6 +399,481 @@ cudaError_t launch_cb(const void* bm, const void* cm, void* cb, int B, int S,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward: dx, ddt, da_log, dB, dC and dD of y = SSD(x, dt, a_log, B,
+// C, D) for an output gradient dy (and, where the forward returned it, a
+// gradient dh_final of the final state). The TPU package has no kernel for
+// it: its gradient is XLA's autodiff of `ssd_scan_jnp` under jax.grad.
+// Per chunk, with M[t, s] = (C_t . B_s) exp(seg_t - seg_s) dt_s for s <= t
+// and w_s = exp(seg_L - seg_s) dt_s, and dh the gradient of the state
+// leaving the chunk:
+//   dh_in = exp(seg_L) dh + sum_t exp(seg_t) C_t (x) dy_t      (reverse pass)
+//   dx_s  = sum_t M[t, s] dy_t + w_s (B_s . dh) + D dy_s
+//   GE[t, s] = (dy_t . x_s) exp(seg_t - seg_s), the score gradient
+//   dC_t  = sum_s GE[t, s] dt_s B_s + exp(seg_t) dy_t . h_in^T
+//   dB_s  = sum_t GE[t, s] dt_s C_t + w_s x_s . dh^T
+// and d(seg) from every term: its in-chunk reverse cumsum times A gives
+// ddt beside the direct terms, and sum_t dt_t revcumsum_t times A gives
+// da_log (A = -exp(a_log), dA/da_log = A).
+//
+// What bounds it on the H100: at mamba2-1.3b's train shape (B 2, S 4096,
+// H 64, P 64, N 128, chunk 128) it needs ~60 GFLOP of products (per (b, h,
+// chunk) G and M^T . dy, L(L+1)/2 x P MACs each; GE . B and GE^T . C,
+// L(L+1)/2 x N each; B . dh, x . dh^T, dy . h_in^T and the reverse pass, L N P
+// each) and moves ~0.54 GB (x, dy, the chunk states in; dx out, ~134 MB
+// each). In 3xTF32 (f32 accuracy, as the forward) that is 0.36 ms at 165
+// TFLOP/s against 0.16 ms for the bytes: bound by the products.
+//
+// This first kernel is simple and right rather than fast: four launches,
+// every product a warp job of 16 rows x 64 columns of m16n8k8 3xTF32
+// mma.sync with operands gathered element by element (from shared memory
+// for x, dy and GE, from L2 for B, C, C.B^T and the states):
+// (a) ssd_cb_kernel, as the forward: C.B^T per (b, chunk);
+// (b) ssd_bwd_dstate_kernel, one block per (b, h) walking the chunks in
+//     reverse: the gradient of the state leaving each chunk, into a
+//     (B, n_chunks, H, N, P) scratch;
+// (c) ssd_bwd_chunk_kernel, one block per (chunk, h, b): every gradient
+//     local to the chunk. dx and ddt are written in place (each element
+//     belongs to one block); dB and dC per head into (B, S, H, N) scratch,
+//     dD's and dA's per-chunk sums into (B, n_chunks, H, 2);
+// (d) ssd_bwd_reduce_kernel: dB and dC summed over the heads, dD and
+//     da_log over (b, chunk), each in a fixed order. No float atomics, so
+//     two calls give the same bits.
+// The forward's guards hold: exp(seg_t - seg_s) is evaluated only under
+// the causal mask and masked entries are selected to 0; a ragged last
+// chunk runs its true length; B and C are read by batch index.
+
+constexpr int BJ = 8;  // n-tiles of 8 columns in a backward warp job
+
+// acc[nt] += sum_k a(r, k) b(k, col) for the warp's rows r0 + [0, 16) and
+// columns c0 + [0, 64), k over [k_lo, k_hi) in steps of 8 (a and b return 0
+// outside their operands), in 3xTF32, in the fragment layout of mma.cuh
+template <class FA, class FB>
+__device__ __forceinline__ void warp_gemm(float (&acc)[BJ][4], int r0, int c0,
+                                          int k_lo, int k_hi, const FA& a,
+                                          const FB& b) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+    const int ka = k0 + q, kb = ka + 4;
+    const mma::Split af[4] = {mma::split(a(r0 + g, ka)),
+                              mma::split(a(r0 + g + 8, ka)),
+                              mma::split(a(r0 + g, kb)),
+                              mma::split(a(r0 + g + 8, kb))};
+    mma::Split b0[BJ], b1[BJ];
+#pragma unroll
+    for (int nt = 0; nt < BJ; ++nt) {
+      b0[nt] = mma::split(b(ka, c0 + nt * 8 + g));
+      b1[nt] = mma::split(b(kb, c0 + nt * 8 + g));
+    }
+    mma::mma_3xtf32(acc, af, b0, b1);
+  }
+}
+
+// f(row, col, i, nt) for each accumulator element of the warp's job
+template <class F>
+__device__ __forceinline__ void for_acc(int r0, int c0, const F& f) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < BJ; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f(r0 + g + 8 * (i >> 1), c0 + nt * 8 + 2 * q + (i & 1), nt, i);
+}
+
+// the sums of a lane's two rows (g, g + 8) over the 4 lanes that share
+// them, in a fixed order
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__host__ __device__ inline int bwd_pitch(int P) { return round_up(P, 8) + 4; }
+
+__host__ __device__ inline size_t dstate_smem_floats(int L, int P, int N) {
+  const size_t Lp = round_up(L, 16);
+  return (Lp + N) * bwd_pitch(P) + 3 * Lp;
+}
+
+__host__ __device__ inline size_t chunk_smem_floats(int L, int P, int N) {
+  const size_t Lp = round_up(L, 16);
+  return 2 * Lp * bwd_pitch(P) + Lp * (Lp + 4) + 10 * Lp +
+         Lp * ((P + 63) / 64 + (N + 63) / 64) + THREADS;
+}
+
+// (b) dstates[b, c, h] = the gradient of the state leaving chunk c (the
+// state entering chunk c + 1): dh_final for the last chunk, then
+// dh <- exp(seg_L) dh + (C (x) exp(seg))^T . dy over chunk c + 1
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_dstate_kernel(const float* __restrict__ dt,
+                      const float* __restrict__ a_log,
+                      const float* __restrict__ cm,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ dh_final,
+                      float* __restrict__ dstates, int S, int H, int P, int N,
+                      int L) {
+  const int Lp = round_up(L, 16), pitch = bwd_pitch(P);
+  extern __shared__ __align__(16) float smem[];
+  float* dy_s = smem;                  // Lp x pitch
+  float* dh_s = dy_s + Lp * pitch;     // N x pitch
+  float* dt_s = dh_s + N * pitch;      // Lp
+  float* seg_s = dt_s + Lp;            // Lp
+  float* e_s = seg_s + Lp;             // Lp: exp(seg)
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const float A = -expf(a_log[h]);
+  const int64_t x_step = static_cast<int64_t>(H) * P;
+  const float* dyb = dy + static_cast<int64_t>(b) * S * x_step +
+                     static_cast<int64_t>(h) * P;
+  const float* dtb = dt + static_cast<int64_t>(b) * S * H + h;
+  const float* cb_ = cm + static_cast<int64_t>(b) * S * N;
+  const int n_chunks = (S + L - 1) / L;
+  const int64_t NP = static_cast<int64_t>(N) * P;
+
+  for (int e = tid; e < N * P; e += THREADS)
+    dh_s[(e / P) * pitch + e % P] =
+        dh_final != nullptr ? dh_final[bh * NP + e] : 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    __syncthreads();  // dh_s is complete; chunk c + 1's readers are done
+    float* out = dstates + ((static_cast<int64_t>(b) * n_chunks + c) * H + h) *
+                               NP;
+    for (int e = tid; e < N * P; e += THREADS)
+      out[e] = dh_s[(e / P) * pitch + e % P];
+    if (c == 0) break;
+    const int t0 = c * L, Lc = min(L, S - t0);
+    for (int e = tid; e < Lp * P; e += THREADS) {
+      const int r = e / P, p = e % P;
+      dy_s[r * pitch + p] =
+          r < Lc ? dyb[static_cast<int64_t>(t0 + r) * x_step + p] : 0.f;
+    }
+    for (int t = tid; t < Lp; t += THREADS)
+      dt_s[t] = t < Lc ? dtb[static_cast<int64_t>(t0 + t) * H] : 0.f;
+    __syncthreads();
+    if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
+    __syncthreads();
+    for (int t = tid; t < Lp; t += THREADS)
+      e_s[t] = t < Lc ? expf(seg_s[t]) : 0.f;
+    __syncthreads();  // also: every read of dh_s into `out` is done
+    const float decay = expf(seg_s[Lc - 1]);
+    const float* cc = cb_ + static_cast<int64_t>(t0) * N;
+    const int nrt = (N + 15) / 16, ncb = (P + 63) / 64;
+    for (int job = warp; job < nrt * ncb; job += NWARPS) {
+      const int n0 = (job % nrt) * 16, p0 = (job / nrt) * 64;
+      float acc[BJ][4] = {};
+      warp_gemm(
+          acc, n0, p0, 0, Lc,
+          [&](int n, int t) {
+            return n < N && t < Lc ? cc[static_cast<int64_t>(t) * N + n] * e_s[t]
+                                   : 0.f;
+          },
+          [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; });
+      for_acc(n0, p0, [&](int n, int p, int nt, int i) {
+        if (n < N && p < P)
+          dh_s[n * pitch + p] = decay * dh_s[n * pitch + p] + acc[nt][i];
+      });
+    }
+  }
+}
+
+// (c) every gradient local to chunk blockIdx.x of head blockIdx.y of batch
+// row blockIdx.z (see above)
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a_log,
+                     const float* __restrict__ bm, const float* __restrict__ cm,
+                     const float* __restrict__ d_skip,
+                     const float* __restrict__ dy, const float* __restrict__ cb,
+                     const float* __restrict__ states,
+                     const float* __restrict__ dstates, float* __restrict__ dx,
+                     float* __restrict__ ddt, float* __restrict__ dbh,
+                     float* __restrict__ dch, float* __restrict__ part, int S,
+                     int H, int P, int N, int L) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int Lp = round_up(L, 16), pitch = bwd_pitch(P), lp = Lp + 4;
+  const int Lq = cb_pitch(L);
+  const int ncp = (P + 63) / 64, ncn = (N + 63) / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                   // Lp x pitch
+  float* dy_s = x_s + Lp * pitch;      // Lp x pitch
+  float* ge_s = dy_s + Lp * pitch;     // Lp x lp: GE[t, s], zero off the mask
+  float* dt_s = ge_s + Lp * lp;        // the 10 per-step vectors, Lp each
+  float* seg_s = dt_s + Lp;
+  float* w_s = seg_s + Lp;             // exp(seg_L - seg) dt
+  float* el_s = w_s + Lp;              // exp(seg_L - seg)
+  float* es_s = el_s + Lp;             // exp(seg)
+  float* rows_s = es_s + Lp;           // sum_s GE[t, s] CB[t, s] dt_s
+  float* cols_s = rows_s + Lp;         // sum_t GE[t, s] CB[t, s]
+  float* u_s = cols_s + Lp;            // x_s . (B_s . dh)
+  float* r_s = u_s + Lp;               // C_t . exp(seg_t) dy_t . h_in^T
+  float* dseg_s = r_s + Lp;
+  float* up_s = dseg_s + Lp;           // Lp x ncp partial sums of u
+  float* rp_s = up_s + Lp * ncp;       // Lp x ncn partial sums of r
+  float* red_s = rp_s + Lp * ncn;      // THREADS
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const float A = -expf(a_log[h]);
+  const float D = d_skip[h];
+  const int64_t x_step = static_cast<int64_t>(H) * P;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;  // (b, t0) in (B, S)
+  const float* xb = x + row0 * x_step + static_cast<int64_t>(h) * P;
+  const float* dyb = dy + row0 * x_step + static_cast<int64_t>(h) * P;
+  float* dxb = dx + row0 * x_step + static_cast<int64_t>(h) * P;
+  const float* bc = bm + row0 * N;
+  const float* cc = cm + row0 * N;
+  const float* cbc = cb + (static_cast<int64_t>(b) * n_chunks + c) * L * Lq;
+  const int64_t NP = static_cast<int64_t>(N) * P;
+  const int64_t bch = (static_cast<int64_t>(b) * n_chunks + c) * H + h;
+  const float* hin = states + bch * NP;
+  const float* dho = dstates + bch * NP;
+
+  for (int e = tid; e < Lp * pitch; e += THREADS) {
+    const int r = e / pitch, p = e % pitch;
+    const bool ok = r < Lc && p < P;
+    x_s[e] = ok ? xb[r * x_step + p] : 0.f;
+    dy_s[e] = ok ? dyb[r * x_step + p] : 0.f;
+  }
+  for (int e = tid; e < Lp * lp; e += THREADS) ge_s[e] = 0.f;
+  for (int t = tid; t < Lp; t += THREADS)
+    dt_s[t] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
+  __syncthreads();
+  if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
+  __syncthreads();
+  const float total = seg_s[Lc - 1];
+  for (int t = tid; t < Lp; t += THREADS) {
+    const bool ok = t < Lc;
+    es_s[t] = ok ? expf(seg_s[t]) : 0.f;
+    el_s[t] = ok ? expf(total - seg_s[t]) : 0.f;
+    w_s[t] = el_s[t] * dt_s[t];
+  }
+  __syncthreads();
+  const int nrt = Lp / 16;
+
+  // GE = (dy . x^T) exp(seg_t - seg_s) on and below the diagonal; the
+  // exponential only under the mask (it overflows above)
+  const int ncl = (Lc + 63) / 64;
+  for (int job = warp; job < nrt * ncl; job += NWARPS) {
+    const int r0 = (job % nrt) * 16, s0 = (job / nrt) * 64;
+    if (r0 >= Lc || s0 > r0 + 15) continue;
+    float acc[BJ][4] = {};
+    warp_gemm(
+        acc, r0, s0, 0, P,
+        [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; },
+        [&](int p, int s) { return p < P && s < Lp ? x_s[s * pitch + p] : 0.f; });
+    for_acc(r0, s0, [&](int t, int s, int nt, int i) {
+      if (t < Lc && s <= t)
+        ge_s[t * lp + s] = acc[nt][i] * expf(seg_s[t] - seg_s[s]);
+    });
+  }
+  __syncthreads();
+
+  // the score gradient against C.B^T: its row sums (times dt_s) and
+  // column sums, for d(seg) and ddt
+  for (int i = tid; i < Lc; i += THREADS) {
+    float rs = 0.f, cs = 0.f;
+    for (int s = 0; s <= i; ++s) rs += ge_s[i * lp + s] * cbc[i * Lq + s] * dt_s[s];
+    for (int t = i; t < Lc; ++t) cs += ge_s[t * lp + i] * cbc[t * Lq + i];
+    rows_s[i] = rs;
+    cols_s[i] = cs;
+  }
+
+  // dx = M^T . dy + w (B . dh) + D dy; u = x . (B . dh) row by row
+  for (int job = warp; job < nrt * ncp; job += NWARPS) {
+    const int r0 = (job % nrt) * 16, p0 = (job / nrt) * 64;
+    if (r0 >= Lc) continue;
+    float am[BJ][4] = {}, ab[BJ][4] = {};
+    warp_gemm(
+        am, r0, p0, r0, Lc,
+        [&](int s, int t) {
+          return s <= t && t < Lc
+                     ? cbc[t * Lq + s] * expf(seg_s[t] - seg_s[s]) * dt_s[s]
+                     : 0.f;
+        },
+        [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; });
+    warp_gemm(
+        ab, r0, p0, 0, N,
+        [&](int s, int n) {
+          return s < Lc && n < N ? bc[static_cast<int64_t>(s) * N + n] : 0.f;
+        },
+        [&](int n, int p) {
+          return n < N && p < P ? dho[static_cast<int64_t>(n) * P + p] : 0.f;
+        });
+    float u[2] = {0.f, 0.f};
+    for_acc(r0, p0, [&](int s, int p, int nt, int i) {
+      if (s < Lc && p < P) {
+        dxb[s * x_step + p] = am[nt][i] + w_s[s] * ab[nt][i] +
+                              D * dy_s[s * pitch + p];
+        u[i >> 1] += ab[nt][i] * x_s[s * pitch + p];
+      }
+    });
+    u[0] = quad_sum(u[0]);
+    u[1] = quad_sum(u[1]);
+    if (q == 0) {
+      up_s[(r0 + g) * ncp + job / nrt] = u[0];
+      up_s[(r0 + g + 8) * ncp + job / nrt] = u[1];
+    }
+  }
+
+  // dB for this head: GE^T dt . C + (w x) . dh^T
+  const int jobs_n = nrt * ncn;
+  for (int job = warp; job < jobs_n; job += NWARPS) {
+    const int r0 = (job % nrt) * 16, n0 = (job / nrt) * 64;
+    if (r0 >= Lc) continue;
+    float acc[BJ][4] = {};
+    warp_gemm(
+        acc, r0, n0, r0, Lc,
+        [&](int s, int t) { return t < Lc ? ge_s[t * lp + s] * dt_s[s] : 0.f; },
+        [&](int t, int n) {
+          return t < Lc && n < N ? cc[static_cast<int64_t>(t) * N + n] : 0.f;
+        });
+    warp_gemm(
+        acc, r0, n0, 0, P,
+        [&](int s, int p) { return p < P ? x_s[s * pitch + p] * w_s[s] : 0.f; },
+        [&](int p, int n) {
+          return p < P && n < N ? dho[static_cast<int64_t>(n) * P + p] : 0.f;
+        });
+    for_acc(r0, n0, [&](int s, int n, int nt, int i) {
+      if (s < Lc && n < N)
+        dbh[((row0 + s) * H + h) * N + n] = acc[nt][i];
+    });
+  }
+
+  // dC for this head: GE dt . B + exp(seg) dy . h_in^T (the state entering
+  // the first chunk is zero), and r = C . the second term row by row
+  for (int job = warp; job < jobs_n; job += NWARPS) {
+    const int r0 = (job % nrt) * 16, n0 = (job / nrt) * 64;
+    if (r0 >= Lc) continue;
+    float ai[BJ][4] = {}, ax[BJ][4] = {};
+    warp_gemm(
+        ai, r0, n0, 0, min(r0 + 16, Lc),
+        [&](int t, int s) { return s < Lc ? ge_s[t * lp + s] * dt_s[s] : 0.f; },
+        [&](int s, int n) {
+          return s < Lc && n < N ? bc[static_cast<int64_t>(s) * N + n] : 0.f;
+        });
+    if (c > 0)
+      warp_gemm(
+          ax, r0, n0, 0, P,
+          [&](int t, int p) {
+            return p < P ? dy_s[t * pitch + p] * es_s[t] : 0.f;
+          },
+          [&](int p, int n) {
+            return p < P && n < N ? hin[static_cast<int64_t>(n) * P + p] : 0.f;
+          });
+    float r[2] = {0.f, 0.f};
+    for_acc(r0, n0, [&](int t, int n, int nt, int i) {
+      if (t < Lc && n < N) {
+        dch[((row0 + t) * H + h) * N + n] = ai[nt][i] + ax[nt][i];
+        r[i >> 1] += ax[nt][i] * cc[static_cast<int64_t>(t) * N + n];
+      }
+    });
+    r[0] = quad_sum(r[0]);
+    r[1] = quad_sum(r[1]);
+    if (q == 0) {
+      rp_s[(r0 + g) * ncn + job / nrt] = r[0];
+      rp_s[(r0 + g + 8) * ncn + job / nrt] = r[1];
+    }
+  }
+
+  // x . dy over the chunk (for dD) and <dh, h_in>, each summed in a fixed
+  // order
+  float pd = 0.f, ph = 0.f;
+  for (int e = tid; e < Lc * P; e += THREADS)
+    pd += x_s[(e / P) * pitch + e % P] * dy_s[(e / P) * pitch + e % P];
+  for (int e = tid; e < N * P; e += THREADS) ph += dho[e] * hin[e];
+  red_s[tid] = pd;
+  __syncthreads();  // also: rows_s, cols_s, up_s and rp_s are complete
+  float sum_d = 0.f;
+  if (tid == 0)
+    for (int i = 0; i < THREADS; ++i) sum_d += red_s[i];
+  __syncthreads();
+  red_s[tid] = ph;
+  __syncthreads();
+  if (tid != 0) return;
+  float hdot = 0.f;
+  for (int i = 0; i < THREADS; ++i) hdot += red_s[i];
+
+  // d(seg) per step, its reverse cumsum, ddt and the chunk's dA
+  float uw = 0.f;
+  for (int t = 0; t < Lc; ++t) {
+    float u = 0.f, r = 0.f;
+    for (int j = 0; j < ncp; ++j) u += up_s[t * ncp + j];
+    for (int j = 0; j < ncn; ++j) r += rp_s[t * ncn + j];
+    u_s[t] = u;
+    dseg_s[t] = rows_s[t] - dt_s[t] * cols_s[t] + r - u * w_s[t];
+    uw += u * w_s[t];
+  }
+  dseg_s[Lc - 1] += es_s[Lc - 1] * hdot + uw;
+  float rc = 0.f, da = 0.f;
+  for (int t = Lc - 1; t >= 0; --t) {
+    rc += dseg_s[t];
+    ddt[(row0 + t) * H + h] = cols_s[t] + u_s[t] * el_s[t] + A * rc;
+    da += dt_s[t] * rc;
+  }
+  part[bch * 2] = sum_d;
+  part[bch * 2 + 1] = da;
+}
+
+// (d) dB, dC: the per-head scratch summed over the heads; dD, da_log: the
+// per-chunk sums summed over (b, chunk); each output by one thread, in
+// order
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_reduce_kernel(const float* __restrict__ dbh,
+                      const float* __restrict__ dch,
+                      const float* __restrict__ part,
+                      const float* __restrict__ a_log, float* __restrict__ db,
+                      float* __restrict__ dc, float* __restrict__ da_log,
+                      float* __restrict__ dd, int64_t BS, int H, int N,
+                      int n_parts) {
+  const int64_t BSN = BS * N, total = 2 * BSN + H;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * THREADS) {
+    if (e < 2 * BSN) {
+      const bool is_b = e < BSN;
+      const int64_t o = is_b ? e : e - BSN;
+      const float* src = (is_b ? dbh : dch) + (o / N) * H * N + o % N;
+      float v = 0.f;
+      for (int hh = 0; hh < H; ++hh) v += src[static_cast<int64_t>(hh) * N];
+      (is_b ? db : dc)[o] = v;
+    } else {
+      const int hh = static_cast<int>(e - 2 * BSN);
+      float sd = 0.f, sa = 0.f;
+      for (int i = 0; i < n_parts; ++i) {
+        sd += part[(static_cast<int64_t>(i) * H + hh) * 2];
+        sa += part[(static_cast<int64_t>(i) * H + hh) * 2 + 1];
+      }
+      dd[hh] = sd;
+      da_log[hh] = -expf(a_log[hh]) * sa;
+    }
+  }
+}
+
+// the backward's scratch, carved from one workspace of
+// ssd_scan_bwd_work_floats floats: the C.B^T scratch, the state gradients,
+// dB and dC per head, the per-chunk sums (each region a multiple of 4
+// floats)
+struct BwdWork {
+  float *cb, *dstates, *dbh, *dch, *part;
+  size_t floats;
+};
+
+BwdWork bwd_work(float* base, int B, int S, int H, int P, int N, int L) {
+  const size_t nc = (S + L - 1) / L;
+  const size_t sizes[5] = {
+      static_cast<size_t>(B) * nc * L * cb_pitch(L),
+      static_cast<size_t>(B) * nc * H * N * P,
+      static_cast<size_t>(B) * S * H * N, static_cast<size_t>(B) * S * H * N,
+      static_cast<size_t>(B) * nc * H * 2};
+  float* p[5];
+  size_t off = 0;
+  for (int i = 0; i < 5; ++i) {
+    p[i] = base == nullptr ? nullptr : base + off;
+    off += (sizes[i] + 3) / 4 * 4;
+  }
+  return {p[0], p[1], p[2], p[3], p[4], off};
+}
+
 }  // namespace
 
 extern "C" {
@@ -412,12 +899,13 @@ int ssd_cb_fwd(const void* bm, const void* cm, void* cb, int B, int S, int N,
 }
 
 // (a) then (b), each launch checked. cb is the (B, n_chunks, L,
-// ssd_cb_pitch(L)) f32 scratch; h_out may be null (no final state). Returns a cudaError_t
-// (0 = success).
+// ssd_cb_pitch(L)) f32 scratch; h_out may be null (no final state), and so
+// may states, the (B, n_chunks, H, N, P) state entering each chunk that the
+// backward reads. Returns a cudaError_t (0 = success).
 int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
                  const void* bm, const void* cm, const void* d_skip, void* cb,
-                 void* y, void* h_out, int B, int S, int H, int P, int N,
-                 int chunk, void* stream) {
+                 void* y, void* h_out, void* states, int B, int S, int H,
+                 int P, int N, int chunk, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || chunk <= 0 ||
       B > 65535)
     return cudaErrorInvalidValue;
@@ -442,7 +930,76 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
       static_cast<const float*>(a_log), static_cast<const float*>(bm),
       static_cast<const float*>(cm), static_cast<const float*>(cb),
       static_cast<const float*>(d_skip), static_cast<float*>(y),
-      static_cast<float*>(h_out), S, H, P, N, L, xvec, nvec);
+      static_cast<float*>(h_out), static_cast<float*>(states), S, H, P, N, L,
+      xvec, nvec);
+  return cudaGetLastError();
+}
+
+// Floats of the workspace ssd_scan_bwd takes (the wrapper allocates it).
+size_t ssd_scan_bwd_work_floats(int B, int S, int H, int P, int N,
+                                int chunk) {
+  return bwd_work(nullptr, B, S, H, P, N, chunk < S ? chunk : S).floats;
+}
+
+// Bytes of dynamic shared memory the backward's largest block needs.
+size_t ssd_scan_bwd_smem_bytes(int chunk, int P, int N) {
+  const size_t a = dstate_smem_floats(chunk, P, N);
+  const size_t b = chunk_smem_floats(chunk, P, N);
+  return sizeof(float) * (a > b ? a : b);
+}
+
+// The backward's four launches, each checked: dx (B, S, H, P), ddt
+// (B, S, H), da_log (H,), db and dc (B, S, N), dd (H,) of y = SSD(x, dt,
+// a_log, b, c, d_skip) for dy (B, S, H, P), from the forward's chunk states
+// (B, n_chunks, H, N, P) and dh_final (B, H, N, P), the final state's
+// gradient, or null. work holds ssd_scan_bwd_work_floats floats. Returns a
+// cudaError_t (0 = success).
+int ssd_scan_bwd(const void* x, const void* dt, const void* a_log,
+                 const void* bm, const void* cm, const void* d_skip,
+                 const void* dy, const void* states, const void* dh_final,
+                 void* work, void* dx, void* ddt, void* da_log, void* db,
+                 void* dc, void* dd, int B, int S, int H, int P, int N,
+                 int chunk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || chunk <= 0 ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  const int L = chunk < S ? chunk : S, n_chunks = (S + L - 1) / L;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdWork w = bwd_work(static_cast<float*>(work), B, S, H, P, N, L);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  cudaError_t err = launch_cb(bm, cm, w.cb, B, S, N, L, st);
+  if (err != cudaSuccess) return err;
+
+  size_t smem = sizeof(float) * dstate_smem_floats(L, P, N);
+  err = cudaFuncSetAttribute(ssd_bwd_dstate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dstate_kernel<<<B * H, THREADS, smem, st>>>(
+      f(dt), f(a_log), f(cm), f(dy), f(dh_final), w.dstates, S, H, P, N, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  smem = sizeof(float) * chunk_smem_floats(L, P, N);
+  err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  ssd_bwd_chunk_kernel<<<dim3(n_chunks, H, B), THREADS, smem, st>>>(
+      f(x), f(dt), f(a_log), f(bm), f(cm), f(d_skip), f(dy), w.cb,
+      f(states), w.dstates, static_cast<float*>(dx), static_cast<float*>(ddt),
+      w.dbh, w.dch, w.part, S, H, P, N, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t BS = static_cast<int64_t>(B) * S;
+  const int64_t outs = 2 * BS * N + H;
+  const int blocks = static_cast<int>(
+      outs / THREADS + 1 < 132 * 16 ? outs / THREADS + 1 : 132 * 16);
+  ssd_bwd_reduce_kernel<<<blocks, THREADS, 0, st>>>(
+      w.dbh, w.dch, w.part, f(a_log), static_cast<float*>(db),
+      static_cast<float*>(dc), static_cast<float*>(da_log),
+      static_cast<float*>(dd), BS, H, N, B * n_chunks);
   return cudaGetLastError();
 }
 

@@ -26,15 +26,18 @@ breaker) applies to CPU tensors only.
 Gradients. On CPU tensors autograd differentiates the saturated torch
 code (``torch_ref``) directly, as JAX differentiates ``jax_ref``. Under
 the ``triton`` implementation (CUDA tensors) that want a gradient,
-rmsnorm, rotary and swiglu launch their kernels through
+rmsnorm, rmsnorm_gated, rotary and swiglu launch their kernels through
 ``torch.autograd.Function``s: rotary's backward is
 the same kernel with ``-sin`` (exact: both RoPE tables repeat their
-first half), rmsnorm's and swiglu's are the analytic derivatives in f32
-torch (:func:`rmsnorm_backward`, :func:`swiglu_backward`; the JAX
-package's gradient of these ops is XLA's autodiff of ``jax_ref``, no
-kernel either). The other tile ops and the SSD scan have no backward on
-the card yet and raise there rather than return a result with no
-gradient (ROADMAP A12).
+first half), the others' are the analytic derivatives in f32 torch
+(:func:`rmsnorm_backward`, :func:`rmsnorm_gated_backward`,
+:func:`swiglu_backward`; the JAX package's gradient of these ops is
+XLA's autodiff of ``jax_ref``, no kernel either). The SSD scan's
+gradient is its backward kernel (``_SsdFn``: the forward kernel keeps
+the state entering each chunk, :func:`ssd_scan_bwd` reads it). The other
+tile ops (layernorm, gelu, moe_router) have no backward on the card yet
+and raise there rather than return a result with no gradient (ROADMAP
+A12).
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ from repro_torch.runtime.guard import breaker_for
 
 from . import ref as _ref
 from .flash_attention import decode_attention, flash_attention
-from .ssd_scan import ssd_decode_step, ssd_scan, ssd_scan_plain
+from .ssd_scan import (ssd_decode_step, ssd_scan, ssd_scan_bwd,
+                       ssd_scan_plain, ssd_scan_with_states)
 from .tile_programs import get_tile_op
 
 IMPLS = ("triton", "torch", "ref")
@@ -67,11 +71,9 @@ _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "adamw": _ref.adamw_ref,
                   "l2_clip": _ref.l2_clip_ref}
 # the queue item that brings each op a backward on the card
-_NO_BACKWARD = {"rmsnorm_gated": "A12 (rmsnorm_gated backward)",
-                "layernorm": "A12 (layernorm backward)",
+_NO_BACKWARD = {"layernorm": "A12 (layernorm backward)",
                 "gelu": "A12 (gelu backward)",
-                "moe_router": "A12 (moe_router backward)",
-                "ssd": "A12 (SSD-scan backward)"}
+                "moe_router": "A12 (moe_router backward)"}
 
 
 def set_impl(impl: Optional[str]):
@@ -169,6 +171,26 @@ def rmsnorm_backward(x, g, dy, eps=1e-6):
     return dx.to(x.dtype), dg.reshape(g.shape).to(g.dtype)
 
 
+def rmsnorm_gated_backward(x, z, g, dy, eps=1e-6):
+    """``(dx, dz, dg)`` of ``y = xg * r * g`` with ``xg = x silu(z)`` and
+    ``r = rsqrt(mean(xg^2) + eps)``, in f32: rmsnorm's backward on ``xg``,
+    ``dxg = r (g dy) - xg r^3 mean(xg g dy)``, then ``dx = dxg silu(z)``
+    and ``dz = dxg x s (1 + z (1 - s))`` with ``s = sigmoid(z)``; ``dg``
+    sums ``dy xg r`` over rows. Cast to the dtypes of x, z and g."""
+    xf, zf, gf, dyf = x.float(), z.float(), g.float(), dy.float()
+    s = torch.sigmoid(zf)
+    gate = zf * s
+    xg = xf * gate
+    r = torch.rsqrt(torch.mean(xg * xg, dim=-1, keepdim=True) + eps)
+    gdy = gf * dyf
+    dxg = r * gdy - xg * (r * r * r) * torch.mean(xg * gdy, dim=-1,
+                                                  keepdim=True)
+    dg = (dyf * xg * r).reshape(-1, x.shape[-1]).sum(0)
+    return ((dxg * gate).to(x.dtype),
+            (dxg * xf * s * (1.0 + zf * (1.0 - s))).to(z.dtype),
+            dg.reshape(g.shape).to(g.dtype))
+
+
 def swiglu_backward(a, b, dy):
     """``(da, db)`` of ``y = silu(a) b`` in f32: ``da = dy b s (1 + a (1 -
     s))``, ``db = dy a s`` with ``s = sigmoid(a)``; cast to a's and b's
@@ -194,6 +216,50 @@ class _RmsnormFn(torch.autograd.Function):
         with torch.profiler.record_function("rmsnorm_backward"):
             dx, dg = rmsnorm_backward(x, g, dy, ctx.eps)
         return dx, dg, None
+
+
+class _RmsnormGatedFn(torch.autograd.Function):
+    """The rmsnorm_gated kernel forward, :func:`rmsnorm_gated_backward`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, z, g, eps):
+        ctx.save_for_backward(x, z, g)
+        ctx.eps = eps
+        return _kernel_op("rmsnorm_gated").apply(x, z, g, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, z, g = ctx.saved_tensors
+        with torch.profiler.record_function("rmsnorm_gated_backward"):
+            dx, dz, dg = rmsnorm_gated_backward(x, z, g, dy, ctx.eps)
+        return dx, dz, dg, None
+
+
+class _SsdFn(torch.autograd.Function):
+    """The SSD scan's kernels both ways: the forward kernel, which also
+    writes the state entering each chunk, and the backward kernels
+    (:func:`ssd_scan_bwd`), which read it. With ``return_state`` the
+    final state is an output too, and its gradient enters the backward's
+    reverse pass. On CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, d_skip, chunk,
+                return_state):
+        y, h, states = ssd_scan_with_states(x, dt, a_log, b_mat, c_mat,
+                                            d_skip, chunk=chunk,
+                                            return_state=return_state)
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_skip, states)
+        ctx.chunk = chunk
+        return (y, h) if return_state else y
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        *ins, states = ctx.saved_tensors
+        grads = ssd_scan_bwd(*ins, dy.contiguous(), states, chunk=ctx.chunk,
+                             dh_final=None if dh is None
+                             else dh.contiguous())
+        return (*grads, None, None)
 
 
 class _SwigluFn(torch.autograd.Function):
@@ -239,6 +305,8 @@ def rmsnorm(x, g, eps=1e-6):
 
 
 def rmsnorm_gated(x, z, g, eps=1e-6):
+    if current_impl(x) == "triton" and _wants_grad(x, z, g):
+        return _RmsnormGatedFn.apply(x, z, g, eps)
     return _tile("rmsnorm_gated", x, z, g, eps=eps)
 
 
@@ -315,10 +383,13 @@ def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128,
     """Chunked SSD scan: the CUDA kernel on CUDA tensors, the plain torch
     scan on the CPU (the sequential oracle under ``set_impl("ref")``,
     which has no final state). With ``return_state`` also the final
-    (B,H,N,P) state, which seeds decode."""
+    (B,H,N,P) state, which seeds decode. A gradient under the ``triton``
+    implementation goes through the backward kernel (``_SsdFn``)."""
     impl = current_impl(x)
     if impl == "triton":
-        _refuse_grad("ssd", x, dt, a_log, b_mat, c_mat, d_skip)
+        if _wants_grad(x, dt, a_log, b_mat, c_mat, d_skip):
+            return _SsdFn.apply(x, dt, a_log, b_mat, c_mat, d_skip, chunk,
+                                return_state)
         return ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, chunk=chunk,
                         return_state=return_state)
     if impl == "ref" and not return_state:

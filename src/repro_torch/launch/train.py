@@ -3,6 +3,7 @@ the port of :mod:`repro.launch.train`.
 
 Runs on the GPU unless ``--device`` names another:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 8 --batch 4 --seq 64
 
@@ -12,9 +13,10 @@ The path is the JAX package's: ``build_trainer`` -> ``ElasticTrainer.run``
 on every leaf), with async atomic checkpoints and recovery from a
 simulated host loss (``--inject-failure-at``).
 
-The dense (minitron-4b) and vlm (qwen2-vl-2b) families train; every
-other family is refused on any device before the first step, naming the
-ROADMAP item that brings its backward. Gradient compression
+The dense (minitron-4b, granite-8b, ...), vlm (qwen2-vl-2b), ssm
+(mamba2-1.3b) and hybrid (zamba2-2.7b) families train; moe and encdec
+are refused on any device before the first step, naming the ROADMAP
+item that brings their backward. Gradient compression
 (``--compress``, ROADMAP A14) and the saturation cache and verifier
 (``--cache-dir``, ``--verify``, A8) are not ported, as in the serve
 entry point.
@@ -35,11 +37,9 @@ from repro_torch.optim import OptConfig, init_opt_state
 from repro_torch.runtime.ft import (ElasticTrainer, FailureInjector,
                                     TrainLoopConfig)
 
-TRAINABLE = ("dense", "vlm")
+TRAINABLE = ("dense", "vlm", "ssm", "hybrid")
 # what each family waits for before it trains (ROADMAP A12)
 _NOT_YET = {"moe": "A12: a moe_router backward",
-            "ssm": "A12: an SSD-scan backward",
-            "hybrid": "A12: an SSD-scan backward",
             "encdec": "A12: layernorm and gelu backwards and EncDecLM.loss"}
 
 
@@ -82,7 +82,8 @@ def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minitron-4b",
-                    help=f"one of {sorted(ARCH_IDS)} (dense and vlm train)")
+                    help=f"one of {sorted(ARCH_IDS)} (dense, vlm, ssm and "
+                         "hybrid train)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default=None,

@@ -221,11 +221,13 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal weights with std ``fan_in ** -0.5`` (or ``scale``), drawn in
     f32 and cast, as the JAX package's ``dense_init``. A torch generator
-    gives other numbers than a JAX key of the same seed."""
+    gives other numbers than a JAX key of the same seed. The draw is scaled
+    in place: one f32 temporary (arctic-480b's (128, 7168, 4864) expert
+    weight is 17.8 GB in f32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def _to_tensor(a, device) -> torch.Tensor:

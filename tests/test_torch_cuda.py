@@ -17,7 +17,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd_plain,
     flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (ssd_cb_kernel, ssd_chunks_plain,
-                                          ssd_scan, ssd_scan_plain)
+                                          ssd_scan, ssd_scan_bwd,
+                                          ssd_scan_bwd_plain, ssd_scan_plain,
+                                          ssd_scan_with_states)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 from repro_torch.launch.serve import Request, Server
 
@@ -460,6 +462,90 @@ def test_ssd_cb_matches_plain_decomposition(B, S, N, chunk, cuda):
     _close(ssd_cb_kernel(xs[3], xs[4], chunk=chunk), cb, 2e-4)
 
 
+def _norm_rel(got, want):
+    """``||got - want|| / ||want||``, the denominator at least the norm of
+    an element rms of 1: a gradient that is zero in exact arithmetic (da_log
+    of one step, which no decay reaches) is held to the tolerance
+    absolutely, as ``tol (1 + |want|)`` holds an element."""
+    want = want.float()
+    return ((got.float() - want).norm()
+            / max(want.norm().item(), want.numel() ** 0.5)).item()
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 2, 16, 16, 16), (2, 100, 3, 16, 8, 32), (1, 7, 2, 8, 4, 16),
+    (2, 1, 2, 8, 4, 16), (1, 50, 2, 6, 5, 16), (1, 70, 2, 72, 70, 64),
+    # the training widths (mamba2-1.3b: P 64, N 128; zamba2-2.7b: N 64),
+    # a chunk multiple and a ragged S
+    (1, 384, 4, 64, 128, 128), (1, 300, 4, 64, 64, 128)])
+def test_ssd_bwd_kernel_matches_plain(B, S, H, P, N, chunk, cuda):
+    """The backward kernels' six gradients against ssd_scan_bwd_plain,
+    norm-relative within the SSD's f32 2e-4, from the forward kernel's
+    chunk states (themselves against ssd_chunks_plain's), with and
+    without a final-state gradient; two calls give the same bits."""
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dy = torch.randn((B, S, H, P), generator=gen, device=cuda)
+    dh = torch.randn((B, H, N, P), generator=gen, device=cuda)
+    y, h, states = ssd_scan_with_states(*xs, chunk=chunk, return_state=True)
+    _, want_states, want_y, want_h = ssd_chunks_plain(*xs, chunk=chunk)
+    _close((y, h, states), (want_y, want_h, want_states), 2e-4)
+    for dh_final in (None, dh):
+        before = ssd_scan_bwd.launches
+        got = ssd_scan_bwd(*xs, dy, states, chunk=chunk, dh_final=dh_final)
+        assert ssd_scan_bwd.launches == before + 1
+        want = ssd_scan_bwd_plain(*xs, dy, chunk=chunk, dh_final=dh_final)
+        for name, g, w in zip(("dx", "ddt", "da_log", "db", "dc", "dd"), got,
+                              want, strict=True):
+            assert g.shape == w.shape and bool(g.isfinite().all()), name
+            assert _norm_rel(g, w) <= 2e-4, (name, _norm_rel(g, w))
+        again = ssd_scan_bwd(*xs, dy, states, chunk=chunk, dh_final=dh_final)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssd_autograd_on_the_card(cuda):
+    """ops.ssd under autograd on the card (the forward kernel with its
+    chunk states, the backward kernels), with and without the final
+    state, against autograd of the plain scan on the CPU (2e-4)."""
+    from repro_torch.kernels import ops
+    xs = _ssd_inputs(2, 200, 3, 64, 32, "cpu")
+    gen = torch.Generator().manual_seed(6)
+    dy = torch.randn(xs[0].shape, generator=gen)
+    dh = torch.randn((2, 3, 32, 64), generator=gen)
+    for return_state in (False, True):
+        grads = []
+        for device in ("cpu", cuda):
+            leaves = [a.detach().to(device, copy=True).requires_grad_()
+                      for a in xs]
+            before = ssd_scan_bwd.launches
+            out = ops.ssd(*leaves, chunk=64, return_state=return_state)
+            if return_state:
+                loss = (out[0] * dy.to(device)).sum() \
+                    + (out[1] * dh.to(device)).sum()
+            else:
+                loss = (out * dy.to(device)).sum()
+            loss.backward()
+            assert ssd_scan_bwd.launches == before + (device != "cpu")
+            grads.append([t.grad.cpu() for t in leaves])
+        for g, w in zip(grads[1], grads[0], strict=True):
+            assert _norm_rel(g, w) <= 2e-4
+
+
+def test_ssd_bwd_rejects_what_it_cannot_run(cuda):
+    xs = _ssd_inputs(1, 16, 2, 8, 4, cuda)
+    dy = torch.randn_like(xs[0])
+    _, _, states = ssd_scan_with_states(*xs, chunk=16)
+    with pytest.raises(ValueError, match="states"):
+        ssd_scan_bwd(*xs, dy, states[:, :, :1].contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(*xs, dy.double(), states, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _ssd_inputs(1, 256, 1, 128, 256, cuda)
+        ssd_scan_bwd(*big, torch.randn_like(big[0]),
+                     torch.zeros((1, 1, 1, 256, 128), device=cuda),
+                     chunk=256)
+
+
 def test_ssd_rejects_what_it_cannot_run(cuda):
     x, dt, a_log, bm, cm, d = _ssd_inputs(1, 16, 2, 8, 4, cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -816,10 +902,51 @@ def test_smoke_train_steps_on_the_card_match_cpu(arch, cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_smoke_ssm_train_steps_on_the_card_match_cpu(arch, cuda):
+    """Two train steps of the f32 smoke config with remat, the SSM and
+    hybrid families: the losses and parameters on the card (the SSD
+    forward with its chunk states and its backward kernels,
+    rmsnorm_gated's kernel under autograd, the shared block's flash) against
+    the CPU's plain versions within 1e-4; the SSD backward launches once a
+    layer a step, the forward twice (the step's forward and the remat)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg, ocfg = _smoke_f32(arch), OptConfig(warmup_steps=1)
+    if cfg.family == "hybrid":    # two groups, two applications of the block
+        cfg = dataclasses.replace(cfg, n_layers=2 * cfg.shared_attn_every)
+    pipe = ShardedTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=96,
+                                           global_batch=2))
+    runs = []
+    for device in ("cpu", cuda):
+        model = LM(cfg, device=device)
+        params = _to(LM(cfg, device="cpu").init(0), device)
+        state = init_opt_state(params, ocfg)
+        step = make_train_step(model, ocfg)
+        before = (ssd_scan.launches, ssd_scan_bwd.launches)
+        losses = []
+        for i in range(2):
+            params, state, loss = step(params, state, pipe.batch_at(i))
+            losses.append(loss.item())
+        launched = (ssd_scan.launches - before[0],
+                    ssd_scan_bwd.launches - before[1])
+        runs.append((losses, [p.cpu() for p in T.leaves(params)], launched))
+    (cl, cp, c_launch), (gl, gp, g_launch) = runs
+    assert c_launch == (0, 0)
+    assert g_launch == (2 * 2 * cfg.n_layers, 2 * cfg.n_layers)
+    np.testing.assert_allclose(gl, cl, atol=1e-4, rtol=1e-4)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 def test_autograd_tile_ops_on_the_card(cuda):
-    """rmsnorm, swiglu and rotary under autograd on the card (the kernels
-    forward; the analytic backwards and rotary's kernel with -sin) against
-    autograd of their plain versions on the CPU."""
+    """rmsnorm, rmsnorm_gated, swiglu and rotary under autograd on the
+    card (the kernels forward; the analytic backwards and rotary's kernel
+    with -sin) against autograd of their plain versions on the CPU."""
     from repro_torch.kernels import ops
     from repro_torch.models.common import rope_cos_sin
     gen = torch.Generator().manual_seed(9)
@@ -830,7 +957,9 @@ def test_autograd_tile_ops_on_the_card(cuda):
         torch.randn(2, 3, 10, 32, generator=gen)
     cos, sin = (t[None, None] for t in rope_cos_sin(torch.arange(10), 32,
                                                     1e4))
+    z = torch.randn(7, 96, generator=gen)
     cases = [(lambda a, b: ops.rmsnorm(a, b), (x, g), dy),
+             (lambda a, b, c: ops.rmsnorm_gated(a, b, c), (x, z, g), dy),
              (ops.swiglu, (x, dy), x),
              (lambda a: ops.rotary(a, cos.to(a.device), sin.to(a.device)),
               (q,), dq)]
@@ -854,6 +983,8 @@ def test_no_backward_no_gradient_on_the_card(cuda):
         ops.layernorm(x, ones, ones * 0)
     with pytest.raises(NotImplementedError, match="moe_router backward"):
         ops.moe_router_probs(x)
+    with pytest.raises(NotImplementedError, match="gelu backward"):
+        ops.gelu(x)
     with torch.no_grad():   # serving takes no gradient: the kernel runs
         assert ops.layernorm(x, ones, ones * 0).shape == x.shape
 

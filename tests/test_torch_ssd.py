@@ -1,7 +1,9 @@
 """The port's SSD scan (the CUDA kernel's plain version and CPU path),
-its sequential oracle and the decode step against the JAX package's, on
-the same seeded numpy inputs, at the SSD tolerance of
-tests/test_kernels.py (f32 2e-4)."""
+its sequential oracle, the decode step and the backward (the backward
+kernels' plain version, autograd of the plain scan, the autograd
+Function) against the JAX package's, on the same seeded numpy inputs, at
+the SSD tolerance of tests/test_kernels.py (f32 2e-4)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +15,8 @@ from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan import ssd_scan_jnp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_decode_step,
-                                          ssd_scan, ssd_scan_plain)
+                                          ssd_scan, ssd_scan_bwd_plain,
+                                          ssd_scan_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -151,3 +154,158 @@ def test_ops_ssd_dispatch_on_cpu():
         ops.set_impl(None)
     torch.testing.assert_close(oracle, ref.ssd_ref(*xs), atol=0, rtol=0)
     assert h.shape == (1, 2, 8, 8)
+
+
+# -- the backward ------------------------------------------------------------------
+GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd")
+
+
+def _jax_vjp(xs, dy, chunk, dh=None):
+    """The six gradients by jax.vjp of ssd_scan_jnp (with the final state's
+    gradient ``dh`` where given)."""
+    if dh is None:
+        _, vjp = jax.vjp(lambda *a: ssd_scan_jnp(*a, chunk=chunk), *_j(xs))
+        return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    _, vjp = jax.vjp(lambda *a: ssd_scan_jnp(*a, chunk=chunk,
+                                            return_state=True), *_j(xs))
+    return [np.asarray(g) for g in vjp((jnp.asarray(dy), jnp.asarray(dh)))]
+
+
+BWD_CASES = [(2, 64, 2, 16, 16, 16), (2, 100, 3, 16, 8, 32),
+             (1, 7, 2, 8, 4, 16), (2, 96, 3, 8, 24, 32), (1, 1, 2, 8, 4, 16),
+             (2, 50, 2, 6, 5, 16)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", BWD_CASES)
+def test_backward_decomposition_matches_jax_vjp(B, S, H, P, N, chunk):
+    """The backward kernels' decomposition in plain torch (chunk states, the
+    reverse state-gradient pass, the per-chunk products) against jax.vjp
+    of ssd_scan_jnp, every gradient, at chunk 16 and 32, a ragged S, S <
+    chunk, S = 1 and N != P (2e-4)."""
+    xs = _inputs(B, S, H, P, N, seed=6)
+    dy = np.random.default_rng(7).normal(size=(B, S, H, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk)
+    got = ssd_scan_bwd_plain(*_t(xs), torch.from_numpy(dy), chunk=chunk)
+    for name, g, w in zip(GRADS, got, want, strict=True):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", BWD_CASES[:3])
+def test_backward_decomposition_in_f64_matches_jax_vjp(B, S, H, P, N, chunk):
+    """The decomposition on f64 inputs (the reference the card holds the
+    kernels against) computes in f64 and returns f64 gradients within
+    2e-4 of jax.vjp of ssd_scan_jnp, and its chunk states are f64."""
+    xs = _inputs(B, S, H, P, N, seed=6)
+    dy = np.random.default_rng(7).normal(size=(B, S, H, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk)
+    x64 = [t.double() for t in _t(xs)]
+    got = ssd_scan_bwd_plain(*x64, torch.from_numpy(dy).double(),
+                             chunk=chunk)
+    assert ssd_chunks_plain(*x64, chunk=chunk)[1].dtype == torch.float64
+    for name, g, w in zip(GRADS, got, want, strict=True):
+        assert g.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", BWD_CASES[:3])
+def test_autograd_of_the_plain_scan_matches_jax_vjp(B, S, H, P, N, chunk):
+    """Autograd through ssd_scan_plain (the CPU path of training) against
+    jax.vjp of ssd_scan_jnp (2e-4)."""
+    xs = _inputs(B, S, H, P, N, seed=8)
+    dy = np.random.default_rng(9).normal(size=(B, S, H, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk)
+    leaves = [t.requires_grad_() for t in _t(xs)]
+    (ssd_scan_plain(*leaves, chunk=chunk) * torch.from_numpy(dy)).sum() \
+        .backward()
+    for name, t, w in zip(GRADS, leaves, want, strict=True):
+        np.testing.assert_allclose(t.grad.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 64, 2, 16, 16, 16),
+                                             (2, 100, 3, 16, 8, 32)])
+def test_final_state_gradient_enters_the_reverse_pass(B, S, H, P, N, chunk):
+    """With the final state an output (prefill's), its gradient seeds the
+    reverse pass: ssd_scan_bwd_plain with ``dh_final``, and ops._SsdFn on
+    CPU tensors (the forward with its chunk states, then the wrapper's
+    CPU path), against jax.vjp of ssd_scan_jnp(return_state=True)."""
+    xs = _inputs(B, S, H, P, N, seed=10)
+    rng = np.random.default_rng(11)
+    dy = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dh = rng.normal(size=(B, H, N, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk, dh)
+    got = ssd_scan_bwd_plain(*_t(xs), torch.from_numpy(dy), chunk=chunk,
+                             dh_final=torch.from_numpy(dh))
+    leaves = [t.requires_grad_() for t in _t(xs)]
+    y, h = ops._SsdFn.apply(*leaves, chunk, True)
+    ((y * torch.from_numpy(dy)).sum() + (h * torch.from_numpy(dh)).sum()) \
+        .backward()
+    for name, g, t, w in zip(GRADS, got, leaves, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+        np.testing.assert_allclose(t.grad.numpy(), w, **TOL, err_msg=name)
+
+
+def test_ops_ssd_takes_the_backward_function_under_the_kernels():
+    """Under the kernel implementation, a gradient goes through ops._SsdFn
+    (the CPU tensors' wrappers run the plain versions) and equals autograd
+    of the plain scan; without one, ops.ssd returns a plain tensor."""
+    xs = _t(_inputs(1, 40, 2, 8, 8, seed=12))
+    dy = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(1, 40, 2, 8)).astype(np.float32))
+    grads = {}
+    for impl in ("torch", "triton"):
+        leaves = [t.clone().requires_grad_() for t in xs]
+        ops.set_impl(impl)
+        try:
+            y = ops.ssd(*leaves, chunk=16)
+        finally:
+            ops.set_impl(None)
+        assert (y.grad_fn.name() == "_SsdFnBackward") == (impl == "triton")
+        (y * dy).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for name, a, b in zip(GRADS, grads["triton"], grads["torch"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL, err_msg=name)
+    with torch.no_grad():
+        ops.set_impl("triton")
+        try:
+            assert ops.ssd(*xs, chunk=16).grad_fn is None
+        finally:
+            ops.set_impl(None)
+
+
+def test_gradient_is_finite_where_the_decay_overflows():
+    """ROADMAP C3: where a chunk's dt A sums past ~88 (dt 1 against
+    mamba2's A = -64 here), exp(seg_t - seg_s) overflows above the
+    diagonal. ssd_scan_jnp masks after the exponential, so jax.vjp of it
+    multiplies 0 by inf there: dt, a_log, B and C come back NaN. The
+    port masks the exponent first: autograd of ssd_scan_plain, the
+    backward kernels' decomposition and the autograd Function give finite
+    gradients that agree (2e-4), and the forward is the reference's."""
+    B, S, H, P, N, chunk = 1, 64, 2, 4, 4, 64
+    xs = list(_inputs(B, S, H, P, N, seed=14))
+    xs[1] = np.ones((B, S, H), np.float32)
+    xs[2] = np.log(np.array([1.0, 64.0], np.float32))
+    dy = np.random.default_rng(15).normal(size=(B, S, H, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk)
+    assert [bool(np.isfinite(g).all()) for g in want] == \
+        [True, False, False, False, False, True]
+    leaves = [t.requires_grad_() for t in _t(xs)]
+    y = ssd_scan_plain(*leaves, chunk=chunk)
+    np.testing.assert_allclose(
+        y.detach().numpy(), np.asarray(ssd_scan_jnp(*_j(xs), chunk=chunk)),
+        **TOL)
+    (y * torch.from_numpy(dy)).sum().backward()
+    plain = ssd_scan_bwd_plain(*_t(xs), torch.from_numpy(dy), chunk=chunk)
+    fn_leaves = [t.requires_grad_() for t in _t(xs)]
+    (ops._SsdFn.apply(*fn_leaves, chunk, False) * torch.from_numpy(dy)) \
+        .sum().backward()
+    for name, t, g, f in zip(GRADS, leaves, plain, fn_leaves, strict=True):
+        assert bool(t.grad.isfinite().all()), name
+        np.testing.assert_allclose(t.grad.numpy(), g.numpy(), **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(f.grad.numpy(), g.numpy(), **TOL,
+                                   err_msg=name)
+    # where the reference is finite, it agrees
+    for name, g, w in zip(GRADS, plain, want):
+        if np.isfinite(w).all():
+            np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)

@@ -386,15 +386,18 @@ def test_moe_router_width_16(lead, emitter, standin):
 
 
 # the row reductions at the paths' shapes (dbrx's router, whisper's
-# layernorm, minitron's and zamba2's rmsnorm, zamba2's gated norm),
-# arctic's router width, and ragged rows and widths
+# layernorm, minitron's and zamba2's rmsnorm, zamba2's gated norm; the
+# d_model of granite, nemo, arctic and mistral-large, arctic's router in
+# prefill and at a tick), and ragged rows and widths
 REDUCTION_CASES = [
     ("moe_router", (32, 64, 16)), ("moe_router", (4, 1, 16)),
     ("moe_router", (2048, 128)), ("moe_router", (3, 7, 16)),
+    ("moe_router", (32, 64, 128)), ("moe_router", (4, 1, 128)),
     ("layernorm", (2048, 768)), ("layernorm", (4, 768)),
     ("layernorm", (37, 200)), ("layernorm", (37, 768)),
     ("rmsnorm", (5, 3072)), ("rmsnorm", (5, 2560)),
-    ("rmsnorm_gated", (5, 5120))]
+    ("rmsnorm", (5, 4096)), ("rmsnorm", (5, 5120)), ("rmsnorm", (5, 7168)),
+    ("rmsnorm", (3, 12288)), ("rmsnorm_gated", (5, 5120))]
 
 
 @pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
@@ -405,7 +408,7 @@ def test_row_reductions_match_plain_and_pallas(name, lead, emitter,
     """Each row reduction in the layout its plan picks by shape: column
     pieces of powers of two that cover the row exactly where d allows
     (768 = 512 + 256; 16 and 128 one piece), one masked block of
-    next_pow2(d) at 200; f32, against the plain version and the JAX
+    next_pow2(d) at 200 and 7168; f32, against the plain version and the JAX
     package's Pallas op in interpret mode (rows flattened)."""
     d = lead[-1]
     rng = np.random.default_rng(math.prod(lead))
@@ -416,8 +419,8 @@ def test_row_reductions_match_plain_and_pallas(name, lead, emitter,
     sc = {s: SCALARS[s] for s in prog.scalars}
     op = get_tile_op(name, emitter=emitter)
     got, plan = _run(op.tk, [torch.from_numpy(x) for x in xs], sc)
-    if d == 200:    # 128 + 64 + 8: more pieces than MAX_PIECES
-        assert plan.pieces == () and plan.block_d == 256
+    if d in (200, 7168):  # 128 + 64 + 8, 4096 + 2048 + 1024: more pieces
+        assert plan.pieces == () and plan.block_d == 1 << (d - 1).bit_length()
     else:
         assert sum(plan.pieces) == d and plan.block_d == d
         assert all(p & (p - 1) == 0 for p in plan.pieces)
