@@ -49,7 +49,7 @@ Server at full width with random seeded weights, and a training path:
   backward kernels, rmsnorm_gated's kernel forward), their launches per
   step asserted, each step's gradients and update on 2 (zamba2: 6, one
   group with its shared block) f32 layers against the plain versions; a
-  trace of one mamba2 step.
+  trace of one step of each.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
@@ -206,7 +206,15 @@ ARCTIC_LAYERS, ARCTIC_PARITY_LAYERS = 2, 1
 NEW_PARITY_TOL = 0.02
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, so that consecutive lines time each
+    phase."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -377,7 +385,8 @@ def _ptxas_by_kernel(log):
 def phase_build():
     """Both CUDA libraries, one nvcc each, all started together. The
     wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions and
-    spill nothing."""
+    spill nothing; the SSD backward's kernels' registers, spills and HMMA
+    counts are reported on their own (``ssd_bwd``)."""
     from repro_torch.kernels.cuda_build import build
     t0 = time.perf_counter()
     libs = build(*CUDA_SOURCES)
@@ -389,7 +398,10 @@ def phase_build():
         tc[src] = _tensor_core_counts(lib)
     emit({"phase": "build", "nvcc_s": secs,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
-          "ptxas": ptxas, "tensor_core": tc})
+          "ptxas": ptxas, "tensor_core": tc,
+          "ssd_bwd": {name: {**info, **tc["ssd_scan.cu"].get(name, {})}
+                      for name, info in ptxas["ssd_scan.cu"].items()
+                      if name.startswith("ssd_bwd_")}})
     wgmma = {name: (tc[src][name], ptxas[src][name])
              for src in CUDA_SOURCES for name in tc[src] if "_sm90_" in name}
     bad = [name for name, (n, info) in wgmma.items()
@@ -491,14 +503,18 @@ def _ssd_work(B, S, H, P, N, chunk):
 
 
 def _ssd_bwd_work(B, S, H, P, N, chunk):
-    """Bytes and operations of one SSD backward: x, dy, dt, B, C, a_log,
-    d_skip and the forward's chunk states read once, the six gradients
-    written once; per (b, h, chunk) of L steps G = dy . x^T and M^T . dy
-    (L(L+1)/2 x P MACs each), GE . B and GE^T . C (L(L+1)/2 x N each), and
-    where the state gradient leaving the chunk is not zero (every chunk
-    but the last) B . dh and x . dh^T, where the state entering it is not
-    (every chunk but the first) dy . h_in^T and the reverse pass's
-    C^T . dy (L N P each); per (b, chunk) the causal half of C . B^T."""
+    """Bytes and operations of one SSD backward as the kernels decompose
+    it: x, dy, dt, B, C, a_log, d_skip and the forward's chunk states
+    read once, the six gradients written once; per (b, h, chunk) of L
+    steps G = dy . x^T and M^T . dy (L(L+1)/2 x P MACs each), where the
+    state gradient leaving the chunk is not zero (every chunk but the
+    last) B . dh and x . dh^T, where the state entering it is not (every
+    chunk but the first) dy . h_in^T (which gives both dC's inter-chunk
+    part and, dotted with C, that of d(seg)) and the chunk's own state
+    gradient C^T . dy (L N P each); per (b, chunk) the causal halves of
+    C . B^T, GE_sum . B and GE_sum^T . C (L(L+1)/2 x N each), GE summed
+    over the heads before its products. The kernels do more than this
+    (C . h_in per head as well), which the bound does not count."""
     n_chunks = -(-S // chunk)
     nbytes = 4 * (3 * B * S * H * P + B * n_chunks * H * N * P
                   + 2 * B * S * H + 4 * B * S * N + 4 * H)
@@ -507,10 +523,10 @@ def _ssd_bwd_work(B, S, H, P, N, chunk):
         L = min(chunk, S - t0)
         tri = L * (L + 1) // 2
         lnp = L * N * P
-        macs += B * H * (2 * tri * P + 2 * tri * N
+        macs += B * H * (2 * tri * P
                          + (2 * lnp if k < n_chunks - 1 else 0)
                          + (2 * lnp if k else 0))
-        macs += B * tri * N
+        macs += 3 * B * tri * N
     return nbytes, 2 * macs
 
 
@@ -531,11 +547,12 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
     gradients norm-relative (whole tensor and worst 64-step block) within
     the SSD's f32 2e-4, two calls bitwise equal; at the timed shapes also
     the kernel within 2e-4 of the plain version in f64 (the f32 plain
-    version's distance from it beside), times, bound and the plain
+    version's distance from it beside), times (the call's and each of its
+    launches' by name), the workspace's bytes, bound and the plain
     version's time (no PyTorch call computes it)."""
     from repro_torch.kernels.ssd_scan import (
-        ssd_chunks_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
-        ssd_scan_with_states)
+        SSD_BWD_LAUNCHES, ssd_chunks_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
+        ssd_scan_bwd_scratch_bytes, ssd_scan_with_states)
     out = {}
     for (b, s, h, p, n), chunk in SSD_BWD_CASES:
         args = (torch.randn((b, s, h, p), generator=g, device="cuda"),
@@ -598,13 +615,14 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
             "norm_rel_err_vs_f64": rel64, "bitwise_repeat": bitwise,
             "bytes": nbytes, "flops": flops,
             "ms": timer.ms(run),
-            # the call's four launches: C·Bᵀ, the state gradients, the
-            # chunks, the sums over heads and chunks
+            # the call's six launches (SSD_BWD_LAUNCHES): C·Bᵀ, the local
+            # state gradients, their passing, the chunks, dB and dC, the
+            # sums over chunks
             "device_ms": timer.device_ms(run, "ssd_"),
             "device_ms_by_kernel": {
-                k_: timer.device_ms(run, k_) for k_ in (
-                    "ssd_cb_kernel", "ssd_bwd_dstate", "ssd_bwd_chunk",
-                    "ssd_bwd_reduce")},
+                k_: timer.device_ms(run, k_) for k_ in SSD_BWD_LAUNCHES},
+            "scratch_bytes": ssd_scan_bwd_scratch_bytes(b, s, h, p, n,
+                                                        chunk),
             "plain_ms": timer.ms(lambda: ssd_scan_bwd_plain(
                 *args, dy, chunk=chunk), iters=3),
             "bound_ms": max(t_ops, t_bytes),
@@ -616,6 +634,18 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
             "replaces": "src/repro/kernels/ssd_scan.py:140 (ssd_scan_jnp "
                         "under jax.grad; no TPU kernel)",
             **out.pop(None), "shapes": out}
+
+
+def _in_turns(timer, kernel, library, iters=10):
+    """A kernel and its library call timed in turns in one call (kernel,
+    library, library, kernel): each side's two medians, and the ratio of
+    their sums."""
+    k1 = timer.ms(kernel, iters=iters)
+    l1 = timer.ms(library, iters=iters)
+    l2 = timer.ms(library, iters=iters)
+    k2 = timer.ms(kernel, iters=iters)
+    return {"kernel_ms": [k1, k2], "library_ms": [l1, l2],
+            "kernel_over_library": (k1 + k2) / (l1 + l2)}
 
 
 def _optimizer_row(torch, timer, name, shape, checks):
@@ -647,6 +677,8 @@ def _optimizer_row(torch, timer, name, shape, checks):
         scale = min(1.0, sc["max_norm"] / (sc["norm"] + sc["eps"]))
         row["library_ms"] = timer.ms(lambda: torch.mul(xs[0], scale),
                                      iters=10)
+        row["in_turns"] = _in_turns(timer, lambda: op.apply(*xs, **sc),
+                                    lambda: torch.mul(xs[0], scale))
     else:
         row["library_ms"] = None
         p = xs[0].clone().requires_grad_()
@@ -695,7 +727,8 @@ def _flash_bwd_work(b, h, kh, s, d, dt, causal):
 def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal):
     """A callable running the bf16 backward on the mma.sync kernels (the
     library's entry at every head_dim; the design the wgmma kernels
-    replaced at head_dim 64 and 128, their yardstick) on these operands."""
+    replaced at head_dim 64, 80 and 128, their yardstick) on these
+    operands."""
     from repro_torch.kernels.flash_attention import _load, _raise_on
     lib = _load()
     B, H, S, D = q.shape
@@ -731,9 +764,9 @@ def _check_norm_rel(torch, F, tag, named, ref, dtype, checks):
 
 # the backward's timed shapes, by their key under the row's "shapes"
 # (None: the row itself, the train path's shape; zamba2_train: the
-# hybrid's shared block at head_dim 80 on mma.sync, on zamba2's train
-# path; d64: head_dim 64, where the wgmma kernels are timed against the
-# mma.sync ones, on no path)
+# hybrid's shared block at head_dim 80, on zamba2's train path; d64:
+# head_dim 64, on no path); each beside the mma.sync kernels, the design
+# the wgmma ones replaced at head_dim 64, 80 and 128
 FLASH_BWD_TIMED = {(2, 24, 8, 4096, 128): None,
                    (4, 24, 8, 512, 128): "serve_shape",
                    (2, 12, 2, 4096, 128): "qwen2vl",
@@ -1133,6 +1166,13 @@ def phase_kernels(torch, timer):
                 shape: tile_row(f"{tag}/{shape}", op, sargs, ssc, slib)
                 for shape, (sargs, ssc, slib)
                 in other_shapes[name].items()}
+
+    # gelu against its library call in turns at whisper's prefill shape
+    # (a gap of a few per cent between separate timings)
+    gelu_op = get_tile_op("gelu")
+    rows["gelu"]["in_turns"] = _in_turns(
+        timer, lambda: gelu_op.apply(ag),
+        lambda: F.gelu(ag, approximate="tanh"))
 
     # the optimizer's tile kernels on the training path (f32, as
     # apply_updates runs them): minitron's embedding (256000, 3072) and an
@@ -2099,7 +2139,7 @@ def serve_last_four(torch):
 
 def train_ssm_families(torch):
     """mamba2-1.3b and zamba2-2.7b trained at full width and depth
-    (``TRAIN_MAMBA``), a trace of one mamba2 step, and each one's f32
+    (``TRAIN_MAMBA``), a trace of one step of each, and each one's f32
     parity of a step's gradients and update. Returns each train phase's
     launches."""
     trains = []
@@ -2110,10 +2150,8 @@ def train_ssm_families(torch):
         model, params, state, step, pipe, got = phase_train(
             torch, spec, f"train_{name}")
         trains.append(got)
-        if name == "mamba2":
-            phase_trace_train(torch, step, params, state,
-                              pipe.batch_at(spec["steps"]),
-                              "trace_train_mamba2")
+        phase_trace_train(torch, step, params, state,
+                          pipe.batch_at(spec["steps"]), f"trace_train_{name}")
         del model, params, state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -2305,7 +2343,8 @@ def main() -> int:
     kernels = []
     extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms",
              "nearest_call_ms", "mma_sync_ms", "device_ms_by_kernel",
-             "bitwise_repeat", "norm_rel_err", "norm_rel_err_vs_f64")
+             "bitwise_repeat", "norm_rel_err", "norm_rel_err_vs_f64",
+             "scratch_bytes", "in_turns", "kernels")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],

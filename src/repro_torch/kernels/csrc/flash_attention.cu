@@ -509,8 +509,8 @@ cudaError_t launch_f32(const Args& a) {
 // 989 TFLOP/s), against 269 MB read and written once (0.080 ms at
 // 3.35 TB/s): the operations bound it. This design issues mma.sync from 4
 // warps with no warp specialisation. Its bf16 entry runs at every
-// head_dim; the wrapper sends 64 and 128 to the wgmma kernels further
-// down.
+// head_dim; the wrapper sends 64, 80 and 128 to the wgmma kernels
+// further down.
 //
 // Ragged S: rows past S load as zeros and are masked or not stored; a
 // query column past S gets P = 0.
@@ -1158,13 +1158,23 @@ cudaError_t launch_bwd_f32(const Args& a) {
 
 // ------------------------------------------------- backward, wgmma (sm90) --
 //
-// The bf16 backward at head_dim 64 and 128, entry
+// The bf16 backward at head_dim 64, 80 and 128, entry
 // flash_attention_bwd_bf16_sm90 (the wrapper, flash_attention.bwd_kernel,
-// chooses the entry by head_dim before the launch; 16, 32 and 80 keep the
+// chooses the entry by head_dim before the launch; 16 and 32 keep the
 // mma.sync kernels above, entry flash_attention_bwd_bf16, which runs at
 // every head_dim). Three launches, as there: a prep launch, dk/dv, dq.
-// Head_dim 64 takes them because they are faster there too (chip_smoke.py
-// times both at (2, 16, 16, 4096, 64); PERF.md §6).
+// Head_dim 64 and 80 take them because they are faster there too
+// (chip_smoke.py times both at (2, 16, 16, 4096, 64) and at zamba2's
+// (2, 32, 32, 4096, 80); PERF.md §6).
+//
+// Head_dim 80 (zamba2's shared block) is a row of two 128-byte-swizzle
+// boxes, as at 128: TMA loads the second at column 64 and writes its
+// columns 80-127, past the tensor's edge, as zeros. The products that
+// run along the head dim (S = Q K^T, dP = dO V^T) take 5 k-steps of 16,
+// the last one from the second box, so no multiply is wasted; the ones
+// whose N is the head dim (dV, dK, dQ) are m64n80k16, whose descriptor
+// steps from the first box to the second by its LBO as the n128 form
+// does. Shared memory is that of head_dim 128.
 //
 // What bounds it: at the dense training path's attention (B 2, H 24, KH 8,
 // S 4096, D 128, causal) the five products the algorithm needs are
@@ -1218,7 +1228,8 @@ cudaError_t launch_bwd_f32(const Args& a) {
 // Deterministic: every gradient element is summed by one warpgroup in one
 // order, with no atomics; two calls give the same bits.
 // ptxas (sm_90a, CUDA 12.9): 168 registers at entry, no spill in either
-// kernel at either head_dim (chip_smoke.py's build phase checks it).
+// kernel at any of the three head dims (chip_smoke.py's build phase
+// checks it).
 
 constexpr int SM90_BN = 128;     // kv rows per dk/dv work item
 constexpr int SM90_BM = 64;      // query rows per step of the dk/dv walk
@@ -1241,9 +1252,15 @@ __host__ __device__ constexpr int sm90_consumer_regs(int D) {
   return D == 128 ? 240 : 232;
 }
 
+// threads a row of the prep launch: D / 8 rounded up to a power of two
+__host__ __device__ constexpr int prep_threads_a_row(int D) {
+  return D <= 64 ? D / 8 : 16;
+}
+
 // delta = rowsum(dO * O) and lse2 = lse * log2(e) of every query row into
 // (B * H, S_pad) rows; rows past S get delta 0 and lse2 +inf (P = 0).
-// D / 8 threads a row, 16 bytes of O and of dO each.
+// prep_threads_a_row(D) threads a row, the first D / 8 of them 16 bytes of
+// O and of dO each.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_bf16_kernel(const bf16* __restrict__ o,
@@ -1251,7 +1268,8 @@ flash_bwd_prep_bf16_kernel(const bf16* __restrict__ o,
                            const float* __restrict__ lse,
                            float* __restrict__ delta, float* __restrict__ lse2,
                            int S, int S_pad, int64_t rows) {
-  constexpr int TPR = D / 8;
+  constexpr int TPR = prep_threads_a_row(D);
+  static_assert(TPR * 8 >= D && (TPR & (TPR - 1)) == 0, "a row's threads");
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (256 / TPR) + threadIdx.x / TPR;
   const int t = threadIdx.x % TPR;
@@ -1260,7 +1278,7 @@ flash_bwd_prep_bf16_kernel(const bf16* __restrict__ o,
   const int i = static_cast<int>(row % S_pad);
   const int64_t src = bh * S + i;
   float s = 0.f;
-  if (i < S) {
+  if (i < S && 8 * t < D) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + src * D + 8 * t);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + src * D + 8 * t);
     const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
@@ -1282,11 +1300,15 @@ flash_bwd_prep_bf16_kernel(const bf16* __restrict__ o,
   }
 }
 
-// Shared memory of a dk/dv block: each tile is D / 64 boxes of rows x 64
-// bf16, every box at a 1024-byte boundary
+// boxes of 64 bf16 columns in a row of D (at D 80 the second box holds
+// columns 64-79 and TMA's zeros)
+__host__ __device__ constexpr int sm90_boxes(int D) { return (D + 63) / 64; }
+
+// Shared memory of a dk/dv block: each tile is sm90_boxes(D) boxes of rows
+// x 64 bf16, every box at a 1024-byte boundary
 template <int D>
 struct DkdvSmem {
-  static constexpr int NB = D / 64;
+  static constexpr int NB = sm90_boxes(D);
   bf16 k[NB][SM90_BN][64];
   bf16 v[NB][SM90_BN][64];
   bf16 q[SM90_STAGES][NB][SM90_BM][64];
@@ -1298,7 +1320,7 @@ struct DkdvSmem {
 
 template <int D>
 struct DqSmem {
-  static constexpr int NB = D / 64;
+  static constexpr int NB = sm90_boxes(D);
   bf16 q[NB][SM90_DQ_BM][64];
   bf16 dout[NB][SM90_DQ_BM][64];
   bf16 k[SM90_STAGES][NB][SM90_DQ_BN][64];
@@ -1338,18 +1360,21 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4][4],
                                          uint32_t b, uint32_t box_bytes) {
+  static_assert(D == 64 || D == 80 || D == 128, "a wgmma N of the head dim");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = hopper::desc_sw128(b + kk * 2048, box_bytes, 1024);
     if constexpr (D == 128)
       hopper::wgmma_m64n128k16_rs(d, a[kk], db);
+    else if constexpr (D == 80)
+      hopper::wgmma_m64n80k16_rs(d, a[kk], db);
     else
       hopper::wgmma_m64n64k16_rs(d, a[kk], db);
   }
 }
 
 // d (64 x 64) = a (64 x D) . b (64 x D)^T, both K-major in shared memory,
-// boxes of a_box and b_box bytes
+// boxes of a_box and b_box bytes (k-step kk in box kk / 4)
 template <int D>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
                                          uint32_t a_box, uint32_t b,
@@ -1719,7 +1744,6 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D>
 cudaError_t launch_bwd_sm90(const Args& a) {
-  static_assert(D % 64 == 0, "head_dim a multiple of 64");
   if (a.dkdv_work == nullptr || a.dq_work == nullptr ||
       a.dkdv_programs <= 0 || a.dq_programs <= 0)
     return cudaErrorInvalidValue;
@@ -1754,7 +1778,7 @@ cudaError_t launch_bwd_sm90(const Args& a) {
   const int64_t rows = static_cast<int64_t>(BH) * S_pad;
   float* delta = a.delta;
   float* lse2 = a.delta + rows;
-  constexpr int rows_a_block = 256 / (D / 8);
+  constexpr int rows_a_block = 256 / prep_threads_a_row(D);
   flash_bwd_prep_bf16_kernel<D>
       <<<(rows + rows_a_block - 1) / rows_a_block, 256, 0, a.stream>>>(
           static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
@@ -1854,7 +1878,7 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                      B, H, KH, S, scale, causal, stream), D);
 }
 
-// The same on the wgmma kernels, at head_dim 64 and 128 only: delta is an
+// The same on the wgmma kernels, at head_dim 64, 80 and 128 only: delta is an
 // f32 scratch of 2 * B * H * S_pad (S_pad: S rounded up to 128), and the
 // persistent grids walk the work lists (int32 [starts (programs + 1) |
 // items]). Three launches. Returns a cudaError_t.
@@ -1875,6 +1899,7 @@ int flash_attention_bwd_bf16_sm90(const void* q, const void* k, const void* v,
   a.dkdv_programs = dkdv_programs;
   a.dq_programs = dq_programs;
   return D == 64    ? launch_bwd_sm90<64>(a)
+         : D == 80  ? launch_bwd_sm90<80>(a)
          : D == 128 ? launch_bwd_sm90<128>(a)
                     : cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA tile copies and bulk copies into shared memory, warpgroup
 // products (wgmma: shared-memory descriptors, fence / commit / wait, the
-// product shapes the kernels use) and register moves between warpgroups
+// product shapes the kernels use: m64n64k16 from shared memory, m64n64k16,
+// m64n80k16 and m64n128k16 with A from registers) and register moves between warpgroups
 // (setmaxnreg). The host part builds TMA descriptors with
 // cuTensorMapEncodeTiled of libcuda, reached through
 // cudaGetDriverEntryPoint, so a library that includes this header links
@@ -11,7 +12,9 @@
 // R rows x 64 bf16 (128 bytes a row) as R contiguous 128-byte rows whose
 // eight 16-byte chunks are permuted by chunk ^ (row % 8); a box placed at
 // a 1024-byte boundary is what a wgmma descriptor of layout type 1
-// (128-byte swizzle) reads. A row of D bf16 is D / 64 such boxes. In
+// (128-byte swizzle) reads. A row of D bf16 is ceil(D / 64) such boxes; at
+// D 80 the second box is loaded at column 64 and TMA writes its columns
+// past the tensor's edge (80-127) as zeros. In
 // those tiles (PTX ISA, "Matrix Descriptor Format"; CUTLASS's GMMA
 // canonical layouts):
 //   K-major operand (K, here the head dim, contiguous): SBO 1024 bytes
@@ -21,7 +24,8 @@
 //   MN-major operand (N contiguous, K along the rows): SBO 1024 bytes
 //     from one group of 8 K-rows to the next, LBO the size of one box
 //     (the next 64 elements of N); a k-step of 16 rows advances 2048
-//     bytes.
+//     bytes. An N of 80 (m64n80k16) reads 64 columns of the first box and
+//     16 of the next.
 // Accumulator fragment of m64nNk16 (f32), per warp w of the warpgroup,
 // g = lane / 4, q = lane % 4: d[4j + 0..1] at row 16w + g, columns
 // 8j + 2q, + 1; d[4j + 2..3] at row 16w + g + 8. Two neighbouring
@@ -239,6 +243,36 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80, f32) += a . b: a (64 x 16 bf16) from registers (as above),
+// b (16 x 80 bf16) from shared memory MN-major: columns 0-63 from the box
+// at the descriptor's start, 64-79 from the next box, LBO further
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -59,6 +59,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -388,6 +389,9 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 }
 
 bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 cudaError_t launch_cb(const void* bm, const void* cm, void* cb, int B, int S,
                       int N, int L, cudaStream_t stream) {
@@ -413,72 +417,148 @@ cudaError_t launch_cb(const void* bm, const void* cm, void* cb, int B, int S,
 //   GE[t, s] = (dy_t . x_s) exp(seg_t - seg_s), the score gradient
 //   dC_t  = sum_s GE[t, s] dt_s B_s + exp(seg_t) dy_t . h_in^T
 //   dB_s  = sum_t GE[t, s] dt_s C_t + w_s x_s . dh^T
-// and d(seg) from every term: its in-chunk reverse cumsum times A gives
-// ddt beside the direct terms, and sum_t dt_t revcumsum_t times A gives
-// da_log (A = -exp(a_log), dA/da_log = A).
+// summed over the heads for dB and dC, and d(seg) from every term: its
+// in-chunk reverse cumsum times A gives ddt beside the direct terms, and
+// sum_t dt_t revcumsum_t times A gives da_log (A = -exp(a_log),
+// dA/da_log = A).
 //
 // What bounds it on the H100: at mamba2-1.3b's train shape (B 2, S 4096,
-// H 64, P 64, N 128, chunk 128) it needs ~60 GFLOP of products (per (b, h,
-// chunk) G and M^T . dy, L(L+1)/2 x P MACs each; GE . B and GE^T . C,
-// L(L+1)/2 x N each; B . dh, x . dh^T, dy . h_in^T and the reverse pass, L N P
-// each) and moves ~0.54 GB (x, dy, the chunk states in; dx out, ~134 MB
-// each). In 3xTF32 (f32 accuracy, as the forward) that is 0.36 ms at 165
-// TFLOP/s against 0.16 ms for the bytes: bound by the products.
+// H 64, P 64, N 128, chunk 128) the function needs 42.3 GFLOP of products
+// (per (b, h, chunk) G = dy . x^T and M^T . dy, L(L+1)/2 x P MACs each;
+// B . dh, x . dh^T, dy . h_in^T and the local state gradient, L N P each
+// where the state or its gradient is not zero; per (b, chunk) GE_sum . B,
+// GE_sum^T . C and C . B^T, L(L+1)/2 x N each), in 3xTF32 (f32 accuracy,
+// as the forward) 0.26 ms at 165 TFLOP/s, against 0.56 GB read and
+// written once (x, dy, the chunk states in; dx out), 0.17 ms: bound by the
+// products. The kernels below also form C . h_in per head, for d(seg),
+// which dy . h_in^T could give; they take about 9x the bound on mma.sync
+// (PERF.md §6), and wgmma's tf32 form is the next step.
 //
-// This first kernel is simple and right rather than fast: four launches,
-// every product a warp job of 16 rows x 64 columns of m16n8k8 3xTF32
-// mma.sync with operands gathered element by element (from shared memory
-// for x, dy and GE, from L2 for B, C, C.B^T and the states):
-// (a) ssd_cb_kernel, as the forward: C.B^T per (b, chunk);
-// (b) ssd_bwd_dstate_kernel, one block per (b, h) walking the chunks in
-//     reverse: the gradient of the state leaving each chunk, into a
-//     (B, n_chunks, H, N, P) scratch;
-// (c) ssd_bwd_chunk_kernel, one block per (chunk, h, b): every gradient
-//     local to the chunk. dx and ddt are written in place (each element
-//     belongs to one block); dB and dC per head into (B, S, H, N) scratch,
-//     dD's and dA's per-chunk sums into (B, n_chunks, H, 2);
-// (d) ssd_bwd_reduce_kernel: dB and dC summed over the heads, dD and
-//     da_log over (b, chunk), each in a fixed order. No float atomics, so
-//     two calls give the same bits.
-// The forward's guards hold: exp(seg_t - seg_s) is evaluated only under
-// the causal mask and masked entries are selected to 0; a ragged last
-// chunk runs its true length; B and C are read by batch index.
+// Six launches, each grid wide enough to fill the card:
+// (a) ssd_cb_kernel, as the forward: C.B^T per (b, chunk).
+// (b) ssd_bwd_local_kernel, a block per (chunk c >= 1, h, b): the chunk's
+//     own part of the state gradient, local_c = (C o exp(seg))^T . dy, on
+//     the tensor cores, into the state-gradient buffer's slot c - 1, and
+//     the chunk's decay exp(seg_L).
+// (c) ssd_bwd_pass_kernel: the state passing of Dao & Gu (2024, §7), in
+//     reverse and elementwise only: dh_c = exp(seg_L of c + 1) dh_{c+1} +
+//     local_{c+1}, a thread per element of (b, h, N x P), in place. This
+//     replaces a walk of B x H blocks with a product on every step of the
+//     chain.
+// (d) ssd_bwd_chunk_kernel, a persistent grid of one 16-warp block an SM
+//     over (b, chunk, group of BWD_GROUP heads): per head it stages x and
+//     dy, then the state gradient and then the chunk's state, into shared
+//     memory (float4 loads where rows of P allow), each element split into
+//     TF32 hi / lo once as it is stored, and runs the products with them
+//     (m16n8k8 3xTF32 mma.sync; C.B^T, B and C, shared by the heads, come
+//     from L2 one k-step ahead): GE (its row and column sums against C.B^T
+//     by warp shuffles into per-tile partials, summed in a fixed order),
+//     dx = w (B . dh) + M^T . dy + D dy in one accumulator, C . h_in. GE
+//     and dx share a phase, with no barrier between them, and the warps
+//     with a second GE tile take the shortest M^T . dy. The per-step
+//     vectors come from those partials, the
+//     reverse cumsum of d(seg) from a warp scan (as the forward's seg), and
+//     ddt, the chunk's dD and dA sums follow. dB and dC need GE summed over
+//     the heads only as GE_sum[t, s] = sum_h dt_{h,s} GE_h[t, s]: each warp
+//     keeps its GE tiles' sum over the group's heads in registers, in head
+//     order, and the block writes one GE_sum partial a group (H / 8 of them,
+//     not one dB and one dC a head).
+// (e) ssd_bwd_dbdc_kernel, a block per (b, chunk, dB or dC, 64 x 64 output
+//     tile): dB = GE_sum^T . C + [w x]_(h,p) . [dh^T]_(h,p) and dC = GE_sum .
+//     B + [exp(seg) dy]_(h,p) . [h_in^T]_(h,p), one product each over the
+//     chunk's steps and the H x P columns of every head, both operands
+//     brought in by cp.async through a four-stage shared-memory ring (three
+//     tiles in flight behind the one computing); the group partials are
+//     summed in order as they are staged. Each output element is written
+//     once, with no scratch per head.
+// (f) ssd_bwd_reduce_kernel: dD and da_log summed over (b, chunk) in order.
+// No float atomics, so two calls give the same bits. The forward's guards
+// hold: exp(seg_t - seg_s) is evaluated only under the causal mask and
+// masked entries are selected to 0; a ragged last chunk runs its true
+// length; B and C are read by batch index; dh_final may be null.
 
-constexpr int BJ = 8;  // n-tiles of 8 columns in a backward warp job
+// an operand element split into TF32 hi / lo (mma.cuh) as shared memory
+// holds it
+__device__ __forceinline__ mma::Split ld_split(const uint2& v) {
+  return {v.x, v.y};
+}
 
-// acc[nt] += sum_k a(r, k) b(k, col) for the warp's rows r0 + [0, 16) and
-// columns c0 + [0, 64), k over [k_lo, k_hi) in steps of 8 (a and b return 0
-// outside their operands), in 3xTF32, in the fragment layout of mma.cuh
-template <class FA, class FB>
-__device__ __forceinline__ void warp_gemm(float (&acc)[BJ][4], int r0, int c0,
-                                          int k_lo, int k_hi, const FA& a,
-                                          const FB& b) {
+__device__ __forceinline__ uint2 to_split(float v) {
+  const mma::Split s = mma::split(v);
+  return make_uint2(s.hi, s.lo);
+}
+
+// the f32 value of a split element (hi + lo is exact)
+__device__ __forceinline__ float split_value(const uint2& v) {
+  return __uint_as_float(v.x) + __uint_as_float(v.y);
+}
+
+// acc[nt] += sum_k a(r, k) b(k, c) for the warp's rows r0 + [0, 16) and JN
+// n-tiles of 8 columns c0 + [0, 8 JN), k over [k_lo, k_hi) in steps of 8,
+// in 3xTF32; a and b return split operands (zero outside their matrices),
+// in the fragment layout of mma.cuh
+template <int JN, class FA, class FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[JN][4], int r0, int c0,
+                                         int k_lo, int k_hi, const FA& a,
+                                         const FB& b) {
   const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
   for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
     const int ka = k0 + q, kb = ka + 4;
-    const mma::Split af[4] = {mma::split(a(r0 + g, ka)),
-                              mma::split(a(r0 + g + 8, ka)),
-                              mma::split(a(r0 + g, kb)),
-                              mma::split(a(r0 + g + 8, kb))};
-    mma::Split b0[BJ], b1[BJ];
+    const mma::Split af[4] = {a(r0 + g, ka), a(r0 + g + 8, ka),
+                              a(r0 + g, kb), a(r0 + g + 8, kb)};
+    mma::Split b0[JN], b1[JN];
 #pragma unroll
-    for (int nt = 0; nt < BJ; ++nt) {
-      b0[nt] = mma::split(b(ka, c0 + nt * 8 + g));
-      b1[nt] = mma::split(b(kb, c0 + nt * 8 + g));
+    for (int nt = 0; nt < JN; ++nt) {
+      b0[nt] = b(ka, c0 + nt * 8 + g);
+      b1[nt] = b(kb, c0 + nt * 8 + g);
     }
     mma::mma_3xtf32(acc, af, b0, b1);
   }
 }
 
-// f(row, col, i, nt) for each accumulator element of the warp's job
-template <class F>
-__device__ __forceinline__ void for_acc(int r0, int c0, const F& f) {
+// warp_mma with A read from global memory: raw(r, k) loads one element
+// (0 outside the operand; nothing but the load, so that no instruction
+// waits for it) and make(r, k, v) turns it into the split operand. Each
+// k-step's loads start before the previous k-step's products, so a
+// warp waits for them once a k-step at most, behind that k-step's work.
+template <int JN, class FR, class FM, class FB>
+__device__ __forceinline__ void warp_mma_ld(float (&acc)[JN][4], int r0,
+                                            int c0, int k_lo, int k_hi,
+                                            const FR& raw, const FM& make,
+                                            const FB& b) {
   const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  if (k_lo >= k_hi) return;
+  float cur[4] = {raw(r0 + g, k_lo + q), raw(r0 + g + 8, k_lo + q),
+                  raw(r0 + g, k_lo + q + 4), raw(r0 + g + 8, k_lo + q + 4)};
+  for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+    const int kn = k0 + 8;
+    float nxt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (kn < k_hi) {
+      nxt[0] = raw(r0 + g, kn + q);
+      nxt[1] = raw(r0 + g + 8, kn + q);
+      nxt[2] = raw(r0 + g, kn + q + 4);
+      nxt[3] = raw(r0 + g + 8, kn + q + 4);
+    }
+    const int ka = k0 + q, kb = ka + 4;
+    const mma::Split af[4] = {make(r0 + g, ka, cur[0]),
+                              make(r0 + g + 8, ka, cur[1]),
+                              make(r0 + g, kb, cur[2]),
+                              make(r0 + g + 8, kb, cur[3])};
+    mma::Split b0[JN], b1[JN];
 #pragma unroll
-  for (int nt = 0; nt < BJ; ++nt)
+    for (int nt = 0; nt < JN; ++nt) {
+      b0[nt] = b(ka, c0 + nt * 8 + g);
+      b1[nt] = b(kb, c0 + nt * 8 + g);
+    }
+    mma::mma_3xtf32(acc, af, b0, b1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f(r0 + g + 8 * (i >> 1), c0 + nt * 8 + 2 * q + (i & 1), nt, i);
+    for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+  }
+}
+
+// the identity transform of warp_mma_ld: the element split as loaded
+__device__ __forceinline__ mma::Split split_as_is(int, int, float v) {
+  return mma::split(v);
 }
 
 // the sums of a lane's two rows (g, g + 8) over the 4 lanes that share
@@ -488,96 +568,284 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__host__ __device__ inline int bwd_pitch(int P) { return round_up(P, 8) + 4; }
-
-__host__ __device__ inline size_t dstate_smem_floats(int L, int P, int N) {
-  const size_t Lp = round_up(L, 16);
-  return (Lp + N) * bwd_pitch(P) + 3 * Lp;
+// the sum of a column over the 8 lanes (g) that hold its rows, fixed order
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-__host__ __device__ inline size_t chunk_smem_floats(int L, int P, int N) {
-  const size_t Lp = round_up(L, 16);
-  return 2 * Lp * bwd_pitch(P) + Lp * (Lp + 4) + 10 * Lp +
-         Lp * ((P + 63) / 64 + (N + 63) / 64) + THREADS;
+// a warp's sum of one value a lane, fixed order
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
-// (b) dstates[b, c, h] = the gradient of the state leaving chunk c (the
-// state entering chunk c + 1): dh_final for the last chunk, then
-// dh <- exp(seg_L) dh + (C (x) exp(seg))^T . dy over chunk c + 1
+constexpr int BWD_GROUP = 8;        // heads a chunk block sums GE over
+constexpr int CHUNK_THREADS = 512;  // the chunk kernel's 16 warps
+constexpr int CHUNK_WARPS = CHUNK_THREADS / 32;
+
+// The shapes the backward's blocks pad to: steps to a multiple of 32 (GE's
+// 16 x 32 tiles), P to a multiple of 32 (the 16 x 32 jobs), N to 8 (a
+// k-step). A pre-split row holds P_pad + 4 elements of 8 bytes: the rows
+// of the lanes' fragment reads then fall on distinct banks (2 (P_pad + 4)
+// = 8 mod 32 words).
+struct BwdDims {
+  int Lp, Pp, Nk, pitch2;
+};
+
+__host__ __device__ inline BwdDims bwd_dims(int L, int P, int N) {
+  const int Pp = round_up(P, 32);
+  return {round_up(L, 32), Pp, round_up(N, 8), Pp + 4};
+}
+
+__host__ __device__ inline size_t local_smem_bytes(int L, int P, int N) {
+  const BwdDims d = bwd_dims(L, P, N);
+  return sizeof(uint2) * d.Lp * d.pitch2 + sizeof(float) * 3 * d.Lp;
+}
+
+// the chunk block's shared memory: x, dy (Lp x pitch2 split elements), the
+// state slot (Nk x pitch2), the per-step vectors, the per-tile partials of
+// the row and column sums, two per-warp partials
+__host__ __device__ inline size_t chunk_smem_bytes(int L, int P, int N) {
+  const BwdDims d = bwd_dims(L, P, N);
+  const size_t floats = 10 * d.Lp + d.Lp * (d.Lp / 32) + d.Lp * (d.Lp / 16) +
+                        2 * d.Lp * (d.Pp / 32) + 2 * CHUNK_WARPS;
+  return sizeof(uint2) * (2 * d.Lp + d.Nk) * d.pitch2 +
+         sizeof(float) * floats;
+}
+
+constexpr int DBDC_BM = 64, DBDC_BN = 64, DBDC_BK = 32, DBDC_STAGES = 4;
+constexpr int DBDC_THREADS = 256;  // 4 x 2 warps of 16 x 32 outputs
+// floats a staged row: the lanes' fragment reads (rows g, k-columns q)
+// fall on banks 4 g + q, all distinct
+constexpr int DBDC_PITCH = DBDC_BK + 4;
+
+// the ring's stages: A and B tiles and A's row scales
+__host__ __device__ inline size_t dbdc_smem_bytes() {
+  return sizeof(float) * DBDC_STAGES *
+         ((DBDC_BM + DBDC_BN) * DBDC_PITCH + DBDC_BM);
+}
+
+// rows x cols of an f32 matrix (row stride ld) into rows_pad x cols_pad
+// split elements of pitch2, zero outside it, by the block's threads: each
+// thread starts STAGE_BATCH loads before it stores any, so that many are
+// in flight. Where `other` is not null, returns the thread's sum of each
+// value times the split element of `other` at its place, read before the
+// store (other may be dst). A thread stages the elements e = threadIdx.x
+// + k blockDim.x, whatever the batch.
+constexpr int STAGE_BATCH = 8;
+
+__device__ __forceinline__ float stage_split(uint2* dst, int pitch2,
+                                             const float* __restrict__ src,
+                                             int64_t ld, int rows, int cols,
+                                             int rows_pad, int cols_pad,
+                                             const uint2* other = nullptr) {
+  // (r, c) of element e, stepped without a division per element
+  const int dr = blockDim.x / cols_pad, dc = blockDim.x % cols_pad;
+  int r = threadIdx.x / cols_pad, c = threadIdx.x % cols_pad;
+  float dot = 0.f;
+  while (r < rows_pad) {
+    float v[STAGE_BATCH];
+    int rr[STAGE_BATCH], cc[STAGE_BATCH];
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH; ++j) {
+      rr[j] = r;
+      cc[j] = c;
+      v[j] = r < rows && c < cols ? src[r * ld + c] : 0.f;
+      r += dr;
+      c += dc;
+      if (c >= cols_pad) {
+        c -= cols_pad;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH; ++j) {
+      if (rr[j] >= rows_pad) break;
+      const int i = rr[j] * pitch2 + cc[j];
+      if (other != nullptr) dot += v[j] * split_value(other[i]);
+      dst[i] = to_split(v[j]);
+    }
+  }
+  return dot;
+}
+
+// stage_split with four neighbouring columns a thread a step: float4 loads
+// (cols and ld multiples of 4, src 16-byte aligned; cols_pad and pitch2
+// multiples of 4), STAGE_BATCH4 in flight, two 16-byte stores each. A
+// thread stages the same elements whatever the batch.
+constexpr int STAGE_BATCH4 = 4;
+
+__device__ __forceinline__ float stage_split4(uint2* dst, int pitch2,
+                                              const float* __restrict__ src,
+                                              int64_t ld, int rows, int cols,
+                                              int rows_pad, int cols_pad,
+                                              const uint2* other = nullptr) {
+  const int q4 = cols_pad / 4;  // float4 a row
+  const int dr = blockDim.x / q4, dc = blockDim.x % q4 * 4;
+  int r = threadIdx.x / q4, c = threadIdx.x % q4 * 4;
+  float dot = 0.f;
+  while (r < rows_pad) {
+    float4 v[STAGE_BATCH4];
+    int rr[STAGE_BATCH4], cc[STAGE_BATCH4];
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH4; ++j) {
+      rr[j] = r;
+      cc[j] = c;
+      v[j] = r < rows && c < cols
+                 ? *reinterpret_cast<const float4*>(src + r * ld + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      r += dr;
+      c += dc;
+      if (c >= cols_pad) {
+        c -= cols_pad;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH4; ++j) {
+      if (rr[j] >= rows_pad) break;
+      const int i = rr[j] * pitch2 + cc[j];
+      const float e[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      uint2 sp[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (other != nullptr) dot += e[k] * split_value(other[i + k]);
+        sp[k] = to_split(e[k]);
+      }
+      uint4* o = reinterpret_cast<uint4*>(dst + i);
+      o[0] = make_uint4(sp[0].x, sp[0].y, sp[1].x, sp[1].y);
+      o[1] = make_uint4(sp[2].x, sp[2].y, sp[3].x, sp[3].y);
+    }
+  }
+  return dot;
+}
+
+// (b) local_c = sum_t exp(seg_t) C_t (x) dy_t over chunk c = blockIdx.x + 1
+// of head blockIdx.y of batch row blockIdx.z, into dstates' slot c - 1 (the
+// pass adds the decayed later chunks), and decay[b, c, h] = exp(seg_L).
+// 16 x 32 warp jobs over the (N, P) output; dy pre-split in shared memory.
 __global__ void __launch_bounds__(THREADS)
-ssd_bwd_dstate_kernel(const float* __restrict__ dt,
-                      const float* __restrict__ a_log,
-                      const float* __restrict__ cm,
-                      const float* __restrict__ dy,
-                      const float* __restrict__ dh_final,
-                      float* __restrict__ dstates, int S, int H, int P, int N,
-                      int L) {
-  const int Lp = round_up(L, 16), pitch = bwd_pitch(P);
-  extern __shared__ __align__(16) float smem[];
-  float* dy_s = smem;                  // Lp x pitch
-  float* dh_s = dy_s + Lp * pitch;     // N x pitch
-  float* dt_s = dh_s + N * pitch;      // Lp
-  float* seg_s = dt_s + Lp;            // Lp
-  float* e_s = seg_s + Lp;             // Lp: exp(seg)
+ssd_bwd_local_kernel(const float* __restrict__ dt,
+                     const float* __restrict__ a_log,
+                     const float* __restrict__ cm,
+                     const float* __restrict__ dy, float* __restrict__ dstates,
+                     float* __restrict__ decay, int S, int H, int P, int N,
+                     int L, int vec) {
+  const int c = blockIdx.x + 1, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x + 1;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const BwdDims d = bwd_dims(L, P, N);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint2* dy_s = reinterpret_cast<uint2*>(smem_raw);   // Lp x pitch2
+  float* dt_s = reinterpret_cast<float*>(dy_s + d.Lp * d.pitch2);
+  float* seg_s = dt_s + d.Lp;
+  float* es_s = seg_s + d.Lp;
   const int tid = threadIdx.x, warp = tid / 32;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const float A = -expf(a_log[h]);
   const int64_t x_step = static_cast<int64_t>(H) * P;
-  const float* dyb = dy + static_cast<int64_t>(b) * S * x_step +
-                     static_cast<int64_t>(h) * P;
-  const float* dtb = dt + static_cast<int64_t>(b) * S * H + h;
-  const float* cb_ = cm + static_cast<int64_t>(b) * S * N;
-  const int n_chunks = (S + L - 1) / L;
-  const int64_t NP = static_cast<int64_t>(N) * P;
-
-  for (int e = tid; e < N * P; e += THREADS)
-    dh_s[(e / P) * pitch + e % P] =
-        dh_final != nullptr ? dh_final[bh * NP + e] : 0.f;
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    __syncthreads();  // dh_s is complete; chunk c + 1's readers are done
-    float* out = dstates + ((static_cast<int64_t>(b) * n_chunks + c) * H + h) *
-                               NP;
-    for (int e = tid; e < N * P; e += THREADS)
-      out[e] = dh_s[(e / P) * pitch + e % P];
-    if (c == 0) break;
-    const int t0 = c * L, Lc = min(L, S - t0);
-    for (int e = tid; e < Lp * P; e += THREADS) {
-      const int r = e / P, p = e % P;
-      dy_s[r * pitch + p] =
-          r < Lc ? dyb[static_cast<int64_t>(t0 + r) * x_step + p] : 0.f;
-    }
-    for (int t = tid; t < Lp; t += THREADS)
-      dt_s[t] = t < Lc ? dtb[static_cast<int64_t>(t0 + t) * H] : 0.f;
-    __syncthreads();
-    if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
-    __syncthreads();
-    for (int t = tid; t < Lp; t += THREADS)
-      e_s[t] = t < Lc ? expf(seg_s[t]) : 0.f;
-    __syncthreads();  // also: every read of dh_s into `out` is done
-    const float decay = expf(seg_s[Lc - 1]);
-    const float* cc = cb_ + static_cast<int64_t>(t0) * N;
-    const int nrt = (N + 15) / 16, ncb = (P + 63) / 64;
-    for (int job = warp; job < nrt * ncb; job += NWARPS) {
-      const int n0 = (job % nrt) * 16, p0 = (job / nrt) * 64;
-      float acc[BJ][4] = {};
-      warp_gemm(
-          acc, n0, p0, 0, Lc,
-          [&](int n, int t) {
-            return n < N && t < Lc ? cc[static_cast<int64_t>(t) * N + n] * e_s[t]
-                                   : 0.f;
-          },
-          [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; });
-      for_acc(n0, p0, [&](int n, int p, int nt, int i) {
-        if (n < N && p < P)
-          dh_s[n * pitch + p] = decay * dh_s[n * pitch + p] + acc[nt][i];
-      });
-    }
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+  const float A = -expf(a_log[h]);
+  for (int t = tid; t < d.Lp; t += THREADS) {
+    dt_s[t] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
+    seg_s[t] = 0.f;
+  }
+  const float* dyh = dy + row0 * x_step + static_cast<int64_t>(h) * P;
+  if (vec)
+    stage_split4(dy_s, d.pitch2, dyh, x_step, Lc, P, d.Lp, d.Pp);
+  else
+    stage_split(dy_s, d.pitch2, dyh, x_step, Lc, P, d.Lp, d.Pp);
+  __syncthreads();
+  if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
+  __syncthreads();
+  for (int t = tid; t < d.Lp; t += THREADS)
+    es_s[t] = t < Lc ? expf(seg_s[t]) : 0.f;
+  if (tid == 0)
+    decay[(static_cast<int64_t>(b) * n_chunks + c) * H + h] =
+        expf(seg_s[Lc - 1]);
+  __syncthreads();
+  const float* cc = cm + row0 * N;
+  float* out = dstates +
+               ((static_cast<int64_t>(b) * n_chunks + c - 1) * H + h) *
+                   static_cast<int64_t>(N) * P;
+  const int nrb = (N + 15) / 16, jobs = nrb * (d.Pp / 32);
+  const int lane = tid % 32, g = lane >> 2, q = lane & 3;
+  for (int job = warp; job < jobs; job += NWARPS) {
+    const int n0 = (job % nrb) * 16, p0 = (job / nrb) * 32;
+    float acc[4][4] = {};
+    warp_mma_ld<4>(
+        acc, n0, p0, 0, round_up(Lc, 8),
+        [&](int n, int t) { return n < N && t < Lc ? cc[t * N + n] : 0.f; },
+        [&](int, int t, float v) { return mma::split(es_s[t] * v); },
+        [&](int t, int p) { return ld_split(dy_s[t * d.pitch2 + p]); });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + g + 8 * (i >> 1), p = p0 + nt * 8 + 2 * q + (i & 1);
+        if (n < N && p < P) out[n * P + p] = acc[nt][i];
+      }
   }
 }
 
-// (c) every gradient local to chunk blockIdx.x of head blockIdx.y of batch
-// row blockIdx.z (see above)
+// (c) dstates[b, c, h] = the gradient of the state leaving chunk c:
+// dh_final (or 0) for the last chunk, then dh_c = decay[b, c + 1, h] dh_{c+1}
+// + local_{c+1} (which slot c holds), in place; a thread per element of
+// (b, h, N x P), its locals read eight chunks ahead of the chain
 __global__ void __launch_bounds__(THREADS)
+ssd_bwd_pass_kernel(const float* __restrict__ dh_final,
+                    const float* __restrict__ decay,
+                    float* __restrict__ dstates,
+                    int n_chunks, int H, int64_t NP, int64_t total) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (e >= total) return;
+  const int64_t bh = e / NP, i = e % NP;
+  const int64_t b = bh / H, h = bh % H;
+  const int64_t cs = H * NP;  // one chunk of dstates
+  float* p = dstates + (b * n_chunks * H + h) * NP + i;
+  const float* dec = decay + b * n_chunks * H + h;
+  float dh = dh_final != nullptr ? dh_final[e] : 0.f;
+  p[(n_chunks - 1) * cs] = dh;
+  for (int c0 = n_chunks - 2; c0 >= 0; c0 -= 8) {
+    float loc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 - j >= 0) loc[j] = p[(c0 - j) * cs];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 - j >= 0) {
+        dh = dec[(c0 - j + 1) * H] * dh + loc[j];
+        p[(c0 - j) * cs] = dh;
+      }
+  }
+}
+
+// GE's 16 x 32 tiles on or below the diagonal of an Lp-step chunk, row
+// block by row block: row block rb holds rb / 2 + 1 of them
+__device__ __forceinline__ int ge_jobs(int Lp) {
+  int n = 0;
+  for (int rb = 0; rb < Lp / 16; ++rb) n += rb / 2 + 1;
+  return n;
+}
+
+__device__ __forceinline__ void ge_tile(int job, int& rb, int& cb) {
+  rb = 0;
+  while (job > rb / 2) {
+    job -= rb / 2 + 1;
+    ++rb;
+  }
+  cb = job;
+}
+
+
+// (d) the per-head gradients of a chunk for a group of BWD_GROUP heads (see
+// above): dx and ddt in place, the chunk's dD and dA sums into part, w and
+// exp(seg) into ws and es for (e), and the group's GE_sum into gesum.
+// Persistent: block blockIdx.x takes items blockIdx.x, + gridDim.x, ... of
+// (b, chunk, group).
+__global__ void __launch_bounds__(CHUNK_THREADS, 1)
 ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ a_log,
                      const float* __restrict__ bm, const float* __restrict__ cm,
@@ -585,293 +853,509 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ dy, const float* __restrict__ cb,
                      const float* __restrict__ states,
                      const float* __restrict__ dstates, float* __restrict__ dx,
-                     float* __restrict__ ddt, float* __restrict__ dbh,
-                     float* __restrict__ dch, float* __restrict__ part, int S,
-                     int H, int P, int N, int L) {
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_chunks = gridDim.x;
-  const int t0 = c * L, Lc = min(L, S - t0);
-  const int Lp = round_up(L, 16), pitch = bwd_pitch(P), lp = Lp + 4;
-  const int Lq = cb_pitch(L);
-  const int ncp = (P + 63) / 64, ncn = (N + 63) / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;                   // Lp x pitch
-  float* dy_s = x_s + Lp * pitch;      // Lp x pitch
-  float* ge_s = dy_s + Lp * pitch;     // Lp x lp: GE[t, s], zero off the mask
-  float* dt_s = ge_s + Lp * lp;        // the 10 per-step vectors, Lp each
+                     float* __restrict__ ddt, float* __restrict__ ws,
+                     float* __restrict__ es, float* __restrict__ gesum,
+                     float* __restrict__ part, int B, int S, int H, int P,
+                     int N, int L, int vec) {
+  const BwdDims d = bwd_dims(L, P, N);
+  const int Lp = d.Lp, pitch2 = d.pitch2, Lq = cb_pitch(L);
+  const int nrb = Lp / 16, ncb = Lp / 32, npb = d.Pp / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint2* x_s = reinterpret_cast<uint2*>(smem_raw);  // Lp x pitch2
+  uint2* dy_s = x_s + Lp * pitch2;                  // Lp x pitch2
+  uint2* st_s = dy_s + Lp * pitch2;  // Nk x pitch2: dh, then h_in
+  float* dt_s = reinterpret_cast<float*>(st_s + d.Nk * pitch2);
   float* seg_s = dt_s + Lp;
-  float* w_s = seg_s + Lp;             // exp(seg_L - seg) dt
-  float* el_s = w_s + Lp;              // exp(seg_L - seg)
-  float* es_s = el_s + Lp;             // exp(seg)
-  float* rows_s = es_s + Lp;           // sum_s GE[t, s] CB[t, s] dt_s
-  float* cols_s = rows_s + Lp;         // sum_t GE[t, s] CB[t, s]
-  float* u_s = cols_s + Lp;            // x_s . (B_s . dh)
-  float* r_s = u_s + Lp;               // C_t . exp(seg_t) dy_t . h_in^T
+  float* es_s = seg_s + Lp;     // exp(seg)
+  float* el_s = es_s + Lp;      // exp(seg_L - seg)
+  float* w_s = el_s + Lp;       // exp(seg_L - seg) dt
+  float* seg2_s = w_s + Lp;     // seg log2(e)
+  float* cols_s = seg2_s + Lp;  // sum_t GE[t, s] CB[t, s]
+  float* u_s = cols_s + Lp;     // x_s . (B_s . dh)
+  float* r_s = u_s + Lp;        // exp(seg_t) dy_t . (C_t . h_in)
   float* dseg_s = r_s + Lp;
-  float* up_s = dseg_s + Lp;           // Lp x ncp partial sums of u
-  float* rp_s = up_s + Lp * ncp;       // Lp x ncn partial sums of r
-  float* red_s = rp_s + Lp * ncn;      // THREADS
-
+  float* rows_p = dseg_s + Lp;        // Lp x ncb, a GE tile's part
+  float* cols_p = rows_p + Lp * ncb;  // Lp x nrb, a GE tile's part
+  float* u_p = cols_p + Lp * nrb;     // Lp x npb, a dx job's part
+  float* r_p = u_p + Lp * npb;        // Lp x npb, a C . h_in job's part
+  float* red_s = r_p + Lp * npb;      // 2 x CHUNK_WARPS
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
-  const float A = -expf(a_log[h]);
-  const float D = d_skip[h];
+  const int n_chunks = (S + L - 1) / L;
+  const int n_groups = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const int n_items = B * n_chunks * n_groups;
+  const int n_ge = ge_jobs(Lp), n_jobs = nrb * npb;
   const int64_t x_step = static_cast<int64_t>(H) * P;
-  const int64_t row0 = static_cast<int64_t>(b) * S + t0;  // (b, t0) in (B, S)
-  const float* xb = x + row0 * x_step + static_cast<int64_t>(h) * P;
-  const float* dyb = dy + row0 * x_step + static_cast<int64_t>(h) * P;
-  float* dxb = dx + row0 * x_step + static_cast<int64_t>(h) * P;
-  const float* bc = bm + row0 * N;
-  const float* cc = cm + row0 * N;
-  const float* cbc = cb + (static_cast<int64_t>(b) * n_chunks + c) * L * Lq;
   const int64_t NP = static_cast<int64_t>(N) * P;
-  const int64_t bch = (static_cast<int64_t>(b) * n_chunks + c) * H + h;
-  const float* hin = states + bch * NP;
-  const float* dho = dstates + bch * NP;
 
-  for (int e = tid; e < Lp * pitch; e += THREADS) {
-    const int r = e / pitch, p = e % pitch;
-    const bool ok = r < Lc && p < P;
-    x_s[e] = ok ? xb[r * x_step + p] : 0.f;
-    dy_s[e] = ok ? dyb[r * x_step + p] : 0.f;
-  }
-  for (int e = tid; e < Lp * lp; e += THREADS) ge_s[e] = 0.f;
-  for (int t = tid; t < Lp; t += THREADS)
-    dt_s[t] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
-  __syncthreads();
-  if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
-  __syncthreads();
-  const float total = seg_s[Lc - 1];
-  for (int t = tid; t < Lp; t += THREADS) {
-    const bool ok = t < Lc;
-    es_s[t] = ok ? expf(seg_s[t]) : 0.f;
-    el_s[t] = ok ? expf(total - seg_s[t]) : 0.f;
-    w_s[t] = el_s[t] * dt_s[t];
-  }
-  __syncthreads();
-  const int nrt = Lp / 16;
-
-  // GE = (dy . x^T) exp(seg_t - seg_s) on and below the diagonal; the
-  // exponential only under the mask (it overflows above)
-  const int ncl = (Lc + 63) / 64;
-  for (int job = warp; job < nrt * ncl; job += NWARPS) {
-    const int r0 = (job % nrt) * 16, s0 = (job / nrt) * 64;
-    if (r0 >= Lc || s0 > r0 + 15) continue;
-    float acc[BJ][4] = {};
-    warp_gemm(
-        acc, r0, s0, 0, P,
-        [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; },
-        [&](int p, int s) { return p < P && s < Lp ? x_s[s * pitch + p] : 0.f; });
-    for_acc(r0, s0, [&](int t, int s, int nt, int i) {
-      if (t < Lc && s <= t)
-        ge_s[t * lp + s] = acc[nt][i] * expf(seg_s[t] - seg_s[s]);
-    });
-  }
-  __syncthreads();
-
-  // the score gradient against C.B^T: its row sums (times dt_s) and
-  // column sums, for d(seg) and ddt
-  for (int i = tid; i < Lc; i += THREADS) {
-    float rs = 0.f, cs = 0.f;
-    for (int s = 0; s <= i; ++s) rs += ge_s[i * lp + s] * cbc[i * Lq + s] * dt_s[s];
-    for (int t = i; t < Lc; ++t) cs += ge_s[t * lp + i] * cbc[t * Lq + i];
-    rows_s[i] = rs;
-    cols_s[i] = cs;
-  }
-
-  // dx = M^T . dy + w (B . dh) + D dy; u = x . (B . dh) row by row
-  for (int job = warp; job < nrt * ncp; job += NWARPS) {
-    const int r0 = (job % nrt) * 16, p0 = (job / nrt) * 64;
-    if (r0 >= Lc) continue;
-    float am[BJ][4] = {}, ab[BJ][4] = {};
-    warp_gemm(
-        am, r0, p0, r0, Lc,
-        [&](int s, int t) {
-          return s <= t && t < Lc
-                     ? cbc[t * Lq + s] * expf(seg_s[t] - seg_s[s]) * dt_s[s]
-                     : 0.f;
-        },
-        [&](int t, int p) { return p < P ? dy_s[t * pitch + p] : 0.f; });
-    warp_gemm(
-        ab, r0, p0, 0, N,
-        [&](int s, int n) {
-          return s < Lc && n < N ? bc[static_cast<int64_t>(s) * N + n] : 0.f;
-        },
-        [&](int n, int p) {
-          return n < N && p < P ? dho[static_cast<int64_t>(n) * P + p] : 0.f;
-        });
-    float u[2] = {0.f, 0.f};
-    for_acc(r0, p0, [&](int s, int p, int nt, int i) {
-      if (s < Lc && p < P) {
-        dxb[s * x_step + p] = am[nt][i] + w_s[s] * ab[nt][i] +
-                              D * dy_s[s * pitch + p];
-        u[i >> 1] += ab[nt][i] * x_s[s * pitch + p];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    // bc = b n_chunks + c
+    const int grp = item % n_groups, bc = item / n_groups;
+    const int c = bc % n_chunks, b = bc / n_chunks;
+    const int t0 = c * L, Lc = min(L, S - t0);
+    const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+    const float* cbc = cb + static_cast<int64_t>(bc) * L * Lq;
+    const float* bmc = bm + row0 * N;
+    const float* cmc = cm + row0 * N;
+    float gs[2][4][4] = {};  // this warp's GE tiles summed over the heads
+    const int h_end = min(H, (grp + 1) * BWD_GROUP);
+    for (int h = grp * BWD_GROUP; h < h_end; ++h) {
+      const int64_t bch = static_cast<int64_t>(bc) * H + h;
+      const int64_t hoff = row0 * x_step + static_cast<int64_t>(h) * P;
+      const float A = -expf(a_log[h]);
+      const float Dh = d_skip[h];
+      // x, dy and the state gradient leaving the chunk, split as they are
+      // stored (with dD's part x . dy), by float4 loads where rows allow; a
+      // thread reads back only what it stored itself
+      const auto stage = [&](uint2* dst, const float* src, int64_t ld,
+                             int rows, int cols, int rows_pad,
+                             const uint2* other) {
+        return vec ? stage_split4(dst, pitch2, src, ld, rows, cols, rows_pad,
+                                  d.Pp, other)
+                   : stage_split(dst, pitch2, src, ld, rows, cols, rows_pad,
+                                 d.Pp, other);
+      };
+      stage(x_s, x + hoff, x_step, Lc, P, Lp, nullptr);
+      float pd = stage(dy_s, dy + hoff, x_step, Lc, P, Lp, x_s);
+      stage(st_s, dstates + bch * NP, P, N, P, d.Nk, nullptr);
+      for (int t = tid; t < Lp; t += CHUNK_THREADS) {
+        dt_s[t] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
+        seg_s[t] = 0.f;
       }
-    });
-    u[0] = quad_sum(u[0]);
-    u[1] = quad_sum(u[1]);
-    if (q == 0) {
-      up_s[(r0 + g) * ncp + job / nrt] = u[0];
-      up_s[(r0 + g + 8) * ncp + job / nrt] = u[1];
+      __syncthreads();
+      if (warp == 0) chunk_seg(dt_s, A, Lc, seg_s);
+      __syncthreads();
+      const float total = seg_s[Lc - 1];
+      for (int t = tid; t < Lp; t += CHUNK_THREADS) {
+        const bool ok = t < Lc;
+        es_s[t] = ok ? expf(seg_s[t]) : 0.f;
+        el_s[t] = ok ? expf(total - seg_s[t]) : 0.f;
+        w_s[t] = el_s[t] * dt_s[t];
+        seg2_s[t] = seg_s[t] * 1.4426950408889634f;
+        if (t < L) {
+          ws[bch * L + t] = w_s[t];
+          es[bch * L + t] = es_s[t];
+        }
+      }
+      __syncthreads();
+
+      // GE = (dy . x^T) exp(seg_t - seg_s) on and below the diagonal (the
+      // exponential only under the mask: it overflows above), its row and
+      // column sums against C.B^T, and dt_s GE into the group's sum. A
+      // warp then goes on to its dx job with no barrier between: warps 0-3,
+      // which hold a second GE tile, take the dx jobs of the last rows,
+      // whose M^T . dy is the shortest.
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int job = warp + jj * CHUNK_WARPS;
+        if (job >= n_ge) continue;
+        int rb, cbk;
+        ge_tile(job, rb, cbk);
+        const int r0 = rb * 16, s0 = cbk * 32;
+        float acc[4][4] = {};
+        warp_mma<4>(
+            acc, r0, s0, 0, d.Pp,
+            [&](int t, int p) { return ld_split(dy_s[t * pitch2 + p]); },
+            [&](int p, int s) { return ld_split(x_s[s * pitch2 + p]); });
+        float rsum[2] = {0.f, 0.f}, csum[4][2] = {};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int t = r0 + g + 8 * (i >> 1);
+            const int s = s0 + nt * 8 + 2 * q + (i & 1);
+            const bool ok = s <= t && t < Lc;
+            const float ge =
+                ok ? acc[nt][i] * hopper::exp2_ftz(seg2_s[t] - seg2_s[s])
+                   : 0.f;
+            const float gc = ok ? ge * cbc[t * Lq + s] : 0.f;
+            rsum[i >> 1] += gc * dt_s[s];
+            csum[nt][i & 1] += gc;
+            gs[jj][nt][i] += ge * dt_s[s];
+          }
+        rsum[0] = quad_sum(rsum[0]);
+        rsum[1] = quad_sum(rsum[1]);
+        if (q == 0) {
+          rows_p[(r0 + g) * ncb + cbk] = rsum[0];
+          rows_p[(r0 + g + 8) * ncb + cbk] = rsum[1];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float v = column_sum(csum[nt][k]);
+            if (g == 0) cols_p[(s0 + nt * 8 + 2 * q + k) * nrb + rb] = v;
+          }
+      }
+
+      // dx = w (B . dh) + M^T . dy + D dy in one accumulator: B . dh first,
+      // whose rows give u = x . (B . dh), then scaled by w
+      for (int job = warp; job < n_jobs; job += CHUNK_WARPS) {
+        const int pb = job % npb, r0 = (nrb - 1 - job / npb) * 16;
+        const int p0 = pb * 32;
+        float acc[4][4] = {};
+        float u[2] = {0.f, 0.f};
+        if (r0 < Lc) {
+          warp_mma_ld<4>(
+              acc, r0, p0, 0, d.Nk,
+              [&](int s, int n) {
+                return s < Lc && n < N ? bmc[s * N + n] : 0.f;
+              },
+              split_as_is,
+              [&](int n, int p) { return ld_split(st_s[n * pitch2 + p]); });
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int s = r0 + g + 8 * (i >> 1);
+              u[i >> 1] += acc[nt][i] *
+                           split_value(x_s[s * pitch2 + p0 + nt * 8 + 2 * q +
+                                           (i & 1)]);
+              acc[nt][i] *= w_s[s];
+            }
+          warp_mma_ld<4>(
+              acc, r0, p0, r0, round_up(Lc, 8),
+              [&](int s, int t) {
+                return s <= t && t < Lc ? cbc[t * Lq + s] : 0.f;
+              },
+              [&](int s, int t, float v) {
+                return mma::split(
+                    s <= t && t < Lc
+                        ? v * hopper::exp2_ftz(seg2_s[t] - seg2_s[s]) * dt_s[s]
+                        : 0.f);
+              },
+              [&](int t, int p) { return ld_split(dy_s[t * pitch2 + p]); });
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int s = r0 + g + 8 * (i >> 1);
+            const int p = p0 + nt * 8 + 2 * q + (i & 1);
+            if (s < Lc && p < P)
+              dx[hoff + s * x_step + p] =
+                  acc[nt][i] + Dh * split_value(dy_s[s * pitch2 + p]);
+          }
+        u[0] = quad_sum(u[0]);
+        u[1] = quad_sum(u[1]);
+        if (q == 0) {
+          u_p[(r0 + g) * npb + pb] = u[0];
+          u_p[(r0 + g + 8) * npb + pb] = u[1];
+        }
+      }
+      __syncthreads();  // every read of dh is done
+
+      // the state entering the chunk over dh, with <dh, h_in> on the way
+      // (the first chunk's is zero)
+      const bool has_state = c > 0;
+      float ph = 0.f;
+      if (has_state)
+        ph = stage(st_s, states + bch * NP, P, N, P, d.Nk, st_s);
+      __syncthreads();
+
+      // r = exp(seg_t) dy_t . (C_t . h_in) row by row
+      for (int job = warp; job < n_jobs; job += CHUNK_WARPS) {
+        const int r0 = (job % nrb) * 16, pb = job / nrb, p0 = pb * 32;
+        float acc[4][4] = {};
+        if (has_state && r0 < Lc)
+          warp_mma_ld<4>(
+              acc, r0, p0, 0, d.Nk,
+              [&](int t, int n) {
+                return t < Lc && n < N ? cmc[t * N + n] : 0.f;
+              },
+              split_as_is,
+              [&](int n, int p) { return ld_split(st_s[n * pitch2 + p]); });
+        float r[2] = {0.f, 0.f};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int t = r0 + g + 8 * (i >> 1);
+            const int p = p0 + nt * 8 + 2 * q + (i & 1);
+            if (t < Lc && p < P)
+              r[i >> 1] += acc[nt][i] * split_value(dy_s[t * pitch2 + p]);
+          }
+        r[0] = quad_sum(r[0]);
+        r[1] = quad_sum(r[1]);
+        if (q == 0) {
+          r_p[(r0 + g) * npb + pb] = r[0];
+          r_p[(r0 + g + 8) * npb + pb] = r[1];
+        }
+      }
+      pd = warp_sum(pd);
+      ph = warp_sum(ph);
+      if (lane == 0) {
+        red_s[warp] = pd;
+        red_s[CHUNK_WARPS + warp] = ph;
+      }
+      __syncthreads();
+
+      // the per-step vectors from the tiles' parts, each in a fixed order
+      for (int t = tid; t < Lp; t += CHUNK_THREADS) {
+        float rs = 0.f, cs = 0.f, uu = 0.f, rr = 0.f;
+        for (int j = 0; j <= t / 32; ++j) rs += rows_p[t * ncb + j];
+        for (int j = 2 * (t / 32); j < nrb; ++j) cs += cols_p[t * nrb + j];
+        for (int j = 0; j < npb; ++j) {
+          uu += u_p[t * npb + j];
+          rr += r_p[t * npb + j];
+        }
+        cols_s[t] = cs;
+        u_s[t] = uu;
+        r_s[t] = es_s[t] * rr;
+        dseg_s[t] = t < Lc ? rs - dt_s[t] * cs + r_s[t] - uu * w_s[t] : 0.f;
+      }
+      __syncthreads();
+
+      // d(seg)'s last step, its reverse cumsum by a warp scan (lane l takes
+      // a run of steps counted from the chunk's end), ddt, the chunk's dA
+      if (warp == 0) {
+        float sum_d = 0.f, hdot = 0.f;
+        for (int w = 0; w < CHUNK_WARPS; ++w) {
+          sum_d += red_s[w];
+          hdot += red_s[CHUNK_WARPS + w];
+        }
+        float uw = 0.f;
+        for (int t = lane; t < Lc; t += 32) uw += u_s[t] * w_s[t];
+        uw = warp_sum(uw);
+        if (lane == 0) dseg_s[Lc - 1] += es_s[Lc - 1] * hdot + uw;
+        __syncwarp();
+        const int per = (Lc + 31) / 32;
+        const int lo = min(lane * per, Lc), hi = min(lo + per, Lc);
+        float run = 0.f;
+        for (int k = lo; k < hi; ++k) run += dseg_s[Lc - 1 - k];
+        float inc = run;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float v = __shfl_up_sync(0xffffffffu, inc, off);
+          if (lane >= off) inc += v;
+        }
+        float rc = inc - run, da = 0.f;
+        for (int k = lo; k < hi; ++k) {
+          const int t = Lc - 1 - k;
+          rc += dseg_s[t];
+          ddt[(row0 + t) * H + h] = cols_s[t] + u_s[t] * el_s[t] + A * rc;
+          da += dt_s[t] * rc;
+        }
+        da = warp_sum(da);
+        if (lane == 0) {
+          part[bch * 2] = sum_d;
+          part[bch * 2 + 1] = da;
+        }
+      }
+      __syncthreads();  // before the next head's staging
+    }
+
+    // the group's GE_sum, each tile by the warp that holds it
+    float* out = gesum + (static_cast<int64_t>(bc) * n_groups + grp) * Lp * Lp;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int job = warp + jj * CHUNK_WARPS;
+      if (job >= n_ge) continue;
+      int rb, cbk;
+      ge_tile(job, rb, cbk);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[(rb * 16 + g + 8 * (i >> 1)) * Lp + cbk * 32 + nt * 8 + 2 * q +
+              (i & 1)] = gs[jj][nt][i];
     }
   }
-
-  // dB for this head: GE^T dt . C + (w x) . dh^T
-  const int jobs_n = nrt * ncn;
-  for (int job = warp; job < jobs_n; job += NWARPS) {
-    const int r0 = (job % nrt) * 16, n0 = (job / nrt) * 64;
-    if (r0 >= Lc) continue;
-    float acc[BJ][4] = {};
-    warp_gemm(
-        acc, r0, n0, r0, Lc,
-        [&](int s, int t) { return t < Lc ? ge_s[t * lp + s] * dt_s[s] : 0.f; },
-        [&](int t, int n) {
-          return t < Lc && n < N ? cc[static_cast<int64_t>(t) * N + n] : 0.f;
-        });
-    warp_gemm(
-        acc, r0, n0, 0, P,
-        [&](int s, int p) { return p < P ? x_s[s * pitch + p] * w_s[s] : 0.f; },
-        [&](int p, int n) {
-          return p < P && n < N ? dho[static_cast<int64_t>(n) * P + p] : 0.f;
-        });
-    for_acc(r0, n0, [&](int s, int n, int nt, int i) {
-      if (s < Lc && n < N)
-        dbh[((row0 + s) * H + h) * N + n] = acc[nt][i];
-    });
-  }
-
-  // dC for this head: GE dt . B + exp(seg) dy . h_in^T (the state entering
-  // the first chunk is zero), and r = C . the second term row by row
-  for (int job = warp; job < jobs_n; job += NWARPS) {
-    const int r0 = (job % nrt) * 16, n0 = (job / nrt) * 64;
-    if (r0 >= Lc) continue;
-    float ai[BJ][4] = {}, ax[BJ][4] = {};
-    warp_gemm(
-        ai, r0, n0, 0, min(r0 + 16, Lc),
-        [&](int t, int s) { return s < Lc ? ge_s[t * lp + s] * dt_s[s] : 0.f; },
-        [&](int s, int n) {
-          return s < Lc && n < N ? bc[static_cast<int64_t>(s) * N + n] : 0.f;
-        });
-    if (c > 0)
-      warp_gemm(
-          ax, r0, n0, 0, P,
-          [&](int t, int p) {
-            return p < P ? dy_s[t * pitch + p] * es_s[t] : 0.f;
-          },
-          [&](int p, int n) {
-            return p < P && n < N ? hin[static_cast<int64_t>(n) * P + p] : 0.f;
-          });
-    float r[2] = {0.f, 0.f};
-    for_acc(r0, n0, [&](int t, int n, int nt, int i) {
-      if (t < Lc && n < N) {
-        dch[((row0 + t) * H + h) * N + n] = ai[nt][i] + ax[nt][i];
-        r[i >> 1] += ax[nt][i] * cc[static_cast<int64_t>(t) * N + n];
-      }
-    });
-    r[0] = quad_sum(r[0]);
-    r[1] = quad_sum(r[1]);
-    if (q == 0) {
-      rp_s[(r0 + g) * ncn + job / nrt] = r[0];
-      rp_s[(r0 + g + 8) * ncn + job / nrt] = r[1];
-    }
-  }
-
-  // x . dy over the chunk (for dD) and <dh, h_in>, each summed in a fixed
-  // order
-  float pd = 0.f, ph = 0.f;
-  for (int e = tid; e < Lc * P; e += THREADS)
-    pd += x_s[(e / P) * pitch + e % P] * dy_s[(e / P) * pitch + e % P];
-  for (int e = tid; e < N * P; e += THREADS) ph += dho[e] * hin[e];
-  red_s[tid] = pd;
-  __syncthreads();  // also: rows_s, cols_s, up_s and rp_s are complete
-  float sum_d = 0.f;
-  if (tid == 0)
-    for (int i = 0; i < THREADS; ++i) sum_d += red_s[i];
-  __syncthreads();
-  red_s[tid] = ph;
-  __syncthreads();
-  if (tid != 0) return;
-  float hdot = 0.f;
-  for (int i = 0; i < THREADS; ++i) hdot += red_s[i];
-
-  // d(seg) per step, its reverse cumsum, ddt and the chunk's dA
-  float uw = 0.f;
-  for (int t = 0; t < Lc; ++t) {
-    float u = 0.f, r = 0.f;
-    for (int j = 0; j < ncp; ++j) u += up_s[t * ncp + j];
-    for (int j = 0; j < ncn; ++j) r += rp_s[t * ncn + j];
-    u_s[t] = u;
-    dseg_s[t] = rows_s[t] - dt_s[t] * cols_s[t] + r - u * w_s[t];
-    uw += u * w_s[t];
-  }
-  dseg_s[Lc - 1] += es_s[Lc - 1] * hdot + uw;
-  float rc = 0.f, da = 0.f;
-  for (int t = Lc - 1; t >= 0; --t) {
-    rc += dseg_s[t];
-    ddt[(row0 + t) * H + h] = cols_s[t] + u_s[t] * el_s[t] + A * rc;
-    da += dt_s[t] * rc;
-  }
-  part[bch * 2] = sum_d;
-  part[bch * 2 + 1] = da;
 }
 
-// (d) dB, dC: the per-head scratch summed over the heads; dD, da_log: the
-// per-chunk sums summed over (b, chunk); each output by one thread, in
-// order
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_reduce_kernel(const float* __restrict__ dbh,
-                      const float* __restrict__ dch,
-                      const float* __restrict__ part,
-                      const float* __restrict__ a_log, float* __restrict__ db,
-                      float* __restrict__ dc, float* __restrict__ da_log,
-                      float* __restrict__ dd, int64_t BS, int H, int N,
-                      int n_parts) {
-  const int64_t BSN = BS * N, total = 2 * BSN + H;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * THREADS) {
-    if (e < 2 * BSN) {
-      const bool is_b = e < BSN;
-      const int64_t o = is_b ? e : e - BSN;
-      const float* src = (is_b ? dbh : dch) + (o / N) * H * N + o % N;
-      float v = 0.f;
-      for (int hh = 0; hh < H; ++hh) v += src[static_cast<int64_t>(hh) * N];
-      (is_b ? db : dc)[o] = v;
-    } else {
-      const int hh = static_cast<int>(e - 2 * BSN);
-      float sd = 0.f, sa = 0.f;
-      for (int i = 0; i < n_parts; ++i) {
-        sd += part[(static_cast<int64_t>(i) * H + hh) * 2];
-        sa += part[(static_cast<int64_t>(i) * H + hh) * 2 + 1];
+// (e) dB or dC of chunk rows [m0, m0 + 64) and columns [n0, n0 + 64), all
+// heads summed: over the chunk's steps, A = GE_sum^T (dB, t >= s) or
+// GE_sum (dC, s <= t) against C (dB) or B (dC), then over (h, p), A = w_h
+// x_h (dB) or exp(seg_h) dy_h (dC) against the state gradients (dB) or the
+// chunk states (dC). 8 warps of 16 x 32 outputs. 32-wide k-tiles of both
+// operands arrive by cp.async in a ring of DBDC_STAGES stages, three tiles
+// in flight while one computes (the step tiles' A, summed over the head
+// groups, by plain loads and stores); A's row scale is applied and both
+// operands split into TF32 hi / lo as the fragments are read.
+__global__ void __launch_bounds__(DBDC_THREADS, 2)
+ssd_bwd_dbdc_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                    const float* __restrict__ bm, const float* __restrict__ cm,
+                    const float* __restrict__ states,
+                    const float* __restrict__ dstates,
+                    const float* __restrict__ ws, const float* __restrict__ es,
+                    const float* __restrict__ gesum, float* __restrict__ db,
+                    float* __restrict__ dc, int S, int H, int P, int N, int L,
+                    int vec) {
+  const BwdDims d = bwd_dims(L, P, N);
+  const int Lp = d.Lp;
+  const int n_chunks = (S + L - 1) / L;
+  const int n_groups = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const int nmb = (L + DBDC_BM - 1) / DBDC_BM;
+  const int nnb = (N + DBDC_BN - 1) / DBDC_BN;
+  int idx = blockIdx.x;
+  const int nb = idx % nnb;
+  idx /= nnb;
+  const int mb = idx % nmb;
+  idx /= nmb;
+  const bool is_db = idx % 2 == 0;
+  const int bc = idx / 2, c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int m0 = mb * DBDC_BM, n0 = nb * DBDC_BN;
+  if (m0 >= Lc) return;  // rows past a ragged chunk's end
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* a_s = reinterpret_cast<float*>(smem_raw);  // STAGES x BM x PITCH
+  float* b_s = a_s + DBDC_STAGES * DBDC_BM * DBDC_PITCH;  // STAGES x BN x PITCH
+  float* sc_s = b_s + DBDC_STAGES * DBDC_BN * DBDC_PITCH;  // STAGES x BM
+  const int tid = threadIdx.x;
+  const int64_t x_step = static_cast<int64_t>(H) * P;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+  const int64_t NP = static_cast<int64_t>(N) * P;
+  const float* src = is_db ? x : dy;
+  const float* scale = (is_db ? ws : es) + static_cast<int64_t>(bc) * H * L;
+  const float* st =
+      (is_db ? dstates : states) + static_cast<int64_t>(bc) * H * NP;
+  const float* mat = is_db ? cm : bm;
+  const float* gsum = gesum + static_cast<int64_t>(bc) * n_groups * Lp * Lp;
+  const int ppt = d.Pp / DBDC_BK;  // k-tiles of one head's P
+  // the steps: dB sums t >= s (from m0), dC s <= t (to m0 + BM)
+  const int k_lo = is_db ? m0 : 0;
+  const int k_hi = is_db ? Lc : min(m0 + DBDC_BM, Lc);
+  const int n_step = (k_hi - k_lo + DBDC_BK - 1) / DBDC_BK;
+  const int n_tiles = n_step + H * ppt;
+
+  // tile `tile` into stage `sg`, one cp.async group a tile
+  auto fetch = [&](int tile, int sg) {
+    float* a = a_s + sg * DBDC_BM * DBDC_PITCH;
+    float* bb = b_s + sg * DBDC_BN * DBDC_PITCH;
+    float* sc = sc_s + sg * DBDC_BM;
+    if (tile < n_step) {
+      const int k0 = k_lo + tile * DBDC_BK;
+#pragma unroll 1  // unrolled, its loads spill at 2 blocks an SM
+      for (int j = 0; j < DBDC_BM * DBDC_BK / DBDC_THREADS; ++j) {
+        const int e = tid + j * DBDC_THREADS;
+        const int r = e / DBDC_BK, kk = e % DBDC_BK, k = k0 + kk;
+        const int m = m0 + r, n = n0 + r;
+        const int t = is_db ? k : m, s = is_db ? m : k;
+        float v = 0.f;
+        if (s <= t && t < Lc)
+          for (int gr = 0; gr < n_groups; ++gr)
+            v += gsum[(static_cast<int64_t>(gr) * Lp + t) * Lp + s];
+        a[r * DBDC_PITCH + kk] = v;
+        const bool ok = k < Lc && n < N;
+        mma::cp_async4(&bb[r * DBDC_PITCH + kk],
+                       ok ? mat + (row0 + k) * N + n : mat, ok ? 4 : 0);
       }
-      dd[hh] = sd;
-      da_log[hh] = -expf(a_log[hh]) * sa;
+      for (int r = tid; r < DBDC_BM; r += DBDC_THREADS) sc[r] = 1.f;
+    } else {
+      const int hp = tile - n_step, h = hp / ppt, p0 = (hp % ppt) * DBDC_BK;
+      const float* ah = src + row0 * x_step + static_cast<int64_t>(h) * P;
+      const float* bh = st + h * NP;
+      const int w = vec ? 4 : 1;  // floats a copy
+      for (int e = tid; e < DBDC_BM * DBDC_BK / w; e += DBDC_THREADS) {
+        const int r = e / (DBDC_BK / w), k = e % (DBDC_BK / w) * w;
+        const int m = m0 + r, n = n0 + r, p = p0 + k;
+        const bool oka = m < Lc && p < P, okb = n < N && p < P;
+        const float* ga = oka ? ah + m * x_step + p : src;
+        const float* gb = okb ? bh + static_cast<int64_t>(n) * P + p : st;
+        if (vec) {
+          mma::cp_async16(&a[r * DBDC_PITCH + k], ga, oka ? 16 : 0);
+          mma::cp_async16(&bb[r * DBDC_PITCH + k], gb, okb ? 16 : 0);
+        } else {
+          mma::cp_async4(&a[r * DBDC_PITCH + k], ga, oka ? 4 : 0);
+          mma::cp_async4(&bb[r * DBDC_PITCH + k], gb, okb ? 4 : 0);
+        }
+      }
+      for (int r = tid; r < DBDC_BM; r += DBDC_THREADS) {
+        const bool ok = m0 + r < Lc;
+        mma::cp_async4(&sc[r], ok ? scale + h * L + m0 + r : scale,
+                       ok ? 4 : 0);
+      }
     }
+    mma::cp_async_commit();
+  };
+
+  const int warp = tid / 32, wr = warp % 4, wc = warp / 4;
+  const int g = (tid % 32) >> 2, q = tid & 3;
+  float acc[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < DBDC_STAGES - 1; ++i) {
+    if (i < n_tiles)
+      fetch(i, i);
+    else
+      mma::cp_async_commit();
   }
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<DBDC_STAGES - 2>();
+    __syncthreads();  // tile i is in; the stage of tile i - 1 is free
+    const int nxt = i + DBDC_STAGES - 1;
+    if (nxt < n_tiles)
+      fetch(nxt, nxt % DBDC_STAGES);
+    else
+      mma::cp_async_commit();
+    const int sg = i % DBDC_STAGES;
+    const float* a = a_s + sg * DBDC_BM * DBDC_PITCH;
+    const float* bb = b_s + sg * DBDC_BN * DBDC_PITCH;
+    const float sc0 = sc_s[sg * DBDC_BM + 16 * wr + g];
+    const float sc1 = sc_s[sg * DBDC_BM + 16 * wr + g + 8];
+    warp_mma<4>(
+        acc, 16 * wr, 32 * wc, 0, DBDC_BK,
+        [&](int r, int k) {
+          return mma::split(a[r * DBDC_PITCH + k] * (r & 8 ? sc1 : sc0));
+        },
+        [&](int k, int col) { return mma::split(bb[col * DBDC_PITCH + k]); });
+  }
+  float* out = is_db ? db : dc;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mm = m0 + 16 * wr + g + 8 * (i >> 1);
+      const int nn = n0 + 32 * wc + nt * 8 + 2 * q + (i & 1);
+      if (mm < Lc && nn < N) out[(row0 + mm) * N + nn] = acc[nt][i];
+    }
+}
+
+// (f) dD and da_log: the per-chunk sums summed over (b, chunk), each output
+// by one thread, in order
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_reduce_kernel(const float* __restrict__ part,
+                      const float* __restrict__ a_log,
+                      float* __restrict__ da_log, float* __restrict__ dd, int H,
+                      int n_parts) {
+  const int h = blockIdx.x * THREADS + threadIdx.x;
+  if (h >= H) return;
+  float sd = 0.f, sa = 0.f;
+  for (int i = 0; i < n_parts; ++i) {
+    sd += part[(static_cast<int64_t>(i) * H + h) * 2];
+    sa += part[(static_cast<int64_t>(i) * H + h) * 2 + 1];
+  }
+  dd[h] = sd;
+  da_log[h] = -expf(a_log[h]) * sa;
 }
 
 // the backward's scratch, carved from one workspace of
-// ssd_scan_bwd_work_floats floats: the C.B^T scratch, the state gradients,
-// dB and dC per head, the per-chunk sums (each region a multiple of 4
-// floats)
+// ssd_scan_bwd_work_floats floats (each region a multiple of 4 floats):
+// C.B^T, the state gradients (B, n_chunks, H, N, P), the chunks' decays
+// (B, n_chunks, H), w and exp(seg) (B, n_chunks, H, L), the groups' GE_sum
+// (B, n_chunks, H / BWD_GROUP, Lp, Lp), the per-chunk dD and dA sums
 struct BwdWork {
-  float *cb, *dstates, *dbh, *dch, *part;
+  float *cb, *dstates, *decay, *ws, *es, *gesum, *part;
   size_t floats;
 };
 
 BwdWork bwd_work(float* base, int B, int S, int H, int P, int N, int L) {
-  const size_t nc = (S + L - 1) / L;
-  const size_t sizes[5] = {
-      static_cast<size_t>(B) * nc * L * cb_pitch(L),
-      static_cast<size_t>(B) * nc * H * N * P,
-      static_cast<size_t>(B) * S * H * N, static_cast<size_t>(B) * S * H * N,
-      static_cast<size_t>(B) * nc * H * 2};
-  float* p[5];
+  const size_t nc = (S + L - 1) / L, bnc = static_cast<size_t>(B) * nc;
+  const size_t ng = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const size_t Lp = bwd_dims(L, P, N).Lp;
+  const size_t sizes[7] = {bnc * L * cb_pitch(L),
+                           bnc * H * N * P,
+                           bnc * H,
+                           bnc * H * L,
+                           bnc * H * L,
+                           bnc * ng * Lp * Lp,
+                           bnc * H * 2};
+  float* p[7];
   size_t off = 0;
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < 7; ++i) {
     p[i] = base == nullptr ? nullptr : base + off;
     off += (sizes[i] + 3) / 4 * 4;
   }
-  return {p[0], p[1], p[2], p[3], p[4], off};
+  return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], off};
 }
 
 }  // namespace
@@ -943,17 +1427,18 @@ size_t ssd_scan_bwd_work_floats(int B, int S, int H, int P, int N,
 
 // Bytes of dynamic shared memory the backward's largest block needs.
 size_t ssd_scan_bwd_smem_bytes(int chunk, int P, int N) {
-  const size_t a = dstate_smem_floats(chunk, P, N);
-  const size_t b = chunk_smem_floats(chunk, P, N);
-  return sizeof(float) * (a > b ? a : b);
+  const size_t a = local_smem_bytes(chunk, P, N);
+  const size_t b = chunk_smem_bytes(chunk, P, N);
+  const size_t c = dbdc_smem_bytes();
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
-// The backward's four launches, each checked: dx (B, S, H, P), ddt
+// The backward's six launches, each checked: dx (B, S, H, P), ddt
 // (B, S, H), da_log (H,), db and dc (B, S, N), dd (H,) of y = SSD(x, dt,
 // a_log, b, c, d_skip) for dy (B, S, H, P), from the forward's chunk states
 // (B, n_chunks, H, N, P) and dh_final (B, H, N, P), the final state's
-// gradient, or null. work holds ssd_scan_bwd_work_floats floats. Returns a
-// cudaError_t (0 = success).
+// gradient, or null. work holds ssd_scan_bwd_work_floats floats. Chunks of
+// at most 128 steps. Returns a cudaError_t (0 = success).
 int ssd_scan_bwd(const void* x, const void* dt, const void* a_log,
                  const void* bm, const void* cm, const void* d_skip,
                  const void* dy, const void* states, const void* dh_final,
@@ -964,42 +1449,71 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* a_log,
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   const int L = chunk < S ? chunk : S, n_chunks = (S + L - 1) / L;
+  // the chunk kernel's warps hold at most two GE tiles each
+  if (bwd_dims(L, P, N).Lp > 128) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BwdWork w = bwd_work(static_cast<float*>(work), B, S, H, P, N, L);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto out = [](void* p) { return static_cast<float*>(p); };
   cudaError_t err = launch_cb(bm, cm, w.cb, B, S, N, L, st);
   if (err != cudaSuccess) return err;
+  // 16-byte loads and copies of x, dy and the states where rows of P keep
+  // them aligned
+  const int vec = P % 4 == 0 && aligned16(x) && aligned16(dy) &&
+                  aligned16(states) && aligned16(w.dstates);
 
-  size_t smem = sizeof(float) * dstate_smem_floats(L, P, N);
-  err = cudaFuncSetAttribute(ssd_bwd_dstate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  ssd_bwd_dstate_kernel<<<B * H, THREADS, smem, st>>>(
-      f(dt), f(a_log), f(cm), f(dy), f(dh_final), w.dstates, S, H, P, N, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (n_chunks > 1) {
+    const size_t smem = local_smem_bytes(L, P, N);
+    err = cudaFuncSetAttribute(ssd_bwd_local_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    ssd_bwd_local_kernel<<<dim3(n_chunks - 1, H, B), THREADS, smem, st>>>(
+        f(dt), f(a_log), f(cm), f(dy), w.dstates, w.decay, S, H, P, N, L,
+        vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
 
-  smem = sizeof(float) * chunk_smem_floats(L, P, N);
+  const int64_t NP = static_cast<int64_t>(N) * P;
+  const int64_t elems = static_cast<int64_t>(B) * H * NP;
+  const unsigned pass_blocks =
+      static_cast<unsigned>((elems + THREADS - 1) / THREADS);
+  ssd_bwd_pass_kernel<<<pass_blocks, THREADS, 0, st>>>(
+      f(dh_final), w.decay, w.dstates, n_chunks, H, NP, elems);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  size_t smem = chunk_smem_bytes(L, P, N);
   err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  ssd_bwd_chunk_kernel<<<dim3(n_chunks, H, B), THREADS, smem, st>>>(
-      f(x), f(dt), f(a_log), f(bm), f(cm), f(d_skip), f(dy), w.cb,
-      f(states), w.dstates, static_cast<float*>(dx), static_cast<float*>(ddt),
-      w.dbh, w.dch, w.part, S, H, P, N, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int items = B * n_chunks * ((H + BWD_GROUP - 1) / BWD_GROUP);
+  const int programs = items < sms ? items : sms;  // persistent
+  ssd_bwd_chunk_kernel<<<programs, CHUNK_THREADS, smem, st>>>(
+      f(x), f(dt), f(a_log), f(bm), f(cm), f(d_skip), f(dy), w.cb, f(states),
+      w.dstates, out(dx), out(ddt), w.ws, w.es, w.gesum, w.part, B, S, H, P,
+      N, L, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const int64_t BS = static_cast<int64_t>(B) * S;
-  const int64_t outs = 2 * BS * N + H;
-  const int blocks = static_cast<int>(
-      outs / THREADS + 1 < 132 * 16 ? outs / THREADS + 1 : 132 * 16);
-  ssd_bwd_reduce_kernel<<<blocks, THREADS, 0, st>>>(
-      w.dbh, w.dch, w.part, f(a_log), static_cast<float*>(db),
-      static_cast<float*>(dc), static_cast<float*>(da_log),
-      static_cast<float*>(dd), BS, H, N, B * n_chunks);
+  smem = dbdc_smem_bytes();
+  err = cudaFuncSetAttribute(ssd_bwd_dbdc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles =
+      ((L + DBDC_BM - 1) / DBDC_BM) * ((N + DBDC_BN - 1) / DBDC_BN);
+  ssd_bwd_dbdc_kernel<<<B * n_chunks * 2 * tiles, DBDC_THREADS, smem, st>>>(
+      f(x), f(dy), f(bm), f(cm), f(states), w.dstates, w.ws, w.es, w.gesum,
+      out(db), out(dc), S, H, P, N, L, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  ssd_bwd_reduce_kernel<<<(H + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      w.part, f(a_log), out(da_log), out(dd), H, B * n_chunks);
   return cudaGetLastError();
 }
 

@@ -45,8 +45,9 @@ _BWD = {"cuda_cores": "flash_attention_bwd_f32",
         "mma_sync": "flash_attention_bwd_bf16",
         "wgmma": "flash_attention_bwd_bf16_sm90"}
 # head dims whose bf16 backward runs the wgmma kernels (rows of 64-column
-# TMA boxes); the others run the mma.sync kernels
-WGMMA_BWD_HEAD_DIMS = (64, 128)
+# TMA boxes, 80 as two with the second zero-filled past column 80); the
+# others run the mma.sync kernels
+WGMMA_BWD_HEAD_DIMS = (64, 80, 128)
 BWD_KV_ITEM = 128    # kv rows of a dk/dv work item
 BWD_KV_STEP = 64     # query rows per step of its walk
 BWD_Q_ITEM = 128     # query rows of a dq work item

@@ -12,8 +12,9 @@ tensor cores in 3xTF32 (f32 accuracy). It is built by
 ``ctypes`` on PyTorch's current stream. Unlike the TPU kernel it also
 returns the final state, so prefill seeds decode from the kernel, and,
 for training, the state entering every chunk, which the backward kernels
-(:func:`ssd_scan_bwd`, same source) read. :func:`ssd_chunks_plain` and
-:func:`ssd_scan_bwd_plain` spell out the kernels' decompositions in torch.
+(:func:`ssd_scan_bwd`, same source) read. :func:`ssd_chunks_plain`,
+:func:`ssd_scan_bwd_plain`, :func:`ssd_state_grads_plain` and
+:func:`ssd_dbdc_plain` spell out the kernels' decompositions in torch.
 """
 from __future__ import annotations
 
@@ -149,9 +150,84 @@ def ssd_chunks_plain(x, dt, a_log, b_mat, c_mat, d_skip, *,
             torch.cat(ys, 1).to(x.dtype), h)
 
 
+def ssd_state_grads_plain(dt, a_log, c_mat, dy, *, chunk: int = 128,
+                          dh_final=None):
+    """The gradient of the state leaving each chunk, (B, n_chunks, H, N,
+    P), as the backward kernels compute it (Dao & Gu 2024, §7's state
+    passing, in reverse): first every chunk's own term ``local_c = sum_t
+    exp(seg_t) C_t (x) dy_t`` and its decay ``exp(seg_L)``, each chunk on
+    its own; then a pass that is elementwise only, ``dh_c = exp(seg_L of
+    c + 1) dh_{c+1} + local_{c+1}``, from ``dh_final`` (or zeros) for the
+    last chunk. Chunks at their true length; f32, or f64 for f64 inputs,
+    as :func:`ssd_chunks_plain`."""
+    B, S, H, P = dy.shape
+    N = c_mat.shape[-1]
+    f = torch.promote_types(dy.dtype, torch.float32)
+    L = min(chunk, S)
+    a = -torch.exp(a_log.to(f))
+    local, decay = [], []
+    for t0 in range(0, S, L):
+        seg = torch.cumsum(dt[:, t0:t0 + L].to(f) * a, dim=1)  # (B,Lc,H)
+        local.append(torch.einsum("btn,bth,bthp->bhnp",
+                                  c_mat[:, t0:t0 + L].to(f), torch.exp(seg),
+                                  dy[:, t0:t0 + L].to(f)))
+        decay.append(torch.exp(seg[:, -1]))                    # (B,H)
+    dh = torch.zeros((B, H, N, P), dtype=f, device=dy.device) \
+        if dh_final is None else dh_final.to(f)
+    out = [dh]
+    for c in range(len(local) - 1, 0, -1):
+        dh = decay[c][..., None, None] * dh + local[c]
+        out.append(dh)
+    return torch.stack(out[::-1], 1)
+
+
+def ssd_dbdc_plain(x, dt, a_log, b_mat, c_mat, dy, states, dstates, *,
+                   chunk: int = 128, group: int):
+    """``(db, dc)`` summed over the heads as the backward kernels sum
+    them (``BWD_GROUP`` in ``ssd_scan.cu``). Per chunk, with GE_h[t, s]
+    = (dy_t . x_s) exp(seg_t - seg_s) under the causal mask, each group
+    of ``group`` heads sums ``dt_{h,s} GE_h[t, s]`` in head order into
+    one partial, the partials are summed in group order into GE_sum, and
+
+    * ``dB = GE_sum^T . C + sum_(h,p) (w x)[s, (h,p)] dh[(h,p), n]``,
+    * ``dC = GE_sum . B + sum_(h,p) (exp(seg) dy)[t, (h,p)] h_in[(h,p), n]``,
+
+    w = exp(seg_L - seg) dt; ``states`` (the state entering each chunk)
+    and ``dstates`` (the gradient of the state leaving it) are (B,
+    n_chunks, H, N, P). f32, or f64 for f64 inputs."""
+    B, S, H, P = x.shape
+    f = torch.promote_types(x.dtype, torch.float32)
+    L = min(chunk, S)
+    x, dt, b_mat, c_mat, dy = (t.to(f) for t in (x, dt, b_mat, c_mat, dy))
+    a = -torch.exp(a_log.to(f))
+    dbs, dcs = [], []
+    for c, t0 in enumerate(range(0, S, L)):
+        sl = slice(t0, t0 + L)
+        xk, dyk, dtk = x[:, sl], dy[:, sl], dt[:, sl]
+        Lc = xk.shape[1]
+        seg = torch.cumsum(dtk * a, dim=1)                     # (B,Lc,H)
+        mask = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+        gap = torch.where(mask[None, :, :, None],
+                          seg[:, :, None] - seg[:, None], -torch.inf)
+        dge = torch.einsum("bthp,bshp->btsh", dyk, xk) * torch.exp(gap) \
+            * dtk[:, None]                                     # (B,t,s,H)
+        ge_sum = sum(dge[..., h0:h0 + group].sum(-1)
+                     for h0 in range(0, H, group))             # (B,t,s)
+        w = torch.exp(seg[:, -1:] - seg) * dtk                 # (B,Lc,H)
+        xw = (w[..., None] * xk).reshape(B, Lc, H * P)
+        ye = (torch.exp(seg)[..., None] * dyk).reshape(B, Lc, H * P)
+        dho = dstates[:, c].to(f).transpose(2, 3).reshape(B, H * P, -1)
+        hin = states[:, c].to(f).transpose(2, 3).reshape(B, H * P, -1)
+        dbs.append(torch.einsum("bts,btn->bsn", ge_sum, c_mat[:, sl])
+                   + xw @ dho)
+        dcs.append(torch.einsum("bts,bsn->btn", ge_sum, b_mat[:, sl])
+                   + ye @ hin)
+    return torch.cat(dbs, 1), torch.cat(dcs, 1)
+
+
 def ssd_scan_bwd_plain(x, dt, a_log, b_mat, c_mat, d_skip, dy, *,
                        chunk: int = 128, dh_final=None):
-    """The backward kernel's decomposition in plain torch: the gradients
+    """The backward kernels' decomposition in plain torch: the gradients
     ``(dx, ddt, da_log, db, dc, dd)`` of ``y = ssd_scan(x, ...)`` for an
     output gradient ``dy`` (B, S, H, P), and ``dh_final`` (B, H, N, P)
     for the final state where it has one. Chunk by chunk at each chunk's
@@ -159,14 +235,13 @@ def ssd_scan_bwd_plain(x, dt, a_log, b_mat, c_mat, d_skip, dy, *,
 
     * the chunk states (the state entering each chunk, as the forward
       writes them);
-    * a reverse pass carrying the state gradient, ``dh <- exp(seg_L) dh
-      + sum_t exp(seg_t) C_t (x) dy_t``, which gives the gradient of the
-      state leaving each chunk;
+    * the gradient of the state leaving each chunk
+      (:func:`ssd_state_grads_plain`: local terms, then the passing);
     * per chunk the transposes of the forward's products: scores^T . dy
       and B . dh for dx; G = dy . x^T under the causal mask for the score
       gradient, whose product with the decay and dt gives dC and dB
       through C . B^T; dy . h^T for dC's inter-chunk part and x . dh^T for
-      dB's;
+      dB's; each head's dB and dC summed over the heads;
     * d(seg) from every term, its in-chunk reverse cumsum times A for
       ddt, and ``sum dt . revcumsum(d seg)`` times A for da_log (A =
       -exp(a_log), dA/da_log = A).
@@ -180,23 +255,15 @@ def ssd_scan_bwd_plain(x, dt, a_log, b_mat, c_mat, d_skip, dy, *,
     a = -torch.exp(a_log.to(f))
     _, states, _, _ = ssd_chunks_plain(x, dt, a_log, b_mat, c_mat, d_skip,
                                        chunk=chunk)
-    starts = list(range(0, S, L))
-    dh = torch.zeros_like(states[:, 0]) if dh_final is None \
-        else dh_final.to(f)
-    dstates = [None] * len(starts)
-    for c in reversed(range(len(starts))):
-        dstates[c] = dh
-        sl = slice(starts[c], starts[c] + L)
-        seg = torch.cumsum(dt[:, sl] * a, dim=1)               # (B,Lc,H)
-        dh = torch.exp(seg[:, -1])[..., None, None] * dh + torch.einsum(
-            "btn,bth,bthp->bhnp", c_mat[:, sl], torch.exp(seg), dy[:, sl])
+    dstates = ssd_state_grads_plain(dt, a_log, c_mat, dy, chunk=chunk,
+                                    dh_final=dh_final)
     dxs, ddts, dbs, dcs = [], [], [], []
     d_a = torch.zeros_like(a)
-    for c, t0 in enumerate(starts):
+    for c, t0 in enumerate(range(0, S, L)):
         sl = slice(t0, t0 + L)
         xk, dyk, dtk, bk, ck = x[:, sl], dy[:, sl], dt[:, sl], b_mat[:, sl], \
             c_mat[:, sl]
-        hin, dho = states[:, c], dstates[c]                    # (B,H,N,P)
+        hin, dho = states[:, c], dstates[:, c]                 # (B,H,N,P)
         Lc = xk.shape[1]
         seg = torch.cumsum(dtk * a, dim=1)                     # (B,Lc,H)
         eseg = torch.exp(seg)
@@ -337,10 +404,11 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
     None; ``states`` are the forward's chunk states
     (:func:`ssd_scan_with_states`). CPU tensors take
     :func:`ssd_scan_bwd_plain` (which recomputes the states); CUDA
-    tensors launch the backward kernels (float32, contiguous) or raise.
-    ``ssd_scan_bwd.launches`` counts the calls that launched them (four
-    launches each: C·Bᵀ, the state gradients, the chunks, the sums over
-    heads and chunks)."""
+    tensors launch the backward kernels (float32, contiguous, chunks of
+    at most 128 steps) or raise. ``ssd_scan_bwd.launches`` counts the
+    calls that launched them (six launches each: C·Bᵀ, the chunks' local
+    state gradients, their passing, the per-head chunk gradients, dB and
+    dC, the sums over chunks; ``SSD_BWD_LAUNCHES``)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts + (dy,)):
         return ssd_scan_bwd_plain(*ts, dy, chunk=chunk, dh_final=dh_final)
@@ -359,6 +427,9 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
     lib = _load()
     _smem_check("ssd_scan_bwd", lib.ssd_scan_bwd_smem_bytes(L, P, N), chunk,
                 P, N)
+    if L > 128:
+        raise ValueError(f"ssd_scan_bwd: chunk {chunk}: the backward "
+                         "kernels take chunks of at most 128 steps")
     work = torch.empty((lib.ssd_scan_bwd_work_floats(B, S, H, P, N, chunk),),
                        dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(t) for t in ts]
@@ -375,6 +446,18 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
 
 
 ssd_scan_bwd.launches = 0
+# the kernels one ssd_scan_bwd call launches, in order, as the profiler
+# names them (the local one only where there is more than one chunk)
+SSD_BWD_LAUNCHES = ("ssd_cb_kernel", "ssd_bwd_local_kernel",
+                    "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
+                    "ssd_bwd_dbdc_kernel", "ssd_bwd_reduce_kernel")
+
+
+def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128) -> int:
+    """Bytes of the workspace one ssd_scan_bwd call allocates on the card
+    (C·Bᵀ, the state gradients, the decays, w and exp(seg), the head
+    groups' GE sums, the per-chunk sums)."""
+    return 4 * _load().ssd_scan_bwd_work_floats(B, S, H, P, N, chunk)
 
 
 def ssd_cb_kernel(b_mat, c_mat, *, chunk: int = 128):

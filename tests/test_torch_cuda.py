@@ -370,8 +370,10 @@ def test_flash_bwd_is_deterministic(shape, cuda):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("D,with_lists", [(128, False), (80, True)],
-                         ids=["missing_work_list", "head_dim_80"])
+@pytest.mark.parametrize("D,with_lists", [(128, False), (80, False),
+                                          (32, True)],
+                         ids=["missing_work_list", "missing_work_list_d80",
+                              "head_dim_32"])
 def test_flash_bwd_wgmma_refuses_a_missing_work_list(D, with_lists, cuda):
     """The library's wgmma entry refuses a call without its work lists,
     and a head_dim it has no instance for (an error, not unwritten
@@ -398,6 +400,30 @@ def test_flash_bwd_wgmma_refuses_a_missing_work_list(D, with_lists, cuda):
     assert lib.flash_attention_bwd_bf16(
         *(t.data_ptr() for t in (q, k, v, o, lse, do, scratch, dq, dq, dq)),
         1, 2, 2, 64, D, 0.25, 1, torch.cuda.current_stream().cuda_stream) == 0
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 129, 4096])
+@pytest.mark.parametrize("KH", [8, 2])
+def test_flash_bwd_wgmma_head_dim_80(S, KH, cuda):
+    """Head_dim 80 (zamba2's shared block) on the wgmma kernels (two TMA
+    boxes a row, the second zero-filled past column 80; m64n80k16 for dV,
+    dK, dQ) against the plain version, element-wise and norm-relative,
+    at S around the 64- and 128-row tiles and at the train length, MHA
+    and GQA; two calls give the same bits."""
+    from repro_torch.kernels.flash_attention import bwd_kernel
+    assert bwd_kernel(80, torch.bfloat16) == "wgmma"
+    q, k, v, do = _flash_grad_inputs((1, 8, KH, S, 80), torch.bfloat16, cuda)
+    o, lse = _launch_fwd(q, k, v, True, None, with_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    _close(got, want, 5e-2)
+    _norm_rel_close(got, want, FLASH_BWD_REL[torch.bfloat16])
+    for name, a, b in zip(("dq", "dk", "dv"), got, again, strict=True):
+        assert torch.equal(a, b), name
 
 
 def test_flash_bwd_rejects_what_it_cannot_run(cuda):
@@ -476,8 +502,11 @@ def _norm_rel(got, want):
     (2, 64, 2, 16, 16, 16), (2, 100, 3, 16, 8, 32), (1, 7, 2, 8, 4, 16),
     (2, 1, 2, 8, 4, 16), (1, 50, 2, 6, 5, 16), (1, 70, 2, 72, 70, 64),
     # the training widths (mamba2-1.3b: P 64, N 128; zamba2-2.7b: N 64),
-    # a chunk multiple and a ragged S
-    (1, 384, 4, 64, 128, 128), (1, 300, 4, 64, 64, 128)])
+    # a chunk multiple and a ragged S; mamba2's 64 heads (eight groups of
+    # eight) and zamba2's 80 (ten) at full width, one ragged
+    (1, 384, 4, 64, 128, 128), (1, 300, 4, 64, 64, 128),
+    (1, 300, 64, 64, 128, 128), (1, 512, 80, 64, 64, 128),
+    (1, 333, 80, 64, 64, 128)])
 def test_ssd_bwd_kernel_matches_plain(B, S, H, P, N, chunk, cuda):
     """The backward kernels' six gradients against ssd_scan_bwd_plain,
     norm-relative within the SSD's f32 2e-4, from the forward kernel's
@@ -544,6 +573,13 @@ def test_ssd_bwd_rejects_what_it_cannot_run(cuda):
         ssd_scan_bwd(*big, torch.randn_like(big[0]),
                      torch.zeros((1, 1, 1, 256, 128), device=cuda),
                      chunk=256)
+    # a chunk over 128 steps fits shared memory at small P and N, and the
+    # forward takes it, but the backward kernels refuse it
+    long = _ssd_inputs(1, 129, 2, 8, 4, cuda)
+    _, _, long_states = ssd_scan_with_states(*long, chunk=129)
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd_scan_bwd(*long, torch.randn_like(long[0]), long_states,
+                     chunk=129)
 
 
 def test_ssd_rejects_what_it_cannot_run(cuda):

@@ -18,9 +18,9 @@ SHAPES = [  # (B, H, KH, S): the train path, qwen2-vl's group of 6, edges
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_head_dim_dispatch(D):
-    """bf16 at head_dim 64 and 128 takes the wgmma kernels, 16, 32 and 80
+    """bf16 at head_dim 64, 80 and 128 takes the wgmma kernels, 16 and 32
     the mma.sync ones; f32 the CUDA-core kernels at every head_dim."""
-    want = "wgmma" if D in (64, 128) else "mma_sync"
+    want = "wgmma" if D in (64, 80, 128) else "mma_sync"
     assert bwd_kernel(D, torch.bfloat16) == want
     assert bwd_kernel(D, torch.float32) == "cuda_cores"
     assert (D in WGMMA_BWD_HEAD_DIMS) == (want == "wgmma")

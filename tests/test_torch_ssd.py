@@ -14,9 +14,10 @@ from repro.kernels.ssd_scan import ssd_decode_step as jax_decode_step
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan import ssd_scan_jnp
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_decode_step,
-                                          ssd_scan, ssd_scan_bwd_plain,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_dbdc_plain,
+                                          ssd_decode_step, ssd_scan,
+                                          ssd_scan_bwd_plain, ssd_scan_plain,
+                                          ssd_state_grads_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -243,6 +244,83 @@ def test_final_state_gradient_enters_the_reverse_pass(B, S, H, P, N, chunk):
     for name, g, t, w in zip(GRADS, got, leaves, want, strict=True):
         np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
         np.testing.assert_allclose(t.grad.numpy(), w, **TOL, err_msg=name)
+
+
+def _sequential_state_grads(dt, a_log, c_mat, dy, chunk, dh_final=None):
+    """The state gradients by the sequential reverse recurrence over the
+    chunks (ssd_scan_bwd_plain's before the kernels' passing split):
+    the last chunk's is dh_final (or zeros), then, walking back, dh <-
+    exp(seg_L) dh + sum_t exp(seg_t) C_t (x) dy_t of the chunk after."""
+    B, S, H, P = dy.shape
+    L = min(chunk, S)
+    a = -torch.exp(a_log)
+    starts = list(range(0, S, L))
+    dh = torch.zeros((B, H, c_mat.shape[-1], P)) if dh_final is None \
+        else dh_final
+    out = [None] * len(starts)
+    for c in reversed(range(len(starts))):
+        out[c] = dh
+        sl = slice(starts[c], starts[c] + L)
+        seg = torch.cumsum(dt[:, sl] * a, dim=1)
+        dh = torch.exp(seg[:, -1])[..., None, None] * dh + torch.einsum(
+            "btn,bth,bthp->bhnp", c_mat[:, sl], torch.exp(seg), dy[:, sl])
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("with_dh", [False, True], ids=["no_dh", "dh_final"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 100, 3, 16, 8, 32), (1, 70, 2, 8, 6, 16), (2, 64, 2, 16, 16, 16),
+    (1, 7, 2, 8, 4, 16)])
+def test_state_gradient_passing_matches_the_recurrence_and_jax(
+        B, S, H, P, N, chunk, with_dh):
+    """ssd_state_grads_plain (every chunk's local term and decay, then an
+    elementwise passing) equals the sequential recurrence, with a ragged
+    last chunk and with a final-state gradient; and the backward built on
+    it, ssd_scan_bwd_plain, equals jax.vjp of ssd_scan_jnp (its final
+    state an output where dh_final is given), every gradient (2e-4)."""
+    xs = _inputs(B, S, H, P, N, seed=16)
+    rng = np.random.default_rng(17)
+    dy = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dh = rng.normal(size=(B, H, N, P)).astype(np.float32) if with_dh \
+        else None
+    x, dt, a_log, b, c, d = _t(xs)
+    dh_t = None if dh is None else torch.from_numpy(dh)
+    got = ssd_state_grads_plain(dt, a_log, c, torch.from_numpy(dy),
+                                chunk=chunk, dh_final=dh_t)
+    want = _sequential_state_grads(dt, a_log, c, torch.from_numpy(dy), chunk,
+                                   dh_t)
+    assert got.shape == (B, -(-S // min(chunk, S)), H, N, P)
+    torch.testing.assert_close(got, want, **TOL)
+    grads = ssd_scan_bwd_plain(x, dt, a_log, b, c, d, torch.from_numpy(dy),
+                               chunk=chunk, dh_final=dh_t)
+    for name, g, w in zip(GRADS, grads, _jax_vjp(xs, dy, chunk, dh),
+                          strict=True):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 8])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 100, 5, 8, 6, 32),
+                                             (1, 70, 3, 16, 8, 16)])
+def test_head_group_partials_of_db_dc_match_the_per_head_sum(
+        B, S, H, P, N, chunk, group):
+    """dB and dC from the kernels' head-group partials (ssd_dbdc_plain: GE
+    summed over each group of heads, the groups in order, then one
+    product over the steps and one over the (head, P) columns) equal each
+    head's dB and dC summed over the heads (ssd_scan_bwd_plain), at groups
+    that divide H, that do not, and that hold all of it (2e-4)."""
+    x, dt, a_log, b, c, d = _t(_inputs(B, S, H, P, N, seed=18))
+    rng = np.random.default_rng(19)
+    dy = torch.from_numpy(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    dh = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(np.float32))
+    _, states, _, _ = ssd_chunks_plain(x, dt, a_log, b, c, d, chunk=chunk)
+    dstates = ssd_state_grads_plain(dt, a_log, c, dy, chunk=chunk,
+                                    dh_final=dh)
+    got = ssd_dbdc_plain(x, dt, a_log, b, c, dy, states, dstates,
+                         chunk=chunk, group=group)
+    want = ssd_scan_bwd_plain(x, dt, a_log, b, c, d, dy, chunk=chunk,
+                              dh_final=dh)[3:5]
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    torch.testing.assert_close(got[1], want[1], **TOL)
 
 
 def test_ops_ssd_takes_the_backward_function_under_the_kernels():
