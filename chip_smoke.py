@@ -431,13 +431,15 @@ def _check(name, got, want, tol, checks):
     return err
 
 
-def _tile_bound(op, args):
+def _tile_bound(op, args, out_dtype=None):
     """Least time of a tile kernel: each input read once and each output
-    (the lead's shape and dtype) written once over the memory rate, or
-    the body's operations per element, in f32, over the f32 rate."""
+    (the lead's shape, in ``out_dtype`` or the lead's dtype) written once
+    over the memory rate, or the body's operations per element, in f32,
+    over the f32 rate."""
     n_out = len(op.tk.out_arrays)
+    out_size = (out_dtype or args[0].dtype).itemsize
     nbytes = sum(a.numel() * a.element_size() for a in args) \
-        + n_out * args[0].numel() * args[0].element_size()
+        + n_out * args[0].numel() * out_size
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = op.tk.stats.n_ops * args[0].numel() / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
@@ -456,6 +458,11 @@ def _ptx_counts(ptx):
                      if re.fullmatch(r"[bfsu](8|16|32|64)", p)), 0)
         key = f"{vec * bits // 8}B"
         counts[m.group(1)][key] = counts[m.group(1)].get(key, 0) + 1
+    # the divisions and MUFU approximations the kernel issues
+    counts["math"] = {op: len(re.findall(rf"\b{re.escape(op)}\b", ptx))
+                      for op in ("div.rn.f32", "div.full.f32",
+                                 "ex2.approx", "rcp.approx",
+                                 "tanh.approx")}
     for m in re.finditer(r"\bcp\.async\.c[ag]\.shared\.global[\w.:]*\s+"
                          r"\[[^\]]*\],\s*\[[^\]]*\],\s*(0x[0-9a-fA-F]+|\d+)",
                          ptx):
@@ -471,6 +478,20 @@ def _kernel_info(ck):
             "registers": getattr(ck, "n_regs", None),
             "spills": getattr(ck, "n_spills", None),
             **_ptx_counts(ck.asm["ptx"])}
+
+
+def _tile_plan(op, args, out_dtype=None):
+    """The launch plan of a tile op's call on these operands."""
+    from repro_torch.core.tritongen import plan_tile_call
+    return plan_tile_call(op.tk, [a.shape for a in args],
+                          [a.dtype for a in args], out_dtype)
+
+
+def _plan_dict(plan):
+    return {"block_r": plan.block_r, "block_d": plan.block_d,
+            "pieces": list(plan.pieces), "grid": list(plan.grid),
+            "num_warps": plan.num_warps, "persistent": plan.persistent,
+            "flat": dataclasses.asdict(plan.flat) if plan.flat else None}
 
 
 def _compiled_info(op, args, sc):
@@ -692,6 +713,53 @@ def _optimizer_row(torch, timer, name, shape, checks):
     return row
 
 
+def _l2_clip_bf16_row(torch, timer, shape, checks):
+    """l2_clip of a bf16 gradient into f32, as the optimizer runs it:
+    the kernel reads the gradient in bf16 and writes f32. Checked
+    bitwise against ``g.float()`` times the kernel's own scale (its
+    result on a one) and against its plain version; timed beside its
+    bound (2 bytes read and 4 written an element), the library's two
+    calls ``g.float().mul_(scale)`` and the two launches it replaces
+    (the cast, then the f32 kernel)."""
+    from repro_torch.kernels.tile_programs import get_tile_op
+    op = get_tile_op("l2_clip")
+    g = torch.randn(shape, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda").bfloat16()
+    sc = {"norm": 3.0, "max_norm": 1.0, "eps": 1e-9}
+    f32 = torch.float32
+
+    def run():
+        return op.apply(g, out_dtype=f32, **sc)
+
+    def lib():
+        return g.float().mul_(scale)
+
+    tag = f"l2_clip/bfloat16_to_float32/{'x'.join(map(str, shape))}"
+    got = run()
+    one = op.apply(torch.ones(1, dtype=torch.bfloat16, device="cuda"),
+                   out_dtype=f32, **sc)
+    bitwise = got.dtype == f32 and torch.equal(got, g.float() * one)
+    checks.append({"name": f"{tag}/bitwise", "ok": bitwise})
+    err = _check(tag, got, op.torch_ref(g.float(), **sc),
+                 TILE_TOL["float32"], checks)
+    del got
+    scale = min(1.0, sc["max_norm"] / (sc["norm"] + sc["eps"]))
+    bound, by = _tile_bound(op, [g], f32)
+    return {"shape": list(shape), "dtype": "bfloat16", "out_dtype": "float32",
+            "max_abs_err": err, "bitwise": bitwise,
+            "plan": _plan_dict(_tile_plan(op, [g], f32)),
+            "ms": timer.ms(run, iters=10),
+            "device_ms": timer.device_ms(run, op.tk.kernel_name, iters=5),
+            "plain_ms": timer.ms(lambda: op.torch_ref(g.float(), **sc),
+                                 iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": timer.ms(lib, iters=10),
+            "library_call": "g.float().mul_(scale), two calls",
+            "cast_then_f32_kernel_ms": timer.ms(
+                lambda: op.apply(g.float(), **sc), iters=10),
+            "in_turns": _in_turns(timer, run, lib)}
+
+
 def _norm_rel(torch, F, got, want, floor, rows=64):
     """``||got - want|| / ||want||`` of an (..., S, D) gradient over the
     whole tensor and, the largest, over each 64-row block of each leading
@@ -880,7 +948,6 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels.flash_attention import (
         _launch_fwd, flash_attention, flash_attention_fwd_plain,
         flash_attention_plain)
-    from repro_torch.core.tritongen import plan_tile_call
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
@@ -941,15 +1008,12 @@ def phase_kernels(torch, timer):
                      TILE_TOL[str(args[0].dtype)[6:]], checks)
         bound, by = _tile_bound(op, args)
         dst = torch.empty_like(args[0])
-        plan = plan_tile_call(op.tk, [a.shape for a in args])
         row = {
             "shape": [list(a.shape) for a in args],
             "dtype": str(args[0].dtype)[6:], "max_abs_err": err,
-            # the launch: rows and column pieces a program, grid, warps
-            "plan": {"block_r": plan.block_r, "block_d": plan.block_d,
-                     "pieces": list(plan.pieces), "grid": list(plan.grid),
-                     "num_warps": plan.num_warps,
-                     "persistent": plan.persistent},
+            # the launch: rows and column pieces a program (or the flat
+            # plan's block of elements), grid, warps
+            "plan": _plan_dict(_tile_plan(op, args)),
             "ms": timer.ms(lambda: op.apply(*args, **sc)),
             # the profiler's duration of the kernel itself
             "device_ms": timer.device_ms(lambda: op.apply(*args, **sc),
@@ -1192,6 +1256,13 @@ def phase_kernels(torch, timer):
             else:
                 rows[name]["shapes"]["x".join(map(str, shape))] = row
             torch.cuda.empty_cache()
+    # l2_clip of the bf16 gradients that training's autograd returns, into
+    # f32, at the same two shapes
+    for shape in ((256000, 3072), (3072, 9216)):
+        rows["l2_clip"]["shapes"]["bf16_to_f32_" + "x".join(
+            map(str, shape))] = _l2_clip_bf16_row(torch, timer, shape,
+                                                  checks)
+        torch.cuda.empty_cache()
 
     # the tile programs on no path yet: kernel, plain and library times
     # beside the bound at one stated shape, f32 (2048, 4096)
@@ -2057,13 +2128,58 @@ def _train_kernel_group(name: str) -> str:
     return "other"
 
 
+def _cast_kernel_keys(torch):
+    """``{kernel name: group}`` of the device kernels that cast bf16 to
+    f32 (``Tensor.float()``) and f32 to bf16 (``Tensor.copy_``) on this
+    card and torch, read from a profile of ten calls of each (a session
+    of one short launch can record nothing, and any session can lose its
+    records, so up to five): the trace groups a step's casts by them."""
+    from torch.profiler import ProfilerActivity, profile
+    keys_to_group = {}
+    a = torch.ones(1 << 24, dtype=torch.bfloat16, device="cuda")
+    b = torch.ones(1 << 24, device="cuda")
+    for group, fn in (("cast_bf16_f32", a.float),
+                      ("cast_f32_bf16", lambda: a.copy_(b))):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            keys = {e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.count}
+            if keys:
+                keys_to_group.update(dict.fromkeys(keys, group))
+                break
+        else:
+            raise AssertionError(f"no device kernel recorded for {group}")
+    return keys_to_group
+
+
+def _kernels_before(torch, prof, prefix, keys):
+    """How many launches of the kernels named ``prefix...`` a kernel of
+    ``keys`` directly precedes on the device, and the launches."""
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.endswith("_backward")),
+                 key=lambda e: e.time_range.start)
+    hits = [i for i, e in enumerate(evs) if e.name.startswith(prefix)]
+    return sum(i > 0 and evs[i - 1].name in keys for i in hits), len(hits)
+
+
 def phase_trace_train(torch, step, params, state, batch,
                       phase="trace_train"):
     """One full-width train step under torch.profiler: host wall, device
     time, busy share, launches, and device ms by group; the analytic
     rmsnorm, rmsnorm_gated and swiglu backwards (torch, no kernel of their
-    own) read from their record_function ranges."""
+    own) read from their record_function ranges. The bf16 <-> f32 casts
+    are a group of their own, and no l2_clip launch may follow a bf16 ->
+    f32 cast: the kernel reads the bf16 gradient itself."""
     from torch.profiler import ProfilerActivity, profile
+    casts = _cast_kernel_keys(torch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2083,16 +2199,22 @@ def phase_trace_train(torch, step, params, state, batch,
             # under "other" by name)
             ranges[e.key] = {"calls": e.count, "device_ms": us / 1e3}
             continue
-        g = _train_kernel_group(e.key)
+        g = casts.get(e.key) or _train_kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         n_launch += e.count
         top.append((us / 1e3, e.count, g, e.key[:70]))
     busy = sum(groups.values())
+    up = {k for k, g in casts.items() if g == "cast_bf16_f32"}
+    after_cast, clips = _kernels_before(torch, prof, "l2_clip_kernel", up)
     emit({"phase": phase, "wall_ms": wall_ms, "device_ms": busy,
           "busy_share": busy / wall_ms, "device_launches": n_launch,
           "device_ms_by_group": groups,
           "torch_tile_backward_ranges": ranges,
+          "l2_clip_launches": clips, "l2_clip_after_a_cast": after_cast,
           "top_kernels": sorted(top, reverse=True)[:10]})
+    if after_cast:
+        raise AssertionError(f"{phase}: {after_cast} of {clips} l2_clip "
+                             f"launches follow a bf16 -> f32 cast")
     return params, state
 
 

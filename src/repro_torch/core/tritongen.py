@@ -35,7 +35,23 @@ One program instance owns ``BLOCK_R`` rows × ``BLOCK_D`` columns of the
   each input element is loaded once, through addresses with no modulo,
   so the loads vectorise to 16 bytes a thread;
 * ``fma`` is ``tl.fma``; all compute is f32 and stores cast to the
-  output's dtype (the lead operand's, as in the Pallas call).
+  output's dtype (the lead operand's, as in the Pallas call, unless the
+  caller names another: l2_clip writes f32 from a bf16 gradient);
+* loads and stores stand in the body as ``$load[a]`` and ``$store[o]``
+  marks, written out per layout (masked row and column offsets, or the
+  flat plan's).
+
+The *flat plan* (:func:`flat_plan`) takes an elementwise program in
+whole tiles (no reduction, no ``rothalf``) whose operands all hold the
+lead's elements: contiguous buffers of ``rows × d`` elements, so one
+stream. A program owns a block of ``BLOCK`` contiguous elements, sized
+so that each thread moves whole 16-byte vectors of the widest operand;
+there is no row or column index, no per-element mask but in a tail block
+(none where ``BLOCK`` divides the elements), and offsets are int32 until
+they would pass 2^31. Such a program is bound by its bytes alone; the
+row-and-column plan it replaced carried int64 index math and two masks
+an element, and at minitron's embedding launched 96,000 programs of
+(8, 1024) (tools/tile_time.py compares both on the card).
 
 A ``cycle`` operand (the port's addition: an operand that broadcasts
 over the lead's leading axes, such as RoPE's cos/sin of ``(1, 1, S, hd)``
@@ -59,8 +75,9 @@ reduction hold whole rows, few a program, so that the grid holds at
 least :data:`REDUCE_PROGRAMS_PER_SM` programs per SM where the rows
 allow: many resident programs overlap one's stores with another's loads,
 where a register-sized block left a router softmax 4 programs for 132
-SMs. The others also tile columns, so a wide ``d`` (9216 for swiglu)
-does not waste masked lanes up to the next power of two.
+SMs. The others take the flat plan where their operands allow, and
+otherwise (a broadcast operand) also tile columns, so a wide ``d`` does
+not waste masked lanes up to the next power of two.
 
 The ``"triton_pipelined"`` emitter (:class:`TritonPipelinedGenerator`)
 replaces the TPU's pipelined tile kernel, ``PipelinedPallasGenerator``
@@ -81,8 +98,8 @@ issued in the schedule's order; the sync kernel generated under that
 schedule is kept beside it as its twin.
 
 The source is generated once per program and compiled by Triton at the
-first launch for each layout (operand kinds, pieces, persistent walk);
-``triton`` is imported only there.
+first launch for each layout (operand kinds, pieces, persistent walk,
+the flat plan's form); ``triton`` is imported only there.
 """
 from __future__ import annotations
 
@@ -143,10 +160,28 @@ REDUCE_PROGRAMS_PER_SM = 2
 REDUCE_WARP_ELEMS = 768
 REDUCE_MAX_WARPS = 8
 MAX_PIECES = 2
+# The flat plan (elementwise programs whose operands all have the lead's
+# shape): blocks of FLAT_WARPS warps (FLAT_PIPELINED_WARPS in the
+# pipelined form's persistent walk), each thread moving FLAT_VECTORS
+# 16-byte vectors of the widest operand, one program per block in the
+# sync form. Chosen on the H100 (tools/tile_time.py --variants): one
+# program per block beat every persistent grid of 1-8 programs per SM,
+# streaming cache hints did not help when tried (none are emitted), and 1, 2 or
+# 4 vectors at 4 or 8 warps stayed within about 1 % of each other; the
+# walk of 4 programs per SM is fastest at 8 warps.
+FLAT_WARPS = 4
+FLAT_PIPELINED_WARPS = 8
+FLAT_VECTORS = 2
+# offsets past this need int64
+_INT32_LIMIT = 2 ** 31
 
 _REDUCTIONS = ("rsum", "rmean", "rmax")
 # a template's reduction over all pieces of a tile value: $rsum[x]
 _REDUCE_MARK = re.compile(r"\$(rsum|rmean|rmax)\[(.*?)\]")
+# a template's whole-tile load of input a ($load[a]) and store of a value
+# to output o (a line "$store[o] value"), written out per layout
+_LOAD_MARK = re.compile(r"\$load\[(\w+)\]")
+_STORE_MARK = re.compile(r"^(\s*)\$store\[(\w+)\] (.*)$")
 
 _UNARY_FMT = {
     "neg": "(-{0})",
@@ -155,7 +190,9 @@ _UNARY_FMT = {
     "sqrt": "tl.sqrt({0})",
     "rsqrt": "tl.rsqrt({0})",
     # tanh through exp keeps the kernel off version-dependent libdevice
-    # module paths; saturates to ±1 for large |x|
+    # module paths; saturates to ±1 for large |x|. On the H100 Triton
+    # lowers the "/" to div.full.f32, and inline PTX of the MUFU's ex2
+    # and rcp timed no faster (tools/tile_time.py --tanh)
     "tanh": "(1.0 - 2.0 / (tl.exp(2.0 * {0}) + 1.0))",
     "abs": "tl.abs({0})",
     "sigmoid": "tl.sigmoid({0})",
@@ -227,6 +264,32 @@ def _expand(template: Sequence[str], n_pieces: int, masked: bool
     return out
 
 
+def _access(template: Sequence[str], load: str, store: str) -> List[str]:
+    """A template's loads and stores in one layout's addressing: ``load``
+    formats input ``{a}``, ``store`` output ``{o}`` and value ``{v}``."""
+    out = []
+    for ln in template:
+        m = _STORE_MARK.match(ln)
+        if m:
+            ln = m.group(1) + store.format(o=m.group(2), v=m.group(3))
+        out.append(_LOAD_MARK.sub(lambda m: load.format(a=m.group(1)), ln))
+    return out
+
+
+# whole-tile loads and stores of the row and column-piece layouts
+_ROW_LOAD = "tl.load({a}_ptr + {a}_off$p, mask={a}_mask$p, other=0.0)"
+_ROW_STORE = ("tl.store({o}_optr + _rows * D + _cols$p, "
+              "{v}.to({o}_optr.dtype.element_ty), mask=_mask$p)")
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """The flat plan's form of a kernel: whether a tail block is masked
+    (else none is), and whether offsets are int64."""
+    tail: bool
+    off64: bool
+
+
 @dataclasses.dataclass
 class TritonKernel:
     """One saturated tile program as a Triton kernel source."""
@@ -259,24 +322,41 @@ class TritonKernel:
     @property
     def body(self) -> List[str]:
         """The body in one masked piece (the layout of ``source``)."""
-        return _expand(self.template, 1, masked=True)
+        return _expand(self._row_template, 1, masked=True)
+
+    @property
+    def _row_template(self) -> List[str]:
+        if self.halves:     # half tiles write their own accesses
+            return self.template
+        return _access(self.template, _ROW_LOAD, _ROW_STORE)
+
+    @property
+    def flat_ok(self) -> bool:
+        """Whether the flat plan can run this program: elementwise, in
+        whole tiles."""
+        return not (self.halves or self.has_reduction)
 
     @property
     def source(self) -> str:
-        """The kernel source for all-row operands (the common layout)."""
+        """The kernel source for all-row operands in the row and column
+        layout (the flat plan's is ``render(..., flat=...)``)."""
         return self.render(("row",) * len(self.in_arrays))
 
     def render(self, kinds: Sequence[str], pieces: Sequence[int] = (),
-               persistent: Optional[bool] = None) -> str:
+               persistent: Optional[bool] = None,
+               flat: Optional[FlatLayout] = None) -> str:
         """Full kernel source for one layout: ``kinds[i]`` is ``"row"``,
         ``"cycle"``, ``"bcycle"`` or ``"bcast"`` for input ``i``;
         ``pieces`` the widths of the column pieces that cover ``D``
         exactly (none: one masked block of ``BLOCK_D``); ``persistent``
         whether programs walk blocks in a loop (by default, a pipelined
-        kernel outside a cycle layout)."""
+        kernel outside a cycle layout); ``flat`` the flat plan's form,
+        where the operands are one stream of elements."""
         cycle = _by_position(kinds)
         if persistent is None:
             persistent = self.pipelined and not cycle
+        if flat is not None:
+            return self._render_flat(flat, persistent)
         if pieces and (self.halves or cycle or not self.has_reduction):
             raise ValueError(f"{self.name}: column pieces are for row "
                              f"reductions in whole tiles")
@@ -345,9 +425,66 @@ class TritonKernel:
                 lines.append(f"{ind}{a}_mask = {mask}")
         # the body is emitted at one level of indent
         extra = ind[4:]
-        body = _expand(self.template, max(1, len(pieces)),
+        body = _expand(self._row_template, max(1, len(pieces)),
                        masked=not pieces)
         lines += [extra + ln for ln in body]
+        return "\n".join(lines) + "\n"
+
+    def _render_flat(self, flat: FlatLayout, persistent: bool) -> str:
+        """The flat plan's kernel: the operands as one stream of
+        ``n_elems`` contiguous elements in blocks of ``BLOCK``, with no
+        row or column index. A block is loaded and stored unmasked; only
+        a tail block, where ``BLOCK`` does not divide ``n_elems``, is
+        masked: in a launch of one program per block the last program's,
+        in a persistent walk over the whole blocks the last program's
+        after its walk."""
+        if not self.flat_ok:
+            raise ValueError(f"{self.name}: the flat plan is for "
+                             f"elementwise programs in whole tiles")
+        params = ([f"{a}_ptr" for a in self.in_arrays]
+                  + [f"{a}_optr" for a in self.out_arrays] + self.scalars
+                  + ["n_elems", "BLOCK: tl.constexpr"])
+        lines = ["import triton", "import triton.language as tl", "", "",
+                 "@triton.jit(do_not_specialize=['n_elems'])",
+                 f"def {self.kernel_name}({', '.join(params)}):"]
+        store = "tl.store({o}_optr + _offs, {v}.to({o}_optr.dtype.element_ty)"
+
+        def body(ind, masked):
+            mask = ", mask=_mask" if masked else ""
+            fill = ", other=0.0" if masked else ""
+            out = _access(self.template,
+                          f"tl.load({{a}}_ptr + _offs{mask}{fill})",
+                          store + mask + ")")
+            out = _expand(out, 1, masked=False)
+            if any("_zero" in ln for ln in out):
+                out.insert(0, "    _zero = tl.zeros((BLOCK,), tl.float32)")
+            return [ind + ln for ln in out]
+
+        arange = "tl.arange(0, BLOCK)"
+        start = "_blk.to(tl.int64) * BLOCK" if flat.off64 else "_blk * BLOCK"
+        full = f"{start} + {arange}"
+        if persistent:
+            # whole blocks in a pipelined walk; the last program then
+            # takes the tail
+            lines += [f"    for _blk in tl.range(tl.program_id(0), "
+                      f"n_elems // BLOCK, tl.num_programs(0), "
+                      f"num_stages={NUM_STAGES}):",
+                      f"        _offs = {full}"] + body("    ", False)
+            if flat.tail:
+                tail = (f"{arange}.to(tl.int64)" if flat.off64 else arange)
+                lines += ["    if tl.program_id(0) == tl.num_programs(0) - 1:",
+                          f"        _offs = n_elems // BLOCK * BLOCK + {tail}",
+                          "        _mask = _offs < n_elems"] \
+                    + body("    ", True)
+        else:
+            lines += ["    _blk = tl.program_id(0)", f"    _offs = {full}"]
+            if flat.tail:
+                lines += ["    if _blk < n_elems // BLOCK:"] \
+                    + body("    ", False) \
+                    + ["    else:", "        _mask = _offs < n_elems"] \
+                    + body("    ", True)
+            else:
+                lines += body("", False)
         return "\n".join(lines) + "\n"
 
     def _piece_preamble(self, kinds, pieces, in_range, ind) -> List[str]:
@@ -527,9 +664,9 @@ class TritonGenerator(TorchCodeGenerator):
                                  f"other=0.0).to(tl.float32)")
                 self._pairs[name] = (f"{name}_lo", f"{name}_hi")
             else:
-                lines.append(f"{indent}{name}$p = tl.load({a}_ptr + "
-                             f"{a}_off$p, mask={a}_mask$p, "
-                             f"other=0.0).to(tl.float32)")
+                # addressed per layout (TritonKernel.render)
+                lines.append(f"{indent}{name}$p = $load[{a}]"
+                             f".to(tl.float32)")
                 self._tiles.add(name)
             self.scope.bind(cid, name)
             return name
@@ -590,15 +727,18 @@ class TritonGenerator(TorchCodeGenerator):
                              "Triton tile programs")
         val = self.emit_value(eff.value_cid, lines, indent)
         ptr = f"{eff.array}_optr"
-        # (value, column shift, piece suffix) of each store
+        # a value that is not a full tile (a per-row value, a scalar) is
+        # first broadcast to one
         if self.halves:
-            parts = zip(self._half(val), ("", " + D // 2"), ("", ""))
+            for part, shift in zip(self._half(val), ("", " + D // 2")):
+                if val not in self._pairs:
+                    part = f"({part} + _zero)"
+                lines.append(f"{indent}tl.store({ptr} + _rows * D + _cols"
+                             f"{shift}, {part}.to({ptr}.dtype.element_ty), "
+                             f"mask=_mask)")
         else:
-            parts = ((f"{val}$p" if val in self._tiles else val, "$p", "$p"),)
-        for part, shift, p in parts:
-            lines.append(f"{indent}tl.store({ptr} + _rows * D + _cols{shift}, "
-                         f"({part} + _zero{p}).to({ptr}.dtype.element_ty), "
-                         f"mask=_mask{p})")
+            part = f"{val}$p" if val in self._tiles else f"({val} + _zero$p)"
+            lines.append(f"{indent}$store[{eff.array}] {part}")
         # later loads of this array read the value just stored
         self.scope.bind_sym(eff.version_out, val)
         self.stats.n_stores += 1
@@ -693,7 +833,9 @@ class TileCallPlan:
     multiple) and the grid is (groups, position blocks, column blocks) in
     both forms; otherwise ``n_pos`` is ``rows``. ``pieces``, where set,
     are the widths of the column pieces that cover ``d`` exactly (then
-    ``block_d`` is ``d``)."""
+    ``block_d`` is ``d``). A ``flat`` plan walks the ``rows * d``
+    elements as one stream in blocks of ``block_d`` elements
+    (``block_r`` 1)."""
     rows: int
     d: int
     kinds: Tuple[str, ...]       # per input: row | cycle | bcycle | bcast
@@ -708,12 +850,14 @@ class TileCallPlan:
     spans: Tuple[int, ...] = ()
     pieces: Tuple[int, ...] = ()
     persistent: bool = False
+    flat: Optional[FlatLayout] = None
 
     @property
-    def layout(self) -> Tuple[Tuple[str, ...], Tuple[int, ...], bool]:
+    def layout(self) -> Tuple[Tuple[str, ...], Tuple[int, ...], bool,
+                              Optional[FlatLayout]]:
         """What the kernel's source depends on: the arguments of
         :meth:`TritonKernel.render` and the key of its compiled form."""
-        return self.kinds, self.pieces, self.persistent
+        return self.kinds, self.pieces, self.persistent, self.flat
 
 
 def _next_pow2(x: int) -> int:
@@ -758,9 +902,42 @@ def _reduction_block(rows: int, width: int, pieces: Sequence[int],
     return br, min(warps, REDUCE_MAX_WARPS)
 
 
-def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
+def flat_plan(tk: TritonKernel, rows: int, d: int, itemsize: int
+              ) -> TileCallPlan:
+    """The flat plan of ``tk`` over ``rows * d`` elements whose widest
+    operand takes ``itemsize`` bytes an element: blocks of
+    :data:`FLAT_WARPS` warps (:data:`FLAT_PIPELINED_WARPS` for a
+    pipelined kernel) whose threads each move :data:`FLAT_VECTORS`
+    16-byte vectors of that operand. The sync kernel launches one program
+    per block; the pipelined one walks the blocks persistently where
+    they outnumber :data:`PROGRAMS_PER_SM` programs per SM. Offsets are
+    int32 where every block's fit, int64 beyond."""
+    warps = FLAT_PIPELINED_WARPS if tk.pipelined else FLAT_WARPS
+    n = rows * d
+    block = warps * 32 * FLAT_VECTORS * max(1, 16 // itemsize)
+    n_blocks = -(-n // block)
+    cap = PROGRAMS_PER_SM * H100_SXM.sm_count if tk.pipelined else n_blocks
+    return TileCallPlan(
+        rows=rows, d=d, kinds=("row",) * len(tk.in_arrays),
+        periods=(rows,) * len(tk.in_arrays), block_r=1, block_d=block,
+        n_blocks=n_blocks, grid=(min(n_blocks, cap),), num_warps=warps,
+        n_pos=rows, spans=(0,) * len(tk.in_arrays),
+        persistent=n_blocks > cap,
+        flat=FlatLayout(tail=n % block != 0,
+                        off64=n_blocks * block > _INT32_LIMIT))
+
+
+def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]],
+                   in_dtypes: Sequence[Any], out_dtype: Any = None
                    ) -> TileCallPlan:
-    """Plan the launch of ``tk`` over operands of the given shapes.
+    """Plan the launch of ``tk`` over operands of the given shapes and
+    dtypes (torch or numpy: anything with an ``itemsize``), writing
+    ``out_dtype`` (by default the lead's dtype).
+
+    An elementwise program in whole tiles whose inputs all hold the
+    lead's elements (its rows, or the one row of a 1-D lead) takes the
+    :func:`flat_plan`, its block sized by the widest of those dtypes.
+    Otherwise:
 
     As in the Pallas plan, inputs whose leading extents multiply to the
     lead operand's row count tile over rows, and an input of ``d`` (or
@@ -779,6 +956,11 @@ def plan_tile_call(tk: TritonKernel, in_shapes: Sequence[Tuple[int, ...]]
     lead = tuple(in_shapes[0])
     d = lead[-1]
     rows = math.prod(lead[:-1]) if len(lead) > 1 else 1
+    if tk.flat_ok and all(math.prod(s) == rows * d and tuple(s)[-1:] == (d,)
+                          for s in in_shapes):
+        itemsize = max(t.itemsize for t in
+                       [*in_dtypes, out_dtype or in_dtypes[0]])
+        return flat_plan(tk, rows, d, itemsize)
     kinds, periods, spans = [], [], []
     for name, shp in zip(tk.in_arrays, in_shapes):
         shp = tuple(shp)
@@ -889,9 +1071,15 @@ class TileOp:
     def __call__(self, *arrays, **scalars):
         return self.apply(*arrays, **scalars)
 
-    def apply(self, *arrays, **scalars):
+    def apply(self, *arrays, out_dtype=None, **scalars):
+        """The op on ``arrays``. Outputs take the lead's dtype, or
+        ``out_dtype`` where given: the kernel loads each operand in its
+        own dtype and stores in that one, and the plain version then
+        computes on the operands cast to it."""
         devices = {a.device.type for a in arrays}
         if devices == {"cpu"}:
+            if out_dtype is not None:
+                arrays = [a.to(out_dtype) for a in arrays]
             return self.torch_ref(*arrays, **scalars)
         if devices != {"cuda"}:
             raise ValueError(f"{self.name}: operands on {sorted(devices)}; "
@@ -902,13 +1090,13 @@ class TileOp:
                 f"build, ladder level "
                 f"{getattr(self.sk, 'ladder_level', '?')!r}); refusing to "
                 "run a substitute on the card")
-        return _apply_tile_op(self, arrays, scalars)
+        return _apply_tile_op(self, arrays, scalars, out_dtype)
 
 
-def _apply_tile_op(op: TileOp, arrays, scalars):
+def _apply_tile_op(op: TileOp, arrays, scalars, out_dtype=None):
     tk = op.tk
-    plan, ins, outs = prepare_tile_call(tk, arrays, op.name)
-    if plan.rows > 0:
+    plan, ins, outs = prepare_tile_call(tk, arrays, op.name, out_dtype)
+    if plan.n_blocks > 0:
         launch_tile_kernel(tk.compiled(plan.layout), plan, ins, outs,
                            [float(scalars[s]) for s in tk.scalars])
         op.launches += 1
@@ -916,10 +1104,11 @@ def _apply_tile_op(op: TileOp, arrays, scalars):
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def prepare_tile_call(tk: TritonKernel, arrays, name: str):
+def prepare_tile_call(tk: TritonKernel, arrays, name: str, out_dtype=None):
     """The plan of one call, its inputs as the kernel reads them
     (contiguous; a one-element broadcast widened to ``d``) and its
-    outputs, allocated in the lead's shape and dtype."""
+    outputs, allocated in the lead's shape and in ``out_dtype``, by
+    default the lead's dtype."""
     import torch
 
     lead = arrays[0]
@@ -928,7 +1117,9 @@ def prepare_tile_call(tk: TritonKernel, arrays, name: str):
                          f"{tk.in_arrays}, got {len(arrays)}")
     if not lead.dtype.is_floating_point:
         raise TypeError(f"{name}: lead operand dtype {lead.dtype}")
-    plan = plan_tile_call(tk, [tuple(a.shape) for a in arrays])
+    out_dtype = out_dtype or lead.dtype
+    plan = plan_tile_call(tk, [tuple(a.shape) for a in arrays],
+                          [a.dtype for a in arrays], out_dtype)
     ins = []
     for kind, a in zip(plan.kinds, arrays):
         if a.device != lead.device:
@@ -937,7 +1128,7 @@ def prepare_tile_call(tk: TritonKernel, arrays, name: str):
         if kind == "bcast" and a.numel() == 1:
             a = a.reshape(1).expand(plan.d)
         ins.append(a.contiguous())
-    outs = [torch.empty(lead.shape, dtype=lead.dtype, device=lead.device)
+    outs = [torch.empty(lead.shape, dtype=out_dtype, device=lead.device)
             for _ in tk.out_arrays]
     return plan, ins, outs
 
@@ -945,6 +1136,9 @@ def prepare_tile_call(tk: TritonKernel, arrays, name: str):
 def launch_tile_kernel(kern, plan: TileCallPlan, ins, outs, svals):
     """Launch a compiled tile kernel over ``plan``; returns what the
     launch returns (Triton's compiled kernel)."""
+    if plan.flat is not None:
+        return kern[plan.grid](*ins, *outs, *svals, plan.rows * plan.d,
+                               BLOCK=plan.block_d, num_warps=plan.num_warps)
     pos = (plan.n_pos,) if _by_position(plan.kinds) else ()
     spans = tuple(s for k, s in zip(plan.kinds, plan.spans) if k == "bcycle")
     return kern[plan.grid](*ins, *outs, *svals, plan.rows, *plan.periods,

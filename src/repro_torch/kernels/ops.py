@@ -140,21 +140,30 @@ def _refuse_grad(name: str, *tensors):
             "no gradient")
 
 
-def _tile(name: str, *arrays, **scalars):
+def _tile(name: str, *arrays, out_dtype=None, **scalars):
+    """The tile op on ``arrays``, its outputs in the lead's dtype or in
+    ``out_dtype``: the kernel then reads each operand in its own dtype,
+    and the plain versions run on the operands cast to ``out_dtype``."""
     x = arrays[0]
     impl = current_impl(x)
+
+    def plain(fn):
+        args = arrays if out_dtype is None else \
+            [a.to(out_dtype) for a in arrays]
+        return fn(*args, **scalars)
+
     ref_fn = _REF_FNS[name]
     if impl == "ref":
-        return ref_fn(*arrays, **scalars)
+        return plain(ref_fn)
     if impl == "triton":
         if name in _NO_BACKWARD:
             _refuse_grad(name, *arrays)
         return _guarded(name, x,
-                        lambda: _kernel_op(name).apply(*arrays, **scalars),
-                        lambda: ref_fn(*arrays, **scalars))
-    return _guarded(name, x,
-                    lambda: get_tile_op(name).torch_ref(*arrays, **scalars),
-                    lambda: ref_fn(*arrays, **scalars))
+                        lambda: _kernel_op(name).apply(
+                            *arrays, out_dtype=out_dtype, **scalars),
+                        lambda: plain(ref_fn))
+    return _guarded(name, x, lambda: plain(get_tile_op(name).torch_ref),
+                    lambda: plain(ref_fn))
 
 
 # -- backward of the tile ops on the card ---------------------------------------
@@ -360,9 +369,13 @@ def adamw_update(param, grad, m, v, *, lr, b1, b2, eps, wd, inv_bc1,
 
 
 def l2_clip(g, *, norm, max_norm, eps=1e-9):
-    """``g * min(1, max_norm / (norm + eps))``: the saturated ``l2_clip``
-    program, the generated kernel on CUDA tensors."""
-    return _tile("l2_clip", g, norm=norm, max_norm=max_norm, eps=eps)
+    """``g.float() * min(1, max_norm / (norm + eps))`` in f32 whatever
+    ``g``'s dtype: the saturated ``l2_clip`` program. On CUDA tensors the
+    generated kernel reads ``g`` in its own dtype (a bf16 gradient is
+    upcast in registers, exactly) and writes f32, so the optimizer pays
+    no separate cast; the plain versions run on ``g.float()``."""
+    return _tile("l2_clip", g, out_dtype=torch.float32, norm=norm,
+                 max_norm=max_norm, eps=eps)
 
 
 # -- structured kernels -----------------------------------------------------------

@@ -12,6 +12,11 @@ schedule is linear warmup + cosine decay.
 
 Where the port differs from the JAX module:
 
+* The JAX package casts a gradient to f32 and then clips it. The port's
+  ``l2_clip`` kernel reads a bf16 gradient as it is, upcasts it in
+  registers and writes f32: the same bits (the cast is exact), without
+  the f32 copy that a separate cast writes and the kernel reads again.
+
 * The update is in place: each parameter tensor receives its new value
   (``copy_``) and each moment's entry in ``state`` is replaced leaf by
   leaf, so the old moments are freed as the walk goes (a functional
@@ -137,7 +142,7 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
     with torch.no_grad():
         for i, (path, p, g) in enumerate(zip(paths, flat_p, flat_g)):
             stacked_2d = ndim(path, p) >= 2
-            g32 = _clip(g.float(), norm, cfg.clip_norm, stacked_2d)
+            g32 = _clip(g, norm, cfg.clip_norm, stacked_2d)
             m2, v2, p2 = ops.adamw_update(
                 p.float(), g32, _moment_get(flat_m[i], cfg.moment_dtype),
                 _moment_get(flat_v[i], cfg.moment_dtype), lr=lr, b1=cfg.b1,
@@ -155,10 +160,12 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
     return params, state
 
 
-def _clip(g32, norm: float, max_norm: float, use_op: bool):
-    """Scale by min(1, c / (norm + eps)): the saturated ``l2_clip`` op
-    where the JAX package calls it (a leaf of ``ndim >= 2`` in its
-    stacked layout), a plain multiply otherwise."""
+def _clip(g, norm: float, max_norm: float, use_op: bool):
+    """``g`` in f32 scaled by min(1, c / (norm + eps)): the saturated
+    ``l2_clip`` op where the JAX package calls it (a leaf of ``ndim >= 2``
+    in its stacked layout), which reads a bf16 gradient as it is and
+    writes f32 (on the card one kernel, no separate cast), a plain
+    multiply of ``g.float()`` otherwise."""
     if use_op:
-        return ops.l2_clip(g32, norm=norm, max_norm=max_norm, eps=1e-9)
-    return g32 * min(1.0, max_norm / (norm + 1e-9))
+        return ops.l2_clip(g, norm=norm, max_norm=max_norm, eps=1e-9)
+    return g.float() * min(1.0, max_norm / (norm + 1e-9))

@@ -145,7 +145,8 @@ def test_rotary_cycle_layouts(period, groups, d, emitter, cuda):
     cos, sin = (torch.randn((1, 1, period, d), generator=gen, device=cuda)
                 for _ in range(2))
     op = get_tile_op("rotary", emitter=emitter)
-    plan = plan_tile_call(op.tk, [lead, cos.shape, sin.shape])
+    plan = plan_tile_call(op.tk, [lead, cos.shape, sin.shape],
+                          [q.dtype, cos.dtype, sin.dtype])
     assert (plan.n_pos, plan.grid[0]) == (period, groups)
     before = op.launches
     _close(op.apply(q, cos, sin),
@@ -864,6 +865,68 @@ def test_optimizer_kernels_match_plain(shape, cuda):
     _close(got, adamw.torch_ref(p, g, m, v, **sc), 2e-5)
     _close(clipped, clip.torch_ref(g, norm=3.0, max_norm=1.0, eps=1e-9),
            2e-5)
+    # a bf16 gradient, as autograd returns it for bf16 weights: read as it
+    # is, written f32, bitwise the f32 path on g.float() and g.float()
+    # times the kernel's own scale (the kernel's result on a one)
+    gb = g.bfloat16()
+    before = clip.launches
+    clipped = ops.l2_clip(gb, norm=3.0, max_norm=1.0)
+    scale = ops.l2_clip(torch.ones(1, dtype=torch.bfloat16, device=cuda),
+                        norm=3.0, max_norm=1.0)
+    torch.cuda.synchronize()
+    assert clip.launches == before + 2 and clipped.dtype == torch.float32
+    assert torch.equal(clipped, ops.l2_clip(gb.float(), norm=3.0,
+                                            max_norm=1.0))
+    assert torch.equal(clipped, gb.float() * scale)
+    _close(clipped, clip.torch_ref(gb.float(), norm=3.0, max_norm=1.0,
+                                   eps=1e-9), 2e-5)
+
+
+def test_bf16_l2_clip_runs_only_its_kernel_on_the_card(cuda, monkeypatch):
+    """A bf16 gradient on the card reaches the l2_clip kernel and never
+    a plain version; a kernel that fails to launch raises rather than
+    fall back to the cast and the f32 kernel."""
+    from repro_torch.kernels import ops, ref
+    clip = get_tile_op("l2_clip")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(clip, "torch_ref", plain)
+    monkeypatch.setattr(ref, "l2_clip_ref", plain)
+    g = torch.randn((37, 200), device=cuda).bfloat16()
+    before = clip.launches
+    assert ops.l2_clip(g, norm=3.0, max_norm=1.0).dtype == torch.float32
+    assert clip.launches == before + 1
+
+    def broken(layout):
+        raise RuntimeError("launch refused")
+
+    monkeypatch.setattr(clip.tk, "compiled", broken)
+    with pytest.raises(RuntimeError, match="launch refused"):
+        ops.l2_clip(g, norm=3.0, max_norm=1.0)
+    assert clip.launches == before + 1
+
+
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+def test_gelu_flat_plan_on_the_card(emitter, cuda):
+    """gelu on the flat plan at ragged element counts (one element, a
+    block short, a tail past one and past many blocks, a persistent
+    walk's tail) in f32 and bf16, its tanh through exp and "/": within
+    2e-5 (f32) and 3e-2 (bf16) of the plain version over |x| <= 10."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    op = get_tile_op("gelu", emitter=emitter)
+    for n in (1, 1023, 2049, 6000, 3 * 4096 + 5, 600 * 2048 + 7):
+        x = (torch.rand(n, generator=gen, device=cuda) * 20 - 10)
+        x[:min(n, 2001)] = torch.linspace(-10, 10, min(n, 2001),
+                                          device=cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = x.to(dtype)
+            before = op.launches
+            got = op.apply(a)
+            assert op.launches == before + 1 and got.dtype == dtype
+            _close(got, op.torch_ref(a), TILE_TOL[dtype])
 
 
 def _smoke_f32(arch="minitron-4b"):

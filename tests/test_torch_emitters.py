@@ -87,11 +87,17 @@ def test_pipelined_plain_version_is_the_sync_ops(name):
         assert torch.equal(g, w)
 
 
+def _plan(tk, shapes, dtype=torch.float32):
+    """``plan_tile_call`` with every operand, and the output, in
+    ``dtype``."""
+    return plan_tile_call(tk, shapes, [dtype] * len(shapes))
+
+
 def test_pipelined_plan_is_persistent():
     cap = PROGRAMS_PER_SM * H100_SXM.sm_count
     rms = get_tile_op("rmsnorm", emitter="triton_pipelined").tk
-    big = plan_tile_call(rms, [(2048, 3072), (3072,)])
-    sync = plan_tile_call(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
+    big = _plan(rms, [(2048, 3072), (3072,)])
+    sync = _plan(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
     assert sync.n_blocks == sync.grid[0] * sync.grid[1]
     assert not sync.persistent
     # a persistent walk's row blocks take the register budget, the sync
@@ -101,14 +107,20 @@ def test_pipelined_plan_is_persistent():
     assert big.persistent and big.n_blocks == 2048 // big.block_r
     assert big.grid == (min(big.n_blocks, cap),) and big.n_blocks > cap
     # blocks that fit in the persistent grid: the sync launch, no loop
-    small = plan_tile_call(rms, [(37, 200), (200,)])
+    small = _plan(rms, [(37, 200), (200,)])
     assert not small.persistent and small.grid == (small.n_blocks, 1)
     fn = ast.parse(rms.render(*small.layout)).body[-1]
     assert not [n for n in ast.walk(fn) if isinstance(n, ast.For)]
-    # no reduction: column blocks are walked too
-    sw = plan_tile_call(get_tile_op("swiglu", emitter="triton_pipelined").tk,
-                        [(2048, 9216)] * 2)
-    assert sw.n_blocks == (2048 // sw.block_r) * 9 and sw.grid == (cap,)
+    # no reduction: the flat plan's blocks of the element stream are
+    # walked, the tail (none here) by the last program after its walk
+    sw = _plan(get_tile_op("swiglu", emitter="triton_pipelined").tk,
+               [(2048, 9216)] * 2, torch.bfloat16)
+    assert sw.flat is not None and sw.persistent
+    assert sw.n_blocks == 2048 * 9216 // sw.block_d and sw.grid == (cap,)
+    src = get_tile_op("swiglu", emitter="triton_pipelined").tk.render(
+        *sw.layout)
+    assert (f"for _blk in tl.range(tl.program_id(0), n_elems // BLOCK, "
+            f"tl.num_programs(0), num_stages={NUM_STAGES}):") in src
 
 
 def test_pipelined_cycle_layout_is_the_sync_launch():
@@ -116,8 +128,8 @@ def test_pipelined_cycle_layout_is_the_sync_launch():
     one program per (group, block of positions), with no block loop."""
     tk = get_tile_op("rotary", emitter="triton_pipelined").tk
     shapes = [(4, 24, 512, 128), (1, 1, 512, 128), (1, 1, 512, 128)]
-    plan = plan_tile_call(tk, shapes)
-    assert plan == plan_tile_call(get_tile_op("rotary").tk, shapes)
+    plan = _plan(tk, shapes)
+    assert plan == _plan(get_tile_op("rotary").tk, shapes)
     assert plan.grid == (96, 512 // plan.block_r, 1)
     src = tk.render(plan.kinds)
     fn = ast.parse(src).body[-1]

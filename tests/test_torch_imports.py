@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor the JAX package ``repro`` (lazy imports
-included), and the entry points refuse to fall back to the CPU."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+scripts under ``tools/`` import neither ``jax`` nor the JAX package
+``repro`` (lazy imports included), and the entry points refuse to fall
+back to the CPU."""
 import ast
 import os
 import pathlib
@@ -12,7 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*.py")
-                    if "_build" not in p.parts) + [ROOT / "chip_smoke.py"]
+                    if "_build" not in p.parts) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_modules(path: pathlib.Path):

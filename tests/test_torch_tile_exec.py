@@ -13,6 +13,7 @@ checks the kernels' indexing (half tiles, cycle layouts, ragged edges,
 the persistent block walk) without a card; the card checks the same
 layouts in tests/test_torch_cuda.py.
 """
+import dataclasses
 import itertools
 import math
 import sys
@@ -23,13 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ref import gelu_ref as jax_gelu_ref
 from repro.kernels.tile_programs import get_tile_op as jax_tile_op
 from repro_torch.core import (KernelProgram, SaturatorConfig, ScheduleConfig,
                               make_tile_op, rmax, rmean, rothalf, rsqrt,
                               rsum)
 from repro_torch.core import tritongen
 from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
-                                        launch_tile_kernel, prepare_tile_call)
+                                        launch_tile_kernel, plan_tile_call,
+                                        prepare_tile_call)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
 PIPE = "triton_pipelined"
@@ -58,6 +61,7 @@ class _Dtype:
 
 _F32 = _Dtype("float32", lambda x: np.asarray(x, dtype=np.float32))
 _BF16 = _Dtype("bfloat16", _round_bf16)
+_I32 = _Dtype("int32", lambda x: np.asarray(x, dtype=np.int32))
 _I64 = _Dtype("int64", lambda x: np.asarray(x, dtype=np.int64))
 
 
@@ -147,7 +151,8 @@ class _Kernel:
 
 
 def _program_id(axis):
-    return _Launch.pid[axis]
+    # an int32 scalar, as Triton's (``.to(tl.int64)`` widens it)
+    return _tile(np.asarray(_Launch.pid[axis], np.int32))
 
 
 def _num_programs(axis):
@@ -163,7 +168,8 @@ def _arange(start, end):
 
 def _range(start, end, step=1, num_stages=None):
     assert num_stages is None or int(num_stages) >= 1
-    return range(int(start), int(end), int(step))
+    return (_tile(np.asarray(i, np.int32))
+            for i in range(int(start), int(end), int(step)))
 
 
 def _f32(x):
@@ -200,8 +206,8 @@ def _binary(f):
 def _standin_modules():
     tl = types.ModuleType("triton.language")
     fns = dict(
-        constexpr=type("constexpr", (), {}), float32=_F32, int64=_I64,
-        program_id=_program_id, num_programs=_num_programs,
+        constexpr=type("constexpr", (), {}), float32=_F32, int32=_I32,
+        int64=_I64, program_id=_program_id, num_programs=_num_programs,
         cdiv=lambda a, b: -(-a // b), arange=_arange, range=_range,
         zeros=lambda shape, dtype: _tile(np.zeros(shape, np.float32)),
         full=lambda shape, value, dtype: _tile(
@@ -236,11 +242,12 @@ def standin(monkeypatch):
 
 
 # -- running an emitted kernel ------------------------------------------------
-def _run(tk, arrays, scalars):
+def _run(tk, arrays, scalars, out_dtype=None, plan=None):
     """Execute ``tk``'s emitted source for these operands' layout, as
-    ``_apply_tile_op`` launches it on the card. Returns the outputs and
-    the plan."""
-    plan, ins, outs = prepare_tile_call(tk, arrays, tk.name)
+    ``_apply_tile_op`` launches it on the card (or under ``plan``, a
+    variant of the call's). Returns the outputs and the plan."""
+    call_plan, ins, outs = prepare_tile_call(tk, arrays, tk.name, out_dtype)
+    plan = plan or call_plan
     ns = {}
     exec(compile(tk.render(*plan.layout), f"<{tk.kernel_name}>", "exec"), ns)
     kern = ns[tk.kernel_name]
@@ -284,7 +291,9 @@ def test_emitted_kernel_matches_plain(name, emitter, dtype, standin):
     xs, sc = _tile_inputs(name, 37, 200, dtype, np.random.default_rng(0))
     op = get_tile_op(name, emitter=emitter)
     got, plan = _run(op.tk, xs, sc)
-    assert plan.grid[0] * plan.block_r >= 37 or emitter == PIPE
+    # one program per block covers the rows, or (flat) the elements
+    covered = plan.grid[0] * (plan.block_d if plan.flat else plan.block_r)
+    assert covered >= (37 * 200 if plan.flat else 37) or emitter == PIPE
     _close(got, op.torch_ref(*(x.expand(xs[0].shape) for x in xs), **sc),
            TOL[dtype])
 
@@ -566,7 +575,8 @@ def test_rothalf_with_reductions(shape, emitter, standin):
 
 def test_standin_refuses_what_triton_would(standin):
     """The stand-in raises where Triton would: an unknown name, a block
-    that is not a power of two, a masked-in address outside its tensor."""
+    that is not a power of two, a masked-in address outside its tensor
+    (an unmasked access included)."""
     tl = sys.modules["triton.language"]
     with pytest.raises(AttributeError, match="stand-in lacks"):
         tl.flip
@@ -575,5 +585,164 @@ def test_standin_refuses_what_triton_would(standin):
     ptr = _Ptr(np.zeros(8, np.float32), _F32)
     with pytest.raises(IndexError):
         tl.load(ptr + np.arange(4) + 6, mask=np.ones(4, bool))
+    with pytest.raises(IndexError):
+        tl.store(ptr + np.arange(4) + 6, np.zeros(4))
     assert tl.load(ptr + np.arange(4) + 6,
                    mask=np.arange(4) + 6 < 8).shape == (4,)
+
+
+# -- the flat plan ----------------------------------------------------------
+# the programs with no reduction and no rothalf: every one takes the flat
+# plan where its operands all have the lead's shape
+FLAT = sorted(n for n in PROGRAMS if get_tile_op(n).tk.flat_ok)
+
+def _f32_block(emitter):
+    """An f32 block: FLAT_WARPS warps (FLAT_PIPELINED_WARPS pipelined) of
+    32 threads, FLAT_VECTORS 16-byte vectors of 4 elements a thread."""
+    warps = tritongen.FLAT_PIPELINED_WARPS if emitter == PIPE \
+        else tritongen.FLAT_WARPS
+    return warps * 32 * tritongen.FLAT_VECTORS * 4
+
+
+def _flat_inputs(name, shape, dtype, seed):
+    prog = PROGRAMS[name]()
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=shape).astype(np.float32)
+          for a in prog.arrays.values() if a.role != "out"]
+    xs = [np.abs(x) * 0.01 if a == "v" else x
+          for a, x in zip(get_tile_op(name).tk.in_arrays, xs)]
+    return ([torch.from_numpy(x).to(dtype) for x in xs],
+            {s: SCALARS[s] for s in prog.scalars})
+
+
+def test_flat_programs():
+    assert FLAT == ["adamw", "gelu", "l2_clip", "residual_scale",
+                    "sgd_momentum", "ssd_gate", "swiglu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("shape", [(1,), (1, 1023), (3, 344), (2, 3, 1000),
+                                   (4, 1024)],
+                         ids=["one", "short", "one_over", "ragged", "even"])
+@pytest.mark.parametrize("name", FLAT)
+def test_flat_plan_matches_plain(name, shape, emitter, dtype, standin):
+    """Every elementwise program on the flat plan: one element, a block
+    short of the first, a tail of 8 past it, a ragged tail after five
+    blocks and a whole number of blocks (only a tail block is masked,
+    and none where the block divides the elements). Every masked-in
+    address lies inside its tensor and every output element is written
+    once (``_run``)."""
+    xs, sc = _flat_inputs(name, shape, dtype, math.prod(shape))
+    op = get_tile_op(name, emitter=emitter)
+    got, plan = _run(op.tk, xs, sc)
+    n = math.prod(shape)
+    block = _f32_block(emitter) * (2 if dtype == torch.bfloat16 else 1)
+    assert plan.flat is not None and plan.block_d == block
+    assert plan.flat.tail == (n % block != 0) and not plan.flat.off64
+    assert plan.n_blocks == -(-n // block)
+    src = op.tk.render(*plan.layout)
+    assert ("mask=" in src) == plan.flat.tail and "_rows" not in src
+    _close(got, op.torch_ref(*xs, **sc), TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["adamw", "gelu", "swiglu"])
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_flat_plan_persistent_walk_and_tail(name, emitter, standin,
+                                            monkeypatch):
+    """A persistent walk over more whole blocks than programs, then the
+    tail by the last program: the pipelined kernel at one program per
+    SM, and the sync kernel launched as such a walk (as
+    tools/tile_time.py's variants launch it), over 133 blocks and 7
+    elements."""
+    monkeypatch.setattr(tritongen, "PROGRAMS_PER_SM", 1)
+    shape = (7, (133 * _f32_block(emitter) + 7) // 7)
+    xs, sc = _flat_inputs(name, shape, torch.float32, 3)
+    op = get_tile_op(name, emitter=emitter)
+    plan = tritongen.flat_plan(op.tk, *shape, 4)
+    if emitter is None:
+        assert not plan.persistent and plan.grid == (plan.n_blocks,)
+        plan = dataclasses.replace(
+            plan, grid=(tritongen.H100_SXM.sm_count,), persistent=True)
+    assert plan.persistent and plan.flat.tail
+    assert plan.grid == (tritongen.H100_SXM.sm_count,) < (plan.n_blocks,)
+    got, _ = _run(op.tk, xs, sc, plan=plan)
+    _close(got, op.torch_ref(*xs, **sc), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_flat_int64_offsets(emitter, standin):
+    """The int64-offset form, forced on a small operand with a tail,
+    addresses the elements as the int32 form does."""
+    xs, sc = _flat_inputs("adamw", (3, 1000), torch.float32, 7)
+    op = get_tile_op("adamw", emitter=emitter)
+    plan = prepare_tile_call(op.tk, xs, "adamw")[0]
+    forced = dataclasses.replace(plan, flat=tritongen.FlatLayout(
+        tail=True, off64=True))
+    src = op.tk.render(*forced.layout)
+    assert "_blk.to(tl.int64) * BLOCK" in src
+    got, _ = _run(op.tk, xs, sc, plan=forced)
+    _close(got, op.torch_ref(*xs, **sc), TOL[torch.float32])
+
+
+def test_flat_offsets_are_int32_until_they_need_int64():
+    """The plan alone, with no allocation: int32 offsets while every
+    block's last offset is below 2^31 (minitron's embedding, 786 M
+    elements; 2^31 - 1 elements padded to 2^31), int64 past it."""
+    tk = get_tile_op("l2_clip").tk
+
+    def flat(*shape, dtype=torch.float32):
+        return plan_tile_call(tk, [shape], [dtype]).flat
+
+    assert flat(256000, 3072) == tritongen.FlatLayout(False, False)
+    assert not flat(2 ** 31 // 1024, 1024).off64        # 2^31 exactly
+    assert flat(2 ** 31 - 1).tail and not flat(2 ** 31 - 1).off64
+    assert not flat(2 ** 31 - 1, dtype=torch.bfloat16).off64
+    assert flat(2 ** 31 // 1024 + 1, 1024).off64        # 2^31 + 1024
+    assert flat(2 ** 31 + 1).off64 and flat(2 ** 31 + 1).tail
+    src = tk.render(*plan_tile_call(tk, [(256000, 3072)],
+                                    [torch.bfloat16], torch.float32).layout)
+    assert ".to(tl.int64)" not in src and "mask=" not in src
+    pipe = get_tile_op("l2_clip", emitter=PIPE).tk
+    src = pipe.render(*plan_tile_call(pipe, [(2 ** 31 + 1,)],
+                                      [torch.float32]).layout)
+    assert "_blk.to(tl.int64) * BLOCK" in src
+    assert "tl.arange(0, BLOCK).to(tl.int64)" in src
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1,), (5, 1000), (3, 4, 96)])
+def test_l2_clip_reads_its_dtype_and_writes_f32(shape, dtype, emitter,
+                                                standin):
+    """l2_clip of a bf16 or f32 gradient into f32: the kernel loads the
+    gradient in its dtype and stores f32 (the block sized by the f32
+    output), bitwise the plain version on ``g.float()``."""
+    g = _flat_inputs("l2_clip", shape, dtype, 5)[0][0]
+    sc = {"norm": 3.0, "max_norm": 1.0, "eps": 1e-9}
+    op = get_tile_op("l2_clip", emitter=emitter)
+    got, plan = _run(op.tk, [g], sc, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert plan.block_d == _f32_block(emitter)
+    assert torch.equal(got, op.torch_ref(g.float(), **sc))
+    assert torch.equal(got, op.apply(g, out_dtype=torch.float32, **sc))
+
+
+@pytest.mark.parametrize("emitter", [None, PIPE], ids=["sync", "pipelined"])
+def test_gelu_tanh_form_matches_gelu_ref(emitter, standin):
+    """The emitted gelu (its tanh through tl.exp and "/") against the JAX
+    package's gelu_ref over |x| <= 10, where 1 + tanh cancels in the
+    negative tail: f32 within 2e-5, bf16 within 3e-2."""
+    x = np.concatenate([np.linspace(-10, 10, 4001),
+                        np.random.default_rng(6).normal(size=999) * 4])
+    want = np.asarray(jax_gelu_ref(jnp.asarray(x, jnp.float32)))
+    op = get_tile_op("gelu", emitter=emitter)
+    got, _ = _run(op.tk, [torch.from_numpy(x.astype(np.float32))], {})
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    xb = torch.from_numpy(x.astype(np.float32)).bfloat16()
+    got, _ = _run(op.tk, [xb], {})
+    want = np.asarray(jax_gelu_ref(jnp.asarray(xb.float().numpy())))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
+                               rtol=3e-2)

@@ -19,6 +19,7 @@ from repro_torch.core import KernelProgram, c, make_tile_op
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.telemetry import reset_telemetry, telemetry
 from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
+                                        FLAT_VECTORS, FLAT_WARPS,
                                         plan_tile_call)
 from repro_torch.kernels import ops
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
@@ -134,6 +135,23 @@ def test_moe_router_probs_match_pallas_interpret(lead):
                                **TOL["f32"])
 
 
+@pytest.mark.parametrize("shape", [(6, 96), (3, 4, 32), (96,)])
+def test_l2_clip_of_a_bf16_gradient_matches_jax_bitwise(shape):
+    """``ops.l2_clip`` takes a bf16 gradient as it is and returns f32:
+    bitwise the JAX package's saturated op on ``g.astype(f32)`` (its
+    optimizer's cast, then the op), and the f32 path of the same values."""
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                         ).bfloat16()
+    sc = {"norm": 3.0, "max_norm": 1.0, "eps": 1e-9}
+    got = ops.l2_clip(g, **sc)
+    assert got.dtype == torch.float32
+    gj = jnp.asarray(g.float().numpy()).astype(jnp.bfloat16)
+    want = jax_tile_op("l2_clip").jax_ref(gj.astype(jnp.float32), **sc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, ops.l2_clip(g.float(), **sc))
+
+
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_triton_source_parses(name):
     op = get_tile_op(name)
@@ -177,9 +195,15 @@ def test_triton_masked_reductions_golden():
     assert "for " not in cyc and "% D" not in cyc
 
 
+def _plan(tk, shapes, dtype=torch.float32):
+    """``plan_tile_call`` with every operand, and the output, in
+    ``dtype``."""
+    return plan_tile_call(tk, shapes, [dtype] * len(shapes))
+
+
 def test_plan_tile_call_kinds():
     tk = get_tile_op("rotary").tk
-    plan = plan_tile_call(tk, [(4, 24, 512, 128), (1, 1, 512, 128),
+    plan = _plan(tk, [(4, 24, 512, 128), (1, 1, 512, 128),
                                (1, 1, 512, 128)])
     assert plan.kinds == ("row", "cycle", "cycle")
     assert plan.periods == (4 * 24 * 512, 512, 512)
@@ -189,30 +213,41 @@ def test_plan_tile_call_kinds():
     assert plan.n_pos == 512 and plan.block_r == CYCLE_BLOCK_R and \
         plan.num_warps == CYCLE_NUM_WARPS
     assert plan.grid == (96, 512 // CYCLE_BLOCK_R, 1)
-    k510 = plan_tile_call(tk, [(4, 8, 510, 128), (1, 1, 510, 128),
+    k510 = _plan(tk, [(4, 8, 510, 128), (1, 1, 510, 128),
                                (1, 1, 510, 128)])
     assert k510.n_pos == 510 and k510.grid == (32, -(-510 // CYCLE_BLOCK_R), 1)
     # positions past what the grid's second axis holds are refused
     with pytest.raises(ValueError, match="over the grid"):
-        plan_tile_call(tk, [(2, 2 ** 21, 128), (2 ** 21, 128),
+        _plan(tk, [(2, 2 ** 21, 128), (2 ** 21, 128),
                             (2 ** 21, 128)])
     # row and broadcast layouts keep their plan
-    dec = plan_tile_call(tk, [(4, 24, 1, 128), (1, 1, 1, 128),
+    dec = _plan(tk, [(4, 24, 1, 128), (1, 1, 1, 128),
                               (1, 1, 1, 128)])
     assert dec.kinds == ("row", "bcast", "bcast")
     assert (dec.block_r, dec.block_d, dec.grid, dec.num_warps, dec.n_pos) == \
         (64, 128, (2, 1), 8, 96)
-    rms = plan_tile_call(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
+    rms = _plan(get_tile_op("rmsnorm").tk, [(2048, 3072), (3072,)])
     assert rms.kinds == ("row", "bcast") and rms.block_d == 3072
     assert rms.pieces == (2048, 1024)
     assert rms.grid == (2048 // rms.block_r, 1)
-    # no reduction: swiglu also tiles columns
-    sw = plan_tile_call(get_tile_op("swiglu").tk, [(2048, 9216)] * 2)
-    assert sw.block_d == 1024 and sw.grid[1] == 9
+    # no reduction, every operand the lead's shape: swiglu (bf16, as its
+    # path launches it) takes the flat plan, one stream of 2048 * 9216
+    # elements in blocks of FLAT_WARPS warps moving FLAT_VECTORS 16-byte
+    # vectors of bf16 (8 elements) a thread
+    sw = _plan(get_tile_op("swiglu").tk, [(2048, 9216)] * 2, torch.bfloat16)
+    block = FLAT_WARPS * 32 * FLAT_VECTORS * 8
+    assert sw.flat is not None and sw.block_d == block == 2048
+    assert sw.n_blocks == 2048 * 9216 // block and not sw.flat.tail
+    # f32 operands take half the elements a block
+    sw32 = _plan(get_tile_op("swiglu").tk, [(2048, 9216)] * 2)
+    assert sw32.block_d == block // 2
+    # with a broadcast operand it tiles columns, as before the flat plan
+    swb = _plan(get_tile_op("swiglu").tk, [(2048, 9216), (9216,)])
+    assert swb.flat is None and swb.block_d == 1024 and swb.grid[1] == 9
     with pytest.raises(ValueError):
-        plan_tile_call(tk, [(4, 6, 128), (5, 128), (5, 128)])
+        _plan(tk, [(4, 6, 128), (5, 128), (5, 128)])
     with pytest.raises(ValueError, match="even width"):
-        plan_tile_call(tk, [(4, 6, 127), (6, 127), (6, 127)])
+        _plan(tk, [(4, 6, 127), (6, 127), (6, 127)])
 
 
 def test_plan_tile_call_per_batch_tables():
@@ -221,13 +256,13 @@ def test_plan_tile_call_per_batch_tables():
     positions as a cycle is, and read in place at
     ``(row // span) * S + position``."""
     tk = get_tile_op("rotary").tk
-    plan = plan_tile_call(tk, [(4, 12, 512, 128), (4, 1, 512, 128),
+    plan = _plan(tk, [(4, 12, 512, 128), (4, 1, 512, 128),
                                (4, 1, 512, 128)])
     assert plan.kinds == ("row", "bcycle", "bcycle")
     assert plan.periods[1:] == (512, 512) and plan.spans == (0, 6144, 6144)
     assert plan.n_pos == 512 and plan.grid == (48, 512 // CYCLE_BLOCK_R, 1)
     # one table per batch row at one position (a prefill of one token)
-    one = plan_tile_call(tk, [(3, 2, 1, 128), (3, 1, 1, 128),
+    one = _plan(tk, [(3, 2, 1, 128), (3, 1, 1, 128),
                               (3, 1, 1, 128)])
     assert one.kinds[1:] == ("bcycle", "bcycle") and one.spans[1:] == (2, 2)
     src = tk.render(plan.kinds)
@@ -236,7 +271,7 @@ def test_plan_tile_call_per_batch_tables():
     assert "'cos_span', 'sin_span']" in src and "for " not in src
     # a table that varies over the heads but not the batch stays refused
     with pytest.raises(ValueError, match="does not tile"):
-        plan_tile_call(tk, [(4, 12, 8, 128), (1, 12, 1, 128),
+        _plan(tk, [(4, 12, 8, 128), (1, 12, 1, 128),
                             (1, 12, 1, 128)])
 
 
@@ -248,12 +283,12 @@ def test_router_plan_covers_the_card(emitter):
     masked lane), launched as the sync grid in both forms; the decode
     tick one row a program."""
     tk = get_tile_op("moe_router", emitter=emitter).tk
-    plan = plan_tile_call(tk, [(32, 64, 16)])
+    plan = _plan(tk, [(32, 64, 16)])
     assert plan.grid[0] >= 2 * H100_SXM.sm_count and len(plan.grid) == 2
     assert plan.grid[0] * plan.block_r == 2048 and plan.num_warps == 1
     assert plan.pieces == (16,) and plan.block_d == 16
     assert not plan.persistent
-    dec = plan_tile_call(tk, [(4, 1, 16)])
+    dec = _plan(tk, [(4, 1, 16)])
     assert (dec.block_r, dec.grid, dec.num_warps) == (1, (4, 1), 1)
     src = tk.render(*plan.layout)
     assert "tl.where" not in src and "_cmask" not in src
@@ -269,7 +304,7 @@ def test_layernorm_pieces_cover_the_row(emitter):
     reductions sum both pieces' partial sums and divide by the true
     width."""
     tk = get_tile_op("layernorm", emitter=emitter).tk
-    plan = plan_tile_call(tk, [(2048, 768), (768,), (768,)])
+    plan = _plan(tk, [(2048, 768), (768,), (768,)])
     assert plan.pieces == (512, 256) and plan.block_d == 768
     assert plan.grid[0] * plan.block_r >= 2048 or plan.persistent
     assert plan.n_blocks >= 2 * H100_SXM.sm_count
@@ -302,7 +337,7 @@ def test_cycle_plans_unchanged(emitter):
             ((4, 24, 512, 128), (1, 1, 512, 128), ("row", "cycle", "cycle")),
             ((4, 12, 512, 128), (4, 1, 512, 128),
              ("row", "bcycle", "bcycle"))):
-        plan = plan_tile_call(tk, [lead, tab, tab])
+        plan = _plan(tk, [lead, tab, tab])
         assert plan.kinds == kinds and plan.n_pos == 512
         assert (plan.block_r, plan.block_d, plan.num_warps) == \
             (CYCLE_BLOCK_R, 128, CYCLE_NUM_WARPS)

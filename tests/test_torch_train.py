@@ -248,13 +248,18 @@ def test_grad_step_matches_jax(arch):
 
 
 # -- the optimizer --------------------------------------------------------------------
-@pytest.mark.parametrize("moment", ["f32", "int8"])
-def test_apply_updates_matches_jax(moment):
+@pytest.mark.parametrize("moment,grad_dtype", [
+    ("f32", "f32"), ("int8", "f32"), ("f32", "bf16")],
+    ids=["f32", "int8", "f32-bf16_grads"])
+def test_apply_updates_matches_jax(moment, grad_dtype):
     """Two steps on the minitron smoke weights with seeded gradients
     (scaled so that the clip acts), f32 or int8 moments: parameters and
     moments within 2e-5. The JAX package decays (and clips through the
     op) each layer's norm gain, stacked (L, d), and not the final norm
-    (d,); the port reads its per-layer leaves in that layout."""
+    (d,); the port reads its per-layer leaves in that layout. bf16
+    gradients, as autograd returns them for bf16 weights, go to both as
+    the same bf16 values: the JAX package casts them to f32 and clips,
+    the port's l2_clip takes them as they are."""
     _, jparams, cfg, _, params = _pair("minitron_4b")
     jcfg = JaxOptConfig(warmup_steps=1, moment_dtype=moment)
     ocfg = OptConfig(warmup_steps=1, moment_dtype=moment)
@@ -264,7 +269,14 @@ def test_apply_updates_matches_jax(moment):
     for step in range(2):
         jg = jax.tree.map(lambda p: jnp.asarray(
             rng.normal(size=p.shape).astype(np.float32) * 0.05), jparams)
-        g = params_from_reference(_np(jg), cfg, "cpu")
+        if grad_dtype == "bf16":
+            jg = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jg)
+        g = params_from_reference(
+            _np(jax.tree.map(lambda a: a.astype(jnp.float32), jg)), cfg,
+            "cpu")
+        if grad_dtype == "bf16":    # exact: the values are bf16's
+            g = T.tree_map(lambda a: a.bfloat16(), g)
+            assert all(a.dtype == torch.bfloat16 for a in T.leaves(g))
         jparams, jstate = jax_apply_updates(jparams, jg, jstate, jcfg)
         params, state = apply_updates(params, g, state, ocfg,
                                       ndim=functools.partial(reference_ndim,

@@ -24,6 +24,7 @@ object per line.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -61,13 +62,22 @@ def _measure(torch, timer, op, args):
     return {"ms": timer.ms(lambda: op.apply(*args)), "max_abs_err": err}
 
 
+def _plan(op, args):
+    """The tree's launch plan of the op on these operands (a tree before
+    the plan took dtypes plans from the shapes alone)."""
+    from repro_torch.core.tritongen import plan_tile_call
+    shapes = [a.shape for a in args]
+    if "in_dtypes" in inspect.signature(plan_tile_call).parameters:
+        return plan_tile_call(op.tk, shapes, [a.dtype for a in args])
+    return plan_tile_call(op.tk, shapes)
+
+
 def _compiled(op, args):
     """``chip_smoke._kernel_info`` of every kernel the op's Triton
     function compiled for these operands' layout (read from Triton's
     per-device kernel cache, so it works for any tree's emitter)."""
     from chip_smoke import _kernel_info
-    from repro_torch.core.tritongen import plan_tile_call
-    plan = plan_tile_call(op.tk, [a.shape for a in args])
+    plan = _plan(op, args)
     jit = op.tk.compiled(getattr(plan, "layout", plan.kinds))
     try:
         return [_kernel_info(ck) for cache in jit.device_caches.values()
@@ -89,7 +99,6 @@ def main() -> int:
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
         ROOT, "src", "repro_torch", "_build", "triton_cache"))
     from chip_smoke import Timer, _tile_bound
-    from repro_torch.core.tritongen import plan_tile_call
     from repro_torch.kernels.tile_programs import get_tile_op
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -103,7 +112,7 @@ def main() -> int:
         row = {"src": os.path.relpath(args.src, ROOT), "shape": name,
                "bound_ms": _tile_bound(ops["sync"], a)[0]}
         for form, op in ops.items():
-            plan = plan_tile_call(op.tk, [x.shape for x in a])
+            plan = _plan(op, a)
             row[form] = _measure(torch, timer, op, a)
             row[form]["device_ms"] = timer.device_ms(
                 lambda: op.apply(*a), "rotary_kernel")
