@@ -50,6 +50,14 @@ Server at full width with random seeded weights, and a training path:
   step asserted, each step's gradients and update on 2 (zamba2: 6, one
   group with its shared block) f32 layers against the plain versions; a
   trace of one step of each.
+* whisper-small (12 + 12 layers) and dbrx-132b (2 of its 40 layers,
+  bf16 moments) training at full width the same way (layernorm, gelu
+  and the router softmax kernels under autograd with their analytic
+  backwards, the flash backward non-causal at head_dim 64, the MoE
+  dispatch's torch backward, the optimizer in leading-axis chunks on
+  dbrx's expert and embedding leaves), their launches per step asserted,
+  each step's gradients and update in f32 (whisper at full depth, dbrx
+  at 1 layer) against the plain versions; a trace of one step of each.
 
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
@@ -174,10 +182,39 @@ TRAIN_ZAMBA = dict(TRAIN_MAMBA, arch="zamba2-2.7b", layers=54)
 PARITY_TRAIN_MAMBA = dict(layers=2, batch=1, seq=512)
 PARITY_TRAIN_ZAMBA = dict(layers=6, batch=1, seq=512)
 PARITY_TRAIN_TOL_MAMBA = dict(PARITY_TRAIN_TOL, grads=2e-4)
+# whisper-small trains at full width and depth (12 encoder + 12 decoder
+# layers; bf16 weights and grads, f32 moments: 0.26 B parameters) on the
+# trainer's frames (launch.train.encdec_frames, tokens-long); dbrx-132b at
+# full width and 2 of its 40 layers (7.75 B parameters: bf16 weights 15.5
+# GB, bf16 grads 15.5 GB), B 2 x S 4096, remat on, 6 steps. dbrx's moments
+# are bf16 (31 GB), not the int8 that default_opt_config picks for its
+# 131.6 B: the reference's int8 moments round a second moment below 1/254
+# of its row's largest to 0 and the next update divides by eps alone
+# (ROADMAP C4); on the card its loss then ends above step 1's at every lr
+# tried (12.0 -> 79.1 at 3e-4, -> 14.8 at 5e-5) where bf16 moments train
+# (tools/train_warmup.py --moment-dtype int8). Its lr is 5e-5: the
+# first Adam step moves every element by the full lr and nearly doubles
+# the loss (12.0 -> 22.8 at 5e-5, 24.2 at 1e-4), and at 1e-4 six steps
+# (or eight) end above step 1's loss (12.78, 12.14). Its step peaks at
+# 74 GB in the backward; the update's chunks (optim.adamw.update_chunks)
+# keep the embeddings' and experts' f32 transients to a few GB. Their
+# parity: whisper at full depth, dbrx at 1 layer (18 GB of f32 weights,
+# 18 GB for each gradient tree), f32, B 1 x S 512, at PARITY_TRAIN_TOL
+# (every gradient passes through f32 flash). dbrx's update check leaves
+# out the embeddings and two of the three expert leaves (each f32 expert
+# leaf's moments hold 8.5 GB a run): it covers the attention, the
+# router, the norms and the experts' wg.
+TRAIN_WHISPER = dict(TRAIN_MAMBA, arch="whisper-small", layers=12)
+TRAIN_DBRX = dict(TRAIN_MAMBA, arch="dbrx-132b", layers=2,
+                  moment_dtype="bf16", lr=5e-5)
+PARITY_TRAIN_WHISPER = dict(layers=12, batch=1, seq=512)
+PARITY_TRAIN_DBRX = dict(layers=1, batch=1, seq=512)
+PARITY_UPDATE_SKIP = ("embed", "unembed")
+PARITY_UPDATE_SKIP_DBRX = PARITY_UPDATE_SKIP + ("wu", "wd")
 # the training path's kernels, whose launches each step is read for
-TRAIN_KERNELS = ("rmsnorm", "rmsnorm_gated", "rotary", "swiglu", "adamw",
-                 "l2_clip", "flash_attention", "flash_attention_bwd",
-                 "ssd_scan", "ssd_scan_bwd")
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_gated", "layernorm", "rotary", "swiglu",
+                 "gelu", "moe_router", "adamw", "l2_clip", "flash_attention",
+                 "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 SERVE = dict(arch="minitron-4b", max_batch=4, requests=6, prompt_len=512,
              max_new=32, seed=0)
@@ -669,6 +706,14 @@ def _in_turns(timer, kernel, library, iters=10):
             "kernel_over_library": (k1 + k2) / (l1 + l2)}
 
 
+def _update_chunk_shape(torch, leaf):
+    """The shape of the first chunk ``apply_updates`` updates a leaf of
+    shape ``leaf`` by (the whole leaf if it takes one)."""
+    from repro_torch.optim.adamw import update_chunks
+    p = torch.empty(leaf, device="meta")
+    return tuple(p[update_chunks(p)[0]].shape)
+
+
 def _optimizer_row(torch, timer, name, shape, checks):
     """One optimizer tile kernel at one f32 leaf shape: checked against
     its plain version, timed, its bound (each input read once, each
@@ -830,19 +875,25 @@ def _check_norm_rel(torch, F, tag, named, ref, dtype, checks):
     return rel
 
 
-# the backward's timed shapes, by their key under the row's "shapes"
-# (None: the row itself, the train path's shape; zamba2_train: the
-# hybrid's shared block at head_dim 80, on zamba2's train path; d64:
-# head_dim 64, on no path); each beside the mma.sync kernels, the design
-# the wgmma ones replaced at head_dim 64, 80 and 128
-FLASH_BWD_TIMED = {(2, 24, 8, 4096, 128): None,
-                   (4, 24, 8, 512, 128): "serve_shape",
-                   (2, 12, 2, 4096, 128): "qwen2vl",
-                   (2, 32, 32, 4096, 80): "zamba2_train",
-                   (2, 16, 16, 4096, 64): "d64"}
+# whisper-small's attention in training: (B, H, KH, S, D)
+WHISPER_ATTN = (2, 12, 12, 4096, 64)
+# the backward's timed shapes and causal flags, by their key under the
+# row's "shapes" (None: the row itself, minitron-4b's train path;
+# zamba2_train: the hybrid's shared block at head_dim 80, on zamba2's
+# train path; whisper_train: whisper-small's decoder self-attention
+# (causal) and its encoder and cross-attention (full), MHA at head_dim
+# 64; d64: head_dim 64, on no path); each beside the mma.sync kernels,
+# the design the wgmma ones replaced at head_dim 64, 80 and 128
+FLASH_BWD_TIMED = {((2, 24, 8, 4096, 128), True): None,
+                   ((4, 24, 8, 512, 128), True): "serve_shape",
+                   ((2, 12, 2, 4096, 128), True): "qwen2vl",
+                   ((2, 32, 32, 4096, 80), True): "zamba2_train",
+                   (WHISPER_ATTN, True): "whisper_train",
+                   (WHISPER_ATTN, False): "whisper_train_full",
+                   ((2, 16, 16, 4096, 64), True): "d64"}
 # two calls must give the same bits at these (the training shapes)
 FLASH_BWD_BITWISE = ((2, 24, 8, 4096, 128), (2, 12, 2, 4096, 128),
-                     (2, 32, 32, 4096, 80))
+                     (2, 32, 32, 4096, 80), WHISPER_ATTN)
 # each backward route's launches, as the profiler names them
 FLASH_BWD_LAUNCHES = {
     "wgmma": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
@@ -851,7 +902,8 @@ FLASH_BWD_LAUNCHES = {
 # the head_dim 80 and 64 tile edges; the wgmma kernels' edges at head_dim
 # 128 (S around their 128-row work items and 64-row steps, a long ragged
 # S, qwen2-vl's group of 6, MHA), causal and not
-FLASH_BWD_CASES = [(shape, "bfloat16", True) for shape in FLASH_BWD_TIMED] + [
+FLASH_BWD_CASES = [(shape, "bfloat16", causal)
+                   for shape, causal in FLASH_BWD_TIMED] + [
     ((2, 4, 2, 128, 16), "float32", True),
     ((2, 4, 2, 128, 16), "float32", False)] + [
     ((2, 8, kh, s_, d), dt, True)
@@ -891,20 +943,22 @@ def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks):
     return ops, err, rel, bitwise
 
 
-def _flash_bwd_rows(torch, F, timer, randn, checks):
+def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
     """The backward kernels against their plain version at
     ``FLASH_BWD_CASES`` (the row: minitron-4b's training shape); times,
     bound, the mma.sync kernels' time (the earlier design) and the
     library's backward (autograd of scaled_dot_product_attention) at the
-    timed shapes."""
+    timed shapes and causal flags. whisper's cases draw from ``randn_t``,
+    the others from ``randn``."""
     from repro_torch.kernels.flash_attention import (
         bwd_kernel, flash_attention_bwd, flash_attention_bwd_plain)
     out = {}
     for shape, name, causal in FLASH_BWD_CASES:
-        ops, err, rel, bitwise = _flash_bwd_case(torch, F, randn, shape,
-                                                 name, causal, checks)
-        key = FLASH_BWD_TIMED.get(shape, "untimed")
-        if key == "untimed" or name != "bfloat16" or not causal:
+        ops, err, rel, bitwise = _flash_bwd_case(
+            torch, F, randn_t if shape == WHISPER_ATTN else randn, shape,
+            name, causal, checks)
+        key = FLASH_BWD_TIMED.get((shape, causal), "untimed")
+        if key == "untimed" or name != "bfloat16":
             continue
         b, h, kh, s_, d = shape
         q, k, v, o, lse, do = ops
@@ -956,6 +1010,15 @@ def phase_kernels(torch, timer):
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # whisper's and dbrx's training shapes draw from a generator of their
+    # own, so that every other case keeps the inputs it had before they
+    # were added (the SSD backward's f32 check is marginal in da_log on
+    # other draws: PERF.md §7)
+    gt = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn_t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gt, device="cuda").to(dtype)
 
     # all 13 generated tile kernels, sync and pipelined, at a small,
     # ragged shape (37 x 200)
@@ -1111,6 +1174,13 @@ def phase_kernels(torch, timer):
     cost80, sint80 = torch.cos(ang80), torch.sin(ang80)
     xtm, gm = randn(TB, TS, 2048), randn(2048)
     xtz = randn(TB, TS, 2560)
+    # whisper-small's training (B 2 x S 4096): layernorm on f32 (B, S,
+    # 768), gelu on bf16 (B, S, 3072); dbrx-132b's: the router softmax on
+    # f32 (32 groups, 256 tokens, 16 experts) and the experts' swiglu on
+    # bf16 (E, G*C, d_ff): 16 experts x 32 groups x capacity 80
+    xtw, gtw, btw = randn_t(TB, TS, 768), randn_t(768), randn_t(768)
+    atw = randn_t(TB, TS, 3072, dtype=bf)
+    logits_t = randn_t(32, TS * TB // 32, 16)
     other_shapes = {
         "rotary": {
             "k": ((kk, cos, sin), {}, None),
@@ -1184,6 +1254,9 @@ def phase_kernels(torch, timer):
                    "train_zamba2": ((randn(TB, TS, 10240, dtype=bf),
                                      randn(TB, TS, 10240, dtype=bf)), {},
                                     None),
+                   "train_dbrx_experts": ((randn_t(16, 2560, 10752, dtype=bf),
+                                           randn_t(16, 2560, 10752,
+                                                   dtype=bf)), {}, None),
                    **{name: ((randn(*lead, f, dtype=bf),
                               randn(*lead, f, dtype=bf)), {}, None)
                       for name, lead, f in (
@@ -1212,12 +1285,19 @@ def phase_kernels(torch, timer):
                                   lambda: torch.softmax(logits_a, -1)),
                        "arctic_decode": ((logits_ad,), {},
                                          lambda: torch.softmax(logits_ad,
-                                                               -1))},
+                                                               -1)),
+                       "train_dbrx": ((logits_t,), {},
+                                      lambda: torch.softmax(logits_t, -1))},
         "layernorm": {"decode": ((xld, gld, bld), {"eps": 1e-6},
                                  lambda: F.layer_norm(xld, (768,), gld, bld,
-                                                      1e-6))},
+                                                      1e-6)),
+                      "train_whisper": ((xtw, gtw, btw), {"eps": 1e-6},
+                                        lambda: F.layer_norm(xtw, (768,), gtw,
+                                                             btw, 1e-6))},
         "gelu": {"decode": ((agd,), {},
-                            lambda: F.gelu(agd, approximate="tanh"))}}
+                            lambda: F.gelu(agd, approximate="tanh")),
+                 "train_whisper": ((atw,), {},
+                                   lambda: F.gelu(atw, approximate="tanh"))}}
     for emitter, replaces in ((None, "src/repro/core/pallasgen.py:554"),
                               (PIPELINED, "src/repro/core/pallasgen.py:546")):
         for name, (args, sc, lib) in cases.items():
@@ -1237,17 +1317,22 @@ def phase_kernels(torch, timer):
     rows["gelu"]["in_turns"] = _in_turns(
         timer, lambda: gelu_op.apply(ag),
         lambda: F.gelu(ag, approximate="tanh"))
+    on_a_path = set(cases)
+    del cases, other_shapes, ex_a, ex_b
+    torch.cuda.empty_cache()
 
     # the optimizer's tile kernels on the training path (f32, as
-    # apply_updates runs them): minitron's embedding (256000, 3072) and an
-    # MLP weight (3072, 9216); l2_clip's library call is the same function
-    # (a multiply by the host scale); adamw has none (torch's fused AdamW
-    # decays before the moment step, another function: its time stands
-    # beside as the nearest call)
+    # apply_updates runs them): a chunk of minitron's embedding, which the
+    # update walks in leading-axis chunks (optim.adamw.update_chunks), and
+    # an MLP weight (3072, 9216); l2_clip's library call is the same
+    # function (a multiply by the host scale); adamw has none (torch's
+    # fused AdamW decays before the moment step, another function: its
+    # time stands beside as the nearest call)
+    opt_shapes = (_update_chunk_shape(torch, (256000, 3072)), (3072, 9216))
     for name, replaces in (("adamw", "src/repro/core/pallasgen.py:554"),
                            ("l2_clip", "src/repro/core/pallasgen.py:554")):
         rows[name] = None
-        for shape in ((256000, 3072), (3072, 9216)):
+        for shape in opt_shapes:
             row = _optimizer_row(torch, timer, name, shape, checks)
             if rows[name] is None:
                 rows[name] = {"route": "triton",
@@ -1258,7 +1343,7 @@ def phase_kernels(torch, timer):
             torch.cuda.empty_cache()
     # l2_clip of the bf16 gradients that training's autograd returns, into
     # f32, at the same two shapes
-    for shape in ((256000, 3072), (3072, 9216)):
+    for shape in opt_shapes:
         rows["l2_clip"]["shapes"]["bf16_to_f32_" + "x".join(
             map(str, shape))] = _l2_clip_bf16_row(torch, timer, shape,
                                                   checks)
@@ -1276,7 +1361,7 @@ def phase_kernels(torch, timer):
                                                    alpha=sc["alpha"]),
     }
     others = {}
-    for name in sorted(set(PROGRAMS) - set(cases) - set(rows)):
+    for name in sorted(set(PROGRAMS) - on_a_path - set(rows)):
         op = get_tile_op(name)
         xs, sc = tile_inputs(name, 2048, 4096, torch.float32)
         bound, by = _tile_bound(op, xs)
@@ -1367,20 +1452,24 @@ def phase_kernels(torch, timer):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
     # the forward with the row lse at the training paths' shapes (the
-    # train step's launches: minitron-4b's GQA 24/8 at head_dim 128 and
-    # zamba2-2.7b's shared block, MHA 32 at head_dim 80): card and device
-    # time, bound, SDPA's forward
-    for (b, h, kh, s, d), key in (((2, 24, 8, 4096, 128), "train_with_lse"),
-                                  ((2, 32, 32, 4096, 80),
-                                   "zamba2_train_with_lse")):
-        fq, fk, fv = (randn(b, n, s, d, dtype=bf) for n in (h, kh, kh))
+    # train step's launches: minitron-4b's GQA 24/8 at head_dim 128,
+    # zamba2-2.7b's shared block, MHA 32 at head_dim 80, and whisper-small's
+    # encoder and cross-attention, MHA 12 at head_dim 64, non-causal):
+    # card and device time, bound, SDPA's forward
+    for (b, h, kh, s, d), causal, key, rn in (
+            ((2, 24, 8, 4096, 128), True, "train_with_lse", randn),
+            ((2, 32, 32, 4096, 80), True, "zamba2_train_with_lse", randn),
+            (WHISPER_ATTN, False, "whisper_train_with_lse_full", randn_t)):
+        fq, fk, fv = (rn(b, n, s, d, dtype=bf) for n in (h, kh, kh))
 
-        def run_lse(fq=fq, fk=fk, fv=fv):
-            return _launch_fwd(fq, fk, fv, True, None, with_lse=True)
+        def run_lse(fq=fq, fk=fk, fv=fv, causal=causal):
+            return _launch_fwd(fq, fk, fv, causal, None, with_lse=True)
 
         o, lse = run_lse()
-        want_o, want_lse = flash_attention_fwd_plain(fq, fk, fv, causal=True)
-        tag = f"flash_attention/bfloat16/{b}x{h}x{kh}x{s}x{d}/causal/lse"
+        want_o, want_lse = flash_attention_fwd_plain(fq, fk, fv,
+                                                     causal=causal)
+        tag = f"flash_attention/bfloat16/{b}x{h}x{kh}x{s}x{d}/" \
+              f"{'causal' if causal else 'full'}/lse"
         err = _check(tag, o, want_o, FLASH_TOL["bfloat16"], checks)
         rel = _check_norm_rel(torch, F, tag, [("o", o, want_o)], want_o,
                               "bfloat16", checks)["o"]
@@ -1388,22 +1477,22 @@ def phase_kernels(torch, timer):
         checks.append({"name": f"{tag}/lse", "max_abs_err": lse_err,
                        "tol": 2e-3, "ok": lse_err <= 2e-3})
         del o, lse, want_o, want_lse
-        flops = 4 * d * (s * (s + 1) // 2) * b * h
+        flops = 4 * d * (s * (s + 1) // 2 if causal else s * s) * b * h
         nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size() \
             + 4 * b * h * s
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         flash_timed[key] = {
-            "shape": [b, h, kh, s, d], "dtype": "bfloat16", "causal": True,
+            "shape": [b, h, kh, s, d], "dtype": "bfloat16", "causal": causal,
             "with_lse": True, "max_abs_err": err, "norm_rel_err": rel,
             "lse_max_abs_err": lse_err,
             "flops": flops, "ms": timer.ms(run_lse),
             "device_ms": timer.device_ms(run_lse, "flash_fwd_"),
             "plain_ms": timer.ms(lambda: flash_attention_fwd_plain(
-                fq, fk, fv, causal=True), iters=5),
+                fq, fk, fv, causal=causal), iters=5),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": timer.ms(_sdpa(F, fq, fk, fv, True))}
+            "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
         del fq, fk, fv
     rows["flash_attention"] = {
         "route": "cuda",
@@ -1411,7 +1500,7 @@ def phase_kernels(torch, timer):
         "replaces": "src/repro/kernels/flash_attention.py:147",
         **flash_timed.pop(None), "shapes": flash_timed}
     rows["flash_attention_bwd"] = _flash_bwd_rows(torch, F, timer, randn,
-                                                  checks)
+                                                  randn_t, checks)
     torch.cuda.empty_cache()
     rows["ssd_scan_bwd"] = _ssd_bwd_rows(torch, F, timer, g, checks)
     torch.cuda.empty_cache()
@@ -1869,23 +1958,38 @@ def _train_counters():
 def _expected_train_launches(cfg, params):
     """Each kernel's launches in one train step, as the code implies:
     every layer runs its forward twice with ``cfg.remat`` (the step's
-    forward and its recompute in the backward), the final norm once. An
-    attention block
-    (a dense layer, or an application of the hybrid's shared block after
-    every ``shared_attn_every`` Mamba2 layers) launches 2 rmsnorm, 2
-    rotary (q, k), 1 swiglu and 1 flash forward, and in the backward
-    rotary once more for q and k (the same kernel with -sin) and the
-    flash backward once. A Mamba2 layer launches 1 rmsnorm, the SSD scan
-    (with its chunk states) and rmsnorm_gated, and in the backward the
-    SSD backward once. The optimizer launches adamw on every leaf and
-    l2_clip on the leaves of ndim >= 2 in the JAX package's stacked
-    layout."""
+    forward and its recompute in the backward), the final norms once. An
+    attention block (a dense or MoE layer, or an application of the
+    hybrid's shared block after every ``shared_attn_every`` Mamba2 layers)
+    launches 2 rmsnorm, 2 rotary (q, k), 1 flash forward and 1 swiglu (a
+    MoE layer's experts, with 1 moe_router; arctic's residual MLP 1 swiglu
+    more), and in the backward rotary once more for q and k (the same
+    kernel with -sin) and the flash backward once. A Mamba2 layer launches
+    1 rmsnorm, the SSD scan (with its chunk states) and rmsnorm_gated, and
+    in the backward the SSD backward once. whisper's encoder layer
+    launches 2 layernorm, 1 gelu and 1 flash (non-causal), its decoder
+    layer 3 layernorm, 1 gelu and 2 flash (self causal, cross not), each
+    flash one backward; the encoder's and the decoder's final norms are 2
+    layernorm. The optimizer launches adamw on every leaf and l2_clip on
+    the leaves of ndim >= 2 in the JAX package's stacked layout, once per
+    leading-axis chunk of a leaf it updates in chunks."""
     from repro_torch import tree as T
     from repro_torch.models.common import reference_ndim
+    from repro_torch.optim.adamw import update_chunks
     n = cfg.n_layers
     paths, leaves = T.flatten(params)
     fwd = 2 if cfg.remat else 1
     want = dict.fromkeys(TRAIN_KERNELS, 0)
+    slices = [len(update_chunks(p)) for p in leaves]
+    want.update(adamw=sum(slices),
+                l2_clip=sum(k for pa, p, k in zip(paths, leaves, slices)
+                            if reference_ndim(cfg, pa, p) >= 2))
+    if cfg.family == "encdec":
+        ne = cfg.n_enc_layers
+        want.update(layernorm=fwd * (2 * ne + 3 * n) + 2,
+                    gelu=fwd * (ne + n), flash_attention=fwd * (ne + 2 * n),
+                    flash_attention_bwd=ne + 2 * n)
+        return want
     attn = n
     if cfg.family in ("ssm", "hybrid"):
         want.update(rmsnorm=fwd * n, rmsnorm_gated=fwd * n, ssd_scan=fwd * n,
@@ -1893,21 +1997,34 @@ def _expected_train_launches(cfg, params):
         attn = n // cfg.shared_attn_every if cfg.family == "hybrid" else 0
     want["rmsnorm"] += fwd * 2 * attn + 1
     want.update(rotary=fwd * 2 * attn + 2 * attn, swiglu=fwd * attn,
-                flash_attention=fwd * attn, flash_attention_bwd=attn,
-                adamw=len(leaves),
-                l2_clip=sum(reference_ndim(cfg, pa, p) >= 2
-                            for pa, p in zip(paths, leaves)))
+                flash_attention=fwd * attn, flash_attention_bwd=attn)
+    if cfg.family == "moe":
+        want["moe_router"] = fwd * n
+        if cfg.moe.residual_ffn_dim:
+            want["swiglu"] += fwd * n
     return want
+
+
+def _train_batch(cfg, pipe, i):
+    """The pipeline's batch ``i`` as the trainer gives it to the step:
+    with an encdec model, the frames of its tokens' shape
+    (``launch.train.encdec_frames``) on the card."""
+    from repro_torch.launch.train import encdec_frames
+    batch = pipe.batch_at(i)
+    if cfg.family == "encdec":
+        B, S = batch["tokens"].shape
+        batch = {**batch, "frames": encdec_frames(cfg, B, S, "cuda")}
+    return batch
 
 
 def phase_train(torch, spec=TRAIN, phase="train"):
     """``spec``'s arch at full width and ``spec["layers"]`` layers (for
     minitron-4b 16 of its 32), bf16, seeded weights, remat on:
     ``spec["steps"]`` steps of B 2 x S 4096 from the ported pipeline,
-    through the trainer's step function (``make_train_step``: LM.loss,
-    its gradient, apply_updates at the default OptConfig with f32
-    moments). Each step's launches are read against what the code
-    implies.
+    through the trainer's step function (``make_train_step``: the model's
+    loss, its gradient, apply_updates at the default OptConfig with
+    ``spec``'s moments, f32 unless named). Each step's launches are read
+    against what the code implies.
 
     The loss must fall over the steps after its early peak, to the run's
     lowest at the last step, below the first step's. The peak is the
@@ -1921,18 +2038,20 @@ def phase_train(torch, spec=TRAIN, phase="train"):
     from repro_torch.core.telemetry import reset_telemetry, telemetry
     from repro_torch.data import DataConfig, ShardedTokenPipeline
     from repro_torch.launch.steps import batch_to_device, make_train_step
-    from repro_torch.models import LM
+    from repro_torch.models import get_model
     from repro_torch.models.common import tree_bytes
     from repro_torch.optim import OptConfig, init_opt_state
 
     full = get_config(spec["arch"])
     cfg = dataclasses.replace(full, n_layers=spec["layers"])
     t0 = time.perf_counter()
-    model = LM(cfg, device="cuda")
+    model = get_model(cfg, device="cuda")
     params = model.init(spec["seed"])
     steps = spec["steps"]
-    ocfg = OptConfig(warmup_steps=spec.get("warmup", max(steps // 10, 1)),
-                     total_steps=steps)
+    ocfg = OptConfig(lr=spec.get("lr", OptConfig.lr),
+                     warmup_steps=spec.get("warmup", max(steps // 10, 1)),
+                     total_steps=steps,
+                     moment_dtype=spec.get("moment_dtype", "f32"))
     state = init_opt_state(params, ocfg)
     step = make_train_step(model, ocfg)
     torch.cuda.synchronize()
@@ -1949,7 +2068,7 @@ def phase_train(torch, spec=TRAIN, phase="train"):
     losses, ms, per_step = [], [], []
     for i in range(steps):
         before = {n: c.launches for n, c in counters.items()}
-        batch = pipe.batch_at(i)
+        batch = _train_batch(cfg, pipe, i)
         torch.cuda.synchronize()
         t = time.perf_counter()
         params, state, loss = step(params, state, batch)
@@ -1974,7 +2093,8 @@ def phase_train(torch, spec=TRAIN, phase="train"):
     emit({"phase": phase, "config": cfg.name,
           **({"reduced": {"n_layers": [full.n_layers, cfg.n_layers]}}
              if cfg.n_layers != full.n_layers else {}),
-          "dtype": "bfloat16", "remat": cfg.remat, **spec,
+          "dtype": "bfloat16", "remat": cfg.remat, "lr": ocfg.lr,
+          "moment_dtype": ocfg.moment_dtype, **spec,
           "params": sum(p.numel() for p in T.leaves(params)),
           "param_bytes": tree_bytes(params), "init_s": init_s,
           "step_ms": ms, "ms_per_step_median_from_2": step_ms,
@@ -1990,60 +2110,85 @@ def phase_train(torch, spec=TRAIN, phase="train"):
     if not ok:
         raise AssertionError(f"{phase}: losses {losses}, launches per step "
                              f"{per_step} (expected {want}), guard {guard}")
-    return model, params, state, step, pipe, launches
+    return model, params, state, step, _train_batch(cfg, pipe, steps), \
+        launches
+
+
+def _prune(tree, skip):
+    """``tree`` without the entries whose key is in ``skip``."""
+    if isinstance(tree, dict):
+        return {k: _prune(v, skip) for k, v in tree.items() if k not in skip}
+    if isinstance(tree, list):
+        return [_prune(v, skip) for v in tree]
+    return tree
 
 
 def phase_parity_train(torch, arch=TRAIN["arch"], spec=PARITY_TRAIN,
-                       tol=PARITY_TRAIN_TOL, phase="parity_train"):
+                       tol=PARITY_TRAIN_TOL, phase="parity_train",
+                       skip=PARITY_UPDATE_SKIP):
     """``spec["layers"]`` layers of ``arch`` at full width in f32 (for
     minitron-4b 2), B 1 x S 512: the loss and every gradient through the
     kernels against the plain versions on the card
     (``ops.set_impl("torch")``), then one apply_updates from the same
-    gradients both ways, on every leaf but the embeddings: the plain
-    update of minitron's (256000, 3072) ones holds ~50 GB of f32
-    temporaries, more than the card has beside the model (the kernels
-    phase checks the adamw kernel at that shape against it)."""
+    gradients both ways, on every leaf but those keyed in ``skip``: by
+    default the embeddings (the kernels phase checks the adamw kernel at
+    the shape of an embedding's update chunk against its plain
+    version)."""
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, ShardedTokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import batch_to_device, value_and_grad
-    from repro_torch.models import LM
+    from repro_torch.models import get_model
     from repro_torch.models.common import reference_ndim
     from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 
     cfg = dataclasses.replace(get_config(arch),
                               n_layers=spec["layers"],
                               dtype=torch.float32)
-    model = LM(cfg, device="cuda")
+    model = get_model(cfg, device="cuda")
     params = model.init(TRAIN["seed"])
-    batch = batch_to_device(ShardedTokenPipeline(DataConfig(
+    batch = batch_to_device(_train_batch(cfg, ShardedTokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=spec["seq"],
-        global_batch=spec["batch"], seed=1)).batch_at(0), "cuda")
+        global_batch=spec["batch"], seed=1)), 0), "cuda")
+    # GB allocated on the card at each stage (the update check's reckoning)
+    mem = {}
+
+    def at(stage):
+        mem[stage] = torch.cuda.memory_allocated() / 1e9
+
+    at("model")
     loss_k, grads_k = value_and_grad(model, params, batch)
+    at("grads")
     ops.set_impl("torch")
     try:
         loss_p, grads_p = value_and_grad(model, params, batch)
     finally:
         ops.set_impl(None)
+    at("plain_grads")
     paths = ["/".join(map(str, pa)) for pa in T.flatten(params)[0]]
     rel = {pa: _err(a, b) / max(b.abs().max().item(), 1e-30)
            for pa, a, b in zip(paths, T.leaves(grads_k), T.leaves(grads_p))}
     del grads_k
     ocfg, ndim = OptConfig(warmup_steps=1), \
         functools.partial(reference_ndim, cfg)
-    sub = {k: v for k, v in params.items() if k not in ("embed", "unembed")}
-    sub_g = {k: grads_p[k] for k in sub}
+    sub, sub_g = _prune(params, skip), _prune(grads_p, skip)
     del grads_p
+    # the two gradient trees sit in reference cycles (the backward's
+    # checkpoints): 36 GB of dbrx's stay allocated until a collection
+    gc.collect()
     updated = T.tree_map(torch.clone, sub)
+    at("update_inputs")
     apply_updates(updated, sub_g, init_opt_state(updated, ocfg), ocfg,
                   ndim=ndim)
+    at("update")
     ops.set_impl("torch")
     try:
         apply_updates(sub, sub_g, init_opt_state(sub, ocfg), ocfg,
                       ndim=ndim)
     finally:
         ops.set_impl(None)
+    at("plain_update")
     upd = {"/".join(map(str, pa)): _err(a, b) / max(b.abs().max().item(),
                                                     1e-30)
            for pa, a, b in zip(T.flatten(sub)[0], T.leaves(updated),
@@ -2062,7 +2207,8 @@ def phase_parity_train(torch, arch=TRAIN["arch"], spec=PARITY_TRAIN,
           "grad_rel_err_worst_6": dict(sorted(
               rel.items(), key=lambda kv: -kv[1])[:6]),
           "update_rel_err_max": max(upd.values()),
-          "update_leaves": len(upd), "ok": ok})
+          "update_leaves": len(upd), "update_skips": list(skip),
+          "mem_gb": mem, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: loss {loss_err}, grads "
                              f"{rel[worst]} ({worst}), update "
@@ -2099,6 +2245,22 @@ def phase_elastic_train(torch):
     if not ok:
         raise AssertionError(f"elastic_train: {failed['losses']} against "
                              f"{clean['losses']}")
+
+
+# the record_function ranges a train step's backward runs under: the tile
+# ops' analytic backwards (f32 torch) and the flash backward's launches
+TRAIN_RANGES = ("rmsnorm_backward", "rmsnorm_gated_backward",
+                "layernorm_backward", "swiglu_backward", "gelu_backward",
+                "moe_router_backward", "flash_attention_causal_backward",
+                "flash_attention_full_backward")
+# torch ops whose kernels' device time a train trace reports: those of the
+# MoE dispatch that no other op of a train step calls (top-k, the stable
+# sort, counts, the index_add_ combine, the experts' batched products,
+# forward and backward). Its gathers and indexing are left out: the
+# embedding lookup, its backward and the loss's gold-label gather launch
+# the same aten ops
+DISPATCH_OPS = ("aten::topk", "aten::sort", "aten::bincount", "aten::cumsum",
+                "aten::index_add_", "aten::bmm")
 
 
 def _train_kernel_group(name: str) -> str:
@@ -2173,9 +2335,12 @@ def _kernels_before(torch, prof, prefix, keys):
 def phase_trace_train(torch, step, params, state, batch,
                       phase="trace_train"):
     """One full-width train step under torch.profiler: host wall, device
-    time, busy share, launches, and device ms by group; the analytic
-    rmsnorm, rmsnorm_gated and swiglu backwards (torch, no kernel of their
-    own) read from their record_function ranges. The bf16 <-> f32 casts
+    time, busy share, launches, and device ms by group; the tile ops'
+    analytic backwards (torch, no kernel of their own) and the flash
+    backward, causal and not, read from their record_function ranges
+    (``TRAIN_RANGES``); the MoE dispatch's torch ops that nothing else
+    calls (the ``index_add_`` combine, the experts' ``bmm``...) by the
+    device time of the kernels each launched (``DISPATCH_OPS``). The bf16 <-> f32 casts
     are a group of their own, and no l2_clip launch may follow a bf16 ->
     f32 cast: the kernel reads the bf16 gradient itself."""
     from torch.profiler import ProfilerActivity, profile
@@ -2188,13 +2353,15 @@ def phase_trace_train(torch, step, params, state, batch,
         loss.item()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups, n_launch, top, ranges = {}, 0, [], {}
+    groups, n_launch, top, ranges, by_op = {}, 0, [], {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.key in DISPATCH_OPS \
+                and e.device_type == torch.autograd.DeviceType.CPU:
+            by_op[e.key] = {"calls": e.count, "device_ms": us / 1e3}
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if e.key in ("rmsnorm_backward", "rmsnorm_gated_backward",
-                     "swiglu_backward"):
+        if e.key in TRAIN_RANGES:
             # the ranges' spans on the device (their kernels are counted
             # under "other" by name)
             ranges[e.key] = {"calls": e.count, "device_ms": us / 1e3}
@@ -2209,7 +2376,7 @@ def phase_trace_train(torch, step, params, state, batch,
     emit({"phase": phase, "wall_ms": wall_ms, "device_ms": busy,
           "busy_share": busy / wall_ms, "device_launches": n_launch,
           "device_ms_by_group": groups,
-          "torch_tile_backward_ranges": ranges,
+          "backward_ranges": ranges, "device_ms_by_torch_op": by_op,
           "l2_clip_launches": clips, "l2_clip_after_a_cast": after_cast,
           "top_kernels": sorted(top, reverse=True)[:10]})
     if after_cast:
@@ -2259,26 +2426,32 @@ def serve_last_four(torch):
     return new_serves, new_steps
 
 
-def train_ssm_families(torch):
+def train_families(torch):
     """mamba2-1.3b and zamba2-2.7b trained at full width and depth
-    (``TRAIN_MAMBA``), a trace of one step of each, and each one's f32
-    parity of a step's gradients and update. Returns each train phase's
-    launches."""
+    (``TRAIN_MAMBA``), whisper-small at full depth and dbrx-132b at 2 of
+    its 40 layers (``TRAIN_WHISPER``), a trace of one step of each, and
+    each one's f32 parity of a step's gradients and update. Returns each
+    train phase's launches."""
     trains = []
-    for spec, name, pspec, ptol in (
+    for spec, name, pspec, ptol, skip in (
             (TRAIN_MAMBA, "mamba2", PARITY_TRAIN_MAMBA,
-             PARITY_TRAIN_TOL_MAMBA),
-            (TRAIN_ZAMBA, "zamba2", PARITY_TRAIN_ZAMBA, PARITY_TRAIN_TOL)):
-        model, params, state, step, pipe, got = phase_train(
+             PARITY_TRAIN_TOL_MAMBA, PARITY_UPDATE_SKIP),
+            (TRAIN_ZAMBA, "zamba2", PARITY_TRAIN_ZAMBA, PARITY_TRAIN_TOL,
+             PARITY_UPDATE_SKIP),
+            (TRAIN_WHISPER, "whisper", PARITY_TRAIN_WHISPER, PARITY_TRAIN_TOL,
+             ()),
+            (TRAIN_DBRX, "dbrx", PARITY_TRAIN_DBRX, PARITY_TRAIN_TOL,
+             PARITY_UPDATE_SKIP_DBRX)):
+        model, params, state, step, batch, got = phase_train(
             torch, spec, f"train_{name}")
         trains.append(got)
-        phase_trace_train(torch, step, params, state,
-                          pipe.batch_at(spec["steps"]), f"trace_train_{name}")
+        phase_trace_train(torch, step, params, state, batch,
+                          f"trace_train_{name}")
         del model, params, state, step
         gc.collect()
         torch.cuda.empty_cache()
         phase_parity_train(torch, spec["arch"], pspec, ptol,
-                           f"parity_train_{name}")
+                           f"parity_train_{name}", skip)
         gc.collect()
         torch.cuda.empty_cache()
     return trains
@@ -2430,9 +2603,8 @@ def main() -> int:
         # the last four configs: three dense and arctic's MoE
         new_serves, new_steps = serve_last_four(torch)
         # minitron-4b training at full width, 16 of its 32 layers
-        model, params, state, step, pipe, train = phase_train(torch)
-        phase_trace_train(torch, step, params, state,
-                          pipe.batch_at(TRAIN["steps"]))
+        model, params, state, step, batch, train = phase_train(torch)
+        phase_trace_train(torch, step, params, state, batch)
         del model, params, state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -2442,8 +2614,9 @@ def main() -> int:
         phase_elastic_train(torch)
         gc.collect()
         torch.cuda.empty_cache()
-        # mamba2-1.3b and zamba2-2.7b training at full width and depth
-        trains = [train, *train_ssm_families(torch)]
+        # mamba2-1.3b, zamba2-2.7b and whisper-small training at full width
+        # and depth, dbrx-132b at full width and 2 of its 40 layers
+        trains = [train, *train_families(torch)]
     except Exception:
         traceback.print_exc()
         return 1

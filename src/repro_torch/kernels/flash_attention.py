@@ -287,7 +287,9 @@ def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
 class _FlashFn(torch.autograd.Function):
     """The kernel under autograd, as ``jax.custom_vjp`` holds ``_flash``:
     the forward launches with ``lse`` and saves ``(q, k, v, o, lse)`` (as
-    ``_flash_fwd``); the backward launches the backward kernels."""
+    ``_flash_fwd``); the backward launches the backward kernels, under a
+    profiler range named by the mask (``flash_attention_causal_backward``
+    or ``flash_attention_full_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -299,8 +301,12 @@ class _FlashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout.contiguous(),
-                                         causal=ctx.causal, scale=ctx.scale)
+        mask = "causal" if ctx.causal else "full"
+        with torch.profiler.record_function(
+                f"flash_attention_{mask}_backward"):
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, o, lse, dout.contiguous(), causal=ctx.causal,
+                scale=ctx.scale)
         return dq, dk, dv, None, None
 
 

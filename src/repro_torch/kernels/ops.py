@@ -26,18 +26,16 @@ breaker) applies to CPU tensors only.
 Gradients. On CPU tensors autograd differentiates the saturated torch
 code (``torch_ref``) directly, as JAX differentiates ``jax_ref``. Under
 the ``triton`` implementation (CUDA tensors) that want a gradient,
-rmsnorm, rmsnorm_gated, rotary and swiglu launch their kernels through
-``torch.autograd.Function``s: rotary's backward is
-the same kernel with ``-sin`` (exact: both RoPE tables repeat their
-first half), the others' are the analytic derivatives in f32 torch
-(:func:`rmsnorm_backward`, :func:`rmsnorm_gated_backward`,
-:func:`swiglu_backward`; the JAX package's gradient of these ops is
+every tile op on a model's path launches its kernel through a
+``torch.autograd.Function``: rotary's backward is the same kernel with
+``-sin`` (exact: both RoPE tables repeat their first half), the others'
+are the analytic derivatives in f32 torch (:func:`rmsnorm_backward`,
+:func:`rmsnorm_gated_backward`, :func:`layernorm_backward`,
+:func:`swiglu_backward`, :func:`gelu_backward`,
+:func:`moe_router_backward`; the JAX package's gradient of these ops is
 XLA's autodiff of ``jax_ref``, no kernel either). The SSD scan's
 gradient is its backward kernel (``_SsdFn``: the forward kernel keeps
-the state entering each chunk, :func:`ssd_scan_bwd` reads it). The other
-tile ops (layernorm, gelu, moe_router) have no backward on the card yet
-and raise there rather than return a result with no gradient (ROADMAP
-A12).
+the state entering each chunk, :func:`ssd_scan_bwd` reads it).
 """
 from __future__ import annotations
 
@@ -70,10 +68,6 @@ _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "moe_router": _ref.softmax_ref,
                   "adamw": _ref.adamw_ref,
                   "l2_clip": _ref.l2_clip_ref}
-# the queue item that brings each op a backward on the card
-_NO_BACKWARD = {"layernorm": "A12 (layernorm backward)",
-                "gelu": "A12 (gelu backward)",
-                "moe_router": "A12 (moe_router backward)"}
 
 
 def set_impl(impl: Optional[str]):
@@ -131,15 +125,6 @@ def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _refuse_grad(name: str, *tensors):
-    """A kernel with no backward, asked for a gradient on the card."""
-    if tensors[0].is_cuda and _wants_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: no backward on the card yet (ROADMAP "
-            f"{_NO_BACKWARD[name]}); its kernel would return a result with "
-            "no gradient")
-
-
 def _tile(name: str, *arrays, out_dtype=None, **scalars):
     """The tile op on ``arrays``, its outputs in the lead's dtype or in
     ``out_dtype``: the kernel then reads each operand in its own dtype,
@@ -156,8 +141,6 @@ def _tile(name: str, *arrays, out_dtype=None, **scalars):
     if impl == "ref":
         return plain(ref_fn)
     if impl == "triton":
-        if name in _NO_BACKWARD:
-            _refuse_grad(name, *arrays)
         return _guarded(name, x,
                         lambda: _kernel_op(name).apply(
                             *arrays, out_dtype=out_dtype, **scalars),
@@ -200,6 +183,25 @@ def rmsnorm_gated_backward(x, z, g, dy, eps=1e-6):
             dg.reshape(g.shape).to(g.dtype))
 
 
+def layernorm_backward(x, g, b, dy, eps=1e-6):
+    """``(dx, dg, db)`` of ``y = xh * g + b``, ``xh = (x - mean(x)) r``,
+    ``r = rsqrt(var(x) + eps)``, in f32: ``dx = r (g dy - mean(g dy) -
+    xh mean(g dy xh))``, ``dg`` and ``db`` sum ``dy xh`` and ``dy`` over
+    rows; cast to the dtypes of x, g and b."""
+    xf, gf, dyf = x.float(), g.float(), dy.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
+    xh = xc * r
+    gdy = gf * dyf
+    dx = r * (gdy - torch.mean(gdy, dim=-1, keepdim=True)
+              - xh * torch.mean(gdy * xh, dim=-1, keepdim=True))
+    d = x.shape[-1]
+    dg = (dyf * xh).reshape(-1, d).sum(0)
+    db = dyf.reshape(-1, d).sum(0)
+    return (dx.to(x.dtype), dg.reshape(g.shape).to(g.dtype),
+            db.reshape(b.shape).to(b.dtype))
+
+
 def swiglu_backward(a, b, dy):
     """``(da, db)`` of ``y = silu(a) b`` in f32: ``da = dy b s (1 + a (1 -
     s))``, ``db = dy a s`` with ``s = sigmoid(a)``; cast to a's and b's
@@ -208,6 +210,27 @@ def swiglu_backward(a, b, dy):
     s = torch.sigmoid(af)
     da = dyf * bf * s * (1.0 + af * (1.0 - s))
     return da.to(a.dtype), (dyf * af * s).to(b.dtype)
+
+
+def gelu_backward(a, dy):
+    """``da`` of gelu's tanh form ``y = a (1 + t) / 2``, ``t = tanh(u)``,
+    ``u = c (a + 0.044715 a^3)``, ``c = sqrt(2 / pi)``, in f32: ``da = dy
+    ((1 + t) / 2 + a (1 - t^2) c (1 + 3 * 0.044715 a^2) / 2)``; cast to
+    a's dtype."""
+    af, dyf = a.float(), dy.float()
+    c = 0.7978845608028654
+    t = torch.tanh(c * (af + 0.044715 * af * af * af))
+    da = dyf * (0.5 * (1.0 + t) + 0.5 * af * (1.0 - t * t) * c
+                * (1.0 + 3.0 * 0.044715 * af * af))
+    return da.to(a.dtype)
+
+
+def moe_router_backward(p, dy):
+    """``dlogits`` of the softmax over the last axis from its output
+    ``p``, in f32: ``p (dy - sum(dy p))``; cast to p's dtype."""
+    pf, dyf = p.float(), dy.float()
+    return (pf * (dyf - torch.sum(dyf * pf, dim=-1, keepdim=True))
+            ).to(p.dtype)
 
 
 class _RmsnormFn(torch.autograd.Function):
@@ -243,6 +266,24 @@ class _RmsnormGatedFn(torch.autograd.Function):
         with torch.profiler.record_function("rmsnorm_gated_backward"):
             dx, dz, dg = rmsnorm_gated_backward(x, z, g, dy, ctx.eps)
         return dx, dz, dg, None
+
+
+class _LayernormFn(torch.autograd.Function):
+    """The layernorm kernel forward, :func:`layernorm_backward`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        ctx.save_for_backward(x, g, b)
+        ctx.eps = eps
+        return _kernel_op("layernorm").apply(x, g, b, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, b = ctx.saved_tensors
+        with torch.profiler.record_function("layernorm_backward"):
+            dx, dg, db = layernorm_backward(x, g, b, dy, ctx.eps)
+        return dx, dg, db, None
 
 
 class _SsdFn(torch.autograd.Function):
@@ -286,6 +327,39 @@ class _SwigluFn(torch.autograd.Function):
             return swiglu_backward(a, b, dy)
 
 
+class _GeluFn(torch.autograd.Function):
+    """The gelu kernel forward, :func:`gelu_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return _kernel_op("gelu").apply(a)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, = ctx.saved_tensors
+        with torch.profiler.record_function("gelu_backward"):
+            return gelu_backward(a, dy)
+
+
+class _MoeRouterFn(torch.autograd.Function):
+    """The moe_router kernel forward, :func:`moe_router_backward`
+    backward, which reads the forward's output (the probabilities), not
+    its input."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        p = _kernel_op("moe_router").apply(logits)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, dy):
+        p, = ctx.saved_tensors
+        with torch.profiler.record_function("moe_router_backward"):
+            return moe_router_backward(p, dy)
+
+
 class _RotaryFn(torch.autograd.Function):
     """The rotary kernel both ways. RoPE is linear in q, and its cos/sin
     tables repeat their first half (``rope_cos_sin``, M-RoPE's
@@ -320,6 +394,8 @@ def rmsnorm_gated(x, z, g, eps=1e-6):
 
 
 def layernorm(x, g, b, eps=1e-6):
+    if current_impl(x) == "triton" and _wants_grad(x, g, b):
+        return _LayernormFn.apply(x, g, b, eps)
     return _tile("layernorm", x, g, b, eps=eps)
 
 
@@ -331,12 +407,16 @@ def swiglu(a, b):
 
 def gelu(a):
     """GELU in its tanh form (the saturated ``gelu`` program)."""
+    if current_impl(a) == "triton" and _wants_grad(a):
+        return _GeluFn.apply(a)
     return _tile("gelu", a)
 
 
 def moe_router_probs(logits):
     """Router logits (..., E) -> softmax probabilities, the saturated
     ``moe_router`` program (one row per token, E columns)."""
+    if current_impl(logits) == "triton" and _wants_grad(logits):
+        return _MoeRouterFn.apply(logits)
     return _tile("moe_router", logits)
 
 

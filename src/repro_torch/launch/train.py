@@ -8,15 +8,15 @@ Runs on the GPU unless ``--device`` names another:
       --steps 8 --batch 4 --seq 64
 
 The path is the JAX package's: ``build_trainer`` -> ``ElasticTrainer.run``
--> per step ``LM.loss`` (each layer rematerialised) -> its gradient ->
-``apply_updates`` (the global norm, the ``l2_clip`` op, the ``adamw`` op
-on every leaf), with async atomic checkpoints and recovery from a
-simulated host loss (``--inject-failure-at``).
+-> per step the model's ``loss`` (each layer rematerialised) -> its
+gradient -> ``apply_updates`` (the global norm, the ``l2_clip`` op, the
+``adamw`` op on every leaf), with async atomic checkpoints and recovery
+from a simulated host loss (``--inject-failure-at``).
 
-The dense (minitron-4b, granite-8b, ...), vlm (qwen2-vl-2b), ssm
-(mamba2-1.3b) and hybrid (zamba2-2.7b) families train; moe and encdec
-are refused on any device before the first step, naming the ROADMAP
-item that brings their backward. Gradient compression
+Every family trains: dense (minitron-4b, granite-8b, ...), vlm
+(qwen2-vl-2b), ssm (mamba2-1.3b), hybrid (zamba2-2.7b), moe (dbrx-132b,
+arctic-480b) and encdec (whisper-small, whose step adds the audio frames
+as the JAX step does: :func:`encdec_frames`). Gradient compression
 (``--compress``, ROADMAP A14) and the saturation cache and verifier
 (``--cache-dir``, ``--verify``, A8) are not ported, as in the serve
 entry point.
@@ -28,6 +28,8 @@ import tempfile
 import time
 from typing import Optional
 
+import torch
+
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.telemetry import telemetry
 from repro_torch.data import DataConfig, ShardedTokenPipeline
@@ -37,10 +39,25 @@ from repro_torch.optim import OptConfig, init_opt_state
 from repro_torch.runtime.ft import (ElasticTrainer, FailureInjector,
                                     TrainLoopConfig)
 
-TRAINABLE = ("dense", "vlm", "ssm", "hybrid")
-# what each family waits for before it trains (ROADMAP A12)
-_NOT_YET = {"moe": "A12: a moe_router backward",
-            "encdec": "A12: layernorm and gelu backwards and EncDecLM.loss"}
+
+def encdec_frames(cfg, batch: int, seq: int, device) -> torch.Tensor:
+    """The stub audio frontend's frames of an encdec train step: (batch,
+    seq, d_model) f32, standard normal from a generator seeded 0, the
+    same every step, as the JAX step draws them from ``PRNGKey(0)`` (the
+    two generators give different numbers)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((batch, seq, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def _with_frames(train_step, cfg, device):
+    """An encdec train step: ``train_step`` on the batch and the
+    :func:`encdec_frames` of its tokens' shape."""
+    def step(params, opt_state, batch):
+        B, S = batch["tokens"].shape
+        return train_step(params, opt_state, {
+            **batch, "frames": encdec_frames(cfg, B, S, device)})
+    return step
 
 
 def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
@@ -50,20 +67,19 @@ def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
     """The JAX ``build_trainer`` for the port: the model on ``device``
     (CUDA unless named; with no CUDA device and none named it raises),
     seeded weights, f32 AdamW moments, a warmup of a tenth of the steps,
-    checkpoints every quarter of them."""
+    checkpoints every quarter of them. An encdec step trains on
+    :func:`encdec_frames` of the batch's shape."""
     device = resolve_device(device)
     arch = ARCH_IDS.get(arch, arch)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if cfg.family not in TRAINABLE:
-        raise NotImplementedError(
-            f"{arch}: the {cfg.family} family does not train in the port yet "
-            f"(ROADMAP {_NOT_YET[cfg.family]})")
     model = get_model(cfg, device=device)
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                         total_steps=steps)
     params = model.init(seed)
     opt_state = init_opt_state(params, opt_cfg)
     train_step = make_train_step(model, opt_cfg)
+    if cfg.family == "encdec":
+        train_step = _with_frames(train_step, cfg, device)
 
     def build_step(n_shards: int):
         pipe = ShardedTokenPipeline(DataConfig(
@@ -82,8 +98,8 @@ def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minitron-4b",
-                    help=f"one of {sorted(ARCH_IDS)} (dense, vlm, ssm and "
-                         "hybrid train)")
+                    help=f"one of {sorted(ARCH_IDS)} (every family "
+                         "trains)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default=None,

@@ -178,6 +178,17 @@ def _chunk_nll(h, unembed, labels, mask, vocab: int):
     return ((logz - gold) * mask).sum()
 
 
+def remat_layer(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, one layer, rematerialised in the backward under
+    autograd with ``cfg.remat`` (a layer has no randomness, so no RNG
+    state is kept); a plain call otherwise, and always under ``no_grad``
+    (serving checkpoints nothing)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, mask: torch.Tensor,
                          chunk: int = 512) -> torch.Tensor:

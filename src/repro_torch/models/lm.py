@@ -34,11 +34,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .common import (ModelConfig, chunked_softmax_xent, dense_init,
-                     mrope_cos_sin, resolve_device, rope_cos_sin)
+                     mrope_cos_sin, remat_layer, resolve_device,
+                     rope_cos_sin)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -148,15 +148,6 @@ class LM:
         return h + L.mamba_apply(lp["mamba"], L.norm_apply(lp["ln1"], h, cfg),
                                  cfg)
 
-    def _layer(self, fn, *args):
-        """One layer, rematerialised in the backward under autograd with
-        ``cfg.remat`` (a layer has no randomness, so no RNG state is
-        kept)."""
-        if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        return fn(*args)
-
     def forward(self, params, tokens, positions3=None):
         """tokens (B, S) -> (final hidden (B, S, D), aux loss), aux the sum
         of the MoE layers' load-balancing losses (0 for the others)."""
@@ -166,19 +157,20 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.family == "ssm":
             for lp in params["layers"]:
-                h = self._layer(self._mamba_block, lp, h)
+                h = remat_layer(cfg, self._mamba_block, lp, h)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         cos, sin = self._cos_sin(torch.arange(tokens.shape[1],
                                               device=h.device), positions3)
         if cfg.family == "hybrid":
             for group in self._groups():
                 for i in group:
-                    h = self._layer(self._mamba_block, params["layers"][i], h)
-                h, _ = self._layer(self._attn_block, params["shared"], h, cos,
-                                   sin)
+                    h = remat_layer(cfg, self._mamba_block,
+                                    params["layers"][i], h)
+                h, _ = remat_layer(cfg, self._attn_block, params["shared"], h,
+                                   cos, sin)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         for lp in params["layers"]:
-            h, a = self._layer(self._attn_block, lp, h, cos, sin)
+            h, a = remat_layer(cfg, self._attn_block, lp, h, cos, sin)
             if a is not None:
                 aux = aux + a
         return L.norm_apply(params["final_norm"], h, cfg), aux

@@ -9,12 +9,16 @@ token embedding. The API:
   init(seed) -> params
   encode(params, frames) -> enc_out
   forward(params, tokens, enc_out) -> final hidden
+  loss(params, batch) -> mean masked next-token cross-entropy
   init_cache(batch, max_seq, enc_len) -> cache
   prefill(params, tokens, frames=None, max_seq=None) -> (logits, cache)
   decode_step(params, cache, token) -> (logits, cache)
 
 ``lax.scan`` over the stacked layers becomes a Python loop over lists of
-per-layer dicts. The encoder's self-attention and the decoder's
+per-layer dicts; under autograd with ``cfg.remat`` each encoder and
+decoder layer is rematerialised, as ``jax.checkpoint`` wraps the scan
+bodies (the encoder output is an input of every checkpointed decoder
+layer, so its gradient sums over them). The encoder's self-attention and the decoder's
 cross-attention run the flash kernel non-causal, the decoder's
 self-attention causal. The kernel takes k/v of q's length, so the
 encoder output has the prompt's length on every path, as the JAX server
@@ -31,7 +35,8 @@ import torch
 
 from repro_torch.kernels import ops
 from . import layers as L
-from .common import ModelConfig, dense_init, resolve_device
+from .common import (ModelConfig, chunked_softmax_xent, dense_init,
+                     remat_layer, resolve_device)
 
 
 def sinusoidal_pos(S: int, d: int, dtype=torch.float32, device=None):
@@ -91,6 +96,13 @@ class EncDecLM:
         return params["embed"].T  # whisper ties output to token embedding
 
     # -- encoder -----------------------------------------------------------------
+    def _enc_block(self, lp, h):
+        cfg = self.cfg
+        h = h + L.attn_apply(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
+                             None, None, cfg, causal=False)
+        return h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, cfg),
+                               cfg)
+
     def encode(self, params, frames):
         """frames: (B, S_enc, d_model) precomputed embeddings (stub)."""
         cfg = self.cfg
@@ -98,10 +110,7 @@ class EncDecLM:
         h = frames.to(cfg.dtype) + sinusoidal_pos(S, cfg.d_model, cfg.dtype,
                                                   frames.device)
         for lp in params["enc_layers"]:
-            h = h + L.attn_apply(lp["attn"], L.norm_apply(lp["ln1"], h, cfg),
-                                 None, None, cfg, causal=False)
-            h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, cfg),
-                                cfg)
+            h = remat_layer(cfg, self._enc_block, lp, h)
         return L.norm_apply(params["enc_norm"], h, cfg)
 
     # -- decoder (full sequence) ------------------------------------------------------
@@ -114,25 +123,39 @@ class EncDecLM:
                              f"{n_pos} learned decoder positions")
         return params["embed"][tokens] + params["dec_pos"][pos:pos + S][None]
 
+    def _dec_block(self, lp, h, enc_out):
+        cfg = self.cfg
+        h = h + L.attn_apply(lp["self_attn"], L.norm_apply(lp["ln1"], h, cfg),
+                             None, None, cfg, causal=True)
+        h = h + L.attn_apply(lp["cross_attn"],
+                             L.norm_apply(lp["ln2"], h, cfg),
+                             None, None, cfg, kv_x=enc_out)
+        return h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln3"], h, cfg),
+                               cfg)
+
     def forward(self, params, tokens, enc_out):
         """tokens (B, S) over encoder states (B, S_enc, D) -> final hidden
         (B, S, D)."""
         cfg = self.cfg
         h = self._embed(params, tokens)
         for lp in params["dec_layers"]:
-            h = h + L.attn_apply(lp["self_attn"],
-                                 L.norm_apply(lp["ln1"], h, cfg),
-                                 None, None, cfg, causal=True)
-            h = h + L.attn_apply(lp["cross_attn"],
-                                 L.norm_apply(lp["ln2"], h, cfg),
-                                 None, None, cfg, kv_x=enc_out)
-            h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln3"], h, cfg),
-                                cfg)
+            h = remat_layer(cfg, self._dec_block, lp, h, enc_out)
         return L.norm_apply(params["final_norm"], h, cfg)
 
-    def loss(self, params, batch):
-        raise NotImplementedError("training is not ported yet (ROADMAP "
-                                  "queue A item 12)")
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean masked next-token cross-entropy of the decoder over the
+        encoded frames, as the JAX ``EncDecLM.loss``. ``batch``: frames
+        (B, S_enc, d_model), tokens and labels (B, S) int64, optional mask
+        (B, S), on the model's device."""
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        enc_out = self.encode(params, batch["frames"])
+        h = self.forward(params, batch["tokens"], enc_out)
+        return chunked_softmax_xent(h, self._unembed(params), labels, mask,
+                                    chunk=self.cfg.loss_chunk)
 
     # -- serving ------------------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

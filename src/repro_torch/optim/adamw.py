@@ -17,10 +17,9 @@ Where the port differs from the JAX module:
   registers and writes f32: the same bits (the cast is exact), without
   the f32 copy that a separate cast writes and the kernel reads again.
 
-* The update is in place: each parameter tensor receives its new value
-  (``copy_``) and each moment's entry in ``state`` is replaced leaf by
-  leaf, so the old moments are freed as the walk goes (a functional
-  update would hold two copies of the moments at once).
+* The update is in place: each parameter tensor and each stored moment
+  receives its new value (``copy_``) leaf by leaf (a functional update
+  would hold two copies of the moments at once).
 * Scalars are host floats: one host read per step, of the global norm
   (``float(global_norm(...))``), feeds the step's clip scale to every
   kernel launch, with the learning rate and the bias corrections.
@@ -31,9 +30,19 @@ Where the port differs from the JAX module:
   each leaf's ``ndim`` in the stacked layout (the model's
   :func:`repro_torch.models.common.reference_ndim`: every leaf under a
   layer stack counts one axis more). The same rule picks the leaves the
-  ``l2_clip`` op clips. (The JAX package's ``lax.map`` over the leading
-  axis of a stacked leaf above 2^31 elements bounds its transients to one
-  layer's slice; the port's leaves are one layer each already.)
+  ``l2_clip`` op clips.
+* The JAX package maps the update over the leading axis of a stacked
+  leaf of ``ndim >= 3`` above 2^31 elements (``lax.map``), bounding its
+  f32 transients to one layer's slice. The port's leaves are one layer
+  each, but one leaf can still be large: dbrx's expert stack (16, 6144,
+  10752) holds 1.06 B elements, 4.2 GB for each of the ~7 f32 copies its
+  update holds at once, and its embedding and unembedding 0.62 B each.
+  So a leaf of ``ndim >= 2`` above ``SLICED_UPDATE_ELEMS`` elements is
+  updated in chunks of its leading axis of at most that many elements
+  (:func:`update_chunks`; any other leaf is one chunk): bitwise
+  the whole leaf's update (it is elementwise, and int8 moments scale per
+  last-axis row, which a chunk keeps whole), with one ``l2_clip`` and
+  one ``adamw`` launch per chunk.
 """
 from __future__ import annotations
 
@@ -45,6 +54,12 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.kernels import ops
+
+# leaves of ndim >= 2 above this many elements update in leading-axis
+# chunks of at most this many: 256 MiB for each f32 temporary of a chunk
+# (the plain update, generated SSA code, holds each of its ~40 at once)
+SLICED_UPDATE_ELEMS = 2 ** 26
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -90,12 +105,6 @@ def _moment_get(s, dtype: str) -> torch.Tensor:
     return s.float()
 
 
-def _moment_put(x: torch.Tensor, dtype: str):
-    if dtype == "int8":
-        return _quant_i8(x)
-    return x.to(_moment_dtype(dtype))
-
-
 # -- public API --------------------------------------------------------------------
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
     """``{"step", "m", "v"}``; the step is a host int32 scalar tensor."""
@@ -139,25 +148,55 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
     flat_g = T.flatten(grads, upto=params)[1]
     flat_m = T.flatten(state["m"], upto=params)[1]
     flat_v = T.flatten(state["v"], upto=params)[1]
+    dtype = cfg.moment_dtype
     with torch.no_grad():
         for i, (path, p, g) in enumerate(zip(paths, flat_p, flat_g)):
             stacked_2d = ndim(path, p) >= 2
-            g32 = _clip(g, norm, cfg.clip_norm, stacked_2d)
-            m2, v2, p2 = ops.adamw_update(
-                p.float(), g32, _moment_get(flat_m[i], cfg.moment_dtype),
-                _moment_get(flat_v[i], cfg.moment_dtype), lr=lr, b1=cfg.b1,
-                b2=cfg.b2, eps=cfg.eps,
-                wd=cfg.weight_decay if stacked_2d else 0.0,
-                inv_bc1=inv_bc1, inv_bc2=inv_bc2)
-            del g32
-            p.copy_(p2)
-            # drop this leaf's old moments before the next leaf's update
-            flat_m[i] = flat_v[i] = None
-            T.set_at(state["m"], path, _moment_put(m2, cfg.moment_dtype))
-            T.set_at(state["v"], path, _moment_put(v2, cfg.moment_dtype))
-            del m2, v2, p2
+            for c in update_chunks(p):
+                g32 = _clip(g[c], norm, cfg.clip_norm, stacked_2d)
+                m2, v2, p2 = ops.adamw_update(
+                    p[c].float(), g32,
+                    _moment_get(_moment_at(flat_m[i], c), dtype),
+                    _moment_get(_moment_at(flat_v[i], c), dtype),
+                    lr=lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                    wd=cfg.weight_decay if stacked_2d else 0.0,
+                    inv_bc1=inv_bc1, inv_bc2=inv_bc2)
+                del g32
+                p[c].copy_(p2)
+                _moment_copy(flat_m[i], c, m2, dtype)
+                _moment_copy(flat_v[i], c, v2, dtype)
+                del m2, v2, p2
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return params, state
+
+
+def update_chunks(p: torch.Tensor) -> list:
+    """The leading-axis slices ``apply_updates`` updates ``p`` by: the
+    whole leaf, or for a leaf of ``ndim >= 2`` above
+    ``SLICED_UPDATE_ELEMS`` elements chunks of at most that many (at
+    least one leading index each)."""
+    if p.ndim < 2 or p.numel() <= SLICED_UPDATE_ELEMS:
+        return [slice(None)]
+    rows = max(1, SLICED_UPDATE_ELEMS // (p.numel() // p.shape[0]))
+    return [slice(j, j + rows) for j in range(0, p.shape[0], rows)]
+
+
+def _moment_at(s, c: slice):
+    """Chunk ``c`` of a stored moment's leading axis (an int8 moment's
+    codes and per-row scales alike): a view."""
+    if isinstance(s, dict):
+        return {k: t[c] for k, t in s.items()}
+    return s[c]
+
+
+def _moment_copy(s, c: slice, x: torch.Tensor, dtype: str):
+    """Write the f32 moment ``x`` into chunk ``c`` of the stored one in
+    its dtype (int8: requantized per row)."""
+    if dtype == "int8":
+        for k, t in _quant_i8(x).items():
+            s[k][c].copy_(t)
+    else:
+        s[c].copy_(x)
 
 
 def _clip(g, norm: float, max_norm: float, use_op: bool):

@@ -65,12 +65,3 @@ def tree_map(fn: Callable, tree, *rest):
     (same structure)."""
     others = [flatten(t, upto=tree)[1] for t in rest]
     return unflatten(tree, [fn(*xs) for xs in zip(leaves(tree), *others)])
-
-
-def set_at(tree, path: Path, value):
-    """Replace the leaf of ``tree`` at ``path`` in place (its container
-    must be a dict or a list)."""
-    node = tree
-    for key in path[:-1]:
-        node = node[key]
-    node[path[-1]] = value

@@ -254,7 +254,10 @@ FLASH_BWD_CASES = [
     # of 6 (GQA 12/2), MHA
     (1, 4, 2, 127, 128), (1, 4, 2, 128, 128), (1, 4, 2, 129, 128),
     (1, 4, 2, 255, 128), (1, 4, 2, 257, 128), (2, 12, 2, 1001, 128),
-    (1, 4, 4, 257, 128)]
+    (1, 4, 4, 257, 128),
+    # whisper's MHA at head_dim 64 (its encoder and cross-attention run the
+    # wgmma backward non-causal) at a long ragged S
+    (1, 12, 12, 1001, 64)]
 # the backward's gradients, norm-relative over the whole tensor and each
 # 64-row block (bf16 rounds P and dS for the tensor cores)
 FLASH_BWD_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
@@ -1001,6 +1004,59 @@ def test_smoke_train_steps_on_the_card_match_cpu(arch, cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "dbrx-132b"])
+def test_smoke_encdec_moe_train_steps_on_the_card_match_cpu(arch, cuda):
+    """Two train steps of the f32 smoke config with remat, the encdec and
+    MoE families, on the trainer's frames: the losses and parameters on
+    the card (layernorm, gelu, the router softmax and swiglu kernels
+    under autograd, flash causal and not, the dispatch's torch backward,
+    adamw and l2_clip) against the CPU's plain versions within 1e-4;
+    flash launches twice a layer's attention a step (forward and remat)
+    and its backward once, layernorm and the router twice a layer."""
+    from repro_torch import tree as T
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import encdec_frames
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg, ocfg = _smoke_f32(arch), OptConfig(warmup_steps=1)
+    pipe = ShardedTokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                           global_batch=2))
+    tile = get_tile_op("layernorm" if cfg.family == "encdec"
+                       else "moe_router")
+    attn = cfg.n_enc_layers + 2 * cfg.n_layers \
+        if cfg.family == "encdec" else cfg.n_layers
+    tiles = 2 * cfg.n_enc_layers + 3 * cfg.n_layers + 2 \
+        if cfg.family == "encdec" else cfg.n_layers
+    runs = []
+    for device in ("cpu", cuda):
+        model = get_model(cfg, device=device)
+        params = _to(get_model(cfg, device="cpu").init(0), device)
+        state = init_opt_state(params, ocfg)
+        step = make_train_step(model, ocfg)
+        before = (flash_attention.launches, flash_attention_bwd.launches,
+                  tile.launches)
+        losses = []
+        for i in range(2):
+            batch = pipe.batch_at(i)
+            if cfg.family == "encdec":
+                batch["frames"] = encdec_frames(cfg, 2, 64, "cpu")
+            params, state, loss = step(params, state, batch)
+            losses.append(loss.item())
+        launched = (flash_attention.launches - before[0],
+                    flash_attention_bwd.launches - before[1],
+                    tile.launches - before[2])
+        runs.append((losses, [p.cpu() for p in T.leaves(params)], launched))
+    (cl, cp, c_launch), (gl, gp, g_launch) = runs
+    assert c_launch == (0, 0, 0)
+    enc_final = 2 if cfg.family == "encdec" else 0
+    assert g_launch == (2 * 2 * attn, 2 * attn,
+                        2 * (2 * (tiles - enc_final) + enc_final))
+    np.testing.assert_allclose(gl, cl, atol=1e-4, rtol=1e-4)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
 def test_smoke_ssm_train_steps_on_the_card_match_cpu(arch, cuda):
     """Two train steps of the f32 smoke config with remat, the SSM and
@@ -1072,20 +1128,40 @@ def test_autograd_tile_ops_on_the_card(cuda):
         _close(tuple(grads[1]), tuple(grads[0]), 2e-5)
 
 
-def test_no_backward_no_gradient_on_the_card(cuda):
-    """A kernel with no backward yet raises when asked for a gradient on
-    the card, rather than return a result that carries none."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,shape", [
+    ("layernorm", (7, 768)), ("layernorm", (2, 33, 200)),
+    ("gelu", (7, 3072)), ("gelu", (2, 33, 200)),
+    ("moe_router", (4, 9, 16)), ("moe_router", (2, 1, 128))])
+def test_layernorm_gelu_router_train_on_the_card(name, shape, dtype, cuda):
+    """layernorm, gelu and the router softmax under autograd on the card:
+    one kernel launch forward (``ops._LayernormFn``, ``_GeluFn``,
+    ``_MoeRouterFn``), the analytic backward, against autograd of their
+    plain versions on the CPU in f32 on the same values (the bf16 ones
+    rounded first; f32 2e-5, bf16 3e-2)."""
     from repro_torch.kernels import ops
-    x = torch.randn(4, 64, device=cuda, requires_grad=True)
-    ones = torch.ones(64, device=cuda)
-    with pytest.raises(NotImplementedError, match="layernorm backward"):
-        ops.layernorm(x, ones, ones * 0)
-    with pytest.raises(NotImplementedError, match="moe_router backward"):
-        ops.moe_router_probs(x)
-    with pytest.raises(NotImplementedError, match="gelu backward"):
-        ops.gelu(x)
-    with torch.no_grad():   # serving takes no gradient: the kernel runs
-        assert ops.layernorm(x, ones, ones * 0).shape == x.shape
+    gen = torch.Generator().manual_seed(11)
+    d = shape[-1]
+    x, dy = (torch.randn(shape, generator=gen).mul(2).to(dtype).float()
+             for _ in range(2))
+    gb = tuple(torch.randn(d, generator=gen).to(dtype).float()
+               for _ in range(2))
+    fn, args = {"layernorm": (ops.layernorm, ((x + 3.0).to(dtype).float(),
+                                              *gb)),
+                "gelu": (ops.gelu, (x,)),
+                "moe_router": (ops.moe_router_probs, (x,))}[name]
+    op = get_tile_op(name)
+    runs = []
+    for device, dt in (("cpu", torch.float32), (cuda, dtype)):
+        leaves = [a.to(device, dt, copy=True).requires_grad_()
+                  for a in args]
+        before = op.launches
+        y = fn(*leaves)
+        assert op.launches - before == (0 if device == "cpu" else 1)
+        (y.float() * dy.to(device)).sum().backward()
+        runs.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    _close(tuple(runs[1]), tuple(runs[0]), TILE_TOL[dtype])
 
 
 def test_failure_replay_on_the_card_equals_a_clean_run(cuda, tmp_path):

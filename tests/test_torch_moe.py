@@ -93,6 +93,37 @@ def test_moe_apply_matches_jax(shape, capacity):
     np.testing.assert_allclose(aux.item(), float(jaux), atol=1e-6)
 
 
+@pytest.mark.parametrize("shape,capacity", [
+    ((2, 16), 1.5),        # every token fits
+    ((4, 24), 1.0)],       # overflow: dropped tokens carry no gradient
+    ids=["within", "overflow"])
+def test_moe_apply_gradients_match_jax_vjp(shape, capacity):
+    """The dispatch's backward is torch autograd (gathers, ``index_add_``,
+    the batched products, the router softmax, top-k): the gradients of
+    the input and of every weight, from cotangents of the output and of
+    the aux loss, against jax.vjp of the JAX ``moe_apply`` in f32."""
+    jcfg, cfg = _configs(capacity_factor=capacity)
+    jp = jax_layers.moe_init(jax.random.PRNGKey(5), jcfg)
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=shape + (cfg.d_model,)).astype(np.float32)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    daux = np.float32(0.7)
+    if capacity <= 1.0:
+        assert _overflows(x, np.asarray(jp["router"]), cfg)
+    _, vjp = jax.vjp(lambda p_, x_: jax_layers.moe_apply(p_, x_, jcfg), jp,
+                     jnp.asarray(x))
+    jgp, jgx = vjp((jnp.asarray(dy), jnp.asarray(daux)))
+    p = {k: torch.from_numpy(np.array(v)).requires_grad_()
+         for k, v in jp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out, aux = L.moe_apply(p, tx, cfg)
+    ((out * torch.from_numpy(dy)).sum() + aux * float(daux)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=ATOL)
+    for k in p:
+        np.testing.assert_allclose(p[k].grad.numpy(), np.asarray(jgp[k]),
+                                   atol=ATOL, err_msg=k)
+
+
 def test_moe_residual_ffn_matches_jax():
     """Arctic's dense residual MLP beside the experts."""
     jcfg, cfg = _configs(residual_ffn_dim=48)

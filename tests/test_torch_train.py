@@ -1,10 +1,12 @@
 """The port's training path against the JAX package's, on the CPU in f32
 with seeded numpy inputs and the JAX init's weights: the tile ops'
-backwards, the chunked cross-entropy, ``LM.loss`` and its gradients
-(minitron, qwen2-vl, mamba2 and zamba2 smoke), ``apply_updates`` (f32 and int8 moments,
-the stacked layout's weight decay), the trainer's losses, failure replay,
-checkpoints, and what ``build_trainer`` refuses. The kernels' own
-backwards run on the card (tests/test_torch_cuda.py, chip_smoke.py).
+backwards, the chunked cross-entropy, the model's loss and its
+gradients (minitron, qwen2-vl, mamba2, zamba2, whisper and dbrx smoke),
+``apply_updates`` (f32 and int8 moments, the stacked layout's weight
+decay, the chunked update of a large leaf, int8's dropped second
+moments), the trainer's losses, failure replay, checkpoints, and that
+``build_trainer`` takes every arch. The kernels' own backwards run on
+the card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances: tile ops 2e-5 (tests/test_kernels.py's f32), the loss 1e-5,
 the model's loss and gradients and the trainer's losses 1e-4 (as the
@@ -30,13 +32,14 @@ from repro.optim import init_opt_state as jax_init_opt_state
 import repro_torch.launch.train as train
 from repro_torch import tree as T
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import (make_grad_step, make_train_step,
                                       value_and_grad)
-from repro_torch.models import LM, params_from_reference
+from repro_torch.models import LM, get_model, params_from_reference
 from repro_torch.models.common import chunked_softmax_xent, reference_ndim
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+from repro_torch.optim import adamw
 
 TILE_TOL = 2e-5
 MODEL_TOL = 1e-4
@@ -107,6 +110,58 @@ def test_swiglu_backward_matches_jax_vjp(shape):
     for w, x, y in zip(want, got, via_fn):
         np.testing.assert_allclose(x.numpy(), w, atol=TILE_TOL, rtol=TILE_TOL)
         np.testing.assert_allclose(y, w, atol=TILE_TOL, rtol=TILE_TOL)
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (3, 11, 96)])
+def test_layernorm_backward_matches_jax_vjp(shape):
+    """layernorm's analytic backward (x, the gain and the bias) and its
+    autograd Function (the kernel op, here its plain version on the CPU)
+    against jax.vjp of the JAX op, with a mean far from 0."""
+    rng = np.random.default_rng(7)
+    d = shape[-1]
+    x, g, b, dy = (rng.normal(size=s).astype(np.float32)
+                   for s in (shape, (d,), (d,), shape))
+    x = x + 3.0
+    want = _vjp(lambda a, c, e: jops.layernorm(a, c, e), x, g, b, dy=dy)
+    got = ops.layernorm_backward(_t(x), _t(g), _t(b), _t(dy))
+    via_fn = _grads(lambda a, c, e: ops._LayernormFn.apply(a, c, e, 1e-6),
+                    x, g, b, dy=dy)
+    for w, a, c in zip(want, got, via_fn, strict=True):
+        np.testing.assert_allclose(a.numpy(), w, atol=TILE_TOL, rtol=TILE_TOL)
+        np.testing.assert_allclose(c, w, atol=TILE_TOL, rtol=TILE_TOL)
+
+
+@pytest.mark.parametrize("shape", [(5, 48), (2, 7, 40)])
+def test_gelu_backward_matches_jax_vjp(shape):
+    """gelu's (tanh form) analytic backward and its autograd Function
+    against jax.vjp of the JAX op, over |a| up to ~12 (both tails)."""
+    rng = np.random.default_rng(8)
+    a, dy = (rng.normal(size=shape).astype(np.float32) * s for s in (3, 1))
+    want = _vjp(jops.gelu, a, dy=dy)
+    got = ops.gelu_backward(_t(a), _t(dy))
+    via_fn = _grads(ops._GeluFn.apply, a, dy=dy)
+    np.testing.assert_allclose(got.numpy(), want[0], atol=TILE_TOL,
+                               rtol=TILE_TOL)
+    np.testing.assert_allclose(via_fn[0], want[0], atol=TILE_TOL,
+                               rtol=TILE_TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 16), (2, 1, 128)])
+def test_moe_router_backward_matches_jax_vjp(shape):
+    """The router softmax's backward from its output, and its autograd
+    Function, against jax.vjp of the JAX op (dbrx's 16 experts, arctic's
+    128 at a decode tick)."""
+    rng = np.random.default_rng(9)
+    logits, dy = (rng.normal(size=shape).astype(np.float32) * s
+                  for s in (4, 1))
+    want = _vjp(jops.moe_router_probs, logits, dy=dy)
+    p = ops.moe_router_probs(_t(logits))
+    got = ops.moe_router_backward(p, _t(dy))
+    via_fn = _grads(ops._MoeRouterFn.apply, logits, dy=dy)
+    np.testing.assert_allclose(got.numpy(), want[0], atol=TILE_TOL,
+                               rtol=TILE_TOL)
+    np.testing.assert_allclose(via_fn[0], want[0], atol=TILE_TOL,
+                               rtol=TILE_TOL)
 
 
 def _rope(B, S, hd, per_batch, seed):
@@ -183,7 +238,7 @@ def _pair(arch, **overrides):
     jparams = jmodel.init(jax.random.PRNGKey(0))
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
                               **overrides)
-    return (jmodel, jparams, cfg, LM(cfg, device="cpu"),
+    return (jmodel, jparams, cfg, get_model(cfg, device="cpu"),
             params_from_reference(_np(jparams), cfg, "cpu"))
 
 
@@ -198,6 +253,9 @@ def _batch(cfg, B=2, S=40, seed=0):
         pos[2, :, :20] = np.arange(20) % 5
         pos[:, :, 20:] = 5 + np.arange(S - 20)
         batch["positions"] = pos
+    if cfg.family == "encdec":  # the stub frontend's frames, prompt-long
+        batch["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
     return batch
 
 
@@ -206,7 +264,8 @@ def _port_batch(batch):
             for k, v in batch.items()}
 
 
-TRAINED = ["minitron_4b", "qwen2_vl_2b", "mamba2_1p3b", "zamba2_2p7b"]
+TRAINED = ["minitron_4b", "qwen2_vl_2b", "mamba2_1p3b", "zamba2_2p7b",
+           "whisper_small", "dbrx_132b"]
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
@@ -303,6 +362,38 @@ def test_apply_updates_matches_jax(moment, grad_dtype):
                               params["final_norm"]["g"], atol=lr_wd / 10)
 
 
+def test_int8_moments_drop_a_small_second_moment_as_the_reference_does():
+    """ROADMAP C4, the reference's int8 moments: a second moment below
+    1/254 of its row's largest rounds to 0 while its first moment (1/20
+    of the row's largest here) keeps 6 of 127 steps, so the next step
+    divides that first moment by eps alone. The port's update equals the
+    JAX package's there too, ~1e6 times the f32-moment update."""
+    g1 = np.array([[1.0, 0.05]], np.float32)
+    g2 = np.array([[1.0, 0.0]], np.float32)
+    p0 = np.zeros((1, 2), np.float32)
+    moved = {}
+    for moment in ("f32", "int8"):
+        jcfg = JaxOptConfig(warmup_steps=1, moment_dtype=moment,
+                            weight_decay=0.0, clip_norm=1e9)
+        ocfg = OptConfig(warmup_steps=1, moment_dtype=moment,
+                         weight_decay=0.0, clip_norm=1e9)
+        jp, jstate = {"w": jnp.asarray(p0)}, None
+        jstate = jax_init_opt_state(jp, jcfg)
+        tp = {"w": _t(p0)}
+        state = init_opt_state(tp, ocfg)
+        for g in (g1, g2):
+            jp, jstate = jax_apply_updates(jp, {"w": jnp.asarray(g)}, jstate,
+                                           jcfg)
+            tp, state = apply_updates(tp, {"w": _t(g)}, state, ocfg,
+                                      ndim=lambda path, p: p.ndim)
+        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]),
+                                   rtol=TILE_TOL)
+        moved[moment] = abs(float(tp["w"][0, 1]))
+    lr = OptConfig().lr
+    assert moved["f32"] < 3 * lr
+    assert moved["int8"] > 1e5 * lr
+
+
 def test_reference_ndim_reads_the_stacked_layout():
     g = torch.ones(8)
     dense = get_smoke_config("minitron_4b")
@@ -317,22 +408,84 @@ def test_reference_ndim_reads_the_stacked_layout():
     assert reference_ndim(whisper, ("layers", 0, "ln1", "g"), g) == 1
 
 
+@pytest.mark.parametrize("limit", [8191, 4 * 64 * 128 - 1],
+                         ids=["one_row_chunks", "ragged_chunks"])
+@pytest.mark.parametrize("moment", ["f32", "bf16", "int8"])
+def test_chunked_update_is_the_whole_leafs_bit_for_bit(moment, limit,
+                                                        monkeypatch):
+    """Two steps on the dbrx smoke weights (bf16, with f32 gradients
+    scaled so that the clip acts), every leaf of ndim >= 2 above
+    ``limit`` elements (the experts (4, 64, 128) and (4, 128, 64), the
+    embedding (512, 64) and unembedding (64, 512)) updated in leading-axis
+    chunks of at most ``limit`` elements, against the whole leaves at
+    once: every parameter and moment bitwise equal, and l2_clip and adamw
+    launched once per chunk."""
+    cfg = get_smoke_config("dbrx-132b")
+    params = get_model(cfg, device="cpu").init(0)
+    ocfg = OptConfig(warmup_steps=1, moment_dtype=moment)
+    ndim = functools.partial(reference_ndim, cfg)
+    rng = np.random.default_rng(10)
+    grads = [T.tree_map(lambda p: torch.from_numpy(rng.normal(
+        size=p.shape).astype(np.float32) * 0.05), params) for _ in range(2)]
+    calls = {"l2_clip": 0, "adamw_update": 0}
+
+    def counted(name):
+        fn = getattr(ops, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    runs = []
+    for cap in (adamw.SLICED_UPDATE_ELEMS, limit):
+        monkeypatch.setattr(adamw, "SLICED_UPDATE_ELEMS", cap)
+        for name in calls:
+            monkeypatch.setattr(ops, name, counted(name))
+        calls.update(dict.fromkeys(calls, 0))
+        p = T.tree_map(torch.clone, params)
+        state = init_opt_state(p, ocfg)
+        for g in grads:
+            p, state = apply_updates(p, g, state, ocfg, ndim=ndim)
+        runs.append((T.leaves((p, state)), dict(calls)))
+        monkeypatch.undo()
+    (whole, whole_calls), (chunked, chunked_calls) = runs
+    assert len(whole) == len(chunked)
+    for a, b in zip(whole, chunked):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    leaves = T.leaves(params)
+    extra = 0
+    for p in leaves:
+        if p.ndim >= 2 and p.numel() > limit:
+            rows = max(1, limit // (p.numel() // p.shape[0]))
+            extra += -(-p.shape[0] // rows) - 1
+    assert extra >= 3 * cfg.n_layers        # every expert leaf is chunked
+    assert whole_calls["adamw_update"] == 2 * len(leaves)
+    assert chunked_calls["adamw_update"] == 2 * (len(leaves) + extra)
+    assert chunked_calls["l2_clip"] - whole_calls["l2_clip"] == 2 * extra
+
+
 # -- the trainer ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,lr", [
     pytest.param(a, lr, id=a) for a, lr in (
         ("minitron-4b", 3e-4), ("qwen2-vl-2b", 3e-4), ("mamba2-1.3b", 3e-3),
-        ("zamba2-2.7b", 3e-3))])
+        ("zamba2-2.7b", 3e-3), ("whisper-small", 3e-4),
+        ("dbrx-132b", 3e-4))])
 def test_trainer_losses_match_jax(arch, lr, tmp_path, monkeypatch):
     """8 steps of both packages' build_trainer (f32 smoke, the JAX init's
     weights in both, the same pipeline batches), checkpoints every 2
     steps: the losses within 1e-4, and falling. The SSM and hybrid smoke
     models tie their embeddings and start below log(vocab): at the default
     lr their loss moves within its step-to-step spread in 8 steps (in
-    both packages alike), so they train at 3e-3."""
+    both packages alike), so they train at 3e-3. The encdec step's frames
+    are the JAX step's (``PRNGKey(0)``, which torch cannot draw)."""
     monkeypatch.setattr(jax_train, "get_smoke_config", lambda a: (
         dataclasses.replace(jax_smoke_config(a), dtype=jnp.float32)))
     monkeypatch.setattr(train, "get_smoke_config", lambda a: (
         dataclasses.replace(get_smoke_config(a), dtype=torch.float32)))
+    monkeypatch.setattr(train, "encdec_frames", lambda cfg, B, S, device: (
+        _t(jax.random.normal(jax.random.PRNGKey(0), (B, S, cfg.d_model),
+                             jnp.float32))))
     kw = dict(smoke=True, steps=8, batch=4, seq=32, lr=lr)
     jt = jax_train.build_trainer(arch, ckpt_dir=str(tmp_path / "jax"), **kw)
     pt = train.build_trainer(arch, ckpt_dir=str(tmp_path / "port"),
@@ -408,14 +561,14 @@ def test_bf16_checkpoint_round_trips_bit_for_bit(tmp_path):
     assert params["embed"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("dbrx-132b", "moe_router backward"), ("arctic-480b", "moe_router backward"),
-    ("whisper-small", "EncDecLM.loss")])
-def test_build_trainer_refuses_families_without_a_backward(arch, item,
-                                                           tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        train.build_trainer(arch, smoke=True, steps=2, batch=2, seq=8,
-                            ckpt_dir=str(tmp_path), device="cpu")
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_build_trainer_takes_every_arch(arch, tmp_path):
+    """Every family trains: the smoke config of each of the ten arches
+    through build_trainer on the CPU, two steps with finite losses."""
+    out = train.build_trainer(arch, smoke=True, steps=2, batch=2, seq=16,
+                              ckpt_dir=str(tmp_path), device="cpu").run()
+    assert out["final_step"] == 2
+    assert all(np.isfinite(out["losses"]))
 
 
 def test_build_trainer_needs_a_device_without_cuda(tmp_path, monkeypatch):

@@ -184,10 +184,56 @@ def test_server_tokens_match_jax(pair):
     assert sum(guard["runtime_fallbacks"].values()) == 0
 
 
-def test_training_is_not_ported_yet(pair):
-    model = pair[4]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.loss(pair[5], {})
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
+def test_loss_matches_jax(pair, masked):
+    """``EncDecLM.loss`` (encode the frames, the decoder over the tokens,
+    the chunked cross-entropy over the tied embedding) against the JAX
+    loss on the same frames, tokens and labels, the mask given or left to
+    its default of ones (1e-4)."""
+    jcfg, jmodel, jparams, cfg, model, params = pair
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab, size=(2, 33)).astype(np.int32)
+    batch = {"frames": _frames(cfg, 2, 32, seed=13),
+             "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if masked:
+        batch["mask"] = (rng.random((2, 32)) > 0.3).astype(np.float32)
+    want = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = model.loss(params, {k: torch.from_numpy(v) if v.dtype == np.float32
+                              else torch.from_numpy(v).long()
+                              for k, v in batch.items()})
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-4, rtol=1e-4)
+
+
+def test_remat_checkpoints_each_layer_under_autograd_only(pair, monkeypatch):
+    """With ``cfg.remat`` every encoder and decoder layer runs under
+    ``torch.utils.checkpoint`` when a gradient is taken, and nothing is
+    checkpointed when serving (no_grad): the same loss either way."""
+    import repro_torch.models.common as common
+    cfg = dataclasses.replace(pair[3], remat=True)
+    model, params = EncDecLM(cfg, device="cpu"), pair[5]
+    calls = []
+    real = common.checkpoint
+    monkeypatch.setattr(common, "checkpoint", lambda fn, *a, **k: (
+        calls.append(fn.__name__), real(fn, *a, **k))[1])
+    rng = np.random.default_rng(14)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 17))).long()
+    batch = {"frames": torch.from_numpy(_frames(cfg, 2, 16, seed=15)),
+             "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        served = model.loss(params, batch)
+        model.prefill(params, batch["tokens"], batch["frames"])
+    assert calls == []
+    leaves = [p.requires_grad_() for p in params["dec_layers"][0]["mlp"]
+              .values()]
+    try:
+        trained = model.loss(params, batch)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    # (the loss's chunks are checkpointed too)
+    assert [c for c in calls if c.endswith("_block")] == \
+        ["_enc_block"] * cfg.n_enc_layers + ["_dec_block"] * cfg.n_layers
+    assert trained.item() == served.item()
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -11,8 +11,8 @@ for ``wgmma``), then runs ``chip_smoke.py``'s bf16 backward cases
 ``flash_attention_bwd_plain``, element-wise and norm-relative at
 ``chip_smoke.py``'s limits, two calls bitwise equal at the training
 shapes). Unless ``--check-only``, it then times the backward at
-``chip_smoke.py``'s timed shapes (``FLASH_BWD_TIMED``), causal, beside
-the library's backward (autograd of ``scaled_dot_product_attention``)
+``chip_smoke.py``'s timed shapes and causal flags (``FLASH_BWD_TIMED``),
+beside the library's backward (autograd of ``scaled_dot_product_attention``)
 and the ``mma.sync`` backward at the same shape (the library's
 ``flash_attention_bwd_bf16`` entry). Times are ``chip_smoke.Timer``
 medians (L2 flushed, a device sleep before the start event);
@@ -84,25 +84,25 @@ def main() -> int:
     if not ok or args.check_only:
         return 0 if ok else 1
     timer = Timer(torch)
-    for shape, key in FLASH_BWD_TIMED.items():
+    for (shape, causal), key in FLASH_BWD_TIMED.items():
         B, H, KH, S, D = shape
         q, k, v, do = (randn(B, n, S, D, dtype=torch.bfloat16)
                        for n in (H, KH, KH, H))
-        o, lse = fa._launch_fwd(q, k, v, True, None, with_lse=True)
+        o, lse = fa._launch_fwd(q, k, v, causal, None, with_lse=True)
 
         def run():
-            return fa.flash_attention_bwd(q, k, v, o, lse, do)
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
 
-        row = {"shape": list(shape), "causal": True, "ms": timer.ms(run),
+        row = {"shape": list(shape), "causal": causal, "ms": timer.ms(run),
                "device_ms": timer.device_ms(run, "flash_bwd_"),
                "device_ms_by_kernel": {
                    name: timer.device_ms(run, name)
                    for name in ("flash_bwd_prep", "flash_bwd_delta",
                                 "flash_bwd_dkdv", "flash_bwd_dq")},
                "mma_sync_ms": timer.ms(_mma_sync_bwd(torch, q, k, v, o, lse,
-                                                     do, True))}
+                                                     do, causal))}
         lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
-        lo = _sdpa(F, lq, lk, lv)()
+        lo = _sdpa(F, lq, lk, lv, causal)()
         row["library_ms"] = timer.ms(lambda: torch.autograd.grad(
             lo, (lq, lk, lv), do, retain_graph=True))
         _emit({"timed": key or "train", **row})
