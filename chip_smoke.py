@@ -59,6 +59,19 @@ Server at full width with random seeded weights, and a training path:
   each step's gradients and update in f32 (whisper at full depth, dbrx
   at 1 layer) against the plain versions; a trace of one step of each.
 
+Every tile op of the run builds through a fresh saturation cache and is
+audited by the static verifier (phase ``saturation``): each launch
+layout is certified at its first compile, each compiled binary's
+registers, spills and shared memory held against the card's limits.
+After the serve phases, ``cache`` rebuilds every tile-op configuration
+of the run in a child process under another hash seed from the same
+cache (each an exact hit, its sources byte-identical), replays the tile
+kernels on this process's inputs and serves minitron-4b at 4 of its 32
+layers, all bitwise equal to this process's; a second child with the
+cache off counts the programs whose sources then differ. ``verify``,
+last, certifies the flash and SSD launches at the paths' shapes and
+fails on any error finding of the run.
+
 Each path's launch counts are zeroed just before it and read just after,
 and split by the step (prefill or decode) that launched them. The tile
 kernels on the paths also report their launch plan (rows and column
@@ -74,6 +87,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -241,6 +255,38 @@ SERVE_ARCTIC = dict(SERVE, arch="arctic-480b")
 LARGE_LAYERS, LARGE_PARITY_LAYERS = 12, 2
 ARCTIC_LAYERS, ARCTIC_PARITY_LAYERS = 2, 1
 NEW_PARITY_TOL = 0.02
+
+# The saturation cache and the static verifier: every tile op of the run
+# builds through a fresh cache under the git-ignored _build/ and is
+# audited at VERIFY_LEVEL; the cache phase then rebuilds every
+# configuration in a child process under another hash seed
+# (CACHE_CHILD_SEED), replays the tile kernels on the parent's inputs at
+# the CACHE_TILES serve shapes, and serves minitron-4b at CACHE_SERVE's
+# cut depth: all bitwise equal to the parent's.
+SAT_CACHE_DIR = os.path.join(SRC, "repro_torch", "_build", "sat_cache")
+CACHE_PHASE_DIR = os.path.join(SRC, "repro_torch", "_build", "cache_phase")
+VERIFY_LEVEL = "cheap"
+CACHE_CHILD_SEED = "1"
+CACHE_SERVE = dict(SERVE, layers=4)
+CACHE_TILES = {
+    "rmsnorm": ([(2048, 3072), (3072,)], "float32", None),
+    "rotary": ([(4, 24, 512, 128), (1, 1, 512, 128), (1, 1, 512, 128)],
+               "bfloat16", None),
+    "swiglu": ([(2048, 9216)] * 2, "bfloat16", None),
+    "rmsnorm_gated": ([(2048, 4096), (2048, 4096), (4096,)], "bfloat16",
+                      None),
+    "moe_router": ([(32, 64, 16)], "float32", None),
+    "layernorm": ([(2048, 768), (768,), (768,)], "float32", None),
+    "gelu": ([(2048, 3072)], "bfloat16", None),
+    "adamw": ([(3072, 9216)] * 4, "float32", None),
+    "l2_clip": ([(3072, 9216)], "bfloat16", "float32"),
+}
+CACHE_SCALARS = {"eps": 1e-6, "lr": 1e-3, "b1": 0.9, "b2": 0.95, "wd": 0.1,
+                 "inv_bc1": 1.3, "inv_bc2": 1.1, "norm": 3.0,
+                 "max_norm": 1.0}
+# every verification report of the run (the phases reset the telemetry
+# the reports also go to), and the build walls of the cache's outcomes
+VERIFY_TALLY = {"report": None, "compiled_checked": 0, "build_s": {}}
 
 
 _T0 = time.perf_counter()
@@ -533,13 +579,22 @@ def _plan_dict(plan):
 
 def _compiled_info(op, args, sc):
     """``_kernel_info`` of the tile kernel compiled for these operands'
-    layout: one launch, outside the op's counter."""
+    layout: one launch, outside the op's counter. The kernel's registers,
+    spills and shared memory are held against the card's limits
+    (``verify.check_compiled``, into the verifier's tally)."""
     from repro_torch.core.tritongen import (launch_tile_kernel,
                                             prepare_tile_call)
+    from repro_torch.verify import VerifyReport, check_compiled, record
     plan, ins, outs = prepare_tile_call(op.tk, args, op.name)
-    return _kernel_info(launch_tile_kernel(
+    info = _kernel_info(launch_tile_kernel(
         op.tk.compiled(plan.layout), plan, ins, outs,
         [float(sc[s]) for s in op.tk.scalars]))
+    rep = VerifyReport()
+    rep.extend(check_compiled(op.name, info["registers"], info["spills"],
+                              info["shared_bytes"], plan.num_warps))
+    record(rep)
+    VERIFY_TALLY["compiled_checked"] += 1
+    return info
 
 
 def _ssd_work(B, S, H, P, N, chunk):
@@ -2457,6 +2512,319 @@ def train_families(torch):
     return trains
 
 
+def _tally_verify():
+    """Collect every verification report and cache build wall of this
+    process into ``VERIFY_TALLY`` (the serve and train phases reset the
+    process telemetry, which also receives them)."""
+    from repro_torch.core.telemetry import telemetry
+    from repro_torch.verify import VerifyReport
+    tel = telemetry()
+    VERIFY_TALLY["report"] = VerifyReport()
+    record_verify, record_cache = tel.record_verify, tel.record_cache
+
+    def on_verify(rep):
+        VERIFY_TALLY["report"].merge(rep)
+        record_verify(rep)
+
+    def on_cache(status, kernel, wall_s):
+        walls = VERIFY_TALLY["build_s"]
+        walls[status] = walls.get(status, 0.0) + wall_s
+        record_cache(status, kernel, wall_s)
+    tel.record_verify, tel.record_cache = on_verify, on_cache
+
+
+def phase_saturation():
+    """Point every tile op of the run at a fresh saturation cache and
+    audit each build and launch plan at ``VERIFY_LEVEL``."""
+    import shutil
+    from repro_torch.kernels import ops
+    shutil.rmtree(SAT_CACHE_DIR, ignore_errors=True)
+    shutil.rmtree(CACHE_PHASE_DIR, ignore_errors=True)
+    os.makedirs(CACHE_PHASE_DIR)
+    ops.set_saturation_cache(SAT_CACHE_DIR)
+    ops.set_saturation_verify(VERIFY_LEVEL)
+    _tally_verify()
+    emit({"phase": "saturation", "cache_dir": SAT_CACHE_DIR,
+          "verify": VERIFY_LEVEL})
+
+
+def _sha(data: bytes) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def _tensor_sha(torch, t) -> str:
+    return _sha(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+
+
+def _layout_doc(layout):
+    kinds, pieces, persistent, flat = layout
+    return [list(kinds), list(pieces), persistent,
+            dataclasses.asdict(flat) if flat is not None else None]
+
+
+def _layout_of(doc):
+    from repro_torch.core.tritongen import FlatLayout
+    kinds, pieces, persistent, flat = doc
+    return (tuple(kinds), tuple(pieces), persistent,
+            FlatLayout(**flat) if flat is not None else None)
+
+
+def _op_sources(op):
+    """The hashes of everything a tile op emitted: its torch source, its
+    Triton source, each layout's rendered source (and the pipelined
+    form's sync twin)."""
+    tk = op.tk
+    return {"torch": _sha(op.sk.kernel.source.encode()),
+            "triton": _sha(op.source.encode()),
+            "twin": _sha(tk.twin.source.encode()) if tk.twin else None,
+            "layouts": {json.dumps(_layout_doc(lay)):
+                        _sha(tk.render(*lay).encode())
+                        for lay in sorted(tk._compiled, key=repr)}}
+
+
+def _cache_tile_runs(torch, inputs=None):
+    """Each ``CACHE_TILES`` program, sync and pipelined, on seeded inputs
+    (or the given ones): ``(inputs, outputs)`` by ``name@emitter``."""
+    from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
+    g = torch.Generator(device="cuda").manual_seed(7)
+    made, outs = {}, {}
+    for name, (shapes, dt, out_dt) in CACHE_TILES.items():
+        if inputs is None:
+            xs = []
+            for shp, a in zip(shapes, [a for a in PROGRAMS[name]()
+                                       .arrays.values() if a.role != "out"]):
+                x = torch.randn(shp, generator=g, device="cuda").to(
+                    getattr(torch, dt))
+                xs.append(x.abs() * 0.01 if a.name == "v" else x)
+            made[name] = xs
+        else:
+            xs = [x.cuda() for x in inputs[name]]
+        sc = {s: CACHE_SCALARS[s] for s in PROGRAMS[name]().scalars}
+        for emitter in (None, PIPELINED):
+            op = get_tile_op(name, emitter=emitter)
+            out = op.apply(*xs, out_dtype=getattr(torch, out_dt)
+                           if out_dt else None, **sc)
+            outs[f"{name}@{emitter or 'triton'}"] = \
+                [o.cpu() for o in (out if isinstance(out, tuple) else (out,))]
+    return {k: [x.cpu() for x in v] for k, v in made.items()}, outs
+
+
+def _cache_serve(torch):
+    """minitron-4b at full width and ``CACHE_SERVE["layers"]`` of its
+    layers, seeded: the served tokens and the hash of the first batch's
+    prefill logits."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+    full = get_config(CACHE_SERVE["arch"])
+    cfg = dataclasses.replace(full, n_layers=CACHE_SERVE["layers"])
+    srv = Server(CACHE_SERVE["arch"], smoke=False,
+                 max_batch=CACHE_SERVE["max_batch"], seed=CACHE_SERVE["seed"],
+                 cfg=cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        1, cfg.vocab, size=CACHE_SERVE["prompt_len"] - (i % 3)).astype(
+            np.int32), max_new=CACHE_SERVE["max_new"])
+        for i in range(CACHE_SERVE["requests"])]
+    out = srv.generate(reqs)
+    with torch.no_grad():
+        logits = srv.model.prefill(
+            srv.params, _prefill_tokens(torch, CACHE_SERVE, reqs))[0]
+    digest = _tensor_sha(torch, logits)
+    del srv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {str(k): v for k, v in sorted(out.items())}, digest
+
+
+def _run_cache_child(spec_path, use_cache):
+    env = dict(os.environ, PYTHONHASHSEED=CACHE_CHILD_SEED)
+    env.pop("REPRO_SAT_CACHE", None)
+    args = [sys.executable, os.path.abspath(__file__), "--cache-child",
+            spec_path] + ([] if use_cache else ["--no-cache"])
+    t = time.perf_counter()
+    p = subprocess.run(args, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if p.returncode != 0:
+        sys.stderr.write(p.stdout[-4000:] + p.stderr[-8000:])
+        raise AssertionError(f"cache child (cache {use_cache}) failed")
+    line = [ln for ln in p.stdout.splitlines()
+            if ln.startswith("CACHE_CHILD:")][-1]
+    return json.loads(line[len("CACHE_CHILD:"):]), \
+        time.perf_counter() - t
+
+
+def phase_cache(torch):
+    """The saturation cache across processes: a child under
+    ``PYTHONHASHSEED=CACHE_CHILD_SEED`` on the same directory rebuilds
+    every tile-op configuration this run built (each an exact hit, its
+    sources byte-identical), replays the ``CACHE_TILES`` kernels on this
+    process's inputs and serves the ``CACHE_SERVE`` cut of minitron-4b:
+    outputs, tokens and prefill logits bitwise equal to this process's.
+    A second child under the same seed with the cache off counts the
+    programs whose sources then differ."""
+    from repro_torch.kernels.tile_programs import built_tile_ops
+    ops_ = built_tile_ops()
+    inputs, outputs = _cache_tile_runs(torch)
+    tokens, logits = _cache_serve(torch)
+    torch.save({"inputs": inputs, "outputs": outputs},
+               os.path.join(CACHE_PHASE_DIR, "parent.pt"))
+    spec = {"configs": [[list(k), _op_sources(op)] for k, op in
+                        sorted(ops_.items(), key=lambda kv: repr(kv[0]))],
+            "tokens": tokens, "logits": logits,
+            "tensors": os.path.join(CACHE_PHASE_DIR, "parent.pt")}
+    spec_path = os.path.join(CACHE_PHASE_DIR, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cold_s = VERIFY_TALLY["build_s"].get("miss", 0.0)
+    warm, warm_wall = _run_cache_child(spec_path, True)
+    off, off_wall = _run_cache_child(spec_path, False)
+    ok = (warm["misses"] == 0 and warm["invalid"] == 0
+          and warm["hits"] == len(ops_) and not warm["source_diffs"]
+          and all(warm["tiles_bitwise"].values())
+          and warm["tokens_equal"] and warm["logits_equal"]
+          and warm["verify_errors"] == 0)
+    emit({"phase": "cache", "child_seed": int(CACHE_CHILD_SEED),
+          "configs": len(ops_),
+          "programs": sorted({k[0] for k in ops_}),
+          "hits": warm["hits"], "misses": warm["misses"],
+          "warm_starts": warm["warm"], "invalid": warm["invalid"],
+          "sources_compared": warm["sources_compared"],
+          "source_diffs": warm["source_diffs"],
+          "tiles_bitwise": warm["tiles_bitwise"],
+          "serve": {"config": "minitron-4b",
+                    "reduced": {"n_layers": [32, CACHE_SERVE["layers"]]},
+                    "requests": CACHE_SERVE["requests"],
+                    "max_new": CACHE_SERVE["max_new"],
+                    "tokens_equal": warm["tokens_equal"],
+                    "prefill_logits_equal": warm["logits_equal"]},
+          "cache_off": {"configs_differ": len(
+                            {d.split(":")[0] for d in off["source_diffs"]}),
+                        "programs_differ": sorted(
+                            {d.split("@")[0] for d in off["source_diffs"]}),
+                        "parts_differ": off["source_diffs"]},
+          "cold_saturation_s": cold_s, "warm_saturation_s": warm["hit_s"],
+          "speedup": cold_s / warm["hit_s"] if warm["hit_s"] else None,
+          "child_verify_errors": warm["verify_errors"],
+          "child_wall_s": warm_wall, "child_off_wall_s": off_wall,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("cache: the child did not replay the parent "
+                             "bit for bit")
+
+
+def cache_child(spec_path: str, use_cache: bool) -> int:
+    """The cache phase's child process (see :func:`phase_cache`)."""
+    import torch
+    sys.path.insert(0, SRC)
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
+        SRC, "repro_torch", "_build", "triton_cache"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core.telemetry import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tile_programs import get_tile_op
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if use_cache:
+        ops.set_saturation_cache(SAT_CACHE_DIR)
+        ops.set_saturation_verify(VERIFY_LEVEL)
+    else:
+        ops.set_saturation_cache(False)
+    diffs, compared = [], 0
+    for key, want in spec["configs"]:
+        name, mode, schedule, emitter, cache_dir, verify = key
+        op = get_tile_op(name, mode=mode, schedule=schedule, emitter=emitter,
+                         cache_dir=cache_dir if use_cache else False,
+                         verify=verify if use_cache else None)
+        got = _op_sources(op)
+        got["layouts"] = {lay: _sha(op.tk.render(*_layout_of(
+            json.loads(lay))).encode()) for lay in want["layouts"]}
+        for part in ("torch", "triton", "twin", "layouts"):
+            compared += 1 if part != "layouts" else len(want["layouts"])
+            if got[part] != want[part]:
+                diffs.append(f"{name}@{emitter or 'triton'}:{part}")
+    snap = telemetry().snapshot()
+    out = {"hits": snap["cache_hits"], "misses": snap["cache_misses"],
+           "warm": snap["cache_warm_starts"],
+           "invalid": snap["cache_invalid"], "hit_s": snap["hit_wall_s"],
+           "source_diffs": diffs, "sources_compared": compared}
+    if use_cache:
+        saved = torch.load(spec["tensors"])
+        _, outs = _cache_tile_runs(torch, saved["inputs"])
+        out["tiles_bitwise"] = {
+            k: all(torch.equal(a, b) for a, b in zip(v, saved["outputs"][k]))
+            for k, v in outs.items()}
+        tokens, logits = _cache_serve(torch)
+        out["tokens_equal"] = tokens == spec["tokens"]
+        out["logits_equal"] = logits == spec["logits"]
+        out["verify_errors"] = telemetry().snapshot()["verify"]["errors"]
+    print("CACHE_CHILD:" + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_verify(torch):
+    """The verifier's tally over the run, with the CUDA kernels' launches
+    certified at the paths' shapes: the flash forward's grid and the
+    flash backward's work lists (at this card's SM count), the SSD
+    scan's launches. Fails on any error finding."""
+    from repro_torch.kernels.tile_programs import built_tile_ops
+    from repro_torch.verify import (VerifyReport, check_flash_bwd_work,
+                                    check_grid, flash_attention_model,
+                                    record, ssd_scan_models)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rep = VerifyReport()
+    attn = {  # (B, H, KH, S, D): the serve paths' prefill, then training
+        "minitron": (4, 24, 8, 512, 128), "zamba2": (4, 32, 32, 512, 80),
+        "dbrx": (4, 48, 8, 512, 128), "qwen2vl": (4, 12, 2, 512, 128),
+        "whisper": (4, 12, 12, 512, 64), "granite": (4, 32, 8, 512, 128),
+        "mistral_large": (4, 96, 8, 512, 128), "arctic": (4, 56, 8, 512, 128),
+        "train_minitron": (2, 24, 8, 4096, 128),
+        "train_zamba2": (2, 32, 32, 4096, 80),
+        "train_whisper": (2, 12, 12, 4096, 64),
+        "train_dbrx": (2, 48, 8, 4096, 128)}
+    for B, H, KH, S, D in attn.values():
+        for dt in (torch.bfloat16, torch.float32):
+            res = check_grid(flash_attention_model(B, H, KH, S, D, dt))
+            rep.extend(res.findings)
+            rep.grids_checked += 1
+        for causal in (True, False):
+            rep.extend(check_flash_bwd_work(B, H, KH, S, causal, sms))
+            rep.grids_checked += 2
+    ssd = {"mamba2": (4, 512, 64, 64, 128), "zamba2": (4, 512, 80, 64, 64),
+           "train_mamba2": (2, 4096, 64, 64, 128),
+           "train_zamba2": (2, 4096, 80, 64, 64)}
+    for B, S, H, P, N in ssd.values():
+        models, walk = ssd_scan_models(B, H, S, P, N, 128, sms)
+        rep.extend(walk)
+        for m in models:
+            res = check_grid(m)
+            rep.extend(res.findings)
+            rep.grids_checked += 1
+    record(rep)
+    tally = VERIFY_TALLY["report"]
+    ops_ = built_tile_ops().values()
+    errors = [str(f) for f in tally.errors()]
+    emit({"phase": "verify", "level": VERIFY_LEVEL,
+          "by_pass": tally.by_pass(), "by_severity": tally.by_severity(),
+          "codes": dict(sorted(collections.Counter(
+              f"{f.pass_name}:{f.code}" for f in tally.findings).items())),
+          "egraphs_checked": tally.egraphs_checked,
+          "schedules_certified": tally.schedules_certified,
+          "sources_checked": tally.sources_checked,
+          "grids_checked": tally.grids_checked,
+          "tile_layouts_certified": sum(len(op.certified) for op in ops_),
+          "tile_binaries_checked": sum(len(op.binaries) for op in ops_),
+          "compiled_info_checked": VERIFY_TALLY["compiled_checked"],
+          "cuda_launch_grids": rep.grids_checked,
+          "warnings": [str(f) for f in tally.findings
+                       if f.severity == "warning"][:20],
+          "errors": errors[:20], "n_errors": len(errors)})
+    if errors:
+        raise AssertionError(f"verify: {len(errors)} error finding(s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2473,6 +2841,7 @@ def main() -> int:
     launches = {}
     try:
         smi = phase_env(torch)
+        phase_saturation()
         tensor_core = phase_build()
         timer = Timer(torch)
         rows = phase_kernels(torch, timer)
@@ -2602,6 +2971,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # the last four configs: three dense and arctic's MoE
         new_serves, new_steps = serve_last_four(torch)
+        # the saturation cache across processes and hash seeds
+        phase_cache(torch)
         # minitron-4b training at full width, 16 of its 32 layers
         model, params, state, step, batch, train = phase_train(torch)
         phase_trace_train(torch, step, params, state, batch)
@@ -2617,6 +2988,7 @@ def main() -> int:
         # mamba2-1.3b, zamba2-2.7b and whisper-small training at full width
         # and depth, dbrx-132b at full width and 2 of its 40 layers
         trains = [train, *train_families(torch)]
+        phase_verify(torch)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2667,6 +3039,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--cache-child":
+        sys.exit(cache_child(sys.argv[2], "--no-cache" not in sys.argv))
     # the saturator breaks ties between equal-cost terms in hash order, so
     # the emitted tile kernels (and their rounding) follow PYTHONHASHSEED:
     # one fixed seed gives every run the same kernels

@@ -3,8 +3,9 @@
 The port's copy of :mod:`repro.analysis`, limited to what the
 saturator's search needs: per-node FLOP/byte/pass statistics
 (:mod:`.opstats`), the latency model over the chip peaks
-(:mod:`.latency`), and the extraction objective (:mod:`.cost_model`).
-The HLO bridge and calibration are not ported (ROADMAP queue A).
+(:mod:`.latency`), and the extraction objective (:mod:`.cost_model`);
+the verifier's grid analysis is :mod:`.access`. The HLO bridge and
+calibration are not ported (ROADMAP queue A).
 """
 from .opstats import (DTYPE_BYTES, TILE_ELEMS, TILE_SHAPE, ArrayInfo,
                       OpStats, dtype_byte_width, node_stats, op_pass_class,

@@ -5,9 +5,10 @@ from .dsl import (ArrayHandle, Expr, KernelProgram, c, call, exp, fma,
                   gelu_tanh, log, maximum, minimum, recip, rmax, rmean,
                   rothalf, rsqrt, rsum, select, sigmoid, silu, softplus,
                   sqrt, square, tanh, toint, v)
-from .pipeline import (EMITTER_NAMES, MODES, CacheConfig, SaturatedKernel,
-                       SaturatorConfig, ScheduleConfig, SearchConfig,
-                       VerifyConfig, saturate_program)
+from .pipeline import (CACHE_ENV_VAR, EMITTER_NAMES, MODES, VERIFY_ENV_VAR,
+                       CacheConfig, SaturatedKernel, SaturatorConfig,
+                       ScheduleConfig, SearchConfig, VerifyConfig,
+                       saturate_program)
 from .reference import run_reference
 from .telemetry import SaturationTelemetry, reset_telemetry, telemetry
 from .tritongen import TileOp, make_tile_op
@@ -16,7 +17,8 @@ __all__ = [
     "ArrayHandle", "Expr", "KernelProgram", "c", "call", "exp", "fma",
     "gelu_tanh", "log", "maximum", "minimum", "recip", "rmax", "rmean",
     "rothalf", "rsqrt", "rsum", "select", "sigmoid", "silu", "softplus",
-    "sqrt", "square", "tanh", "toint", "v", "EMITTER_NAMES", "MODES",
+    "sqrt", "square", "tanh", "toint", "v", "CACHE_ENV_VAR",
+    "EMITTER_NAMES", "MODES", "VERIFY_ENV_VAR",
     "CacheConfig", "SaturatedKernel", "SaturatorConfig", "ScheduleConfig",
     "SearchConfig", "VerifyConfig", "saturate_program", "run_reference",
     "SaturationTelemetry", "reset_telemetry", "telemetry", "TileOp",

@@ -270,14 +270,20 @@ class EGraph:
 
     # -- invariant checking ------------------------------------------------------
     def check_invariants(self, *, strict: bool = False) -> list:
-        """Static invariant audit (repro.verify pass 2): union-find
+        """Static invariant audit (repro_torch.verify pass 2): union-find
         structure, hashcons/congruence closure, const-fold and ainfo
         analysis consistency. Returns the findings; with ``strict=True``
         raises AssertionError on any error-severity finding — the form
         tests call after run_rules and after a cache graft."""
-        raise NotImplementedError(
-            "the static verifier is not ported to repro_torch yet "
-            "(see ROADMAP.md, queue A)")
+        from repro_torch.verify.egraph_check import check_egraph
+        findings = check_egraph(self)
+        if strict:
+            errors = [f for f in findings if f.severity == "error"]
+            if errors:
+                raise AssertionError(
+                    "e-graph invariants violated:\n  " +
+                    "\n  ".join(str(f) for f in errors))
+        return findings
 
     # -- iteration ---------------------------------------------------------------
     def eclasses(self) -> Dict[int, EClass]:

@@ -15,14 +15,15 @@ configurations:
 CSE-aware extraction → codegen (temp vars + bulk load) → callable torch
 kernel. Limits default to the paper's §VII values.
 
-A copy of :mod:`repro.core.pipeline` for the torch port. Two layers of
-the JAX package are not in the port yet (ROADMAP queue A): the
-persistent saturation cache and the static verifier. A config that asks
-for either is rejected with a ``ValueError``.
+A copy of :mod:`repro.core.pipeline` for the torch port, with the
+persistent saturation cache (:mod:`repro_torch.cache`) and the static
+verifier (:mod:`repro_torch.verify`). Calibration is not ported (ROADMAP
+A13): a config with a device profile is rejected with a ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional
@@ -37,6 +38,7 @@ from .egraph import EGraph
 from .extract import SEARCH_STRATEGIES, ExtractionResult, extract_dag
 from .rules import (EXTENDED_RULES, PAPER_RULES, TPU_RULES, Rule,
                     SaturationReport, run_rules)
+from .schedule import compute_schedule
 from .ssa import SSAResult, build_ssa
 from .telemetry import telemetry
 from .torchgen import TorchCodeGenerator, GeneratedKernel, GenStats
@@ -46,9 +48,17 @@ from .torchgen import TorchCodeGenerator, GeneratedKernel, GenStats
 # "triton_pipelined" (its persistent, software-pipelined form, the
 # counterpart of the TPU's "pallas_pipelined").
 EMITTER_NAMES = ("torch", "triton", "triton_pipelined")
-# Not in this slice of the port (ROADMAP queue A, "saturation cache and
-# static verifier"): configs asking for them are rejected.
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md, queue A)"
+# Environment switch for the persistent saturation cache: a directory
+# path enables it for every SaturatorConfig that doesn't set its own
+# cache_dir (the launch entry points use this to make serving/training warm
+# across processes).
+CACHE_ENV_VAR = "REPRO_SAT_CACHE"
+# Environment switch for static verification: a repro_torch.verify level
+# name ("off" | "cheap" | "full") picked up by SaturatorConfig.from_env().
+VERIFY_ENV_VAR = "REPRO_VERIFY"
+# Not in the port yet (ROADMAP A13, measurement and calibration): configs
+# asking for a calibrated device profile are rejected.
+_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md, A13)"
 
 MODES = ("baseline", "cse", "cse_sat", "cse_bulk", "accsat")
 COST_MODELS = ("paper", "tpu_v5e", "roofline")
@@ -96,11 +106,13 @@ class ScheduleConfig:
     baselines never drift.
 
     ``device_profile``: a calibrated device profile. Calibration is not
-    ported yet (ROADMAP queue A, "measurement and tuning"), so only
-    None, the analytic roofline constants, builds.
+    ported yet (ROADMAP A13), so only None, the analytic roofline
+    constants, builds.
 
     ``emitter``: one of :data:`EMITTER_NAMES`. None keeps the context's
-    default ("torch" in the pipeline, "triton" in make_tile_op)."""
+    default ("torch" in the pipeline, "triton" in make_tile_op).
+    Non-default emitters enter the cache fingerprint as
+    ``name@v{version}`` so cached replays never mix emitters."""
     schedule: Optional[str] = None
     device_profile: Optional[Any] = None
     emitter: Optional[str] = None
@@ -108,20 +120,27 @@ class ScheduleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """Persistent saturation cache (``repro.cache`` in the JAX package).
+    """Persistent saturation cache (repro_torch.cache).
 
-    Not ported yet: ``cache_dir`` must stay None or False (off), or
-    :class:`SaturatorConfig` raises."""
+    ``cache_dir``: a directory path (or SaturationCache instance)
+    enabling on-disk reuse of committed extraction choices + schedule
+    orders across processes. None falls back to the REPRO_SAT_CACHE
+    environment variable (unset = off); False disables the cache even
+    when that variable is set (the resolved form of ``--no-cache``).
+    An exact hit skips saturation, beam search, and schedule search
+    and re-emits a bit-identical kernel; a near-miss (same kernel,
+    other shapes) seeds the searches when ``cache_warm_start`` is on."""
     cache_dir: Optional[Any] = None
     cache_warm_start: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class VerifyConfig:
-    """Static verification (``repro.verify`` in the JAX package).
-
-    Not ported yet: ``verify`` must stay "off", or
-    :class:`SaturatorConfig` raises."""
+    """Static verification (repro_torch.verify): "off" adds zero
+    overhead, "cheap" audits the e-graph + certifies the attached
+    schedule + lints the emitted source on every build (cold and cached
+    replay), "full" additionally certifies reconstructed legacy orders
+    and differentially re-validates the active rule set."""
     verify: str = "off"
 
 
@@ -232,12 +251,60 @@ class SaturatorConfig:
         if self.emitter is not None and self.emitter not in EMITTER_NAMES:
             raise ValueError(f"emitter must be one of {EMITTER_NAMES}, "
                              f"got {self.emitter}")
-        if self.verify != "off":
-            raise ValueError(f"verify={self.verify!r}: the static verifier "
-                             f"{_NOT_PORTED}")
-        if self.cache_dir not in (None, False):
-            raise ValueError(f"cache_dir={self.cache_dir!r}: the saturation "
-                             f"cache {_NOT_PORTED}")
+        if self.device_profile is not None:
+            raise ValueError(f"device_profile={self.device_profile!r}: "
+                             f"calibration {_NOT_PORTED}")
+        from repro_torch.verify import VERIFY_LEVELS
+        if self.verify not in VERIFY_LEVELS:
+            raise ValueError(f"verify must be one of {VERIFY_LEVELS}, "
+                             f"got {self.verify}")
+
+    # -- resolved side-channels (one documented front door) --------------
+    @classmethod
+    def from_env(cls, *, cache_dir: Any = _UNSET, verify: Any = _UNSET,
+                 flags: Any = None, env: Optional[Dict[str, str]] = None,
+                 **kwargs: Any) -> "SaturatorConfig":
+        """Build a config with the cache/verify side-channels resolved.
+
+        Precedence, per setting: **explicit keyword argument > CLI flag
+        > environment variable > default**. ``flags`` is an
+        ``argparse.Namespace`` (or mapping) that may carry ``cache_dir``,
+        ``no_cache`` and ``verify`` — the launch entry points
+        (``repro_torch.launch.serve`` / ``repro_torch.launch.train``)
+        pass their parsed args here verbatim. Environment variables
+        consulted: ``REPRO_SAT_CACHE`` (cache directory) and
+        ``REPRO_VERIFY`` (verification level); ``env`` overrides
+        ``os.environ`` for tests. The resolved values land in
+        ``cache_cfg``/``verify_cfg`` (``--no-cache`` resolves to
+        ``cache_dir=False``, which disables the cache even when
+        ``REPRO_SAT_CACHE`` is set); remaining ``kwargs`` pass through
+        to the constructor."""
+        env_map = os.environ if env is None else env
+        if flags is None:
+            fl: Dict[str, Any] = {}
+        elif isinstance(flags, dict):
+            fl = dict(flags)
+        else:
+            fl = vars(flags)
+        if cache_dir is _UNSET:
+            if fl.get("no_cache"):
+                cache_dir = False
+            elif fl.get("cache_dir") is not None:
+                cache_dir = fl["cache_dir"]
+            else:
+                cache_dir = env_map.get(CACHE_ENV_VAR) or None
+        if verify is _UNSET:
+            if fl.get("verify") is not None:
+                verify = fl["verify"]
+            else:
+                verify = env_map.get(VERIFY_ENV_VAR) or "off"
+        cache_cfg = dataclasses.replace(
+            kwargs.pop("cache_cfg", None) or CacheConfig(),
+            cache_dir=cache_dir)
+        verify_cfg = dataclasses.replace(
+            kwargs.pop("verify_cfg", None) or VerifyConfig(),
+            verify=verify)
+        return cls(cache_cfg=cache_cfg, verify_cfg=verify_cfg, **kwargs)
 
     # -- flat read-only views (older flat call sites) ------------------------
     @property
@@ -375,7 +442,8 @@ class SaturatedKernel:
     # (cold search, result stored), "warm" (searches seeded from a
     # near-miss entry), "hit" (replayed with no search at all)
     cache_status: str = "off"
-    # static-verification report (repro.verify) when config.verify != "off"
+    # static-verification report (repro_torch.verify) when config.verify
+    # != "off"
     verify_report: Optional[Any] = None
     # degradation-ladder rung this build landed on (repro.runtime.guard):
     # "hit" | "warm" | "cold" | "cheap" | "ref"
@@ -456,14 +524,165 @@ def predict_choice(ssa: SSAResult, choice, roots, n_stores: int,
             profile=profile))
 
 
+def _resolve_cache(cfg: SaturatorConfig):
+    """The configured SaturationCache, or None (off). ``cache_dir=None``
+    consults the REPRO_SAT_CACHE environment variable; ``False`` is the
+    resolved "explicitly off" form (``SaturatorConfig.from_env`` with
+    ``--no-cache``) and never falls back to the environment."""
+    cdir = cfg.cache_dir
+    if cdir is False:
+        return None
+    if cdir is None:
+        cdir = os.environ.get(CACHE_ENV_VAR) or None
+        if cdir is None:
+            return None
+    from repro_torch.cache import SaturationCache
+    if isinstance(cdir, SaturationCache):
+        return cdir
+    return SaturationCache(cdir)
+
+
+def _schedule_cm(cfg: SaturatorConfig, prog, eg):
+    """The schedule-pricing model the generator would use (None for flat
+    models — compute_schedule then defaults to the analytic roofline)."""
+    cm = cfg.make_schedule_cost_model(prog)
+    if not hasattr(cm, "latency"):
+        return None
+    if hasattr(cm, "bind_egraph"):
+        cm.bind_egraph(eg)
+    return cm
+
+
+def _maybe_verify(sk: SaturatedKernel) -> SaturatedKernel:
+    """Run the static verifier when configured ("off" = no work at all,
+    keeping the cache warm-hit path overhead-free)."""
+    if sk.config.verify != "off":
+        chaos.maybe_raise("verify_error", sk.ssa.prog.name
+                          if sk.ssa is not None else None)
+        from repro_torch.verify import verify_saturated
+        sk.verify_report = verify_saturated(sk)
+    return sk
+
+
+def _replay_cached(prog, cfg: SaturatorConfig, ssa: SSAResult,
+                   ssa_wall: float, entry: Dict[str, Any], extra_fns
+                   ) -> Optional[SaturatedKernel]:
+    """Exact-hit path: graft the cached choice into the *unsaturated*
+    SSA e-graph, replay the cached statement order, and re-emit. Skips
+    run_rules, the beam, and the schedule search entirely. Returns None
+    (caller goes cold) when the entry doesn't validate."""
+    from repro_torch.cache import CacheInvalid, graft_choice, orders_from_doc
+    from repro_torch.cache.serialize import index_to_cid
+    try:
+        t0 = time.perf_counter()
+        choice, roots = graft_choice(ssa.egraph, entry["choice"],
+                                     ssa.roots())
+        sched = None
+        sched_doc = entry.get("schedule")
+        if sched_doc is not None:
+            node_cids = index_to_cid(ssa.egraph, entry["choice"])
+            fixed = orders_from_doc(sched_doc, node_cids)
+            try:
+                sched = compute_schedule(
+                    ssa, dict(choice), mode=cfg.schedule_mode,
+                    cost_model=_schedule_cm(cfg, prog, ssa.egraph),
+                    fixed_orders=fixed)
+            except ValueError as e:
+                raise CacheInvalid(f"cached order rejected: {e}") from e
+            by = sched_doc.get("predicted_by_mode") or {}
+            sched.predicted_by_mode.update(
+                {k: float(v) for k, v in by.items()})
+        elif cfg.schedule_mode == "cost":
+            # without a persisted order the cost search would have to
+            # re-run — that's a miss, not a hit
+            raise CacheInvalid("entry lacks schedule orders")
+        extract_wall = time.perf_counter() - t0
+        extraction = ExtractionResult(
+            choice=choice, roots=roots,
+            dag_cost=float(entry.get("dag_cost") or 0.0),
+            tree_cost=float(entry.get("tree_cost") or 0.0),
+            wall_s=extract_wall, search="cache")
+        t1 = time.perf_counter()
+        gen = TorchCodeGenerator(
+            ssa, extraction, bulk=cfg.use_bulk, extra_fns=extra_fns,
+            reuse_temps=cfg.use_cse,
+            schedule=sched if sched is not None else cfg.schedule,
+            sched_cost_model=cfg.make_schedule_cost_model(prog)
+            ).generate()
+        codegen_wall = time.perf_counter() - t1
+    except CacheInvalid as e:
+        telemetry().record_invalid(prog.name, str(e))
+        return None
+    predicted = predict_choice(ssa, extraction.choice, extraction.roots,
+                               gen.stats.n_stores,
+                               profile=cfg.device_profile
+                               if cfg.cost_model == "roofline" else None)
+    if predicted is not None:
+        extraction.predicted = predicted
+    return _maybe_verify(SaturatedKernel(
+        kernel=gen, ssa=ssa, extraction=extraction,
+        saturation=None, config=cfg,
+        ssa_wall_s=ssa_wall, codegen_wall_s=codegen_wall,
+        cache_status="hit"))
+
+
+def _store_entry(cache, key, cfg: SaturatorConfig, prog,
+                 sk: SaturatedKernel):
+    """Persist a cold/warm result (best-effort: never raises)."""
+    from repro_torch.cache import (CacheInvalid, choice_to_doc, make_entry,
+                                   schedule_to_doc)
+    try:
+        eg = sk.ssa.egraph
+        choice_doc, index_of = choice_to_doc(
+            eg, sk.extraction.choice, sk.extraction.roots)
+        sr = sk.kernel.schedule
+        if sr is None:
+            # non-cost modes keep the legacy emitters; the named order
+            # is reconstructed searchlessly (move_budget=0) so the hit
+            # path can replay it explicitly, bit-identically
+            sr = compute_schedule(
+                sk.ssa, dict(sk.extraction.choice),
+                mode=cfg.schedule_mode,
+                cost_model=_schedule_cm(cfg, prog, eg), move_budget=0)
+        sched_doc = schedule_to_doc(sr, eg, index_of)
+        entry = make_entry(
+            key, choice_doc=choice_doc, schedule_doc=sched_doc,
+            predicted=sk.extraction.predicted,
+            dag_cost=sk.extraction.dag_cost, report=sk.report())
+        entry["tree_cost"] = sk.extraction.tree_cost
+        cache.put(key, entry)
+    except (CacheInvalid, ValueError, OSError) as e:
+        telemetry().record_invalid(prog.name, f"store failed: {e}")
+
+
 def _saturate_attempt(prog: KernelProgram, cfg: SaturatorConfig,
                       extra_fns: Optional[Dict[str, Callable]] = None
                       ) -> SaturatedKernel:
     """One un-guarded build of the configured pipeline (what
     ``saturate_program`` runs under the guard). May raise; the ladder wrapper catches."""
+    cache = _resolve_cache(cfg)
     t_begin = time.perf_counter()
     ssa = build_ssa(prog)
     ssa_wall = time.perf_counter() - t_begin
+
+    key = entry = None
+    status = "off"
+    if cache is not None:
+        from repro_torch.cache import cache_key_for
+        key = cache_key_for(prog, cfg)
+        entry, status = cache.lookup(key)
+        if status == "warm" and not cfg.cache_warm_start:
+            entry, status = None, "miss"
+        if status == "hit":
+            sk = _replay_cached(prog, cfg, ssa, ssa_wall, entry, extra_fns)
+            if sk is not None:
+                telemetry().record_cache(
+                    "hit", prog.name, time.perf_counter() - t_begin)
+                return sk
+            # invalid exact entry (already counted): rebuild cold on a
+            # fresh e-graph — the failed graft may have dirtied this one
+            entry, status = None, "miss"
+            ssa = build_ssa(prog)
 
     sat_report = None
     if cfg.use_sat:
@@ -472,6 +691,38 @@ def _saturate_attempt(prog: KernelProgram, cfg: SaturatorConfig,
                                node_limit=cfg.node_limit,
                                time_limit_s=cfg.time_limit_s)
     roots = ssa.roots()
+    seed_choices = None
+    seed_order_keys = None
+    if entry is not None and status == "warm":
+        # near miss (same kernel/rules/config, other shapes): graft the
+        # cached choice into the saturated graph as a beam seed and keep
+        # its statement order as a schedule-search seed
+        from repro_torch.cache import (CacheInvalid, graft_choice,
+                                       orders_from_doc)
+        from repro_torch.cache.serialize import index_to_cid
+        try:
+            wchoice, _ = graft_choice(ssa.egraph, entry["choice"], roots)
+            seed_choices = [wchoice]
+            if entry.get("schedule") is not None:
+                node_cids = index_to_cid(ssa.egraph, entry["choice"])
+                seed_order_keys = orders_from_doc(entry["schedule"],
+                                                  node_cids)
+        except CacheInvalid as e:
+            telemetry().record_invalid(prog.name, str(e))
+            status = "miss"
+            seed_choices = seed_order_keys = None
+            # the failed graft may have mutated the saturated e-graph
+            # (grafted nodes, possibly root unions) before validation
+            # tripped — rebuild and re-saturate so the cold search never
+            # runs on a graph a bad entry touched (mirrors the exact-hit
+            # fallback's fresh build_ssa)
+            ssa = build_ssa(prog)
+            if cfg.use_sat:
+                sat_report = run_rules(ssa.egraph, cfg.rules(),
+                                       iter_limit=cfg.iter_limit,
+                                       node_limit=cfg.node_limit,
+                                       time_limit_s=cfg.time_limit_s)
+            roots = ssa.roots()
     cm = cfg.make_cost_model(prog)
     extraction = extract_dag(
         ssa.egraph, tuple(roots) if roots else (),
@@ -481,12 +732,24 @@ def _saturate_attempt(prog: KernelProgram, cfg: SaturatorConfig,
         search=cfg.search, beam_width=cfg.beam_width,
         beam_expansions=cfg.beam_expansions,
         hillclimb_evals=cfg.hillclimb_evals,
-        coordinated=cfg.beam_coordinated)
+        coordinated=cfg.beam_coordinated,
+        seed_choices=seed_choices)
     t1 = time.perf_counter()
+    # the cost scheduler prices statement orders with the same model
+    # extraction minimized — one objective end to end
+    sched_arg: Any = cfg.schedule
+    if cfg.schedule_mode == "cost" and seed_order_keys is not None:
+        try:
+            sched_arg = compute_schedule(
+                ssa, dict(extraction.choice), mode="cost",
+                cost_model=_schedule_cm(cfg, prog, ssa.egraph),
+                seed_orders=seed_order_keys)
+        except ValueError:
+            sched_arg = cfg.schedule
     gen = TorchCodeGenerator(ssa, extraction, bulk=cfg.use_bulk,
                              extra_fns=extra_fns,
                              reuse_temps=cfg.use_cse,
-                             schedule=cfg.schedule,
+                             schedule=sched_arg,
                              sched_cost_model=cfg.make_schedule_cost_model(
                                  prog)).generate()
     codegen_wall = time.perf_counter() - t1
@@ -501,9 +764,16 @@ def _saturate_attempt(prog: KernelProgram, cfg: SaturatorConfig,
                                if cfg.cost_model == "roofline" else None)
     if predicted is not None:
         extraction.predicted = predicted
-    return SaturatedKernel(kernel=gen, ssa=ssa, extraction=extraction,
-                           saturation=sat_report, config=cfg,
-                           ssa_wall_s=ssa_wall, codegen_wall_s=codegen_wall)
+    sk = SaturatedKernel(kernel=gen, ssa=ssa, extraction=extraction,
+                         saturation=sat_report, config=cfg,
+                         ssa_wall_s=ssa_wall, codegen_wall_s=codegen_wall,
+                         cache_status=status)
+    if cache is not None and key is not None:
+        telemetry().record_cache("warm" if status == "warm" else "miss",
+                                 prog.name,
+                                 time.perf_counter() - t_begin)
+        _store_entry(cache, key, cfg, prog, sk)
+    return _maybe_verify(sk)
 
 
 def _cheap_config(cfg: SaturatorConfig) -> SaturatorConfig:

@@ -5,7 +5,7 @@ runtime — persistent-cache hits / misses / warm starts with their wall
 times, and jaxpr-bridge fallbacks per unsupported primitive (the
 coverage gaps ``maybe_saturate`` used to swallow silently). It has no
 dependencies so every layer (core pipeline, cache store, jaxpr bridge,
-launch drivers, benchmarks) can report into the same counters without
+launch entry points, benchmarks) can report into the same counters without
 import cycles.
 
 Consumers: ``launch/serve.py`` / ``launch/train.py`` surface

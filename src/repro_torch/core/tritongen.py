@@ -584,6 +584,22 @@ class TritonGenerator(TorchCodeGenerator):
         # template body; the others are per-row values or scalars
         self._tiles: set = set()
 
+    def _resolve_schedule(self):
+        """Emission always follows an explicit schedule: a named order
+        (source or bulk) without one attached is reconstructed
+        searchlessly, as the cache stores it, so a cold build and a
+        cache replay of the same choice emit the same source."""
+        sched = super()._resolve_schedule()
+        if sched is None:
+            cm = self._sched_cm if hasattr(self._sched_cm, "latency") \
+                else None
+            if cm is not None and hasattr(cm, "bind_egraph"):
+                cm.bind_egraph(self.eg)
+            self._explicit = compute_schedule(
+                self.ssa, self.choice, mode=self.schedule_mode,
+                cost_model=cm, move_budget=0)
+        return self._explicit
+
     def _check_tilable(self):
         def walk(region: Region):
             for item in region.items:
@@ -800,18 +816,6 @@ class TritonPipelinedGenerator(TritonGenerator):
         super().__init__(ssa, extraction, **kw)
         self._extraction = extraction
         self._options = kw
-
-    def _resolve_schedule(self):
-        sched = super()._resolve_schedule()
-        if sched is None:
-            cm = self._sched_cm if hasattr(self._sched_cm, "latency") \
-                else None
-            if cm is not None and hasattr(cm, "bind_egraph"):
-                cm.bind_egraph(self.eg)
-            self._explicit = compute_schedule(
-                self.ssa, self.choice, mode=self.schedule_mode,
-                cost_model=cm, move_budget=0)
-        return self._explicit
 
     def generate_triton(self) -> TritonKernel:
         tk = super().generate_triton()
@@ -1059,7 +1063,14 @@ class TileOp:
     runs through ``torch_ref``; on CUDA tensors it raises — the card
     never runs a silent substitute for its kernel. ``launches`` counts
     kernel launches, and ``launches_by_kinds`` the same launches by their
-    plan's operand kinds (``TileCallPlan.kinds``)."""
+    plan's operand kinds (``TileCallPlan.kinds``).
+
+    ``verify`` (a :mod:`repro_torch.verify` level) other than ``"off"``
+    certifies each launch layout the first time the op plans it, at that
+    call's shapes (:func:`repro_torch.verify.verify_tile_layout`), and
+    each compiled kernel's registers, spills and shared memory after its
+    first launch (:func:`repro_torch.verify.check_compiled`); findings go
+    to the process telemetry. A warm launch pays one set lookup."""
     name: str
     tk: Optional[TritonKernel]
     torch_ref: Callable
@@ -1067,6 +1078,10 @@ class TileOp:
     sk: Optional[Any] = None
     launches: int = 0
     launches_by_kinds: Counter = dataclasses.field(default_factory=Counter)
+    verify: str = "off"
+    # the launch layouts certified, and the compiled binaries checked
+    certified: set = dataclasses.field(default_factory=set, repr=False)
+    binaries: set = dataclasses.field(default_factory=set, repr=False)
 
     def __call__(self, *arrays, **scalars):
         return self.apply(*arrays, **scalars)
@@ -1097,11 +1112,35 @@ def _apply_tile_op(op: TileOp, arrays, scalars, out_dtype=None):
     tk = op.tk
     plan, ins, outs = prepare_tile_call(tk, arrays, op.name, out_dtype)
     if plan.n_blocks > 0:
-        launch_tile_kernel(tk.compiled(plan.layout), plan, ins, outs,
-                           [float(scalars[s]) for s in tk.scalars])
+        if op.verify != "off" and plan.layout not in op.certified:
+            from repro_torch.verify import verify_tile_layout
+            verify_tile_layout(op, plan, [tuple(a.shape) for a in arrays])
+            op.certified.add(plan.layout)
+        ck = launch_tile_kernel(tk.compiled(plan.layout), plan, ins, outs,
+                                [float(scalars[s]) for s in tk.scalars])
         op.launches += 1
         op.launches_by_kinds[plan.kinds] += 1
+        if op.verify != "off":
+            _check_binary(op, plan, ck, ins, outs)
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _check_binary(op: TileOp, plan: TileCallPlan, ck, ins, outs):
+    """Hold a compiled kernel's metadata against the card's limits, once
+    for each binary Triton compiles (layout, block, width, warps and
+    operand dtypes)."""
+    key = (plan.layout, plan.block_r, plan.block_d, plan.d, plan.num_warps,
+           tuple(t.dtype for t in [*ins, *outs]))
+    if key in op.binaries:
+        return
+    op.binaries.add(key)
+    from repro_torch.verify import VerifyReport, check_compiled, record
+    rep = VerifyReport()
+    meta = getattr(ck, "metadata", None)
+    rep.extend(check_compiled(
+        op.name, getattr(ck, "n_regs", None), getattr(ck, "n_spills", None),
+        getattr(meta, "shared", None), plan.num_warps))
+    record(rep)
 
 
 def prepare_tile_call(tk: TritonKernel, arrays, name: str, out_dtype=None):
@@ -1200,6 +1239,12 @@ def make_tile_op(prog: KernelProgram,
                for o in fn(*full_args)]
         return out[0] if len(out) == 1 else tuple(out)
 
-    return TileOp(name=prog.name, tk=tk, torch_ref=torch_ref,
-                  source=tk.source if tk is not None else sk.kernel.source,
-                  sk=sk)
+    op = TileOp(name=prog.name, tk=tk, torch_ref=torch_ref,
+                source=tk.source if tk is not None else sk.kernel.source,
+                sk=sk, verify=cfg.verify)
+    if cfg.verify != "off" and tk is not None:
+        # the grid pass: certify the launch plan at a ragged synthetic
+        # geometry, and the source in its layout, before anything runs
+        from repro_torch.verify import verify_tile_op
+        verify_tile_op(op)
+    return op

@@ -202,6 +202,22 @@ def bwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
     return "wgmma" if head_dim in WGMMA_BWD_HEAD_DIMS else "mma_sync"
 
 
+FWD_BLOCK_M = 64    # query rows of a forward block (TC_BM and BM in the source)
+
+
+def fwd_launch(B: int, H: int, KH: int, S: int, dtype: torch.dtype):
+    """The forward launch as ``csrc/flash_attention.cu`` makes it:
+    ``(grid, item)``, ``item(x, y)`` the ``(b, h, query tile, kv head)``
+    block ``(x, y)`` computes. The bf16 kernel takes (b·h, tile) blocks,
+    heaviest (last) tile first; the f32 kernel (tile, b·h)."""
+    n_t = -(-S // FWD_BLOCK_M)
+    group = H // KH
+    if dtype == torch.bfloat16:
+        return (B * H, n_t), lambda x, y: (x // H, x % H, n_t - 1 - y,
+                                           x % H // group)
+    return (n_t, B * H), lambda x, y: (y // H, y % H, x, y % H // group)
+
+
 def _lpt(work: List[int], programs: int) -> Tuple[List[int], List[int]]:
     """Items ``0 .. len(work) - 1`` dealt to at most ``programs`` programs
     heaviest first (ties by index), each to the program with the least

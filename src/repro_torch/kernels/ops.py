@@ -47,6 +47,7 @@ from repro_torch.core.telemetry import telemetry
 from repro_torch.runtime.guard import breaker_for
 
 from . import ref as _ref
+from . import tile_programs as _tp
 from .flash_attention import decode_attention, flash_attention
 from .ssd_scan import (ssd_decode_step, ssd_scan, ssd_scan_bwd,
                        ssd_scan_plain, ssd_scan_with_states)
@@ -77,6 +78,38 @@ def set_impl(impl: Optional[str]):
         raise ValueError(f"impl must be one of {IMPLS} or None/'auto', "
                          f"got {impl!r}")
     _IMPL = None if impl == "auto" else impl
+
+
+def set_saturation_cache(path):
+    """Point every tile op built after this call at a persistent
+    saturation cache directory (:mod:`repro_torch.cache`): saturation
+    results are replayed from disk instead of re-searched per process,
+    and a replay emits the same kernel sources in any process. None
+    leaves the cache to the ``REPRO_SAT_CACHE`` environment variable
+    (the default); False turns it off even there (``--no-cache``). The
+    launch entry points call this at startup."""
+    _tp._SETTINGS["cache_dir"] = path if path in (None, False) \
+        else str(path)
+
+
+def current_saturation_cache():
+    return _tp._SETTINGS["cache_dir"]
+
+
+def set_saturation_verify(level: Optional[str]):
+    """Static-verification level ("off" | "cheap" | "full", see
+    :mod:`repro_torch.verify`) applied to every tile op built after this
+    call. The launch entry points resolve --verify / REPRO_VERIFY through
+    ``SaturatorConfig.from_env`` and pass the result here; None/"off"
+    adds no work (the default)."""
+    if level not in (None, "off", "cheap", "full"):
+        raise ValueError(f"verify must be None, 'off', 'cheap' or 'full', "
+                         f"got {level!r}")
+    _tp._SETTINGS["verify"] = None if level in (None, "off") else level
+
+
+def current_saturation_verify() -> Optional[str]:
+    return _tp._SETTINGS["verify"]
 
 
 def set_tile_emitter(emitter: Optional[str]):

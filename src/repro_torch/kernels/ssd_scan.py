@@ -453,6 +453,60 @@ SSD_BWD_LAUNCHES = ("ssd_cb_kernel", "ssd_bwd_local_kernel",
                     "ssd_bwd_dbdc_kernel", "ssd_bwd_reduce_kernel")
 
 
+# Launch geometry of csrc/ssd_scan.cu, for the static verifier
+# (repro_torch.verify.grid_check.ssd_scan_models): threads of an
+# elementwise block, C·Bᵀ tiles of a block, heads a chunk block sums
+# over, and dB/dC output tiles of a block.
+SSD_THREADS = 256
+SSD_CB_TILE = (16, 32)
+SSD_BWD_GROUP = 8
+SSD_DBDC_TILE = (64, 64)
+
+
+def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132):
+    """Each launch of a forward (``ssd_cb_kernel``, ``ssd_scan_kernel``)
+    and a backward call at these sizes, as the CUDA source launches them:
+    ``{name: (grid, item)}``, ``item(*block_index)`` the work the block
+    does as the source decodes its index. ``ssd_scan_kernel`` walks its
+    chunks in a loop, so its grid carries the chunk as a second axis;
+    ``ssd_bwd_chunk_kernel`` is persistent (``sms`` programs at most)
+    and is given as its item count and programs instead."""
+    L = min(chunk, S)
+    n_chunks = -(-S // L)
+    nrt = -(-L // SSD_CB_TILE[0])
+    tiles = nrt * -(-L // SSD_CB_TILE[1])
+    n_groups = -(-H // SSD_BWD_GROUP)
+    nmb = -(-L // SSD_DBDC_TILE[0])
+    nnb = -(-N // SSD_DBDC_TILE[1])
+    items = B * n_chunks * n_groups
+
+    def dbdc(x):
+        nb, x = x % nnb, x // nnb
+        mb, x = x % nmb, x // nmb
+        return (x // 2 // n_chunks, x // 2 % n_chunks, x % 2, mb, nb)
+
+    out = {
+        # (chunk, batch, tile) -> (b, chunk, row tile, column tile)
+        "ssd_cb_kernel": ((n_chunks, B, tiles),
+                          lambda c, b, z: (b, c, z % nrt, z // nrt)),
+        # (b·h, chunk of its loop) -> (b, h, chunk)
+        "ssd_scan_kernel": ((B * H, n_chunks),
+                            lambda bh, c: (bh // H, bh % H, c)),
+        # elementwise over (b, h, N x P), the chunks in its loop
+        "ssd_bwd_pass_kernel": ((-(-B * H * N * P // SSD_THREADS),),
+                                lambda e: (e,)),
+        "ssd_bwd_chunk_kernel": (items, min(items, sms)),
+        # -> (b, chunk, dB or dC, row tile, column tile)
+        "ssd_bwd_dbdc_kernel": ((B * n_chunks * 2 * nmb * nnb,), dbdc),
+        "ssd_bwd_reduce_kernel": ((-(-H // SSD_THREADS),), lambda i: (i,)),
+    }
+    if n_chunks > 1:
+        # (chunk - 1, h, b) -> (b, chunk - 1, h): chunks 1 .. n_chunks - 1
+        out["ssd_bwd_local_kernel"] = ((n_chunks - 1, H, B),
+                                       lambda c, h, b: (b, c, h))
+    return out
+
+
 def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128) -> int:
     """Bytes of the workspace one ssd_scan_bwd call allocates on the card
     (C·Bᵀ, the state gradients, the decays, w and exp(seg), the head

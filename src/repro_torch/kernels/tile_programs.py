@@ -11,13 +11,13 @@ on FMA opportunities, shared subexpressions, and front-loadable loads.
 """
 from __future__ import annotations
 
-import functools
-from typing import Callable, Dict, Optional
+import threading
+from typing import Any, Callable, Dict, Optional, Tuple
 
-from repro_torch.core import (KernelProgram, SaturatorConfig,
-                              ScheduleConfig, TileOp, c, exp, gelu_tanh,
-                              log, make_tile_op, minimum, recip, rmax,
-                              rmean, rothalf, rsqrt, rsum, silu, sqrt)
+from repro_torch.core import (CacheConfig, KernelProgram, SaturatorConfig,
+                              ScheduleConfig, TileOp, VerifyConfig, c, exp,
+                              gelu_tanh, log, make_tile_op, minimum, recip,
+                              rmax, rmean, rothalf, rsqrt, rsum, silu, sqrt)
 
 # Declared operand geometry for the analysis layer: the model hot-spots
 # run on one (8, 128) vreg tile; norm gains/biases are broadcast rows,
@@ -232,8 +232,17 @@ PROGRAMS: Dict[str, Callable[[], KernelProgram]] = {
 }
 
 
+# Process-wide saturation settings for tile ops built without their own
+# (set through repro_torch.kernels.ops.set_saturation_cache and
+# set_saturation_verify). A cache_dir of None leaves the cache to the
+# REPRO_SAT_CACHE environment variable at the pipeline level, and False
+# turns it off even there (--no-cache).
+_SETTINGS: Dict[str, Any] = {"cache_dir": None, "verify": None}
+
+
 def get_tile_op(name: str, mode: str = "accsat",
-                schedule: str = None, emitter: str = None) -> TileOp:
+                schedule: str = None, emitter: str = None,
+                cache_dir: str = None, verify: str = None) -> TileOp:
     """Build (and cache) the saturated TileOp for a named program, with
     the JAX package's ``get_tile_op`` configuration: the flat TPU-weight
     extraction model (relative op weights, so the port extracts the same
@@ -242,22 +251,57 @@ def get_tile_op(name: str, mode: str = "accsat",
     (``"source" | "bulk" | "cost"``; None keeps the mode's default —
     bulk for accsat). ``emitter`` picks the kernel's form
     (``"triton" | "triton_pipelined"``; None = the sync ``"triton"``).
-    The persistent cache and the static verifier of the JAX version are
-    not ported (ROADMAP queue A). One op (and one launch counter) per
+
+    ``cache_dir`` (see :mod:`repro_torch.cache`) persists the saturation
+    result on disk: an exact hit in another process replays the same
+    choice and statement order, so it emits the same sources whatever
+    its hash seed. ``verify`` ("off" | "cheap" | "full", see
+    :mod:`repro_torch.verify`) audits the build and certifies the op's
+    launch plans. None takes the process-wide setting of
+    ``repro_torch.kernels.ops.set_saturation_cache`` and
+    ``set_saturation_verify``. One op (and one launch counter) per
     distinct configuration, however the arguments are passed."""
+    if cache_dir is None:
+        cache_dir = _SETTINGS["cache_dir"]
+    if verify is None:
+        verify = _SETTINGS["verify"]
     return _tile_op(name, mode, schedule,
-                    None if emitter == "triton" else emitter)
+                    None if emitter == "triton" else emitter,
+                    cache_dir if cache_dir in (None, False)
+                    else str(cache_dir),
+                    None if verify in (None, "off") else verify)
 
 
-@functools.lru_cache(maxsize=None)
-def _tile_op(name: str, mode: str, schedule: Optional[str],
-             emitter: Optional[str]) -> TileOp:
-    cfg = SaturatorConfig(
-        mode=mode, cost_model="tpu_v5e",
-        tpu_rules=(mode in ("cse_sat", "accsat")),
-        schedule_cfg=ScheduleConfig(schedule=schedule, emitter=emitter))
-    return make_tile_op(PROGRAMS[name](), cfg)
+# The built ops, one per configuration (name, mode, schedule, emitter,
+# cache_dir, verify): what this process has built, e.g. for a second
+# process to rebuild from the same cache.
+_OPS: Dict[Tuple[Any, ...], TileOp] = {}
+_OPS_LOCK = threading.Lock()
+
+
+def _tile_op(*key) -> TileOp:
+    with _OPS_LOCK:
+        op = _OPS.get(key)
+        if op is None:
+            name, mode, schedule, emitter, cache_dir, verify = key
+            cfg = SaturatorConfig(
+                mode=mode, cost_model="tpu_v5e",
+                tpu_rules=(mode in ("cse_sat", "accsat")),
+                schedule_cfg=ScheduleConfig(schedule=schedule,
+                                            emitter=emitter),
+                cache_cfg=CacheConfig(cache_dir=cache_dir),
+                verify_cfg=VerifyConfig(verify=verify) if verify else None)
+            op = _OPS[key] = make_tile_op(PROGRAMS[name](), cfg)
+        return op
+
+
+def built_tile_ops() -> Dict[Tuple[Any, ...], TileOp]:
+    """Every op this process has built since the last ``cache_clear``,
+    by its configuration ``(name, mode, schedule, emitter, cache_dir,
+    verify)``."""
+    with _OPS_LOCK:
+        return dict(_OPS)
 
 
 # drop every built op (a simulated host restart re-saturates)
-get_tile_op.cache_clear = _tile_op.cache_clear
+get_tile_op.cache_clear = _OPS.clear

@@ -16,6 +16,12 @@ Runs on the GPU unless ``device="cpu"`` is passed:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --full
 
+``--cache-dir DIR`` (default ``$XDG_CACHE_HOME/repro_torch/sat_cache``)
+keeps the saturated tile programs across processes, ``--no-cache`` turns
+that off, and ``--verify off|cheap|full`` audits every tile-op build and
+launch plan (default: ``REPRO_VERIFY``, else off):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --verify cheap --cache-dir /tmp/sat
+
 (``--arch`` takes minitron-4b, mamba2-1.3b, zamba2-2.7b, dbrx-132b,
 qwen2-vl-2b and whisper-small; dbrx-132b's full 40 layers do not fit one
 80 GB card, so serve it through ``Server(..., cfg=...)`` with a cut
@@ -33,9 +39,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.cache import default_cache_dir
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import SaturatorConfig
 from repro_torch.core.telemetry import telemetry
+from repro_torch.kernels import ops
 from repro_torch.models import ModelConfig, get_model, resolve_device
+
+# Default persistent saturation-cache location for the serving CLI: the
+# decode hot path pays the saturator's search once per kernel across
+# processes, not once per process (disable with --no-cache). User-private
+# ($XDG_CACHE_HOME/repro_torch/sat_cache): cached entries are replayed
+# into generated code, so the directory must not be writable by others.
+DEFAULT_CACHE_DIR = str(default_cache_dir())
 
 
 @dataclasses.dataclass
@@ -50,9 +66,17 @@ class Request:
 class Server:
     def __init__(self, arch: str, *, smoke: bool = True, max_batch: int = 4,
                  max_seq: int = 128, seed: int = 0, device=None,
-                 cfg: Optional[ModelConfig] = None):
+                 cfg: Optional[ModelConfig] = None, cache_dir=None,
+                 verify: Optional[str] = None):
         """``cfg``, when given, is served in place of ``arch``'s config
-        (a full-width config at a cut depth, for one card)."""
+        (a full-width config at a cut depth, for one card). ``cache_dir``
+        and ``verify``, when given, set the process-wide saturation cache
+        (False: off) and verification level of the tile ops the model
+        builds (``ops.set_saturation_cache``, ``set_saturation_verify``)."""
+        if cache_dir is not None:
+            ops.set_saturation_cache(cache_dir)
+        if verify is not None:
+            ops.set_saturation_verify(verify)
         self.device = resolve_device(device)
         arch = ARCH_IDS.get(arch, arch)
         if cfg is not None:
@@ -117,6 +141,19 @@ class Server:
         return results
 
 
+def cache_line(sat: dict) -> str:
+    """The saturation cache's and the verifier's counters of a telemetry
+    snapshot, as the launch entry points print them."""
+    ver = sat.get("verify", {})
+    return (f"  saturation cache: hits={sat.get('cache_hits', 0)} "
+            f"warm={sat.get('cache_warm_starts', 0)} "
+            f"misses={sat.get('cache_misses', 0)} "
+            f"invalid={sat.get('cache_invalid', 0)} "
+            f"hit_rate={sat.get('cache_hit_rate', 0.0):.2f}; verify: "
+            f"runs={ver.get('runs', 0)} errors={ver.get('errors', 0)} "
+            f"findings={ver.get('findings_by_pass', {})}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minitron-4b",
@@ -128,9 +165,21 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--cache-dir", default=DEFAULT_CACHE_DIR,
+                    help="persistent saturation cache directory")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="disable the on-disk saturation cache")
+    ap.add_argument("--verify", default=None,
+                    choices=["off", "cheap", "full"],
+                    help="static verification level for every kernel "
+                         "build (default: REPRO_VERIFY, else off)")
     args = ap.parse_args(argv)
 
-    srv = Server(args.arch, smoke=not args.full, device=args.device)
+    # one front door for the cache/verify side-channels: explicit arg >
+    # CLI flag > env var (REPRO_SAT_CACHE / REPRO_VERIFY)
+    sat = SaturatorConfig.from_env(flags=args)
+    srv = Server(args.arch, smoke=not args.full, device=args.device,
+                 cache_dir=sat.cache_dir, verify=sat.verify)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i,
                     prompt=rng.integers(1, srv.cfg.vocab,
@@ -146,6 +195,7 @@ def main(argv=None):
           f"{srv.metrics['tokens']} tokens in {dt:.1f}s "
           f"({srv.metrics['prefills']} prefills, "
           f"{srv.metrics['decode_ticks']} ticks)")
+    print(cache_line(sat))
     guard = sat.get("guard", {})
     print(f"  guard: levels={guard.get('ladder_levels', {})} "
           f"degradations={sum(guard.get('degradations', {}).values())} "

@@ -16,10 +16,10 @@ from a simulated host loss (``--inject-failure-at``).
 Every family trains: dense (minitron-4b, granite-8b, ...), vlm
 (qwen2-vl-2b), ssm (mamba2-1.3b), hybrid (zamba2-2.7b), moe (dbrx-132b,
 arctic-480b) and encdec (whisper-small, whose step adds the audio frames
-as the JAX step does: :func:`encdec_frames`). Gradient compression
-(``--compress``, ROADMAP A14) and the saturation cache and verifier
-(``--cache-dir``, ``--verify``, A8) are not ported, as in the serve
-entry point.
+as the JAX step does: :func:`encdec_frames`). ``--cache-dir``,
+``--no-cache`` and ``--verify`` set the saturation cache and the static
+verifier as in the serve entry point. Gradient compression
+(``--compress``, ROADMAP A14) is not ported.
 """
 from __future__ import annotations
 
@@ -30,8 +30,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.cache import default_cache_dir
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import SaturatorConfig
 from repro_torch.core.telemetry import telemetry
+from repro_torch.kernels import ops
 from repro_torch.data import DataConfig, ShardedTokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import get_model, resolve_device
@@ -63,12 +66,19 @@ def _with_frames(train_step, cfg, device):
 def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
                   seq: int, ckpt_dir: str, inject: Optional[dict] = None,
                   lr: float = 3e-4, num_shards: int = 1, seed: int = 0,
-                  device=None) -> ElasticTrainer:
+                  device=None, cache_dir=None,
+                  verify: Optional[str] = None) -> ElasticTrainer:
     """The JAX ``build_trainer`` for the port: the model on ``device``
     (CUDA unless named; with no CUDA device and none named it raises),
     seeded weights, f32 AdamW moments, a warmup of a tenth of the steps,
     checkpoints every quarter of them. An encdec step trains on
-    :func:`encdec_frames` of the batch's shape."""
+    :func:`encdec_frames` of the batch's shape. ``cache_dir`` (False:
+    off) and ``verify``, when given, set the process-wide saturation
+    cache and verification level of every tile op the step builds."""
+    if cache_dir is not None:
+        ops.set_saturation_cache(cache_dir)
+    if verify is not None:
+        ops.set_saturation_verify(verify)
     device = resolve_device(device)
     arch = ARCH_IDS.get(arch, arch)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -112,7 +122,19 @@ def main(argv=None):
                     help="checkpoint directory (default: a new temporary "
                          "directory for this run)")
     ap.add_argument("--inject-failure-at", type=int, default=None)
+    ap.add_argument("--cache-dir", default=str(default_cache_dir()),
+                    help="persistent saturation cache directory "
+                         "(tile-op choices + schedules reused across runs)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="disable the on-disk saturation cache")
+    ap.add_argument("--verify", default=None,
+                    choices=["off", "cheap", "full"],
+                    help="static verification level for every kernel "
+                         "build (default: REPRO_VERIFY, else off)")
     args = ap.parse_args(argv)
+    # one front door for the cache/verify side-channels: explicit arg >
+    # CLI flag > env var (REPRO_SAT_CACHE / REPRO_VERIFY)
+    sat = SaturatorConfig.from_env(flags=args)
 
     inject = {args.inject_failure_at: ("node_loss", 1)} \
         if args.inject_failure_at else None
@@ -124,13 +146,16 @@ def main(argv=None):
     trainer = build_trainer(args.arch, smoke=args.smoke, steps=args.steps,
                             batch=args.batch, seq=args.seq,
                             ckpt_dir=ckpt_dir, lr=args.lr,
-                            inject=inject, device=args.device)
+                            inject=inject, device=args.device,
+                            cache_dir=sat.cache_dir, verify=sat.verify)
     t0 = time.time()
     out = trainer.run()
     losses = out["losses"]
     print(f"arch={args.arch} steps={out['final_step']} "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f} "
           f"recoveries={out['recoveries']} wall={time.time()-t0:.1f}s")
+    from repro_torch.launch.serve import cache_line
+    print(cache_line(telemetry().snapshot()))
     guard = telemetry().snapshot()["guard"]
     print(f"  guard: levels={guard['ladder_levels']} "
           f"degradations={sum(guard['degradations'].values())} "

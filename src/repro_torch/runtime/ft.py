@@ -2,9 +2,7 @@
 
 The port of :mod:`repro.runtime.ft`: ``ElasticTrainer``,
 ``FailureInjector``, ``TrainLoopConfig`` and ``StragglerPolicy``, with
-the logic of the JAX module. Recovery does not re-apply the saturation
-cache and verify settings of the JAX trainer: neither is ported yet
-(ROADMAP A8). Its description:
+the logic of the JAX module. Its description:
 
 Design (1000+-node posture, simulated faithfully on one process):
 
@@ -95,7 +93,9 @@ class TrainLoopConfig:
         default_factory=StragglerPolicy)
     # Simulate the full host-process restart on recovery: drop every
     # in-process tile op (get_tile_op.cache_clear) so the rebuilt step
-    # re-saturates — exactly what a replacement host does.
+    # re-saturates — exactly what a replacement host does. The
+    # persistent saturation cache + verify settings survive because
+    # _recover re-applies the snapshot taken at __init__.
     simulate_host_restart: bool = False
 
 
@@ -112,6 +112,7 @@ class ElasticTrainer:
                  injector: Optional[FailureInjector] = None,
                  checkpointer=None):
         from repro_torch.checkpoint import Checkpointer
+        from repro_torch.kernels import ops as _ops
         self.cfg = cfg
         self.build_step = build_step
         self.params = params
@@ -119,6 +120,11 @@ class ElasticTrainer:
         self.num_shards = num_shards
         self.injector = injector or FailureInjector()
         self.ckpt = checkpointer or Checkpointer(cfg.ckpt_dir, keep=cfg.keep)
+        # Snapshot the process-global saturation settings so recovery can
+        # restore them: a simulated host loss must come back with the
+        # same persistent cache + verify level the run started with.
+        self._sat_cache = _ops.current_saturation_cache()
+        self._sat_verify = _ops.current_saturation_verify()
         self.log: List[Dict[str, Any]] = []
         self.losses: List[float] = []
         self.step = 0
@@ -156,6 +162,7 @@ class ElasticTrainer:
     # -- recovery -------------------------------------------------------------------
     def _recover(self, ev: FailureEvent):
         from repro_torch.core.telemetry import telemetry
+        from repro_torch.kernels import ops as _ops
         from repro_torch.kernels.tile_programs import get_tile_op
         self.recoveries += 1
         new_shards = max(self.num_shards - ev.lost_hosts,
@@ -166,8 +173,12 @@ class ElasticTrainer:
         self.num_shards = new_shards
         if self.cfg.simulate_host_restart:
             get_tile_op.cache_clear()
-        # (the JAX trainer re-applies its saturation cache and verify
-        # settings here; the port has neither yet, ROADMAP A8)
+        # Re-apply the saturation settings snapshotted at __init__: the
+        # rebuilt step must replay from the same persistent cache (warm
+        # restart) and keep the same verification level, even if the
+        # simulated replacement host started from process defaults.
+        _ops.set_saturation_cache(self._sat_cache)
+        _ops.set_saturation_verify(self._sat_verify)
         telemetry().record_recovery(ev.step, ev.kind, shards=new_shards)
         # restore the last committed state; data replays deterministically
         self.ckpt.wait()

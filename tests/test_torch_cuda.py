@@ -1176,3 +1176,73 @@ def test_failure_replay_on_the_card_equals_a_clean_run(cuda, tmp_path):
                            inject={5: ("node_loss", 1)}, **kw).run()
     assert failed["recoveries"] == 1
     assert failed["losses"] == clean["losses"]
+
+
+# -- the saturation cache and the verifier on the card --------------------------
+# the serve shapes of chip_smoke.py's cache phase: (operand shapes, dtype,
+# out dtype)
+SERVE_TILES = {
+    "rmsnorm": ([(2048, 3072), (3072,)], torch.float32, None),
+    "rotary": ([(4, 24, 512, 128), (1, 1, 512, 128), (1, 1, 512, 128)],
+               torch.bfloat16, None),
+    "swiglu": ([(2048, 9216)] * 2, torch.bfloat16, None),
+    "rmsnorm_gated": ([(2048, 4096), (2048, 4096), (4096,)],
+                      torch.bfloat16, None),
+    "moe_router": ([(32, 64, 16)], torch.float32, None),
+    "layernorm": ([(2048, 768), (768,), (768,)], torch.float32, None),
+    "gelu": ([(2048, 3072)], torch.bfloat16, None),
+    "adamw": ([(3072, 9216)] * 4, torch.float32, None),
+    "l2_clip": ([(3072, 9216)], torch.bfloat16, torch.float32),
+}
+
+
+def _serve_tile_inputs(name, device):
+    shapes, dtype, out_dtype = SERVE_TILES[name]
+    gen = torch.Generator(device=device).manual_seed(7)
+    names = [a.name for a in PROGRAMS[name]().arrays.values()
+             if a.role != "out"]
+    xs = [torch.randn(s, generator=gen, device=device).to(dtype)
+          for s in shapes]
+    xs = [x.abs() * 0.01 if n == "v" else x for n, x in zip(names, xs)]
+    return xs, {s: SCALARS[s] for s in PROGRAMS[name]().scalars}, out_dtype
+
+
+@pytest.mark.parametrize("emitter", ["triton", "triton_pipelined"])
+@pytest.mark.parametrize("name", sorted(SERVE_TILES))
+def test_compiled_tile_kernels_fit_the_card(name, emitter, cuda):
+    """Every tile kernel compiled at a serve shape passes check_compiled:
+    registers, spills and shared memory within the H100's limits."""
+    from repro_torch.core.tritongen import (launch_tile_kernel,
+                                            prepare_tile_call)
+    from repro_torch.verify import check_compiled
+    xs, sc, out_dtype = _serve_tile_inputs(name, cuda)
+    op = get_tile_op(name, emitter=emitter)
+    plan, ins, outs = prepare_tile_call(op.tk, xs, name, out_dtype)
+    ck = launch_tile_kernel(op.tk.compiled(plan.layout), plan, ins, outs,
+                            [float(sc[s]) for s in op.tk.scalars])
+    findings = check_compiled(name, ck.n_regs, ck.n_spills,
+                              ck.metadata.shared, plan.num_warps)
+    assert not [f for f in findings if f.severity == "error"], \
+        [str(f) for f in findings]
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "rotary", "adamw", "l2_clip"])
+def test_a_warm_build_replays_the_cold_kernel_bitwise(name, tmp_path, cuda):
+    """A cache hit rebuilds the same kernel source, and its output on the
+    card equals the cold build's bit for bit; both ops certify their
+    launch layout and compiled binary with no error."""
+    from repro_torch.core.telemetry import reset_telemetry, telemetry
+    xs, sc, out_dtype = _serve_tile_inputs(name, cuda)
+    reset_telemetry()
+    cold = get_tile_op(name, cache_dir=str(tmp_path), verify="cheap")
+    assert cold.sk.cache_status == "miss"
+    want = cold.apply(*xs, out_dtype=out_dtype, **sc)
+    get_tile_op.cache_clear()
+    warm = get_tile_op(name, cache_dir=str(tmp_path), verify="cheap")
+    assert warm is not cold and warm.sk.cache_status == "hit"
+    assert warm.source == cold.source
+    got = warm.apply(*xs, out_dtype=out_dtype, **sc)
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    assert warm.certified and warm.binaries
+    assert telemetry().snapshot()["verify"]["errors"] == 0
