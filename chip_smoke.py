@@ -57,7 +57,19 @@ Server at full width with random seeded weights, and a training path:
   dispatch's torch backward, the optimizer in leading-axis chunks on
   dbrx's expert and embedding leaves), their launches per step asserted,
   each step's gradients and update in f32 (whisper at full depth, dbrx
-  at 1 layer) against the plain versions; a trace of one step of each.
+  at 1 layer) against the plain versions; a trace of one step of each;
+* the latency model's calibration lane (``calibrate``,
+  tools/calibrate.py at fewer reps): the 13 tile programs under each
+  statement order at 32 M elements an array, checked against their
+  plain versions, timed in turns and refitted, beside the committed
+  H100 profile (experiments/device_profiles_torch/), which must re-score
+  clean; its cost orders built and checked;
+* the bridge (``bridge``): the example's my_fn and a function with
+  remainder, where, pow and a 0-d scalar bridged by saturate_torch_fn to
+  one generated Triton kernel each, at (8192, 4096) in f32 and bf16 on
+  operands of both signs, checked against the eager function and the
+  plain version, timed in turns against the eager function, and
+  torch.sort's fallback counted.
 
 Every tile op of the run builds through a fresh saturation cache and is
 audited by the static verifier (phase ``saturation``): each launch
@@ -2734,10 +2746,11 @@ def cache_child(spec_path: str, use_cache: bool) -> int:
         ops.set_saturation_cache(False)
     diffs, compared = [], 0
     for key, want in spec["configs"]:
-        name, mode, schedule, emitter, cache_dir, verify = key
+        name, mode, schedule, emitter, cache_dir, verify, profile = key
         op = get_tile_op(name, mode=mode, schedule=schedule, emitter=emitter,
                          cache_dir=cache_dir if use_cache else False,
-                         verify=verify if use_cache else None)
+                         verify=verify if use_cache else None,
+                         device_profile=profile)
         got = _op_sources(op)
         got["layouts"] = {lay: _sha(op.tk.render(*_layout_of(
             json.loads(lay))).encode()) for lay in want["layouts"]}
@@ -2762,6 +2775,215 @@ def cache_child(spec_path: str, use_cache: bool) -> int:
         out["verify_errors"] = telemetry().snapshot()["verify"]["errors"]
     print("CACHE_CHILD:" + json.dumps(out), flush=True)
     return 0
+
+
+# The calibration lane (tools/calibrate.py) at fewer reps: the 13 tile
+# programs under each statement order at the tool's 32 M elements an
+# array, checked, timed in turns, refitted; the committed H100 profile
+# re-scored and its cost orders built and checked.
+CALIBRATE_REPS = 5
+# The bridge: the example's my_fn (examples/saturate_custom_kernel.py)
+# and a function with remainder, where, pow and a 0-d scalar, bridged
+# to one generated Triton kernel each, at (8192, 4096) in f32 and bf16.
+BRIDGE_SHAPE = (8192, 4096)
+
+
+def _calibrate_tool():
+    """tools/calibrate.py as a module (its main is not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "calibrate_tool", os.path.join(ROOT, "tools", "calibrate.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_calibrate(torch):
+    """The 13 tile programs x 3 statement orders built through the run's
+    cache and verifier, each launched on the card and held against its
+    plain version (f32, 2e-5), timed in turns at ``CALIBRATE_REPS`` and
+    refitted; the committed profile's ``check_profile`` must be empty;
+    the 13 cost orders priced by the committed profile built and checked,
+    and the programs whose order it moved against the analytic cost
+    order named. Every op's count is zeroed before and read after."""
+    from repro_torch.analysis import check_profile, load_profile
+    from repro_torch.kernels.tile_programs import PROGRAMS
+    tool = _calibrate_tool()
+    committed = tool.committed_profile()
+    if committed is None:
+        raise AssertionError("calibrate: no committed H100 profile")
+    prof = load_profile(committed)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows, moved, errs, launches = [], [], {}, {}
+    t0 = time.perf_counter()
+    for name in sorted(PROGRAMS):
+        ops_ = tool.schedule_ops(name)
+        cal = tool.schedule_ops(name, committed, ("cost",))["cost"]
+        for op in (*ops_.values(), cal):
+            op.launches = 0
+        arrays, scalars = tool.tile_inputs(
+            torch, ops_["cost"].sk.ssa.prog)
+        got, _ = tool.check_and_compile(torch, ops_, arrays, scalars,
+                                        hashes=False)
+        outs, want = (o if isinstance(o, tuple) else (o,) for o in (
+            cal.apply(*arrays, **scalars), cal.torch_ref(*arrays, **scalars)))
+        got["profile"] = max(float((o - w).abs().max())
+                             for o, w in zip(outs, want))
+        errs[name] = got
+        times = tool.time_in_turns(torch, ops_, arrays, scalars,
+                                   CALIBRATE_REPS, flush)
+        rows.append(tool.summarize(name, ops_, arrays, times))
+        if cal.tk.source != ops_["cost"].tk.source:
+            moved.append(name)
+        launches[name] = {s: op.launches for s, op in
+                          (*ops_.items(), ("profile", cal))}
+        del arrays
+    fresh, ok = tool.fit_rows(rows, torch.cuda.get_device_name(0))
+    fails = check_profile(prof)
+    worst = max(max(e.values()) for e in errs.values())
+    ff, cf = fresh.fit, prof.fit
+    emit({"phase": "calibrate", "programs": len(rows),
+          "schedules": list(tool.SCHEDULES), "reps": CALIBRATE_REPS,
+          "shape_elems": rows[0]["shape"][0] * rows[0]["shape"][1],
+          "max_abs_err": worst, "tol": TILE_TOL["float32"],
+          "refit": {"mape_pct": ff["mape_pct"], "spearman": ff["spearman"],
+                    "uncalibrated_mape_pct": ff["uncalibrated_mape_pct"],
+                    "uncalibrated_spearman": ff["uncalibrated_spearman"],
+                    "would_promote": ok},
+          "committed": {"path": os.path.relpath(committed, ROOT),
+                        "mape_pct": cf["mape_pct"],
+                        "spearman": cf["spearman"],
+                        "uncalibrated_mape_pct": cf["uncalibrated_mape_pct"],
+                        "uncalibrated_spearman": cf["uncalibrated_spearman"],
+                        "check_profile": fails},
+          "profile_moved_cost_order": moved,
+          "cost_vs_bulk_paired_pct": {r["kernel"]:
+                                      r["cost_vs_bulk_paired_pct"]
+                                      for r in rows},
+          "launches": launches, "wall_s": time.perf_counter() - t0})
+    if worst > TILE_TOL["float32"]:
+        raise AssertionError(f"calibrate: kernel vs plain {worst}")
+    if fails:
+        raise AssertionError(f"calibrate: committed profile fails {fails}")
+    if any(n == 0 for ln in launches.values() for n in ln.values()):
+        raise AssertionError(f"calibrate: an op never launched {launches}")
+
+
+def _bridge_fns(torch):
+    def my_fn(a, b):
+        t = a * b + a * b          # redundant on purpose
+        return t * torch.sigmoid(t) + a * b
+
+    def mod_pow(a, b, s):
+        return (torch.where(a > b, torch.remainder(a, b), a ** 4) * s
+                + b.abs() ** 1.5 - torch.pow(a, -2))
+
+    return {"my_fn": (my_fn, False), "mod_pow": (mod_pow, True)}
+
+
+def _finite_max_diff(torch, got, want, tol):
+    """Where both are finite: max |got - want|, and the worst element's
+    share of its allowance ``tol + tol * |want|`` (below 1 passes; the
+    values of pow(a, -2) reach 1e14); and the count of places where
+    either is not finite."""
+    got, want = got.float(), want.float()
+    ok = torch.isfinite(got) & torch.isfinite(want)
+    diff = (got - want).abs()[ok]
+    return {"max": float(diff.max()),
+            "of_tol": float((diff / (tol + tol * want[ok].abs())).max()),
+            "nonfinite": int((~ok).sum())}
+
+
+def phase_bridge(torch, timer):
+    """Plain torch functions bridged to one generated Triton kernel each
+    (``saturate_torch_fn``): on operands of both signs at
+    ``BRIDGE_SHAPE`` in f32 and bf16, each call is one launch, equal to
+    the eager function and to the bridge's plain version (2e-5 f32,
+    3e-2 bf16; in bf16 both evaluated in f32 on the same bf16 operands,
+    since the kernel computes in f32 and rounds once, while eager bf16
+    rounds after every op: its distance is reported), and is timed in
+    turns against the eager function, which launches a kernel for each
+    of its aten ops; ``maybe_saturate(torch.sort, ...)`` returns
+    ``torch.sort`` and counts one fallback under ``aten.sort``. Returns
+    the kernels line's rows."""
+    from repro_torch.core import (maybe_saturate, saturate_torch_fn,
+                                  telemetry)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a32, b32 = (torch.randn(BRIDGE_SHAPE, generator=g, device="cuda") * 3
+                for _ in range(2))
+    s = torch.tensor(0.75, device="cuda")
+    rows, out = {}, {}
+    for name, (fn, scalar) in _bridge_fns(torch).items():
+        args32 = (a32, b32, s) if scalar else (a32, b32)
+        bk = saturate_torch_fn(fn, args32, name=f"bridge_{name}")
+        bk.op.launches = 0
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            args = (a32.to(dt), b32.to(dt), s)[:len(args32)]
+            before = bk.op.launches
+            got = bk(*args)
+            if bk.op.launches != before + 1:
+                raise AssertionError(f"bridge {name}: "
+                                     f"{bk.op.launches - before} launches")
+            f32 = [x.float() for x in args[:2]]
+            plain = bk.op.torch_ref(*f32, **({"s2": s} if scalar else {}))
+            eager = fn(*f32, *args[2:])
+            tol = TILE_TOL[dtype]
+            errs = {}
+            for ref_name, ref in (("plain", plain), ("eager", eager)):
+                # an exact 0 in randn makes pow(a, -2) infinite: equal
+                # infinities agree, and the error is over finite values
+                if not bool(torch.isclose(got.float(), ref, rtol=tol,
+                                          atol=tol, equal_nan=True).all()):
+                    raise AssertionError(f"bridge {name} {dtype}: "
+                                         f"{ref_name} disagrees")
+                errs[ref_name] = _finite_max_diff(torch, got, ref, tol)
+            del plain, eager
+            eager_own = _finite_max_diff(torch, got, fn(*args), tol)
+            turns = _in_turns(timer, lambda: bk(*args), lambda: fn(*args))
+            bound, by = _tile_bound(bk.op, list(args[:2]))
+            res[dtype] = {"max_abs_err_plain": errs["plain"],
+                          "max_abs_err_eager": errs["eager"],
+                          "max_abs_diff_eager_in_dtype": eager_own,
+                          "ms": statistics.median(turns["kernel_ms"]),
+                          "eager_ms": statistics.median(turns["library_ms"]),
+                          "kernel_over_eager": turns["kernel_over_library"],
+                          "plain_ms": timer.ms(lambda: bk.op.torch_ref(
+                              *args[:2], **({"s2": s} if scalar else {})),
+                              iters=5),
+                          "bound_ms": bound, "bound_by": by}
+        out[name] = {"aten_ops": bk.n_eqns,
+                     "saturated_ops": bk.sk.kernel.stats.n_ops,
+                     "libdevice": bk.op.tk.libdevice,
+                     "launches": bk.op.launches, **res}
+        f32 = res["float32"]
+        rows[f"bridge_{name}"] = {
+            "route": "triton", "source": "src/repro_torch/core/fx_bridge.py",
+            "replaces": "src/repro/core/jaxpr_bridge.py:145 "
+                        "(saturate_jax_fn's replacement, jnp; no Pallas "
+                        "kernel)",
+            "launches": bk.op.launches,
+            "max_abs_err": f32["max_abs_err_plain"]["max"],
+            "max_err_of_tol": f32["max_abs_err_plain"]["of_tol"],
+            "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": None,
+            "eager_ms": f32["eager_ms"], "shapes": {"bfloat16": res[
+                "bfloat16"]}}
+    before = dict(telemetry().snapshot()["bridge_fallbacks"])
+    x = torch.randn(1024, device="cuda")
+    fn, info = maybe_saturate(torch.sort, (x,), name="sort")
+    after = telemetry().snapshot()["bridge_fallbacks"]
+    fell = after.get("aten.sort", 0) - before.get("aten.sort", 0)
+    ok = fn is torch.sort and info is None and fell == 1
+    emit({"phase": "bridge", "shape": list(BRIDGE_SHAPE), "functions": out,
+          "fallback": {"fn": "torch.sort", "returned_original":
+                       fn is torch.sort, "counted": fell},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("bridge: torch.sort did not fall back counted")
+    return rows
 
 
 def phase_verify(torch):
@@ -2988,6 +3210,11 @@ def main() -> int:
         # mamba2-1.3b, zamba2-2.7b and whisper-small training at full width
         # and depth, dbrx-132b at full width and 2 of its 40 layers
         trains = [train, *train_families(torch)]
+        # the latency model's calibration lane and the bridge
+        phase_calibrate(torch)
+        timer = Timer(torch)
+        bridge_rows = phase_bridge(torch, timer)
+        del timer
         phase_verify(torch)
     except Exception:
         traceback.print_exc()
@@ -3029,6 +3256,10 @@ def main() -> int:
                                  if k.startswith(SASS_PREFIX.get(name, ""))}
                         if src in tensor_core else None,
                         **{k: r[k] for k in extra if k in r}})
+    for name, r in bridge_rows.items():
+        kernels.append({"name": name, **r,
+                        "launches_prefill": 0, "launches_decode": 0,
+                        "launches_train": 0, "sass": None})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})
     emit({"kernels": kernels})

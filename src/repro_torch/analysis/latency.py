@@ -137,9 +137,20 @@ class LatencyModel:
         fitted on non-default constants is never silently re-priced with
         the default ones.
         """
-        raise NotImplementedError(
-            "device profiles (analysis/calibrate.py) are not ported to "
-            "repro_torch yet (see ROADMAP.md, queue A)")
+        from .calibrate import chip_by_name, load_profile  # deferred cycle
+        prof = load_profile(profile)
+        if chip is None:
+            chip = chip_by_name(prof.model_chip)
+        p = prof.params
+        return cls(chip=chip, tile_elems=prof.tile_elems,
+                   overlap_slack=p.overlap_slack_compute,
+                   overlap_slack_compute=p.overlap_slack_compute,
+                   overlap_slack_memory=p.overlap_slack_memory,
+                   hbm_efficiency=p.hbm_efficiency, base_ns=p.base_ns,
+                   pass_coeffs=dict(p.vpu_pass_coeffs),
+                   overlap_efficiency=p.overlap_efficiency,
+                   vmem_pressure_coeff=p.vmem_pressure_coeff,
+                   mxu_dtype=mxu_dtype, profile_name=prof.name)
 
     @property
     def slack_compute(self) -> float:

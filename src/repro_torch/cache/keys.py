@@ -123,15 +123,24 @@ def emitter_cache_id(name: Optional[str]) -> Optional[str]:
 
 
 def device_profile_id(config) -> Optional[str]:
-    """Stable identifier of the configured device profile: None for the
-    analytic models, the only ones the port builds. Calibration is not
-    ported (ROADMAP A13), so a configured profile raises, as
-    :class:`repro_torch.core.pipeline.SaturatorConfig` does."""
+    """Stable identifier of the configured device profile, or None for
+    the analytic models. When the profile resolves, the id is
+    ``<name>@<digest of its fitted parameters>`` — re-fitting a profile
+    under the same file name then changes the key, so entries tuned for
+    stale calibration are not silently replayed. An unresolvable spec
+    (e.g. the profile file is gone) falls back to the name string."""
     prof = config.device_profile
     if prof is None:
         return None
-    from repro_torch.core.pipeline import _NOT_PORTED
-    raise ValueError(f"device_profile={prof!r}: calibration {_NOT_PORTED}")
+    name = getattr(prof, "name", None)
+    name = str(name if name is not None else prof)
+    try:
+        from repro_torch.analysis.calibrate import (CalibrationError,
+                                                    load_profile)
+        params = load_profile(prof).params.to_dict()
+    except (CalibrationError, OSError, ValueError, TypeError):
+        return name
+    return f"{name}@{_digest(params)[:16]}"
 
 
 def config_fingerprint(config) -> str:

@@ -5,6 +5,7 @@ from .dsl import (ArrayHandle, Expr, KernelProgram, c, call, exp, fma,
                   gelu_tanh, log, maximum, minimum, recip, rmax, rmean,
                   rothalf, rsqrt, rsum, select, sigmoid, silu, softplus,
                   sqrt, square, tanh, toint, v)
+from .fx_bridge import BridgeUnsupported, maybe_saturate, saturate_torch_fn
 from .pipeline import (CACHE_ENV_VAR, EMITTER_NAMES, MODES, VERIFY_ENV_VAR,
                        CacheConfig, SaturatedKernel, SaturatorConfig,
                        ScheduleConfig, SearchConfig, VerifyConfig,
@@ -22,5 +23,6 @@ __all__ = [
     "CacheConfig", "SaturatedKernel", "SaturatorConfig", "ScheduleConfig",
     "SearchConfig", "VerifyConfig", "saturate_program", "run_reference",
     "SaturationTelemetry", "reset_telemetry", "telemetry", "TileOp",
-    "make_tile_op",
+    "make_tile_op", "BridgeUnsupported", "maybe_saturate",
+    "saturate_torch_fn",
 ]

@@ -17,8 +17,7 @@ kernel. Limits default to the paper's §VII values.
 
 A copy of :mod:`repro.core.pipeline` for the torch port, with the
 persistent saturation cache (:mod:`repro_torch.cache`) and the static
-verifier (:mod:`repro_torch.verify`). Calibration is not ported (ROADMAP
-A13): a config with a device profile is rejected with a ``ValueError``.
+verifier (:mod:`repro_torch.verify`).
 """
 from __future__ import annotations
 
@@ -56,9 +55,6 @@ CACHE_ENV_VAR = "REPRO_SAT_CACHE"
 # Environment switch for static verification: a repro_torch.verify level
 # name ("off" | "cheap" | "full") picked up by SaturatorConfig.from_env().
 VERIFY_ENV_VAR = "REPRO_VERIFY"
-# Not in the port yet (ROADMAP A13, measurement and calibration): configs
-# asking for a calibrated device profile are rejected.
-_NOT_PORTED = "is not ported to repro_torch yet (see ROADMAP.md, A13)"
 
 MODES = ("baseline", "cse", "cse_sat", "cse_bulk", "accsat")
 COST_MODELS = ("paper", "tpu_v5e", "roofline")
@@ -105,9 +101,11 @@ class ScheduleConfig:
     historical default (bulk for accsat/cse_bulk, source otherwise), so
     baselines never drift.
 
-    ``device_profile``: a calibrated device profile. Calibration is not
-    ported yet (ROADMAP A13), so only None, the analytic roofline
-    constants, builds.
+    ``device_profile``: a calibrated DeviceProfile instance, a path, or
+    a bare profile name under experiments/device_profiles_torch/ (see
+    repro_torch.analysis.calibrate). None keeps the analytic roofline
+    constants. Only meaningful with cost_model="roofline" for
+    extraction; always prices the cost schedule search.
 
     ``emitter``: one of :data:`EMITTER_NAMES`. None keeps the context's
     default ("torch" in the pipeline, "triton" in make_tile_op).
@@ -251,9 +249,6 @@ class SaturatorConfig:
         if self.emitter is not None and self.emitter not in EMITTER_NAMES:
             raise ValueError(f"emitter must be one of {EMITTER_NAMES}, "
                              f"got {self.emitter}")
-        if self.device_profile is not None:
-            raise ValueError(f"device_profile={self.device_profile!r}: "
-                             f"calibration {_NOT_PORTED}")
         from repro_torch.verify import VERIFY_LEVELS
         if self.verify not in VERIFY_LEVELS:
             raise ValueError(f"verify must be one of {VERIFY_LEVELS}, "

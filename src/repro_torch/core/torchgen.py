@@ -34,7 +34,7 @@ from repro_torch.runtime import chaos
 
 from .egraph import EGraph
 from .extract import ExtractionResult
-from .ir import ENode
+from .ir import CMPOPS, ENode
 from .schedule import (SCHEDULE_MODES, ScheduleResult, compute_schedule,
                        legacy_bulk_key)
 from .ssa import ArrayCarry, Carry, LoopRegion, Region, SSAResult, StoreEffect
@@ -245,6 +245,11 @@ class TorchCodeGenerator:
         return self._explicit
 
     # -- choice helpers -----------------------------------------------------
+    def _numeric(self, cid: int, name: str) -> str:
+        """``name`` as a number where it holds a comparison's bool tensor
+        (0/1, as the reference's jnp arithmetic promotes it)."""
+        return f"{name}.float()" if self.node(cid).op in CMPOPS else name
+
     def node(self, cid: int) -> ENode:
         cid = self.eg.find(cid)
         n = self.choice.get(cid)
@@ -352,9 +357,14 @@ class TorchCodeGenerator:
             expr = f"_calls[{n.payload!r}]({', '.join(kid_names)})"
         elif op in _UNARY_FMT:
             self.stats.n_ops += 1
+            if op == "neg":     # nor negate one
+                kid_names = [self._numeric(n.children[0], kid_names[0])]
             expr = _UNARY_FMT[op].format(*kid_names)
         elif op in _BIN_FMT:
             self.stats.n_ops += 1
+            if op == "sub":     # torch refuses to subtract a bool tensor
+                kid_names = [self._numeric(c, k)
+                             for c, k in zip(n.children, kid_names)]
             expr = _BIN_FMT[op].format(*kid_names)
         elif op in _TERN_FMT:
             self.stats.n_ops += 1

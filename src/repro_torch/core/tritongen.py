@@ -34,6 +34,13 @@ One program instance owns ``BLOCK_R`` rows × ``BLOCK_D`` columns of the
   both, and ``rothalf(x)`` is the pair ``(−x_hi, x_lo)`` in registers —
   each input element is loaded once, through addresses with no modulo,
   so the loads vectorise to 16 bytes a thread;
+* ``mod`` floors, as the DSL's reference and the torch emitter do
+  (``torch.remainder``): Triton's float ``%`` truncates (C ``fmod``),
+  so a non-zero remainder whose sign differs from the divisor's takes
+  the divisor added. ``pow`` by a constant integer of magnitude at most
+  :data:`POW_MAX_MULS` is a chain of multiplies (a reciprocal for a
+  negative one); any other exponent goes through libdevice's ``pow``,
+  imported by the kernel's module only where it is used;
 * ``fma`` is ``tl.fma``; all compute is f32 and stores cast to the
   output's dtype (the lead operand's, as in the Pallas call, unless the
   caller names another: l2_clip writes f32 from a bf16 gradient);
@@ -206,7 +213,33 @@ _BIN_FMT = {
     "min": "tl.minimum({0}, {1})", "max": "tl.maximum({0}, {1})",
     "lt": "({0} < {1})", "le": "({0} <= {1})", "gt": "({0} > {1})",
     "ge": "({0} >= {1})", "eq": "({0} == {1})", "ne": "({0} != {1})",
+    # floored: Triton's float % truncates, as torch.fmod does
+    "mod": "tl.where((({0} % {1}) != 0) & ((({0} % {1}) < 0) != ({1} < 0)),"
+           " ({0} % {1}) + {1}, {0} % {1})",
 }
+# pow by a constant integer exponent up to this magnitude is multiplies
+POW_MAX_MULS = 8
+# the kernel module's libdevice import (its path moved between Triton
+# releases), only where a kernel calls it
+_LIBDEVICE_IMPORT = [
+    "try:",
+    "    from triton.language.extra import libdevice",
+    "except ImportError:",
+    "    from triton.language.extra.cuda import libdevice",
+]
+
+
+def _pow_fmt(exponent) -> Tuple[str, bool]:
+    """The format of ``pow(x, y)`` for the exponent's node, and whether
+    it calls libdevice: multiplies for a small constant integer."""
+    y = exponent.payload if exponent.op == "const" else None
+    if isinstance(y, (int, float)) and not isinstance(y, bool) \
+            and float(y).is_integer() and 1 <= abs(y) <= POW_MAX_MULS:
+        chain = " * ".join(["{0}"] * int(abs(y)))
+        return (f"({chain})" if y > 0 else f"(1.0 / ({chain}))"), False
+    return "libdevice.pow({0}, {1})", True
+
+
 _TERN_FMT = {
     "fma": "tl.fma({1}, {2}, {0})",          # a + b*c
     "select": "tl.where({0}, {1}, {2})",
@@ -214,7 +247,7 @@ _TERN_FMT = {
 }
 # formats whose arguments must be tensors: a literal is lifted first
 _CALL_OPS = {"exp", "log", "sqrt", "rsqrt", "abs", "sigmoid", "floor",
-             "tanh", "min", "max", "fma"}
+             "tanh", "min", "max", "fma", "mod"}
 
 
 def _reduce_expr(op: str, parts: Sequence[Tuple[str, str]],
@@ -310,6 +343,8 @@ class TritonKernel:
     # with the sync kernel of the same schedule as its twin
     pipelined: bool = False
     twin: Optional["TritonKernel"] = None
+    # the body calls libdevice (pow by a non-integer exponent)
+    libdevice: bool = False
     _compiled: Dict[Tuple[Any, ...], Any] = dataclasses.field(
         default_factory=dict, repr=False)
     _lock: Any = dataclasses.field(default_factory=threading.Lock,
@@ -318,6 +353,10 @@ class TritonKernel:
     @property
     def kernel_name(self) -> str:
         return f"{self.name}_kernel"
+
+    @property
+    def _imports(self) -> List[str]:
+        return _LIBDEVICE_IMPORT if self.libdevice else []
 
     @property
     def body(self) -> List[str]:
@@ -376,6 +415,7 @@ class TritonKernel:
         lines = [
             "import triton",
             "import triton.language as tl",
+            *self._imports,
             "",
             "",
             f"@triton.jit(do_not_specialize={dynamic!r})",
@@ -444,7 +484,8 @@ class TritonKernel:
         params = ([f"{a}_ptr" for a in self.in_arrays]
                   + [f"{a}_optr" for a in self.out_arrays] + self.scalars
                   + ["n_elems", "BLOCK: tl.constexpr"])
-        lines = ["import triton", "import triton.language as tl", "", "",
+        lines = ["import triton", "import triton.language as tl",
+                 *self._imports, "", "",
                  "@triton.jit(do_not_specialize=['n_elems'])",
                  f"def {self.kernel_name}({', '.join(params)}):"]
         store = "tl.store({o}_optr + _offs, {v}.to({o}_optr.dtype.element_ty)"
@@ -583,6 +624,7 @@ class TritonGenerator(TorchCodeGenerator):
         # temps that hold a tile value (one per column piece), in a
         # template body; the others are per-row values or scalars
         self._tiles: set = set()
+        self._libdevice = False
 
     def _resolve_schedule(self):
         """Emission always follows an explicit schedule: a named order
@@ -699,8 +741,12 @@ class TritonGenerator(TorchCodeGenerator):
             self._pairs[name] = (f"{name}_lo", lo)
             self.scope.bind(cid, name)
             return name
+        lift = op in _CALL_OPS
         if op in _REDUCTIONS:
             fmt = None
+        elif op == "pow":
+            fmt, lift = _pow_fmt(self.node(n.children[1]))
+            self._libdevice |= lift
         elif op in _UNARY_FMT:
             fmt = _UNARY_FMT[op]
         elif op in _BIN_FMT:
@@ -711,8 +757,7 @@ class TritonGenerator(TorchCodeGenerator):
                 self.stats.n_fma += 1
         else:
             raise NotImplementedError(f"Triton emission for op {op!r}")
-        kids = [self._arg(c, lines, indent, op in _CALL_OPS)
-                for c in n.children]
+        kids = [self._arg(c, lines, indent, lift) for c in n.children]
         if self.halves and op in _REDUCTIONS:
             expr = _reduce_expr(op, [(x, "") for x in self._half(kids[0])],
                                 masked=True)
@@ -794,7 +839,7 @@ class TritonGenerator(TorchCodeGenerator):
                               for op in _REDUCTIONS),
             stats=self.stats, bulk=self.bulk,
             schedule_mode=self.schedule_mode, schedule=sched,
-            pipelined=self.PIPELINED)
+            pipelined=self.PIPELINED, libdevice=self._libdevice)
         # syntax check of the generated source (no triton import needed)
         compile(tk.source, f"<triton:{self.fn_name}>", "exec")
         return tk

@@ -242,15 +242,22 @@ _SETTINGS: Dict[str, Any] = {"cache_dir": None, "verify": None}
 
 def get_tile_op(name: str, mode: str = "accsat",
                 schedule: str = None, emitter: str = None,
-                cache_dir: str = None, verify: str = None) -> TileOp:
+                cache_dir: str = None, verify: str = None,
+                device_profile: str = None) -> TileOp:
     """Build (and cache) the saturated TileOp for a named program, with
     the JAX package's ``get_tile_op`` configuration: the flat TPU-weight
     extraction model (relative op weights, so the port extracts the same
     terms as the reference) with the TPU rule set in the saturating
     modes. ``schedule`` picks the statement order of the emitted kernel
     (``"source" | "bulk" | "cost"``; None keeps the mode's default —
-    bulk for accsat). ``emitter`` picks the kernel's form
-    (``"triton" | "triton_pipelined"``; None = the sync ``"triton"``).
+    bulk for accsat). Extraction stays on the flat model either way, so
+    the *selected term* is identical across schedules; only the emission
+    order moves. ``device_profile`` (the name or path of a profile under
+    ``experiments/device_profiles_torch/``, see
+    :mod:`repro_torch.analysis.calibrate`) prices the cost-driven
+    schedule search with a calibrated model. ``emitter`` picks the
+    kernel's form (``"triton" | "triton_pipelined"``; None = the sync
+    ``"triton"``).
 
     ``cache_dir`` (see :mod:`repro_torch.cache`) persists the saturation
     result on disk: an exact hit in another process replays the same
@@ -269,12 +276,13 @@ def get_tile_op(name: str, mode: str = "accsat",
                     None if emitter == "triton" else emitter,
                     cache_dir if cache_dir in (None, False)
                     else str(cache_dir),
-                    None if verify in (None, "off") else verify)
+                    None if verify in (None, "off") else verify,
+                    None if device_profile is None else str(device_profile))
 
 
 # The built ops, one per configuration (name, mode, schedule, emitter,
-# cache_dir, verify): what this process has built, e.g. for a second
-# process to rebuild from the same cache.
+# cache_dir, verify, device_profile): what this process has built, e.g.
+# for a second process to rebuild from the same cache.
 _OPS: Dict[Tuple[Any, ...], TileOp] = {}
 _OPS_LOCK = threading.Lock()
 
@@ -283,11 +291,13 @@ def _tile_op(*key) -> TileOp:
     with _OPS_LOCK:
         op = _OPS.get(key)
         if op is None:
-            name, mode, schedule, emitter, cache_dir, verify = key
+            (name, mode, schedule, emitter, cache_dir, verify,
+             device_profile) = key
             cfg = SaturatorConfig(
                 mode=mode, cost_model="tpu_v5e",
                 tpu_rules=(mode in ("cse_sat", "accsat")),
                 schedule_cfg=ScheduleConfig(schedule=schedule,
+                                            device_profile=device_profile,
                                             emitter=emitter),
                 cache_cfg=CacheConfig(cache_dir=cache_dir),
                 verify_cfg=VerifyConfig(verify=verify) if verify else None)
@@ -298,7 +308,7 @@ def _tile_op(*key) -> TileOp:
 def built_tile_ops() -> Dict[Tuple[Any, ...], TileOp]:
     """Every op this process has built since the last ``cache_clear``,
     by its configuration ``(name, mode, schedule, emitter, cache_dir,
-    verify)``."""
+    verify, device_profile)``."""
     with _OPS_LOCK:
         return dict(_OPS)
 

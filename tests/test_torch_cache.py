@@ -4,12 +4,9 @@ port's pipeline — exact-hit replay, warm starts, robustness against
 corrupt and stale entries, concurrent writers, the environment variable,
 a cross-process hit under another PYTHONHASHSEED — and the port's keys
 and cold documents held against the JAX package's for every tile
-program under get_tile_op's configuration.
-
-Two reference cases have no counterpart here: the device-profile re-fit
-(calibration is not ported, so a non-None profile raises naming A13:
-test_device_profile_raises_naming_a13) and the bridge-fallback count
-(the bridge waits for ROADMAP A14)."""
+program under get_tile_op's configuration, with and without a device
+profile (a re-fit under the same name changes the key), and the bridge's
+fallback counted in the telemetry."""
 import json
 import os
 import pathlib
@@ -344,19 +341,22 @@ def test_warm_graft_failure_falls_back_clean(tmp_path):
     assert poisoned.kernel.source == nocache.kernel.source
 
 
-def test_device_profile_raises_naming_a13(tmp_path):
-    """Calibration is not ported: a device profile is refused by the
-    config and by the key, naming ROADMAP A13 (the JAX package's
-    profile re-fit case has no counterpart)."""
-    with pytest.raises(ValueError, match="A13"):
-        SaturatorConfig(mode="accsat", schedule_cfg=ScheduleConfig(
-            device_profile="h100"))
-    from repro_torch.cache.keys import device_profile_id
+def test_bridge_fallback_is_counted():
+    """A function the bridge cannot take comes back unchanged, and the
+    fallback is counted once under its aten op."""
+    import torch
 
-    class _Cfg:
-        device_profile = "h100"
-    with pytest.raises(ValueError, match="A13"):
-        device_profile_id(_Cfg())
+    from repro_torch.core.fx_bridge import maybe_saturate
+    reset_telemetry()
+
+    def f(x):
+        return torch.sort(x)
+
+    fn, info = maybe_saturate(f, (torch.ones(8),), name="sorty")
+    assert info is None and fn is f
+    snap = telemetry().snapshot()
+    assert snap["bridge_fallbacks"] == {"aten.sort": 1}
+    assert any(e.get("fn") == "sorty" for e in telemetry().events)
 
 
 def test_unwritable_cache_dir_is_nonfatal(tmp_path):
@@ -502,6 +502,52 @@ def _jax_tile_cfg():
 def _port_tile_cfg():
     return SaturatorConfig(mode="accsat", cost_model="tpu_v5e",
                            tpu_rules=True)
+
+
+def test_device_profile_key_equals_the_reference(tmp_path):
+    """The same profile file gives the same ``device_profile_id`` and the
+    same cache key in both packages (``<name>@<digest of the fitted
+    params>``), and a re-fit under the same name changes both."""
+    import dataclasses
+
+    import repro.cache as jcache
+    import repro.core as jcore
+    from repro.cache.keys import device_profile_id as j_profile_id
+    from repro.kernels.tile_programs import PROGRAMS as JPROGRAMS
+
+    from repro_torch.analysis import CalibrationParams, DeviceProfile
+    from repro_torch.cache.keys import device_profile_id
+
+    prof = DeviceProfile(
+        name="h100_fit", chip="NVIDIA H100 80GB HBM3",
+        measured_kind="triton_compiled",
+        params=CalibrationParams(hbm_efficiency=0.8, base_ns=2.0,
+                                 vpu_pass_coeffs={"simple": 0.5},
+                                 overlap_efficiency=0.3))
+    path = str(prof.save(tmp_path / "h100_fit.json"))
+
+    def keys():
+        jcfg = jcore.SaturatorConfig(
+            mode="accsat", cost_model="tpu_v5e", tpu_rules=True,
+            schedule_cfg=jcore.ScheduleConfig(schedule="cost",
+                                              device_profile=path))
+        pcfg = SaturatorConfig(
+            mode="accsat", cost_model="tpu_v5e", tpu_rules=True,
+            schedule_cfg=ScheduleConfig(schedule="cost",
+                                        device_profile=path))
+        pid = device_profile_id(pcfg)
+        assert pid == j_profile_id(jcfg) and pid.startswith(f"{path}@")
+        pk = cache_key_for(PROGRAMS["rmsnorm"](), pcfg)
+        jk = jcache.cache_key_for(JPROGRAMS["rmsnorm"](), jcfg)
+        assert (pk.warm_key, pk.exact_key) == (jk.warm_key, jk.exact_key)
+        assert pk.components == jk.components
+        return pid, pk.exact_key
+
+    first = keys()
+    prof.params = dataclasses.replace(prof.params, hbm_efficiency=0.9)
+    prof.save(path)
+    second = keys()
+    assert first[0] != second[0] and first[1] != second[1]
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import KernelProgram, c, make_tile_op
+from repro_torch.core import KernelProgram, c, make_tile_op, toint
 from repro_torch.kernels.flash_attention import (
     _launch_fwd, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_fwd_plain,
@@ -601,10 +601,10 @@ def test_ssd_rejects_what_it_cannot_run(cuda):
 
 
 def test_degraded_tile_op_raises_on_the_card(cuda):
-    p = KernelProgram("mod_op_cuda")
+    p = KernelProgram("toint_op_cuda")
     x = p.array_in("x")
     p.array_out("o")
-    p.store("o", x.load() % c(3.0))
+    p.store("o", toint(x.load() * c(1.5)))
     op = make_tile_op(p)
     assert op.tk is None
     with pytest.raises(RuntimeError, match="no Triton kernel"):
@@ -1246,3 +1246,52 @@ def test_a_warm_build_replays_the_cold_kernel_bitwise(name, tmp_path, cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
     assert warm.certified and warm.binaries
     assert telemetry().snapshot()["verify"]["errors"] == 0
+
+
+# -- the bridge: user functions as one generated kernel -------------------------
+BRIDGED = {
+    "my_fn": lambda a, b, s: (a * b + a * b) * torch.sigmoid(a * b + a * b)
+    + a * b,
+    "mod_pow": lambda a, b, s: torch.where(
+        a > b, torch.remainder(a, b), a ** 4) * s + b.abs() ** 1.5
+    - torch.pow(a, -2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(BRIDGED))
+def test_bridged_function_is_one_launch(name, dtype, cuda):
+    """A bridged function on CUDA tensors: one Triton launch per call,
+    equal to the eager function and to the bridge's plain version on
+    negative operands (remainder's sign, pow's integer chains and
+    libdevice's pow), at a ragged shape. The kernel computes in f32 and
+    rounds once, so in bf16 both are evaluated in f32 on the same bf16
+    operands: eager bf16 rounds after every op, and mod_pow's sum
+    cancels (2 of 7400 elements past 3e-2 on the H100)."""
+    from repro_torch.core import saturate_torch_fn
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a, b = (torch.randn((37, 200), generator=gen, device=cuda) * 3
+            for _ in range(2))
+    s = torch.tensor(0.75, device=cuda)
+    bk = saturate_torch_fn(BRIDGED[name], (a, b, s), name=name)
+    a, b = a.to(dtype), b.to(dtype)
+    before = bk.op.launches
+    got = bk(a, b, s)
+    assert bk.op.launches == before + 1
+    assert got.dtype == dtype and got.shape == a.shape
+    _close(got, bk.op.torch_ref(a.float(), b.float(), s2=s),
+           TILE_TOL[dtype])
+    _close(got, BRIDGED[name](a.float(), b.float(), s), TILE_TOL[dtype])
+
+
+def test_bridged_remainder_floors_on_the_card(cuda):
+    """Triton's float % truncates; the emitted mod corrects the sign
+    exactly as torch.remainder does."""
+    from repro_torch.core import saturate_torch_fn
+    a = torch.tensor([[-7.0, 7.0, -7.0, 7.0, -6.5, 5.25, 0.0, -1e-30]],
+                     device=cuda)
+    b = torch.tensor([[2.0, 2.0, -2.0, -2.0, 4.0, -1.5, 3.0, 3.0]],
+                     device=cuda)
+    bk = saturate_torch_fn(torch.remainder, (a, b))
+    assert torch.equal(bk(a, b), torch.remainder(a, b))

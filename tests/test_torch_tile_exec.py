@@ -77,6 +77,13 @@ class _Tile(np.ndarray):
             raise TypeError(f"to({dtype!r}): not a tl dtype")
         return _tile(dtype.cast(np.asarray(self)))
 
+    # Triton's % truncates (C's fmod), where numpy's floors
+    def __mod__(self, other):
+        return _tile(np.fmod(np.asarray(self), np.asarray(other)))
+
+    def __rmod__(self, other):
+        return _tile(np.fmod(np.asarray(other), np.asarray(self)))
+
 
 class _Ptr:
     """A tensor's flat buffer plus a block of element offsets."""
@@ -228,17 +235,24 @@ def _standin_modules():
     def lacks(name):
         raise AttributeError(f"the triton stand-in lacks tl.{name}")
     tl.__getattr__ = lacks
+    tl.extra = types.ModuleType("triton.language.extra")
+    tl.extra.libdevice = types.SimpleNamespace(pow=_binary(np.power))
     triton = types.ModuleType("triton")
     triton.jit = _jit
     triton.language = tl
     return triton, tl
 
 
-@pytest.fixture
-def standin(monkeypatch):
+def _install_standin(monkeypatch):
     triton, tl = _standin_modules()
     monkeypatch.setitem(sys.modules, "triton", triton)
     monkeypatch.setitem(sys.modules, "triton.language", tl)
+    monkeypatch.setitem(sys.modules, "triton.language.extra", tl.extra)
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    _install_standin(monkeypatch)
 
 
 # -- running an emitted kernel ------------------------------------------------
@@ -746,3 +760,40 @@ def test_gelu_tanh_form_matches_gelu_ref(emitter, standin):
     want = np.asarray(jax_gelu_ref(jnp.asarray(xb.float().numpy())))
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
                                rtol=3e-2)
+
+
+# -- bridged functions: mod and pow --------------------------------------------
+BRIDGED = {
+    "remainder": lambda a, b: torch.remainder(a, b),
+    "remainder_const": lambda a, b: torch.remainder(a, 1.5) + b,
+    "pow_int": lambda a, b: a ** 4 + b ** -2 + torch.pow(a, 5.0),
+    "pow_libdevice": lambda a, b: a.abs() ** 0.5 + torch.pow(b.abs(), a),
+    "mixed": lambda a, b: torch.where(a > b, torch.remainder(a, b),
+                                      a ** 3) + b.abs() ** 1.5,
+}
+
+
+@pytest.mark.parametrize("name", sorted(BRIDGED))
+def test_bridged_mod_and_pow_kernels(name, monkeypatch):
+    """The Triton kernels of bridged functions with ``mod`` and ``pow``,
+    on negative operands too: the floored remainder's sign correction
+    over Triton's truncating ``%``, integer powers as multiplies, and
+    libdevice's ``pow`` (imported by the kernel's module) for others,
+    against the eager function and the plain version."""
+    from repro_torch.core import saturate_torch_fn
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy((rng.normal(size=(37, 200)) * 3)
+                             .astype(np.float32)) for _ in range(2))
+    # staged before the stand-in is in place: tracing imports torch's
+    # compiler stack, which inspects a triton module it finds
+    bk = saturate_torch_fn(BRIDGED[name], (a, b), name=name)
+    _install_standin(monkeypatch)
+    src = bk.op.tk.render(*plan_tile_call(bk.op.tk, [a.shape] * 2,
+                                          [a.dtype] * 2).layout)
+    assert ("libdevice" in src) == (name in ("pow_libdevice", "mixed"))
+    got, plan = _run(bk.op.tk, [a, b], {})
+    assert plan.flat is not None
+    want = BRIDGED[name](a, b)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(got, bk.op.torch_ref(a, b), atol=2e-5,
+                               rtol=2e-5)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro.kernels.tile_programs import get_tile_op as jax_tile_op
-from repro_torch.core import KernelProgram, c, make_tile_op
+from repro_torch.core import KernelProgram, c, make_tile_op, toint
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.telemetry import reset_telemetry, telemetry
 from repro_torch.core.tritongen import (CYCLE_BLOCK_R, CYCLE_NUM_WARPS,
@@ -365,12 +365,12 @@ def test_emission_failure_degrades_and_keeps_cpu_path():
     degraded op (no kernel, degradation recorded) whose CPU path still
     runs the saturated torch function."""
     reset_telemetry()
-    p = KernelProgram("mod_op")
+    p = KernelProgram("toint_op")
     x = p.array_in("x")
     p.array_out("o")
-    p.store("o", x.load() % c(3.0))
+    p.store("o", toint(x.load() * c(1.5)))
     op = make_tile_op(p)
     assert op.tk is None
     assert telemetry().snapshot()["guard"]["degradations"] == {"torch": 1}
     xs = torch.arange(12, dtype=torch.float32).reshape(3, 4)
-    torch.testing.assert_close(op.apply(xs), xs % 3.0)
+    torch.testing.assert_close(op.apply(xs), (xs * 1.5).to(torch.int64))
