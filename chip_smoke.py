@@ -43,7 +43,13 @@ Server at full width with random seeded weights, and a training path:
   per step asserted; the same step's gradients and update on 2 layers in
   f32 against the plain versions; the smoke trainer through
   build_trainer with an injected host loss, whose losses equal a clean
-  run's; a trace of one step;
+  run's; a trace of one step; the same training, 8 steps, with its
+  gradients compressed as ``--compress int8_ef`` does (``train_compress``:
+  the loss gate, the launches, each leaf's int8 round trip within half
+  its row's scale, the wire bytes of each mode); the step counted on
+  ``meta`` by the dry run (``dryrun``: FLOPs, bytes, the three roofline
+  terms and the predicted peak memory) against the card's device ms and
+  peak memory for the same step;
 * mamba2-1.3b (all 48 layers) and zamba2-2.7b (all 54) training at full
   width the same way (the SSD scan's forward with its chunk states, its
   backward kernels, rmsnorm_gated's kernel forward), their launches per
@@ -115,10 +121,6 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
-              "float32": 67e12,           # f32 outside the tensor cores
-              "tf32x3": 495e12 / 3}       # f32 as 3 TF32 tensor-core products
 TILE_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 # flash's output and the backward's gradients, norm-relative (whole
@@ -237,6 +239,15 @@ PARITY_TRAIN_WHISPER = dict(layers=12, batch=1, seq=512)
 PARITY_TRAIN_DBRX = dict(layers=1, batch=1, seq=512)
 PARITY_UPDATE_SKIP = ("embed", "unembed")
 PARITY_UPDATE_SKIP_DBRX = PARITY_UPDATE_SKIP + ("wu", "wd")
+# the train phase's run with its gradients compressed as --compress int8_ef
+# does (int8, per-row scales; the error-feedback state discarded, as the
+# JAX step discards it), 8 steps as train's: minitron's loss peaks at step
+# 4 (the first full-lr Adam steps' overshoot), which 6 steps would put
+# past the first half that phase_train's gate allows
+TRAIN_COMPRESS = dict(TRAIN, compress="int8_ef")
+# the dry run's count of the train phase's step against the card: the
+# predicted peak memory over the measured one must fall inside this
+DRYRUN_MEMORY_RATIO = (0.8, 1.2)
 # the training path's kernels, whose launches each step is read for
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_gated", "layernorm", "rotary", "swiglu",
                  "gelu", "moe_router", "adamw", "l2_clip", "flash_attention",
@@ -526,20 +537,6 @@ def _check(name, got, want, tol, checks):
     return err
 
 
-def _tile_bound(op, args, out_dtype=None):
-    """Least time of a tile kernel: each input read once and each output
-    (the lead's shape, in ``out_dtype`` or the lead's dtype) written once
-    over the memory rate, or the body's operations per element, in f32,
-    over the f32 rate."""
-    n_out = len(op.tk.out_arrays)
-    out_size = (out_dtype or args[0].dtype).itemsize
-    nbytes = sum(a.numel() * a.element_size() for a in args) \
-        + n_out * args[0].numel() * out_size
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = op.tk.stats.n_ops * args[0].numel() / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
-
-
 def _ptx_counts(ptx):
     """Bytes per thread of each global load, store and global-to-shared
     async copy in a PTX listing (``ld.global.v4.b32`` is 16), counted by
@@ -609,52 +606,6 @@ def _compiled_info(op, args, sc):
     return info
 
 
-def _ssd_work(B, S, H, P, N, chunk):
-    """Bytes and operations one SSD scan with its final state needs: x,
-    dt, B, C, a_log, d_skip read once, y and the state written once; per
-    (b, h, chunk) of L steps the causal scores . dx (L(L+1)/2 x P MACs),
-    C . h (L N P, none in the first chunk, whose state is zero) and the
-    state update (L N P), and per (b, chunk) the causal half of C . B^T
-    (L(L+1)/2 x N), two operations per MAC."""
-    nbytes = 4 * (2 * B * S * H * P + B * H * N * P + 2 * B * S * N
-                  + B * S * H + 2 * H)
-    macs = 0
-    for k, t0 in enumerate(range(0, S, chunk)):
-        L = min(chunk, S - t0)
-        tri = L * (L + 1) // 2
-        macs += B * H * (tri * P + (L * N * P if k else 0) + L * N * P)
-        macs += B * tri * N
-    return nbytes, 2 * macs
-
-
-def _ssd_bwd_work(B, S, H, P, N, chunk):
-    """Bytes and operations of one SSD backward as the kernels decompose
-    it: x, dy, dt, B, C, a_log, d_skip and the forward's chunk states
-    read once, the six gradients written once; per (b, h, chunk) of L
-    steps G = dy . x^T and M^T . dy (L(L+1)/2 x P MACs each), where the
-    state gradient leaving the chunk is not zero (every chunk but the
-    last) B . dh and x . dh^T, where the state entering it is not (every
-    chunk but the first) dy . h_in^T (which gives both dC's inter-chunk
-    part and, dotted with C, that of d(seg)) and the chunk's own state
-    gradient C^T . dy (L N P each); per (b, chunk) the causal halves of
-    C . B^T, GE_sum . B and GE_sum^T . C (L(L+1)/2 x N each), GE summed
-    over the heads before its products. The kernels do more than this
-    (C . h_in per head as well), which the bound does not count."""
-    n_chunks = -(-S // chunk)
-    nbytes = 4 * (3 * B * S * H * P + B * n_chunks * H * N * P
-                  + 2 * B * S * H + 4 * B * S * N + 4 * H)
-    macs = 0
-    for k, t0 in enumerate(range(0, S, chunk)):
-        L = min(chunk, S - t0)
-        tri = L * (L + 1) // 2
-        lnp = L * N * P
-        macs += B * H * (2 * tri * P
-                         + (2 * lnp if k < n_chunks - 1 else 0)
-                         + (2 * lnp if k else 0))
-        macs += 3 * B * tri * N
-    return nbytes, 2 * macs
-
-
 # (B, S, H, P, N), chunk: mamba2-1.3b's and zamba2-2.7b's train shapes
 # (timed: the row and its "zamba2" shape), a ragged S at full width, one
 # step, and small edges (N != P, P not a multiple of 8)
@@ -675,6 +626,7 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
     version's distance from it beside), times (the call's and each of its
     launches' by name), the workspace's bytes, bound and the plain
     version's time (no PyTorch call computes it)."""
+    from repro_torch.roofline import kernel_work
     from repro_torch.kernels.ssd_scan import (
         SSD_BWD_LAUNCHES, ssd_chunks_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
         ssd_scan_bwd_scratch_bytes, ssd_scan_with_states)
@@ -731,9 +683,8 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
                        "ok": max(max(r) for r in rel64["kernel"].values())
                        <= SSD_TOL})
         del got, want, want64
-        nbytes, flops = _ssd_bwd_work(b, s, h, p, n, chunk)
-        t_ops = flops / PEAK_FLOPS["tf32x3"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes, flops = kernel_work.ssd_bwd_work(b, s, h, p, n, chunk)
+        bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
         out[key] = {
             "shape": [b, s, h, p, n], "chunk": chunk, "dtype": "float32",
             "max_abs_err": err, "norm_rel_err": rel, "norm_rel_tol": SSD_TOL,
@@ -750,8 +701,8 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
                                                         chunk),
             "plain_ms": timer.ms(lambda: ssd_scan_bwd_plain(
                 *args, dy, chunk=chunk), iters=3),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound,
+            "bound_by": by,
             "library_ms": None}
         del states
     return {"route": "cuda",
@@ -785,6 +736,7 @@ def _optimizer_row(torch, timer, name, shape, checks):
     """One optimizer tile kernel at one f32 leaf shape: checked against
     its plain version, timed, its bound (each input read once, each
     output written once)."""
+    from repro_torch.roofline import kernel_work
     from repro_torch.kernels.tile_programs import get_tile_op
     op = get_tile_op(name)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -799,7 +751,7 @@ def _optimizer_row(torch, timer, name, shape, checks):
     tag = f"{name}/float32/{'x'.join(map(str, shape))}"
     err = _check(tag, op.apply(*xs, **sc), op.torch_ref(*xs, **sc),
                  TILE_TOL["float32"], checks)
-    bound, by = _tile_bound(op, xs)
+    bound, by = kernel_work.tile_bound(op, xs)
     row = {"shape": list(shape), "dtype": "float32", "max_abs_err": err,
            "ms": timer.ms(lambda: op.apply(*xs, **sc), iters=10),
            "device_ms": timer.device_ms(lambda: op.apply(*xs, **sc),
@@ -833,6 +785,7 @@ def _l2_clip_bf16_row(torch, timer, shape, checks):
     bound (2 bytes read and 4 written an element), the library's two
     calls ``g.float().mul_(scale)`` and the two launches it replaces
     (the cast, then the f32 kernel)."""
+    from repro_torch.roofline import kernel_work
     from repro_torch.kernels.tile_programs import get_tile_op
     op = get_tile_op("l2_clip")
     g = torch.randn(shape, generator=torch.Generator(
@@ -856,7 +809,7 @@ def _l2_clip_bf16_row(torch, timer, shape, checks):
                  TILE_TOL["float32"], checks)
     del got
     scale = min(1.0, sc["max_norm"] / (sc["norm"] + sc["eps"]))
-    bound, by = _tile_bound(op, [g], f32)
+    bound, by = kernel_work.tile_bound(op, [g], f32)
     return {"shape": list(shape), "dtype": "bfloat16", "out_dtype": "float32",
             "max_abs_err": err, "bitwise": bitwise,
             "plan": _plan_dict(_tile_plan(op, [g], f32)),
@@ -890,18 +843,6 @@ def _norm_rel(torch, F, got, want, floor, rows=64):
     whole = d.norm() / torch.maximum(w.norm(), floor * want.numel() ** 0.5)
     block = d.norm(dim=-1) / torch.maximum(w.norm(dim=-1), floor * n.sqrt())
     return [whole.item(), block.max().item()]
-
-
-def _flash_bwd_work(b, h, kh, s, d, dt, causal):
-    """Operations and bytes of one attention backward: 5 products of
-    2 x pairs x D each per (b, h) (S, dP, dV, dK, dQ), pairs the (q, k)
-    pairs the mask keeps; q, k, v, o, dO read and dq, dk, dv written once,
-    lse read once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 5 * 2 * pairs * d * b * h
-    el = 2 if dt == "bfloat16" else 4
-    nbytes = (4 * b * h * s * d + 4 * b * kh * s * d) * el + 4 * b * h * s
-    return flops, nbytes
 
 
 def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal):
@@ -1017,6 +958,7 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
     library's backward (autograd of scaled_dot_product_attention) at the
     timed shapes and causal flags. whisper's cases draw from ``randn_t``,
     the others from ``randn``."""
+    from repro_torch.roofline import kernel_work
     from repro_torch.kernels.flash_attention import (
         bwd_kernel, flash_attention_bwd, flash_attention_bwd_plain)
     out = {}
@@ -1029,9 +971,9 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
             continue
         b, h, kh, s_, d = shape
         q, k, v, o, lse, do = ops
-        flops, nbytes = _flash_bwd_work(b, h, kh, s_, d, name, causal)
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        flops, nbytes = kernel_work.flash_bwd_work(b, h, kh, s_, d, name,
+                                                   causal)
+        bound, by = kernel_work.bound_ms(flops, nbytes, name)
 
         def run(ops=ops, causal=causal):
             return flash_attention_bwd(*ops, causal=causal)
@@ -1051,8 +993,8 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
             "mma_sync_ms": timer.ms(_mma_sync_bwd(torch, *ops, causal)),
             "plain_ms": timer.ms(lambda: flash_attention_bwd_plain(
                 *ops, causal=causal), iters=5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound,
+            "bound_by": by,
             "library_ms": timer.ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), do, retain_graph=True))}
         del lo, lq, lk, lv
@@ -1065,6 +1007,7 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
 
 def phase_kernels(torch, timer):
     """Every kernel against its plain version on the card."""
+    from repro_torch.roofline import kernel_work
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         _launch_fwd, flash_attention, flash_attention_fwd_plain,
@@ -1136,7 +1079,7 @@ def phase_kernels(torch, timer):
         want = op.torch_ref(*(a.expand(args[0].shape) for a in args), **sc)
         err = _check(f"{tag}/path", op.apply(*args, **sc), want,
                      TILE_TOL[str(args[0].dtype)[6:]], checks)
-        bound, by = _tile_bound(op, args)
+        bound, by = kernel_work.tile_bound(op, args)
         dst = torch.empty_like(args[0])
         row = {
             "shape": [list(a.shape) for a in args],
@@ -1431,7 +1374,7 @@ def phase_kernels(torch, timer):
     for name in sorted(set(PROGRAMS) - on_a_path - set(rows)):
         op = get_tile_op(name)
         xs, sc = tile_inputs(name, 2048, 4096, torch.float32)
-        bound, by = _tile_bound(op, xs)
+        bound, by = kernel_work.tile_bound(op, xs)
         lib = libs.get(name)
         others[name] = {
             "shape": [list(a.shape) for a in xs], "dtype": "float32",
@@ -1499,11 +1442,9 @@ def phase_kernels(torch, timer):
                               str(dt)[6:], checks)["o"]
         del got, want
         if (b, h, kh, s, d, dt, causal) in flash_rows:
-            pairs = s * (s + 1) // 2 if causal else s * s
-            flops = 4 * d * pairs * b * h
-            nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size()
-            t_ops = flops / PEAK_FLOPS[str(dt)[6:]] * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            flops, nbytes = kernel_work.flash_fwd_work(
+                b, h, kh, s, d, fq.element_size(), causal)
+            bound, by = kernel_work.bound_ms(flops, nbytes, str(dt)[6:])
 
             def run(fq=fq, fk=fk, fv=fv, causal=causal):
                 return flash_attention(fq, fk, fv, causal=causal)
@@ -1515,8 +1456,8 @@ def phase_kernels(torch, timer):
                 "device_ms": timer.device_ms(run, "flash_fwd_"),
                 "plain_ms": timer.ms(lambda: flash_attention_plain(
                     fq, fk, fv, causal=causal)),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound,
+                "bound_by": by,
                 "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
     # the forward with the row lse at the training paths' shapes (the
     # train step's launches: minitron-4b's GQA 24/8 at head_dim 128,
@@ -1544,11 +1485,9 @@ def phase_kernels(torch, timer):
         checks.append({"name": f"{tag}/lse", "max_abs_err": lse_err,
                        "tol": 2e-3, "ok": lse_err <= 2e-3})
         del o, lse, want_o, want_lse
-        flops = 4 * d * (s * (s + 1) // 2 if causal else s * s) * b * h
-        nbytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size() \
-            + 4 * b * h * s
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        flops, nbytes = kernel_work.flash_fwd_work(
+            b, h, kh, s, d, fq.element_size(), causal, with_lse=True)
+        bound, by = kernel_work.bound_ms(flops, nbytes, "bfloat16")
         flash_timed[key] = {
             "shape": [b, h, kh, s, d], "dtype": "bfloat16", "causal": causal,
             "with_lse": True, "max_abs_err": err, "norm_rel_err": rel,
@@ -1557,8 +1496,8 @@ def phase_kernels(torch, timer):
             "device_ms": timer.device_ms(run_lse, "flash_fwd_"),
             "plain_ms": timer.ms(lambda: flash_attention_fwd_plain(
                 fq, fk, fv, causal=causal), iters=5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound,
+            "bound_by": by,
             "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
         del fq, fk, fv
     rows["flash_attention"] = {
@@ -1596,9 +1535,8 @@ def phase_kernels(torch, timer):
                      ssd_scan_plain(*args, chunk=chunk, return_state=True),
                      SSD_TOL, checks)
         if (b, s, h, p, n) in ssd_rows:
-            nbytes, flops = _ssd_work(b, s, h, p, n, chunk)
-            t_ops = flops / PEAK_FLOPS["tf32x3"] * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            nbytes, flops = kernel_work.ssd_work(b, s, h, p, n, chunk)
+            bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
 
             def run():
                 return ssd_scan(*args, chunk=chunk, return_state=True)
@@ -1611,11 +1549,11 @@ def phase_kernels(torch, timer):
                 "device_ms": timer.device_ms(run, "ssd_"),
                 "plain_ms": timer.ms(lambda: ssd_scan_plain(
                     *args, chunk=chunk, return_state=True)),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound,
+                "bound_by": by,
                 # the first kernel's reckoning: f32 on the CUDA cores
-                "bound_cuda_core_ms": max(
-                    flops / PEAK_FLOPS["float32"] * 1e3, t_bytes),
+                "bound_cuda_core_ms": kernel_work.bound_ms(
+                    flops, nbytes, "float32")[0],
                 "library_ms": None}
     rows["ssd_scan"] = {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2090,8 +2028,11 @@ def phase_train(torch, spec=TRAIN, phase="train"):
     ``spec["steps"]`` steps of B 2 x S 4096 from the ported pipeline,
     through the trainer's step function (``make_train_step``: the model's
     loss, its gradient, apply_updates at the default OptConfig with
-    ``spec``'s moments, f32 unless named). Each step's launches are read
-    against what the code implies.
+    ``spec``'s moments, f32 unless named, and ``spec``'s gradient
+    compression, none unless named). Each step's launches are read
+    against what the code implies; returns the model, its parameters,
+    moments and step, the next batch, the launches and the median
+    ms/step from step 2.
 
     The loss must fall over the steps after its early peak, to the run's
     lowest at the last step, below the first step's. The peak is the
@@ -2120,7 +2061,8 @@ def phase_train(torch, spec=TRAIN, phase="train"):
                      total_steps=steps,
                      moment_dtype=spec.get("moment_dtype", "f32"))
     state = init_opt_state(params, ocfg)
-    step = make_train_step(model, ocfg)
+    step = make_train_step(model, ocfg,
+                           compress=spec.get("compress", "none"))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pipe = ShardedTokenPipeline(DataConfig(
@@ -2178,7 +2120,7 @@ def phase_train(torch, spec=TRAIN, phase="train"):
         raise AssertionError(f"{phase}: losses {losses}, launches per step "
                              f"{per_step} (expected {want}), guard {guard}")
     return model, params, state, step, _train_batch(cfg, pipe, steps), \
-        launches
+        launches, step_ms
 
 
 def _prune(tree, skip):
@@ -2312,6 +2254,147 @@ def phase_elastic_train(torch):
     if not ok:
         raise AssertionError(f"elastic_train: {failed['losses']} against "
                              f"{clean['losses']}")
+
+
+def phase_train_compress(torch, train_ms):
+    """``TRAIN_COMPRESS``: minitron-4b's training of the ``train`` phase,
+    8 steps, through the trainer's step with its gradients compressed
+    as ``--compress int8_ef`` does (``launch.steps.make_update``: each
+    leaf int8 with per-row scales, decompressed to f32 before the
+    update), under ``phase_train``'s loss gate and launch counts. Then,
+    on one step's gradients, every leaf's int8 round trip stays within
+    half its row's scale (with the f32 rounding of the value, 2^-22 of
+    it), and the gradients' wire bytes in each mode. Returns the
+    launches."""
+    from repro_torch import tree as T
+    from repro_torch.launch.steps import batch_to_device, value_and_grad
+    from repro_torch.parallel import MODES, Compressor
+    from repro_torch.parallel.compression import _dq8, _q8
+    model, params, state, step, batch, launches, ms = phase_train(
+        torch, TRAIN_COMPRESS, "train_compress")
+    del state, step
+    gc.collect()
+    _, grads = value_and_grad(model, params, batch_to_device(batch, "cuda"))
+    wire = {m: Compressor(m).wire_bytes(grads) for m in MODES}
+    share = {}
+    for path, g in zip(*T.flatten(grads)):
+        q = _q8(g)
+        rows = g.float().reshape(-1, g.shape[-1]) if g.dim() > 1 \
+            else g.float().reshape(1, -1)
+        err = (_dq8(q).reshape(rows.shape) - rows).abs()
+        share["/".join(map(str, path))] = (
+            err / (q["scale"] / 2 + rows.abs() * 2.0 ** -22)).max().item()
+        del q, rows, err
+    worst = max(share, key=share.get)
+    ok = share[worst] <= 1.0
+    emit({"phase": "train_compress_check", "mode": TRAIN_COMPRESS["compress"],
+          "ms_per_step": ms, "train_ms_per_step": train_ms,
+          "ms_over_train": ms / train_ms, "wire_bytes": wire,
+          "wire_over_none": {m: wire[m] / wire["none"] for m in MODES},
+          "leaves": len(share), "round_trip_of_half_scale_max": share[worst],
+          "worst_leaf": worst, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_compress: {worst} round trip at "
+                             f"{share[worst]} of half its row's scale")
+    return launches
+
+
+def phase_dryrun(torch):
+    """The ``train`` phase's step (minitron-4b, 16 layers, B 2 x S 4096,
+    bf16, f32 moments, mesh 1 x 1) counted on ``meta`` by the dry run
+    (``launch.dryrun.count_cell``: every aten op, each kernel by its
+    work, the live bytes), then run on the card: the peak of memory a
+    step allocates above what the process held before the model
+    (``max_memory_allocated`` over the second step) and its device ms
+    from a profiler window as ``trace_train`` sums it (the third step).
+    Fails where the counted bound (the largest of the three terms)
+    exceeds the measured device time, or the predicted peak over the
+    measured one falls outside ``DRYRUN_MEMORY_RATIO``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    full = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"])
+    ocfg = OptConfig(warmup_steps=max(TRAIN["steps"] // 10, 1),
+                     total_steps=TRAIN["steps"])
+    shape = ShapeSpec(f"train_b{TRAIN['batch']}_s{TRAIN['seq']}",
+                      TRAIN["seq"], TRAIN["batch"], "train")
+    t = time.perf_counter()
+    counted = count_cell(cfg, shape, accum=1, opt_cfg=ocfg)
+    count_s = time.perf_counter() - t
+    rf, mem = counted["roofline"], counted["memory_analysis"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = get_model(cfg, device="cuda")
+    params = model.init(TRAIN["seed"])
+    state = init_opt_state(params, ocfg)
+    step = make_train_step(model, ocfg)
+    pipe = ShardedTokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+        seed=TRAIN["seed"]))
+    params, state, loss = step(params, state, _train_batch(cfg, pipe, 0))
+    loss.item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss = step(params, state, _train_batch(cfg, pipe, 1))
+    loss.item()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    # a profiler session can lose its device records (Timer.device_ms):
+    # a step that recorded none is profiled again, up to 3 steps
+    device_ms, sessions = 0.0, 0
+    while not device_ms and sessions < 3:
+        batch = _train_batch(cfg, pipe, 2 + sessions)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, loss = step(params, state, batch)
+            loss.item()
+            torch.cuda.synchronize()
+        sessions += 1
+        device_ms = sum(
+            getattr(e, "self_device_time_total", 0.0)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in TRAIN_RANGES) / 1e3
+    del model, params, state, step
+    if not device_ms:
+        raise AssertionError(f"dryrun: {sessions} profiler sessions "
+                             "recorded no device time")
+    bound_ms = rf["step_time_s"] * 1e3
+    ratio = predicted / measured
+    share = rf["model_flops"] / H100_SXM.peak_flops_bf16 / (device_ms / 1e3)
+    lo, hi = DRYRUN_MEMORY_RATIO
+    ok = bound_ms <= device_ms and lo <= ratio <= hi
+    emit({"phase": "dryrun", "config": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "shape": dataclasses.asdict(shape), "mesh": counted["mesh"],
+          "count_s": count_s, "counted_flops": rf["flops"],
+          "counted_hbm_bytes": rf["hbm_bytes"],
+          "compute_ms": rf["compute_s"] * 1e3,
+          "memory_ms": rf["memory_s"] * 1e3,
+          "collective_ms": rf["collective_s"] * 1e3,
+          "bound_ms": bound_ms, "dominant": rf["dominant"],
+          "model_flops": rf["model_flops"],
+          "counted_kernels": counted["kernels"],
+          "measured_device_ms": device_ms, "profiler_sessions": sessions,
+          "bound_over_measured": bound_ms / device_ms,
+          "roofline_share": share,
+          "memory_predicted_bytes": predicted, "memory_analysis": mem,
+          "memory_measured_bytes": measured,
+          "memory_predicted_over_measured": ratio,
+          "memory_ratio_limits": [lo, hi], "ok": ok})
+    if not ok:
+        raise AssertionError(f"dryrun: bound {bound_ms} ms against "
+                             f"{device_ms} measured, memory predicted over "
+                             f"measured {ratio}")
 
 
 # the record_function ranges a train step's backward runs under: the tile
@@ -2509,7 +2592,7 @@ def train_families(torch):
              ()),
             (TRAIN_DBRX, "dbrx", PARITY_TRAIN_DBRX, PARITY_TRAIN_TOL,
              PARITY_UPDATE_SKIP_DBRX)):
-        model, params, state, step, batch, got = phase_train(
+        model, params, state, step, batch, got, _ = phase_train(
             torch, spec, f"train_{name}")
         trains.append(got)
         phase_trace_train(torch, step, params, state, batch,
@@ -2906,6 +2989,7 @@ def phase_bridge(torch, timer):
     of its aten ops; ``maybe_saturate(torch.sort, ...)`` returns
     ``torch.sort`` and counts one fallback under ``aten.sort``. Returns
     the kernels line's rows."""
+    from repro_torch.roofline import kernel_work
     from repro_torch.core import (maybe_saturate, saturate_torch_fn,
                                   telemetry)
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -2942,7 +3026,7 @@ def phase_bridge(torch, timer):
             del plain, eager
             eager_own = _finite_max_diff(torch, got, fn(*args), tol)
             turns = _in_turns(timer, lambda: bk(*args), lambda: fn(*args))
-            bound, by = _tile_bound(bk.op, list(args[:2]))
+            bound, by = kernel_work.tile_bound(bk.op, list(args[:2]))
             res[dtype] = {"max_abs_err_plain": errs["plain"],
                           "max_abs_err_eager": errs["eager"],
                           "max_abs_diff_eager_in_dtype": eager_own,
@@ -3196,7 +3280,8 @@ def main() -> int:
         # the saturation cache across processes and hash seeds
         phase_cache(torch)
         # minitron-4b training at full width, 16 of its 32 layers
-        model, params, state, step, batch, train = phase_train(torch)
+        model, params, state, step, batch, train, train_ms = phase_train(
+            torch)
         phase_trace_train(torch, step, params, state, batch)
         del model, params, state, step
         gc.collect()
@@ -3207,9 +3292,17 @@ def main() -> int:
         phase_elastic_train(torch)
         gc.collect()
         torch.cuda.empty_cache()
+        # the same training with its gradients compressed (int8, error
+        # feedback), and its step counted on meta against the card
+        compressed = phase_train_compress(torch, train_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dryrun(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         # mamba2-1.3b, zamba2-2.7b and whisper-small training at full width
         # and depth, dbrx-132b at full width and 2 of its 40 layers
-        trains = [train, *train_families(torch)]
+        trains = [train, compressed, *train_families(torch)]
         # the latency model's calibration lane and the bridge
         phase_calibrate(torch)
         timer = Timer(torch)

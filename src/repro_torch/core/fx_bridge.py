@@ -20,6 +20,12 @@ floors, like the DSL's ``mod``) maps to ``mod``, while ``aten.fmod``
 (truncated, with the dividend's sign) raises, since the DSL has no
 truncated remainder. The JAX package maps ``lax.rem``, which truncates,
 to ``mod`` and so returns floored remainders for mixed signs.
+
+A second one: a dtype cast (``aten._to_copy``) that can lose a value
+(f32 to bf16, a float to an integer) raises, since the tile program
+computes in one dtype and would never round; a widening cast, or one to
+the same dtype, is exact and passes through. The JAX package passes
+every ``convert_element_type`` through.
 """
 from __future__ import annotations
 
@@ -74,6 +80,26 @@ def _aten_name(target) -> str:
     return getattr(target, "__name__", str(target))
 
 
+def _narrows(src, dst) -> bool:
+    """Whether a cast from ``src`` to ``dst`` can change a value: to a
+    float without every value of ``src`` (fewer bits, or bf16 and f16
+    either way; an integer wider than ``dst``'s significand), or to an
+    integer from a float or a wider integer."""
+    import torch
+    if dst is None or dst == src or src == torch.bool:
+        return False
+    if dst.is_floating_point:
+        fd = torch.finfo(dst)
+        if src.is_floating_point:
+            fs = torch.finfo(src)
+            return not (fd.bits > fs.bits and fd.max >= fs.max
+                        and fd.eps <= fs.eps)
+        return torch.iinfo(src).bits > fd.nmant + 1
+    if dst == torch.bool or src.is_floating_point:
+        return True
+    return torch.iinfo(dst).bits < torch.iinfo(src).bits
+
+
 def _const(value) -> tuple:
     return ("const", float(value))
 
@@ -110,6 +136,12 @@ def _to_term(node, args: List[Any]) -> tuple:
         return ("pow", args[0], args[1])
     if op == "where" and overload == "self":
         return ("select", args[0], args[1], args[2])
+    if op == "_to_copy" and _narrows(node.args[0].meta["val"].dtype,
+                                     node.kwargs.get("dtype")):
+        raise BridgeUnsupported(
+            f"aten._to_copy from {node.args[0].meta['val'].dtype} to "
+            f"{node.kwargs['dtype']} rounds (the kernel computes in one "
+            "dtype)", primitive="aten._to_copy")
     if op in _PASSTHROUGH:
         return args[0]
     raise BridgeUnsupported(f"{_aten_name(node.target)} not bridgeable",
@@ -185,6 +217,21 @@ def saturate_torch_fn(fn: Callable, example_args: Sequence[Any],
         prog.array_out(f"o{k}")
         prog.store(f"o{k}", Expr(term_of(out)))
 
+    # a float result of another dtype than the lead's (a widening cast
+    # in the function) is stored in that dtype, as eager torch returns it
+    lead = next(a for a, arr in zip(example_args, is_array) if arr)
+    out_dtypes = {o.meta["val"].dtype for o in outputs
+                  if isinstance(o, torch.fx.Node)}
+    out_dtype = None
+    if len(out_dtypes) == 1:
+        dt = out_dtypes.pop()
+        if dt.is_floating_point and dt != lead.dtype:
+            out_dtype = dt
+    elif len(out_dtypes) > 1:
+        raise BridgeUnsupported(
+            f"outputs of dtypes {sorted(map(str, out_dtypes))}",
+            primitive="output dtypes")
+
     op = make_tile_op(prog, cfg)
     scalar_names = {k: f"s{k}" for k, arr in enumerate(is_array) if not arr}
 
@@ -199,8 +246,8 @@ def saturate_torch_fn(fn: Callable, example_args: Sequence[Any],
                              f"tensors, got {[tuple(a.shape) for a in arrays]}")
         # the tile op's (rows, D) view; a 1-D tensor is one row
         views = [a.reshape(-1, shape[-1]) for a in arrays]
-        out = op.apply(*views, **{scalar_names[k]: args[k]
-                                  for k in scalar_names})
+        out = op.apply(*views, out_dtype=out_dtype,
+                       **{scalar_names[k]: args[k] for k in scalar_names})
         outs = [o.reshape(shape) for o in (out if isinstance(out, tuple)
                                            else (out,))]
         return outs[0] if single else tuple(outs)

@@ -22,6 +22,10 @@ class ChipSpec:
     # Hopper the FP32 CUDA cores of all SMs at the boost clock.
     vpu_lanes: int
     clock_hz: float
+    # collective rate per link, the counterpart of the reference's
+    # ``ici_bw_per_link``: the roofline's collective term divides a
+    # chip's wire bytes by it
+    link_bw: float = 0.0
 
     @property
     def vpu_elems_per_s(self) -> float:
@@ -38,6 +42,9 @@ H100_SXM = ChipSpec(
     sm_count=132,
     vpu_lanes=132 * 128,        # 128 FP32 lanes per SM
     clock_hz=1.98e9,
+    # NVLink 4: 900 GB/s in total over 18 links (the data sheet's
+    # published peak, both directions, not a measurement)
+    link_bw=900e9 / 18,
 )
 
 DEFAULT_CHIP = H100_SXM

@@ -1101,7 +1101,8 @@ def _batch_cycle(lead: Tuple[int, ...], shp: Tuple[int, ...]
 class TileOp:
     """A saturated tile program as an op: the Triton kernel on CUDA
     tensors, its plain version (``torch_ref``, the torchgen function of
-    the same saturated program) on CPU tensors.
+    the same saturated program) on CPU tensors; on ``meta`` tensors the
+    kernel's work, recorded with the op counter.
 
     ``tk=None`` marks a degraded op (the build fell to the ladder's
     ``ref`` rung, or Triton emission failed). On CPU tensors it still
@@ -1141,15 +1142,18 @@ class TileOp:
             if out_dtype is not None:
                 arrays = [a.to(out_dtype) for a in arrays]
             return self.torch_ref(*arrays, **scalars)
-        if devices != {"cuda"}:
+        if devices not in ({"cuda"}, {"meta"}):
             raise ValueError(f"{self.name}: operands on {sorted(devices)}; "
-                             "expected all on cpu or all on cuda")
+                             "expected all on cpu, all on cuda or all on "
+                             "meta")
         if self.tk is None:
             raise RuntimeError(
                 f"tile op {self.name!r} has no Triton kernel (degraded "
                 f"build, ladder level "
                 f"{getattr(self.sk, 'ladder_level', '?')!r}); refusing to "
                 "run a substitute on the card")
+        if devices == {"meta"}:
+            return _record_tile_op(self, arrays, out_dtype)
         return _apply_tile_op(self, arrays, scalars, out_dtype)
 
 
@@ -1167,6 +1171,19 @@ def _apply_tile_op(op: TileOp, arrays, scalars, out_dtype=None):
         op.launches_by_kinds[plan.kinds] += 1
         if op.verify != "off":
             _check_binary(op, plan, ck, ins, outs)
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _record_tile_op(op: TileOp, arrays, out_dtype=None):
+    """A call on ``meta`` tensors: planned and prepared as on the card
+    (a layout the kernel cannot take raises), its work recorded with the
+    op counter (:mod:`repro_torch.roofline.kernel_work`) in place of a
+    launch, and ``meta`` outputs returned."""
+    from repro_torch.roofline import kernel_work
+    plan, ins, outs = prepare_tile_call(op.tk, arrays, op.name, out_dtype)
+    if plan.n_blocks > 0:
+        vector_ops, nbytes = kernel_work.tile_work(op, arrays, out_dtype)
+        kernel_work.record(op.name, vector_ops=vector_ops, nbytes=nbytes)
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 

@@ -34,6 +34,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.roofline import kernel_work
+
 from . import cuda_build
 from . import ref as _ref
 
@@ -83,13 +85,21 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _record_fwd(q, k, causal: bool, with_lse: bool):
+    """A forward on ``meta`` tensors: its work, to the op counter."""
+    B, H, S, D = q.shape
+    flops, nbytes = kernel_work.flash_fwd_work(
+        B, H, k.shape[1], S, D, q.element_size(), causal, with_lse)
+    kernel_work.record("flash_attention", flops=flops, nbytes=nbytes)
+
+
 def _check(q, k, v, *more):
     """The launch's shape (B, H, KH, S, D), or an error for what the
     kernels do not take. ``more`` are further (name, tensor) operands
     shaped like q (o, dout) or lse-shaped (B, H, S) f32."""
     B, H, S, D = q.shape if q.dim() == 4 else (0, 0, 0, 0)
     for name, t in (("q", q), ("k", k), ("v", v)) + more:
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type not in ("cuda", "meta") or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "
                              f"q on {q.device}")
         want = torch.float32 if name == "lse" else q.dtype
@@ -290,6 +300,9 @@ def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
         if with_lse else None
     if o.numel() == 0:
         return o, lse
+    if q.device.type == "meta":
+        _record_fwd(q, k, causal, with_lse)
+        return o, lse
     lib = _load()
     _raise_on(lib, getattr(lib, _FWD[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -333,8 +346,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     CPU tensors take the plain version (which autograd differentiates);
     CUDA tensors launch the kernel or raise, under autograd through
     ``_FlashFn`` (whose backward is :func:`flash_attention_bwd`) where a
-    gradient is wanted. ``flash_attention.launches`` counts forward
-    launches."""
+    gradient is wanted; ``meta`` tensors take the same path, which
+    records the kernel's work with the op counter
+    (:mod:`repro_torch.roofline.kernel_work`) in place of a launch.
+    ``flash_attention.launches`` counts forward launches."""
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -351,7 +366,8 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)``: the plain
     version on CPU tensors, else the backward kernels (:func:`bwd_kernel`;
     a prep or delta launch, dk/dv, dq: three launches, counted once in
-    ``flash_attention_bwd.launches``) or an error."""
+    ``flash_attention_bwd.launches``; on ``meta`` their work, recorded)
+    or an error."""
     if _on_cpu(q, k, v, o, lse, dout):
         return flash_attention_bwd_plain(q, k, v, o, lse, dout,
                                          causal=causal, scale=scale)
@@ -365,6 +381,12 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     rows = B * H * (-(-S // BWD_PAD) * BWD_PAD if kernel == "wgmma" else S)
     scratch = torch.empty(rows * (2 if kernel == "wgmma" else 1),
                           dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        flops, nbytes = kernel_work.flash_bwd_work(
+            B, H, KH, S, D, str(q.dtype)[6:], causal)
+        kernel_work.record("flash_attention_bwd", flops=flops,
+                           nbytes=nbytes)
+        return dq, dk, dv
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, D,

@@ -12,16 +12,19 @@ implementations:
                  torch SSD scan;
   * ``ref``    — the independent oracles in :mod:`repro_torch.kernels.ref`.
 
-Default: ``triton`` for CUDA tensors, ``torch`` for CPU tensors.
+Default: ``triton`` for CUDA tensors, ``torch`` for CPU tensors. On
+``meta`` tensors (the dry run, :mod:`repro_torch.roofline`) the
+``triton`` path runs and each kernel records its work in place of a
+launch.
 ``set_impl(...)`` overrides globally (the tests and chip_smoke.py's
 parity phase use it). ``set_tile_emitter(...)`` picks the form of the
 tile kernels the ``triton`` implementation launches: the sync kernels
 (default) or their persistent, pipelined form.
 
-No fallback on the card: on CUDA tensors an op runs what it was asked
-to run and raises if that fails. The runtime floor of the JAX package
-(catch, fall back to the oracle, count a runtime fallback, trip the
-breaker) applies to CPU tensors only.
+No fallback on the card: on CUDA (and ``meta``) tensors an op runs what
+it was asked to run and raises if that fails. The runtime floor of the
+JAX package (catch, fall back to the oracle, count a runtime fallback,
+trip the breaker) applies to CPU tensors only.
 
 Gradients. On CPU tensors autograd differentiates the saturated torch
 code (``torch_ref``) directly, as JAX differentiates ``jax_ref``. Under
@@ -127,18 +130,20 @@ def _kernel_op(name: str):
 
 
 def current_impl(x) -> str:
-    """The implementation an op on tensor ``x`` runs."""
+    """The implementation an op on tensor ``x`` runs: ``triton`` on any
+    tensor but a CPU one (on ``meta``, the kernels' paths, whose work the
+    op counter records)."""
     if _IMPL is not None:
         return _IMPL
-    return "triton" if x.is_cuda else "torch"
+    return "torch" if x.device.type == "cpu" else "triton"
 
 
 def _guarded(name: str, x, optimized: Callable, reference: Callable):
     """CPU tensors: run the optimized path under the runtime floor — a
     failure falls back to the named oracle, and a per-kernel circuit
     breaker skips the optimized attempt after repeated failures. CUDA
-    tensors: run it, and let a failure raise."""
-    if x.is_cuda:
+    and ``meta`` tensors: run it, and let a failure raise."""
+    if x.device.type != "cpu":
         return optimized()
     br = breaker_for(("apply", name))
     if br.admit() is not None:

@@ -24,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.core.hardware import H100_SXM
+from repro_torch.roofline import kernel_work
 
 from . import cuda_build
 
@@ -303,7 +304,7 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk):
     names = ("x", "dt", "a_log", "b_mat", "c_mat", "d_skip")
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     for name, t in zip(names, ts):
-        if t.device != x.device or t.device.type != "cuda":
+        if t.device != x.device or t.device.type not in ("cuda", "meta"):
             raise ValueError(f"ssd_scan: {name} on {t.device}, x on "
                              f"{x.device}")
         if t.dtype != torch.float32:
@@ -329,6 +330,56 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk):
     return B, S, H, P, N
 
 
+# Sizes of csrc/ssd_scan.cu's shared memory and scratch, as its
+# host-side functions compute them (scan_smem_floats, bwd_dims,
+# local_smem_bytes, chunk_smem_bytes, dbdc_smem_bytes, bwd_work): one
+# formula for the card and for ``meta``, where no library is loaded. The
+# card tests hold them equal to the library's exports.
+_CHUNK_WARPS = 512 // 32
+_DBDC_SMEM_BYTES = 4 * 4 * ((64 + 64) * (32 + 4) + 64)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cb_pitch(L: int) -> int:
+    """Row pitch of the forward's C·Bᵀ scratch (B, n_chunks, L, pitch)."""
+    return _round_up(L, 2)
+
+
+def scan_smem_bytes(L: int, P: int, N: int) -> int:
+    """Dynamic shared memory of one forward scan block for L steps."""
+    Lp, pitch = _round_up(L, 16), _round_up(P, 8) + 4
+    return 4 * (2 * Lp * pitch + _round_up(N, 16) * pitch + 4 * Lp)
+
+
+def bwd_smem_bytes(L: int, P: int, N: int) -> int:
+    """Dynamic shared memory of the backward's largest block for L
+    steps."""
+    Lp, Pp, Nk = _round_up(L, 32), _round_up(P, 32), _round_up(N, 8)
+    pitch2 = Pp + 4
+    local = 8 * Lp * pitch2 + 4 * 3 * Lp
+    floats = 10 * Lp + Lp * (Lp // 32) + Lp * (Lp // 16) \
+        + 2 * Lp * (Pp // 32) + 2 * _CHUNK_WARPS
+    chunk = 8 * (2 * Lp + Nk) * pitch2 + 4 * floats
+    return max(local, chunk, _DBDC_SMEM_BYTES)
+
+
+def bwd_work_floats(B: int, S: int, H: int, P: int, N: int,
+                    chunk: int = 128) -> int:
+    """Floats of one backward call's workspace: C·Bᵀ, the state
+    gradients, the chunks' decays, w and exp(seg), the head groups' GE
+    sums, the per-chunk dD and dA sums, each rounded up to 4 floats."""
+    L = min(chunk, S)
+    bnc = B * -(-S // L)
+    Lp = _round_up(L, 32)
+    sizes = (bnc * L * cb_pitch(L), bnc * H * N * P, bnc * H, bnc * H * L,
+             bnc * H * L, bnc * -(-H // SSD_BWD_GROUP) * Lp * Lp,
+             bnc * H * 2)
+    return sum(_round_up(n, 4) for n in sizes)
+
+
 def _smem_check(name, smem, chunk, P, N):
     if smem > H100_SXM.smem_bytes:
         raise ValueError(f"{name}: chunk {chunk}, P {P}, N {N} need {smem} "
@@ -342,15 +393,21 @@ def _launch_fwd(x, dt, a_log, b_mat, c_mat, d_skip, chunk, return_state,
     the final state where ``return_state``, states the (B, n_chunks, H,
     N, P) state entering each chunk where ``with_states`` (else None)."""
     B, S, H, P, N = _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk)
-    lib = _load()
     L = min(chunk, S)
-    _smem_check("ssd_scan", lib.ssd_scan_smem_bytes(L, P, N), chunk, P, N)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), **f32) if return_state else None
     states = torch.empty((B, -(-S // L), H, N, P), **f32) if with_states \
         else None
-    cb = torch.empty((B, -(-S // L), L, lib.ssd_cb_pitch(L)), **f32)
+    _smem_check("ssd_scan", scan_smem_bytes(L, P, N), chunk, P, N)
+    cb = torch.empty((B, -(-S // L), L, cb_pitch(L)), **f32)
+    if x.device.type == "meta":
+        nbytes, flops = kernel_work.ssd_work(B, S, H, P, N, L)
+        if with_states:      # the chunk states, written once
+            nbytes += 4 * states.numel()
+        kernel_work.record("ssd_scan", flops=flops, nbytes=nbytes)
+        return y, h, states
+    lib = _load()
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), d_skip.data_ptr(), cb.data_ptr(), y.data_ptr(),
@@ -369,8 +426,10 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int = 128,
     """Chunked SSD; arguments and results as :func:`ssd_scan_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    (float32, contiguous) or raise. ``ssd_scan.launches`` counts the
-    calls that launched them (two launches each: C·Bᵀ, then the scan)."""
+    (float32, contiguous) or raise; ``meta`` tensors record the kernels'
+    work with the op counter (:mod:`repro_torch.roofline.kernel_work`).
+    ``ssd_scan.launches`` counts the calls that launched them (two
+    launches each: C·Bᵀ, then the scan)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts):
         return ssd_scan_plain(x, dt, a_log, b_mat, c_mat, d_skip,
@@ -388,7 +447,8 @@ def ssd_scan_with_states(x, dt, a_log, b_mat, c_mat, d_skip, *,
     (None without ``return_state``) and states the (B, n_chunks, H, N, P)
     f32 state entering each chunk, which :func:`ssd_scan_bwd` reads. CPU
     tensors take :func:`ssd_chunks_plain`; CUDA tensors launch the
-    forward kernels (counted in ``ssd_scan.launches``) or raise."""
+    forward kernels (counted in ``ssd_scan.launches``) or raise; ``meta``
+    tensors record their work."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts):
         _, states, y, h = ssd_chunks_plain(*ts, chunk=chunk)
@@ -405,10 +465,11 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
     (:func:`ssd_scan_with_states`). CPU tensors take
     :func:`ssd_scan_bwd_plain` (which recomputes the states); CUDA
     tensors launch the backward kernels (float32, contiguous, chunks of
-    at most 128 steps) or raise. ``ssd_scan_bwd.launches`` counts the
-    calls that launched them (six launches each: C·Bᵀ, the chunks' local
-    state gradients, their passing, the per-head chunk gradients, dB and
-    dC, the sums over chunks; ``SSD_BWD_LAUNCHES``)."""
+    at most 128 steps) or raise; ``meta`` tensors record their work.
+    ``ssd_scan_bwd.launches`` counts the calls that launched them (six
+    launches each: C·Bᵀ, the chunks' local state gradients, their
+    passing, the per-head chunk gradients, dB and dC, the sums over
+    chunks; ``SSD_BWD_LAUNCHES``)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts + (dy,)):
         return ssd_scan_bwd_plain(*ts, dy, chunk=chunk, dh_final=dh_final)
@@ -424,15 +485,18 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
             raise ValueError(f"ssd_scan_bwd: {name} must be a contiguous "
                              f"f32 {shape} tensor on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = _load()
-    _smem_check("ssd_scan_bwd", lib.ssd_scan_bwd_smem_bytes(L, P, N), chunk,
-                P, N)
+    _smem_check("ssd_scan_bwd", bwd_smem_bytes(L, P, N), chunk, P, N)
     if L > 128:
         raise ValueError(f"ssd_scan_bwd: chunk {chunk}: the backward "
                          "kernels take chunks of at most 128 steps")
-    work = torch.empty((lib.ssd_scan_bwd_work_floats(B, S, H, P, N, chunk),),
+    work = torch.empty((bwd_work_floats(B, S, H, P, N, chunk),),
                        dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(t) for t in ts]
+    if x.device.type == "meta":
+        nbytes, flops = kernel_work.ssd_bwd_work(B, S, H, P, N, L)
+        kernel_work.record("ssd_scan_bwd", flops=flops, nbytes=nbytes)
+        return tuple(grads)
+    lib = _load()
     err = lib.ssd_scan_bwd(
         *(t.data_ptr() for t in ts), dy.data_ptr(), states.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None,
@@ -511,7 +575,7 @@ def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128) -> int:
     """Bytes of the workspace one ssd_scan_bwd call allocates on the card
     (C·Bᵀ, the state gradients, the decays, w and exp(seg), the head
     groups' GE sums, the per-chunk sums)."""
-    return 4 * _load().ssd_scan_bwd_work_floats(B, S, H, P, N, chunk)
+    return 4 * bwd_work_floats(B, S, H, P, N, chunk)
 
 
 def ssd_cb_kernel(b_mat, c_mat, *, chunk: int = 128):

@@ -1,12 +1,14 @@
-"""Training's step functions: the port of :mod:`repro.launch.steps`.
+"""Step functions and abstract input specs shared by train, serve and
+the dry run: the port of :mod:`repro.launch.steps`.
 
-``make_train_step`` (with gradient accumulation over microbatches),
-``make_grad_step`` and ``default_opt_config``. The JAX module's abstract
-``*_struct`` helpers (``ShapeDtypeStruct`` stand-ins for the dry run)
-and ``default_accum_steps`` (which reads the dry run's ``ShapeSpec``)
-wait for the dry run and the mesh (ROADMAP A14); its prefill and serve
-steps wrap ``LM.prefill`` and ``LM.decode_step``, which the port's
-server calls directly.
+``make_train_step`` (with gradient accumulation over microbatches, and
+the gradient exchange's compression), ``make_grad_step``,
+``make_prefill_step``, ``make_serve_step`` and ``default_opt_config``;
+for the dry run (:mod:`repro_torch.launch.dryrun`) ``default_accum_steps``
+and the abstract inputs: the JAX package's ``ShapeDtypeStruct``
+stand-ins are ``meta`` tensors here (``params_struct``, ``opt_struct``,
+``batch_spec_struct``, ``decode_input_struct``), which hold shapes and
+dtypes and no storage.
 
 Gradients come from ``torch.autograd.grad`` on detached aliases of the
 parameter leaves, functional as ``jax.value_and_grad``: the caller's
@@ -21,9 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.models import ModelConfig
+from repro_torch.configs import ShapeSpec
+from repro_torch.models import ModelConfig, get_model
 from repro_torch.models.common import reference_ndim
-from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+from repro_torch.parallel import Compressor, compressed_grads
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -49,7 +53,7 @@ def value_and_grad(model, params, batch):
     return loss.detach(), T.unflatten(params, list(grads))
 
 
-def _split_micro(batch, k: int) -> List[Dict[str, Any]]:
+def split_micro(batch, k: int) -> List[Dict[str, Any]]:
     """The batch as ``k`` microbatches along its batch axis (axis 1 of
     the vlm positions (3, B, S), axis 0 of the rest)."""
     def split(key, a):
@@ -62,37 +66,64 @@ def _split_micro(batch, k: int) -> List[Dict[str, Any]]:
     return [{key: p[i] for key, p in parts.items()} for i in range(k)]
 
 
-def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1):
+def zero_grads(params):
+    """The f32 buffers microbatch gradients are summed in, shaped as
+    ``params``."""
+    return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device), params)
+
+
+def accumulate_grads(model, params, g, mb) -> torch.Tensor:
+    """One microbatch: its loss, its gradients added into the f32
+    buffers ``g`` (in place)."""
+    li, gi = value_and_grad(model, params, mb)
+    for a, b in zip(T.leaves(g), T.leaves(gi)):
+        a.add_(b.float())
+    return li
+
+
+def make_update(model, opt_cfg: OptConfig, compress: str = "none"):
+    """``update(params, opt_state, grads) -> (params, opt_state)``: the
+    step's gradient exchange (:func:`repro_torch.parallel.compressed_grads`:
+    ``compress`` in {none, bf16, int8, int8_ef}, each leaf compressed, then
+    decompressed to f32 as the update reads it, as the JAX step before its
+    update), then the in-place AdamW update
+    (:func:`repro_torch.optim.apply_updates`, decaying by the JAX
+    package's stacked layout of ``model.cfg``)."""
+    ndim = functools.partial(reference_ndim, model.cfg)
+    comp = Compressor(compress)
+
+    def update(params, opt_state, grads):
+        wire, read = compressed_grads(comp, grads)
+        return apply_updates(params, wire, opt_state, opt_cfg, ndim=ndim,
+                             read=read)
+    return update
+
+
+def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
+                    compress: str = "none"):
     """Train step with optional gradient accumulation: the global batch
     is split into ``accum_steps`` microbatches run one after another, so
     saved activations scale with the microbatch. Their gradients are
     summed in f32 buffers, not in the parameters' dtype, then averaged.
     ``train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)``; the update is in place
-    (:func:`repro_torch.optim.apply_updates`, decaying by the JAX
-    package's stacked layout of ``model.cfg``)."""
-    ndim = functools.partial(reference_ndim, model.cfg)
+    loss)``; the update (:func:`make_update`, with ``compress``) is in
+    place."""
+    update = make_update(model, opt_cfg, compress)
 
     def train_step(params, opt_state, batch):
         batch = batch_to_device(batch, model.device)
         if accum_steps <= 1:
             loss, grads = value_and_grad(model, params, batch)
-            params, opt_state = apply_updates(params, grads, opt_state,
-                                              opt_cfg, ndim=ndim)
+            params, opt_state = update(params, opt_state, grads)
             return params, opt_state, loss
-        g = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        g = zero_grads(params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        for mb in _split_micro(batch, accum_steps):
-            li, gi = value_and_grad(model, params, mb)
-            for a, b in zip(T.leaves(g), T.leaves(gi)):
-                a.add_(b.float())
-            del gi
-            loss_sum = loss_sum + li
+        for mb in split_micro(batch, accum_steps):
+            loss_sum = loss_sum + accumulate_grads(model, params, g, mb)
         grads = T.tree_map(lambda a: a / accum_steps, g)
         del g
-        params, opt_state = apply_updates(params, grads, opt_state, opt_cfg,
-                                          ndim=ndim)
+        params, opt_state = update(params, opt_state, grads)
         return params, opt_state, loss_sum / accum_steps
     return train_step
 
@@ -111,3 +142,80 @@ def default_opt_config(cfg: ModelConfig, total_steps: int = 10_000
     """int8 Adam moments for >= 100B-parameter archs, f32 below."""
     moment = "int8" if cfg.param_count() > 100e9 else "f32"
     return OptConfig(moment_dtype=moment, total_steps=total_steps)
+
+
+def default_accum_steps(cfg: ModelConfig, shape: ShapeSpec,
+                        dp: int = 16, tp: int = 1,
+                        budget_bytes: float = 4e9) -> int:
+    """Microbatch count so saved activations (≈ 8·L·tokens_dev·d bytes:
+    bf16 carry + attention lse + mlp residual factor) fit the budget.
+    With sequence-parallel residuals (seq_shard) the saved carry is
+    already sharded tp-ways, so far fewer microbatches are needed —
+    keeping FSDP re-gathers per step low."""
+    if shape.kind != "train":
+        return 1
+    tokens_dev = shape.global_batch * shape.seq_len / dp
+    layers = cfg.n_layers + cfg.n_enc_layers
+    est = 8.0 * layers * tokens_dev * cfg.d_model
+    if cfg.seq_shard:
+        est /= tp
+    k = 1
+    max_k = max(shape.global_batch // dp, 1)
+    while k < max_k and est / k > budget_bytes:
+        k *= 2
+    return min(k, max_k)
+
+
+def make_prefill_step(model, cfg: ModelConfig):
+    if cfg.family == "encdec":
+        def prefill_step(params, batch):
+            return model.prefill(params, batch["tokens"], batch["frames"])
+    else:
+        def prefill_step(params, batch):
+            return model.prefill(params, batch["tokens"])
+    return prefill_step
+
+
+def make_serve_step(model):
+    def serve_step(params, cache, token):
+        return model.decode_step(params, cache, token)
+    return serve_step
+
+
+def batch_spec_struct(cfg: ModelConfig, shape: ShapeSpec
+                      ) -> Dict[str, torch.Tensor]:
+    """Abstract train/prefill batch: ``meta`` stand-ins only (token ids
+    int64, as the port's model takes them)."""
+    B, S = shape.global_batch, shape.seq_len
+    i64 = dict(dtype=torch.int64, device="meta")
+    batch: Dict[str, Any] = {"tokens": torch.empty((B, S), **i64)}
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((B, S), **i64)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.empty((B, S, cfg.d_model),
+                                      dtype=torch.float32, device="meta")
+    if cfg.family == "vlm":
+        batch["positions"] = torch.empty((3, B, S), **i64)
+    return batch
+
+
+def decode_input_struct(model, cfg: ModelConfig, shape: ShapeSpec):
+    """(cache, token) stand-ins for a decode step at full cache length
+    (``model`` on ``meta``)."""
+    B, S = shape.global_batch, shape.seq_len
+    # the encdec cross-attention cache holds S positions, as the JAX
+    # package's (its encoder output is as long as the decoder's cache)
+    cache = model.init_cache(B, S, S) if cfg.family == "encdec" \
+        else model.init_cache(B, S)
+    token = torch.empty((B, 1), dtype=torch.int64, device="meta")
+    return cache, token
+
+
+def params_struct(model):
+    """The model's parameters on ``meta``: shapes and dtypes of its init,
+    no storage and no numbers."""
+    return get_model(model.cfg, device="meta").init(0)
+
+
+def opt_struct(params_sds, opt_cfg: OptConfig):
+    return init_opt_state(params_sds, opt_cfg)

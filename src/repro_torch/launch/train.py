@@ -18,8 +18,11 @@ Every family trains: dense (minitron-4b, granite-8b, ...), vlm
 arctic-480b) and encdec (whisper-small, whose step adds the audio frames
 as the JAX step does: :func:`encdec_frames`). ``--cache-dir``,
 ``--no-cache`` and ``--verify`` set the saturation cache and the static
-verifier as in the serve entry point. Gradient compression
-(``--compress``, ROADMAP A14) is not ported.
+verifier as in the serve entry point. ``--compress {none,bf16,int8,
+int8_ef}`` compresses and decompresses the step's gradients before the
+update, as the JAX step's gradient exchange does on one process
+(:func:`repro_torch.parallel.compressed_grads`; ``int8_ef`` trains as
+``int8``, since the JAX step discards the error-feedback state).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.data import DataConfig, ShardedTokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import get_model, resolve_device
 from repro_torch.optim import OptConfig, init_opt_state
+from repro_torch.parallel import MODES
 from repro_torch.runtime.ft import (ElasticTrainer, FailureInjector,
                                     TrainLoopConfig)
 
@@ -64,17 +68,20 @@ def _with_frames(train_step, cfg, device):
 
 
 def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
-                  seq: int, ckpt_dir: str, inject: Optional[dict] = None,
+                  seq: int, ckpt_dir: str, compress: str = "none",
+                  inject: Optional[dict] = None,
                   lr: float = 3e-4, num_shards: int = 1, seed: int = 0,
                   device=None, cache_dir=None,
                   verify: Optional[str] = None) -> ElasticTrainer:
     """The JAX ``build_trainer`` for the port: the model on ``device``
     (CUDA unless named; with no CUDA device and none named it raises),
     seeded weights, f32 AdamW moments, a warmup of a tenth of the steps,
-    checkpoints every quarter of them. An encdec step trains on
-    :func:`encdec_frames` of the batch's shape. ``cache_dir`` (False:
-    off) and ``verify``, when given, set the process-wide saturation
-    cache and verification level of every tile op the step builds."""
+    checkpoints every quarter of them, the gradients compressed as
+    ``compress`` names (:func:`repro_torch.launch.steps.make_update`). An
+    encdec step trains on :func:`encdec_frames` of the batch's shape.
+    ``cache_dir`` (False: off) and ``verify``, when given, set the
+    process-wide saturation cache and verification level of every tile
+    op the step builds."""
     if cache_dir is not None:
         ops.set_saturation_cache(cache_dir)
     if verify is not None:
@@ -87,7 +94,7 @@ def build_trainer(arch: str, *, smoke: bool, steps: int, batch: int,
                         total_steps=steps)
     params = model.init(seed)
     opt_state = init_opt_state(params, opt_cfg)
-    train_step = make_train_step(model, opt_cfg)
+    train_step = make_train_step(model, opt_cfg, compress=compress)
     if cfg.family == "encdec":
         train_step = _with_frames(train_step, cfg, device)
 
@@ -118,6 +125,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--compress", default="none", choices=list(MODES))
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: a new temporary "
                          "directory for this run)")
@@ -146,6 +154,7 @@ def main(argv=None):
     trainer = build_trainer(args.arch, smoke=args.smoke, steps=args.steps,
                             batch=args.batch, seq=args.seq,
                             ckpt_dir=ckpt_dir, lr=args.lr,
+                            compress=args.compress,
                             inject=inject, device=args.device,
                             cache_dir=sat.cache_dir, verify=sat.verify)
     t0 = time.time()

@@ -110,6 +110,24 @@ class ModelConfig:
             raise NotImplementedError(f"family {self.family!r}")
         return n + d
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only), in the JAX
+        package's count, which :func:`model_flops_for` reads: for every
+        family but encdec :meth:`param_count` without the final norm, for
+        encdec the JAX count (see :meth:`param_count`)."""
+        d = self.d_model
+        if self.family == "encdec":
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
+            n = (1 if self.tie_embeddings else 2) * self.vocab * d
+            return (n + self.n_layers * (2 * attn + mlp + 3 * d)
+                    + self.n_enc_layers * (attn + mlp + 2 * d))
+        n = self.param_count() - d
+        if self.family == "moe":
+            e, k = self.moe.n_experts, self.moe.top_k
+            n -= self.n_layers * (e - k) * 3 * d * self.d_ff
+        return n
+
     def _ssm_block_params(self) -> int:
         sc, d = self.ssm, self.d_model
         di, nh, ns = sc.d_inner(d), sc.n_heads(d), sc.state_dim
@@ -228,6 +246,16 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
 
 
 # -- init ------------------------------------------------------------------------
+def init_generator(device, seed: int) -> torch.Generator:
+    """The torch generator an init draws from on ``device``, seeded. A
+    ``meta`` device has no generator of its own: its draws take a CPU
+    generator, which gives them shapes and dtypes and no numbers (the
+    dry run's parameters)."""
+    device = torch.device(device)
+    return torch.Generator(device="cpu" if device.type == "meta"
+                           else device).manual_seed(seed)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal weights with std ``fan_in ** -0.5`` (or ``scale``), drawn in

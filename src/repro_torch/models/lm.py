@@ -37,8 +37,8 @@ import torch
 
 from . import layers as L
 from .common import (ModelConfig, chunked_softmax_xent, dense_init,
-                     mrope_cos_sin, remat_layer, resolve_device,
-                     rope_cos_sin)
+                     init_generator, mrope_cos_sin, remat_layer,
+                     resolve_device, rope_cos_sin)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -65,7 +65,7 @@ class LM:
         """Random parameters from a torch generator on the model's device,
         with the JAX init's distributions."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = init_generator(dev, seed)
         params: Dict[str, Any] = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
                                 dev, scale=0.02),

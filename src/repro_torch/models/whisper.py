@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels import ops
 from . import layers as L
 from .common import (ModelConfig, chunked_softmax_xent, dense_init,
-                     remat_layer, resolve_device)
+                     init_generator, remat_layer, resolve_device)
 
 
 def sinusoidal_pos(S: int, d: int, dtype=torch.float32, device=None):
@@ -78,7 +78,7 @@ class EncDecLM:
         """Random parameters from a torch generator on the model's device,
         with the JAX init's distributions."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = init_generator(dev, seed)
         return {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype,
                                 dev, scale=0.02),

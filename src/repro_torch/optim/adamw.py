@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -127,25 +127,39 @@ def lr_at(step: int, cfg: OptConfig) -> float:
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares (a
     device scalar)."""
+    return _norm(T.leaves(grads))
+
+
+def _norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """:func:`global_norm` of the leaves an iterable yields, one at a
+    time (a generator holds one leaf's transients at once)."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in T.leaves(grads)))
+                          for g in leaves))
 
 
 def apply_updates(params, grads, state, cfg: OptConfig, *,
                   ndim: Callable[[tuple, torch.Tensor], int],
-                  ) -> Tuple[Any, Dict[str, Any]]:
+                  read: Optional[Callable[[Any, slice], torch.Tensor]]
+                  = None) -> Tuple[Any, Dict[str, Any]]:
     """One fused AdamW step, in place: returns ``(params, state)``, the
     same trees, updated. ``ndim(path, p)`` is a leaf's ``ndim`` in the
     JAX package's layout; a leaf of two or more decays and clips through
-    the ``l2_clip`` op."""
+    the ``l2_clip`` op. With ``read``, a leaf of ``grads`` is read
+    through it, chunk ``c`` as ``read(leaf, c)`` in f32 (compressed
+    gradients, :func:`repro_torch.parallel.compressed_grads`), the norm
+    from whole leaves ``read(leaf, slice(None))`` one at a time."""
     step = int(state["step"]) + 1
     lr = lr_at(step, cfg)
-    # the step's one host read: the clip scale of every leaf needs it
-    norm = float(global_norm(grads))
-    inv_bc1 = 1.0 / (1.0 - cfg.b1 ** step)
-    inv_bc2 = 1.0 / (1.0 - cfg.b2 ** step)
     paths, flat_p = T.flatten(params)
     flat_g = T.flatten(grads, upto=params)[1]
+    # the step's one host read: the clip scale of every leaf needs it
+    if read is None:
+        norm = float(global_norm(grads))
+        read = _chunk
+    else:
+        norm = float(_norm(read(g, slice(None)) for g in flat_g))
+    inv_bc1 = 1.0 / (1.0 - cfg.b1 ** step)
+    inv_bc2 = 1.0 / (1.0 - cfg.b2 ** step)
     flat_m = T.flatten(state["m"], upto=params)[1]
     flat_v = T.flatten(state["v"], upto=params)[1]
     dtype = cfg.moment_dtype
@@ -153,7 +167,7 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
         for i, (path, p, g) in enumerate(zip(paths, flat_p, flat_g)):
             stacked_2d = ndim(path, p) >= 2
             for c in update_chunks(p):
-                g32 = _clip(g[c], norm, cfg.clip_norm, stacked_2d)
+                g32 = _clip(read(g, c), norm, cfg.clip_norm, stacked_2d)
                 m2, v2, p2 = ops.adamw_update(
                     p[c].float(), g32,
                     _moment_get(_moment_at(flat_m[i], c), dtype),
@@ -168,6 +182,10 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
                 del m2, v2, p2
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return params, state
+
+
+def _chunk(g: torch.Tensor, c: slice) -> torch.Tensor:
+    return g[c]
 
 
 def update_chunks(p: torch.Tensor) -> list:

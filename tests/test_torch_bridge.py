@@ -9,7 +9,9 @@ the reference's bridged output and the torch function (2e-5, f32). Then
 what the port does differently on purpose: ``alpha`` of add/sub/rsub is
 a multiply, ``torch.remainder`` floors as the DSL's ``mod`` does while
 the reference maps ``lax.rem`` (which truncates) to it, ``torch.fmod``
-raises, and what the bridge refuses is counted as a fallback. The
+raises, a narrowing dtype cast raises (the reference passes it through
+and never rounds), and what the bridge refuses is counted as a
+fallback. The
 emitted Triton kernels of ``mod`` and ``pow`` run on the CPU in
 tests/test_torch_tile_exec.py and on the card in tests/test_torch_cuda.py.
 """
@@ -202,6 +204,36 @@ def test_sort_raises_and_falls_back_counted():
     fn, info = maybe_saturate(_my_fn_torch, (x, x), name="ok")
     assert info is not None and fn is info.fn
     assert telemetry().snapshot()["bridge_fallbacks"] == {"aten.sort": 1}
+
+
+def test_narrowing_cast_raises_and_widening_casts_bridge():
+    """A cast that rounds is refused and counted: the tile program
+    computes in one dtype, so ``(x.to(bf16) * 3).float()`` would bridge
+    to a kernel that never rounds (the reference's bridge passes the
+    cast through and is off jnp by the bf16 rounding). f32 -> f32 and
+    bf16 -> f32 are exact and still bridge."""
+    a = torch.from_numpy(_args("a", seed=5)[0])
+    narrow = lambda x: (x.to(torch.bfloat16) * 3).float()  # noqa: E731
+    with pytest.raises(BridgeUnsupported) as e:
+        saturate_torch_fn(narrow, (a,))
+    assert e.value.primitive == "aten._to_copy"
+    reset_telemetry()
+    fn, info = maybe_saturate(narrow, (a,), name="narrow")
+    assert fn is narrow and info is None
+    assert telemetry().snapshot()["bridge_fallbacks"] == {"aten._to_copy": 1}
+    jb = saturate_jax_fn(lambda x: (x.astype(jnp.bfloat16) * 3)
+                         .astype(jnp.float32), (jnp.asarray(a.numpy()),))
+    assert np.abs(np.asarray(jb(jnp.asarray(a.numpy()))[0])
+                  - narrow(a).numpy()).max() > 1e-3
+    widen = lambda x: x.to(torch.float32) * 3  # noqa: E731
+    bk = saturate_torch_fn(widen, (a,))
+    torch.testing.assert_close(bk(a), a * 3, **TOL)
+    ab = a.to(torch.bfloat16)
+    bk = saturate_torch_fn(widen, (ab,))
+    assert _stores(bk.sk) == [("o0", ("mul", ("aload", "a0"),
+                                      ("const", 3.0)))]
+    torch.testing.assert_close(bk(ab).float(), ab.float() * 3, **TOL)
+    assert telemetry().snapshot()["bridge_fallbacks"] == {"aten._to_copy": 1}
 
 
 def test_cpu_path_is_the_saturated_torch_function():

@@ -600,6 +600,23 @@ def test_ssd_rejects_what_it_cannot_run(cuda):
         ssd_scan(*big, chunk=256)
 
 
+@pytest.mark.parametrize("L,P,N", [(16, 8, 4), (64, 64, 64), (128, 64, 128),
+                                   (100, 80, 40), (256, 128, 256)])
+def test_ssd_size_formulas_are_the_librarys(L, P, N, cuda):
+    """The wrapper's shared-memory and scratch sizes (one formula for the
+    card and for the dry run on ``meta``) equal what the CUDA source's
+    host functions compute."""
+    from repro_torch.kernels import ssd_scan as ssd
+    lib = ssd._load()
+    assert ssd.cb_pitch(L) == lib.ssd_cb_pitch(L)
+    assert ssd.scan_smem_bytes(L, P, N) == lib.ssd_scan_smem_bytes(L, P, N)
+    assert ssd.bwd_smem_bytes(L, P, N) == \
+        lib.ssd_scan_bwd_smem_bytes(L, P, N)
+    for B, S, H in ((1, 4096, 64), (2, 1000, 7), (3, L, 9)):
+        assert ssd.bwd_work_floats(B, S, H, P, N, L) == \
+            lib.ssd_scan_bwd_work_floats(B, S, H, P, N, L)
+
+
 def test_degraded_tile_op_raises_on_the_card(cuda):
     p = KernelProgram("toint_op_cuda")
     x = p.array_in("x")
@@ -1295,3 +1312,48 @@ def test_bridged_remainder_floors_on_the_card(cuda):
                      device=cuda)
     bk = saturate_torch_fn(torch.remainder, (a, b))
     assert torch.equal(bk(a, b), torch.remainder(a, b))
+
+
+# -- gradient compression on the card -------------------------------------------
+def test_compression_on_the_card_matches_the_cpu(cuda):
+    """Each mode on bf16 gradients (as autograd returns them on the
+    card): the int8 codes, the scales and the decompressed f32 values
+    equal the CPU's bit for bit (round half to even on both), and a
+    smoke trainer under ``int8_ef`` trains as under ``int8`` (the
+    error-feedback state is discarded, as the JAX step discards it)."""
+    from repro_torch.parallel import MODES, Compressor, compressed_grads
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    g = {"w": torch.randn((300, 257), generator=gen, device=cuda),
+         "stack": torch.randn((3, 64, 96), generator=gen, device=cuda) * 1e-4,
+         "b": torch.randn((257,), generator=gen, device=cuda)}
+    g = {k: v.to(torch.bfloat16) for k, v in g.items()}
+    cpu = {k: v.cpu() for k, v in g.items()}
+    for mode in MODES:
+        comp = Compressor(mode)
+        got, read = compressed_grads(comp, g)
+        want, _ = compressed_grads(comp, cpu)
+        for k in g:
+            if read is None:
+                assert got[k] is g[k]
+                continue
+            got_k, want_k = read(got[k], slice(None)), read(want[k],
+                                                            slice(None))
+            assert got_k.device.type == "cuda"
+            assert torch.equal(got_k.cpu(), want_k), (mode, k)
+        if mode.startswith("int8"):
+            cq, _ = comp.compress(g, comp.init_state(g))
+            wq, _ = comp.compress(cpu, comp.init_state(cpu))
+            for k in g:
+                assert torch.equal(cq[k]["q"].cpu(), wq[k]["q"])
+                assert torch.equal(cq[k]["scale"].cpu(), wq[k]["scale"])
+        assert comp.wire_bytes(g) == comp.wire_bytes(cpu)
+
+
+def test_compressed_smoke_training_on_the_card(cuda, tmp_path):
+    from repro_torch.launch.train import build_trainer
+    kw = dict(smoke=True, steps=8, batch=4, seq=64, device=cuda)
+    out = {m: build_trainer("minitron-4b", compress=m,
+                            ckpt_dir=str(tmp_path / m), **kw).run()
+           for m in ("int8", "int8_ef")}
+    assert out["int8"]["losses"] == out["int8_ef"]["losses"]
+    assert out["int8_ef"]["losses"][-1] < out["int8_ef"]["losses"][0]

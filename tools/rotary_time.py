@@ -98,7 +98,8 @@ def main() -> int:
     sys.path.insert(1, ROOT)
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
         ROOT, "src", "repro_torch", "_build", "triton_cache"))
-    from chip_smoke import Timer, _tile_bound
+    from chip_smoke import Timer
+    from repro_torch.roofline.kernel_work import tile_bound
     from repro_torch.kernels.tile_programs import get_tile_op
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -110,7 +111,7 @@ def main() -> int:
     one = torch.zeros(1, device="cuda")
     for name, a in _inputs(torch).items():
         row = {"src": os.path.relpath(args.src, ROOT), "shape": name,
-               "bound_ms": _tile_bound(ops["sync"], a)[0]}
+               "bound_ms": tile_bound(ops["sync"], a)[0]}
         for form, op in ops.items():
             plan = _plan(op, a)
             row[form] = _measure(torch, timer, op, a)

@@ -251,7 +251,8 @@ def main() -> int:
     sys.path.insert(1, ROOT)
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
         ROOT, "src", "repro_torch", "_build", "triton_cache"))
-    from chip_smoke import Timer, _in_turns, _tile_bound
+    from chip_smoke import Timer, _in_turns
+    from repro_torch.roofline.kernel_work import tile_bound
     from repro_torch.kernels.tile_programs import get_tile_op
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -267,7 +268,7 @@ def main() -> int:
         row = {"src": src, "case": tag, "program": name, "dtype": dtype,
                "out_dtype": str(out_dtype or xs[0].dtype)[6:],
                "shape": [list(a.shape) for a in xs],
-               "bound_ms": _tile_bound(get_tile_op(name), xs, out_dtype)[0],
+               "bound_ms": tile_bound(get_tile_op(name), xs, out_dtype)[0],
                "library_ms": timer.ms(lib) if lib is not None else None}
         want = _want(name, xs, sc, out_dtype)
         tol = TOL[str(out_dtype or xs[0].dtype)[6:]]
