@@ -41,7 +41,11 @@ Server at full width with random seeded weights, and a training path:
   its gradient through the flash backward kernel and the tile ops'
   backwards, AdamW through the adamw and l2_clip kernels), its launches
   per step asserted; the same step's gradients and update on 2 layers in
-  f32 against the plain versions; the smoke trainer through
+  f32 against the plain versions; the same run through the multi-device
+  layer on a one-rank NCCL (1, 1) mesh, every parameter and moment a
+  DTensor (``sharded_train``: each step's loss and launches the
+  unsharded step's, ms/step and peak memory beside them); the smoke
+  trainer through
   build_trainer with an injected host loss, whose losses equal a clean
   run's; a trace of one step; the same training, 8 steps, with its
   gradients compressed as ``--compress int8_ef`` does (``train_compress``:
@@ -49,7 +53,10 @@ Server at full width with random seeded weights, and a training path:
   its row's scale, the wire bytes of each mode); the step counted on
   ``meta`` by the dry run (``dryrun``: FLOPs, bytes, the three roofline
   terms and the predicted peak memory) against the card's device ms and
-  peak memory for the same step;
+  peak memory for the same step, and minitron-4b's ``train_4k`` counted
+  per device on the 16x16 and 2x16x16 meshes in two child processes
+  (``dryrun_16x16``, ``dryrun_2x16x16``: each its own fake process
+  group);
 * mamba2-1.3b (all 48 layers) and zamba2-2.7b (all 54) training at full
   width the same way (the SSD scan's forward with its chunk states, its
   backward kernels, rmsnorm_gated's kernel forward), their launches per
@@ -315,12 +322,17 @@ VERIFY_TALLY = {"report": None, "compiled_checked": 0, "build_s": {}}
 _T0 = time.perf_counter()
 
 
+# each phase's line, by phase, for the phases that compare with another's
+RECORDS = {}
+
+
 def emit(obj):
     """One JSON line; a phase's line also carries ``t_s``, the seconds
     since the script started, so that consecutive lines time each
     phase."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}
+        RECORDS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -2123,6 +2135,115 @@ def phase_train(torch, spec=TRAIN, phase="train"):
         launches, step_ms
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded_train(torch):
+    """The ``train`` phase's run (minitron-4b, 16 of 32 layers, B 2 x S
+    4096, bf16, f32 moments, its seed and batches) through the
+    multi-device layer: a one-rank NCCL process group, a (1, 1) ("data",
+    "model") mesh, every parameter and moment a DTensor placed by
+    ``param_specs`` (the dry run's FSDP policy) and ``opt_state_specs``,
+    each batch by ``batch_specs``, ``ctx`` active, ``make_train_step``.
+    Every kernel launches on the local shards (``local_map`` regions):
+    each step's launches must equal the unsharded step's, each step's
+    loss the ``train`` phase's, and the peak memory is reported beside
+    it. The group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import batch_to_device, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.parallel import (batch_specs, ctx, distribute,
+                                      opt_state_specs, param_specs)
+
+    ref = RECORDS["train"]
+    full = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN["layers"])
+    steps = TRAIN["steps"]
+    ocfg = OptConfig(warmup_steps=ref["warmup_steps"], total_steps=steps)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        model = get_model(cfg, device="cuda")
+        params = model.init(TRAIN["seed"])
+        want = _expected_train_launches(cfg, params)
+        state = init_opt_state(params, ocfg)
+        with ctx.activate(mesh):
+            fsdp = cfg.param_count() > 6e9
+            pspecs = param_specs(cfg, params, mesh, fsdp=fsdp)
+            params = distribute(params, pspecs, mesh)
+            state = distribute(state, opt_state_specs(cfg, state, pspecs,
+                                                      mesh), mesh)
+            placed = sum(ctx.is_dtensor(x) for x in T.leaves((params,
+                                                              state)))
+            step = make_train_step(model, ocfg)
+            pipe = ShardedTokenPipeline(DataConfig(
+                vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                global_batch=TRAIN["batch"], seed=TRAIN["seed"]))
+            counters = _train_counters()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            losses, ms, per_step = [], [], []
+            for i in range(steps):
+                before = {n: c.launches for n, c in counters.items()}
+                batch = batch_to_device(_train_batch(cfg, pipe, i), "cuda")
+                batch = distribute(batch, batch_specs(cfg, batch, mesh),
+                                   mesh)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, state, loss = step(params, state, batch)
+                losses.append(loss.item())
+                ms.append((time.perf_counter() - t) * 1e3)
+                per_step.append({n: c.launches - before[n]
+                                 for n, c in counters.items()})
+            launches = {n: c.launches for n, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            kinds = sorted({str(tuple(p.placements))
+                            for p in T.leaves(params)})
+        del model, params, state, step
+    finally:
+        dist.destroy_process_group()
+    step_ms = statistics.median(ms[1:])
+    same = [f"{a:.6g}" == f"{b:.6g}" for a, b in zip(losses, ref["losses"])]
+    ok = (all(same) and all(ps == want for ps in per_step)
+          and per_step[-1] == ref["launches_per_step"] and placed > 0)
+    emit({"phase": "sharded_train", "config": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+          "fsdp": fsdp, "dtensors": placed, "placements": kinds,
+          "init_s": init_s, "step_ms": ms,
+          "ms_per_step_median_from_2": step_ms,
+          "over_train": step_ms / ref["ms_per_step_median_from_2"],
+          "peak_mem_gb": peak, "train_peak_mem_gb": ref["peak_mem_gb"],
+          "peak_over_train_gb": peak - ref["peak_mem_gb"],
+          "losses": losses, "train_losses": ref["losses"],
+          "losses_equal_to_6_digits": same,
+          "losses_bitwise_equal": losses == ref["losses"],
+          "launches_per_step": per_step[-1],
+          "launches_per_step_unsharded": ref["launches_per_step"],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"sharded_train: losses {losses} against "
+                             f"{ref['losses']}, launches {per_step} against "
+                             f"{want}")
+    return launches
+
+
 def _prune(tree, skip):
     """``tree`` without the entries whose key is in ``skip``."""
     if isinstance(tree, dict):
@@ -2309,7 +2430,10 @@ def phase_dryrun(torch):
     from a profiler window as ``trace_train`` sums it (the third step).
     Fails where the counted bound (the largest of the three terms)
     exceeds the measured device time, or the predicted peak over the
-    measured one falls outside ``DRYRUN_MEMORY_RATIO``."""
+    measured one falls outside ``DRYRUN_MEMORY_RATIO``. Then counts the
+    production meshes in children (:func:`_start_dryrun_child`), started
+    once the card's measurements are done, so that no timed phase shares
+    the host with them."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.core.hardware import H100_SXM
@@ -2395,6 +2519,80 @@ def phase_dryrun(torch):
         raise AssertionError(f"dryrun: bound {bound_ms} ms against "
                              f"{device_ms} measured, memory predicted over "
                              f"measured {ratio}")
+    children = {name: _start_dryrun_child(name) for name in DRYRUN_MESHES}
+    for name, child in children.items():
+        _finish_dryrun_child(name, child)
+
+
+# the production meshes the dryrun phase counts minitron-4b's train_4k on
+DRYRUN_MESHES = {"16x16": (16, 16), "2x16x16": (2, 16, 16)}
+
+
+def _start_dryrun_child(name):
+    """A child process counting minitron-4b's train_4k on the mesh
+    ``name`` in a fake process group of its own, on one CPU thread."""
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-child", name],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    CHILDREN.append(child)
+    return child
+
+
+# every child process the run starts: stopped at its end, failed or not
+CHILDREN = []
+
+
+def _finish_dryrun_child(name, child):
+    """The child's count of minitron-4b train_4k on the mesh ``name``:
+    per device FLOPs, HBM bytes, wire bytes by collective, the three
+    terms, argument and peak bytes."""
+    try:
+        out, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise AssertionError(f"dryrun child {name} timed out")
+    lines = [ln for ln in out.splitlines() if ln.startswith("DRYRUN_CHILD:")]
+    if child.returncode != 0 or not lines:
+        sys.stderr.write(out[-4000:] + err[-8000:])
+        raise AssertionError(f"dryrun child {name} failed")
+    res = json.loads(lines[-1][len("DRYRUN_CHILD:"):])
+    rf, mem = res["roofline"], res["memory_analysis"]
+    n = rf["n_devices"]
+    ok = (res["status"] == "ok" and res["mesh"] == name and rf["flops"] > 0
+          and rf["wire_bytes"] > 0
+          and 1.0 < rf["flops"] * n / rf["model_flops"] < 2.2)
+    emit({"phase": f"dryrun_{name}", "config": res["arch"],
+          "shape": res["shape"], "mesh": name, "devices": n,
+          "count_s": res["compile_s"], "accum_steps": res["accum_steps"],
+          "flops_per_device": rf["flops"],
+          "hbm_bytes_per_device": rf["hbm_bytes"],
+          "wire_bytes_per_device": rf["wire_bytes"],
+          "wire_bytes_by_collective": rf["collective_breakdown"],
+          "compute_ms": rf["compute_s"] * 1e3,
+          "memory_ms": rf["memory_s"] * 1e3,
+          "collective_ms": rf["collective_s"] * 1e3,
+          "dominant": rf["dominant"], "model_flops": rf["model_flops"],
+          "argument_bytes_per_device": mem["argument_bytes"],
+          "peak_temp_bytes_per_device": mem["temp_bytes"],
+          "bytes_per_device": rf["bytes_per_device"],
+          "fits_hbm": rf["fits_hbm"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"dryrun_{name}: {rf}")
+
+
+def dryrun_child(name: str) -> int:
+    """Count minitron-4b's train_4k on the production mesh ``name`` in
+    this process's own fake process group; print the cell's dict."""
+    sys.path.insert(0, SRC)
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+    torch.set_num_threads(1)
+    res = run_cell("minitron_4b", "train_4k", DRYRUN_MESHES[name],
+                   verbose=False)
+    print("DRYRUN_CHILD:" + json.dumps(res), flush=True)
+    return 0 if res["status"] == "ok" else 1
 
 
 # the record_function ranges a train step's backward runs under: the tile
@@ -3286,6 +3484,10 @@ def main() -> int:
         del model, params, state, step
         gc.collect()
         torch.cuda.empty_cache()
+        # the same run through the multi-device layer on a (1, 1) mesh
+        sharded = phase_sharded_train(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_parity_train(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3302,7 +3504,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         # mamba2-1.3b, zamba2-2.7b and whisper-small training at full width
         # and depth, dbrx-132b at full width and 2 of its 40 layers
-        trains = [train, compressed, *train_families(torch)]
+        trains = [train, compressed, sharded, *train_families(torch)]
         # the latency model's calibration lane and the bridge
         phase_calibrate(torch)
         timer = Timer(torch)
@@ -3312,6 +3514,11 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
     train = {}
     for paths in trains:
         for name, n in paths.items():
@@ -3365,6 +3572,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--cache-child":
         sys.exit(cache_child(sys.argv[2], "--no-cache" not in sys.argv))
+    if len(sys.argv) > 2 and sys.argv[1] == "--dryrun-child":
+        sys.exit(dryrun_child(sys.argv[2]))
     # the saturator breaks ties between equal-cost terms in hash order, so
     # the emitted tile kernels (and their rounding) follow PYTHONHASHSEED:
     # one fixed seed gives every run the same kernels

@@ -21,6 +21,11 @@ parity phase use it). ``set_tile_emitter(...)`` picks the form of the
 tile kernels the ``triton`` implementation launches: the sync kernels
 (default) or their persistent, pipelined form.
 
+DTensor arguments (the multi-device layer, :mod:`repro_torch.parallel`)
+run each op on this rank's shards in a ``local_map`` region
+(:func:`on_shards`), placed as the reference's constraints place the
+op's operands: the same kernel launches on the local tensors.
+
 No fallback on the card: on CUDA (and ``meta``) tensors an op runs what
 it was asked to run and raises if that fails. The runtime floor of the
 JAX package (catch, fall back to the oracle, count a runtime fallback,
@@ -45,6 +50,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.telemetry import telemetry
 from repro_torch.runtime.guard import breaker_for
@@ -418,26 +424,111 @@ class _RotaryFn(torch.autograd.Function):
             None, None
 
 
+# -- kernels on the local shards of DTensors --------------------------------------
+def _is_dt(*xs) -> bool:
+    return any(isinstance(x, DTensor) for x in xs)
+
+
+def ident(x) -> dict:
+    """The identity map of ``x``'s dimensions (for :func:`on_shards`)."""
+    return {d: d for d in range(x.ndim)}
+
+
+def on_shards(fn, args, keep, maps, outs):
+    """``fn`` on the local shards of DTensor arguments (a ``local_map``
+    region), so each wrapper launches its kernel on what this rank holds,
+    as the reference's Pallas calls run on the shards GSPMD gives them.
+
+    ``args[0]`` leads: it keeps its shards on the dimensions in ``keep``
+    and is replicated on the others (a ``Partial`` sum reduced first,
+    a shard of a dimension the kernel reads whole gathered, as GSPMD
+    resolves a custom call's operands). ``maps[i]`` maps the lead's
+    dimensions to argument ``i``'s: it is sharded where the lead is, on
+    the mapped dimension, and replicated elsewhere (a plain tensor, such
+    as RoPE's tables, is replicated first); None passes an argument as it
+    is (a scalar). ``outs`` is the map of the output, or a list of maps
+    for several; an output dimension mapped to ``"sum"`` makes the output
+    a ``Partial`` sum over the mesh dimensions the lead's dimension is
+    sharded on (each rank adds its share of the lead into it). A
+    replicated argument's local gradient covers only this rank's part of
+    the work on a mesh dimension the lead is sharded on: it comes back a
+    ``Partial`` sum there. With no DTensor argument, ``fn`` runs on the
+    arguments as they are."""
+    if not _is_dt(*args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lead = args[0]
+    mesh = lead.device_mesh
+    lead_pl = tuple(p if p.is_shard() and p.dim in keep else Replicate()
+                    for p in lead.placements)
+
+    def follow(dmap):
+        out = []
+        for p in lead_pl:
+            d = dmap.get(p.dim) if p.is_shard() else None
+            out.append(Replicate() if d is None else Partial()
+                       if d == "sum" else Shard(d))
+        return tuple(out)
+
+    placed, in_pl, grad_pl = [], [], []
+    for a, dmap in zip(args, maps):
+        if dmap is None:
+            placed.append(a)
+            in_pl.append(None)
+            grad_pl.append(None)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        pl = follow(dmap)
+        if tuple(a.placements) != pl:
+            a = a.redistribute(mesh, pl)
+        placed.append(a)
+        in_pl.append(pl)
+        grad_pl.append(tuple(Partial() if q.is_replicate() and lp.is_shard()
+                             else q for q, lp in zip(pl, lead_pl)))
+    out_pl = tuple(follow(o) for o in outs) if isinstance(outs, list) \
+        else (follow(outs),)
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=mesh)(*placed)
+
+
 # -- saturated tile ops ---------------------------------------------------------
 def rmsnorm(x, g, eps=1e-6):
+    if _is_dt(x, g):
+        return on_shards(lambda x, g: rmsnorm(x, g, eps), (x, g),
+                         range(x.ndim - 1), (ident(x), {}), ident(x))
     if current_impl(x) == "triton" and _wants_grad(x, g):
         return _RmsnormFn.apply(x, g, eps)
     return _tile("rmsnorm", x, g, eps=eps)
 
 
 def rmsnorm_gated(x, z, g, eps=1e-6):
+    if _is_dt(x, z, g):
+        return on_shards(lambda x, z, g: rmsnorm_gated(x, z, g, eps),
+                         (x, z, g), range(x.ndim - 1),
+                         (ident(x), ident(x), {}), ident(x))
     if current_impl(x) == "triton" and _wants_grad(x, z, g):
         return _RmsnormGatedFn.apply(x, z, g, eps)
     return _tile("rmsnorm_gated", x, z, g, eps=eps)
 
 
 def layernorm(x, g, b, eps=1e-6):
+    if _is_dt(x, g, b):
+        return on_shards(lambda x, g, b: layernorm(x, g, b, eps),
+                         (x, g, b), range(x.ndim - 1),
+                         (ident(x), {}, {}), ident(x))
     if current_impl(x) == "triton" and _wants_grad(x, g, b):
         return _LayernormFn.apply(x, g, b, eps)
     return _tile("layernorm", x, g, b, eps=eps)
 
 
 def swiglu(a, b):
+    if _is_dt(a, b):
+        return on_shards(swiglu, (a, b), range(a.ndim),
+                         (ident(a), ident(a)), ident(a))
     if current_impl(a) == "triton" and _wants_grad(a, b):
         return _SwigluFn.apply(a, b)
     return _tile("swiglu", a, b)
@@ -445,6 +536,9 @@ def swiglu(a, b):
 
 def gelu(a):
     """GELU in its tanh form (the saturated ``gelu`` program)."""
+    if _is_dt(a):
+        return on_shards(gelu, (a,), range(a.ndim), (ident(a),),
+                         ident(a))
     if current_impl(a) == "triton" and _wants_grad(a):
         return _GeluFn.apply(a)
     return _tile("gelu", a)
@@ -453,6 +547,10 @@ def gelu(a):
 def moe_router_probs(logits):
     """Router logits (..., E) -> softmax probabilities, the saturated
     ``moe_router`` program (one row per token, E columns)."""
+    if _is_dt(logits):
+        return on_shards(moe_router_probs, (logits,),
+                         range(logits.ndim - 1), (ident(logits),),
+                         ident(logits))
     if current_impl(logits) == "triton" and _wants_grad(logits):
         return _MoeRouterFn.apply(logits)
     return _tile("moe_router", logits)
@@ -463,6 +561,12 @@ def rotary(q, cos, sin):
     The kernel reads cos/sin in place (``cycle`` operands, or ``bcycle``
     for M-RoPE's one table per batch row), without materialising their
     broadcast to q's shape."""
+    if _is_dt(q, cos, sin):
+        # a table follows q's shards where it is as long as q, and is
+        # replicated where it broadcasts
+        tab = {d: d for d in range(q.ndim) if cos.shape[d] == q.shape[d]}
+        return on_shards(rotary, (q, cos, sin), range(q.ndim - 1),
+                         (ident(q), tab, tab), ident(q))
     impl = current_impl(q)
     if impl == "ref":
         return _ref.rotary_ref(q, cos, sin)
@@ -498,6 +602,13 @@ def l2_clip(g, *, norm, max_norm, eps=1e-9):
 
 # -- structured kernels -----------------------------------------------------------
 def attention(q, k, v, *, causal=True, scale=None):
+    if _is_dt(q, k, v):
+        # batch and heads stay sharded; every query reads the whole
+        # sequence (k and v hold q's heads, or as many kv heads per shard)
+        return on_shards(
+            lambda q, k, v: attention(q, k, v, causal=causal, scale=scale),
+            (q, k, v), (0, 1), (ident(q), ident(q), ident(q)),
+            ident(q))
     if current_impl(q) == "triton":
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return _ref.attention_ref(q, k, v, causal=causal, scale=scale)
@@ -516,6 +627,13 @@ def ssd(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk=128,
     which has no final state). With ``return_state`` also the final
     (B,H,N,P) state, which seeds decode. A gradient under the ``triton``
     implementation goes through the backward kernel (``_SsdFn``)."""
+    if _is_dt(x, dt, a_log, b_mat, c_mat, d_skip):
+        # batch and heads stay sharded, the sequence is scanned whole
+        return on_shards(
+            lambda *a: ssd(*a, chunk=chunk, return_state=return_state),
+            (x, dt, a_log, b_mat, c_mat, d_skip), (0, 2),
+            (ident(x), {0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}, {2: 0}),
+            [ident(x), {0: 0, 2: 1}] if return_state else ident(x))
     impl = current_impl(x)
     if impl == "triton":
         if _wants_grad(x, dt, a_log, b_mat, c_mat, d_skip):

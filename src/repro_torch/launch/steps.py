@@ -27,14 +27,18 @@ from repro_torch.configs import ShapeSpec
 from repro_torch.models import ModelConfig, get_model
 from repro_torch.models.common import reference_ndim
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
-from repro_torch.parallel import Compressor, compressed_grads
+from repro_torch.parallel import Compressor, compressed_grads, ctx
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """A pipeline batch (numpy or tensors) as tensors on ``device``:
-    integer arrays (tokens, labels, positions) as int64, the rest f32."""
+    integer arrays (tokens, labels, positions) as int64, the rest f32;
+    DTensors as they are."""
     out = {}
     for k, a in batch.items():
+        if ctx.is_dtensor(a):             # placed by the caller
+            out[k] = a
+            continue
         t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
                             else a)
         dt = torch.int64 if not t.dtype.is_floating_point else torch.float32
@@ -44,12 +48,17 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 def value_and_grad(model, params, batch):
     """``(loss, grads)`` of ``model.loss`` at ``params``: a detached
-    0-d loss and a tree of gradients shaped as ``params``."""
+    0-d loss and a tree of gradients shaped as ``params``. With DTensor
+    parameters the loss comes back whole on every rank and each
+    gradient as autograd leaves it (a ``Partial`` sum over the data axes
+    where the parameter is replicated there)."""
     flat = T.leaves(params)
     leaves = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         loss = model.loss(T.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
+    if ctx.is_dtensor(loss):
+        loss = loss.full_tensor()
     return loss.detach(), T.unflatten(params, list(grads))
 
 
@@ -61,25 +70,54 @@ def split_micro(batch, k: int) -> List[Dict[str, Any]]:
         if a.shape[axis] % k:
             raise ValueError(f"batch {a.shape[axis]} not divisible by "
                              f"accum {k}")
+        if ctx.is_dtensor(a):
+            return _split_placed(a, k, axis)
         return a.chunk(k, dim=axis)
     parts = {key: split(key, a) for key, a in batch.items()}
     return [{key: p[i] for key, p in parts.items()} for i in range(k)]
 
 
-def zero_grads(params):
-    """The f32 buffers microbatch gradients are summed in, shaped as
-    ``params``."""
-    return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params)
+def _split_placed(a, k: int, axis: int):
+    """A DTensor batch leaf as ``k`` microbatches of contiguous rows, as
+    the one-device split (and the reference's) takes them: the leaf is
+    gathered whole (a batch of token ids is small beside the step's
+    activations), chunked, and each chunk placed as the leaf (a local
+    slice)."""
+    whole = a.full_tensor()
+    return [ctx.replicated(part, a.device_mesh).redistribute(
+        a.device_mesh, a.placements) for part in whole.chunk(k, dim=axis)]
+
+
+def zero_grads(params, dtype=torch.float32):
+    """The buffers microbatch gradients are summed in (f32 unless
+    ``dtype``), shaped and placed as ``params``."""
+    def zero(p):
+        if ctx.is_dtensor(p):
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(
+                torch.zeros(p.to_local().shape, dtype=dtype,
+                            device=p.device), p.device_mesh, p.placements,
+                run_check=False)
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+    return T.tree_map(zero, params)
 
 
 def accumulate_grads(model, params, g, mb) -> torch.Tensor:
-    """One microbatch: its loss, its gradients added into the f32
-    buffers ``g`` (in place)."""
+    """One microbatch: its loss, its gradients added into the buffers
+    ``g`` (in place), each first placed as its buffer (a ``Partial`` sum
+    reduced to the buffer's shards: ``_pin`` of the reference's step)."""
     li, gi = value_and_grad(model, params, mb)
     for a, b in zip(T.leaves(g), T.leaves(gi)):
-        a.add_(b.float())
+        a.add_(_placed_as(b, a).to(a.dtype))
     return li
+
+
+def _placed_as(g, like):
+    """``g`` redistributed to ``like``'s placements where both are
+    DTensors and they differ; ``g`` otherwise."""
+    if ctx.is_dtensor(g) and tuple(g.placements) != tuple(like.placements):
+        return g.redistribute(like.device_mesh, like.placements)
+    return g
 
 
 def make_update(model, opt_cfg: OptConfig, compress: str = "none"):
@@ -92,6 +130,11 @@ def make_update(model, opt_cfg: OptConfig, compress: str = "none"):
     package's stacked layout of ``model.cfg``)."""
     ndim = functools.partial(reference_ndim, model.cfg)
     comp = Compressor(compress)
+    if compress != "none" and ctx.dp_size() > 1:
+        raise NotImplementedError(
+            f"compress={compress!r} under a mesh with {ctx.dp_size()} data "
+            "ranks: the reference runs compression on one device only, and "
+            "the port compresses unsharded gradients (ROADMAP A14.5)")
 
     def update(params, opt_state, grads):
         wire, read = compressed_grads(comp, grads)
@@ -106,9 +149,13 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
     is split into ``accum_steps`` microbatches run one after another, so
     saved activations scale with the microbatch. Their gradients are
     summed in f32 buffers, not in the parameters' dtype, then averaged.
-    ``train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)``; the update (:func:`make_update`, with ``compress``) is in
-    place."""
+    With DTensor parameters each microbatch's gradients are pinned to
+    the buffers' placements, the parameters' own, as the reference's
+    ``_pin`` (:func:`accumulate_grads`). ``train_step(params, opt_state,
+    batch) -> (params, opt_state, loss)``; the update
+    (:func:`make_update`, with ``compress``) is in place
+    (:func:`repro_torch.optim.apply_updates` reduces each gradient to its
+    parameter's placements first)."""
     update = make_update(model, opt_cfg, compress)
 
     def train_step(params, opt_state, batch):

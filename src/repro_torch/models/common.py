@@ -3,6 +3,7 @@ the JAX package's parameters, the chunked cross-entropy loss)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -10,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel import ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +175,8 @@ def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     if sum(sections) != head_dim // 2:
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"head_dim / 2 = {head_dim // 2}")
-    freqs = rope_freqs(head_dim, theta, positions.device)      # (hd/2,)
+    freqs = ctx.like(positions, rope_freqs(head_dim, theta,
+                                           positions.device))  # (hd/2,)
     ang = positions.to(torch.float32)[..., None] * freqs       # (3,B,S,hd/2)
     parts, start = [], 0
     for i, sec in enumerate(sections):
@@ -227,6 +231,8 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
     chunk = min(chunk, S)
     if S % chunk != 0:
         chunk = math.gcd(S, chunk) or S
+    if ctx.is_dtensor(hidden):
+        return _sharded_xent(hidden, unembed, labels, mask, chunk)
     V = unembed.shape[-1]
     Vp = (V + 2047) // 2048 * 2048
     w = unembed.float()
@@ -243,6 +249,160 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
         else:
             tot = tot + _chunk_nll(*args)
     return tot / torch.clamp(mask.sum(), min=1.0)
+
+
+def _reduce_sum(x, group):
+    """``x`` summed over ``group``'s ranks (a functional all-reduce); its
+    gradient passes through as it is: every rank's loss reads the same
+    sum, so each rank's part takes the sum's gradient unchanged."""
+    return _SumOverRanks.apply(x, group)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, x, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g, None
+
+
+def _vocab_parallel_nll(h, w, labels, mask, group):
+    """One chunk's summed masked NLL on this rank's shards: rows of the
+    batch and a slice of the vocabulary (``w``, f32, ``group``'s rank
+    ``r`` holding columns ``r * V_r`` on). The max, the sum of
+    exponentials and the gold logit are reduced over ``group``, as GSPMD
+    reduces the reference's logits sharded over the model axis; the
+    vocabulary's padding is not built (its columns add exp(-1e30) = 0)."""
+    from torch.distributed import _functional_collectives as funcol
+    logits = h.float() @ w
+    Vr = w.shape[-1]
+    v0 = torch.distributed.get_rank(group) * Vr
+    m = funcol.wait_tensor(funcol.all_reduce(
+        torch.amax(logits, dim=-1).detach(), "max", group))
+    se = _reduce_sum(torch.exp(logits - m[..., None]).sum(-1), group)
+    logz = m + torch.log(se)
+    local = labels - v0
+    mine = (local >= 0) & (local < Vr)
+    gold = torch.gather(logits, -1, local.clamp(0, Vr - 1)[..., None])[..., 0]
+    gold = _reduce_sum(torch.where(mine, gold, 0.0), group)
+    return ((logz - gold) * mask).sum()
+
+
+def _sharded_xent(hidden, unembed, labels, mask, chunk: int):
+    """:func:`chunked_softmax_xent` of DTensors under the active mesh: the
+    hidden state's rows over the data axes, the f32 unembedding's
+    vocabulary over the model axis where it divides (else replicated),
+    each chunk's NLL in a ``local_map`` region. On a model axis of one
+    rank, or with the vocabulary replicated, the region computes each
+    chunk as the one-device loss does, padding included."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = hidden.device_mesh
+    B, S, D = hidden.shape
+    V = unembed.shape[-1]
+    hidden = ctx.constrain(hidden, "dp", None, None)
+    labels = ctx.constrain(ctx.replicated(labels, mesh), "dp", None)
+    mask = ctx.constrain(ctx.replicated(mask.float(), mesh), "dp", None)
+    w = ctx.constrain(unembed.float(), None, "tp")
+    names = list(mesh.mesh_dim_names)
+    tp = names.index("model") if "model" in names else None
+    v_sharded = tp is not None and w.placements[tp].is_shard() \
+        and mesh.size(tp) > 1
+    if v_sharded:
+        group = mesh.get_group(tp)
+        nll = functools.partial(_vocab_parallel_nll, group=group)
+    else:
+        # the vocabulary whole on every model rank: padded once, as the
+        # one-device loss pads it
+        w = ctx.constrain(w, None, None)
+        Vp = (V + 2047) // 2048 * 2048
+        if Vp != V:
+            w = F.pad(w, (0, Vp - V))
+        nll = functools.partial(_chunk_nll, vocab=V)
+    rows = tuple(p if p.is_shard() else Replicate() for p in hidden.placements)
+    out_pl = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    h_grad = tuple(Partial() if i == tp and v_sharded else p
+                   for i, p in enumerate(rows))
+    w_pl = tuple(w.placements)
+    w_grad = tuple(Partial() if p.is_shard() else q
+                   for p, q in zip(rows, w_pl))
+    region = local_map(
+        nll, out_placements=(out_pl,),
+        in_placements=(rows, w_pl, rows, rows),
+        in_grad_placements=(h_grad, w_grad, rows, rows), device_mesh=mesh)
+    # the chunks' Partial sums are added to a Partial zero and reduced
+    # once: a plain zero would leave it to DTensor's propagation (which
+    # differs between torch versions) whether each chunk is reduced on
+    # its own
+    tot = DTensor.from_local(torch.zeros((), dtype=torch.float32,
+                                         device=hidden.device),
+                             mesh, out_pl, run_check=False)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        args = (hidden[:, sl], w, labels[:, sl], mask[:, sl])
+        tot = tot + (checkpoint(region, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if torch.is_grad_enabled() else region(*args))
+    rep = [Replicate()] * mesh.ndim
+    return tot.redistribute(mesh, rep) / torch.clamp(
+        mask.sum().redistribute(mesh, rep), min=1.0)
+
+
+def place_cache(cfg, cache, like):
+    """A decode cache placed as the reference's ``cache_specs`` place it
+    on the active mesh when ``like`` (a parameter) is a DTensor; as it is
+    otherwise."""
+    if not ctx.is_dtensor(like):
+        return cache
+    from repro_torch.parallel.sharding import cache_specs, distribute
+    mesh = ctx.active_mesh()
+    return distribute(cache, cache_specs(cfg, cache, mesh), mesh)
+
+
+def embed_lookup(table, tokens):
+    """The rows of ``table`` for ``tokens``: ``table[tokens]``. A DTensor
+    table is looked up vocab-parallel, as GSPMD would shard the
+    reference's gather of a table sharded (model, fsdp): a
+    ``local_map`` region with the table's rows over the model axis and
+    its columns gathered over the data axes (FSDP's gather), the tokens
+    over the data axes; each model rank fills the rows of the tokens its
+    slice of the vocabulary holds and zeros elsewhere, a ``Partial`` sum
+    over the model axis that the caller's constraint reduces. A table
+    whose vocabulary is not sharded is looked up whole on each rank."""
+    if not ctx.is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tokens = ctx.replicated(tokens, mesh)
+    names = list(mesh.mesh_dim_names)
+    tp = names.index("model") if "model" in names else None
+    split = tp is not None and table.placements[tp].is_shard() \
+        and table.placements[tp].dim == 0 and mesh.size(tp) > 1
+    t_pl = tuple(Shard(0) if split and i == tp else Replicate()
+                 for i in range(mesh.ndim))
+    x_pl = tuple(p if p.is_shard() and p.dim == 0 and i != tp
+                 else Replicate() for i, p in enumerate(tokens.placements))
+    out_pl = tuple(Partial() if split and i == tp else p
+                   for i, p in enumerate(x_pl))
+    g_pl = tuple(Partial() if p.is_shard() else q
+                 for p, q in zip(x_pl, t_pl))
+
+    def lookup(table, tokens):
+        if not split:
+            return table[tokens]
+        Vr = table.shape[0]
+        local = tokens - mesh.get_local_rank(tp) * Vr
+        mine = (local >= 0) & (local < Vr)
+        rows = table[local.clamp(0, Vr - 1)]
+        return rows * mine[..., None].to(rows.dtype)
+    return local_map(lookup, out_placements=(out_pl,),
+                     in_placements=(t_pl, x_pl),
+                     in_grad_placements=(g_pl, x_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 # -- init ------------------------------------------------------------------------

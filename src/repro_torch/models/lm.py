@@ -35,16 +35,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.parallel import ctx
 from . import layers as L
 from .common import (ModelConfig, chunked_softmax_xent, dense_init,
-                     init_generator, mrope_cos_sin, remat_layer,
-                     resolve_device, rope_cos_sin)
+                     embed_lookup, init_generator, mrope_cos_sin,
+                     place_cache, remat_layer, resolve_device,
+                     rope_cos_sin)
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 class LM:
-    """Dense, MoE, Mamba2, hybrid or VLM decoder-only LM on one device."""
+    """Dense, MoE, Mamba2, hybrid or VLM decoder-only LM on one device,
+    or sharded: DTensor parameters under an active mesh
+    (:mod:`repro_torch.parallel`)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family not in _FAMILIES:
@@ -153,24 +157,30 @@ class LM:
         of the MoE layers' load-balancing losses (0 for the others)."""
         self._check_positions3(positions3)
         cfg = self.cfg
-        h = params["embed"][tokens]
+        h = ctx.constrain(embed_lookup(params["embed"], tokens), "dp", None,
+                          None)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        seq_ax = "tp" if cfg.seq_shard else None
+
+        def out(h):      # each layer's output, as the reference's scan body
+            return ctx.constrain(h, "dp", seq_ax, None)
         if cfg.family == "ssm":
             for lp in params["layers"]:
-                h = remat_layer(cfg, self._mamba_block, lp, h)
+                h = out(remat_layer(cfg, self._mamba_block, lp, h))
             return L.norm_apply(params["final_norm"], h, cfg), aux
         cos, sin = self._cos_sin(torch.arange(tokens.shape[1],
                                               device=h.device), positions3)
         if cfg.family == "hybrid":
             for group in self._groups():
                 for i in group:
-                    h = remat_layer(cfg, self._mamba_block,
-                                    params["layers"][i], h)
+                    h = out(remat_layer(cfg, self._mamba_block,
+                                        params["layers"][i], h))
                 h, _ = remat_layer(cfg, self._attn_block, params["shared"], h,
                                    cos, sin)
             return L.norm_apply(params["final_norm"], h, cfg), aux
         for lp in params["layers"]:
             h, a = remat_layer(cfg, self._attn_block, lp, h, cos, sin)
+            h = out(h)
             if a is not None:
                 aux = aux + a
         return L.norm_apply(params["final_norm"], h, cfg), aux
@@ -236,8 +246,8 @@ class LM:
                                    cos, sin, cfg)
         h = h + a
         h = h + self._mlp_or_moe(lp, h)[0]
-        cache["k"][slot, :, :, :S] = k
-        cache["v"][slot, :, :, :S] = v
+        L.write_prefix(cache["k"], slot, k)
+        L.write_prefix(cache["v"], slot, v)
         return h
 
     def _mamba_prefill(self, lp, h, cache, i: int):
@@ -257,8 +267,9 @@ class LM:
         max_seq = max_seq or (S + 256)
         if max_seq < S:
             raise ValueError(f"max_seq {max_seq} < prompt length {S}")
-        h = params["embed"][tokens]
-        cache = self.init_cache(B, max_seq)
+        h = embed_lookup(params["embed"], tokens)
+        cache = place_cache(cfg, self.init_cache(B, max_seq),
+                            params["embed"])
         cache["pos"] = S
         if cfg.family == "ssm":
             for i, lp in enumerate(params["layers"]):
@@ -299,7 +310,7 @@ class LM:
         """token (B, 1) int64; returns (logits (B,1,V), cache), the cache
         advanced in place."""
         cfg = self.cfg
-        h = params["embed"][token]
+        h = embed_lookup(params["embed"], token)
         pos = cache["pos"]
         if cfg.family == "ssm":
             for i, lp in enumerate(params["layers"]):

@@ -34,9 +34,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import ctx
 from . import layers as L
 from .common import (ModelConfig, chunked_softmax_xent, dense_init,
-                     init_generator, remat_layer, resolve_device)
+                     embed_lookup, init_generator, place_cache, remat_layer,
+                     resolve_device)
 
 
 def sinusoidal_pos(S: int, d: int, dtype=torch.float32, device=None):
@@ -107,11 +109,17 @@ class EncDecLM:
         """frames: (B, S_enc, d_model) precomputed embeddings (stub)."""
         cfg = self.cfg
         S = frames.shape[1]
-        h = frames.to(cfg.dtype) + sinusoidal_pos(S, cfg.d_model, cfg.dtype,
-                                                  frames.device)
+        h = frames.to(cfg.dtype) + ctx.like(frames, sinusoidal_pos(
+            S, cfg.d_model, cfg.dtype, frames.device))
+        h = ctx.constrain(h, "dp", None, None)
         for lp in params["enc_layers"]:
-            h = remat_layer(cfg, self._enc_block, lp, h)
+            h = self._out(remat_layer(cfg, self._enc_block, lp, h))
         return L.norm_apply(params["enc_norm"], h, cfg)
+
+    def _out(self, h):
+        """A layer's output constrained as the reference's scan bodies."""
+        return ctx.constrain(h, "dp", "tp" if self.cfg.seq_shard else None,
+                             None)
 
     # -- decoder (full sequence) ------------------------------------------------------
     def _embed(self, params, tokens, pos: int = 0):
@@ -121,7 +129,8 @@ class EncDecLM:
         if pos + S > n_pos:
             raise ValueError(f"positions {pos}..{pos + S - 1} are past the "
                              f"{n_pos} learned decoder positions")
-        return params["embed"][tokens] + params["dec_pos"][pos:pos + S][None]
+        return (embed_lookup(params["embed"], tokens)
+                + params["dec_pos"][pos:pos + S][None])
 
     def _dec_block(self, lp, h, enc_out):
         cfg = self.cfg
@@ -137,9 +146,9 @@ class EncDecLM:
         """tokens (B, S) over encoder states (B, S_enc, D) -> final hidden
         (B, S, D)."""
         cfg = self.cfg
-        h = self._embed(params, tokens)
+        h = ctx.constrain(self._embed(params, tokens), "dp", None, None)
         for lp in params["dec_layers"]:
-            h = remat_layer(cfg, self._dec_block, lp, h, enc_out)
+            h = self._out(remat_layer(cfg, self._dec_block, lp, h, enc_out))
         return L.norm_apply(params["final_norm"], h, cfg)
 
     def loss(self, params, batch) -> torch.Tensor:
@@ -188,15 +197,17 @@ class EncDecLM:
             frames = torch.zeros((B, S, cfg.d_model), dtype=cfg.dtype,
                                  device=tokens.device)
         enc_out = self.encode(params, frames)
-        cache = self.init_cache(B, max_seq, enc_out.shape[1])
+        cache = place_cache(cfg, self.init_cache(B, max_seq,
+                                                 enc_out.shape[1]),
+                            params["embed"])
         cache["pos"] = S
         h = self._embed(params, tokens)
         for i, lp in enumerate(params["dec_layers"]):
             xn = L.norm_apply(lp["ln1"], h, cfg)
             a, (k, v) = L.attn_prefill(lp["self_attn"], xn, None, None, cfg)
             h = h + a
-            cache["k"][i, :, :, :S] = k
-            cache["v"][i, :, :, :S] = v
+            L.write_prefix(cache["k"], i, k)
+            L.write_prefix(cache["v"], i, v)
             # cross-attention k/v, projected once: kept for decode and
             # attended over here
             xp = lp["cross_attn"]
@@ -204,7 +215,8 @@ class EncDecLM:
                                 cfg.head_dim)
             xv = L._split_heads(enc_out @ xp["wv"], cfg.n_kv_heads,
                                 cfg.head_dim)
-            cache["xk"][i], cache["xv"][i] = xk, xv
+            L.write_prefix(cache["xk"], i, xk)
+            L.write_prefix(cache["xv"], i, xv)
             q = L._split_heads(L.norm_apply(lp["ln2"], h, cfg) @ xp["wq"],
                                cfg.n_heads, cfg.head_dim)
             o = ops.attention(q, xk, xv, causal=False)

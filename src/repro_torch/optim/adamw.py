@@ -54,6 +54,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.kernels import ops
+from repro_torch.parallel import ctx
 
 # leaves of ndim >= 2 above this many elements update in leading-axis
 # chunks of at most this many: 256 MiB for each f32 temporary of a chunk
@@ -126,8 +127,41 @@ def lr_at(step: int, cfg: OptConfig) -> float:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares (a
-    device scalar)."""
-    return _norm(T.leaves(grads))
+    device scalar). DTensor leaves (placed as their parameters, no
+    ``Partial``) count each element once: the local sums of squares of
+    leaves sharded on the same mesh dimensions are added, each such sum
+    all-reduced over those dimensions only (a replicated dimension holds
+    the same elements on every rank), and the sums added on every
+    rank."""
+    leaves = T.leaves(grads)
+    if not any(ctx.is_dtensor(g) for g in leaves):
+        return _norm(leaves)
+    return torch.sqrt(_sharded_sumsq(leaves))
+
+
+def _sharded_sumsq(leaves) -> torch.Tensor:
+    """The global sum of squares of DTensor (and replicated plain)
+    leaves: one all-reduce per set of sharded mesh dimensions."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    buckets: Dict[tuple, list] = {}
+    mesh = None
+    for g in leaves:
+        key = None
+        if ctx.is_dtensor(g):
+            mesh = g.device_mesh
+            key = tuple(p.is_shard() and mesh.size(i) > 1
+                        for i, p in enumerate(g.placements))
+            g = g.to_local()
+        buckets.setdefault(key, []).append(g)
+    total = None
+    for key, part in buckets.items():
+        part = sum(torch.sum(torch.square(g.float())) for g in part)
+        if key is not None and any(key):
+            part = DTensor.from_local(
+                part, mesh, [Partial() if k else Replicate() for k in key],
+                run_check=False).full_tensor()
+        total = part if total is None else total + part
+    return total
 
 
 def _norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -152,16 +186,25 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
     lr = lr_at(step, cfg)
     paths, flat_p = T.flatten(params)
     flat_g = T.flatten(grads, upto=params)[1]
+    if any(ctx.is_dtensor(p) for p in flat_p):
+        # every rank updates the shards it holds: each gradient placed as
+        # its parameter (a Partial sum reduced), the moments placed so
+        # by opt_state_specs; the norm counts each element once
+        flat_g = [g.redistribute(p.device_mesh, p.placements)
+                  if ctx.is_dtensor(g) and tuple(g.placements)
+                  != tuple(p.placements) else g
+                  for p, g in zip(flat_p, flat_g)]
     # the step's one host read: the clip scale of every leaf needs it
     if read is None:
-        norm = float(global_norm(grads))
+        norm = float(global_norm(flat_g))
         read = _chunk
     else:
         norm = float(_norm(read(g, slice(None)) for g in flat_g))
+    flat_p, flat_g = _locals(flat_p), _locals(flat_g)
     inv_bc1 = 1.0 / (1.0 - cfg.b1 ** step)
     inv_bc2 = 1.0 / (1.0 - cfg.b2 ** step)
-    flat_m = T.flatten(state["m"], upto=params)[1]
-    flat_v = T.flatten(state["v"], upto=params)[1]
+    flat_m = _locals(T.flatten(state["m"], upto=params)[1])
+    flat_v = _locals(T.flatten(state["v"], upto=params)[1])
     dtype = cfg.moment_dtype
     with torch.no_grad():
         for i, (path, p, g) in enumerate(zip(paths, flat_p, flat_g)):
@@ -182,6 +225,17 @@ def apply_updates(params, grads, state, cfg: OptConfig, *,
                 del m2, v2, p2
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return params, state
+
+
+def _locals(leaves) -> list:
+    """Each leaf (a tensor, or an int8 moment's dict) as the tensors this
+    rank holds: a DTensor's local shard (a view: updating it updates the
+    DTensor), any other tensor as it is."""
+    def loc(x):
+        if isinstance(x, dict):
+            return {k: loc(v) for k, v in x.items()}
+        return x.to_local() if ctx.is_dtensor(x) else x
+    return [loc(x) for x in leaves]
 
 
 def _chunk(g: torch.Tensor, c: slice) -> torch.Tensor:

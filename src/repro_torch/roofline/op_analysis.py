@@ -35,6 +35,13 @@ every aten op the step dispatches, forward and backward, and counts:
   existed before it (the arguments), the counterpart of XLA's
   ``memory_analysis().temp_size_in_bytes``.
 
+* on a mesh (DTensor arguments, a ``fake`` process group in the dry
+  run): each device's share. A DTensor op is handed back to DTensor
+  (``NotImplemented``), which runs it with the counter still on, so the
+  counter sees what one rank runs: the op on its local shards and the
+  collectives of any redistribution DTensor makes first; DTensor's own
+  propagation on fake tensors of the global shapes is not counted.
+
 Eager torch runs a loop in Python, so there is no ``while`` to walk and
 ``trip_counts`` stays empty: every iteration dispatches its ops and is
 counted as it runs. A caller that traces one of several identical
@@ -50,6 +57,7 @@ import weakref
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -60,6 +68,8 @@ _COLLECTIVE_OPS = {"all_reduce": "all-reduce",
                    "all_gather_into_tensor": "all-gather",
                    "reduce_scatter_tensor": "reduce-scatter",
                    "all_to_all_single": "all-to-all",
+                   # DTensor's move of a shard to another dimension
+                   "shard_dim_alltoall": "all-to-all",
                    "broadcast": "collective-permute"}
 # aten ops that read their whole operands (products come from the flop
 # registry): reductions, sort, scatter
@@ -246,10 +256,21 @@ class OpCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         flat_in = [a for a in tree_flatten((args, kwargs))[0]
                    if isinstance(a, torch.Tensor)]
+        if any(isinstance(t, DTensor) for t in flat_in):
+            # a DTensor op: let DTensor run it with this mode still on, so
+            # what the device does is counted: its redistributions'
+            # collectives and the op on the local shards
+            return NotImplemented
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation runs the op on fake tensors
+            # of the global shapes to learn its output's: no device work
+            return func(*args, **kwargs)
         on_meta = any(t.device.type == "meta" for t in flat_in)
         packet = func.overloadpacket
         name = packet.__name__
-        if func.namespace == "_c10d_functional":
+        if func.namespace == "_c10d_functional" or (
+                func.namespace == "_dtensor" and name == "shard_dim_alltoall"):
             return self._collective(func, name, args, kwargs, on_meta)
         if on_meta and func is aten._local_scalar_dense.default:
             t = args[0]
@@ -306,6 +327,8 @@ class OpCounter(TorchDispatchMode):
         kind = _COLLECTIVE_OPS.get(name)
         if name == "wait_tensor":
             return args[0] if on_meta else func(*args, **kwargs)
+        if name == "_wrap_tensor_autograd":       # no data moves
+            return func(*args, **kwargs)
         if kind is None:
             raise NotImplementedError(
                 f"OpCounter: no wire formula for _c10d_functional.{name}")
@@ -316,7 +339,12 @@ class OpCounter(TorchDispatchMode):
         else:
             g = self.group_sizes.get(group, self.n_devices)
         if on_meta:
-            if kind == "all-gather":
+            if name == "shard_dim_alltoall":     # (input, gather, shard, group)
+                shape = list(x.shape)
+                shape[args[1]] *= g
+                shape[args[2]] //= g
+                out = torch.empty(shape, dtype=x.dtype, device="meta")
+            elif kind == "all-gather":
                 out = torch.empty((x.shape[0] * g, *x.shape[1:]),
                                   dtype=x.dtype, device="meta")
             elif kind == "reduce-scatter":
@@ -347,9 +375,12 @@ def count_ops(fn, *args, n_devices: int = 1,
 
 def tensors_bytes(tree: Any) -> int:
     """Bytes of the distinct storages of the tensors in ``tree`` (nested
-    dicts, lists, tuples): what the arguments of a call hold."""
+    dicts, lists, tuples): what the arguments of a call hold, a DTensor
+    by its local shard (one device's bytes)."""
     seen, total = set(), 0
     for t in tree_flatten(tree)[0]:
+        if isinstance(t, DTensor):
+            t = t.to_local()
         if isinstance(t, torch.Tensor):
             st = t.untyped_storage()
             if id(st) not in seen:

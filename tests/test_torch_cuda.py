@@ -1357,3 +1357,77 @@ def test_compressed_smoke_training_on_the_card(cuda, tmp_path):
            for m in ("int8", "int8_ef")}
     assert out["int8"]["losses"] == out["int8_ef"]["losses"]
     assert out["int8_ef"]["losses"][-1] < out["int8_ef"]["losses"][0]
+
+
+# -- the multi-device layer on the card: a one-rank NCCL mesh -------------------
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_debug_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dense_smoke_step(mesh):
+    """The f32 dense smoke model's loss and gradients on the card,
+    unsharded and as DTensors on ``mesh`` (its rules with FSDP), and each
+    tile and flash kernel's launches in the sharded run."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.parallel import batch_specs, ctx, distribute, param_specs
+    cfg = dataclasses.replace(get_smoke_config("minitron-4b"),
+                              dtype=torch.float32)
+    model = get_model(cfg, device="cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+    counters = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
+                **{n: get_tile_op(n) for n in ("rmsnorm", "rotary",
+                                               "swiglu")}}
+    start = {n: c.launches for n, c in counters.items()}
+    loss0, g0 = value_and_grad(model, params, batch)
+    before = {n: c.launches for n, c in counters.items()}
+    plain = {n: before[n] - start[n] for n in counters}
+    with ctx.activate(mesh):
+        dp = distribute(params, param_specs(cfg, params, mesh, fsdp=True),
+                        mesh)
+        db = distribute(batch, batch_specs(cfg, batch, mesh), mesh)
+        loss, g = value_and_grad(model, dp, db)
+        g = [x.full_tensor() for x in T.leaves(g)]
+    moved = {n: c.launches - before[n] for n, c in counters.items()}
+    return loss0, T.leaves(g0), loss, g, (plain, moved)
+
+
+def test_one_rank_mesh_loss_and_gradients_are_the_unsharded_ones(nccl_mesh):
+    loss0, g0, loss, g, _ = _dense_smoke_step(nccl_mesh)
+    assert loss.item() == loss0.item()
+    for a, b in zip(g, g0, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_kernels_launch_on_the_shards_under_dtensor(nccl_mesh):
+    """No fallback under DTensor: the flash kernels (forward and backward)
+    and the tile kernels launch in the sharded step as often as in the
+    unsharded one (2 layers: one flash forward and backward each)."""
+    *_, (plain, moved) = _dense_smoke_step(nccl_mesh)
+    assert moved == plain
+    assert moved["flash_attention"] == moved["flash_attention_bwd"] == 2
+    assert all(n > 0 for n in moved.values()), moved

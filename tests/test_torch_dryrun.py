@@ -5,26 +5,39 @@ minitron-4b's train_4k cell counts (256 microbatches of B 1 x S 4096,
 one traced and scaled) and does not fit the card's 80 GB with its f32
 moments and gradient buffers; decode and prefill cells count; a
 full-attention arch skips long_500k as the reference does; the
-production meshes wait for the sharding rules (A14.3) and raise; the
-command line writes only under ``--out``. The kernels' scratch on the
+command line writes only under ``--out``. The production meshes (16x16
+and 2x16x16, in a ``fake`` process group) count each device's share:
+its argument bytes are the local shards the reference's specs give, a
+column-parallel product counts its shard's FLOPs and a row-parallel
+one's all-reduce its ring wire bytes; on a one-rank mesh the sharded
+count is the unsharded one. The kernels' scratch on the
 card (the SSD scan's C·Bᵀ and backward workspace, the flash backward's
 delta rows) is made on ``meta`` too and counted in the live bytes, and
 a chunk the card's shared memory refuses is refused there as well.
 """
+import dataclasses
 import json
+import math
 
+import jax
 import pytest
 import torch
 
+from repro.configs import ARCHS
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jax_config
+from repro.launch import steps as JS
+from repro.models import get_model as jax_model
+from repro.parallel import sharding as jsh
 from repro.roofline.report import model_flops_for as jax_model_flops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.flash_attention import BWD_PAD, bwd_kernel, \
     flash_attention_bwd
 from repro_torch.launch import dryrun
 from repro_torch.launch import steps as S
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, ShapeSpec, get_config
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.parallel import ctx, distribute, P
 from repro_torch.models import get_model
 from repro_torch.optim.adamw import update_chunks
 from repro_torch.roofline.op_analysis import OpCounter, tensors_bytes
@@ -92,16 +105,6 @@ def test_long_context_is_skipped_for_full_attention():
     res = dryrun.run_cell("minitron_4b", "long_500k", verbose=False)
     assert res["status"] == "skipped"
     assert "full-attention" in res["reason"]
-
-
-def test_production_meshes_raise_naming_a14_3():
-    for mesh in ((16, 16), (2, 16, 16)):
-        with pytest.raises(NotImplementedError, match="A14.3"):
-            dryrun.run_cell("minitron_4b", "train_4k", mesh=mesh,
-                            verbose=False)
-    for flag in ("--single-pod", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="A14.3"):
-            dryrun.main(["--arch", "minitron-4b", flag])
 
 
 def test_a_full_width_cell_allocates_nothing():
@@ -206,3 +209,190 @@ def test_ssd_on_meta_refuses_the_chunks_the_card_refuses():
     with OpCounter(), pytest.raises(ValueError, match="at most 128"):
         ssd.ssd_scan_bwd(*long, _meta(1, 129, 2, 8),
                          _meta(1, 1, 2, 4, 8), chunk=129)
+
+
+# -- the production meshes -------------------------------------------------------
+class _StandIn:
+    def __init__(self, mesh):
+        self.axis_names = ("pod", "data", "model")[-len(mesh):]
+        self.shape = dict(zip(self.axis_names, mesh))
+
+
+def _local_bytes(tree, specs, mesh, itemsize=None) -> int:
+    """Bytes of each leaf's shard on one device by its reference spec."""
+    sizes = _StandIn(mesh).shape
+    leaves = jax.tree_util.tree_leaves(tree)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    total = 0
+    for x, spec in zip(leaves, spec_leaves):
+        parts = 1
+        for ax in spec:
+            for n in (() if ax is None else ax if isinstance(ax, tuple)
+                      else (ax,)):
+                parts *= sizes[n]
+        total += math.prod(x.shape) * (itemsize or x.dtype.itemsize) \
+            // parts
+    return total
+
+
+def _reference_argument_bytes(arch, shape_name, mesh) -> int:
+    """A cell's per-device argument bytes from the reference's specs of
+    the reference's trees, with the dry run's policy: FSDP above 6e9
+    parameters in training (the specs' default otherwise), an f8 cache
+    above 100 B for decode. The port's batch holds int64 token ids (8
+    bytes) where the reference's holds int32, its decode position is a
+    host int, and its optimizer step a 4-byte host scalar."""
+    shape = JSHAPES[shape_name]
+    cfg = jax_config(arch)
+    if shape.kind == "train":
+        cfg = dataclasses.replace(cfg, seq_shard=True)
+    if shape.kind == "decode" and cfg.param_count() > 100e9:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="f8")
+    m = _StandIn(mesh)
+    model = jax_model(cfg)
+    params = JS.params_struct(model)
+    fsdp = cfg.param_count() > 6e9 if shape.kind == "train" else None
+    pspecs = jsh.param_specs(cfg, params, m, fsdp=fsdp)
+    total = _local_bytes(params, pspecs, mesh)
+    if shape.kind == "train":
+        opt = JS.opt_struct(params, JS.default_opt_config(cfg))
+        ospecs = jsh.opt_state_specs(cfg, opt, pspecs, m)
+        total += _local_bytes(opt["m"], ospecs["m"], mesh)
+        total += _local_bytes(opt["v"], ospecs["v"], mesh) + 4
+        batch = JS.batch_spec_struct(cfg, shape)
+        total += _local_bytes(batch, jsh.batch_specs(cfg, batch, m), mesh, 8)
+    elif shape.kind == "prefill":
+        batch = JS.batch_spec_struct(cfg, shape)
+        total += _local_bytes(batch, jsh.batch_specs(cfg, batch, m), mesh, 8)
+    else:
+        cache, token = JS.decode_input_struct(model, cfg, shape)
+        cache = {k: v for k, v in cache.items() if k != "pos"}
+        total += _local_bytes(cache, jsh.cache_specs(cfg, cache, m), mesh)
+        total += _local_bytes({"tokens": token}, jsh.batch_specs(
+            cfg, {"tokens": token}, m), mesh, 8)
+    return total
+
+
+def test_single_pod_command_line_counts_per_device(tmp_path):
+    dryrun.main(["--arch", "minitron-4b", "--shape", "train_4k",
+                 "--single-pod", "--out", str(tmp_path)])
+    files = list(tmp_path.iterdir())
+    assert [f.name for f in files] == ["minitron_4b_train_4k_16x16.json"]
+    res = json.loads(files[0].read_text())
+    assert res["status"] == "ok" and res["mesh"] == "16x16"
+    rf = res["roofline"]
+    assert rf["n_devices"] == 256
+    assert res["memory_analysis"]["argument_bytes"] == \
+        _reference_argument_bytes("minitron_4b", "train_4k", (16, 16))
+    # each device computes its share: between 1/256 of the model's
+    # FLOPs (6 N D) and 2.2 times it: the remat recompute, attention,
+    # the padded heads (32 where the config has 24), and the kv
+    # projections, which the reference's rules replicate over the model
+    # axis (wk, wv: (fsdp, None)), so each model rank computes them whole
+    assert 1.0 < rf["flops"] * 256 / rf["model_flops"] < 2.2
+    assert rf["wire_bytes"] > 0 and rf["collective_breakdown"]
+    assert res["kernels"]["flash_attention_bwd"]["calls"] == 32
+    assert rf["fits_hbm"] and res["other_device_bytes"] <= 16
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    ("minitron_4b", "train_4k", (2, 16, 16)),
+    ("mistral_large_123b", "decode_32k", (16, 16)),
+    ("mistral_large_123b", "decode_32k", (2, 16, 16)),
+    ("granite_8b", "prefill_32k", (16, 16))])
+def test_production_mesh_cells_count_per_device(arch, shape, mesh):
+    res = dryrun.run_cell(arch, shape, mesh, verbose=False)
+    assert res["status"] == "ok"
+    assert res["mesh"] == "x".join(map(str, mesh))
+    n = math.prod(mesh)
+    rf = res["roofline"]
+    assert rf["n_devices"] == n and rf["flops"] > 0
+    assert rf["wire_bytes"] > 0 and rf["collective_s"] > 0
+    assert res["memory_analysis"]["argument_bytes"] == \
+        _reference_argument_bytes(arch, shape, mesh)
+    if shape == "train_4k":
+        assert 1.0 < rf["flops"] * n / rf["model_flops"] < 2.2
+    assert not torch.cuda.is_initialized()
+
+
+@pytest.mark.parametrize("dp,tp", [(16, 16), (32, 16)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_default_accum_steps_match_the_reference(arch, dp, tp):
+    jcfg = dataclasses.replace(jax_config(arch), seq_shard=True)
+    cfg = dataclasses.replace(get_config(arch), seq_shard=True)
+    assert S.default_accum_steps(cfg, SHAPES["train_4k"], dp=dp, tp=tp) \
+        == JS.default_accum_steps(jcfg, JSHAPES["train_4k"], dp=dp, tp=tp)
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "mamba2_1p3b"])
+def test_one_rank_mesh_counts_as_the_unsharded_step(arch):
+    """On a (1, 1) mesh every DTensor is its local tensor and every
+    collective has one rank: the counts are the unsharded step's."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    a = dryrun.count_cell(cfg, SHAPES["train_4k"], accum=4)
+    with dryrun.fake_group(1):
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        with ctx.activate(mesh):
+            b = dryrun.count_one(cfg, SHAPES["train_4k"], accum=4,
+                                 mesh=mesh)
+    assert b["mesh"] == "1x1"
+    for key in ("flops", "hbm_bytes", "wire_bytes"):
+        assert b["roofline"][key] == a["roofline"][key], key
+    assert b["memory_analysis"] == a["memory_analysis"]
+    assert {k: v["calls"] for k, v in b["kernels"].items()} == \
+        {k: v["calls"] for k, v in a["kernels"].items()}
+
+
+def test_expanded_kv_gradients_reach_the_projections_unreduced():
+    """minitron's 8 kv heads expanded to its 32 padded query heads on a
+    16-rank model axis: the gradients of k and v leave the expansion a
+    Partial sum and reach the projections as one (no collective on a k
+    or v shaped tensor), so what is counted does not hang on DTensor's
+    propagation choices; the residual's gradient is reduce-scattered."""
+    from repro_torch.parallel import param_specs
+    cfg = dataclasses.replace(get_config("minitron_4b"), n_layers=1,
+                              seq_shard=True)
+    KH, hd = cfg.n_kv_heads, cfg.head_dim
+    with dryrun.fake_group(16):
+        mesh = make_debug_mesh(1, 16, device_type="cpu")
+        model = get_model(cfg, device="meta")
+        params = S.params_struct(model)
+        params = distribute(params, param_specs(cfg, params, mesh), mesh)
+        batch = S.batch_spec_struct(cfg, ShapeSpec("t", 4096, 16, "train"))
+        groups = {mesh.get_group(i).group_name: mesh.size(i)
+                  for i in range(2)}
+        with ctx.activate(mesh), OpCounter(16, groups) as c:
+            S.value_and_grad(model, params, batch)
+    kinds = {(k, tuple(int(d) for d in sh[sh.index("[") + 1:-1].split(",")))
+             for k, sh, *_ in c.report.collectives}
+    kv_shaped = [(k, sh) for k, sh in kinds
+                 if (len(sh) == 4 and KH in sh and sh[-1] == hd)
+                 or (len(sh) == 3 and sh[-1] == KH * hd)]
+    assert not kv_shaped, kinds
+    assert ("reduce-scatter", (16, 256, cfg.d_model)) in kinds, kinds
+
+
+def test_products_on_a_four_rank_model_axis_count_their_shards():
+    """A column-parallel product counts a quarter of its FLOPs; the
+    row-parallel one after it leaves a Partial sum whose all-reduce is
+    counted with the ring's wire bytes, 2 (g - 1) / g of the result."""
+    from torch.distributed.tensor import Replicate, Shard
+    with dryrun.fake_group(4):
+        mesh = make_debug_mesh(1, 4, device_type="cpu")
+        x = distribute(_meta(8, 16), P(None, None), mesh)
+        w1 = distribute(_meta(16, 32), P(None, "model"), mesh)
+        w2 = distribute(_meta(32, 16), P("model", None), mesh)
+        groups = {mesh.get_group(i).group_name: mesh.size(i)
+                  for i in range(2)}
+        with ctx.activate(mesh), OpCounter(4, groups) as c:
+            h = x @ w1
+            col = c.report.dot_flops
+            y = ctx.constrain(h @ w2, None, None)
+        assert tuple(h.placements) == (Replicate(), Shard(1))
+        assert tuple(y.placements) == (Replicate(), Replicate())
+    assert col == 2 * 8 * 16 * 32 / 4
+    assert c.report.dot_flops == col + 2 * 8 * 32 * 16 / 4
+    assert c.report.collectives == [
+        ("all-reduce", "float32[8,16]", 4, 1.0, 2 * 8 * 16 * 4 * 3 / 4, "")]
+    assert c.report.collective_breakdown == {"all-reduce": 768.0}
