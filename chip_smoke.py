@@ -63,14 +63,19 @@ Server at full width with random seeded weights, and a training path:
   step asserted, each step's gradients and update on 2 (zamba2: 6, one
   group with its shared block) f32 layers against the plain versions; a
   trace of one step of each.
-* whisper-small (12 + 12 layers) and dbrx-132b (2 of its 40 layers,
-  bf16 moments) training at full width the same way (layernorm, gelu
+* whisper-small (12 + 12 layers), dbrx-132b (2 of its 40 layers,
+  bf16 moments), qwen2-vl-2b (28 layers, each batch row opening with an
+  image: M-RoPE's per-batch tables through rotary and its -sin backward)
+  and mistral-large-123b (3 of its 88 layers, f32 moments, 12 steps:
+  flash at GQA group 12, rmsnorm at d 12288, swiglu at d_ff 28672)
+  training at full width the same way (layernorm, gelu
   and the router softmax kernels under autograd with their analytic
   backwards, the flash backward non-causal at head_dim 64, the MoE
   dispatch's torch backward, the optimizer in leading-axis chunks on
   dbrx's expert and embedding leaves), their launches per step asserted,
   each step's gradients and update in f32 (whisper at full depth, dbrx
-  at 1 layer) against the plain versions; a trace of one step of each;
+  at 1 layer, qwen2-vl and mistral-large at 2) against the plain
+  versions; a trace of one step of each;
 * the latency model's calibration lane (``calibrate``,
   tools/calibrate.py at fewer reps): the 13 tile programs under each
   statement order at 32 M elements an array, checked against their
@@ -82,7 +87,18 @@ Server at full width with random seeded weights, and a training path:
   one generated Triton kernel each, at (8192, 4096) in f32 and bf16 on
   operands of both signs, checked against the eager function and the
   plain version, timed in turns against the eager function, and
-  torch.sort's fallback counted.
+  torch.sort's fallback counted;
+* the ops residual_scale, softmax and ssd_gate (``ops``) through their
+  entry points at their kernel rows' shapes, each against its plain
+  version, with a gradient through each;
+* the paper's five saturation modes (``modes``): the 13 tile programs
+  under baseline, cse, cse_sat, cse_bulk and accsat at one path shape
+  each (and five of them pipelined), each kernel against its plain
+  version (a bf16 case also in f32 at 2e-5), timed in turns, with its
+  extraction's ops, loads and FMAs,
+  its PTX's global loads, registers and spills;
+* the port's three examples (``examples``) run on the card as child
+  processes, each exiting 0.
 
 Every tile op of the run builds through a fresh saturation cache and is
 audited by the static verifier (phase ``saturation``): each launch
@@ -244,6 +260,32 @@ TRAIN_DBRX = dict(TRAIN_MAMBA, arch="dbrx-132b", layers=2,
                   moment_dtype="bf16", lr=5e-5)
 PARITY_TRAIN_WHISPER = dict(layers=12, batch=1, seq=512)
 PARITY_TRAIN_DBRX = dict(layers=1, batch=1, seq=512)
+# qwen2-vl-2b trains at full width and depth (28 layers; bf16 weights and
+# grads, f32 moments: 1.54 B parameters, ~19 GB) on batches whose rows
+# each open with an image (VISION_GRIDS' first grids): M-RoPE's per-batch
+# tables through the rotary kernel forward and, with -sin, backward.
+# mistral-large-123b trains at full width and 3 of its 88 layers, the
+# depth one 80 GB card holds with f32 moments: 1.384 B parameters a layer
+# and 0.805 B in the embeddings, 4.96 B at 12 bytes each (bf16 weights and
+# grads, f32 moments) is 59.5 GB before activations; a fourth layer would
+# make it 76 GB. It runs flash forward and backward at GQA group 12 (96/8
+# heads), rmsnorm at d 12288 (two column pieces), swiglu at d_ff 28672 and
+# the optimizer's leading-axis chunks of its 12288 x 28672 leaves. It
+# takes 12 steps at the default lr 3e-4 and the reference trainer's
+# schedule (warmup max(steps // 10, 1), cosine over the steps): Adam's
+# first step moves every element by about the lr and nearly triples the
+# loss at this width (10.93 -> 30.58); six steps end above step 1's loss
+# at every lr and warmup tried but one (5e-5, warmup 1), twelve fall to
+# 7.33 and pass the gate at 1e-4, 2e-4 and 4e-4 too (6e-4, 5e-5 and
+# 2.5e-5 do not end at their lowest loss; tools/train_warmup.py --arch
+# mistral-large-123b --lr LR --warmup 1). Their parity: 2 layers at full
+# width in f32, B 1 x S 512 (qwen2-vl with one image per row), at
+# PARITY_TRAIN_TOL (every gradient passes through f32 flash).
+TRAIN_QWEN = dict(TRAIN_MAMBA, arch="qwen2-vl-2b", layers=28)
+TRAIN_LARGE = dict(TRAIN_MAMBA, arch="mistral-large-123b", layers=3,
+                   steps=12)
+PARITY_TRAIN_QWEN = dict(layers=2, batch=1, seq=512)
+PARITY_TRAIN_LARGE = dict(layers=2, batch=1, seq=512)
 PARITY_UPDATE_SKIP = ("embed", "unembed")
 PARITY_UPDATE_SKIP_DBRX = PARITY_UPDATE_SKIP + ("wu", "wd")
 # the train phase's run with its gradients compressed as --compress int8_ef
@@ -255,6 +297,9 @@ TRAIN_COMPRESS = dict(TRAIN, compress="int8_ef")
 # the dry run's count of the train phase's step against the card: the
 # predicted peak memory over the measured one must fall inside this
 DRYRUN_MEMORY_RATIO = (0.8, 1.2)
+# the generator of the ops residual_scale, softmax and ssd_gate's inputs
+# (the kernels and ops phases)
+OPS_SEED = 29
 # the training path's kernels, whose launches each step is read for
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_gated", "layernorm", "rotary", "swiglu",
                  "gelu", "moe_router", "adamw", "l2_clip", "flash_attention",
@@ -1017,6 +1062,39 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
                         "no TPU kernel)", **row, "shapes": out}
 
 
+def _randn_from(torch, seed):
+    """``randn(*shape, dtype=...)`` on the card from a generator of its
+    own, seeded ``seed``, which is ``randn.gen``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    randn.gen = gen
+    return randn
+
+
+def _ops_cases(torch, randn):
+    """The ops residual_scale, softmax and ssd_gate at their stated
+    shapes: per op its first case, the others by name, each ``(args,
+    scalars, library call or None)``. ssd_gate has no library call
+    (softplus, then exp, is two)."""
+    bf = torch.bfloat16
+    x, y = randn(2048, 3072, dtype=bf), randn(2048, 3072, dtype=bf)
+    xl, yl = randn(8192, 4096), randn(8192, 4096)
+    scores = randn(49152, 512) * 4
+    a_log = torch.log(torch.arange(1, 65, device="cuda",
+                                   dtype=torch.float32))
+    dt_s, dt_t = randn(4, 512, 64), randn(2, 4096, 64)
+    return [
+        ("residual_scale",
+         ((x, y), {"alpha": 0.5}, lambda: torch.add(x, y, alpha=0.5)),
+         {"f32_32M": ((xl, yl), {"alpha": 0.5},
+                      lambda: torch.add(xl, yl, alpha=0.5))}),
+        ("softmax", ((scores,), {}, lambda: torch.softmax(scores, -1)), {}),
+        ("ssd_gate", ((dt_s, a_log), {"bias": 0.1}, None),
+         {"train": ((dt_t, a_log), {"bias": 0.1}, None)})]
+
+
 def phase_kernels(torch, timer):
     """Every kernel against its plain version on the card."""
     from repro_torch.roofline import kernel_work
@@ -1028,25 +1106,17 @@ def phase_kernels(torch, timer):
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
     checks, rows = [], {}
-    g = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=g, device="cuda").to(dtype)
-
+    randn = _randn_from(torch, 0)
+    g = randn.gen
     # whisper's and dbrx's training shapes draw from a generator of their
     # own, so that every other case keeps the inputs it had before they
     # were added (the SSD backward's f32 check is marginal in da_log on
     # other draws: PERF.md §7)
-    gt = torch.Generator(device="cuda").manual_seed(23)
-
-    def randn_t(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gt, device="cuda").to(dtype)
+    randn_t = _randn_from(torch, 23)
 
     # all 13 generated tile kernels, sync and pipelined, at a small,
     # ragged shape (37 x 200)
-    scal = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
-            "wd": 0.1, "inv_bc1": 1.3, "inv_bc2": 1.1, "mu": 0.9,
-            "bias": 0.1, "norm": 3.0, "max_norm": 1.0}
+    scal = TILE_SCALARS
 
     def tile_inputs(name, rows_, d, dt):
         xs = []
@@ -1333,6 +1403,23 @@ def phase_kernels(torch, timer):
                 for shape, (sargs, ssc, slib)
                 in other_shapes[name].items()}
 
+    # the ops residual_scale, softmax and ssd_gate (ops.residual_scale,
+    # ops.softmax, ops.ssd_gate; on no model's path, driven by the ops
+    # phase): residual_scale on bf16 (2048, 3072) and the calibration
+    # lane's f32 (8192, 4096); softmax on the f32 score rows of a 4 x
+    # 24-head x 512 prefill; ssd_gate on mamba2's f32 dt (serve (4, 512,
+    # 64), train (2, 4096, 64)) against a_log (64,), a broadcast row. They
+    # draw from a generator of their own, as whisper's and dbrx's shapes
+    # do, so that every other case keeps its inputs
+    for name, (args, sc, lib), shapes in _ops_cases(
+            torch, _randn_from(torch, OPS_SEED)):
+        op = get_tile_op(name)
+        rows[name] = tile_row(name, op, args, sc, lib,
+                              "src/repro/core/pallasgen.py:554")
+        rows[name]["shapes"] = {
+            shape: tile_row(f"{name}/{shape}", op, sargs, ssc, slib)
+            for shape, (sargs, ssc, slib) in shapes.items()}
+
     # gelu against its library call in turns at whisper's prefill shape
     # (a gap of a few per cent between separate timings)
     gelu_op = get_tile_op("gelu")
@@ -1583,6 +1670,63 @@ def phase_kernels(torch, timer):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     return rows
+
+
+def phase_ops(torch):
+    """The ops residual_scale, softmax and ssd_gate through their entry
+    points (``repro_torch.kernels.ops``) at the kernels phase's shapes,
+    each result against the op's plain version (``ops.set_impl("torch")``),
+    then one gradient through each op's autograd Function (the kernel
+    forward, the analytic backward) in f32 against autograd of the oracle
+    (``set_impl("ref")``). Each op's count is zeroed just before and read
+    just after: one launch a call, none in a backward. Returns the
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tile_programs import get_tile_op
+    cases = _ops_cases(torch, _randn_from(torch, OPS_SEED))
+    counters = {name: get_tile_op(name) for name, _, _ in cases}
+    for c in counters.values():
+        c.launches = 0
+    checks, calls = [], dict.fromkeys(counters, 0)
+    gen = torch.Generator(device="cuda").manual_seed(OPS_SEED + 1)
+    for name, first, shapes in cases:
+        fn = getattr(ops, name)
+        for tag, (args, sc, _) in {"first": first, **shapes}.items():
+            got = fn(*args, **sc)
+            calls[name] += 1
+            ops.set_impl("torch")
+            try:
+                want = fn(*args, **sc)
+            finally:
+                ops.set_impl(None)
+            _check(f"ops.{name}/{tag}", got, want,
+                   TILE_TOL[str(args[0].dtype)[6:]], checks)
+        args, sc, _ = first
+        grads = []
+        for impl in (None, "ref"):
+            leaves = [a.detach().float().requires_grad_() for a in args]
+            ops.set_impl(impl)
+            try:
+                outs = fn(*leaves, **sc)
+            finally:
+                ops.set_impl(None)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if impl is None:
+                calls[name] += 1
+                cot = [torch.randn(o.shape, generator=gen, device="cuda")
+                       for o in outs]
+            torch.autograd.backward(list(outs), cot)
+            grads.append(tuple(a.grad for a in leaves))
+        _check(f"ops.{name}/grad", grads[0], grads[1], TILE_TOL["float32"],
+               checks)
+    launches = {n: c.launches for n, c in counters.items()}
+    ok = launches == calls and all(c["ok"] for c in checks)
+    emit({"phase": "ops", "checks": checks, "launches": launches,
+          "calls": calls, "ok": ok})
+    if not ok:
+        raise AssertionError(f"ops: launches {launches} for calls {calls}, "
+                             f"checks {[c for c in checks if not c['ok']]}")
+    return launches
 
 
 def _sdpa(F, q, k, v, causal=True):
@@ -2025,12 +2169,17 @@ def _expected_train_launches(cfg, params):
 def _train_batch(cfg, pipe, i):
     """The pipeline's batch ``i`` as the trainer gives it to the step:
     with an encdec model, the frames of its tokens' shape
-    (``launch.train.encdec_frames``) on the card."""
+    (``launch.train.encdec_frames``) on the card; with a vlm, M-RoPE
+    positions in which each row opens with an image of
+    ``VISION_GRIDS``' grid of its index."""
     from repro_torch.launch.train import encdec_frames
     batch = pipe.batch_at(i)
+    B, S = batch["tokens"].shape
     if cfg.family == "encdec":
-        B, S = batch["tokens"].shape
         batch = {**batch, "frames": encdec_frames(cfg, B, S, "cuda")}
+    if cfg.family == "vlm":
+        batch = {**batch, "positions": vision_positions(
+            S, VISION_GRIDS[:B])}
     return batch
 
 
@@ -2777,9 +2926,10 @@ def serve_last_four(torch):
 def train_families(torch):
     """mamba2-1.3b and zamba2-2.7b trained at full width and depth
     (``TRAIN_MAMBA``), whisper-small at full depth and dbrx-132b at 2 of
-    its 40 layers (``TRAIN_WHISPER``), a trace of one step of each, and
-    each one's f32 parity of a step's gradients and update. Returns each
-    train phase's launches."""
+    its 40 layers (``TRAIN_WHISPER``), qwen2-vl-2b at full depth and
+    mistral-large-123b at 3 of its 88 layers (``TRAIN_QWEN``), a trace
+    of one step of each, and each one's f32 parity of a step's gradients
+    and update. Returns each train phase's launches."""
     trains = []
     for spec, name, pspec, ptol, skip in (
             (TRAIN_MAMBA, "mamba2", PARITY_TRAIN_MAMBA,
@@ -2789,7 +2939,11 @@ def train_families(torch):
             (TRAIN_WHISPER, "whisper", PARITY_TRAIN_WHISPER, PARITY_TRAIN_TOL,
              ()),
             (TRAIN_DBRX, "dbrx", PARITY_TRAIN_DBRX, PARITY_TRAIN_TOL,
-             PARITY_UPDATE_SKIP_DBRX)):
+             PARITY_UPDATE_SKIP_DBRX),
+            (TRAIN_QWEN, "qwen2vl", PARITY_TRAIN_QWEN, PARITY_TRAIN_TOL,
+             PARITY_UPDATE_SKIP),
+            (TRAIN_LARGE, "mistral_large", PARITY_TRAIN_LARGE,
+             PARITY_TRAIN_TOL, PARITY_UPDATE_SKIP)):
         model, params, state, step, batch, got, _ = phase_train(
             torch, spec, f"train_{name}")
         trains.append(got)
@@ -3062,6 +3216,58 @@ def cache_child(spec_path: str, use_cache: bool) -> int:
 # programs under each statement order at the tool's 32 M elements an
 # array, checked, timed in turns, refitted; the committed H100 profile
 # re-scored and its cost orders built and checked.
+# The five saturation modes (phase ``modes``): each tile program at one
+# shape, by input (shape, dtype): the training paths' shapes where a
+# program is on one (rmsnorm at mistral-large's d_model 12288, two column
+# pieces of 8192 + 4096; rmsnorm_gated at mamba2's, layernorm and gelu at
+# whisper's, swiglu and rotary at minitron's, the router at dbrx's,
+# adamw and l2_clip at minitron's MLP weight), the ops' rows otherwise
+# (softmax's prefill scores, ssd_gate's train dt with a_log a broadcast
+# row) and the calibration lane's 32 M elements for residual_scale and
+# sgd_momentum. Inputs from a generator of their own, the scalars of the
+# kernels phase.
+MODE_CASES = {
+    "rmsnorm": ([(8192, 12288), (12288,)], ["float32"] * 2),
+    "rmsnorm_gated": ([(8192, 4096)] * 2 + [(4096,)], ["bfloat16"] * 3),
+    "layernorm": ([(8192, 768), (768,), (768,)], ["float32"] * 3),
+    "swiglu": ([(8192, 9216)] * 2, ["bfloat16"] * 2),
+    "gelu": ([(8192, 3072)], ["bfloat16"]),
+    "rotary": ([(2, 24, 4096, 128), (1, 1, 4096, 128), (1, 1, 4096, 128)],
+               ["bfloat16", "float32", "float32"]),
+    "residual_scale": ([(8192, 4096)] * 2, ["float32"] * 2),
+    "softmax": ([(49152, 512)], ["float32"]),
+    "adamw": ([(3072, 9216)] * 4, ["float32"] * 4),
+    "sgd_momentum": ([(8192, 4096)] * 3, ["float32"] * 3),
+    "ssd_gate": ([(2, 4096, 64), (64,)], ["float32"] * 2),
+    "moe_router": ([(32, 256, 16)], ["float32"]),
+    "l2_clip": ([(3072, 9216)], ["float32"]),
+}
+# the programs whose pipelined kernels a path drives, under every mode
+MODES_PIPELINED = ("layernorm", "moe_router", "rmsnorm", "rotary", "swiglu")
+MODES_REPS = 10
+MODES_SEED = 31
+# the tile programs' scalars (the kernels and modes phases)
+TILE_SCALARS = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
+                "wd": 0.1, "inv_bc1": 1.3, "inv_bc2": 1.1, "mu": 0.9,
+                "bias": 0.1, "norm": 3.0, "max_norm": 1.0}
+
+# The port's examples by name: the arguments they take on the card (phase
+# ``examples``), those the CPU tests add to ``--device cpu``
+# (tests/test_torch_examples.py), and the lines each must print on
+# either, ``{device}`` standing for the device (train_lm_torch at 100 of
+# its 300 default steps on the card: the 300 took 48 s of the run)
+EXAMPLES = {
+    "quickstart_torch": ([], [], [
+        "all 5 modes match the reference interpreter",
+        "rmsnorm under all 5 modes ran on {device}"]),
+    "saturate_custom_kernel_torch": ([], [], [
+        "on {device} == saturated torch function",
+        "bridged function matches the original", "pipeline report:"]),
+    "train_lm_torch": (["--steps", "100"], ["--tiny"], [
+        "recoveries=1", "loss decreased across a simulated node failure"]),
+}
+EXAMPLES_TIMEOUT_S = 300
+
 CALIBRATE_REPS = 5
 # The bridge: the example's my_fn (examples/saturate_custom_kernel.py)
 # and a function with remainder, where, pow and a 0-d scalar, bridged
@@ -3148,6 +3354,96 @@ def phase_calibrate(torch):
         raise AssertionError(f"calibrate: committed profile fails {fails}")
     if any(n == 0 for ln in launches.values() for n in ln.values()):
         raise AssertionError(f"calibrate: an op never launched {launches}")
+
+
+def phase_modes(torch):
+    """The paper's five saturation modes on the card: each of the 13 tile
+    programs at its ``MODE_CASES`` shape under ``baseline``, ``cse``,
+    ``cse_sat``, ``cse_bulk`` and ``accsat`` (``get_tile_op(name,
+    mode=...)``), the sync kernels, and the pipelined ones of
+    ``MODES_PIPELINED``. Each kernel is held against its own plain
+    version (the mode's torchgen function) at its dtype's ``TILE_TOL``,
+    a program whose case is bf16 also on the same values in f32 at the f32
+    2e-5 (``max_abs_err_f32``), timed in turns with the other
+    modes of its program (``tools/calibrate.py``'s ``time_in_turns``:
+    each launch after an L2 flush, the order rotating) beside its bound,
+    and reported with its extraction's ops, loads and FMAs, the loads in
+    its source, the global loads in its PTX and its registers and spills.
+    A (program, mode) that raises fails the phase, named. Every op's
+    count is zeroed before and read after."""
+    from repro_torch.core import MODES
+    from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
+    from repro_torch.roofline import kernel_work
+    tool = _calibrate_tool()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    randn = _randn_from(torch, MODES_SEED)
+    checks, programs, launches = [], {}, {}
+    t0 = time.perf_counter()
+    for emitter in (None, PIPELINED):
+        names = sorted(PROGRAMS) if emitter is None else MODES_PIPELINED
+        for name in names:
+            shapes, dtypes = MODE_CASES[name]
+            args = []
+            for a, shape, dt in zip((a for a in PROGRAMS[name]().arrays
+                                     .values() if a.role != "out"),
+                                    shapes, dtypes):
+                x = randn(*shape, dtype=getattr(torch, dt))
+                args.append(x.abs() * 0.01 if a.name == "v" else x)
+            sc = {k: TILE_SCALARS[k] for k in PROGRAMS[name]().scalars}
+            plain_args = [a.expand(args[0].shape) for a in args]
+            # a bf16 case is also checked on the same values in f32
+            args32 = None if dtypes == ["float32"] * len(dtypes) else \
+                [a.float() for a in args]
+            tag = name if emitter is None else f"{name}@{emitter}"
+            ops_, rows = {}, {}
+            for mode in MODES:
+                try:
+                    op = get_tile_op(name, mode=mode, emitter=emitter)
+                    op.launches = 0
+                    err = _check(f"{tag}/{mode}", op.apply(*args, **sc),
+                                 op.torch_ref(*plain_args, **sc),
+                                 TILE_TOL[dtypes[0]], checks)
+                    err32 = err if args32 is None else _check(
+                        f"{tag}/{mode}/f32", op.apply(*args32, **sc),
+                        op.torch_ref(*(a.expand(args32[0].shape)
+                                       for a in args32), **sc),
+                        TILE_TOL["float32"], checks)
+                    info = _compiled_info(op, args, sc)
+                except Exception as e:
+                    raise AssertionError(f"modes: {tag} under {mode} "
+                                         f"raised") from e
+                ops_[mode] = op
+                st = op.sk.kernel.stats
+                bound, by = kernel_work.tile_bound(op, args)
+                rows[mode] = {
+                    "max_abs_err": err, "max_abs_err_f32": err32,
+                    "n_ops": st.n_ops, "n_loads": st.n_loads,
+                    "n_fma": st.n_fma, "dag_cost": op.sk.extraction.dag_cost,
+                    "kernel_ops": op.tk.stats.n_ops,
+                    "source_loads": op.source.count("tl.load("),
+                    "ptx_ld_global": sum(info["ld"].values()),
+                    "ptx_ld_bytes": info["ld"], "registers":
+                    info["registers"], "spills": info["spills"],
+                    "plan": _plan_dict(_tile_plan(op, args)),
+                    "bound_ms": bound, "bound_by": by}
+            times = tool.time_in_turns(torch, ops_, args, sc, MODES_REPS,
+                                       flush)
+            for mode, ts in times.items():
+                rows[mode]["ms"] = statistics.median(ts)
+            launches[tag] = {m: op.launches for m, op in ops_.items()}
+            programs[tag] = {"shape": [list(a.shape) for a in args],
+                             "dtype": dtypes, "modes": rows}
+            del args, plain_args, args32
+            torch.cuda.empty_cache()
+    bad = [c["name"] for c in checks if not c["ok"]]
+    emit({"phase": "modes", "modes": list(MODES), "reps": MODES_REPS,
+          "programs": programs, "launches": launches, "checks_failed": bad,
+          "max_abs_err": max(c["max_abs_err"] for c in checks),
+          "wall_s": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"modes: kernels disagree {bad}")
+    if any(n == 0 for ln in launches.values() for n in ln.values()):
+        raise AssertionError(f"modes: an op never launched {launches}")
 
 
 def _bridge_fns(torch):
@@ -3268,6 +3564,43 @@ def phase_bridge(torch, timer):
     return rows
 
 
+def phase_examples():
+    """The port's three examples (``examples/*_torch.py``) as a user runs
+    them, on the card (no device named), as child processes started
+    together: each must exit 0 within ``EXAMPLES_TIMEOUT_S`` and print
+    what it checked."""
+    env = {**os.environ, "PYTHONPATH": SRC}
+    t0 = time.perf_counter()
+    children = {}
+    for name, (args, _, _) in EXAMPLES.items():
+        child = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+             *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(child)
+        children[name] = child
+    runs, ok = {}, True
+    for name, child in children.items():
+        try:
+            out, err = child.communicate(timeout=max(
+                1.0, EXAMPLES_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, err = child.communicate()
+        missing = [ln for ln in (said.format(device="cuda")
+                                 for said in EXAMPLES[name][2])
+                   if ln not in out]
+        runs[name] = {"args": EXAMPLES[name][0], "rc": child.returncode,
+                      "missing": missing, "wall_s": time.perf_counter() - t0,
+                      "stdout_tail": out.splitlines()[-6:],
+                      "stderr_tail": err.splitlines()[-12:]
+                      if child.returncode else []}
+        ok &= child.returncode == 0 and not missing
+    emit({"phase": "examples", "runs": runs, "ok": ok})
+    if not ok:
+        raise AssertionError(f"examples: {runs}")
+
+
 def phase_verify(torch):
     """The verifier's tally over the run, with the CUDA kernels' launches
     certified at the paths' shapes: the flash forward's grid and the
@@ -3350,6 +3683,8 @@ def main() -> int:
         timer = Timer(torch)
         rows = phase_kernels(torch, timer)
         del timer
+        # residual_scale, softmax and ssd_gate through their entry points
+        opsd = phase_ops(torch)
         # minitron-4b: the dense path
         srv, reqs, dense, dense_steps = phase_serve(torch, SERVE, "serve")
         tokens = _prefill_tokens(torch, SERVE, reqs)
@@ -3507,9 +3842,14 @@ def main() -> int:
         trains = [train, compressed, sharded, *train_families(torch)]
         # the latency model's calibration lane and the bridge
         phase_calibrate(torch)
+        # the paper's five saturation modes, every tile program
+        phase_modes(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         timer = Timer(torch)
         bridge_rows = phase_bridge(torch, timer)
         del timer
+        phase_examples()
         phase_verify(torch)
     except Exception:
         traceback.print_exc()
@@ -3525,7 +3865,7 @@ def main() -> int:
             train[name] = train.get(name, 0) + n
     steps = {"prefill": {}, "decode": {}, "train": train}
     for paths in (dense, ssm, hybrid, moe, piped, vlm, encdec, train,
-                  *new_serves.values()):
+                  opsd, *new_serves.values()):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
     for paths in (dense_steps, ssm_steps, hybrid_steps, moe_steps,

@@ -9,7 +9,7 @@ from .fx_bridge import BridgeUnsupported, maybe_saturate, saturate_torch_fn
 from .pipeline import (CACHE_ENV_VAR, EMITTER_NAMES, MODES, VERIFY_ENV_VAR,
                        CacheConfig, SaturatedKernel, SaturatorConfig,
                        ScheduleConfig, SearchConfig, VerifyConfig,
-                       saturate_program)
+                       saturate_all_modes, saturate_program)
 from .reference import run_reference
 from .telemetry import SaturationTelemetry, reset_telemetry, telemetry
 from .tritongen import TileOp, make_tile_op
@@ -21,7 +21,8 @@ __all__ = [
     "sqrt", "square", "tanh", "toint", "v", "CACHE_ENV_VAR",
     "EMITTER_NAMES", "MODES", "VERIFY_ENV_VAR",
     "CacheConfig", "SaturatedKernel", "SaturatorConfig", "ScheduleConfig",
-    "SearchConfig", "VerifyConfig", "saturate_program", "run_reference",
+    "SearchConfig", "VerifyConfig", "saturate_all_modes",
+    "saturate_program", "run_reference",
     "SaturationTelemetry", "reset_telemetry", "telemetry", "TileOp",
     "make_tile_op", "BridgeUnsupported", "maybe_saturate",
     "saturate_torch_fn",

@@ -875,3 +875,14 @@ def saturate_program(prog: KernelProgram,
         sk.ladder_level = level
         telemetry().record_ladder(prog.name, level)
         return sk
+
+
+def saturate_all_modes(prog: KernelProgram, base: Optional[SaturatorConfig]
+                       = None, extra_fns=None) -> Dict[str, SaturatedKernel]:
+    """All four paper configurations + baseline, for ablation benchmarks."""
+    base = base or SaturatorConfig()
+    out = {}
+    for mode in MODES:
+        cfg = dataclasses.replace(base, mode=mode)
+        out[mode] = saturate_program(prog, cfg, extra_fns=extra_fns)
+    return out

@@ -1148,8 +1148,9 @@ class TileOp:
                              "meta")
         if self.tk is None:
             raise RuntimeError(
-                f"tile op {self.name!r} has no Triton kernel (degraded "
-                f"build, ladder level "
+                f"tile op {self.name!r} under mode "
+                f"{getattr(getattr(self.sk, 'config', None), 'mode', '?')!r}"
+                f" has no Triton kernel (degraded build, ladder level "
                 f"{getattr(self.sk, 'ladder_level', '?')!r}); refusing to "
                 "run a substitute on the card")
         if devices == {"meta"}:

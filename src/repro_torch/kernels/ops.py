@@ -41,7 +41,10 @@ are the analytic derivatives in f32 torch (:func:`rmsnorm_backward`,
 :func:`rmsnorm_gated_backward`, :func:`layernorm_backward`,
 :func:`swiglu_backward`, :func:`gelu_backward`,
 :func:`moe_router_backward`; the JAX package's gradient of these ops is
-XLA's autodiff of ``jax_ref``, no kernel either). The SSD scan's
+XLA's autodiff of ``jax_ref``, no kernel either). The ops on no model's
+path take gradients the same way: ``residual_scale`` (``dy``, ``alpha
+dy``), ``softmax`` (the router's backward) and ``ssd_gate``
+(:func:`ssd_gate_backward`). The SSD scan's
 gradient is its backward kernel (``_SsdFn``: the forward kernel keeps
 the state entering each chunk, :func:`ssd_scan_bwd` reads it).
 """
@@ -76,6 +79,9 @@ _REF_FNS: dict = {"rmsnorm": _ref.rmsnorm_ref,
                   "swiglu": _ref.swiglu_ref,
                   "gelu": _ref.gelu_ref,
                   "moe_router": _ref.softmax_ref,
+                  "residual_scale": _ref.residual_scale_ref,
+                  "softmax": _ref.softmax_ref,
+                  "ssd_gate": _ref.ssd_gate_ref,
                   "adamw": _ref.adamw_ref,
                   "l2_clip": _ref.l2_clip_ref}
 
@@ -275,6 +281,75 @@ def moe_router_backward(p, dy):
     pf, dyf = p.float(), dy.float()
     return (pf * (dyf - torch.sum(dyf * pf, dim=-1, keepdim=True))
             ).to(p.dtype)
+
+
+def ssd_gate_backward(dt_raw, a_log, dt, decay, g_dt, g_decay, bias=0.0):
+    """``(d dt_raw, d a_log)`` of ``dt = softplus(dt_raw + bias)``,
+    ``decay = exp(dt A)``, ``A = -exp(a_log)``, from the forward's
+    outputs, in f32: ``d dt_raw = (g_dt + g_decay decay A)
+    sigmoid(dt_raw + bias)``, ``d a_log`` sums ``g_decay decay dt A`` over
+    what ``a_log`` broadcasts against; cast to the inputs' dtypes."""
+    af = a_log.float()
+    A = -torch.exp(af)
+    gd = g_decay.float() * decay.float()
+    d_raw = (g_dt.float() + gd * A) * torch.sigmoid(dt_raw.float() + bias)
+    da = (gd * dt.float() * A).sum_to_size(a_log.shape)
+    return d_raw.to(dt_raw.dtype), da.to(a_log.dtype)
+
+
+class _ResidualScaleFn(torch.autograd.Function):
+    """The residual_scale kernel forward; its backward is ``(dy, alpha
+    dy)`` (the same linear map's transpose), summed to a broadcast
+    ``y``'s shape."""
+
+    @staticmethod
+    def forward(ctx, x, y, alpha):
+        ctx.alpha, ctx.y_shape = alpha, y.shape
+        return _kernel_op("residual_scale").apply(x, y, alpha=alpha)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, (ctx.alpha * dy).sum_to_size(ctx.y_shape), None
+
+
+class _SoftmaxFn(torch.autograd.Function):
+    """The softmax kernel forward, :func:`moe_router_backward` (the same
+    function's) backward from the saved output."""
+
+    @staticmethod
+    def forward(ctx, x):
+        p = _kernel_op("softmax").apply(x)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, dy):
+        p, = ctx.saved_tensors
+        with torch.profiler.record_function("softmax_backward"):
+            return moe_router_backward(p, dy)
+
+
+class _SsdGateFn(torch.autograd.Function):
+    """The ssd_gate kernel forward (a_log a broadcast row), its
+    :func:`ssd_gate_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, dt_raw, a_log, bias):
+        dt, decay = _kernel_op("ssd_gate").apply(dt_raw, a_log, bias=bias)
+        ctx.save_for_backward(dt_raw, a_log, dt, decay)
+        ctx.bias = bias
+        return dt, decay
+
+    @staticmethod
+    def backward(ctx, g_dt, g_decay):
+        dt_raw, a_log, dt, decay = ctx.saved_tensors
+        with torch.profiler.record_function("ssd_gate_backward"):
+            d_raw, da = ssd_gate_backward(
+                dt_raw, a_log, dt, decay,
+                torch.zeros_like(dt) if g_dt is None else g_dt,
+                torch.zeros_like(decay) if g_decay is None else g_decay,
+                ctx.bias)
+        return d_raw, da, None
 
 
 class _RmsnormFn(torch.autograd.Function):
@@ -580,6 +655,33 @@ def rotary(q, cos, sin):
                                                sin.expand(q.shape))
 
     return _guarded("rotary", q, _opt, lambda: _ref.rotary_ref(q, cos, sin))
+
+
+def residual_scale(x, y, alpha=1.0):
+    """``x + alpha * y``: the saturated ``residual_scale`` program (``y``
+    of x's shape or a broadcast row; ``alpha`` a host float)."""
+    if current_impl(x) == "triton" and _wants_grad(x, y):
+        return _ResidualScaleFn.apply(x, y, alpha)
+    return _tile("residual_scale", x, y, alpha=alpha)
+
+
+def softmax(x):
+    """Softmax over the last axis: the saturated ``softmax`` program (a
+    row reduction, multiplied by the sum's reciprocal)."""
+    if current_impl(x) == "triton" and _wants_grad(x):
+        return _SoftmaxFn.apply(x)
+    return _tile("softmax", x)
+
+
+def ssd_gate(dt_raw, a_log, bias=0.0):
+    """Returns ``(dt, decay)``: ``dt = softplus(dt_raw + bias)`` and
+    ``decay = exp(-dt exp(a_log))``, sharing the softplus (the saturated
+    ``ssd_gate`` program). ``a_log`` of ``(nh,)`` against ``dt_raw`` of
+    ``(..., nh)`` is read as one broadcast row, not materialised at
+    ``dt_raw``'s shape; the plain versions broadcast it."""
+    if current_impl(dt_raw) == "triton" and _wants_grad(dt_raw, a_log):
+        return _SsdGateFn.apply(dt_raw, a_log, bias)
+    return _tile("ssd_gate", dt_raw, a_log, bias=bias)
 
 
 def adamw_update(param, grad, m, v, *, lr, b1, b2, eps, wd, inv_bc1,

@@ -84,6 +84,80 @@ def test_pipelined_tile_kernel_matches_plain(name, dtype, rows, d, cuda):
     assert op.launches == before + 1
 
 
+@pytest.mark.parametrize("emitter", [None, "triton_pipelined"],
+                         ids=["sync", "pipelined"])
+@pytest.mark.parametrize("mode", ["baseline", "cse", "cse_sat", "cse_bulk",
+                                  "accsat"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_every_mode_kernel_matches_plain(name, mode, emitter, cuda):
+    """Each program's kernel under each of the paper's five modes, f32 at
+    a ragged (37, 200) and, for a reduction in whole tiles, at (5, 768)
+    in two column pieces, against the mode's plain version."""
+    op = get_tile_op(name, mode=mode, emitter=emitter)
+    assert op.tk is not None
+    shapes = [(37, 200)] + ([(5, 768)] if op.tk.has_reduction
+                            and not op.tk.halves else [])
+    for rows, d in shapes:
+        xs, sc = _tile_inputs(name, rows, d, torch.float32, cuda)
+        before = op.launches
+        got = op.apply(*xs, **sc)
+        assert op.launches == before + 1
+        _close(got, op.torch_ref(*(x.expand(xs[0].shape) for x in xs),
+                                 **sc), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_three_ops_launch_their_kernels(dtype, cuda):
+    """ops.residual_scale, ops.softmax and ops.ssd_gate (a_log a (nh,)
+    broadcast row) launch their kernels once a call and match their
+    plain versions."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, y = (torch.randn((3, 40, 96), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    dt_raw = torch.randn((2, 33, 24), generator=gen, device=cuda).to(dtype)
+    a_log = torch.log(torch.arange(1, 25, device=cuda,
+                                   dtype=torch.float32)).to(dtype)
+    for name, args, kw in (("residual_scale", (x, y), {"alpha": 0.375}),
+                           ("softmax", (x,), {}),
+                           ("ssd_gate", (dt_raw, a_log), {"bias": 0.25})):
+        op = get_tile_op(name)
+        before = op.launches
+        got = getattr(ops, name)(*args, **kw)
+        assert op.launches == before + 1, name
+        _close(got, op.torch_ref(*(a.expand(args[0].shape) for a in args),
+                                 **kw), TILE_TOL[dtype])
+
+
+def test_three_ops_gradients_on_the_card(cuda):
+    """The three ops' autograd Functions (kernel forward, analytic
+    backward) against autograd of the oracles, f32."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, y = (torch.randn((64, 96), generator=gen, device=cuda)
+            for _ in range(2))
+    dt_raw = torch.randn((2, 33, 24), generator=gen, device=cuda)
+    a_log = torch.randn((24,), generator=gen, device=cuda) * 0.5
+    for name, args, kw in (("residual_scale", (x, y), {"alpha": 0.375}),
+                           ("softmax", (x,), {}),
+                           ("ssd_gate", (dt_raw, a_log), {"bias": 0.25})):
+        grads = []
+        for impl in (None, "ref"):
+            leaves = [a.clone().requires_grad_() for a in args]
+            ops.set_impl(impl)
+            try:
+                outs = getattr(ops, name)(*leaves, **kw)
+            finally:
+                ops.set_impl(None)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.autograd.backward(
+                list(outs), [torch.ones_like(o) * 0.5 + o.detach()
+                             for o in outs])
+            grads.append(tuple(a.grad for a in leaves))
+        _close(grads[0], grads[1], 2e-5)
+
+
 # the CPU executor's row-reduction cases (tests/test_torch_tile_exec.py)
 REDUCTION_CASES = [
     ("moe_router", (32, 64, 16)), ("moe_router", (4, 1, 16)),

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
-scripts under ``tools/`` import neither ``jax`` nor the JAX package
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py``, the
+scripts under ``tools/`` and the port's examples (``examples/*_torch.py``)
+import neither ``jax`` nor the JAX package
 ``repro`` (lazy imports included), and the entry points refuse to fall
 back to the CPU."""
 import ast
@@ -14,7 +15,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*.py")
                     if "_build" not in p.parts) + [ROOT / "chip_smoke.py"] \
-    + sorted((ROOT / "tools").glob("*.py"))
+    + sorted((ROOT / "tools").glob("*.py")) \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: pathlib.Path):

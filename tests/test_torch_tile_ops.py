@@ -374,3 +374,95 @@ def test_emission_failure_degrades_and_keeps_cpu_path():
     assert telemetry().snapshot()["guard"]["degradations"] == {"torch": 1}
     xs = torch.arange(12, dtype=torch.float32).reshape(3, 4)
     torch.testing.assert_close(op.apply(xs), (xs * 1.5).to(torch.int64))
+
+
+# -- the ops residual_scale, softmax and ssd_gate ---------------------------------
+def _three_ops(dt):
+    """Seeded inputs of the three ops and both packages' calls: a
+    non-default alpha and bias, and ssd_gate's a_log a (nh,) row
+    against (B, S, nh)."""
+    rng = np.random.default_rng(11)
+    x, y = (rng.normal(size=(3, 40, 96)).astype(np.float32)
+            for _ in range(2))
+    s = (rng.normal(size=(2, 12, 72)) * 4).astype(np.float32)
+    dt_raw = rng.normal(size=(2, 33, 24)).astype(np.float32)
+    a_log = np.log(np.arange(1, 25, dtype=np.float32))
+    return {
+        "residual_scale": ((x, y), dict(alpha=0.375)),
+        "residual_scale_default": ((x, y), {}),
+        "softmax": ((s,), {}),
+        "ssd_gate": ((dt_raw, a_log), dict(bias=0.25)),
+        "ssd_gate_default": ((dt_raw, a_log), {}),
+    }
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["residual_scale", "residual_scale_default",
+                                  "softmax", "ssd_gate", "ssd_gate_default"])
+def test_three_ops_match_jax_ops(case, dt):
+    from repro.kernels import ops as jax_ops
+    args, kw = _three_ops(dt)[case]
+    op = case.replace("_default", "")
+    want = getattr(jax_ops, op)(*[_to_jax(a, dt) for a in args], **kw)
+    got = getattr(ops, op)(*[_to_torch(a, dt) for a in args], **kw)
+    for g, w in zip(_outs(got), _outs(want), strict=True):
+        assert g.dtype == DTYPES[dt][1]
+        np.testing.assert_allclose(_np(g), _np(w), **TOL[dt])
+
+
+@pytest.mark.parametrize("impl", ["triton", "ref"])
+@pytest.mark.parametrize("case", ["residual_scale", "softmax", "ssd_gate"])
+def test_three_ops_gradients_match_jax(case, impl):
+    """The ops' gradients: under ``triton`` the autograd Functions (the
+    kernel forward, the analytic backward; on CPU tensors the forward is
+    the plain version), under ``ref`` autograd of the oracle, against
+    ``jax.vjp`` of the JAX op, with a random cotangent per output."""
+    import jax
+    from repro.kernels import ops as jax_ops
+    args, kw = _three_ops("f32")[case]
+    rng = np.random.default_rng(2)
+    jargs = [jnp.asarray(a) for a in args]
+    outs, vjp = jax.vjp(lambda *a: getattr(jax_ops, case)(*a, **kw), *jargs)
+    cot = [rng.normal(size=o.shape).astype(np.float32) for o in _outs(outs)]
+    want = vjp(tuple(jnp.asarray(c_) for c_ in cot) if len(cot) > 1
+               else jnp.asarray(cot[0]))
+    targs = [torch.from_numpy(a).requires_grad_() for a in args]
+    ops.set_impl(impl)
+    try:
+        got = _outs(getattr(ops, case)(*targs, **kw))
+    finally:
+        ops.set_impl(None)
+    torch.autograd.backward(list(got), [torch.from_numpy(c_) for c_ in cot])
+    for t, w in zip(targs, want, strict=True):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_ssd_gate_reads_a_log_as_a_broadcast_row():
+    """a_log (nh,) against dt_raw (B, S, nh) plans as a ``bcast``
+    operand: the kernel reads the row in place, nothing is broadcast."""
+    tk = get_tile_op("ssd_gate").tk
+    plan = _plan(tk, [(2, 4096, 64), (64,)])
+    assert plan.kinds == ("row", "bcast") and plan.d == 64
+    assert plan.rows == 2 * 4096
+
+
+def test_residual_scale_gradient_of_a_broadcast_row():
+    """residual_scale's Function sums ``alpha dy`` to a broadcast ``y``'s
+    shape, as autograd of the oracle does."""
+    rng = np.random.default_rng(9)
+    x0 = torch.from_numpy(rng.normal(size=(5, 7, 16)).astype(np.float32))
+    y0 = torch.from_numpy(rng.normal(size=(16,)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(5, 7, 16)).astype(np.float32))
+    grads = []
+    for impl in ("triton", "ref"):
+        x, y = x0.clone().requires_grad_(), y0.clone().requires_grad_()
+        ops.set_impl(impl)
+        try:
+            out = ops.residual_scale(x, y, alpha=0.25)
+        finally:
+            ops.set_impl(None)
+        out.backward(dy)
+        grads.append((x.grad, y.grad))
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)

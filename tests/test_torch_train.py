@@ -265,7 +265,8 @@ def _port_batch(batch):
 
 
 TRAINED = ["minitron_4b", "qwen2_vl_2b", "mamba2_1p3b", "zamba2_2p7b",
-           "whisper_small", "dbrx_132b"]
+           "whisper_small", "dbrx_132b", "granite_8b", "mistral_nemo_12b",
+           "mistral_large_123b", "arctic_480b"]
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])

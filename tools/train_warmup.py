@@ -6,9 +6,10 @@
 
 Runs ``chip_smoke.phase_train`` with the arch's train phase spec (full
 width, B 2 x S 4096, bf16 weights, remat, 6 steps; minitron-4b 8 steps
-at 16 layers, dbrx-132b at 2 layers), its lr and moments unless
-``--lr`` or ``--moment-dtype`` name others, once per ``--warmup``, each
-from the same seeded weights and batches, and prints each run's line:
+at 16 layers, dbrx-132b at 2 layers, mistral-large-123b at 3 layers and
+12 steps), its lr and moments unless ``--lr`` or ``--moment-dtype`` name
+others, once per ``--warmup``, each from the same seeded weights and
+batches, and prints each run's line:
 its losses, the loss of step 1's batch after step 1, and whether the
 loss falls after its peak (the phase's gate, reported here, not
 enforced). Shows whether a warmup, an lr or a moment dtype removes the
@@ -31,7 +32,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b",
                     choices=("minitron-4b", "mamba2-1.3b", "zamba2-2.7b",
-                             "whisper-small", "dbrx-132b"))
+                             "whisper-small", "dbrx-132b", "qwen2-vl-2b",
+                             "mistral-large-123b"))
     ap.add_argument("--warmup", type=int, nargs="+", default=[1, 3, 6])
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--moment-dtype", default=None,
@@ -50,7 +52,8 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     spec = {"minitron-4b": cs.TRAIN, "mamba2-1.3b": cs.TRAIN_MAMBA,
             "zamba2-2.7b": cs.TRAIN_ZAMBA, "whisper-small": cs.TRAIN_WHISPER,
-            "dbrx-132b": cs.TRAIN_DBRX}[args.arch]
+            "dbrx-132b": cs.TRAIN_DBRX, "qwen2-vl-2b": cs.TRAIN_QWEN,
+            "mistral-large-123b": cs.TRAIN_LARGE}[args.arch]
     if args.lr is not None:
         spec = dict(spec, lr=args.lr)
     if args.moment_dtype is not None:
