@@ -672,6 +672,10 @@ SSD_BWD_CASES = [((2, 4096, 64, 64, 128), 128), ((2, 4096, 80, 64, 64), 128),
 SSD_BWD_TIMED = {(2, 4096, 64, 64, 128): None,
                  (2, 4096, 80, 64, 64): "zamba2"}
 SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd")
+# the SSD forward with chunk states at mamba2-1.3b's and zamba2-2.7b's
+# train shapes (B, S, H, P, N), by their key under ssd_scan's "shapes"
+SSD_FWD_TRAIN = {(2, 4096, 64, 64, 128): "mamba2_train_with_states",
+                 (2, 4096, 80, 64, 64): "zamba2_train_with_states"}
 
 
 def _ssd_bwd_rows(torch, F, timer, g, checks):
@@ -981,6 +985,245 @@ FLASH_BWD_CASES = [(shape, "bfloat16", causal)
     for causal in (True, False)]
 
 
+# flash attention forward: full width causal (the path) and not, a ragged
+# S, the mma.sync kernel's tile edges (one row, one past a 64-row tile,
+# one past two), and a small f32 head_dim-16 case; zamba2's head_dim 80
+# (its prefill in bf16 and, as its f32 parity runs it, in f32; the tile
+# edges in both, MHA and GQA), dbrx's prefill, whisper's MHA at head_dim
+# 64 (non-causal: the encoder and cross-attention; causal: the decoder)
+# and qwen2-vl's GQA 12/2; then the last four configs' prefills: groups
+# of 4 (granite, nemo), 12 (mistral-large) and 7 (arctic, the first odd
+# group), and the odd group's tile edges. Inputs from the kernels phase's
+# first generator, in this order.
+FLASH_FWD_CASES = [
+    ((4, 24, 8, 512, 128), "bfloat16", True),
+    ((4, 24, 8, 512, 128), "bfloat16", False),
+    ((4, 24, 8, 100, 128), "bfloat16", True),
+    ((2, 8, 8, 1, 64), "bfloat16", True),
+    ((2, 8, 8, 65, 64), "bfloat16", True),
+    ((2, 8, 8, 129, 64), "bfloat16", True),
+    ((2, 4, 2, 128, 16), "float32", True),
+    ((2, 4, 2, 128, 16), "float32", False),
+    ((4, 32, 32, 512, 80), "bfloat16", True),
+    ((4, 32, 32, 510, 80), "float32", True),
+    ((4, 32, 32, 512, 80), "bfloat16", False),
+    ((4, 48, 8, 512, 128), "bfloat16", True),
+    ((4, 12, 12, 512, 64), "bfloat16", False),
+    ((4, 12, 12, 512, 64), "bfloat16", True),
+    ((4, 12, 2, 512, 128), "bfloat16", True),
+    ((4, 32, 8, 512, 128), "bfloat16", True),
+    ((4, 96, 8, 512, 128), "bfloat16", True),
+    ((4, 56, 8, 512, 128), "bfloat16", True),
+    ((2, 14, 2, 65, 128), "bfloat16", True),
+    ((2, 14, 2, 65, 128), "float32", True),
+    ((2, 14, 2, 129, 128), "float32", True)] + [
+    ((2, 8, kh, s, 80), dt, True)
+    for dt in ("bfloat16", "float32") for kh in (8, 2)
+    for s in (1, 63, 64, 65, 129)]
+# the wgmma forward's edges: S around its 128-row work items and kv tiles
+# and a long ragged S, causal and full, GQA 12 at head_dim 128, GQA 7 at
+# 64 and MHA at 80 (inputs from a generator of their own, seed 29)
+FLASH_FWD_EDGES = [((1, h, kh, s, d), "bfloat16", causal)
+                   for s in (127, 128, 255, 257, 4095)
+                   for causal in (True, False)
+                   for h, kh, d in ((12, 1, 128), (14, 2, 64), (2, 2, 80))]
+# the mma.sync forward, which bf16 keeps at head_dim 16 and 32: MHA and
+# GQA, ragged S, causal and full, with the row lse (True) and without;
+# inputs from the edges' generator, after them
+FLASH_FWD_MMA_SYNC = [
+    (((2, 4, 2, 128, 16), "bfloat16", True), False),
+    (((2, 4, 2, 128, 16), "bfloat16", False), True),
+    (((2, 4, 4, 65, 16), "bfloat16", True), True),
+    (((2, 8, 2, 129, 32), "bfloat16", True), False),
+    (((2, 8, 2, 129, 32), "bfloat16", False), False),
+    (((1, 12, 4, 257, 32), "bfloat16", True), True),
+    (((1, 14, 2, 1000, 32), "bfloat16", False), True)]
+# the timed serve shapes, by their key under the row's "shapes" (None:
+# the row itself, minitron-4b's prefill)
+FLASH_FWD_TIMED = {
+    ((4, 24, 8, 512, 128), "bfloat16", True): None,
+    ((4, 32, 32, 512, 80), "bfloat16", True): "zamba2_d80",
+    ((4, 32, 32, 510, 80), "float32", True): "zamba2_d80_f32",
+    ((4, 48, 8, 512, 128), "bfloat16", True): "dbrx",
+    ((4, 12, 12, 512, 64), "bfloat16", False): "whisper_d64_full",
+    ((4, 12, 12, 512, 64), "bfloat16", True): "whisper_d64",
+    ((4, 12, 2, 512, 128), "bfloat16", True): "qwen2vl",
+    ((4, 32, 8, 512, 128), "bfloat16", True): "granite_g4",
+    ((4, 96, 8, 512, 128), "bfloat16", True): "mistral_large_g12",
+    ((4, 56, 8, 512, 128), "bfloat16", True): "arctic_g7"}
+# the forward with the row lse at the training paths' shapes (the train
+# step's launches: minitron-4b's GQA 24/8 at head_dim 128, zamba2-2.7b's
+# shared block, MHA 32 at head_dim 80, and whisper-small's encoder and
+# cross-attention, MHA 12 at head_dim 64, non-causal; whisper's from the
+# second generator)
+FLASH_FWD_TRAIN = (((2, 24, 8, 4096, 128), True, "train_with_lse"),
+                   ((2, 32, 32, 4096, 80), True, "zamba2_train_with_lse"),
+                   (WHISPER_ATTN, False, "whisper_train_with_lse_full"))
+
+
+def _mma_sync_fwd(torch, q, k, v, causal, with_lse):
+    """A callable running the bf16 forward on the mma.sync kernel (the
+    library's entry at every head_dim; the design the wgmma kernel
+    replaced at head_dim 64, 80 and 128, its yardstick) on these
+    operands."""
+    from repro_torch.kernels.flash_attention import _load, _raise_on
+    lib = _load()
+    B, H, S, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), device="cuda") if with_lse else None
+
+    def run():
+        _raise_on(lib, lib.flash_attention_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, k.shape[1], S, D,
+            D ** -0.5, int(causal), torch.cuda.current_stream().cuda_stream),
+            "flash_attention_mma_sync")
+        return o, lse
+
+    return run
+
+
+def _flash_build_info(prefix):
+    """Registers, spills and tensor-core instruction counts of each kernel
+    of the flash library whose name starts with ``prefix``."""
+    from repro_torch.kernels.cuda_build import build
+    lib = build("flash_attention.cu")[0]
+    with open(f"{lib}.log") as f:
+        ptxas = _ptxas_by_kernel(f.read())
+    tc = _tensor_core_counts(lib)
+    return {k: {**v, **tc.get(k, {})} for k, v in ptxas.items()
+            if k.startswith(prefix)}
+
+
+def _fwd_kernel_name(kind, d):
+    return {"wgmma": "flash_fwd_sm90_kernel", "mma_sync":
+            "flash_fwd_bf16_kernel", "cuda_cores": "flash_fwd_f32_kernel"
+            }[kind] + f"<{d}>"
+
+
+def _hold_fwd(torch, F, tag, got, want, dtype, checks):
+    """A forward's ``(o, lse)`` against the plain version's: o
+    element-wise and norm-relative, the lse (where not None) within
+    2e-3. ``(max_abs_err, norm_rel, lse_err)``."""
+    lse_err = None
+    if got[1] is not None:
+        lse_err = _err(got[1], want[1])
+        checks.append({"name": f"{tag}/lse", "max_abs_err": lse_err,
+                       "tol": 2e-3, "ok": lse_err <= 2e-3})
+    err = _check(tag, got[0], want[0], FLASH_TOL[dtype], checks)
+    rel = _check_norm_rel(torch, F, tag, [("o", got[0], want[0])], want[0],
+                          dtype, checks)["o"]
+    return err, rel, lse_err
+
+
+def _flash_fwd_case(torch, F, randn, shape, dtype, causal, checks,
+                    with_lse=False):
+    """One forward case: the kernel against its plain version,
+    element-wise and norm-relative (and the lse within 2e-3 where asked
+    for). ``(operands, plain (o, lse), max_abs_err, norm_rel,
+    lse_err)``."""
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention, flash_attention_fwd_plain,
+        flash_attention_plain)
+    b, h, kh, s_, d = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (randn(b, n, s_, d, dtype=dt) for n in (h, kh, kh))
+    tag = f"flash_attention/{dtype}/{b}x{h}x{kh}x{s_}x{d}/" \
+          f"{'causal' if causal else 'full'}" + ("/lse" if with_lse else "")
+    if with_lse:
+        got = _launch_fwd(q, k, v, causal, None, with_lse=True)
+        want = flash_attention_fwd_plain(q, k, v, causal=causal)
+    else:
+        got = (flash_attention(q, k, v, causal=causal), None)
+        want = (flash_attention_plain(q, k, v, causal=causal), None)
+    err, rel, lse_err = _hold_fwd(torch, F, tag, got, want, dtype, checks)
+    return (q, k, v), want, err, rel, lse_err
+
+
+def _flash_fwd_rows(torch, F, timer, randn, randn_t, checks):
+    """The forward kernels against their plain version at
+    ``FLASH_FWD_CASES``, ``FLASH_FWD_EDGES``, ``FLASH_FWD_MMA_SYNC`` and,
+    with the lse, ``FLASH_FWD_TRAIN`` (the row: minitron-4b's prefill).
+    At the timed shapes: the kind of kernel, card and device time, two
+    launches bitwise equal, the bound, the plain version's and the
+    library's time (SDPA's forward), and for the wgmma kernel the
+    mma.sync kernel, held against the plain version at the same limits
+    and then timed in turns (``_in_turns``: wgmma, mma.sync, mma.sync,
+    wgmma), with both kernels' registers, spills and tensor-core
+    instruction counts."""
+    from repro_torch.roofline import kernel_work
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention_fwd_plain, flash_attention_plain,
+        fwd_kernel)
+    built = _flash_build_info("flash_fwd_")
+    randn_e = _randn_from(torch, 29)
+    timed = {}
+    cases = [(c, randn, False, FLASH_FWD_TIMED.get(c, "untimed"))
+             for c in FLASH_FWD_CASES] + \
+        [(c, randn_e, False, "untimed") for c in FLASH_FWD_EDGES] + \
+        [(c, randn_e, lse, "untimed") for c, lse in FLASH_FWD_MMA_SYNC] + \
+        [(((shape, "bfloat16", causal)), randn_t if shape == WHISPER_ATTN
+          else randn, True, key) for shape, causal, key in FLASH_FWD_TRAIN]
+    for (shape, dtype, causal), rn, with_lse, key in cases:
+        ops, want, err, rel, lse_err = _flash_fwd_case(
+            torch, F, rn, shape, dtype, causal, checks, with_lse)
+        if key == "untimed":
+            continue
+        b, h, kh, s_, d = shape
+        q, k, v = ops
+        kind = fwd_kernel(d, q.dtype)
+
+        def run(ops=ops, causal=causal, with_lse=with_lse):
+            return _launch_fwd(*ops, causal, None, with_lse=with_lse)
+
+        first, again = run(), run()
+        bitwise = all(x is None or torch.equal(x, y)
+                      for x, y in zip(first, again))
+        checks.append({"name": f"flash_attention/{dtype}/"
+                       f"{'x'.join(map(str, shape))}/bitwise_repeat",
+                       "ok": bitwise})
+        del first, again
+        flops, nbytes = kernel_work.flash_fwd_work(
+            b, h, kh, s_, d, q.element_size(), causal, with_lse)
+        bound, by = kernel_work.bound_ms(flops, nbytes, dtype)
+        plain = flash_attention_fwd_plain if with_lse else \
+            flash_attention_plain
+        row = {"shape": list(shape), "dtype": dtype, "causal": causal,
+               "with_lse": with_lse, "kernels": kind,
+               "max_abs_err": err, "norm_rel_err": rel,
+               "bitwise_repeat": bitwise, "flops": flops, "bytes": nbytes,
+               "ms": timer.ms(run),
+               "device_ms": timer.device_ms(run, "flash_fwd_"),
+               "plain_ms": timer.ms(lambda: plain(q, k, v, causal=causal),
+                                    iters=5 if with_lse else 20),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": timer.ms(_sdpa(F, q, k, v, causal)),
+               "build": {kind: built.get(_fwd_kernel_name(kind, d))}}
+        if with_lse:
+            row["lse_max_abs_err"] = lse_err
+        if kind == "wgmma":
+            mma = _mma_sync_fwd(torch, q, k, v, causal, with_lse)
+            row["mma_sync_max_abs_err"], row["mma_sync_norm_rel_err"], _ = \
+                _hold_fwd(torch, F, f"flash_attention_mma_sync/{dtype}/"
+                          f"{'x'.join(map(str, shape))}/"
+                          f"{'causal' if causal else 'full'}", mma(), want,
+                          dtype, checks)
+            turns = _in_turns(timer, run, mma)
+            row["mma_sync_ms"] = sum(turns["library_ms"]) / 2
+            row["in_turns_vs_mma_sync"] = {
+                "wgmma_ms": turns["kernel_ms"],
+                "mma_sync_ms": turns["library_ms"],
+                "wgmma_over_mma_sync": turns["kernel_over_library"]}
+            row["build"]["mma_sync"] = built.get(
+                _fwd_kernel_name("mma_sync", d))
+        timed[key] = row
+        del ops, want, q, k, v
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:147",
+            **timed.pop(None), "shapes": timed}
+
+
 def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks):
     """One backward case: the kernels against their plain version,
     element-wise and norm-relative, and at ``FLASH_BWD_BITWISE`` two calls
@@ -1099,10 +1342,9 @@ def phase_kernels(torch, timer):
     """Every kernel against its plain version on the card."""
     from repro_torch.roofline import kernel_work
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (
-        _launch_fwd, flash_attention, flash_attention_fwd_plain,
-        flash_attention_plain)
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_scan,
+                                              ssd_scan_plain,
+                                              ssd_scan_with_states)
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
     checks, rows = [], {}
@@ -1484,126 +1726,8 @@ def phase_kernels(torch, timer):
             "library_ms": timer.ms(lambda: lib(xs, sc))
             if lib is not None else None}
 
-    # flash attention: full width causal (the path) and not, a ragged S,
-    # the bf16 kernel's tile edges (one row, one past a 64-row tile, one
-    # past two), and a small f32 head_dim-16 case; zamba2's head_dim 80
-    # (its prefill in bf16 and, as its f32 parity runs it, in f32; the
-    # tile edges in both, MHA and GQA), dbrx's prefill, whisper's MHA at
-    # head_dim 64 (non-causal: the encoder and cross-attention; causal:
-    # the decoder) and qwen2-vl's GQA 12/2
-    flash_cases = [((4, 24, 8, 512, 128), torch.bfloat16, True),
-                   ((4, 24, 8, 512, 128), torch.bfloat16, False),
-                   ((4, 24, 8, 100, 128), torch.bfloat16, True),
-                   ((2, 8, 8, 1, 64), torch.bfloat16, True),
-                   ((2, 8, 8, 65, 64), torch.bfloat16, True),
-                   ((2, 8, 8, 129, 64), torch.bfloat16, True),
-                   ((2, 4, 2, 128, 16), torch.float32, True),
-                   ((2, 4, 2, 128, 16), torch.float32, False),
-                   ((4, 32, 32, 512, 80), torch.bfloat16, True),
-                   ((4, 32, 32, 510, 80), torch.float32, True),
-                   ((4, 32, 32, 512, 80), torch.bfloat16, False),
-                   ((4, 48, 8, 512, 128), torch.bfloat16, True),
-                   ((4, 12, 12, 512, 64), torch.bfloat16, False),
-                   ((4, 12, 12, 512, 64), torch.bfloat16, True),
-                   ((4, 12, 2, 512, 128), torch.bfloat16, True),
-                   # the last four configs' prefills: groups of 4
-                   # (granite, nemo), 12 (mistral-large) and 7 (arctic,
-                   # the first odd group), and the odd group's tile edges
-                   ((4, 32, 8, 512, 128), torch.bfloat16, True),
-                   ((4, 96, 8, 512, 128), torch.bfloat16, True),
-                   ((4, 56, 8, 512, 128), torch.bfloat16, True),
-                   ((2, 14, 2, 65, 128), torch.bfloat16, True),
-                   ((2, 14, 2, 65, 128), torch.float32, True),
-                   ((2, 14, 2, 129, 128), torch.float32, True)] + [
-        ((2, 8, kh, s, 80), dt, True)
-        for dt in (torch.bfloat16, torch.float32) for kh in (8, 2)
-        for s in (1, 63, 64, 65, 129)]
-    flash_rows = {(4, 24, 8, 512, 128, bf, True): None,
-                  (4, 32, 32, 512, 80, bf, True): "zamba2_d80",
-                  (4, 32, 32, 510, 80, torch.float32, True): "zamba2_d80_f32",
-                  (4, 48, 8, 512, 128, bf, True): "dbrx",
-                  (4, 12, 12, 512, 64, bf, False): "whisper_d64_full",
-                  (4, 12, 12, 512, 64, bf, True): "whisper_d64",
-                  (4, 12, 2, 512, 128, bf, True): "qwen2vl",
-                  (4, 32, 8, 512, 128, bf, True): "granite_g4",
-                  (4, 96, 8, 512, 128, bf, True): "mistral_large_g12",
-                  (4, 56, 8, 512, 128, bf, True): "arctic_g7"}
-    flash_timed = {}
-    for (b, h, kh, s, d), dt, causal in flash_cases:
-        fq, fk, fv = randn(b, h, s, d, dtype=dt), randn(b, kh, s, d, dtype=dt), \
-            randn(b, kh, s, d, dtype=dt)
-        tag = f"flash_attention/{str(dt)[6:]}/{b}x{h}x{kh}x{s}x{d}/" \
-              f"{'causal' if causal else 'full'}"
-        got = flash_attention(fq, fk, fv, causal=causal)
-        want = flash_attention_plain(fq, fk, fv, causal=causal)
-        err = _check(tag, got, want, FLASH_TOL[str(dt)[6:]], checks)
-        rel = _check_norm_rel(torch, F, tag, [("o", got, want)], want,
-                              str(dt)[6:], checks)["o"]
-        del got, want
-        if (b, h, kh, s, d, dt, causal) in flash_rows:
-            flops, nbytes = kernel_work.flash_fwd_work(
-                b, h, kh, s, d, fq.element_size(), causal)
-            bound, by = kernel_work.bound_ms(flops, nbytes, str(dt)[6:])
-
-            def run(fq=fq, fk=fk, fv=fv, causal=causal):
-                return flash_attention(fq, fk, fv, causal=causal)
-
-            flash_timed[flash_rows[(b, h, kh, s, d, dt, causal)]] = {
-                "shape": [b, h, kh, s, d], "dtype": str(dt)[6:],
-                "causal": causal, "max_abs_err": err, "norm_rel_err": rel,
-                "ms": timer.ms(run),
-                "device_ms": timer.device_ms(run, "flash_fwd_"),
-                "plain_ms": timer.ms(lambda: flash_attention_plain(
-                    fq, fk, fv, causal=causal)),
-                "bound_ms": bound,
-                "bound_by": by,
-                "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
-    # the forward with the row lse at the training paths' shapes (the
-    # train step's launches: minitron-4b's GQA 24/8 at head_dim 128,
-    # zamba2-2.7b's shared block, MHA 32 at head_dim 80, and whisper-small's
-    # encoder and cross-attention, MHA 12 at head_dim 64, non-causal):
-    # card and device time, bound, SDPA's forward
-    for (b, h, kh, s, d), causal, key, rn in (
-            ((2, 24, 8, 4096, 128), True, "train_with_lse", randn),
-            ((2, 32, 32, 4096, 80), True, "zamba2_train_with_lse", randn),
-            (WHISPER_ATTN, False, "whisper_train_with_lse_full", randn_t)):
-        fq, fk, fv = (rn(b, n, s, d, dtype=bf) for n in (h, kh, kh))
-
-        def run_lse(fq=fq, fk=fk, fv=fv, causal=causal):
-            return _launch_fwd(fq, fk, fv, causal, None, with_lse=True)
-
-        o, lse = run_lse()
-        want_o, want_lse = flash_attention_fwd_plain(fq, fk, fv,
-                                                     causal=causal)
-        tag = f"flash_attention/bfloat16/{b}x{h}x{kh}x{s}x{d}/" \
-              f"{'causal' if causal else 'full'}/lse"
-        err = _check(tag, o, want_o, FLASH_TOL["bfloat16"], checks)
-        rel = _check_norm_rel(torch, F, tag, [("o", o, want_o)], want_o,
-                              "bfloat16", checks)["o"]
-        lse_err = _err(lse, want_lse)
-        checks.append({"name": f"{tag}/lse", "max_abs_err": lse_err,
-                       "tol": 2e-3, "ok": lse_err <= 2e-3})
-        del o, lse, want_o, want_lse
-        flops, nbytes = kernel_work.flash_fwd_work(
-            b, h, kh, s, d, fq.element_size(), causal, with_lse=True)
-        bound, by = kernel_work.bound_ms(flops, nbytes, "bfloat16")
-        flash_timed[key] = {
-            "shape": [b, h, kh, s, d], "dtype": "bfloat16", "causal": causal,
-            "with_lse": True, "max_abs_err": err, "norm_rel_err": rel,
-            "lse_max_abs_err": lse_err,
-            "flops": flops, "ms": timer.ms(run_lse),
-            "device_ms": timer.device_ms(run_lse, "flash_fwd_"),
-            "plain_ms": timer.ms(lambda: flash_attention_fwd_plain(
-                fq, fk, fv, causal=causal), iters=5),
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": timer.ms(_sdpa(F, fq, fk, fv, causal))}
-        del fq, fk, fv
-    rows["flash_attention"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:147",
-        **flash_timed.pop(None), "shapes": flash_timed}
+    rows["flash_attention"] = _flash_fwd_rows(torch, F, timer, randn,
+                                              randn_t, checks)
     rows["flash_attention_bwd"] = _flash_bwd_rows(torch, F, timer, randn,
                                                   randn_t, checks)
     torch.cuda.empty_cache()
@@ -1654,6 +1778,41 @@ def phase_kernels(torch, timer):
                 "bound_cuda_core_ms": kernel_work.bound_ms(
                     flops, nbytes, "float32")[0],
                 "library_ms": None}
+    # the forward with chunk states at the training paths' shapes (the
+    # next rule-2 candidates: measured, not changed): mamba2-1.3b's and
+    # zamba2-2.7b's, inputs from a generator of their own
+    rn_s = _randn_from(torch, 31)
+    for (b, s, h, p, n), key in SSD_FWD_TRAIN.items():
+        args = (rn_s(b, s, h, p),
+                torch.rand((b, s, h), generator=rn_s.gen, device="cuda")
+                * 0.29 + 0.01,
+                torch.log(torch.arange(1, h + 1, device="cuda",
+                                       dtype=torch.float32)),
+                rn_s(b, s, n) * 0.3, rn_s(b, s, n) * 0.3, rn_s(h))
+        got = ssd_scan_with_states(*args, chunk=128)
+        _, states_ref, y_ref, _ = ssd_chunks_plain(*args, chunk=128)
+        err = _check(f"ssd_scan/{b}x{s}x{h}x{p}x{n}/chunk128/states",
+                     (got[0], got[2]), (y_ref, states_ref), SSD_TOL, checks)
+        del got, y_ref, states_ref
+        nbytes, flops = kernel_work.ssd_work(b, s, h, p, n, 128)
+        # and the chunk states written, (B, chunks, H, N, P) f32
+        nbytes += 4 * b * -(-s // 128) * h * n * p
+        bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
+
+        def run(args=args):
+            return ssd_scan_with_states(*args, chunk=128)
+
+        ssd_timed[key] = {
+            "shape": [b, s, h, p, n], "chunk": 128, "dtype": "float32",
+            "with_states": True, "max_abs_err": err, "bytes": nbytes,
+            "flops": flops, "ms": timer.ms(run),
+            "device_ms": timer.device_ms(run, "ssd_"),
+            "device_ms_by_kernel": {k_: timer.device_ms(run, k_) for k_ in
+                                    ("ssd_cb_kernel", "ssd_scan_kernel")},
+            "plain_ms": timer.ms(lambda: ssd_chunks_plain(
+                *args, chunk=128), iters=3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del args
     rows["ssd_scan"] = {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:127",
@@ -3623,7 +3782,8 @@ def phase_verify(torch):
         "train_dbrx": (2, 48, 8, 4096, 128)}
     for B, H, KH, S, D in attn.values():
         for dt in (torch.bfloat16, torch.float32):
-            res = check_grid(flash_attention_model(B, H, KH, S, D, dt))
+            res = check_grid(flash_attention_model(B, H, KH, S, D, dt,
+                                                   programs=sms))
             rep.extend(res.findings)
             rep.grids_checked += 1
         for causal in (True, False):
@@ -3878,7 +4038,8 @@ def main() -> int:
     extra = ("device_ms", "compiled", "shapes", "bound_cuda_core_ms",
              "nearest_call_ms", "mma_sync_ms", "device_ms_by_kernel",
              "bitwise_repeat", "norm_rel_err", "norm_rel_err_vs_f64",
-             "scratch_bytes", "in_turns", "kernels")
+             "scratch_bytes", "in_turns", "kernels", "in_turns_vs_mma_sync",
+             "mma_sync_max_abs_err", "mma_sync_norm_rel_err", "build")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],

@@ -20,10 +20,15 @@
 // addresses of an ldmatrix 176 bytes apart, in distinct bank quads, and the
 // products take 5 k-steps of 16 and 10 n-tiles of 8.
 //
-// Two entry points, chosen by the wrapper from the input dtype before it
-// launches (never as a fallback after a failure):
+// Three forward entry points, chosen by the wrapper from the input dtype
+// and head_dim before it launches (never as a fallback after a failure):
 //
-// bf16 (the model path): FlashAttention-2's structure on mma.sync.
+// bf16 at head_dim 64, 80 and 128 (every model path): Hopper's warpgroup
+// products fed by TMA, flash_fwd_sm90_kernel; its design is described
+// with it, after the backward's wgmma kernels.
+//
+// bf16 at head_dim 16 and 32, and the yardstick at every head_dim:
+// FlashAttention-2's structure on mma.sync.
 // - One block of 4 warps per (b * H + h, query tile of 64 rows); each warp
 //   owns 16 query rows, held in registers as m16n8k16 A fragments
 //   (ldmatrix from the staged tile).
@@ -104,6 +109,7 @@ struct Args {
   const int* dkdv_work = nullptr;
   const int* dq_work = nullptr;
   int dkdv_programs = 0, dq_programs = 0;
+  int fwd_programs = 0;  // the forward's grid; it orders its own items
 };
 
 // ---------------------------------------------------------------- bf16 --
@@ -1341,12 +1347,13 @@ constexpr size_t sm90_smem_bytes() {
   return sizeof(T) + 1024;  // room to align the base to 1024
 }
 
-// a 64 x 64 f32 accumulator (32 a thread) as bf16 register A fragments:
-// n-blocks 2kk, 2kk + 1 of each warp's rows are k-step kk
-__device__ __forceinline__ void acc_to_a(const float (&c)[32],
-                                         uint32_t (&a)[4][4]) {
+// a 64 x 16KS f32 accumulator (8KS a thread) as bf16 register A
+// fragments: n-blocks 2kk, 2kk + 1 of each warp's rows are k-step kk
+template <int KS>
+__device__ __forceinline__ void acc_to_a(const float (&c)[8 * KS],
+                                         uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = mma::pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
     a[kk][1] = mma::pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
     a[kk][2] = mma::pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
@@ -1354,15 +1361,15 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[32],
   }
 }
 
-// d (64 x D) += a (64 x 64, four k-steps in registers) . b (64 x D bf16
-// in shared memory, MN-major, boxes of `box_bytes`)
-template <int D>
+// d (64 x D) += a (64 x 16KS, KS k-steps in registers) . b (16KS x D
+// bf16 in shared memory, MN-major, boxes of `box_bytes`)
+template <int D, int KS>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4][4],
+                                         const uint32_t (&a)[KS][4],
                                          uint32_t b, uint32_t box_bytes) {
   static_assert(D == 64 || D == 80 || D == 128, "a wgmma N of the head dim");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint64_t db = hopper::desc_sw128(b + kk * 2048, box_bytes, 1024);
     if constexpr (D == 128)
       hopper::wgmma_m64n128k16_rs(d, a[kk], db);
@@ -1373,18 +1380,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   }
 }
 
-// d (64 x 64) = a (64 x D) . b (64 x D)^T, both K-major in shared memory,
-// boxes of a_box and b_box bytes (k-step kk in box kk / 4)
-template <int D>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
+// d (64 x 2NH) = a (64 x D) . b (2NH x D)^T, both K-major in shared
+// memory, boxes of a_box and b_box bytes (k-step kk in box kk / 4); 2NH is
+// 64 or 128 kv rows
+template <int D, int NH>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NH], uint32_t a,
                                          uint32_t a_box, uint32_t b,
                                          uint32_t b_box) {
+  static_assert(NH == 32 || NH == 64, "a wgmma N of 64 or 128");
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t in = (kk % 4) * 32;
-    hopper::wgmma_m64n64k16_ss(
-        d, hopper::desc_sw128(a + (kk / 4) * a_box + in, 0, 1024),
-        hopper::desc_sw128(b + (kk / 4) * b_box + in, 0, 1024), kk > 0);
+    const uint64_t da = hopper::desc_sw128(a + (kk / 4) * a_box + in, 0, 1024);
+    const uint64_t db = hopper::desc_sw128(b + (kk / 4) * b_box + in, 0, 1024);
+    if constexpr (NH == 64)
+      hopper::wgmma_m64n128k16_ss(d, da, db, kk > 0);
+    else
+      hopper::wgmma_m64n64k16_ss(d, da, db, kk > 0);
   }
 }
 
@@ -1795,6 +1807,354 @@ cudaError_t launch_bwd_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
+// -------------------------------------------------- forward, wgmma (sm90) --
+//
+// The bf16 forward at head_dim 64, 80 and 128, entry
+// flash_attention_fwd_bf16_sm90 (the wrapper, flash_attention.fwd_kernel,
+// chooses the entry by head_dim before the launch; 16 and 32 keep the
+// mma.sync kernel above, entry flash_attention_fwd_bf16, which runs at
+// every head_dim and is the yardstick chip_smoke.py times beside this one).
+//
+// What bounds it: at the dense training path's attention (B 2, H 24, KH 8,
+// S 4096, D 128, causal, with the lse) the two products are 206 GFLOP
+// (0.21 ms at 989 TFLOP/s), the bytes 0.03 ms; at the serve prefill
+// (S 512) bytes and operations are within 2x of each other. Both ask for
+// the tensor cores at Hopper's rate, which mma.sync (issued per warp,
+// every K and V fragment staged through ldmatrix into registers) did not
+// reach: the mma.sync kernel ran at 26 % of the bf16 peak at the train
+// shape, SDPA at 58 % (PERF.md §6). What this design does:
+// 1. Both products are wgmma from one warpgroup of 64 query rows. S = Q K^T
+//    reads Q and K from shared memory through descriptors (128-byte
+//    swizzle, as TMA writes them), m64n128k16 over a 128-row kv tile
+//    (D / 16 k-steps; at D 80 the fifth from the second box). O += P V
+//    takes P from registers (the f32 scores, rounded to bf16: the C layout
+//    of two n-blocks is the A layout of one k-step) and V MN-major,
+//    m64nDk16, 8 k-steps.
+// 2. Warp specialisation: 3 warpgroups a block. One producer thread keeps
+//    the item's Q tile (128 rows) and a 3-stage ring of K and V tiles in
+//    flight by TMA, a full and an empty mbarrier per tile and stage, so a
+//    stage's K is refilled as soon as its scores are done, before its P V.
+//    The producer's warpgroup gives up its registers (setmaxnreg) to the
+//    two consumer warpgroups, each holding 64 query rows: O (D / 2 f32 a
+//    thread), one score tile (64) and the bf16 P fragments (32), so each
+//    K and V tile brought into shared memory feeds 128 rows.
+// 3. In a consumer, kv tile j's scores are issued before tile j - 1's P V,
+//    and the online softmax of tile j runs while P V is on the tensor
+//    cores; O is rescaled once P V is waited for. The two consumers issue
+//    their products in turns (FA3's ping-pong: named barriers 1 and 2,
+//    each warpgroup waits for its own, issues, and lets the other go), so
+//    one's softmax and epilogue run under the other's products: 2-8 %
+//    faster than issuing freely (PERF.md §6).
+// 4. A persistent grid of at most one block an SM that orders its work
+//    itself, so a new shape costs the host nothing: item i of the
+//    B·H · ceil(S / 128) is query tile n_qt - 1 - i / (B·H) of head
+//    i % (B·H), the heaviest causal tiles first and the heads of a GQA
+//    group side by side (K and V stay in L2). The programs take the items
+//    in rounds of gridDim.x, dealt forward and backward in turn
+//    (fwd_item): the causal triangle's longest program is within a kv
+//    tile or 4 % of what dealing each item to the least loaded program
+//    gives (`flash_attention.fwd_schedule` models the order). The
+//    producer loads the next item's Q while the consumers finish the
+//    last one.
+// The online softmax works on the accumulator fragments as in the mma.sync
+// kernel: row max and sum over the 4 lanes of a quad by shuffles; exp2
+// with scale * log2(e) folded into one FMA (ex2.approx.ftz); P is rounded
+// to bf16 as the TPU kernel's p.astype(v.dtype); l sums the unrounded p.
+// Causal: an item walks the kv tiles up to its last row; masks are applied
+// only on tiles that cross the diagonal or the ragged end of S. Rows past
+// S arrive zero-filled from the TMA box and are not stored. With lse,
+// each row's natural-log log-sum-exp (row_lse). The output is the same
+// with and without lse, and two calls give the same bits (each row is
+// summed by one warpgroup in one order).
+
+constexpr int FWD_BM = 128;    // query rows of a work item (64 a consumer)
+constexpr int FWD_BN = 128;    // kv rows a tile
+constexpr int FWD_STAGES = 3;  // the K and V ring
+// registers a thread after setmaxnreg, at every head_dim. The kernel
+// starts at 168 (384 threads); setmaxnreg.inc waits until the block's
+// other warps have released what it asks for, so what the producer gives
+// up must cover what the two consumers take: 128 x (168 - 40) =
+// 2 x 128 x (232 - 168). At the backward's 24 / 240 the producer's item
+// decoding (divisions by the tile count and H) spills a register (ptxas,
+// D 128); a consumer needs about 190 (O, one score tile, P).
+constexpr int FWD_PRODUCER_REGS = 40;
+constexpr int FWD_CONSUMER_REGS = 232;
+static_assert(128 * (168 - FWD_PRODUCER_REGS) >=
+                  2 * 128 * (FWD_CONSUMER_REGS - 168),
+              "the consumers take no more registers than the producer frees");
+
+template <int D>
+struct FwdSmem {
+  static constexpr int NB = sm90_boxes(D);
+  bf16 q[NB][FWD_BM][64];
+  bf16 k[FWD_STAGES][NB][FWD_BN][64];
+  bf16 v[FWD_STAGES][NB][FWD_BN][64];
+  uint64_t q_full, q_empty;
+  uint64_t k_full[FWD_STAGES], k_empty[FWD_STAGES];
+  uint64_t v_full[FWD_STAGES], v_empty[FWD_STAGES];
+};
+
+// one kv tile's online-softmax step on a consumer's 64 x 128 scores `s`
+// (raw logits in; on return p = exp2(s * sl2 - m * sl2), masked ones 0):
+// updates the thread's two rows' max m (raw units) and unrounded sum l,
+// and sets alpha, the factor l was and O is to be rescaled by
+__device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float sl2,
+                                             int k0, int row0, int qd, int S,
+                                             bool causal, bool mask) {
+  if (mask) {
+#pragma unroll
+    for (int jj = 0; jj < FWD_BN / 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + 8 * jj + 2 * qd + (i & 1);
+        if (col >= S || (causal && col > row0 + 8 * (i >> 1)))
+          s[4 * jj + i] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jj = 0; jj < FWD_BN / 8; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[4 * jj + i]);
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    mu[r] = m_new == -INFINITY ? 0.f : m_new * sl2;  // a row masked so far
+    alpha[r] = hopper::exp2_ftz(m[r] * sl2 - mu[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int jj = 0; jj < FWD_BN / 8; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p =
+          hopper::exp2_ftz(fmaf(s[4 * jj + i], sl2, -mu[i >> 1]));
+      l[i >> 1] += p;
+      s[4 * jj + i] = p;
+    }
+}
+
+// this program's r-th work item: the items in rounds of gridDim.x, even
+// rounds dealt forward and odd ones backward (snake order); past the
+// item count once the program has none left
+__device__ __forceinline__ int fwd_item(int r) {
+  const int p = r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return r * gridDim.x + p;
+}
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      bf16* __restrict__ o, float* __restrict__ lse, int B,
+                      int H, int KH, int S, float scale, int causal) {
+  using Smem = FwdSmem<D>;
+  constexpr int NB = Smem::NB;
+  constexpr uint32_t Q_BOX = FWD_BM * 128, KV_BOX = FWD_BN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(&sm.k_full[s], 1);
+      hopper::mbar_init(&sm.k_empty[s], SM90_CONSUMERS / 32);
+      hopper::mbar_init(&sm.v_full[s], 1);
+      hopper::mbar_init(&sm.v_empty[s], SM90_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + FWD_BM - 1) / FWD_BM;
+  const int rep = H / KH;
+  const int BH = B * H, n_items = BH * n_qt;
+  // kv tiles a query tile walks: up to its last row if causal
+  auto n_kv = [&](int q0) {
+    return ((causal ? min(S, q0 + FWD_BM) : S) + FWD_BN - 1) / FWD_BN;
+  };
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<FWD_PRODUCER_REGS>();
+    if (tid == SM90_CONSUMERS) {
+      int stage = 0;
+      uint32_t kv_par = 1, q_par = 1;  // empty barriers: the first waits pass
+      for (int r = 0, i; (i = fwd_item(r)) < n_items; ++r) {
+        const int bh = i % BH, q0 = (n_qt - 1 - i / BH) * FWD_BM;
+        const int bkh = bh / H * KH + bh % H / rep;
+        hopper::mbar_wait(&sm.q_empty, q_par);
+        q_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.q_full, NB * Q_BOX);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(sm.q[c], &tm_q, &sm.q_full, 64 * c, q0, bh);
+        const int nk = n_kv(q0);
+        for (int j = 0; j < nk; ++j) {
+          hopper::mbar_wait(&sm.k_empty[stage], kv_par);
+          hopper::mbar_arrive_expect_tx(&sm.k_full[stage], NB * KV_BOX);
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            hopper::tma_load_3d(sm.k[stage][c], &tm_k, &sm.k_full[stage],
+                                64 * c, j * FWD_BN, bkh);
+          hopper::mbar_wait(&sm.v_empty[stage], kv_par);
+          hopper::mbar_arrive_expect_tx(&sm.v_full[stage], NB * KV_BOX);
+#pragma unroll
+          for (int c = 0; c < NB; ++c)
+            hopper::tma_load_3d(sm.v[stage][c], &tm_v, &sm.v_full[stage],
+                                64 * c, j * FWD_BN, bkh);
+          if (++stage == FWD_STAGES) {
+            stage = 0;
+            kv_par ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 query rows each
+    hopper::reg_alloc<FWD_CONSUMER_REGS>();
+    const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const float sl2 = scale * kLog2e;
+    const uint32_t q_s = hopper::smem_u32(&sm.q[0][64 * wg][0]);
+    // the two warpgroups take turns to issue their products (barriers 1
+    // and 2: each waits for its own, then lets the other go)
+    auto turn = [&] { hopper::named_bar_sync(1 + wg, SM90_CONSUMERS); };
+    auto pass = [&] { hopper::named_bar_arrive(2 - wg, SM90_CONSUMERS); };
+    if (wg == 1) pass();  // warpgroup 0 goes first
+    int stage = 0;
+    uint32_t kv_par = 0, q_par = 0;
+    for (int r = 0, i; (i = fwd_item(r)) < n_items; ++r) {
+      const int bh = i % BH, q0 = (n_qt - 1 - i / BH) * FWD_BM;
+      const int r_lo = q0 + 64 * wg;          // this warpgroup's first row
+      const int row0 = r_lo + 16 * warp + g;  // this thread's: row0, row0 + 8
+      const int nk = n_kv(q0);
+      float acc[D / 2], s[FWD_BN / 2], alpha[2];
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      uint32_t p[FWD_BN / 16][4];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      hopper::mbar_wait(&sm.q_full, q_par);
+      q_par ^= 1;
+      // tile 0's scores and P
+      hopper::mbar_wait(&sm.k_full[stage], kv_par);
+      turn();
+      hopper::wgmma_fence();
+      wgmma_ss<D>(s, q_s, Q_BOX, hopper::smem_u32(sm.k[stage][0]), KV_BOX);
+      hopper::wgmma_commit();
+      pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+      hopper::mbar_arrive_warp(&sm.k_empty[stage]);
+      softmax_tile(s, m, l, alpha, sl2, 0, row0, qd, S, causal,
+                   FWD_BN > S || (causal && FWD_BN - 1 > r_lo));
+      acc_to_a(s, p);
+      int pv_stage = stage;  // the tile whose P V is next
+      uint32_t pv_par = kv_par;
+      if (++stage == FWD_STAGES) {
+        stage = 0;
+        kv_par ^= 1;
+      }
+      for (int j = 1; j < nk; ++j) {
+        const int k0 = j * FWD_BN;
+        hopper::mbar_wait(&sm.k_full[stage], kv_par);
+        hopper::mbar_wait(&sm.v_full[pv_stage], pv_par);
+        hopper::fence_operand(acc);
+        turn();
+        hopper::wgmma_fence();
+        wgmma_ss<D>(s, q_s, Q_BOX, hopper::smem_u32(sm.k[stage][0]), KV_BOX);
+        hopper::wgmma_commit();
+        wgmma_rs<D>(acc, p, hopper::smem_u32(sm.v[pv_stage][0]), KV_BOX);
+        hopper::wgmma_commit();
+        pass();
+        hopper::wgmma_wait<1>();  // the scores; P V runs on
+        hopper::fence_operand(s);
+        hopper::mbar_arrive_warp(&sm.k_empty[stage]);
+        softmax_tile(s, m, l, alpha, sl2, k0, row0, qd, S, causal,
+                     k0 + FWD_BN > S || (causal && k0 + FWD_BN - 1 > r_lo));
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(acc);
+        hopper::fence_operand(p);
+        hopper::mbar_arrive_warp(&sm.v_empty[pv_stage]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        acc_to_a(s, p);
+        pv_stage = stage;
+        pv_par = kv_par;
+        if (++stage == FWD_STAGES) {
+          stage = 0;
+          kv_par ^= 1;
+        }
+      }
+      hopper::mbar_arrive_warp(&sm.q_empty);  // the next Q loads meanwhile
+      hopper::mbar_wait(&sm.v_full[pv_stage], pv_par);
+      hopper::fence_operand(acc);
+      turn();
+      hopper::wgmma_fence();
+      wgmma_rs<D>(acc, p, hopper::smem_u32(sm.v[pv_stage][0]), KV_BOX);
+      hopper::wgmma_commit();
+      pass();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+      hopper::fence_operand(p);
+      hopper::mbar_arrive_warp(&sm.v_empty[pv_stage]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * r] *= inv;
+          acc[4 * j + 2 * r + 1] *= inv;
+        }
+        const int row = row0 + 8 * r;
+        if (lse != nullptr && qd == 0 && row < S)
+          lse[static_cast<int64_t>(bh) * S + row] =
+              row_lse(m[r] * scale, l[r]);
+      }
+      store_rows<D>(o + static_cast<int64_t>(bh) * S * D, acc, row0, S, qd);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_sm90(const Args& a) {
+  if (a.fwd_programs <= 0) return cudaErrorInvalidValue;
+  const int n_items = a.B * a.H * ((a.S + FWD_BM - 1) / FWD_BM);
+  const int programs = a.fwd_programs < n_items ? a.fwd_programs : n_items;
+  constexpr size_t smem = sm90_smem_bytes<FwdSmem<D>>();
+  auto kern = flash_fwd_sm90_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int n, rows;
+  } maps[3] = {{&tq, a.q, a.B * a.H, FWD_BM},
+               {&tk, a.k, a.B * a.KH, FWD_BN},
+               {&tv, a.v, a.B * a.KH, FWD_BN}};
+  for (const auto& m : maps)
+    if ((err = hopper::bf16_tile_map(m.map, m.base, D, a.S, m.n, m.rows)) !=
+        cudaSuccess)
+      return err;
+  kern<<<programs, SM90_THREADS, smem, a.stream>>>(
+      tq, tk, tv, static_cast<bf16*>(a.o), a.lse, a.B, a.H, a.KH, a.S, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ dispatch --
 
 using Launch = cudaError_t (*)(const Args&);
@@ -1853,6 +2213,23 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
   if ((S + TC_BM - 1) / TC_BM > 65535) return cudaErrorInvalidValue;
   return dispatch(kBf16, fwd_args(q, k, v, o, lse, B, H, KH, S, scale, causal,
                                   stream), D);
+}
+
+// The same on the wgmma kernel, at head_dim 64, 80 and 128 only: a
+// persistent grid of min(programs, work items) blocks (programs: the
+// SMs), each ordering its own items (fwd_item). Returns a cudaError_t.
+int flash_attention_fwd_bf16_sm90(const void* q, const void* k,
+                                  const void* v, void* o, void* lse, int B,
+                                  int H, int KH, int S, int D, float scale,
+                                  int causal, int programs, void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
+    return cudaErrorInvalidValue;
+  Args a = fwd_args(q, k, v, o, lse, B, H, KH, S, scale, causal, stream);
+  a.fwd_programs = programs;
+  return D == 64    ? launch_fwd_sm90<64>(a)
+         : D == 80  ? launch_fwd_sm90<80>(a)
+         : D == 128 ? launch_fwd_sm90<128>(a)
+                    : cudaErrorInvalidValue;
 }
 
 // f32 q, k, v, o on the CUDA cores; lse as above. Returns a cudaError_t.

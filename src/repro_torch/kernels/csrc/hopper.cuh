@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA tile copies and bulk copies into shared memory, warpgroup
 // products (wgmma: shared-memory descriptors, fence / commit / wait, the
-// product shapes the kernels use: m64n64k16 from shared memory, m64n64k16,
-// m64n80k16 and m64n128k16 with A from registers) and register moves between warpgroups
+// product shapes the kernels use: m64n64k16 and m64n128k16 from shared
+// memory, m64n64k16, m64n80k16 and m64n128k16 with A from registers) and register moves between warpgroups
 // (setmaxnreg). The host part builds TMA descriptors with
 // cuTensorMapEncodeTiled of libcuda, reached through
 // cudaGetDriverEntryPoint, so a library that includes this header links
@@ -170,6 +170,16 @@ __device__ __forceinline__ void fence_operand(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// the same for register A fragments that an asynchronous product reads:
+// they stay live, and unmoved, until this point
+template <int N, int M>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // 2^x on the special-function unit, subnormal results flushed to zero
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -182,6 +192,16 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ void mbar_arrive_warp(uint64_t* bar) {
   __syncwarp();
   if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// named barriers (0 is __syncthreads'): wait until `threads` threads have
+// arrived at barrier `id`, counting this warp; or only arrive
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int R>
@@ -216,6 +236,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) = a . b^T [+ d]: a (64 x 16) and b (128 x 16) bf16
+// from shared memory, both K-major; d is overwritten where accumulate is 0
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

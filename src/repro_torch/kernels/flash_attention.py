@@ -8,10 +8,13 @@ what bounds it on the H100 and what its design does about that. It is
 built by :mod:`repro_torch.kernels.cuda_build` at first use and called
 through ``ctypes`` on PyTorch's current stream.
 
-The wrapper picks the kernel by dtype before it launches: bf16 (the
-model's path) runs on the bf16 tensor cores (``mma.sync``), f32 on the
+The wrapper picks the kernel by dtype and head_dim before it launches
+(:func:`fwd_kernel`): bf16 (the model's path) runs Hopper's warpgroup
+products (``wgmma``, tiles brought in by TMA, a persistent grid that
+orders its own work, modelled by :func:`fwd_schedule`) at the head dims
+of ``WGMMA_HEAD_DIMS`` and ``mma.sync`` at the others; f32 runs on the
 CUDA cores, whose full f32 products hold the f32 tolerance that TF32
-would miss. Neither is a fallback for the other: a launch that fails
+would miss. None is a fallback for another: a launch that fails
 raises.
 
 Training differentiates it as the JAX package's ``jax.custom_vjp`` of
@@ -21,7 +24,7 @@ hand-written backward kernel of the same source (no TPU kernel: the JAX
 package's backward is jnp), with ``flash_attention_bwd_plain`` its
 plain version. In bf16 the backward runs Hopper's warpgroup products
 (``wgmma``, tiles brought in by TMA, a persistent grid) at the head dims
-of ``WGMMA_BWD_HEAD_DIMS`` and ``mma.sync`` at the others
+of ``WGMMA_HEAD_DIMS`` and ``mma.sync`` at the others
 (:func:`bwd_kernel`); the wgmma kernels walk work lists that
 :func:`bwd_schedule` orders on the host.
 """
@@ -40,16 +43,21 @@ from . import cuda_build
 from . import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
-_FWD = {torch.float32: "flash_attention_fwd_f32",
-        torch.bfloat16: "flash_attention_fwd_bf16"}
-# the backward's library entry of each kind of kernels (:func:`bwd_kernel`)
+DTYPES = (torch.float32, torch.bfloat16)
+# the forward's and the backward's library entry of each kind of kernels
+# (:func:`fwd_kernel`, :func:`bwd_kernel`)
+_FWD = {"cuda_cores": "flash_attention_fwd_f32",
+        "mma_sync": "flash_attention_fwd_bf16",
+        "wgmma": "flash_attention_fwd_bf16_sm90"}
 _BWD = {"cuda_cores": "flash_attention_bwd_f32",
         "mma_sync": "flash_attention_bwd_bf16",
         "wgmma": "flash_attention_bwd_bf16_sm90"}
-# head dims whose bf16 backward runs the wgmma kernels (rows of 64-column
-# TMA boxes, 80 as two with the second zero-filled past column 80); the
-# others run the mma.sync kernels
-WGMMA_BWD_HEAD_DIMS = (64, 80, 128)
+# head dims whose bf16 forward and backward run the wgmma kernels (rows of
+# 64-column TMA boxes, 80 as two with the second zero-filled past column
+# 80); the others run the mma.sync kernels
+WGMMA_HEAD_DIMS = (64, 80, 128)
+FWD_ITEM = 128       # query rows of a wgmma forward work item
+FWD_STEP = 128       # kv rows per step of its walk
 BWD_KV_ITEM = 128    # kv rows of a dk/dv work item
 BWD_KV_STEP = 64     # query rows per step of its walk
 BWD_Q_ITEM = 128     # query rows of a dq work item
@@ -61,9 +69,10 @@ BWD_PAD = 128        # the wgmma kernels' lse and delta rows, padded
 def _load() -> ctypes.CDLL:
     lib = cuda_build.load("flash_attention.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry in _FWD.values():
+    fwd = [p] * 5 + [i] * 5 + [ctypes.c_float, i]
+    for kind, entry in _FWD.items():
         fn = getattr(lib, entry)
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = fwd + ([i, p] if kind == "wgmma" else [p])
         fn.restype = i
     bwd = [p] * 10 + [i] * 5 + [ctypes.c_float, i]
     for kind, entry in _BWD.items():
@@ -110,7 +119,7 @@ def _check(q, k, v, *more):
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"{3 if name == 'lse' else 4}-d tensor, got "
                              f"shape {tuple(t.shape)}")
-    if q.dtype not in _FWD:
+    if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} (float32 or "
                         "bfloat16)")
     KH = k.shape[1]
@@ -198,31 +207,55 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
-    """Which backward kernels a call of this head_dim and dtype launches:
-    ``"wgmma"`` (bf16 at ``WGMMA_BWD_HEAD_DIMS``), ``"mma_sync"`` (bf16
-    at the other head dims) or ``"cuda_cores"`` (f32), decided before the
-    launch, never after a failure."""
-    if head_dim not in HEAD_DIMS or dtype not in (torch.float32,
-                                                 torch.bfloat16):
-        raise ValueError(f"flash_attention_bwd: head_dim {head_dim}, "
-                         f"dtype {dtype}")
+def _kind(head_dim: int, dtype: torch.dtype, what: str) -> str:
+    if head_dim not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"{what}: head_dim {head_dim}, dtype {dtype}")
     if dtype == torch.float32:
         return "cuda_cores"
-    return "wgmma" if head_dim in WGMMA_BWD_HEAD_DIMS else "mma_sync"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
-FWD_BLOCK_M = 64    # query rows of a forward block (TC_BM and BM in the source)
+def fwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
+    """Which forward kernel a call of this head_dim and dtype launches:
+    ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``), ``"mma_sync"`` (bf16 at
+    the other head dims) or ``"cuda_cores"`` (f32), decided before the
+    launch, never after a failure."""
+    return _kind(head_dim, dtype, "flash_attention")
 
 
-def fwd_launch(B: int, H: int, KH: int, S: int, dtype: torch.dtype):
-    """The forward launch as ``csrc/flash_attention.cu`` makes it:
-    ``(grid, item)``, ``item(x, y)`` the ``(b, h, query tile, kv head)``
-    block ``(x, y)`` computes. The bf16 kernel takes (b·h, tile) blocks,
-    heaviest (last) tile first; the f32 kernel (tile, b·h)."""
-    n_t = -(-S // FWD_BLOCK_M)
+def bwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
+    """Which backward kernels a call of this head_dim and dtype launches:
+    ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``), ``"mma_sync"`` (bf16
+    at the other head dims) or ``"cuda_cores"`` (f32), decided before the
+    launch, never after a failure."""
+    return _kind(head_dim, dtype, "flash_attention_bwd")
+
+
+# query rows of a forward block or work item of each kind (FWD_BM, TC_BM
+# and BM in the source)
+FWD_BLOCK_M = {"wgmma": FWD_ITEM, "mma_sync": 64, "cuda_cores": 64}
+
+
+def fwd_launch(B: int, H: int, KH: int, S: int, D: int, dtype: torch.dtype,
+               programs: int):
+    """The forward launch as ``csrc/flash_attention.cu`` makes it for the
+    kind of kernel :func:`fwd_kernel` picks: ``(grid, item)``, ``item``
+    of a grid index the ``(b, h, query tile, kv head)`` it computes, the
+    tile of ``FWD_BLOCK_M[kind]`` rows. The wgmma kernel's ``programs``
+    persistent programs (the SMs) take the items in the order
+    :func:`fwd_schedule` models: its grid here is that order, program
+    after program, one index a work item. The mma.sync
+    kernel takes (b·h, tile) blocks, heaviest (last) tile first; the f32
+    kernel (tile, b·h)."""
+    kind = fwd_kernel(D, dtype)
+    n_t = -(-S // FWD_BLOCK_M[kind])
     group = H // KH
-    if dtype == torch.bfloat16:
+    if kind == "wgmma":
+        _, items = fwd_schedule(B, H, S, programs)
+        return (len(items),), lambda x: (
+            items[x] // n_t // H, items[x] // n_t % H, items[x] % n_t,
+            items[x] // n_t % H // group)
+    if kind == "mma_sync":
         return (B * H, n_t), lambda x, y: (x // H, x % H, n_t - 1 - y,
                                            x % H // group)
     return (n_t, B * H), lambda x, y: (y // H, y % H, x, y % H // group)
@@ -289,6 +322,40 @@ def _bwd_work_tensors(B, H, KH, S, causal, device):
     return out
 
 
+def fwd_work(B: int, H: int, S: int, causal: bool) -> List[int]:
+    """The wgmma forward's work items and their work in kv tiles: item
+    ``bh * n + t`` (b·h, ``FWD_ITEM``-row query tile t of n) walks the
+    ``FWD_STEP``-row kv tiles up to its last row if causal, else all."""
+    n_qt = -(-S // FWD_ITEM)
+    return [-(-(min(S, (t + 1) * FWD_ITEM) if causal else S) // FWD_STEP)
+            for _ in range(B * H) for t in range(n_qt)]
+
+
+def fwd_schedule(B: int, H: int, S: int, programs: int):
+    """``(starts, items)``: the forward's work items (:func:`fwd_work`
+    indices) as the wgmma kernel's ``min(programs, items)`` persistent
+    programs take them (``fwd_item`` in the source), program ``p``'s
+    ``items[starts[p]:starts[p + 1]]`` in its order. Deal index ``i`` is
+    query tile ``n - 1 - i // (B·H)`` of head ``i % (B·H)``: the
+    heaviest causal tiles first, the heads of a group side by side. The
+    programs take the deal in rounds of their count, forward in even
+    rounds and backward in odd ones, so that the causal triangle leaves
+    no tail: the longest program is within one item's work or 4 % of
+    :func:`_lpt`'s. The order does not depend on the mask."""
+    n_qt = -(-S // FWD_ITEM)
+    bh, n = B * H, B * H * n_qt
+    P = min(programs, n)
+    lists: List[List[int]] = [[] for _ in range(P)]
+    for i in range(n):
+        r, p = divmod(i, P)
+        lists[P - 1 - p if r % 2 else p].append(
+            i % bh * n_qt + n_qt - 1 - i // bh)
+    starts = [0]
+    for items in lists:
+        starts.append(starts[-1] + len(items))
+    return starts, [i for items in lists for i in items]
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
                 with_lse: bool):
     """One forward launch: ``(o, lse)``, lse None unless asked for (the
@@ -303,11 +370,16 @@ def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
     if q.device.type == "meta":
         _record_fwd(q, k, causal, with_lse)
         return o, lse
+    kind = fwd_kernel(D, q.dtype)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KH, S, D, scale,
+            int(causal)]
+    if kind == "wgmma":
+        args.append(torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
     lib = _load()
-    _raise_on(lib, getattr(lib, _FWD[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, KH, S, D, scale,
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream),
+    _raise_on(lib, getattr(lib, _FWD[kind])(
+        *args, torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention")
     flash_attention.launches += 1
     return o, lse

@@ -568,24 +568,29 @@ def check_compiled(name: str, n_regs: Optional[int],
 # The hand-written CUDA kernels
 # ---------------------------------------------------------------------------
 def flash_attention_model(B: int, H: int, KH: int, S: int, D: int,
-                          dtype=None) -> GridModel:
+                          dtype=None, *, programs: int) -> GridModel:
     """The flash-attention forward launch as a checkable model, from
-    :func:`repro_torch.kernels.flash_attention.fwd_launch`: each block
-    reads its query tile and its kv head's k and v, and writes its
-    output tile; the kv head must lie in ``[0, KH)``."""
+    :func:`repro_torch.kernels.flash_attention.fwd_launch` for the kernel
+    the dtype and head_dim pick: each block (for the wgmma kernel, each
+    work item its ``programs`` persistent programs take) reads its query
+    tile and its kv head's k and v, and writes its output tile; the kv
+    head must lie in ``[0, KH)``. Coverage and disjointness then certify
+    that the programs take every (b, h, query tile) exactly once."""
     import torch
 
-    from repro_torch.kernels.flash_attention import FWD_BLOCK_M, fwd_launch
-    grid, item = fwd_launch(B, H, KH, S, dtype or torch.bfloat16)
+    from repro_torch.kernels.flash_attention import (FWD_BLOCK_M,
+                                                     fwd_kernel, fwd_launch)
+    dtype = dtype or torch.bfloat16
+    grid, item = fwd_launch(B, H, KH, S, D, dtype, programs)
 
-    def tile(x, y):
-        b, h, t, _ = item(x, y)
+    def tile(*c):
+        b, h, t, _ = item(*c)
         return b, h, t, 0
 
-    def kv(x, y):
-        b, _, _, kh = item(x, y)
+    def kv(*c):
+        b, _, _, kh = item(*c)
         return b, kh, 0, 0
-    q_blk = (1, 1, FWD_BLOCK_M, D)
+    q_blk = (1, 1, FWD_BLOCK_M[fwd_kernel(D, dtype)], D)
     reads = (BlockAccess("q", "read", q_blk, (B, H, S, D), tile),
              BlockAccess("k", "read", (1, 1, S, D), (B, KH, S, D), kv),
              BlockAccess("v", "read", (1, 1, S, D), (B, KH, S, D), kv))

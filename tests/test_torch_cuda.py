@@ -6,6 +6,8 @@ the fixture, never at import). On the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import functools
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -257,7 +259,12 @@ def test_rotary_path_shapes(lead, pos, emitter, cuda):
     ((1, 4, 4, 1, 64), torch.bfloat16, 5e-2),
     ((1, 4, 4, 65, 64), torch.bfloat16, 5e-2),
     ((1, 4, 4, 129, 64), torch.bfloat16, 5e-2),
-    ((2, 4, 2, 96, 16), torch.bfloat16, 5e-2)])
+    ((2, 4, 2, 96, 16), torch.bfloat16, 5e-2)] + [
+    # the wgmma kernel's edges: S around its 128-row items and kv tiles
+    # and a long ragged S, GQA 12 at head_dim 128 and 7 at 64
+    ((1, h, kh, S, D), torch.bfloat16, 5e-2)
+    for S in (127, 128, 255, 257, 4095)
+    for h, kh, D in ((12, 1, 128), (14, 2, 64))])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(shape, dtype, tol, causal, cuda):
     B, H, KH, S, D = shape
@@ -276,7 +283,8 @@ def test_flash_kernel_matches_plain(shape, dtype, tol, causal, cuda):
                                        (torch.float32, 2e-3)],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("H,KH", [(4, 4), (8, 2)], ids=["mha", "gqa"])
-@pytest.mark.parametrize("S", [1, 63, 64, 65, 510])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 255, 257, 510,
+                               4095])
 def test_flash_head_dim_80_matches_plain(S, H, KH, dtype, tol, cuda):
     """zamba2's head_dim 80 (not a multiple of 64) at the tile edges and a
     510-token prompt, MHA as zamba2's shared block and GQA, causal."""
@@ -389,12 +397,19 @@ def test_flash_bwd_kernel_matches_plain(shape, causal, dtype, tol, cuda):
     _norm_rel_close(got, want, FLASH_BWD_REL[dtype])
 
 
+# the forward's lse cases: the backward's, and the wgmma forward's edges
+# (S around its 128-row items, a long ragged S; GQA 12 and 7, MHA at 80)
+FLASH_LSE_CASES = FLASH_BWD_CASES + [
+    (1, h, kh, S, D) for S in (127, 255, 257, 4095)
+    for h, kh, D in ((12, 1, 128), (14, 2, 64), (2, 2, 80))]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
                                        (torch.float32, 2e-3)],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", FLASH_BWD_CASES,
-                         ids=["x".join(map(str, c)) for c in FLASH_BWD_CASES])
+@pytest.mark.parametrize("shape", FLASH_LSE_CASES,
+                         ids=["x".join(map(str, c)) for c in FLASH_LSE_CASES])
 def test_flash_lse_matches_plain_and_leaves_the_forward(shape, causal, dtype,
                                                         tol, cuda):
     """The forward's lse against the plain version's (f32, natural log,
@@ -502,6 +517,89 @@ def test_flash_bwd_wgmma_head_dim_80(S, KH, cuda):
     _norm_rel_close(got, want, FLASH_BWD_REL[torch.bfloat16])
     for name, a, b in zip(("dq", "dk", "dv"), got, again, strict=True):
         assert torch.equal(a, b), name
+
+
+def _mma_sync_fwd(q, k, v, causal, with_lse):
+    """``(o, lse)`` of the bf16 forward on the mma.sync kernel (the
+    library's entry at every head_dim), launched by ``chip_smoke.py``'s
+    helper, which times it beside the wgmma kernel."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke._mma_sync_fwd(torch, q, k, v, causal, with_lse)()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 6, 2, 1000, 128), (1, 14, 2, 257, 64),
+                                   (2, 4, 4, 513, 80)],
+                         ids=["d128_gqa3", "d64_gqa7", "d80_mha"])
+def test_flash_fwd_wgmma_matches_mma_sync(shape, causal, cuda):
+    """At head_dim 64, 80 and 128 the wrapper launches the wgmma kernel
+    (``fwd_kernel``), and it agrees with the mma.sync kernel it replaced
+    on the same operands, output and lse, within the bf16 tolerance (both
+    round P to bf16; they sum in other orders)."""
+    from repro_torch.kernels.flash_attention import fwd_kernel
+    B, H, KH, S, D = shape
+    assert fwd_kernel(D, torch.bfloat16) == "wgmma"
+    q, k, v, _ = _flash_grad_inputs(shape, torch.bfloat16, cuda)
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    o_mma, lse_mma = _mma_sync_fwd(q, k, v, causal, True)
+    torch.cuda.synchronize()
+    _close(o, o_mma, 5e-2)
+    _norm_rel_close((o, o, o), (o_mma, o_mma, o_mma),
+                    FLASH_BWD_REL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_mma, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 8, 4096, 128),
+                                   (2, 32, 32, 4096, 80),
+                                   (2, 12, 12, 4096, 64)],
+                         ids=["minitron_train", "zamba2_train",
+                              "whisper_train"])
+def test_flash_fwd_is_deterministic(shape, cuda):
+    """Two calls of the bf16 forward at the training paths' shapes give
+    the same bits, output and lse (each row is summed by one warpgroup in
+    one order), and the output with the lse is the serve path's."""
+    q, k, v, _ = _flash_grad_inputs(shape, torch.bfloat16, cuda)
+    causal = shape[-1] != 64
+    first = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    second = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    serve, _ = _launch_fwd(q, k, v, causal, None, with_lse=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[0], serve)
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("D,H,KH,programs", [
+    (32, 4, 2, 132), (16, 4, 2, 132), (128, 6, 4, 132), (128, 4, 2, 0)],
+    ids=["head_dim_32", "head_dim_16", "h_not_a_multiple_of_kh",
+         "no_programs"])
+def test_flash_fwd_sm90_refuses_what_it_cannot_run(D, H, KH, programs,
+                                                   cuda):
+    """The library's wgmma forward entry refuses a head_dim it has no
+    instance for, H % KH != 0 and a grid of no programs (an error, not an
+    unwritten output); the mma.sync entry takes head_dims 16 and 32, and
+    the wrapper sends them there."""
+    from repro_torch.kernels.flash_attention import (_load, _raise_on,
+                                                     fwd_kernel)
+    q = torch.zeros((1, H, 64, D), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, KH, 64, D), dtype=torch.bfloat16, device=cuda)
+    o = torch.empty_like(q)
+    lib = _load()
+    err = lib.flash_attention_fwd_bf16_sm90(
+        q.data_ptr(), kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None, 1, H,
+        KH, 64, D, 0.25, 1, programs, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="flash_attention kernel"):
+        _raise_on(lib, err, "flash_attention")
+    if D in (16, 32):
+        assert fwd_kernel(D, torch.bfloat16) == "mma_sync"
+        assert lib.flash_attention_fwd_bf16(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None,
+            1, H, KH, 64, D, 0.25, 1,
+            torch.cuda.current_stream().cuda_stream) == 0
 
 
 def test_flash_bwd_rejects_what_it_cannot_run(cuda):

@@ -1,14 +1,17 @@
-"""The flash backward's host side on the CPU: the head_dim dispatch
-between its wgmma and mma.sync kernels, and the work lists that the
-wgmma kernels' persistent grids walk (``bwd_work``, ``bwd_schedule``).
-The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+"""The flash kernels' host side on the CPU: the head_dim dispatch
+between the wgmma and mma.sync kernels, forward and backward, and the
+work lists that the wgmma backward's persistent grids walk
+(``bwd_work``, ``bwd_schedule``) and the order in which the wgmma
+forward's take their items (``fwd_work``, ``fwd_schedule``). The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    _BWD, BWD_KV_ITEM, BWD_Q_ITEM, HEAD_DIMS, WGMMA_BWD_HEAD_DIMS,
-    bwd_kernel, bwd_schedule, bwd_work)
+    _BWD, _FWD, _lpt, BWD_KV_ITEM, BWD_Q_ITEM, FWD_ITEM, FWD_STEP, HEAD_DIMS,
+    WGMMA_HEAD_DIMS, bwd_kernel, bwd_schedule, bwd_work, fwd_kernel,
+    fwd_schedule, fwd_work)
 
 SHAPES = [  # (B, H, KH, S): the train path, qwen2-vl's group of 6, edges
     (2, 24, 8, 4096), (2, 12, 2, 4096), (1, 4, 2, 1), (1, 4, 2, 127),
@@ -23,7 +26,7 @@ def test_head_dim_dispatch(D):
     want = "wgmma" if D in (64, 80, 128) else "mma_sync"
     assert bwd_kernel(D, torch.bfloat16) == want
     assert bwd_kernel(D, torch.float32) == "cuda_cores"
-    assert (D in WGMMA_BWD_HEAD_DIMS) == (want == "wgmma")
+    assert (D in WGMMA_HEAD_DIMS) == (want == "wgmma")
 
 
 def test_each_kind_has_a_library_entry():
@@ -106,3 +109,116 @@ def test_schedule_keeps_a_group_side_by_side():
     first = [items[starts[p]] for p in range(H // KH)]
     assert [i // n_qt for i in first] == [0, 1, 2]
     assert {i % n_qt for i in first} == {n_qt - 1}
+
+
+# -- the forward ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_fwd_head_dim_dispatch(D):
+    """The bf16 forward at head_dim 64, 80 and 128 takes the wgmma
+    kernel, 16 and 32 the mma.sync one; f32 the CUDA-core kernel at every
+    head_dim: the same split as the backward's."""
+    want = "wgmma" if D in (64, 80, 128) else "mma_sync"
+    assert fwd_kernel(D, torch.bfloat16) == want
+    assert fwd_kernel(D, torch.float32) == "cuda_cores"
+    assert fwd_kernel(D, torch.bfloat16) == bwd_kernel(D, torch.bfloat16)
+
+
+def test_fwd_each_kind_has_a_library_entry():
+    """Every kind ``fwd_kernel`` picks names a library entry: the wgmma
+    one apart from the mma.sync one, which takes every head_dim."""
+    kinds = {fwd_kernel(D, dt) for D in HEAD_DIMS
+             for dt in (torch.bfloat16, torch.float32)}
+    assert kinds == set(_FWD)
+    assert _FWD["wgmma"] == "flash_attention_fwd_bf16_sm90"
+    assert _FWD["mma_sync"] == "flash_attention_fwd_bf16"
+    assert _FWD["cuda_cores"] == "flash_attention_fwd_f32"
+
+
+@pytest.mark.parametrize("D,dtype", [(48, torch.bfloat16),
+                                     (128, torch.float16),
+                                     (64, torch.float64)])
+def test_fwd_head_dim_dispatch_refuses(D, dtype):
+    with pytest.raises(ValueError, match="flash_attention"):
+        fwd_kernel(D, dtype)
+
+
+def _fwd_walk_lengths(B, H, S, causal):
+    """kv tiles of ``FWD_STEP`` rows each forward item walks, counted
+    from the mask: a tile is walked where it holds a key at or before the
+    item's last row (any key if not causal)."""
+    n_qt = -(-S // FWD_ITEM)
+    return [sum(1 for k0 in range(0, S, FWD_STEP)
+                if not causal or k0 <= min(S, (t + 1) * FWD_ITEM) - 1)
+            for _ in range(B * H) for t in range(n_qt)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=["x".join(map(str, s)) for s in SHAPES])
+def test_fwd_work_of_each_item(shape, causal):
+    B, H, _, S = shape
+    assert fwd_work(B, H, S, causal) == _fwd_walk_lengths(B, H, S, causal)
+
+
+@pytest.mark.parametrize("programs", [132, 7, 1, 1 << 20])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=["x".join(map(str, s)) for s in SHAPES])
+def test_fwd_schedule_covers_each_item_once_heaviest_first(shape, causal,
+                                                           programs):
+    """Every (b, head, query tile) exactly once; at most ``programs``
+    programs, none empty; each program's list in non-increasing work;
+    balanced to within one item's work of the mean. With a program for
+    every item, each takes one, heaviest first."""
+    B, H, _, S = shape
+    starts, items = fwd_schedule(B, H, S, programs)
+    w = fwd_work(B, H, S, causal)
+    n = len(starts) - 1
+    assert n == min(programs, len(w)) and starts[0] == 0
+    assert starts[-1] == len(items) and sorted(items) == list(range(len(w)))
+    loads = []
+    for p in range(n):
+        mine = [w[i] for i in items[starts[p]:starts[p + 1]]]
+        assert mine and mine == sorted(mine, reverse=True), p
+        loads.append(sum(mine))
+    assert max(loads) <= sum(w) / n + max(w)
+    if n == len(w):
+        assert [w[i] for i in items] == sorted(w, reverse=True)
+
+
+@pytest.mark.parametrize("shape,group", [((2, 24, 8, 4096), 3),
+                                         ((4, 96, 8, 512), 12),
+                                         ((4, 56, 8, 512), 7)],
+                         ids=["minitron_train", "mistral_large", "arctic"])
+def test_fwd_schedule_keeps_a_group_side_by_side(shape, group):
+    """The items dealt first, one to each of the first programs, are the
+    heads of one group over the heaviest query tile (they read the same K
+    and V at the same time)."""
+    B, H, _, S = shape
+    starts, items = fwd_schedule(B, H, S, 132)
+    n_qt = -(-S // FWD_ITEM)
+    first = [items[starts[p]] for p in range(group)]
+    assert [i // n_qt for i in first] == list(range(group))
+    assert {i % n_qt for i in first} == {n_qt - 1}
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(4, 96, 8, 512), (4, 56, 8, 512),
+                                            (2, 32, 32, 4096),
+                                            (8, 32, 8, 2048)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fwd_schedule_is_as_balanced_as_least_loaded_dealing(shape):
+    """The kernel's own order (snake rounds over heaviest first) leaves
+    the causal triangle's longest program within one item's work or 4 %
+    of dealing each item to the least loaded program (``_lpt``), at the
+    card's 132 programs."""
+    B, H, _, S = shape
+    w = fwd_work(B, H, S, True)
+
+    def longest(starts, items):
+        return max(sum(w[i] for i in items[starts[p]:starts[p + 1]])
+                   for p in range(len(starts) - 1))
+    mine = longest(*fwd_schedule(B, H, S, 132))
+    least = longest(*_lpt(w, 132))
+    assert mine <= least + max(max(w), 0.04 * least)

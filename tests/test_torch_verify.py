@@ -381,16 +381,59 @@ def test_a_bcycle_read_past_its_tables_is_flagged():
 def test_flash_launches_certify(shape, causal):
     B, H, KH, S, D = shape
     for dtype in (BF16, F32):
-        res = check_grid(flash_attention_model(B, H, KH, S, D, dtype))
+        res = check_grid(flash_attention_model(B, H, KH, S, D, dtype,
+                                               programs=132))
         assert not res.errors(), [str(f) for f in res.errors()]
     assert not check_flash_bwd_work(B, H, KH, S, causal, 132)
 
 
+@pytest.mark.parametrize("shape", [(4, 24, 8, 512, 128),    # minitron
+                                   (4, 96, 8, 512, 128),    # mistral-large
+                                   (4, 56, 8, 510, 128),    # arctic, ragged
+                                   (4, 12, 12, 512, 64),    # whisper
+                                   (2, 12, 12, 4096, 64),   # whisper train
+                                   (4, 32, 32, 512, 80),    # zamba2
+                                   (2, 8, 2, 100, 32)])     # mma.sync
+@pytest.mark.parametrize("programs", [132, 1 << 20])
+def test_flash_fwd_launch_of_each_kind_certifies(shape, programs):
+    """The bf16 forward's launch as its kind runs it: the wgmma kernel's
+    128-row items as its persistent programs take them (132 programs, or
+    a program an item) write each (b, h, query tile) once; the mma.sync
+    kernel's (b·h, 64-row tile) grid likewise."""
+    from repro_torch.kernels.flash_attention import FWD_BLOCK_M, fwd_kernel
+    B, H, KH, S, D = shape
+    kind = fwd_kernel(D, BF16)
+    model = flash_attention_model(B, H, KH, S, D, BF16, programs=programs)
+    assert model.writes[0].block_shape[2] == FWD_BLOCK_M[kind]
+    assert len(model.grid) == (1 if kind == "wgmma" else 2)
+    res = check_grid(model)
+    assert not res.errors(), [str(f) for f in res.errors()]
+
+
+@pytest.mark.parametrize("fault,code", [("twice", "grid-write-race"),
+                                        ("missing", "grid-coverage-gap")])
+def test_a_flash_fwd_work_list_fault_is_flagged(fault, code):
+    """A forward order that deals one item to two programs is a write
+    race; one that deals an item to no program is a coverage gap."""
+    from repro_torch.kernels import flash_attention as fa
+    starts, items = fa.fwd_schedule(2, 24, 4096, 132)
+    bad = (starts, [items[1]] + items[1:]) if fault == "twice" else \
+        (starts[:-1] + [starts[-1] - 1], items[:-1])
+    orig = fa.fwd_schedule
+    try:
+        fa.fwd_schedule = lambda *a: bad
+        model = flash_attention_model(2, 24, 8, 4096, 128, BF16,
+                                      programs=132)
+    finally:
+        fa.fwd_schedule = orig
+    assert code in _codes(check_grid(model).findings)
+
+
 def test_a_flash_kv_head_out_of_range_is_flagged():
-    model = flash_attention_model(1, 8, 2, 256, 64)
+    model = flash_attention_model(1, 8, 2, 256, 64, programs=132)
     k = model.reads[1]
     bad = dataclasses.replace(model, reads=(model.reads[0], dataclasses.replace(
-        k, index_map=lambda x, y: (0, x % 8, 0, 0)), model.reads[2]))
+        k, index_map=lambda x, *_: (0, x % 8, 0, 0)), model.reads[2]))
     assert "grid-oob-read" in _codes(check_grid(bad).findings)
 
 
