@@ -523,14 +523,22 @@ def _tensor_core_counts(lib):
 
 def _ptxas_by_kernel(log):
     """Registers and spill bytes of each kernel from ptxas's ``-v``
-    report: ``{name: {"registers", "spill_stores", "spill_loads"}}``."""
+    report: ``{name: {"registers", "spill_stores", "spill_loads"}}``, and
+    ``"wgmma_serialized": True`` where ptxas serialized its wgmma
+    instructions (its C7512 "Potential Performance Loss" note: each
+    product then waits for the one before)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
+        m = re.search(r"C7512.*?function '([^']+)'", line)
+        if m:
+            out.setdefault(_kernel_name(m.group(1)), {})[
+                "wgmma_serialized"] = True
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = _kernel_name(m.group(1))
-            out[name] = {}
+            out.setdefault(name, {})
             continue
         if name is None:
             continue
@@ -547,9 +555,11 @@ def _ptxas_by_kernel(log):
 
 def phase_build():
     """Both CUDA libraries, one nvcc each, all started together. The
-    wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions and
-    spill nothing; the SSD backward's kernels' registers, spills and HMMA
-    counts are reported on their own (``ssd_bwd``)."""
+    wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions, spill
+    nothing and keep their wgmma pipelined (no ptxas C7512), and the
+    SSD's hold no HMMA; the SSD backward's kernels'
+    registers, spills and HMMA / HGMMA counts are reported on their own
+    (``ssd_bwd``)."""
     from repro_torch.kernels.cuda_build import build
     t0 = time.perf_counter()
     libs = build(*CUDA_SOURCES)
@@ -569,10 +579,12 @@ def phase_build():
              for src in CUDA_SOURCES for name in tc[src] if "_sm90_" in name}
     bad = [name for name, (n, info) in wgmma.items()
            if n["HGMMA"] == 0 or info.get("spill_stores", 0)
-           or info.get("spill_loads", 0)]
+           or info.get("spill_loads", 0) or info.get("wgmma_serialized")
+           or (name.startswith("ssd_") and n["HMMA"])]
     if not wgmma or bad:
-        raise AssertionError(f"wgmma kernels without HGMMA or with spills: "
-                             f"{bad or 'none built'}")
+        raise AssertionError(f"wgmma kernels without HGMMA, with spills, "
+                             f"with serialized wgmma or (the SSD's) with "
+                             f"HMMA: {bad or 'none built'}")
     return tc
 
 
@@ -678,20 +690,104 @@ SSD_FWD_TRAIN = {(2, 4096, 64, 64, 128): "mamba2_train_with_states",
                  (2, 4096, 80, 64, 64): "zamba2_train_with_states"}
 
 
-def _ssd_bwd_rows(torch, F, timer, g, checks):
+def _ssd_launched(torch, fn, want):
+    """The SSD kernels a call of ``fn`` launches, by name, from the
+    profiler: the union over up to three sessions of a few calls each,
+    stopping once every name of ``want`` was seen (a session can lose
+    some of its records)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names |= {m.group(1) for e in prof.key_averages()
+                  for m in [re.search(r"(ssd_[a-z0-9_]+?_kernel)", e.key)]
+                  if m and e.count}
+        if want <= names:
+            break
+    return names
+
+
+def _ssd_bwd_build():
+    """Registers, spilled bytes and tensor-core instruction counts (HMMA,
+    HGMMA) of the SSD backward's kernels of both kinds, from the build's
+    ptxas report and ``cuobjdump -sass``."""
+    from repro_torch.kernels.cuda_build import build
+    lib = build("ssd_scan.cu")[0]
+    with open(f"{lib}.log") as f:
+        ptxas = _ptxas_by_kernel(f.read())
+    tc = _tensor_core_counts(lib)
+    return {name: {**info, **tc.get(name, {})}
+            for name, info in ptxas.items()
+            if name.startswith(("ssd_bwd_", "ssd_tf32_"))}
+
+
+def _tf32_unit(torch, g, checks):
+    """One 3xTF32 k-tile (64 x 32 by 32 x 64) through the SSD backward's
+    wgmma building blocks against the f64 product (norm-relative within
+    1e-6: 3xTF32 keeps ~21 bits of each operand), and one TF32 product of
+    the unsplit f32 operands against two models of the tensor core's read
+    of an f32 operand, truncation to tf32's 10 mantissa bits and rounding
+    to nearest: the nearer one says which the card does."""
+    from repro_torch.kernels.ssd_scan import tf32_unit
+    a = torch.randn((64, 32), generator=g, device="cuda")
+    b = torch.randn((64, 32), generator=g, device="cuda")
+    want = a.double() @ b.double().T
+
+    def rel(x):
+        return ((x.double() - want).norm() / want.norm()).item()
+
+    def tf32(x, rounding):
+        bits = x.view(torch.int32)
+        if rounding:
+            bits = bits + 0x1000
+        return (bits & -0x2000).view(torch.float32).double()
+
+    err3 = rel(tf32_unit(a, b))
+    raw = tf32_unit(a, b, raw=True).double()
+    models = {m: ((raw - tf32(a, r) @ tf32(b, r).T).norm()
+                  / want.norm()).item()
+              for m, r in (("truncates", False), ("rounds", True))}
+    checks.append({"name": "ssd_tf32_unit/3xtf32", "norm_rel_err": err3,
+                   "tol": 1e-6, "ok": err3 <= 1e-6})
+    return {"norm_rel_err_3xtf32": err3, "raw_norm_rel_err": rel(raw),
+            "raw_vs_model": models,
+            "f32_operand": min(models, key=models.get)}
+
+
+def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
     """The SSD backward kernels against their plain version at
-    ``SSD_BWD_CASES``: the forward's chunk states element-wise, all six
+    ``SSD_BWD_CASES``: the kind each case takes (``ssd_bwd_kind``) and the
+    kernels one call launches (a case that launches another kind's, or
+    misses one, fails), the forward's chunk states element-wise, all six
     gradients norm-relative (whole tensor and worst 64-step block) within
-    the SSD's f32 2e-4, two calls bitwise equal; at the timed shapes also
-    the kernel within 2e-4 of the plain version in f64 (the f32 plain
-    version's distance from it beside), times (the call's and each of its
-    launches' by name), the workspace's bytes, bound and the plain
-    version's time (no PyTorch call computes it)."""
+    the SSD's f32 2e-4, two calls bitwise equal, each launch's device ms
+    by name. At the timed shapes (with ``timed``) also: the kernel within
+    2e-4 of the plain version in f64 (the f32 plain version's distance
+    from it beside); the ``mma_sync`` kind on the same inputs, checked
+    against the plain version and the dispatched kind (2e-4) and timed in
+    turns beside it; the call's time, the workspace's bytes, bound and
+    the plain version's time (no PyTorch call computes it). The build's
+    registers, spills, HMMA and HGMMA of the backward's kernels are in
+    ``build``."""
     from repro_torch.roofline import kernel_work
     from repro_torch.kernels.ssd_scan import (
-        SSD_BWD_LAUNCHES, ssd_chunks_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
-        ssd_scan_bwd_scratch_bytes, ssd_scan_with_states)
-    out = {}
+        SSD_BWD_LAUNCHES, ssd_bwd_kind, ssd_chunks_plain, ssd_scan_bwd,
+        ssd_scan_bwd_plain, ssd_scan_bwd_scratch_bytes, ssd_scan_with_states)
+
+    def rel_of(got, want, b, s):
+        # each gradient as (B, S, ...) rows, (H,) ones as one row; an
+        # element rms floor of 1, as tol (1 + |want|) holds an element
+        return {name: _norm_rel(torch, F, *(t.reshape(
+            (b, s, -1) if t.dim() > 1 else (1, 1, -1)) for t in (x, w)), 1.0)
+            for name, x, w in zip(SSD_GRADS, got, want, strict=True)}
+
+    out, cases = {}, []
     for (b, s, h, p, n), chunk in SSD_BWD_CASES:
         args = (torch.randn((b, s, h, p), generator=g, device="cuda"),
                 torch.rand((b, s, h), generator=g, device="cuda") * 0.29
@@ -703,29 +799,43 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
                 torch.randn((h,), generator=g, device="cuda"))
         dy = torch.randn((b, s, h, p), generator=g, device="cuda")
         tag = f"ssd_scan_bwd/{b}x{s}x{h}x{p}x{n}/chunk{chunk}"
+        L = min(chunk, s)
+        kind = ssd_bwd_kind(L, p, n)
         states = ssd_scan_with_states(*args, chunk=chunk)[2]
         _check(f"{tag}/chunk_states", states,
                ssd_chunks_plain(*args, chunk=chunk)[1], SSD_TOL, checks)
 
-        def run(args=args, dy=dy, states=states, chunk=chunk):
-            return ssd_scan_bwd(*args, dy, states, chunk=chunk)
+        def run(args=args, dy=dy, states=states, chunk=chunk, kind=None):
+            return ssd_scan_bwd(*args, dy, states, chunk=chunk, kind=kind)
 
+        want_names = set(SSD_BWD_LAUNCHES[kind])
+        if kind == "mma_sync" and L >= s:  # one chunk: no local launch
+            want_names.discard("ssd_bwd_local_kernel")
+        launched = _ssd_launched(torch, run, want_names)
+        checks.append({"name": f"{tag}/kind", "kind": kind,
+                       "launched": sorted(launched),
+                       "ok": launched == want_names})
         got = run()
         want = ssd_scan_bwd_plain(*args, dy, chunk=chunk)
         err = max(_err(a, w) for a, w in zip(got, want))
-        # each gradient as (B, S, ...) rows, (H,) ones as one row; an
-        # element rms floor of 1, as tol (1 + |want|) holds an element
-        rel = {name: _norm_rel(torch, F, *(t.reshape(
-            (b, s, -1) if t.dim() > 1 else (1, 1, -1)) for t in (a, w)), 1.0)
-               for name, a, w in zip(SSD_GRADS, got, want, strict=True)}
+        rel = rel_of(got, want, b, s)
         bitwise = all(torch.equal(x, y) for x, y in zip(got, run()))
-        checks.append({"name": f"{tag}/norm_rel", "norm_rel_err": rel,
-                       "tol": SSD_TOL, "bitwise_repeat": bitwise,
+        checks.append({"name": f"{tag}/norm_rel", "kind": kind,
+                       "norm_rel_err": rel, "tol": SSD_TOL,
+                       "bitwise_repeat": bitwise,
                        "ok": bitwise and all(
                            bool(a.isfinite().all()) for a in got)
                        and max(max(r) for r in rel.values()) <= SSD_TOL})
+        case = {"shape": [b, s, h, p, n], "chunk": chunk, "kind": kind,
+                "launched": sorted(launched), "max_abs_err": err,
+                "norm_rel_max": max(max(r) for r in rel.values()),
+                "bitwise_repeat": bitwise,
+                "device_ms_by_kernel": {
+                    k_: timer.device_ms(run, k_)
+                    for k_ in sorted(want_names)}}
+        cases.append(case)
         key = SSD_BWD_TIMED.get((b, s, h, p, n), "untimed")
-        if key == "untimed":
+        if key == "untimed" or not timed:
             del got, want
             continue
         # at the timed shapes, the kernel and the f32 plain version each
@@ -733,31 +843,55 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
         # the two carries the f32 difference above
         want64 = ssd_scan_bwd_plain(*(t.double() for t in args),
                                     dy.double(), chunk=chunk)
-        rel64 = {side: {name: _norm_rel(torch, F, *(t.reshape(
-            (b, s, -1) if t.dim() > 1 else (1, 1, -1)) for t in (a, w)), 1.0)
-            for name, a, w in zip(SSD_GRADS, grads, want64, strict=True)}
-            for side, grads in (("kernel", got), ("plain_f32", want))}
-        checks.append({"name": f"{tag}/norm_rel_f64",
+        rel64 = {side: rel_of(grads, want64, b, s)
+                 for side, grads in (("kernel", got), ("plain_f32", want))}
+        checks.append({"name": f"{tag}/norm_rel_f64", "kind": kind,
                        "norm_rel_err": rel64["kernel"],
                        "plain_f32_norm_rel_err": rel64["plain_f32"],
                        "tol": SSD_TOL,
                        "ok": max(max(r) for r in rel64["kernel"].values())
                        <= SSD_TOL})
-        del got, want, want64
+        del want64
+        # the mma_sync kind on the same inputs: checked, timed in turns
+        yard = {}
+        if kind != "mma_sync":
+            def run_ms(run=run):
+                return run(kind="mma_sync")
+
+            got_ms = run_ms()
+            rel_ms = rel_of(got_ms, want, b, s)
+            rel_kinds = rel_of(got, got_ms, b, s)
+            checks.append({"name": f"{tag}/mma_sync", "norm_rel_err": rel_ms,
+                           "vs_wgmma_norm_rel_err": rel_kinds,
+                           "tol": SSD_TOL,
+                           "ok": max(max(r) for r in rel_ms.values())
+                           <= SSD_TOL
+                           and max(max(r) for r in rel_kinds.values())
+                           <= SSD_TOL})
+            del got_ms
+            turns = _in_turns(timer, run, run_ms)
+            yard = {"in_turns": {f"{kind}_ms": turns["kernel_ms"],
+                                 "mma_sync_ms": turns["library_ms"],
+                                 f"{kind}_over_mma_sync":
+                                     turns["kernel_over_library"]},
+                    "mma_sync_device_ms_by_kernel": {
+                        k_: timer.device_ms(run_ms, k_)
+                        for k_ in SSD_BWD_LAUNCHES["mma_sync"]}}
+        del got, want
         nbytes, flops = kernel_work.ssd_bwd_work(b, s, h, p, n, chunk)
         bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
         out[key] = {
             "shape": [b, s, h, p, n], "chunk": chunk, "dtype": "float32",
-            "max_abs_err": err, "norm_rel_err": rel, "norm_rel_tol": SSD_TOL,
-            "norm_rel_err_vs_f64": rel64, "bitwise_repeat": bitwise,
-            "bytes": nbytes, "flops": flops,
+            "kind": kind, "max_abs_err": err, "norm_rel_err": rel,
+            "norm_rel_tol": SSD_TOL, "norm_rel_err_vs_f64": rel64,
+            "bitwise_repeat": bitwise, "bytes": nbytes, "flops": flops,
             "ms": timer.ms(run),
-            # the call's six launches (SSD_BWD_LAUNCHES): C·Bᵀ, the local
-            # state gradients, their passing, the chunks, dB and dC, the
-            # sums over chunks
+            # the call's six launches (SSD_BWD_LAUNCHES[kind]): C·Bᵀ, the
+            # local state gradients, their passing, the chunks, dB and
+            # dC, the sums over chunks
             "device_ms": timer.device_ms(run, "ssd_"),
-            "device_ms_by_kernel": {
-                k_: timer.device_ms(run, k_) for k_ in SSD_BWD_LAUNCHES},
+            "device_ms_by_kernel": case["device_ms_by_kernel"],
+            **yard,
             "scratch_bytes": ssd_scan_bwd_scratch_bytes(b, s, h, p, n,
                                                         chunk),
             "plain_ms": timer.ms(lambda: ssd_scan_bwd_plain(
@@ -766,11 +900,15 @@ def _ssd_bwd_rows(torch, F, timer, g, checks):
             "bound_by": by,
             "library_ms": None}
         del states
-    return {"route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:140 (ssd_scan_jnp "
-                        "under jax.grad; no TPU kernel)",
-            **out.pop(None), "shapes": out}
+    row = {"route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:140 (ssd_scan_jnp "
+                       "under jax.grad; no TPU kernel)",
+           "cases": cases, "build": _ssd_bwd_build(),
+           "tf32_unit": _tf32_unit(torch, g, checks)}
+    if None in out:
+        row.update(out.pop(None))
+    return {**row, "shapes": out}
 
 
 def _in_turns(timer, kernel, library, iters=10):
@@ -4039,7 +4177,8 @@ def main() -> int:
              "nearest_call_ms", "mma_sync_ms", "device_ms_by_kernel",
              "bitwise_repeat", "norm_rel_err", "norm_rel_err_vs_f64",
              "scratch_bytes", "in_turns", "kernels", "in_turns_vs_mma_sync",
-             "mma_sync_max_abs_err", "mma_sync_norm_rel_err", "build")
+             "mma_sync_max_abs_err", "mma_sync_norm_rel_err", "build",
+             "kind", "cases", "tf32_unit", "mma_sync_device_ms_by_kernel")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],

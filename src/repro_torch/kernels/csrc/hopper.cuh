@@ -2,7 +2,9 @@
 // mbarriers, TMA tile copies and bulk copies into shared memory, warpgroup
 // products (wgmma: shared-memory descriptors, fence / commit / wait, the
 // product shapes the kernels use: m64n64k16 and m64n128k16 from shared
-// memory, m64n64k16, m64n80k16 and m64n128k16 with A from registers) and register moves between warpgroups
+// memory, m64n64k16, m64n80k16 and m64n128k16 with A from registers; TF32
+// m64n64k8 and m64n128k8 with A from registers, and their 3xTF32 step)
+// and register moves between warpgroups
 // (setmaxnreg). The host part builds TMA descriptors with
 // cuTensorMapEncodeTiled of libcuda, reached through
 // cudaGetDriverEntryPoint, so a library that includes this header links
@@ -110,6 +112,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // --------------------------------------------------------------- copies --
+
+// one box of a 2-d tensor map at (c0, c1) into shared memory, as
+// tma_load_3d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// one box of a 4-d tensor map at (c0, c1, c2, c3), as tma_load_3d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// makes this thread's ordinary writes to shared memory visible to the
+// async proxy (a wgmma that reads them as an operand); before the barrier
+// that orders them with the product's issue
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // one box of a 3-d tensor map at (c0, c1, c2) into shared memory; the
 // bytes count on `bar`'s transaction count; elements out of bounds are
@@ -373,6 +406,119 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ------------------------------------------------------- wgmma, TF32 --
+//
+// TF32 products read both operands K-major (the transpose bits of the
+// 16-bit forms do not exist for tf32). An f32 tile of 32-element rows
+// (128 bytes) with the 128-byte swizzle, as TMA writes a box of 32 f32
+// columns, is the K-major operand of the bf16 forms with a k-step of 8
+// instead of 16: a k-step advances the descriptor's start by 32 bytes, SBO
+// 1024 bytes from one group of 8 rows to the next. A K of 64 is two such
+// boxes. The register A fragment of m64nNk8 (tf32) is, per warp w of the
+// warpgroup, the mma.sync m16n8k8 one of rows 16w..16w + 15: a[0] (row g,
+// k q), a[1] (g + 8, q), a[2] (g, q + 4), a[3] (g + 8, q + 4), g = lane / 4,
+// q = lane % 4; the accumulator is the m64nNk16 one above.
+
+// byte offset of element (r, k), k < 32, in a tile of 128-byte f32 rows
+// with the 128-byte swizzle (16-byte chunk k / 4 of row r stored at chunk
+// (k / 4) ^ (r % 8)); the tile starts at a 1024-byte boundary
+__host__ __device__ __forceinline__ uint32_t swz32(int r, int k) {
+  return static_cast<uint32_t>(r * 128 + ((((k >> 2) ^ (r & 7)) << 4) |
+                                          ((k & 3) << 2)));
+}
+
+// descriptor of k-step kk (8 tf32) of a K-major swizzled f32 tile at
+// shared address `tile`
+__device__ __forceinline__ uint64_t desc_tf32(uint32_t tile, int kk) {
+  return desc_sw128(tile + 32 * kk, 0, 1024);
+}
+
+// d (64 x 64, f32) += a . b^T: a (64 x 8 tf32) from registers (the fragment
+// above), b (64 x 8 tf32) K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += a . b^T: as above with b (128 x 8 tf32)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 3xTF32 (mma.cuh's split: x = hi + lo, hi rounded to tf32, lo = x - hi):
+// d (64 x NN) += a . b^T as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into one
+// accumulator, the small terms first. b_hi and b_lo are shared-memory
+// tiles of the same K-major swizzled layout; hi holds values exact in
+// tf32, so the product reads them the same whether the tensor core rounds
+// or truncates an f32 operand.
+template <int NN>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[NN / 2],
+                                             const uint32_t (&a_hi)[4],
+                                             const uint32_t (&a_lo)[4],
+                                             uint64_t b_hi, uint64_t b_lo) {
+  static_assert(NN == 64 || NN == 128, "a wgmma N of 64 or 128");
+  if constexpr (NN == 128) {
+    wgmma_m64n128k8_tf32_rs(d, a_lo, b_hi);
+    wgmma_m64n128k8_tf32_rs(d, a_hi, b_lo);
+    wgmma_m64n128k8_tf32_rs(d, a_hi, b_hi);
+  } else {
+    wgmma_m64n64k8_tf32_rs(d, a_lo, b_hi);
+    wgmma_m64n64k8_tf32_rs(d, a_hi, b_lo);
+    wgmma_m64n64k8_tf32_rs(d, a_hi, b_hi);
+  }
+}
+
 // ----------------------------------------------------------------- host --
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -420,6 +566,25 @@ inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base, int d,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// TMA descriptor of an f32 tensor of `rank` dims (dims innermost first,
+// strides in bytes of dims 1.., each a multiple of 16), boxes of `box`
+// elements (box[0] = 32: one 128-byte row), 128-byte swizzle, zeros past
+// the edges
+inline cudaError_t f32_tile_map(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims,
+                                const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, static_cast<cuuint32_t>(rank),
+      const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

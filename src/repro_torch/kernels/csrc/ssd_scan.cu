@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -128,10 +130,10 @@ constexpr int CB_WARPS = 4;
 
 __global__ void __launch_bounds__(CB_WARPS * 32)
 ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-              float* __restrict__ cb, int S, int N, int L, int vec) {
+              float* __restrict__ cb, int S, int N, int L, int Lq, int vec) {
   __shared__ float part[CB_WARPS][16 * 32];
   const int c = blockIdx.x, b = blockIdx.y, n_chunks = gridDim.x;
-  const int t0 = c * L, Lc = min(L, S - t0), Lq = cb_pitch(L);
+  const int t0 = c * L, Lc = min(L, S - t0);
   const int nrt = (L + 15) / 16;
   const int r0 = (blockIdx.z % nrt) * 16, s0 = (blockIdx.z / nrt) * 32;
   if (r0 >= Lc || s0 > r0 + 15) return;  // past the chunk, above the diagonal
@@ -393,12 +395,13 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// (a) into cb (B, n_chunks, L, Lq), Lq even and at least L
 cudaError_t launch_cb(const void* bm, const void* cm, void* cb, int B, int S,
-                      int N, int L, cudaStream_t stream) {
+                      int N, int L, int Lq, cudaStream_t stream) {
   const dim3 grid((S + L - 1) / L, B, ((L + 15) / 16) * ((L + 31) / 32));
   ssd_cb_kernel<<<grid, CB_WARPS * 32, 0, stream>>>(
       static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(cb), S, N, L,
+      static_cast<float*>(cb), S, N, L, Lq,
       N % 2 == 0 && aligned8(bm) && aligned8(cm));
   return cudaGetLastError();
 }
@@ -431,10 +434,14 @@ cudaError_t launch_cb(const void* bm, const void* cm, void* cb, int B, int S,
 // as the forward) 0.26 ms at 165 TFLOP/s, against 0.56 GB read and
 // written once (x, dy, the chunk states in; dx out), 0.17 ms: bound by the
 // products. The kernels below also form C . h_in per head, for d(seg),
-// which dy . h_in^T could give; they take about 9x the bound on mma.sync
-// (PERF.md §6), and wgmma's tf32 form is the next step.
+// which dy . h_in^T could give. Two kinds of launches compute it
+// (kernels.ssd_scan.ssd_bwd_kind picks one before the launch): the
+// mma.sync kind here, entry ssd_scan_bwd, which takes every shape (at
+// about 9x the bound, PERF.md §6), and the wgmma kind further down, entry
+// ssd_scan_bwd_sm90, for the Mamba2 / Zamba2 widths (P 64, N 64 or 128,
+// chunks of at most 128 steps).
 //
-// Six launches, each grid wide enough to fill the card:
+// The mma.sync kind, six launches, each grid wide enough to fill the card:
 // (a) ssd_cb_kernel, as the forward: C.B^T per (b, chunk).
 // (b) ssd_bwd_local_kernel, a block per (chunk c >= 1, h, b): the chunk's
 //     own part of the state gradient, local_c = (C o exp(seg))^T . dy, on
@@ -1358,6 +1365,1393 @@ BwdWork bwd_work(float* base, int B, int S, int H, int P, int N, int L) {
   return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], off};
 }
 
+
+// ------------------------------------------------- backward, wgmma (sm90) --
+//
+// The three launches that carry the backward's products (local, chunk,
+// dB/dC), redesigned for Hopper: the wrapper's kind "wgmma"
+// (kernels.ssd_scan.ssd_bwd_kind: P 64, N 64 or 128, chunks of at most 128
+// steps; other shapes keep the mma.sync launches above). C.B^T, the
+// passing and the sums are the launches above; the chunk step's per-head
+// d(seg) scan is a launch of its own (ssd_bwd_finish_kernel): seven
+// launches. What held the mma.sync forms back (about 9x the bound, ~17 %
+// of the 3xTF32 rate): m16n8k8 products whose operand fragments each warp
+// loads itself, operands staged by the threads (209 KB of pre-split x, dy
+// and states in the chunk block, leaving no room to stage the next head).
+// What bounds the new launches (PERF.md §6): dB/dC and local mostly the
+// bytes they stream (x, dy, the states and their gradients: ~0.5 GB at
+// mamba2's train shape for dB/dC alone), the chunk block its conversions
+// and the L2 traffic of re-reading B, C and C.B^T for every head.
+// What this design does:
+// 1. Every product is a TF32 wgmma in 3xTF32 (hopper.cuh: a_lo.b_hi +
+//    a_hi.b_lo + a_hi.b_hi into one accumulator), a warpgroup's 64 rows at
+//    a time. TF32 reads both operands K-major; several operands lie the
+//    other way in memory (dy as the B of M^T.dy and of the local state
+//    gradient, the state gradient and the chunk state as the B of B.dh and
+//    C.h_in, C and B as the B of dB's and dC's step sums). Since every
+//    operand has to be split into hi and lo by the threads anyway, that
+//    pass also transposes: A is built in registers from the raw tile in
+//    whatever layout it lies (with its scale, its causal mask and the
+//    decay applied), B is written K-major as a hi and a lo tile of 128-byte
+//    swizzled rows, which the product reads by descriptor.
+// 2. Raw tiles arrive by TMA (boxes of 32 f32 columns, 128-byte swizzle,
+//    zeros past the tensors' edges) into a ring of 3 or 4 stages with a
+//    full and an empty mbarrier each, fed by one producer thread; the
+//    chunk block's ring runs over the heads, so the next head's tiles are
+//    in flight while this one computes.
+// 3. Two consumer warpgroups, each on its own: each converts its own B
+//    (the two never wait for each other inside a product). In the local
+//    and dB/dC blocks each pipelines its products (pipelined_product):
+//    tile i's operands are split into one of two B buffers and register
+//    sets while tile i - 1's products run; the chunk block's products
+//    wait for each tile (pipelined there, ptxas runs out of registers
+//    and serializes every wgmma: its C7512 note, which the build phase
+//    refuses), so its two warpgroups overlap each other instead. A third
+//    warpgroup holds the producer thread and gives its registers to the
+//    consumers (setmaxnreg 72 / 216; a block of 288 threads would leave
+//    each 168, as 384 do).
+// 4. The per-head vectors (dt, seg, exp(seg), w) are computed once, in the
+//    local launch, for every chunk, and brought to the chunk and dB/dC
+//    blocks by bulk copies. The chunk block keeps its group's GE_sum in
+//    shared memory and writes each head's per-step parts (row and column
+//    sums, u, r, the dD and <dh, h_in> parts) to the workspace, where the
+//    finish launch, a warp a head, turns them into d(seg), ddt and the
+//    chunk's dD and dA sums.
+// The guards of the mma.sync forms hold: no float atomics (every sum in a
+// fixed order, two calls give the same bits); exp(seg_t - seg_s) is
+// evaluated only under the causal mask and masked entries are selected to
+// 0; a ragged last chunk runs its true length Lc (rows past it are masked
+// wherever they are read, zeros past S from TMA); dh_final may be null.
+
+constexpr int S9_CONSUMERS = 256;               // two consumer warpgroups
+constexpr int S9_THREADS = S9_CONSUMERS + 128;  // and the producer's
+// registers a thread after setmaxnreg: the producer warpgroup's copies need
+// few, the consumers' conversions and products many
+constexpr int S9_PRODUCER_REGS = 72, S9_CONSUMER_REGS = 216;
+// setmaxnreg moves registers only within what the block was given at
+// launch: 168 a thread (__launch_bounds__(384, 1)), not the SM's 65,536 (a
+// split summing to 65,536 faults)
+static_assert(128 * S9_PRODUCER_REGS + S9_CONSUMERS * S9_CONSUMER_REGS <=
+                  S9_THREADS * 168,
+              "setmaxnreg.inc asks for registers the block does not have");
+constexpr int S9_LP = 128;                     // a chunk's steps, padded
+constexpr uint32_t S9_STAGE = 32768;           // bytes of a ring stage
+constexpr uint32_t S9_BOX32 = 32 * 128;        // a box of 32 x 32 f32
+constexpr uint32_t S9_BOX128 = 128 * 128;      // a box of 128 x 32 f32
+constexpr int S9_LOCAL_GROUP = 8;              // heads a local block takes
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (hopper::smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
+}
+
+template <typename T>
+constexpr size_t sm90_smem_bytes() {
+  return sizeof(T) + 1024;  // room to align the base to 1024
+}
+
+// this thread's place in its consumer warpgroup (tid 0..127 in it)
+struct Wg {
+  int wg, tid, warp, lane, g, q;
+};
+
+__device__ __forceinline__ Wg wg_of() {
+  const int t = threadIdx.x;
+  return {t / 128, t % 128, t % 128 / 32, t % 32, t % 32 / 4, t % 4};
+}
+
+__device__ __forceinline__ float lds(const unsigned char* base, uint32_t off) {
+  return *reinterpret_cast<const float*>(base + off);
+}
+
+// A fragments of one k-tile of 32 (4 k-steps) for the warpgroup's 64 rows,
+// split into hi and lo: elem(r, k) is the f32 value at row r (0..63) and
+// column k (0..31)
+template <class F>
+__device__ __forceinline__ void make_a(uint32_t (&ah)[4][4],
+                                       uint32_t (&al)[4][4], const Wg& w,
+                                       const F& elem) {
+  const int r0 = 16 * w.warp + w.g, q = w.q;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = 8 * kk + q;
+    const float v[4] = {elem(r0, k), elem(r0 + 8, k), elem(r0, k + 4),
+                        elem(r0 + 8, k + 4)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const mma::Split s = mma::split(v[i]);
+      ah[kk][i] = s.hi;
+      al[kk][i] = s.lo;
+    }
+  }
+}
+
+// rows [0, rows) of a raw tile (128-byte swizzled rows, starting at a row
+// that is a multiple of 8) as B's hi and lo tiles of the same layout, by
+// the warpgroup's 128 threads, 16 bytes a thread a step
+__device__ __forceinline__ void split_tile(unsigned char* bhi,
+                                           unsigned char* blo,
+                                           const unsigned char* raw, int rows,
+                                           int tid) {
+#pragma unroll 2
+  for (int c = tid; c < rows * 8; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(raw + 16 * c);
+    const mma::Split s0 = mma::split(v.x), s1 = mma::split(v.y),
+                     s2 = mma::split(v.z), s3 = mma::split(v.w);
+    *reinterpret_cast<uint4*>(bhi + 16 * c) =
+        make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+    *reinterpret_cast<uint4*>(blo + 16 * c) =
+        make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+  }
+}
+
+// B (ROWS rows x 32 k) of a raw tile that lies the other way: B(r, k) is
+// the element at row k and column col0 + r of a tile held as boxes of 32
+// columns, box_bytes apart. Split into hi and lo tiles (K-major,
+// swizzled), four k of one row a thread a step (the reads of a warp fall
+// along one raw row, its 16-byte stores on distinct banks). With DOT, also
+// returns the thread's sum of the elements of B's rows [d0, d0 + 32)
+// times the elements at the same places of `dot`, a tile of the raw one's
+// layout.
+template <int ROWS, bool DOT>
+__device__ __forceinline__ float split_tile_t(
+    unsigned char* bhi, unsigned char* blo, const unsigned char* raw,
+    uint32_t box_bytes, int col0, int tid,
+    const unsigned char* dot = nullptr, int d0 = 0) {
+  float sum = 0.f;
+#pragma unroll 2
+  for (int it = 0; it < ROWS / 16; ++it) {
+    const int pr = it * 128 + tid, r = pr % ROWS, kc = pr / ROWS;
+    const int col = col0 + r;
+    const uint32_t box = (col >> 5) * box_bytes;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t off = box + hopper::swz32(4 * kc + j, col & 31);
+      const float v = lds(raw, off);
+      if (DOT && r >= d0 && r < d0 + 32) sum += v * lds(dot, off);
+      const mma::Split s = mma::split(v);
+      hi[j] = s.hi;
+      lo[j] = s.lo;
+    }
+    const uint32_t o = hopper::swz32(r, 4 * kc);
+    *reinterpret_cast<uint4*>(bhi + o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(blo + o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  return sum;
+}
+
+// the consumer side of a ring of ST stages: wait until a stage is full;
+// release it (one arrival a warp) once the warpgroup is done with it
+template <int ST>
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int i;  // tiles consumed so far
+  __device__ __forceinline__ int wait() {
+    const int s = i % ST;
+    hopper::mbar_wait(&full[s], (i / ST) & 1);
+    return s;
+  }
+  __device__ __forceinline__ void release(int s) {
+    hopper::mbar_arrive_warp(&empty[s]);
+    ++i;
+  }
+};
+
+// the producer side: stage of tile i, once the consumers released it
+template <int ST>
+__device__ __forceinline__ int producer_stage(uint64_t* empty, int i) {
+  const int s = i % ST;
+  if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
+  return s;
+}
+
+template <int ST>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+#pragma unroll
+  for (int s = 0; s < ST; ++s) {
+    hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(&empty[s], S9_CONSUMERS / 32);
+  }
+}
+
+// a warpgroup's named barrier (ids 1, 2; 3 is both warpgroups')
+__device__ __forceinline__ void wg_sync(const Wg& w) {
+  hopper::named_bar_sync(1 + w.wg, 128);
+}
+
+// the 3xTF32 products of one k-tile of 32 (4 k-steps): acc (64 x NN) +=
+// A . B^T, A in registers, B's hi and lo tiles (NN rows, K-major) at
+// shared addresses bhi and blo; issued and committed as one group
+template <int NN>
+__device__ __forceinline__ void issue_tile(float (&acc)[NN / 2],
+                                           uint32_t (&ah)[4][4],
+                                           uint32_t (&al)[4][4], uint32_t bhi,
+                                           uint32_t blo) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_tf32x3<NN>(acc, ah[kk], al[kk], hopper::desc_tf32(bhi, kk),
+                             hopper::desc_tf32(blo, kk));
+  hopper::wgmma_commit();
+}
+
+// The k-tiles [0, n) of one product of a warpgroup, pipelined: tile i's
+// operands are converted while tile i - 1's products run. convert(i,
+// stage, bhi, blo, ah, al) splits B into the buffer pair i % 2 of `bhl`
+// (hi, then lo, buf_bytes each) and A into register set i % 2; the
+// warpgroup's named barrier before it makes sure every warp's products of
+// tile i - 2 are done (their wait after tile i - 1), the one after it that
+// B is written before any warp issues. A tile for which takes(i) is false
+// is skipped, its stage still released. With PIPE false each tile's
+// products are waited for before the next is converted (one buffer pair,
+// one register set: for a warpgroup short of registers). Returns with
+// every product done.
+template <int NN, int ST, bool PIPE = true, class Takes, class Conv>
+__device__ __forceinline__ void pipelined_product(float (&acc)[NN / 2],
+                                                  Ring<ST>& ring, int n,
+                                                  const Wg& w,
+                                                  unsigned char* bhl,
+                                                  uint32_t buf_bytes,
+                                                  const Takes& takes,
+                                                  const Conv& convert) {
+  constexpr int NB = PIPE ? 2 : 1;  // register sets and B buffer pairs
+  uint32_t ah[NB][4][4], al[NB][4][4];
+  hopper::fence_operand(acc);
+  const auto step = [&](auto buf, int i) {
+    constexpr int b = decltype(buf)::value % NB;
+    const int s = ring.wait();
+    if (!takes(i)) {
+      ring.release(s);
+      hopper::wgmma_wait<0>();  // the buffers are free again
+      return;
+    }
+    unsigned char* bhi = bhl + b * 2 * buf_bytes;
+    unsigned char* blo = bhi + buf_bytes;
+    wg_sync(w);
+    convert(i, s, bhi, blo, ah[b], al[b]);
+    hopper::fence_proxy_async();
+    wg_sync(w);
+    ring.release(s);
+    issue_tile<NN>(acc, ah[b], al[b], hopper::smem_u32(bhi),
+                   hopper::smem_u32(blo));
+    if constexpr (PIPE) {
+      hopper::wgmma_wait<1>();  // tile i - 1's products are done
+      hopper::fence_operand(ah[(b + 1) % NB]);
+      hopper::fence_operand(al[(b + 1) % NB]);
+    } else {
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(ah[b]);
+      hopper::fence_operand(al[b]);
+    }
+  };
+  for (int i = 0; i < n; i += 2) {
+    step(std::integral_constant<int, 0>{}, i);
+    if (i + 1 < n) step(std::integral_constant<int, 1>{}, i + 1);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    hopper::fence_operand(ah[b]);
+    hopper::fence_operand(al[b]);
+  }
+}
+
+__device__ __forceinline__ bool every_tile(int) { return true; }
+
+
+// (b') The per-head vectors of chunk c of heads [h0, h0 + 8) of batch row b
+// (item blockIdx.x = ((b n_chunks + c) groups + group)): dt, seg (the
+// in-chunk cumsum of dt A), exp(seg) and w = exp(seg_L - seg) dt, each
+// (B, n_chunks, H, S9_LP), zero past the chunk's length (seg there: its
+// last value), one consumer warp a head; the chunk's decay exp(seg_L);
+// and, for c >= 1, the chunk's own part of the state gradient,
+// local_c[n, p] = sum_t exp(seg_t) C_t[n] dy_t[p], into dstates' slot
+// c - 1. That product is (C^T) (exp(seg) o dy): M = n, N = p (64), K = the
+// chunk's steps in k-tiles of 32; A from the chunk's C, brought once by
+// TMA as 128-step boxes and read transposed with exp(seg) applied; B, dy's
+// 32 x 64 tile of each head and k-tile, through the ring, transposed as it
+// is split. At N 128 warpgroup j takes rows n of [64 j, 64 j + 64) of
+// every head; at N 64 each takes every other head.
+constexpr int S9_LOCAL_STAGES = 4;
+
+template <int NS>
+struct LocalSm90Smem {
+  unsigned char cbuf[NS / 32][S9_BOX128];  // C: 128 steps x 32 n
+  unsigned char stage[S9_LOCAL_STAGES][2 * S9_BOX32];  // dy: 32 x 64 p
+  unsigned char bhl[2][2 * 2 * 64 * 128];  // per warpgroup: 2 x (hi, lo)
+  float es[S9_LOCAL_GROUP][S9_LP];
+  uint64_t c_full, full[S9_LOCAL_STAGES], empty[S9_LOCAL_STAGES];
+};
+
+template <int NS>
+__global__ void __launch_bounds__(S9_THREADS, 1)
+ssd_bwd_local_sm90_kernel(const __grid_constant__ CUtensorMap tm_c128,
+                          const __grid_constant__ CUtensorMap tm_dy32,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ a_log,
+                          float* __restrict__ dstates,
+                          float* __restrict__ decay, float* __restrict__ dtv,
+                          float* __restrict__ segv, float* __restrict__ esv,
+                          float* __restrict__ wsv, int S, int H, int L) {
+  using Smem = LocalSm90Smem<NS>;
+  constexpr int ST = S9_LOCAL_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  const int n_chunks = (S + L - 1) / L;
+  const int ngl = (H + S9_LOCAL_GROUP - 1) / S9_LOCAL_GROUP;
+  const int grp = blockIdx.x % ngl, bc = blockIdx.x / ngl;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int h0 = grp * S9_LOCAL_GROUP, nh = min(S9_LOCAL_GROUP, H - h0);
+  const int n_kt = (Lc + 31) / 32;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.c_full, 1);
+    init_ring<ST>(sm.full, sm.empty);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= S9_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<S9_PRODUCER_REGS>();
+    if (tid == S9_CONSUMERS && c > 0) {
+      hopper::mbar_arrive_expect_tx(&sm.c_full, NS / 32 * S9_BOX128);
+#pragma unroll
+      for (int nb = 0; nb < NS / 32; ++nb)
+        hopper::tma_load_3d(sm.cbuf[nb], &tm_c128, &sm.c_full, 32 * nb, t0, b);
+      for (int i = 0; i < nh * n_kt; ++i) {
+        const int s = producer_stage<ST>(sm.empty, i);
+        const int h = h0 + i / n_kt, k = i % n_kt;
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * S9_BOX32);
+        hopper::tma_load_4d(sm.stage[s], &tm_dy32, &sm.full[s], 0, h,
+                            t0 + 32 * k, b);
+        hopper::tma_load_4d(sm.stage[s] + S9_BOX32, &tm_dy32, &sm.full[s], 32,
+                            h, t0 + 32 * k, b);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<S9_CONSUMER_REGS>();
+
+  // the vectors, one warp a head: lane l takes steps 4l .. 4l + 3
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp < nh) {
+    const int h = h0 + warp;
+    const float A = -expf(a_log[h]);
+    const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+    float d[4], sg[4];
+    float run = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = 4 * lane + j;
+      d[j] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
+      run += d[j] * A;
+    }
+    float inc = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += v;
+    }
+    float acc = inc - run;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc += d[j] * A;
+      sg[j] = acc;
+    }
+    // seg of the chunk's last step, from the lane that holds it
+    const int last = Lc - 1;
+    const float mine = (last & 3) == 0   ? sg[0]
+                       : (last & 3) == 1 ? sg[1]
+                       : (last & 3) == 2 ? sg[2]
+                                         : sg[3];
+    const float total = __shfl_sync(0xffffffffu, mine, last >> 2);
+    float e[4], wv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = 4 * lane + j < Lc;
+      if (!ok) sg[j] = total;
+      e[j] = ok ? expf(sg[j]) : 0.f;
+      wv[j] = ok ? expf(total - sg[j]) * d[j] : 0.f;
+    }
+    const int64_t o = (static_cast<int64_t>(bc) * H + h) * S9_LP + 4 * lane;
+    *reinterpret_cast<float4*>(dtv + o) = make_float4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<float4*>(segv + o) =
+        make_float4(sg[0], sg[1], sg[2], sg[3]);
+    *reinterpret_cast<float4*>(esv + o) = make_float4(e[0], e[1], e[2], e[3]);
+    *reinterpret_cast<float4*>(wsv + o) =
+        make_float4(wv[0], wv[1], wv[2], wv[3]);
+    *reinterpret_cast<float4*>(&sm.es[warp][4 * lane]) =
+        make_float4(e[0], e[1], e[2], e[3]);
+    if (lane == 0) decay[static_cast<int64_t>(bc) * H + h] = expf(total);
+  }
+  if (c == 0) return;  // the first chunk's state gradient has no local part
+  hopper::named_bar_sync(3, S9_CONSUMERS);  // es of every head is in
+
+  const Wg w = wg_of();
+  const int n0 = NS == 128 ? 64 * w.wg : 0;  // this warpgroup's rows n
+  hopper::mbar_wait(&sm.c_full, 0);
+  Ring<ST> ring{sm.full, sm.empty, 0};
+  float acc[32];
+  for (int hl = 0; hl < nh; ++hl) {
+    const bool mine = NS == 128 || hl % 2 == w.wg;
+    const float* es_h = sm.es[hl];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    pipelined_product<64, ST>(
+        acc, ring, n_kt, w, sm.bhl[w.wg], 64 * 128,
+        [&](int) { return mine; },
+        [&](int k, int s, unsigned char* bhi, unsigned char* blo,
+            uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+          split_tile_t<64, false>(bhi, blo, sm.stage[s], S9_BOX32, 0, w.tid);
+          make_a(ah, al, w, [&](int r, int kk) {
+            const int t = 32 * k + kk, n = n0 + r;
+            return t < Lc ? es_h[t] *
+                                lds(sm.cbuf[n >> 5], hopper::swz32(t, n & 31))
+                          : 0.f;
+          });
+        });
+    if (!mine) continue;
+    float* out = dstates + ((static_cast<int64_t>(bc) - 1) * H + h0 + hl) *
+                               static_cast<int64_t>(NS) * 64;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int n = n0 + 16 * w.warp + w.g + 8 * hf, p = 8 * jb + 2 * w.q;
+        *reinterpret_cast<float2*>(out + n * 64 + p) =
+            make_float2(acc[4 * jb + 2 * hf], acc[4 * jb + 2 * hf + 1]);
+      }
+  }
+}
+
+// (d') The per-head gradients of chunk c for a group of BWD_GROUP heads,
+// as (d) computes them, with each product a wgmma over a warpgroup's 64
+// steps (warpgroup j owns steps [64 j, 64 j + 64) of every per-step
+// output). Per head, through the ring:
+//   G = dy . x^T (K = p, 2 k-tiles; warpgroup 0 takes columns s < 64 and
+//     warpgroup 1 all 128, the causal half), then GE = G exp(seg_t - seg_s)
+//     under the mask, its sums against C.B^T (rows in the warp, columns a
+//     part a warp) and dt_s GE into the group's GE_sum, in shared memory;
+//   B . dh (K = n), then u = x . (B . dh) and the scale by w, then
+//     M^T . dy into the same accumulator (K = t; warpgroup 1 starts at
+//     t = 64), dx = that + D dy;
+//   C . h_in (K = n; not for the first chunk, whose state is zero), r =
+//     exp(seg) dy . (C . h_in), and <dh, h_in> from the tiles on the way.
+// A head's per-step parts go to the workspace for the finish launch (d'');
+// each consumer warp then releases the head's vectors, and the producer
+// loads the vectors of the head two later into their slot. Persistent:
+// block blockIdx.x takes items blockIdx.x, + gridDim.x, ... of (b, chunk,
+// group).
+constexpr int S9_CHUNK_STAGES = 3;
+constexpr int S9_GS_PITCH = 128 + 8, S9_GS0_PITCH = 64 + 8;
+// floats of one head's per-step parts in the workspace: the row sums, u,
+// r, eight warps' column-sum parts, eight warps' x . dy and <dh, h_in>
+constexpr int S9_PARTS = 3 * S9_LP + 8 * S9_LP + 16;
+constexpr int S9_P_U = S9_LP, S9_P_R = 2 * S9_LP, S9_P_CS = 3 * S9_LP,
+              S9_P_RED = 11 * S9_LP;
+
+template <int NS>
+struct ChunkSm90Smem {
+  unsigned char stage[S9_CHUNK_STAGES][S9_STAGE];
+  // B's hi and lo tiles: two of 64 rows for each warpgroup, which
+  // warpgroup 1's G (not pipelined) takes as one of 128 rows
+  unsigned char bhl0[2 * 2 * 64 * 128];
+  unsigned char bhl1[2 * 2 * 64 * 128];
+  // the warpgroups' GE_sum tiles, 64 x 64 and 64 x 128 (rows padded to 72
+  // and 136 floats: the float2 accesses of a half-warp on distinct banks),
+  // in shared memory: in registers they leave ptxas too few
+  float gs0[64 * S9_GS0_PITCH];
+  float gs1[64 * S9_GS_PITCH];
+  float vec[2][4][S9_LP];            // a head's dt, seg, exp(seg), w
+  uint64_t full[S9_CHUNK_STAGES], empty[S9_CHUNK_STAGES], vfull[2],
+      vempty[2];
+};
+
+struct ChunkArgs {
+  const float *d_skip, *x, *dy, *cb, *dtv, *segv, *esv, *wsv;
+  float *dx, *gesum, *parts;
+  int B, S, H, L;
+};
+
+// the tiles of one head, in the order both sides walk them: (a) 2, (b)
+// NS / 32, (c) one per 32 of the chunk's steps, (d) NS / 32 where c > 0
+template <int NS>
+__device__ __forceinline__ void chunk_produce_head(
+    ChunkSm90Smem<NS>& sm, int& i, const CUtensorMap* tm_x128,
+    const CUtensorMap* tm_dy128, const CUtensorMap* tm_dy32,
+    const CUtensorMap* tm_b128, const CUtensorMap* tm_c128,
+    const CUtensorMap* tm_states, const CUtensorMap* tm_dstates,
+    const CUtensorMap* tm_cb, int b, int bc, int c, int h, int H, int t0,
+    int n_kc) {
+  const int row = (bc * H + h) * NS;  // the head's state rows
+  for (int k = 0; k < 2; ++k, ++i) {
+    const int s = producer_stage<S9_CHUNK_STAGES>(sm.empty, i);
+    unsigned char* st = sm.stage[s];
+    hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * S9_BOX128);
+    hopper::tma_load_4d(st, tm_dy128, &sm.full[s], 32 * k, h, t0, b);
+    hopper::tma_load_4d(st + S9_BOX128, tm_x128, &sm.full[s], 32 * k, h, t0,
+                        b);
+  }
+  for (int k = 0; k < NS / 32; ++k, ++i) {
+    const int s = producer_stage<S9_CHUNK_STAGES>(sm.empty, i);
+    unsigned char* st = sm.stage[s];
+    hopper::mbar_arrive_expect_tx(&sm.full[s], S9_BOX128 + 2 * S9_BOX32);
+    hopper::tma_load_3d(st, tm_b128, &sm.full[s], 32 * k, t0, b);
+    hopper::tma_load_2d(st + S9_BOX128, tm_dstates, &sm.full[s], 0,
+                        row + 32 * k);
+    hopper::tma_load_2d(st + S9_BOX128 + S9_BOX32, tm_dstates, &sm.full[s],
+                        32, row + 32 * k);
+  }
+  for (int k = 0; k < n_kc; ++k, ++i) {
+    const int s = producer_stage<S9_CHUNK_STAGES>(sm.empty, i);
+    unsigned char* st = sm.stage[s];
+    // C.B^T's boxes of columns s <= the tile's last step only (the causal
+    // half: the consumers read no other)
+    hopper::mbar_arrive_expect_tx(&sm.full[s],
+                                  (k + 1) * S9_BOX32 + 2 * S9_BOX32);
+    for (int sb = 0; sb <= k; ++sb)
+      hopper::tma_load_3d(st + sb * S9_BOX32, tm_cb, &sm.full[s], 32 * sb,
+                          32 * k, bc);
+    hopper::tma_load_4d(st + S9_BOX128, tm_dy32, &sm.full[s], 0, h,
+                        t0 + 32 * k, b);
+    hopper::tma_load_4d(st + S9_BOX128 + S9_BOX32, tm_dy32, &sm.full[s], 32,
+                        h, t0 + 32 * k, b);
+  }
+  if (c == 0) return;
+  for (int k = 0; k < NS / 32; ++k, ++i) {
+    const int s = producer_stage<S9_CHUNK_STAGES>(sm.empty, i);
+    unsigned char* st = sm.stage[s];
+    hopper::mbar_arrive_expect_tx(&sm.full[s], S9_BOX128 + 4 * S9_BOX32);
+    hopper::tma_load_3d(st, tm_c128, &sm.full[s], 32 * k, t0, b);
+#pragma unroll
+    for (int pb = 0; pb < 2; ++pb) {
+      hopper::tma_load_2d(st + S9_BOX128 + pb * S9_BOX32, tm_states,
+                          &sm.full[s], 32 * pb, row + 32 * k);
+      hopper::tma_load_2d(st + S9_BOX128 + (2 + pb) * S9_BOX32, tm_dstates,
+                          &sm.full[s], 32 * pb, row + 32 * k);
+    }
+  }
+}
+
+// the pair of warpgroup wg's GE_sum tile (in shared memory) at places 2 hf,
+// 2 hf + 1 of n-block jb of the thread's accumulator layout
+template <int NS, int NG>
+__device__ __forceinline__ float2& gs_at(ChunkSm90Smem<NS>& sm, const Wg& w,
+                                         int jb, int hf) {
+  const int row = 16 * w.warp + w.g + 8 * hf, col = 8 * jb + 2 * w.q;
+  return *reinterpret_cast<float2*>(
+      NG == 64 ? &sm.gs0[row * S9_GS0_PITCH + col]
+               : &sm.gs1[row * S9_GS_PITCH + col]);
+}
+
+// zeroes warpgroup wg's GE_sum tile (each thread its own places)
+template <int NS, int NG>
+__device__ __forceinline__ void gs_clear(ChunkSm90Smem<NS>& sm, const Wg& w) {
+#pragma unroll
+  for (int jb = 0; jb < NG / 8; ++jb)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      gs_at<NS, NG>(sm, w, jb, hf) = make_float2(0.f, 0.f);
+}
+
+// stores warpgroup wg's GE_sum tile as rows [NG - 64, NG) of the group's
+// partial gsum (S9_LP x S9_LP)
+template <int NS, int NG>
+__device__ __forceinline__ void gs_store(ChunkSm90Smem<NS>& sm, const Wg& w,
+                                         float* gsum) {
+  const int rA = NG - 64 + 16 * w.warp + w.g;
+#pragma unroll
+  for (int jb = 0; jb < NG / 8; ++jb)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(gsum + (rA + 8 * hf) * S9_LP + 8 * jb +
+                                 2 * w.q) = gs_at<NS, NG>(sm, w, jb, hf);
+}
+
+// (a) of one head for warpgroup wg (NG = 64 (wg + 1), the columns s of its
+// G tile): G = dy . x^T, A dy's rows, B x's rows s < NG as they lie; then
+// GE under the mask (the exponential only there: it overflows above the
+// diagonal), its row sums and column-sum parts against C.B^T, and dt_s GE
+// into the group's GE_sum. With gs_clear and gs_store, the only part of
+// the chunk block templated on
+// the warpgroup (two copies of the whole head leave ptxas short of
+// registers: it spills). Not pipelined, as the block's other products:
+// pipelined, they leave ptxas too few registers and it serializes every
+// wgmma (C7512).
+template <int NS, int NG>
+__device__ __forceinline__ void chunk_head_ge(ChunkSm90Smem<NS>& sm,
+                                              const Wg& w,
+                                              Ring<S9_CHUNK_STAGES>& ring,
+                                              int vs, int Lc,
+                                              const float* cbc,
+                                              float* parts) {
+  const int m0 = NG - 64;                        // this warpgroup's first step
+  const int rA = m0 + 16 * w.warp + w.g, rB = rA + 8;  // this thread's rows
+  const float* dtv = sm.vec[vs][0];
+  const float* segv = sm.vec[vs][1];
+  float G[NG / 2];
+#pragma unroll
+  for (int i = 0; i < NG / 2; ++i) G[i] = 0.f;
+  pipelined_product<NG, S9_CHUNK_STAGES, false>(
+      G, ring, 2, w, NG == 64 ? sm.bhl0 : sm.bhl1, NG * 128, every_tile,
+      [&](int, int s, unsigned char* bhi, unsigned char* blo,
+          uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+        const unsigned char* st = sm.stage[s];
+        split_tile(bhi, blo, st + S9_BOX128, NG, w.tid);
+        make_a(ah, al, w, [&](int r, int kk) {
+          return lds(st, hopper::swz32(m0 + r, kk));
+        });
+      });
+  const float sgA = segv[rA] * kLog2e, sgB = segv[rB] * kLog2e;
+  float rsA = 0.f, rsB = 0.f;
+#pragma unroll
+  for (int jb = 0; jb < NG / 8; ++jb) {
+    const int s0 = 8 * jb + 2 * w.q;
+    // C.B^T's entries under the mask only (rows past Lc and the columns of
+    // a pair past its row read nothing)
+    const float2 cA = rA < Lc && s0 <= rA
+                          ? *reinterpret_cast<const float2*>(cbc + rA * S9_LP +
+                                                             s0)
+                          : make_float2(0.f, 0.f);
+    const float2 cB = rB < Lc && s0 <= rB
+                          ? *reinterpret_cast<const float2*>(cbc + rB * S9_LP +
+                                                             s0)
+                          : make_float2(0.f, 0.f);
+    const float cbv[4] = {cA.x, cA.y, cB.x, cB.y};
+    float csum[2] = {0.f, 0.f}, gsv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = i < 2 ? rA : rB, sc = s0 + (i & 1);
+      const bool ok = sc <= t && t < Lc;
+      const float ge = ok ? G[4 * jb + i] *
+                                hopper::exp2_ftz((i < 2 ? sgA : sgB) -
+                                                 segv[sc] * kLog2e)
+                          : 0.f;
+      const float gc = ok ? ge * cbv[i] : 0.f;
+      if (i < 2)
+        rsA += gc * dtv[sc];
+      else
+        rsB += gc * dtv[sc];
+      csum[i & 1] += gc;
+      gsv[i] = ge * dtv[sc];
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float2& g = gs_at<NS, NG>(sm, w, jb, hf);
+      g = make_float2(g.x + gsv[2 * hf], g.y + gsv[2 * hf + 1]);
+    }
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      const float v = column_sum(csum[k2]);
+      if (w.g == 0)
+        parts[S9_P_CS + (4 * w.wg + w.warp) * S9_LP + s0 + k2] = v;
+    }
+  }
+  rsA = quad_sum(rsA);
+  rsB = quad_sum(rsB);
+  if (w.q == 0) {
+    parts[rA] = rsA;
+    parts[rB] = rsB;
+  }
+}
+
+// warpgroup wg's side of one item: rows (steps) [64 wg, 64 wg + 64) of
+// each head's per-step outputs
+template <int NS>
+__device__ __forceinline__ void chunk_consume_item(
+    ChunkSm90Smem<NS>& sm, const ChunkArgs& a, const Wg& w,
+    Ring<S9_CHUNK_STAGES>& ring, int& hv, int b, int bc, int c, int grp) {
+  const int H = a.H, S = a.S;
+  const int n_groups = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const int t0 = c * a.L, Lc = min(a.L, S - t0);
+  const int n_kc = (Lc + 31) / 32;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+  const int64_t x_step = static_cast<int64_t>(H) * 64;
+  unsigned char* bhl = w.wg == 0 ? sm.bhl0 : sm.bhl1;
+  const int m0 = 64 * w.wg;                      // this warpgroup's first step
+  const int rA = m0 + 16 * w.warp + w.g, rB = rA + 8;  // this thread's rows
+  const int wglob = 4 * w.wg + w.warp;           // the warp in the block
+  const float* cbc = a.cb + static_cast<int64_t>(bc) * a.L * S9_LP;
+  if (w.wg == 0)
+    gs_clear<NS, 64>(sm, w);
+  else
+    gs_clear<NS, 128>(sm, w);
+  const int h_end = min(H, (grp + 1) * BWD_GROUP);
+  // A from the rows of this warpgroup's steps of a raw tile as it lies
+  const auto rows_a = [&](const unsigned char* st, uint32_t(&ah)[4][4],
+                          uint32_t(&al)[4][4]) {
+    make_a(ah, al, w,
+           [&](int r, int kk) { return lds(st, hopper::swz32(m0 + r, kk)); });
+  };
+
+  for (int h = grp * BWD_GROUP; h < h_end; ++h, ++hv) {
+    const int vs = hv % 2;
+    hopper::mbar_wait(&sm.vfull[vs], (hv / 2) & 1);
+    const float* dtv = sm.vec[vs][0];
+    const float* segv = sm.vec[vs][1];
+    const float* esv = sm.vec[vs][2];
+    const float* wv = sm.vec[vs][3];
+    const float Dh = a.d_skip[h];
+    const int64_t hoff = row0 * x_step + static_cast<int64_t>(h) * 64;
+    float* parts = a.parts + (static_cast<int64_t>(bc) * H + h) * S9_PARTS;
+
+    if (w.wg == 0)
+      chunk_head_ge<NS, 64>(sm, w, ring, vs, Lc, cbc, parts);
+    else
+      chunk_head_ge<NS, 128>(sm, w, ring, vs, Lc, cbc, parts);
+
+    // (b) B . dh: A B's rows, B the state gradient's (n, p) tile transposed
+    float D[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) D[i] = 0.f;
+    pipelined_product<64, S9_CHUNK_STAGES, false>(
+        D, ring, NS / 32, w, bhl, 64 * 128, every_tile,
+        [&](int, int s, unsigned char* bhi, unsigned char* blo,
+            uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+          split_tile_t<64, false>(bhi, blo, sm.stage[s] + S9_BOX128,
+                                  S9_BOX32, 0, w.tid);
+          rows_a(sm.stage[s], ah, al);
+        });
+    float pd = 0.f;
+    {
+      // u = x . (B . dh) row by row, x . dy for dD, then the scale by w
+      // and D dy, dx's last term, added before M^T . dy accumulates
+      float uA = 0.f, uB = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int sr = hf ? rB : rA;
+        if (sr >= Lc) continue;
+        const float ws_r = wv[sr];
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          const int p = 8 * jb + 2 * w.q;
+          const float2 xv =
+              *reinterpret_cast<const float2*>(a.x + hoff + sr * x_step + p);
+          const float2 dv =
+              *reinterpret_cast<const float2*>(a.dy + hoff + sr * x_step + p);
+          float& d0 = D[4 * jb + 2 * hf];
+          float& d1 = D[4 * jb + 2 * hf + 1];
+          (hf ? uB : uA) += d0 * xv.x + d1 * xv.y;
+          pd += xv.x * dv.x + xv.y * dv.y;
+          d0 = d0 * ws_r + Dh * dv.x;
+          d1 = d1 * ws_r + Dh * dv.y;
+        }
+      }
+      uA = quad_sum(uA);
+      uB = quad_sum(uB);
+      if (w.q == 0) {
+        parts[S9_P_U + rA] = uA;
+        parts[S9_P_U + rB] = uB;
+      }
+    }
+
+    // (c) M^T . dy into the same accumulator: A[s, t] = C.B^T[t, s]
+    // exp(seg_t - seg_s) dt_s under the mask (from C.B^T's 32 x 128 tile,
+    // read transposed), B dy's (t, p) tile transposed; the k-tiles with a
+    // step t >= m0 only
+    pipelined_product<64, S9_CHUNK_STAGES, false>(
+        D, ring, n_kc, w, bhl, 64 * 128,
+        [&](int k) { return 32 * k + 31 >= m0; },
+        [&](int k, int s, unsigned char* bhi, unsigned char* blo,
+            uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+          const unsigned char* st = sm.stage[s];
+          split_tile_t<64, false>(bhi, blo, st + S9_BOX128, S9_BOX32, 0,
+                                  w.tid);
+          make_a(ah, al, w, [&](int r, int kk) {
+            const int sr = m0 + r, t = 32 * k + kk;
+            // (boxes sr / 32 <= k came: sr <= t holds only there)
+            const bool ok = sr <= t && t < Lc;
+            return ok ? lds(st, (sr >> 5) * S9_BOX32 +
+                                    hopper::swz32(kk, sr & 31)) *
+                            hopper::exp2_ftz((segv[t] - segv[sr]) * kLog2e) *
+                            dtv[sr]
+                      : 0.f;
+          });
+        });
+    // dx = w (B . dh) + D dy + M^T . dy
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int sr = hf ? rB : rA;
+      if (sr >= Lc) continue;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+        *reinterpret_cast<float2*>(a.dx + hoff + sr * x_step + 8 * jb +
+                                   2 * w.q) =
+            make_float2(D[4 * jb + 2 * hf], D[4 * jb + 2 * hf + 1]);
+    }
+
+    // (d) C . h_in: A C's rows, B the chunk state's (n, p) tile
+    // transposed, <dh, h_in> over p of [32 wg, 32 wg + 32) on the way
+    float ph = 0.f, rA_ = 0.f, rB_ = 0.f;
+    if (c > 0) {
+      float R[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) R[i] = 0.f;
+      pipelined_product<64, S9_CHUNK_STAGES, false>(
+          R, ring, NS / 32, w, bhl, 64 * 128, every_tile,
+          [&](int, int s, unsigned char* bhi, unsigned char* blo,
+              uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+            const unsigned char* st = sm.stage[s];
+            ph += split_tile_t<64, true>(bhi, blo, st + S9_BOX128, S9_BOX32,
+                                         0, w.tid, st + S9_BOX128 +
+                                                       2 * S9_BOX32,
+                                         32 * w.wg);
+            rows_a(st, ah, al);
+          });
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int tr = hf ? rB : rA;
+        if (tr >= Lc) continue;
+        float v = 0.f;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          const float2 dv = *reinterpret_cast<const float2*>(
+              a.dy + hoff + tr * x_step + 8 * jb + 2 * w.q);
+          v += R[4 * jb + 2 * hf] * dv.x + R[4 * jb + 2 * hf + 1] * dv.y;
+        }
+        (hf ? rB_ : rA_) = v;
+      }
+    }
+    rA_ = quad_sum(rA_);
+    rB_ = quad_sum(rB_);
+    if (w.q == 0) {
+      parts[S9_P_R + rA] = esv[rA] * rA_;
+      parts[S9_P_R + rB] = esv[rB] * rB_;
+    }
+    pd = warp_sum(pd);
+    ph = warp_sum(ph);
+    if (w.lane == 0) {
+      parts[S9_P_RED + wglob] = pd;
+      parts[S9_P_RED + 8 + wglob] = ph;
+    }
+    hopper::mbar_arrive_warp(&sm.vempty[vs]);  // done with the head's vectors
+  }
+  // the group's GE_sum partial
+  float* gsum = a.gesum +
+                (static_cast<int64_t>(bc) * n_groups + grp) * S9_LP * S9_LP;
+  if (w.wg == 0)
+    gs_store<NS, 64>(sm, w, gsum);
+  else
+    gs_store<NS, 128>(sm, w, gsum);
+}
+
+// (d'') A head's d(seg) from the chunk launch's parts, its reverse cumsum,
+// ddt and the chunk's dD and dA sums, one warp a (b, chunk, head), as (d)
+// ends each head (a launch of its own: inside the chunk block, even on a
+// warp of the producer's warpgroup, it left ptxas short of registers)
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_finish_kernel(const float* __restrict__ parts,
+                      const float* __restrict__ dtv,
+                      const float* __restrict__ segv,
+                      const float* __restrict__ esv,
+                      const float* __restrict__ wsv,
+                      const float* __restrict__ a_log,
+                      float* __restrict__ ddt, float* __restrict__ part,
+                      int S, int H, int L, int64_t n_heads) {
+  const int64_t bch = static_cast<int64_t>(blockIdx.x) * NWARPS +
+                      threadIdx.x / 32;
+  if (bch >= n_heads) return;
+  const int lane = threadIdx.x % 32;
+  const int n_chunks = (S + L - 1) / L;
+  const int h = static_cast<int>(bch % H);
+  const int64_t bc = bch / H;
+  const int c = static_cast<int>(bc % n_chunks);
+  const int64_t row0 = bc / n_chunks * S + static_cast<int64_t>(c) * L;
+  const int Lc = min(L, S - c * L);
+  const float* pt = parts + bch * S9_PARTS;
+  const float* dt = dtv + bch * S9_LP;
+  const float* seg = segv + bch * S9_LP;
+  const float* wv = wsv + bch * S9_LP;
+  const float A = -expf(a_log[h]);
+  // d(seg) and the column sums, four steps a lane (lane l: 4l .. 4l + 3)
+  float dseg[4], cs[4], uv[4];
+  float uw = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = 4 * lane + j;
+    float v = 0.f;
+    if (t < 64)
+      for (int k = 0; k < 4; ++k) v += pt[S9_P_CS + k * S9_LP + t];
+    for (int k = 4; k < 8; ++k) v += pt[S9_P_CS + k * S9_LP + t];
+    cs[j] = v;
+    uv[j] = pt[S9_P_U + t];
+    const bool ok = t < Lc;
+    dseg[j] = ok ? pt[t] - dt[t] * v + pt[S9_P_R + t] - uv[j] * wv[t] : 0.f;
+    if (ok) uw += uv[j] * wv[t];
+  }
+  uw = warp_sum(uw);
+  float sum_d = 0.f, hdot = 0.f;
+  for (int k = 0; k < 8; ++k) {
+    sum_d += pt[S9_P_RED + k];
+    hdot += pt[S9_P_RED + 8 + k];
+  }
+  const int last = Lc - 1;
+  if (lane == last >> 2) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j == (last & 3)) dseg[j] += esv[bch * S9_LP + last] * hdot + uw;
+  }
+  // the reverse cumsum over the chunk: each lane's run, then a warp scan
+  // of the runs from the chunk's end
+  const float run = dseg[0] + dseg[1] + dseg[2] + dseg[3];
+  float inc = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_down_sync(0xffffffffu, inc, off);
+    if (lane + off < 32) inc += v;
+  }
+  float rc = inc - run, da = 0.f;  // the sum over the lanes after this one
+  const float total = seg[last];
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    const int t = 4 * lane + j;
+    rc += dseg[j];
+    if (t < Lc) {
+      ddt[(row0 + t) * H + h] = cs[j] + uv[j] * expf(total - seg[t]) + A * rc;
+      da += dt[t] * rc;
+    }
+  }
+  da = warp_sum(da);
+  if (lane == 0) {
+    part[bch * 2] = sum_d;
+    part[bch * 2 + 1] = da;
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(S9_THREADS, 1)
+ssd_bwd_chunk_sm90_kernel(const __grid_constant__ CUtensorMap tm_x128,
+                          const __grid_constant__ CUtensorMap tm_dy128,
+                          const __grid_constant__ CUtensorMap tm_dy32,
+                          const __grid_constant__ CUtensorMap tm_b128,
+                          const __grid_constant__ CUtensorMap tm_c128,
+                          const __grid_constant__ CUtensorMap tm_states,
+                          const __grid_constant__ CUtensorMap tm_dstates,
+                          const __grid_constant__ CUtensorMap tm_cb,
+                          const __grid_constant__ ChunkArgs a) {
+  using Smem = ChunkSm90Smem<NS>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    init_ring<S9_CHUNK_STAGES>(sm.full, sm.empty);
+    for (int v = 0; v < 2; ++v) {
+      hopper::mbar_init(&sm.vfull[v], 1);
+      hopper::mbar_init(&sm.vempty[v], S9_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_chunks = (a.S + a.L - 1) / a.L;
+  const int n_groups = (a.H + BWD_GROUP - 1) / BWD_GROUP;
+  const int n_items = a.B * n_chunks * n_groups;
+
+  if (tid >= S9_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<S9_PRODUCER_REGS>();
+    if (tid != S9_CONSUMERS) return;
+    int i = 0, hv = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int grp = item % n_groups, bc = item / n_groups;
+      const int c = bc % n_chunks, b = bc / n_chunks;
+      const int t0 = c * a.L, Lc = min(a.L, a.S - t0);
+      const int h_end = min(a.H, (grp + 1) * BWD_GROUP);
+      for (int h = grp * BWD_GROUP; h < h_end; ++h, ++hv) {
+        const int vs = hv % 2;
+        const int64_t bch = static_cast<int64_t>(bc) * a.H + h;
+        if (hv >= 2) hopper::mbar_wait(&sm.vempty[vs], (hv / 2 - 1) & 1);
+        const int64_t o = bch * S9_LP;
+        hopper::mbar_arrive_expect_tx(&sm.vfull[vs], 4 * S9_LP * 4);
+        hopper::bulk_load(sm.vec[vs][0], a.dtv + o, S9_LP * 4, &sm.vfull[vs]);
+        hopper::bulk_load(sm.vec[vs][1], a.segv + o, S9_LP * 4, &sm.vfull[vs]);
+        hopper::bulk_load(sm.vec[vs][2], a.esv + o, S9_LP * 4, &sm.vfull[vs]);
+        hopper::bulk_load(sm.vec[vs][3], a.wsv + o, S9_LP * 4, &sm.vfull[vs]);
+        chunk_produce_head<NS>(sm, i, &tm_x128, &tm_dy128, &tm_dy32, &tm_b128,
+                               &tm_c128, &tm_states, &tm_dstates, &tm_cb, b,
+                               bc, c, h, a.H, t0, (Lc + 31) / 32);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<S9_CONSUMER_REGS>();
+
+  const Wg w = wg_of();
+  Ring<S9_CHUNK_STAGES> ring{sm.full, sm.empty, 0};
+  int hv = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int grp = item % n_groups, bc = item / n_groups;
+    const int c = bc % n_chunks, b = bc / n_chunks;
+    chunk_consume_item<NS>(sm, a, w, ring, hv, b, bc, c, grp);
+  }
+}
+
+// (e') dB or dC of one (b, chunk), all heads summed, as (e): first over the
+// chunk's steps (A = GE_sum^T for dB, GE_sum for dC, its head groups' parts
+// summed in order as A is built; B = C or B, 32 steps of all N by TMA,
+// transposed as they are split), then over the (h, p) columns (A = w_h x_h
+// or exp(seg_h) dy_h, 128 steps x 32 p by TMA with the head's scale row;
+// B = the state gradients or the chunk states, N x 32 p, as they lie).
+// Warpgroup j takes rows [64 j, 64 j + 64) and all N columns (m64nNk8).
+// Block blockIdx.x = 2 (b n_chunks + c) + (0 for dB, 1 for dC).
+constexpr int S9_DBDC_STAGES = 3;
+
+template <int NS>
+struct DbdcSm90Smem {
+  unsigned char stage[S9_DBDC_STAGES][S9_STAGE];  // A 128 x 32 | B N x 32
+  unsigned char bhl[2][2 * 2 * NS * 128];  // per warpgroup: 2 x (hi, lo)
+  float scale[S9_DBDC_STAGES][S9_LP];
+  uint64_t full[S9_DBDC_STAGES], empty[S9_DBDC_STAGES];
+};
+
+template <int NS>
+__global__ void __launch_bounds__(S9_THREADS, 1)
+ssd_bwd_dbdc_sm90_kernel(const __grid_constant__ CUtensorMap tm_x128,
+                         const __grid_constant__ CUtensorMap tm_dy128,
+                         const __grid_constant__ CUtensorMap tm_states,
+                         const __grid_constant__ CUtensorMap tm_dstates,
+                         const __grid_constant__ CUtensorMap tm_b32,
+                         const __grid_constant__ CUtensorMap tm_c32,
+                         const float* __restrict__ wsv,
+                         const float* __restrict__ esv,
+                         const float* __restrict__ gesum,
+                         float* __restrict__ db, float* __restrict__ dc,
+                         int S, int H, int L) {
+  constexpr int ST = S9_DBDC_STAGES;
+  using Smem = DbdcSm90Smem<NS>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  const int n_chunks = (S + L - 1) / L;
+  const int n_groups = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const bool is_db = blockIdx.x % 2 == 0;
+  const int bc = blockIdx.x / 2, c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int n_t1 = (Lc + 31) / 32, n_tiles = n_t1 + 2 * H;
+  if (tid == 0) {
+    init_ring<ST>(sm.full, sm.empty);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= S9_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<S9_PRODUCER_REGS>();
+    if (tid != S9_CONSUMERS) return;
+    const CUtensorMap* am = is_db ? &tm_x128 : &tm_dy128;
+    const CUtensorMap* bm = is_db ? &tm_dstates : &tm_states;
+    const CUtensorMap* mm = is_db ? &tm_c32 : &tm_b32;
+    const float* scale = (is_db ? wsv : esv) +
+                         static_cast<int64_t>(bc) * H * S9_LP;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = producer_stage<ST>(sm.empty, i);
+      unsigned char* st = sm.stage[s];
+      if (i < n_t1) {
+        hopper::mbar_arrive_expect_tx(&sm.full[s], NS / 32 * S9_BOX32);
+#pragma unroll
+        for (int nb = 0; nb < NS / 32; ++nb)
+          hopper::tma_load_3d(st + S9_BOX128 + nb * S9_BOX32, mm, &sm.full[s],
+                              32 * nb, t0 + 32 * i, b);
+      } else {
+        const int k = i - n_t1, h = k / 2, p0 = 32 * (k % 2);
+        hopper::mbar_arrive_expect_tx(&sm.full[s],
+                                      S9_BOX128 + NS * 128 + S9_LP * 4);
+        hopper::tma_load_4d(st, am, &sm.full[s], p0, h, t0, b);
+        hopper::tma_load_2d(st + S9_BOX128, bm, &sm.full[s], p0,
+                            (bc * H + h) * NS);
+        hopper::bulk_load(sm.scale[s], scale + h * S9_LP, S9_LP * 4,
+                          &sm.full[s]);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<S9_CONSUMER_REGS>();
+
+  const Wg w = wg_of();
+  const int m0 = 64 * w.wg;  // this warpgroup's first row
+  const float* gsum =
+      gesum + static_cast<int64_t>(bc) * n_groups * S9_LP * S9_LP;
+  float acc[NS / 2];
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+  Ring<ST> ring{sm.full, sm.empty, 0};
+  pipelined_product<NS, ST>(
+      acc, ring, n_tiles, w, sm.bhl[w.wg], NS * 128, every_tile,
+      [&](int i, int s, unsigned char* bhi, unsigned char* blo,
+          uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+        const unsigned char* st = sm.stage[s];
+        if (i < n_t1) {  // over the steps 32 i + [0, 32)
+          split_tile_t<NS, false>(bhi, blo, st + S9_BOX128, S9_BOX32, 0,
+                                  w.tid);
+          make_a(ah, al, w, [&](int r, int kk) {
+            const int m = m0 + r, k = 32 * i + kk;
+            const int t = is_db ? k : m, sr = is_db ? m : k;
+            float v = 0.f;
+            if (sr <= t && t < Lc)
+              for (int gr = 0; gr < n_groups; ++gr)
+                v += gsum[(static_cast<int64_t>(gr) * S9_LP + t) * S9_LP + sr];
+            return v;
+          });
+        } else {  // over one head's 32 columns of p
+          split_tile(bhi, blo, st + S9_BOX128, NS, w.tid);
+          const float* sc = sm.scale[s];
+          make_a(ah, al, w, [&](int r, int kk) {
+            const int m = m0 + r;
+            return m < Lc ? lds(st, hopper::swz32(m, kk)) * sc[m] : 0.f;
+          });
+        }
+      });
+  float* out = (is_db ? db : dc) + (static_cast<int64_t>(b) * S + t0) * NS;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = m0 + 16 * w.warp + w.g + 8 * hf;
+    if (m >= Lc) continue;
+#pragma unroll
+    for (int jb = 0; jb < NS / 8; ++jb)
+      *reinterpret_cast<float2*>(out + m * NS + 8 * jb + 2 * w.q) =
+          make_float2(acc[4 * jb + 2 * hf], acc[4 * jb + 2 * hf + 1]);
+  }
+}
+
+// One k-tile of 3xTF32 through the blocks above, for the card tests: d (64
+// x 64) = a (64 x 32) . b (64 x 32)^T, a and b row-major f32, A built in
+// registers and b split into hi and lo tiles in shared memory; with raw !=
+// 0, one TF32 product of the unsplit operands instead (a's f32 bits as its
+// registers, b's tile as it is), which shows whether the tensor core
+// rounds or truncates an f32 operand.
+struct UnitSmem {
+  unsigned char b[3][64 * 128];  // b as it is, hi, lo
+};
+
+__global__ void __launch_bounds__(128)
+ssd_tf32_unit_sm90_kernel(const float* __restrict__ a,
+                          const float* __restrict__ b, float* __restrict__ d,
+                          int raw) {
+  extern __shared__ unsigned char smem_raw[];
+  UnitSmem& sm = aligned_smem<UnitSmem>(smem_raw);
+  const Wg w = wg_of();
+  for (int e = w.tid; e < 64 * 32; e += 128)
+    *reinterpret_cast<float*>(sm.b[0] + hopper::swz32(e / 32, e % 32)) = b[e];
+  __syncthreads();
+  split_tile(sm.b[1], sm.b[2], sm.b[0], 64, w.tid);
+  hopper::fence_proxy_async();
+  __syncthreads();
+  float acc[1][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[0][i] = 0.f;
+  uint32_t ah[1][4][4], al[1][4][4];
+  make_a(ah[0], al[0], w, [&](int r, int k) { return a[r * 32 + k]; });
+  if (raw) {
+    const int r0 = 16 * w.warp + w.g;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 8 * kk + w.q;
+      ah[0][kk][0] = __float_as_uint(a[r0 * 32 + k]);
+      ah[0][kk][1] = __float_as_uint(a[(r0 + 8) * 32 + k]);
+      ah[0][kk][2] = __float_as_uint(a[r0 * 32 + k + 4]);
+      ah[0][kk][3] = __float_as_uint(a[(r0 + 8) * 32 + k + 4]);
+    }
+    const uint32_t bt = hopper::smem_u32(sm.b[0]);
+    hopper::fence_operand(acc[0]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k8_tf32_rs(acc[0], ah[0][kk],
+                                     hopper::desc_tf32(bt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc[0]);
+    hopper::fence_operand(ah[0]);
+  } else {
+    hopper::fence_operand(acc[0]);
+    issue_tile<64>(acc[0], ah[0], al[0], hopper::smem_u32(sm.b[1]),
+                   hopper::smem_u32(sm.b[2]));
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc[0]);
+    hopper::fence_operand(ah[0]);
+    hopper::fence_operand(al[0]);
+  }
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * w.warp + w.g + 8 * hf;
+      *reinterpret_cast<float2*>(d + r * 64 + 8 * jb + 2 * w.q) =
+          make_float2(acc[0][4 * jb + 2 * hf], acc[0][4 * jb + 2 * hf + 1]);
+    }
+}
+
+// the wgmma kind's scratch, carved from one workspace of
+// ssd_scan_bwd_sm90_work_floats floats (each region a multiple of 32
+// floats): C.B^T (B, n_chunks, L, S9_LP), the state gradients (B,
+// n_chunks, H, N, P), the chunks' decays (B, n_chunks, H), dt, seg,
+// exp(seg) and w (B, n_chunks, H, S9_LP) each, the groups' GE_sum (B,
+// n_chunks, H / BWD_GROUP, S9_LP, S9_LP), the heads' per-step parts (B,
+// n_chunks, H, S9_PARTS), the per-chunk dD and dA sums
+struct BwdWorkSm90 {
+  float *cb, *dstates, *decay, *dtv, *segv, *esv, *wsv, *gesum, *parts,
+      *part;
+  size_t floats;
+};
+
+BwdWorkSm90 bwd_work_sm90(float* base, int B, int S, int H, int P, int N,
+                          int L) {
+  const size_t nc = (S + L - 1) / L, bnc = static_cast<size_t>(B) * nc;
+  const size_t ng = (H + BWD_GROUP - 1) / BWD_GROUP;
+  const size_t vec = bnc * H * S9_LP;
+  const size_t sizes[10] = {bnc * L * S9_LP, bnc * H * N * P, bnc * H,
+                            vec, vec, vec, vec,
+                            bnc * ng * S9_LP * S9_LP, bnc * H * S9_PARTS,
+                            bnc * H * 2};
+  float* p[10];
+  size_t off = 0;
+  for (int i = 0; i < 10; ++i) {
+    p[i] = base == nullptr ? nullptr : base + off;
+    off += (sizes[i] + 31) / 32 * 32;
+  }
+  return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], off};
+}
+
+// the shapes the wgmma kind takes (kernels.ssd_scan.ssd_bwd_kind)
+bool sm90_shape(int L, int P, int N) {
+  return P == 64 && (N == 64 || N == 128) && L >= 1 && L <= S9_LP;
+}
+
+// at most the 227 KB a block may have (the wrapper checks it too)
+template <int NS>
+constexpr size_t sm90_bwd_smem_bytes() {
+  const size_t a = sm90_smem_bytes<LocalSm90Smem<NS>>();
+  const size_t b = sm90_smem_bytes<ChunkSm90Smem<NS>>();
+  const size_t c = sm90_smem_bytes<DbdcSm90Smem<NS>>();
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+static_assert(sm90_bwd_smem_bytes<64>() <= 232448 &&
+                  sm90_bwd_smem_bytes<128>() <= 232448,
+              "a block's shared memory");
+
+template <int NS>
+cudaError_t launch_bwd_sm90(const float* x, const float* dt,
+                            const float* a_log, const float* bm,
+                            const float* cm, const float* d_skip,
+                            const float* dy, const float* states,
+                            const float* dh_final, float* work, float* dx,
+                            float* ddt, float* da_log, float* db, float* dc,
+                            float* dd, int B, int S, int H, int L,
+                            cudaStream_t st) {
+  constexpr int P = 64;
+  const int n_chunks = (S + L - 1) / L;
+  const BwdWorkSm90 w = bwd_work_sm90(work, B, S, H, P, NS, L);
+  cudaError_t err = launch_cb(bm, cm, w.cb, B, S, NS, L, S9_LP, st);
+  if (err != cudaSuccess) return err;
+
+  // TMA descriptors (dims innermost first, strides in bytes)
+  const cuuint64_t xs[3] = {P * 4ull, static_cast<cuuint64_t>(H) * P * 4,
+                            static_cast<cuuint64_t>(S) * H * P * 4};
+  const cuuint64_t xd[4] = {P, static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(S),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint32_t box_x128[4] = {32, 1, 128, 1}, box_x32[4] = {32, 1, 32, 1};
+  const cuuint64_t nd[3] = {static_cast<cuuint64_t>(NS),
+                            static_cast<cuuint64_t>(S),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t ns[2] = {NS * 4ull, static_cast<cuuint64_t>(S) * NS * 4};
+  const cuuint32_t box_n128[3] = {32, 128, 1}, box_n32[3] = {32, 32, 1};
+  const cuuint64_t sd[2] = {P, static_cast<cuuint64_t>(B) * n_chunks * H * NS};
+  const cuuint64_t ss[1] = {P * 4ull};
+  const cuuint32_t box_s32[2] = {32, 32}, box_sn[2] = {32, NS};
+  const cuuint64_t cd[3] = {S9_LP, static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B) * n_chunks};
+  const cuuint64_t cs[2] = {S9_LP * 4ull,
+                            static_cast<cuuint64_t>(L) * S9_LP * 4};
+  const cuuint32_t box_cb[3] = {32, 32, 1};
+  CUtensorMap x128, dy128, dy32, b128, c128, b32, c32, st32, dst32, stn, dstn,
+      cbm;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int rank;
+    const cuuint64_t* dims;
+    const cuuint64_t* strides;
+    const cuuint32_t* box;
+  } maps[12] = {{&x128, x, 4, xd, xs, box_x128},
+                {&dy128, dy, 4, xd, xs, box_x128},
+                {&dy32, dy, 4, xd, xs, box_x32},
+                {&b128, bm, 3, nd, ns, box_n128},
+                {&c128, cm, 3, nd, ns, box_n128},
+                {&b32, bm, 3, nd, ns, box_n32},
+                {&c32, cm, 3, nd, ns, box_n32},
+                {&st32, states, 2, sd, ss, box_s32},
+                {&dst32, w.dstates, 2, sd, ss, box_s32},
+                {&stn, states, 2, sd, ss, box_sn},
+                {&dstn, w.dstates, 2, sd, ss, box_sn},
+                {&cbm, w.cb, 3, cd, cs, box_cb}};
+  for (const auto& m : maps)
+    if ((err = hopper::f32_tile_map(m.map, m.base, m.rank, m.dims, m.strides,
+                                    m.box)) != cudaSuccess)
+      return err;
+
+  const auto local = ssd_bwd_local_sm90_kernel<NS>;
+  const auto chunk = ssd_bwd_chunk_sm90_kernel<NS>;
+  const auto dbdc = ssd_bwd_dbdc_sm90_kernel<NS>;
+  const size_t smem_l = sm90_smem_bytes<LocalSm90Smem<NS>>();
+  const size_t smem_c = sm90_smem_bytes<ChunkSm90Smem<NS>>();
+  const size_t smem_d = sm90_smem_bytes<DbdcSm90Smem<NS>>();
+  if ((err = cudaFuncSetAttribute(local,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem_l))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(chunk,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem_c))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dbdc,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem_d))) != cudaSuccess)
+    return err;
+
+  const int ngl = (H + S9_LOCAL_GROUP - 1) / S9_LOCAL_GROUP;
+  local<<<B * n_chunks * ngl, S9_THREADS, smem_l, st>>>(
+      c128, dy32, dt, a_log, w.dstates, w.decay, w.dtv, w.segv, w.esv, w.wsv,
+      S, H, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int64_t NP = static_cast<int64_t>(NS) * P;
+  const int64_t elems = static_cast<int64_t>(B) * H * NP;
+  ssd_bwd_pass_kernel<<<static_cast<unsigned>((elems + THREADS - 1) / THREADS),
+                        THREADS, 0, st>>>(dh_final, w.decay, w.dstates,
+                                          n_chunks, H, NP, elems);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int items = B * n_chunks * ((H + BWD_GROUP - 1) / BWD_GROUP);
+  const ChunkArgs ca{d_skip, x,       dy,      w.cb, w.dtv, w.segv, w.esv,
+                     w.wsv,  dx,      w.gesum, w.parts, B,   S,     H,
+                     L};
+  chunk<<<items < sms ? items : sms, S9_THREADS, smem_c, st>>>(
+      x128, dy128, dy32, b128, c128, st32, dst32, cbm, ca);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t heads = static_cast<int64_t>(B) * n_chunks * H;
+  ssd_bwd_finish_kernel<<<static_cast<unsigned>((heads + NWARPS - 1) / NWARPS),
+                          THREADS, 0, st>>>(w.parts, w.dtv, w.segv, w.esv,
+                                            w.wsv, a_log, ddt, w.part, S, H,
+                                            L, heads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  dbdc<<<B * n_chunks * 2, S9_THREADS, smem_d, st>>>(
+      x128, dy128, stn, dstn, b32, c32, w.wsv, w.esv, w.gesum, db, dc, S, H,
+      L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  ssd_bwd_reduce_kernel<<<(H + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      w.part, a_log, da_log, dd, H, B * n_chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1378,7 +2772,8 @@ int ssd_cb_fwd(const void* bm, const void* cm, void* cb, int B, int S, int N,
                int chunk, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || chunk <= 0 || B > 65535)
     return cudaErrorInvalidValue;
-  return launch_cb(bm, cm, cb, B, S, N, chunk < S ? chunk : S,
+  const int L = chunk < S ? chunk : S;
+  return launch_cb(bm, cm, cb, B, S, N, L, cb_pitch(L),
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -1395,7 +2790,7 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
     return cudaErrorInvalidValue;
   const int L = chunk < S ? chunk : S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_cb(bm, cm, cb, B, S, N, L, st);
+  cudaError_t err = launch_cb(bm, cm, cb, B, S, N, L, cb_pitch(L), st);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * scan_smem_floats(L, P, N);
   // the widest job (up to 64 columns) that tiles round_up(P, 8) exactly
@@ -1455,7 +2850,7 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* a_log,
   const BwdWork w = bwd_work(static_cast<float*>(work), B, S, H, P, N, L);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto out = [](void* p) { return static_cast<float*>(p); };
-  cudaError_t err = launch_cb(bm, cm, w.cb, B, S, N, L, st);
+  cudaError_t err = launch_cb(bm, cm, w.cb, B, S, N, L, cb_pitch(L), st);
   if (err != cudaSuccess) return err;
   // 16-byte loads and copies of x, dy and the states where rows of P keep
   // them aligned
@@ -1514,6 +2909,60 @@ int ssd_scan_bwd(const void* x, const void* dt, const void* a_log,
 
   ssd_bwd_reduce_kernel<<<(H + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       w.part, f(a_log), out(da_log), out(dd), H, B * n_chunks);
+  return cudaGetLastError();
+}
+
+// The wgmma kind (kernels.ssd_scan.ssd_bwd_kind): floats of its workspace,
+// bytes of its largest block's shared memory (0 at a shape it does not
+// take), and its six launches with the arguments of ssd_scan_bwd (P 64, N
+// 64 or 128, chunks of at most 128 steps, every pointer 16-byte aligned;
+// anything else returns cudaErrorInvalidValue before a launch).
+size_t ssd_scan_bwd_sm90_work_floats(int B, int S, int H, int P, int N,
+                                     int chunk) {
+  return bwd_work_sm90(nullptr, B, S, H, P, N, chunk < S ? chunk : S).floats;
+}
+
+size_t ssd_scan_bwd_sm90_smem_bytes(int chunk, int P, int N) {
+  if (!sm90_shape(chunk, P, N)) return 0;
+  return N == 128 ? sm90_bwd_smem_bytes<128>() : sm90_bwd_smem_bytes<64>();
+}
+
+int ssd_scan_bwd_sm90(const void* x, const void* dt, const void* a_log,
+                      const void* bm, const void* cm, const void* d_skip,
+                      const void* dy, const void* states,
+                      const void* dh_final, void* work, void* dx, void* ddt,
+                      void* da_log, void* db, void* dc, void* dd, int B,
+                      int S, int H, int P, int N, int chunk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || chunk <= 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  const int L = chunk < S ? chunk : S;
+  const void* ptrs[7] = {x, bm, cm, dy, states, work, dx};
+  for (const void* q : ptrs)
+    if (!aligned16(q)) return cudaErrorInvalidValue;
+  if (!sm90_shape(L, P, N)) return cudaErrorInvalidValue;
+  const auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const auto o = [](void* q) { return static_cast<float*>(q); };
+  auto* launch = N == 128 ? launch_bwd_sm90<128> : launch_bwd_sm90<64>;
+  return launch(f(x), f(dt), f(a_log), f(bm), f(cm), f(d_skip), f(dy),
+                f(states), f(dh_final), o(work), o(dx), o(ddt), o(da_log),
+                o(db), o(dc), o(dd), B, S, H, L,
+                static_cast<cudaStream_t>(stream));
+}
+
+// One 3xTF32 k-tile through the wgmma kind's building blocks (raw = 0), or
+// one TF32 product of the unsplit operands (raw = 1): d (64 x 64) = a (64 x
+// 32) . b (64 x 32)^T, all row-major f32. Returns a cudaError_t.
+int ssd_tf32_unit_sm90(const void* a, const void* b, void* d, int raw,
+                       void* stream) {
+  const size_t smem = sm90_smem_bytes<UnitSmem>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_tf32_unit_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  ssd_tf32_unit_sm90_kernel<<<1, 128, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(d), raw);
   return cudaGetLastError();
 }
 

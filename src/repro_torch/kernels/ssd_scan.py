@@ -41,6 +41,14 @@ def _load() -> ctypes.CDLL:
     lib.ssd_scan_bwd_work_floats.restype = ctypes.c_size_t
     lib.ssd_scan_bwd_smem_bytes.argtypes = [i, i, i]
     lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_scan_bwd_sm90.argtypes = [p] * 16 + [i] * 6 + [p]
+    lib.ssd_scan_bwd_sm90.restype = i
+    lib.ssd_scan_bwd_sm90_work_floats.argtypes = [i] * 6
+    lib.ssd_scan_bwd_sm90_work_floats.restype = ctypes.c_size_t
+    lib.ssd_scan_bwd_sm90_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_scan_bwd_sm90_smem_bytes.restype = ctypes.c_size_t
+    lib.ssd_tf32_unit_sm90.argtypes = [p, p, p, i, p]
+    lib.ssd_tf32_unit_sm90.restype = i
     lib.ssd_cb_fwd.argtypes = [p, p, p, i, i, i, i, p]
     lib.ssd_cb_fwd.restype = i
     lib.ssd_cb_pitch.argtypes = [i]
@@ -332,11 +340,28 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk):
 
 # Sizes of csrc/ssd_scan.cu's shared memory and scratch, as its
 # host-side functions compute them (scan_smem_floats, bwd_dims,
-# local_smem_bytes, chunk_smem_bytes, dbdc_smem_bytes, bwd_work): one
+# local_smem_bytes, chunk_smem_bytes, dbdc_smem_bytes, bwd_work; for the
+# wgmma kind the Sm90 shared-memory structs and bwd_work_sm90): one
 # formula for the card and for ``meta``, where no library is loaded. The
 # card tests hold them equal to the library's exports.
 _CHUNK_WARPS = 512 // 32
 _DBDC_SMEM_BYTES = 4 * 4 * ((64 + 64) * (32 + 4) + 64)
+# the wgmma kind's ring stage (S9_STAGE bytes), the steps a chunk is
+# padded to (S9_LP) and the floats of a head's per-step parts (S9_PARTS)
+_S9_STAGE, _S9_LP = 32768, 128
+_S9_PARTS = 11 * _S9_LP + 16
+# the backward's two kinds of launches (ssd_bwd_kind)
+SSD_BWD_KINDS = ("mma_sync", "wgmma")
+
+
+def ssd_bwd_kind(L: int, P: int, N: int) -> str:
+    """Which backward launches a call with chunks of L steps (min(chunk,
+    S)), head dim P and state dim N takes: ``"wgmma"`` (TF32 wgmma in
+    3xTF32, operands by TMA: P 64, N 64 or 128, L at most 128 — the
+    Mamba2 and Zamba2 widths) or ``"mma_sync"`` (m16n8k8 mma.sync, every
+    other shape), decided before the launch, never after a failure."""
+    return "wgmma" if P == 64 and N in (64, 128) and 1 <= L <= _S9_LP \
+        else "mma_sync"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -354,9 +379,34 @@ def scan_smem_bytes(L: int, P: int, N: int) -> int:
     return 4 * (2 * Lp * pitch + _round_up(N, 16) * pitch + 4 * Lp)
 
 
-def bwd_smem_bytes(L: int, P: int, N: int) -> int:
-    """Dynamic shared memory of the backward's largest block for L
-    steps."""
+def _kind_of(L: int, P: int, N: int, kind) -> str:
+    if kind is None:
+        return ssd_bwd_kind(L, P, N)
+    if kind not in SSD_BWD_KINDS:
+        raise ValueError(f"ssd_scan_bwd: kind {kind!r}, not one of "
+                         f"{SSD_BWD_KINDS}")
+    if kind == "wgmma" and ssd_bwd_kind(L, P, N) != "wgmma":
+        raise ValueError(f"ssd_scan_bwd: the wgmma kind takes P 64, N 64 "
+                         f"or 128 and chunks of at most 128 steps, not L "
+                         f"{L}, P {P}, N {N}")
+    return kind
+
+
+def bwd_smem_bytes(L: int, P: int, N: int, kind=None) -> int:
+    """Dynamic shared memory of the backward's largest block for L steps,
+    for ``kind`` (default: :func:`ssd_bwd_kind`'s)."""
+    if _kind_of(L, P, N, kind) == "wgmma":
+        # LocalSm90Smem<N>, ChunkSm90Smem<N>, DbdcSm90Smem<N> (their rings
+        # of 4, 3 and 3 stages), each + 1024 bytes to align its base
+        tile = 32 * 128                    # a 32 x 32 f32 box
+        local = (N // 32) * 4 * tile + 4 * 2 * tile + 2 * 2 * 2 * 64 * 128 \
+            + 4 * 8 * _S9_LP + 8 * (1 + 2 * 4)
+        chunk = 3 * _S9_STAGE + 2 * (2 * 2 * 64 * 128) \
+            + 4 * 64 * (64 + 8 + 128 + 8) + 4 * 2 * 4 * _S9_LP \
+            + 8 * (2 * 3 + 4)
+        dbdc = 3 * _S9_STAGE + 2 * 2 * 2 * N * 128 + 4 * 3 * _S9_LP \
+            + 8 * 2 * 3
+        return 1024 + max(local, chunk, dbdc)
     Lp, Pp, Nk = _round_up(L, 32), _round_up(P, 32), _round_up(N, 8)
     pitch2 = Pp + 4
     local = 8 * Lp * pitch2 + 4 * 3 * Lp
@@ -367,16 +417,26 @@ def bwd_smem_bytes(L: int, P: int, N: int) -> int:
 
 
 def bwd_work_floats(B: int, S: int, H: int, P: int, N: int,
-                    chunk: int = 128) -> int:
-    """Floats of one backward call's workspace: C·Bᵀ, the state
-    gradients, the chunks' decays, w and exp(seg), the head groups' GE
-    sums, the per-chunk dD and dA sums, each rounded up to 4 floats."""
+                    chunk: int = 128, kind=None) -> int:
+    """Floats of one backward call's workspace for ``kind`` (default:
+    :func:`ssd_bwd_kind`'s). ``mma_sync``: C·Bᵀ, the state gradients, the
+    chunks' decays, w and exp(seg), the head groups' GE sums, the
+    per-chunk dD and dA sums, each rounded up to 4 floats. ``wgmma``: C·Bᵀ
+    in rows of 128, the state gradients, the decays, dt, seg, exp(seg)
+    and w in rows of 128, the GE sums, each head's per-step parts, the
+    per-chunk sums, each rounded up to 32 floats."""
     L = min(chunk, S)
     bnc = B * -(-S // L)
+    ng = -(-H // SSD_BWD_GROUP)
+    if _kind_of(L, P, N, kind) == "wgmma":
+        vec = bnc * H * _S9_LP
+        sizes = (bnc * L * _S9_LP, bnc * H * N * P, bnc * H, vec, vec, vec,
+                 vec, bnc * ng * _S9_LP * _S9_LP, bnc * H * _S9_PARTS,
+                 bnc * H * 2)
+        return sum(_round_up(n, 32) for n in sizes)
     Lp = _round_up(L, 32)
     sizes = (bnc * L * cb_pitch(L), bnc * H * N * P, bnc * H, bnc * H * L,
-             bnc * H * L, bnc * -(-H // SSD_BWD_GROUP) * Lp * Lp,
-             bnc * H * 2)
+             bnc * H * L, bnc * ng * Lp * Lp, bnc * H * 2)
     return sum(_round_up(n, 4) for n in sizes)
 
 
@@ -457,19 +517,22 @@ def ssd_scan_with_states(x, dt, a_log, b_mat, c_mat, d_skip, *,
 
 
 def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
-                 chunk: int = 128, dh_final=None):
+                 chunk: int = 128, dh_final=None, kind=None):
     """The gradients ``(dx, ddt, da_log, db, dc, dd)`` of the chunked SSD
     for an output gradient ``dy`` (B, S, H, P) and, where the forward
     returned the final state, its gradient ``dh_final`` (B, H, N, P) or
     None; ``states`` are the forward's chunk states
     (:func:`ssd_scan_with_states`). CPU tensors take
     :func:`ssd_scan_bwd_plain` (which recomputes the states); CUDA
-    tensors launch the backward kernels (float32, contiguous, chunks of
-    at most 128 steps) or raise; ``meta`` tensors record their work.
-    ``ssd_scan_bwd.launches`` counts the calls that launched them (six
-    launches each: C·Bᵀ, the chunks' local state gradients, their
-    passing, the per-head chunk gradients, dB and dC, the sums over
-    chunks; ``SSD_BWD_LAUNCHES``)."""
+    tensors launch the backward kernels of ``kind`` (default:
+    :func:`ssd_bwd_kind`'s; float32, contiguous, chunks of at most 128
+    steps) or raise; ``meta`` tensors record their work.
+    ``ssd_scan_bwd.launches`` counts the calls that launched them
+    (``SSD_BWD_LAUNCHES[kind]``: C·Bᵀ, the chunks' local state gradients
+    (and, in the wgmma kind, every chunk's per-head vectors), their
+    passing, the per-head chunk gradients (in the wgmma kind two
+    launches: the products, then each head's d(seg) and ddt), dB and dC,
+    the sums over chunks)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts + (dy,)):
         return ssd_scan_bwd_plain(*ts, dy, chunk=chunk, dh_final=dh_final)
@@ -485,11 +548,12 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
             raise ValueError(f"ssd_scan_bwd: {name} must be a contiguous "
                              f"f32 {shape} tensor on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    _smem_check("ssd_scan_bwd", bwd_smem_bytes(L, P, N), chunk, P, N)
+    kind = _kind_of(L, P, N, kind)
+    _smem_check("ssd_scan_bwd", bwd_smem_bytes(L, P, N, kind), chunk, P, N)
     if L > 128:
         raise ValueError(f"ssd_scan_bwd: chunk {chunk}: the backward "
                          "kernels take chunks of at most 128 steps")
-    work = torch.empty((bwd_work_floats(B, S, H, P, N, chunk),),
+    work = torch.empty((bwd_work_floats(B, S, H, P, N, chunk, kind),),
                        dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(t) for t in ts]
     if x.device.type == "meta":
@@ -497,58 +561,62 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
         kernel_work.record("ssd_scan_bwd", flops=flops, nbytes=nbytes)
         return tuple(grads)
     lib = _load()
-    err = lib.ssd_scan_bwd(
+    entry = lib.ssd_scan_bwd_sm90 if kind == "wgmma" else lib.ssd_scan_bwd
+    err = entry(
         *(t.data_ptr() for t in ts), dy.data_ptr(), states.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None,
         work.data_ptr(), *(g.data_ptr() for g in grads), B, S, H, P, N,
         chunk, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("ssd_scan_bwd kernel: "
+        raise RuntimeError(f"ssd_scan_bwd kernel ({kind}): "
                            + lib.ssd_scan_error_string(err).decode())
     ssd_scan_bwd.launches += 1
     return tuple(grads)
 
 
 ssd_scan_bwd.launches = 0
-# the kernels one ssd_scan_bwd call launches, in order, as the profiler
-# names them (the local one only where there is more than one chunk)
-SSD_BWD_LAUNCHES = ("ssd_cb_kernel", "ssd_bwd_local_kernel",
-                    "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
-                    "ssd_bwd_dbdc_kernel", "ssd_bwd_reduce_kernel")
+# the kernels one ssd_scan_bwd call of each kind launches, in order, as the
+# profiler names them (the mma_sync kind's local one only where there is
+# more than one chunk)
+SSD_BWD_LAUNCHES = {
+    "mma_sync": ("ssd_cb_kernel", "ssd_bwd_local_kernel",
+                 "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
+                 "ssd_bwd_dbdc_kernel", "ssd_bwd_reduce_kernel"),
+    "wgmma": ("ssd_cb_kernel", "ssd_bwd_local_sm90_kernel",
+              "ssd_bwd_pass_kernel", "ssd_bwd_chunk_sm90_kernel",
+              "ssd_bwd_finish_kernel", "ssd_bwd_dbdc_sm90_kernel",
+              "ssd_bwd_reduce_kernel")}
 
 
 # Launch geometry of csrc/ssd_scan.cu, for the static verifier
 # (repro_torch.verify.grid_check.ssd_scan_models): threads of an
 # elementwise block, C·Bᵀ tiles of a block, heads a chunk block sums
-# over, and dB/dC output tiles of a block.
+# over, dB/dC output tiles of an mma_sync block, heads of a wgmma local
+# block.
 SSD_THREADS = 256
 SSD_CB_TILE = (16, 32)
 SSD_BWD_GROUP = 8
 SSD_DBDC_TILE = (64, 64)
+SSD_LOCAL_GROUP = 8
 
 
-def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132):
+def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132,
+                 kind=None):
     """Each launch of a forward (``ssd_cb_kernel``, ``ssd_scan_kernel``)
-    and a backward call at these sizes, as the CUDA source launches them:
-    ``{name: (grid, item)}``, ``item(*block_index)`` the work the block
-    does as the source decodes its index. ``ssd_scan_kernel`` walks its
-    chunks in a loop, so its grid carries the chunk as a second axis;
-    ``ssd_bwd_chunk_kernel`` is persistent (``sms`` programs at most)
-    and is given as its item count and programs instead."""
+    and a backward call of ``kind`` (default: :func:`ssd_bwd_kind`'s) at
+    these sizes, as the CUDA source launches them: ``{name: (grid,
+    item)}``, ``item(*block_index)`` the work the block does as the
+    source decodes its index. ``ssd_scan_kernel`` walks its chunks in a
+    loop, so its grid carries the chunk as a second axis; the chunk
+    kernels are persistent (``sms`` programs at most) and are given as
+    their item count and programs instead."""
     L = min(chunk, S)
+    kind = _kind_of(L, P, N, kind)
     n_chunks = -(-S // L)
     nrt = -(-L // SSD_CB_TILE[0])
     tiles = nrt * -(-L // SSD_CB_TILE[1])
     n_groups = -(-H // SSD_BWD_GROUP)
-    nmb = -(-L // SSD_DBDC_TILE[0])
-    nnb = -(-N // SSD_DBDC_TILE[1])
     items = B * n_chunks * n_groups
-
-    def dbdc(x):
-        nb, x = x % nnb, x // nnb
-        mb, x = x % nmb, x // nmb
-        return (x // 2 // n_chunks, x // 2 % n_chunks, x % 2, mb, nb)
-
     out = {
         # (chunk, batch, tile) -> (b, chunk, row tile, column tile)
         "ssd_cb_kernel": ((n_chunks, B, tiles),
@@ -559,11 +627,35 @@ def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132):
         # elementwise over (b, h, N x P), the chunks in its loop
         "ssd_bwd_pass_kernel": ((-(-B * H * N * P // SSD_THREADS),),
                                 lambda e: (e,)),
-        "ssd_bwd_chunk_kernel": (items, min(items, sms)),
-        # -> (b, chunk, dB or dC, row tile, column tile)
-        "ssd_bwd_dbdc_kernel": ((B * n_chunks * 2 * nmb * nnb,), dbdc),
         "ssd_bwd_reduce_kernel": ((-(-H // SSD_THREADS),), lambda i: (i,)),
     }
+    if kind == "wgmma":
+        ngl = -(-H // SSD_LOCAL_GROUP)
+        # -> (b, chunk, group of SSD_LOCAL_GROUP heads), every chunk
+        out["ssd_bwd_local_sm90_kernel"] = (
+            (B * n_chunks * ngl,),
+            lambda x: (x // ngl // n_chunks, x // ngl % n_chunks, x % ngl))
+        out["ssd_bwd_chunk_sm90_kernel"] = (items, min(items, sms))
+        # a warp a (b, chunk, h), SSD_THREADS / 32 of them a block
+        per = SSD_THREADS // 32
+        out["ssd_bwd_finish_kernel"] = (
+            (-(-B * n_chunks * H // per),), lambda x: (x,))
+        # -> (b, chunk, dB or dC): the whole (L, N) output of one
+        out["ssd_bwd_dbdc_sm90_kernel"] = (
+            (B * n_chunks * 2,),
+            lambda x: (x // 2 // n_chunks, x // 2 % n_chunks, x % 2))
+        return out
+    nmb = -(-L // SSD_DBDC_TILE[0])
+    nnb = -(-N // SSD_DBDC_TILE[1])
+
+    def dbdc(x):
+        nb, x = x % nnb, x // nnb
+        mb, x = x % nmb, x // nmb
+        return (x // 2 // n_chunks, x // 2 % n_chunks, x % 2, mb, nb)
+
+    out["ssd_bwd_chunk_kernel"] = (items, min(items, sms))
+    # -> (b, chunk, dB or dC, row tile, column tile)
+    out["ssd_bwd_dbdc_kernel"] = ((B * n_chunks * 2 * nmb * nnb,), dbdc)
     if n_chunks > 1:
         # (chunk - 1, h, b) -> (b, chunk - 1, h): chunks 1 .. n_chunks - 1
         out["ssd_bwd_local_kernel"] = ((n_chunks - 1, H, B),
@@ -571,11 +663,35 @@ def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132):
     return out
 
 
-def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128) -> int:
-    """Bytes of the workspace one ssd_scan_bwd call allocates on the card
-    (C·Bᵀ, the state gradients, the decays, w and exp(seg), the head
-    groups' GE sums, the per-chunk sums)."""
-    return 4 * bwd_work_floats(B, S, H, P, N, chunk)
+def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128,
+                               kind=None) -> int:
+    """Bytes of the workspace one ssd_scan_bwd call of ``kind`` allocates
+    on the card (:func:`bwd_work_floats`)."""
+    return 4 * bwd_work_floats(B, S, H, P, N, chunk, kind)
+
+
+def tf32_unit(a, b, *, raw: bool = False):
+    """One k-tile through the wgmma kind's building blocks on the card, for
+    the card tests: ``a (64, 32) . b (64, 32)^T`` in 3xTF32 (A split in
+    registers, b split into hi and lo tiles in shared memory, three
+    m64n64k8 products), or with ``raw`` one TF32 product of the unsplit
+    f32 operands (which shows whether the tensor core rounds or truncates
+    an f32 operand). f32, contiguous, on the card."""
+    for name, t in (("a", a), ("b", b)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 \
+                or not t.is_contiguous() or tuple(t.shape) != (64, 32):
+            raise ValueError(f"tf32_unit: {name} must be a contiguous f32 "
+                             "(64, 32) tensor on the card")
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    lib = _load()
+    err = lib.ssd_tf32_unit_sm90(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                 int(raw),
+                                 torch.cuda.current_stream(a.device)
+                                 .cuda_stream)
+    if err != 0:
+        raise RuntimeError("tf32_unit kernel: "
+                           + lib.ssd_scan_error_string(err).decode())
+    return d
 
 
 def ssd_cb_kernel(b_mat, c_mat, *, chunk: int = 128):

@@ -657,34 +657,49 @@ def check_flash_bwd_work(B: int, H: int, KH: int, S: int, causal: bool,
 
 
 def ssd_scan_models(B: int, H: int, S: int, P: int, N: int,
-                    chunk: int = 128, sms: int = 132
+                    chunk: int = 128, sms: int = 132, kind=None
                     ) -> Tuple[List[GridModel], List[Finding]]:
-    """The SSD scan's launches (forward and backward) as checkable
-    models, from :func:`repro_torch.kernels.ssd_scan.launch_grids`: each
-    launch's blocks cover its work, (b·h, chunk) for the scan, once.
-    The persistent chunk kernel's walk is certified directly (the
-    findings returned beside the models)."""
+    """The SSD scan's launches (forward and backward of ``kind``, default
+    the wrapper's ``ssd_bwd_kind``) as checkable models, from
+    :func:`repro_torch.kernels.ssd_scan.launch_grids`: each launch's
+    blocks cover its work, (b·h, chunk) for the scan, once. The persistent
+    chunk kernel's walk is certified directly (the findings returned
+    beside the models)."""
     from repro_torch.kernels.ssd_scan import (SSD_CB_TILE, SSD_DBDC_TILE,
-                                              SSD_THREADS, launch_grids)
+                                              SSD_LOCAL_GROUP, SSD_THREADS,
+                                              launch_grids)
     L = min(chunk, S)
     n_chunks = -(-S // L)
-    g = launch_grids(B, S, H, P, N, chunk, sms)
+    g = launch_grids(B, S, H, P, N, chunk, sms, kind)
     models = []
 
-    def one(name, out_shape, block):
-        grid, item = g[name]
+    def one(name, out_shape, block, item=None):
+        grid, it = g[name]
         models.append(GridModel(name, grid, (), (BlockAccess(
-            "out", "write", block, out_shape, item),)))
+            "out", "write", block, out_shape, item or it),)))
 
     one("ssd_cb_kernel", (B, n_chunks, L, L), (1, 1) + SSD_CB_TILE)
     one("ssd_scan_kernel", (B, H, n_chunks), (1, 1, 1))
     one("ssd_bwd_pass_kernel", (B * H * N * P,), (SSD_THREADS,))
-    one("ssd_bwd_dbdc_kernel", (B, n_chunks, 2, L, N), (1, 1, 1)
-        + SSD_DBDC_TILE)
     one("ssd_bwd_reduce_kernel", (H,), (SSD_THREADS,))
-    if "ssd_bwd_local_kernel" in g:
-        one("ssd_bwd_local_kernel", (B, n_chunks - 1, H), (1, 1, 1))
-    items, programs = g["ssd_bwd_chunk_kernel"]
-    walk = verify_persistent_walk("ssd_bwd_chunk_kernel",
-                                  walk_blocks(programs, items), items)
+    if "ssd_bwd_dbdc_sm90_kernel" in g:
+        # the per-head vectors of every chunk, a group of heads a block
+        one("ssd_bwd_local_sm90_kernel", (B, n_chunks, H),
+            (1, 1, SSD_LOCAL_GROUP))
+        # a warp a (b, chunk, h)
+        one("ssd_bwd_finish_kernel", (B * n_chunks * H,),
+            (SSD_THREADS // 32,))
+        _, dbdc = g["ssd_bwd_dbdc_sm90_kernel"]
+        one("ssd_bwd_dbdc_sm90_kernel", (B, n_chunks, 2, L, N),
+            (1, 1, 1, L, N), lambda x: dbdc(x) + (0, 0))
+        chunk_kernel = "ssd_bwd_chunk_sm90_kernel"
+    else:
+        one("ssd_bwd_dbdc_kernel", (B, n_chunks, 2, L, N), (1, 1, 1)
+            + SSD_DBDC_TILE)
+        if "ssd_bwd_local_kernel" in g:
+            one("ssd_bwd_local_kernel", (B, n_chunks - 1, H), (1, 1, 1))
+        chunk_kernel = "ssd_bwd_chunk_kernel"
+    items, programs = g[chunk_kernel]
+    walk = verify_persistent_walk(chunk_kernel, walk_blocks(programs, items),
+                                  items)
     return models, walk

@@ -19,9 +19,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd_plain,
     flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (ssd_cb_kernel, ssd_chunks_plain,
-                                          ssd_scan, ssd_scan_bwd,
-                                          ssd_scan_bwd_plain, ssd_scan_plain,
-                                          ssd_scan_with_states)
+                                          ssd_dbdc_plain, ssd_scan,
+                                          ssd_scan_bwd, ssd_scan_bwd_plain,
+                                          ssd_scan_plain, ssd_scan_with_states,
+                                          ssd_state_grads_plain, tf32_unit)
 from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 from repro_torch.launch.serve import Request, Server
 
@@ -773,20 +774,157 @@ def test_ssd_rejects_what_it_cannot_run(cuda):
 
 
 @pytest.mark.parametrize("L,P,N", [(16, 8, 4), (64, 64, 64), (128, 64, 128),
-                                   (100, 80, 40), (256, 128, 256)])
+                                   (100, 80, 40), (256, 128, 256),
+                                   (128, 64, 64), (1, 64, 128)])
 def test_ssd_size_formulas_are_the_librarys(L, P, N, cuda):
     """The wrapper's shared-memory and scratch sizes (one formula for the
     card and for the dry run on ``meta``) equal what the CUDA source's
-    host functions compute."""
+    host functions compute, for the backward's mma.sync kind and, at the
+    shapes it takes, its wgmma kind (whose smem export is 0 elsewhere)."""
     from repro_torch.kernels import ssd_scan as ssd
     lib = ssd._load()
     assert ssd.cb_pitch(L) == lib.ssd_cb_pitch(L)
     assert ssd.scan_smem_bytes(L, P, N) == lib.ssd_scan_smem_bytes(L, P, N)
-    assert ssd.bwd_smem_bytes(L, P, N) == \
+    assert ssd.bwd_smem_bytes(L, P, N, "mma_sync") == \
         lib.ssd_scan_bwd_smem_bytes(L, P, N)
+    sm90 = ssd.ssd_bwd_kind(L, P, N) == "wgmma"
+    assert lib.ssd_scan_bwd_sm90_smem_bytes(L, P, N) == \
+        (ssd.bwd_smem_bytes(L, P, N, "wgmma") if sm90 else 0)
     for B, S, H in ((1, 4096, 64), (2, 1000, 7), (3, L, 9)):
-        assert ssd.bwd_work_floats(B, S, H, P, N, L) == \
+        assert ssd.bwd_work_floats(B, S, H, P, N, L, "mma_sync") == \
             lib.ssd_scan_bwd_work_floats(B, S, H, P, N, L)
+        if sm90:
+            assert ssd.bwd_work_floats(B, S, H, P, N, L, "wgmma") == \
+                lib.ssd_scan_bwd_sm90_work_floats(B, S, H, P, N, L)
+
+
+# the backward's train shapes (mamba2-1.3b, zamba2-2.7b) and a ragged S
+SSD_BWD_TRAIN = [(2, 4096, 64, 64, 128), (2, 4096, 80, 64, 64),
+                 (2, 4001, 64, 64, 128)]
+
+
+def _ssd_bwd_case(shape, device):
+    B, S, H, P, N = shape
+    xs = _ssd_inputs(B, S, H, P, N, device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    dy = torch.randn((B, S, H, P), generator=gen, device=device)
+    states = ssd_scan_with_states(*xs, chunk=128)[2]
+    return xs, dy, states
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_TRAIN)
+def test_ssd_bwd_wgmma_launches_match_their_plain_pieces(shape, cuda):
+    """The wgmma kind's launches, each against the plain piece it computes
+    (f32, 2e-4 norm-relative), through the library's entry with a
+    workspace the test holds: the local and passing launches' state
+    gradients (the workspace's second region) against
+    ssd_state_grads_plain; the chunk and finish launches' dx and ddt, and
+    dB/dC's db and dc, against ssd_scan_bwd_plain, db and dc also against
+    ssd_dbdc_plain's head-group sums."""
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N = shape
+    xs, dy, states = _ssd_bwd_case(shape, cuda)
+    assert ssd.ssd_bwd_kind(128, P, N) == "wgmma"
+    work = torch.empty((ssd.bwd_work_floats(B, S, H, P, N, 128, "wgmma"),),
+                       device=cuda)
+    grads = [torch.empty_like(t) for t in xs]
+    lib = ssd._load()
+    assert lib.ssd_scan_bwd_sm90(
+        *(t.data_ptr() for t in xs), dy.data_ptr(), states.data_ptr(), None,
+        work.data_ptr(), *(g.data_ptr() for g in grads), B, S, H, P, N, 128,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    nc = -(-S // 128)
+    cb = -(-B * nc * 128 * 128 // 32) * 32
+    dstates = work[cb:cb + B * nc * H * N * P].view(B, nc, H, N, P)
+    _, dt, a_log, _, c_mat, _ = xs
+    assert _norm_rel(dstates, ssd_state_grads_plain(dt, a_log, c_mat, dy,
+                                                    chunk=128)) <= 2e-4
+    want = ssd_scan_bwd_plain(*xs, dy, chunk=128)
+    for name, i in (("dx", 0), ("ddt", 1), ("db", 3), ("dc", 4)):
+        assert _norm_rel(grads[i], want[i]) <= 2e-4, name
+    _, want_states, _, _ = ssd_chunks_plain(*xs, chunk=128)
+    db, dc = ssd_dbdc_plain(xs[0], dt, a_log, xs[3], c_mat, dy, want_states,
+                            ssd_state_grads_plain(dt, a_log, c_mat, dy,
+                                                  chunk=128),
+                            chunk=128, group=8)
+    assert _norm_rel(grads[3], db) <= 2e-4
+    assert _norm_rel(grads[4], dc) <= 2e-4
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_TRAIN)
+def test_ssd_bwd_kinds_agree_and_repeat(shape, cuda):
+    """At the train shapes the dispatch takes the wgmma kind; its six
+    gradients are within 2e-4 (norm-relative) of the mma.sync kind's on
+    the same inputs, and two wgmma calls give the same bits."""
+    from repro_torch.kernels import ssd_scan as ssd
+    xs, dy, states = _ssd_bwd_case(shape, cuda)
+    assert ssd.ssd_bwd_kind(128, shape[3], shape[4]) == "wgmma"
+    got = ssd_scan_bwd(*xs, dy, states, chunk=128)
+    other = ssd_scan_bwd(*xs, dy, states, chunk=128, kind="mma_sync")
+    for name, a, b in zip(("dx", "ddt", "da_log", "db", "dc", "dd"), got,
+                          other, strict=True):
+        assert _norm_rel(a, b) <= 2e-4, name
+    again = ssd_scan_bwd(*xs, dy, states, chunk=128, kind="wgmma")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_tf32_wgmma_unit_product(cuda):
+    """One k-tile through the wgmma kind's building blocks (A split in
+    registers, B split into hi and lo tiles in shared memory, three
+    m64n64k8 TF32 products) against the f64 product: within 1e-6
+    norm-relative (3xTF32 keeps ~21 bits of each operand); and one TF32
+    product of the unsplit operands, which matches truncation of each f32
+    operand to tf32 (the card does not round it) within 1e-6 and not
+    rounding."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn((64, 32), generator=gen, device=cuda)
+    b = torch.randn((64, 32), generator=gen, device=cuda)
+    want = a.double() @ b.double().T
+
+    def rel(x, ref):
+        return ((x.double() - ref).norm() / ref.norm()).item()
+
+    def tf32(x, rounding):
+        bits = x.view(torch.int32) + (0x1000 if rounding else 0)
+        return (bits & -0x2000).view(torch.float32).double()
+
+    assert rel(tf32_unit(a, b), want) <= 1e-6
+    raw = tf32_unit(a, b, raw=True)
+    assert rel(raw, tf32(a, False) @ tf32(b, False).T) <= 1e-6
+    assert rel(raw, tf32(a, True) @ tf32(b, True).T) > 1e-5
+
+
+def test_ssd_bwd_wgmma_refuses_what_it_cannot_run(cuda):
+    """The wgmma kind is asked for only where it runs: the wrapper refuses
+    it at a P it does not take, the library's entry refuses such a launch
+    (a CUDA error, no launch), and the wrapper raises on a refused launch
+    rather than fall back to the mma.sync kind or the plain version."""
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N = 1, 64, 2, 16, 8
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    dy = torch.randn_like(xs[0])
+    states = ssd_scan_with_states(*xs, chunk=32)[2]
+    with pytest.raises(ValueError, match="wgmma kind takes"):
+        ssd_scan_bwd(*xs, dy, states, chunk=32, kind="wgmma")
+    lib = ssd._load()
+    work = torch.empty((1 << 20,), device=cuda)
+    grads = [torch.empty_like(t) for t in xs]
+    assert lib.ssd_scan_bwd_sm90(
+        *(t.data_ptr() for t in xs), dy.data_ptr(), states.data_ptr(), None,
+        work.data_ptr(), *(g.data_ptr() for g in grads), B, S, H, P, N, 32,
+        torch.cuda.current_stream().cuda_stream) != 0
+    # a refused launch raises (here: an x the TMA boxes cannot take, 4
+    # bytes past a 16-byte boundary)
+    big = _ssd_inputs(1, 128, 2, 64, 64, cuda)
+    xb = torch.empty(big[0].numel() + 1, device=cuda)[1:].view(big[0].shape)
+    xb.copy_(big[0])
+    states_b = ssd_scan_with_states(*big, chunk=128)[2]
+    before = ssd_scan_bwd.launches
+    with pytest.raises(RuntimeError, match="ssd_scan_bwd kernel \\(wgmma\\)"):
+        ssd_scan_bwd(xb, *big[1:], torch.randn_like(big[0]), states_b,
+                     chunk=128)
+    assert ssd_scan_bwd.launches == before
 
 
 def test_degraded_tile_op_raises_on_the_card(cuda):

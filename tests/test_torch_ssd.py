@@ -13,7 +13,9 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.ssd_scan import ssd_decode_step as jax_decode_step
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan import ssd_scan_jnp
+from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_dbdc_plain,
                                           ssd_decode_step, ssd_scan,
                                           ssd_scan_bwd_plain, ssd_scan_plain,
@@ -387,3 +389,128 @@ def test_gradient_is_finite_where_the_decay_overflows():
     for name, g, w in zip(GRADS, plain, want):
         if np.isfinite(w).all():
             np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+
+
+# the backward's kinds (kernels.ssd_scan.ssd_bwd_kind): mamba2-1.3b's and
+# zamba2-2.7b's train widths, a ragged S, one step, a shorter chunk at
+# those widths take the wgmma launches; the small shapes of chip_smoke.py
+# and the ones the TF32 tiles do not take keep the mma.sync launches
+@pytest.mark.parametrize("B,S,H,P,N,chunk,kind", [
+    (2, 4096, 64, 64, 128, 128, "wgmma"), (2, 4096, 80, 64, 64, 128, "wgmma"),
+    (2, 4001, 64, 64, 128, 128, "wgmma"), (1, 1, 64, 64, 128, 128, "wgmma"),
+    (1, 300, 4, 64, 64, 64, "wgmma"), (2, 100, 3, 16, 8, 32, "mma_sync"),
+    (1, 50, 2, 6, 5, 16, "mma_sync"), (1, 70, 2, 72, 70, 64, "mma_sync"),
+    (1, 512, 2, 64, 96, 128, "mma_sync"), (1, 512, 2, 64, 128, 256,
+                                           "mma_sync")])
+def test_backward_kind_by_shape(B, S, H, P, N, chunk, kind):
+    assert ssd.ssd_bwd_kind(min(chunk, S), P, N) == kind
+
+
+def test_a_kind_that_cannot_take_the_shape_is_refused():
+    with pytest.raises(ValueError, match="wgmma kind takes"):
+        ssd.bwd_work_floats(1, 64, 2, 16, 8, 32, "wgmma")
+    with pytest.raises(ValueError, match="not one of"):
+        ssd.bwd_smem_bytes(128, 64, 128, "hopper")
+
+
+# the mirrors of csrc/ssd_scan.cu's sizes at mamba2-1.3b's and zamba2-2.7b's
+# train shapes (B 2, S 4096, chunk 128), worked out by hand from the
+# kernels' shared-memory structs and workspace regions:
+# * wgmma, N 128: the dB/dC block's 3-stage ring (3 x 32 KB), its two
+#   warpgroups' two hi/lo pairs of 128 x 32 f32 (128 KB), 3 scale rows, 6
+#   barriers and 1 KB to align: 231,984; N 64: the chunk block's ring (96
+#   KB), 2 x 32 KB of B tiles, the GE_sum tiles 64 x 72 and 64 x 136 (53,248
+#   bytes), two heads' vectors (4 KB), 10 barriers, 1 KB: 222,288;
+# * mma_sync: the chunk block's pre-split x, dy and state rows (8 bytes x
+#   (2 x 128 + N) x 68) and its 3,360 floats of vectors and parts;
+# * workspace floats: C.B^T (64 x 128 x 128), the state gradients (64 x H x N
+#   x 64), the decays (64 x H), per-head vectors of 128 (4 of them in the
+#   wgmma kind, 2 in mma_sync), the GE sums (64 x H / 8 x 128 x 128), in the
+#   wgmma kind each head's per-step parts (64 x H x 1,424), the per-chunk
+#   sums (64 x H x 2).
+@pytest.mark.parametrize("shape,kind,smem,floats", [
+    ((2, 4096, 64, 64, 128), "wgmma", 231_984, 50_933_760),
+    ((2, 4096, 80, 64, 64), "wgmma", 222_288, 42_433_536),
+    ((2, 4096, 64, 64, 128), "mma_sync", 222_336, 44_052_480),
+    ((2, 4096, 80, 64, 64), "mma_sync", 187_520, 33_831_936)])
+def test_backward_size_mirrors_at_the_train_shapes(shape, kind, smem, floats):
+    B, S, H, P, N = shape
+    assert ssd.bwd_smem_bytes(128, P, N, kind) == smem <= H100_SXM.smem_bytes
+    assert ssd.bwd_work_floats(B, S, H, P, N, 128, kind) == floats
+    assert ssd.ssd_scan_bwd_scratch_bytes(B, S, H, P, N, 128, kind) \
+        == 4 * floats
+    if kind == ssd.ssd_bwd_kind(128, P, N):  # the dispatch's by default
+        assert ssd.bwd_smem_bytes(128, P, N) == smem
+        assert ssd.bwd_work_floats(B, S, H, P, N, 128) == floats
+
+
+def _covered(grid, item):
+    """Each block of ``grid`` through ``item``: the work units, in order."""
+    import itertools
+    return [item(*ix) for ix in itertools.product(*map(range, grid))]
+
+
+@pytest.mark.parametrize("kind", ["mma_sync", "wgmma"])
+@pytest.mark.parametrize("shape", [(2, 4096, 64, 64, 128),
+                                   (2, 4096, 80, 64, 64),
+                                   (2, 4001, 64, 64, 128)])
+def test_backward_grids_cover_each_unit_once(shape, kind):
+    """launch_grids of each kind at the train shapes and the ragged S:
+    every launch of the backward covers its units exactly once, (b, chunk,
+    group of 8 heads) for the wgmma local launch (every chunk), (b, chunk,
+    dB or dC) for its dB/dC launch, (b, chunk, h) in blocks of 8 for its
+    finish launch, (b, chunk >= 1, h) for the mma.sync local launch, (b,
+    chunk, dB or dC, 64 x 64 tile) for its dB/dC; the persistent chunk
+    launches walk their (b, chunk, group) items with one program an
+    SM."""
+    B, S, H, P, N = shape
+    nc, ng = -(-S // 128), -(-H // 8)
+    g = ssd.launch_grids(B, S, H, P, N, 128, 132, kind)
+    sm90 = "_sm90" if kind == "wgmma" else ""
+    assert set(ssd.SSD_BWD_LAUNCHES[kind]) <= set(g)
+    local = _covered(*g[f"ssd_bwd_local{sm90}_kernel"])
+    dbdc = _covered(*g[f"ssd_bwd_dbdc{sm90}_kernel"])
+    if kind == "wgmma":
+        assert sorted(local) == [(b, c, j) for b in range(B)
+                                 for c in range(nc) for j in range(ng)]
+        assert sorted(dbdc) == [(b, c, k) for b in range(B)
+                                for c in range(nc) for k in range(2)]
+        (blocks,), item = g["ssd_bwd_finish_kernel"]
+        assert [item(x) for x in range(blocks)] == [(x,) for x in
+                                                     range(blocks)]
+        assert blocks == -(-B * nc * H // 8)
+    else:
+        assert sorted(local) == [(b, c, h) for b in range(B)
+                                 for c in range(nc - 1) for h in range(H)]
+        assert sorted(dbdc) == [(b, c, k, m, n) for b in range(B)
+                                for c in range(nc) for k in range(2)
+                                for m in range(2) for n in range(-(-N // 64))]
+    items, programs = g[f"ssd_bwd_chunk{sm90}_kernel"]
+    assert items == B * nc * ng and programs == min(items, 132)
+    walked = sorted(i for p in range(programs)
+                    for i in range(p, items, programs))
+    assert walked == list(range(items))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(1, 200, 2, 64, 128, 128),
+                                             (1, 150, 3, 64, 64, 128)])
+def test_plain_pieces_at_the_wgmma_widths_match_jax(B, S, H, P, N, chunk):
+    """The plain pieces the wgmma launches are held to on the card, at the
+    widths they take (P 64, N 128 and 64, chunk 128, ragged S):
+    ssd_chunks_plain's chunk states and ssd_state_grads_plain's state
+    gradients through ssd_scan_bwd_plain, and ssd_dbdc_plain's head-group
+    dB and dC (groups of 8), against jax.vjp of ssd_scan_jnp (2e-4)."""
+    xs = _inputs(B, S, H, P, N, seed=20)
+    dy = np.random.default_rng(21).normal(size=(B, S, H, P)).astype(np.float32)
+    want = _jax_vjp(xs, dy, chunk)
+    x, dt, a_log, b, c, d = _t(xs)
+    dyt = torch.from_numpy(dy)
+    got = ssd_scan_bwd_plain(x, dt, a_log, b, c, d, dyt, chunk=chunk)
+    for name, g, w in zip(GRADS, got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+    _, states, _, _ = ssd_chunks_plain(x, dt, a_log, b, c, d, chunk=chunk)
+    dstates = ssd_state_grads_plain(dt, a_log, c, dyt, chunk=chunk)
+    db, dc = ssd_dbdc_plain(x, dt, a_log, b, c, dyt, states, dstates,
+                            chunk=chunk, group=8)
+    np.testing.assert_allclose(db.numpy(), want[3], **TOL)
+    np.testing.assert_allclose(dc.numpy(), want[4], **TOL)

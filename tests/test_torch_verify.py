@@ -445,11 +445,28 @@ def test_ssd_launches_certify(shape):
     models, walk = ssd_scan_models(B, H, S, P, N, chunk=128)
     assert not walk
     names = {m.name for m in models}
-    assert {"ssd_cb_kernel", "ssd_scan_kernel", "ssd_bwd_local_kernel",
-            "ssd_bwd_dbdc_kernel"} <= names
+    # the train widths take the backward's wgmma launches, the small shape
+    # the mma.sync ones (kernels.ssd_scan.ssd_bwd_kind)
+    sm90 = "_sm90" if P == 64 else ""
+    assert {"ssd_cb_kernel", "ssd_scan_kernel", f"ssd_bwd_local{sm90}_kernel",
+            f"ssd_bwd_dbdc{sm90}_kernel"} <= names
     for m in models:
         res = check_grid(m)
         assert not res.errors(), [str(f) for f in res.errors()]
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 64, 64, 128),
+                                   (2, 4096, 80, 64, 64)])
+def test_ssd_launches_of_the_mma_sync_kind_certify(shape):
+    """The train widths' other kind (what ssd_scan_bwd(kind="mma_sync")
+    launches, the yardstick chip_smoke.py times in turns) certifies too."""
+    B, S, H, P, N = shape
+    models, walk = ssd_scan_models(B, H, S, P, N, chunk=128, kind="mma_sync")
+    assert not walk
+    assert {"ssd_bwd_local_kernel", "ssd_bwd_dbdc_kernel"} <= \
+        {m.name for m in models}
+    for m in models:
+        assert not check_grid(m).errors(), m.name
 
 
 def test_an_ssd_grid_short_of_a_chunk_is_flagged():
