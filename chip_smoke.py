@@ -58,8 +58,9 @@ Server at full width with random seeded weights, and a training path:
   (``dryrun_16x16``, ``dryrun_2x16x16``: each its own fake process
   group);
 * mamba2-1.3b (all 48 layers) and zamba2-2.7b (all 54) training at full
-  width the same way (the SSD scan's forward with its chunk states, its
-  backward kernels, rmsnorm_gated's kernel forward), their launches per
+  width the same way (the SSD scan's forward with its chunk states and
+  its backward, both their wgmma kinds at B 2, rmsnorm_gated's kernel
+  forward), their launches per
   step asserted, each step's gradients and update on 2 (zamba2: 6, one
   group with its shared block) f32 layers against the plain versions; a
   trace of one step of each.
@@ -557,9 +558,9 @@ def phase_build():
     """Both CUDA libraries, one nvcc each, all started together. The
     wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions, spill
     nothing and keep their wgmma pipelined (no ptxas C7512), and the
-    SSD's hold no HMMA; the SSD backward's kernels'
+    SSD's hold no HMMA; the SSD forward's and backward's kernels'
     registers, spills and HMMA / HGMMA counts are reported on their own
-    (``ssd_bwd``)."""
+    (``ssd_fwd``, ``ssd_bwd``)."""
     from repro_torch.kernels.cuda_build import build
     t0 = time.perf_counter()
     libs = build(*CUDA_SOURCES)
@@ -572,9 +573,10 @@ def phase_build():
     emit({"phase": "build", "nvcc_s": secs,
           "libraries": [os.path.relpath(lib, ROOT) for lib in libs],
           "ptxas": ptxas, "tensor_core": tc,
-          "ssd_bwd": {name: {**info, **tc["ssd_scan.cu"].get(name, {})}
-                      for name, info in ptxas["ssd_scan.cu"].items()
-                      if name.startswith("ssd_bwd_")}})
+          **{key: {name: {**info, **tc["ssd_scan.cu"].get(name, {})}
+                   for name, info in ptxas["ssd_scan.cu"].items()
+                   if name.startswith(f"{key}_")}
+             for key in ("ssd_fwd", "ssd_bwd")}})
     wgmma = {name: (tc[src][name], ptxas[src][name])
              for src in CUDA_SOURCES for name in tc[src] if "_sm90_" in name}
     bad = [name for name, (n, info) in wgmma.items()
@@ -713,18 +715,17 @@ def _ssd_launched(torch, fn, want):
     return names
 
 
-def _ssd_bwd_build():
+def _ssd_build(*prefixes):
     """Registers, spilled bytes and tensor-core instruction counts (HMMA,
-    HGMMA) of the SSD backward's kernels of both kinds, from the build's
-    ptxas report and ``cuobjdump -sass``."""
+    HGMMA) of the SSD kernels whose names start with one of ``prefixes``,
+    from the build's ptxas report and ``cuobjdump -sass``."""
     from repro_torch.kernels.cuda_build import build
     lib = build("ssd_scan.cu")[0]
     with open(f"{lib}.log") as f:
         ptxas = _ptxas_by_kernel(f.read())
     tc = _tensor_core_counts(lib)
     return {name: {**info, **tc.get(name, {})}
-            for name, info in ptxas.items()
-            if name.startswith(("ssd_bwd_", "ssd_tf32_"))}
+            for name, info in ptxas.items() if name.startswith(prefixes)}
 
 
 def _tf32_unit(torch, g, checks):
@@ -904,11 +905,171 @@ def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:140 (ssd_scan_jnp "
                        "under jax.grad; no TPU kernel)",
-           "cases": cases, "build": _ssd_bwd_build(),
+           "cases": cases,
+           "build": _ssd_build("ssd_bwd_", "ssd_tf32_"),
            "tf32_unit": _tf32_unit(torch, g, checks)}
     if None in out:
         row.update(out.pop(None))
     return {**row, "shapes": out}
+
+
+# (B, S, H, P, N), chunk: the serve shapes (the path; timed: the row and
+# its "zamba2_n64" shape), ragged S and S below a chunk at full width, the
+# tile edges (one step, one chunk, five chunks) at full width, a small case
+# (the mma_sync kind), zamba2's 80 heads at N 64 (its prefill, a ragged S,
+# one step)
+SSD_FWD_CASES = [((4, 512, 64, 64, 128), 128), ((4, 510, 64, 64, 128), 128),
+                 ((4, 100, 64, 64, 128), 128), ((1, 1, 64, 64, 128), 128),
+                 ((1, 128, 64, 64, 128), 128), ((1, 640, 64, 64, 128), 128),
+                 ((2, 64, 2, 16, 16), 16), ((4, 512, 80, 64, 64), 128),
+                 ((4, 510, 80, 64, 64), 128), ((1, 1, 80, 64, 64), 128)]
+SSD_FWD_TIMED = {(4, 512, 64, 64, 128): None,
+                 (4, 512, 80, 64, 64): "zamba2_n64"}
+
+
+def _ssd_fwd_case(torch, timer, checks, tag, args, chunk, train, timed):
+    """One SSD forward case: each kind that takes its widths (wgmma and
+    mma_sync where ``ssd_fwd_kind`` allows wgmma, else mma_sync), held
+    against the plain versions within the SSD's 2e-4 — y and the final
+    state (``ssd_scan``, a serve call; not at a train shape) and y, the
+    final state and the chunk states (``ssd_scan_with_states``, training's
+    forward) — repeated bitwise, and the kernels it launches, from the
+    profiler (another kind's, or a missing one, fails), also for a call
+    that leaves the kind to the dispatch (``ssd_fwd_kind`` at B·H). With
+    ``timed`` also the dispatched call's card and device ms, each kind's
+    device ms by launch, the two kinds in turns, the scratch, bound and
+    the plain version's time."""
+    from repro_torch.roofline import kernel_work
+    from repro_torch.kernels.ssd_scan import (
+        SSD_FWD_LAUNCHES, fwd_work_floats, ssd_chunks_plain, ssd_fwd_kind,
+        ssd_scan, ssd_scan_plain, ssd_scan_with_states)
+    b, s, h, p = args[0].shape
+    n = args[3].shape[-1]
+    L = min(chunk, s)
+    kind = ssd_fwd_kind(L, p, n, b * h)
+    kinds = ("wgmma", "mma_sync") if ssd_fwd_kind(L, p, n) == "wgmma" \
+        else ("mma_sync",)
+
+    def run(kind=None):
+        if train:
+            return ssd_scan_with_states(*args, chunk=chunk, kind=kind)
+        return ssd_scan(*args, chunk=chunk, return_state=True, kind=kind)
+
+    def run_states(kind=None):
+        return ssd_scan_with_states(*args, chunk=chunk, return_state=True,
+                                    kind=kind)
+
+    _, want_st, want_y, want_h = ssd_chunks_plain(*args, chunk=chunk)
+    serve_want = None if train else ssd_scan_plain(*args, chunk=chunk,
+                                                   return_state=True)
+    errs = {}
+    for k in kinds:
+        err = _check(f"{tag}/{k}/states", run_states(k),
+                     (want_y, want_h, want_st), SSD_TOL, checks)
+        if serve_want is not None:
+            err = max(err, _check(f"{tag}/{k}", run(k), serve_want, SSD_TOL,
+                                  checks))
+        bitwise = all(torch.equal(a, b_) for a, b_ in
+                      zip(run_states(k), run_states(k)))
+        checks.append({"name": f"{tag}/{k}/bitwise_repeat", "ok": bitwise})
+        errs[k] = err
+    del want_st, want_y, want_h, serve_want
+    for k, name in [(k, f"{tag}/{k}/launched") for k in kinds] \
+            + [(None, f"{tag}/kind")]:
+        want_names = set(SSD_FWD_LAUNCHES[k or kind])
+        launched = _ssd_launched(torch, lambda k=k: run(k), want_names)
+        checks.append({"name": name, "kind": k or kind,
+                       "launched": sorted(launched),
+                       "ok": launched == want_names})
+    if not timed:
+        return None
+    nbytes, flops = kernel_work.ssd_work(b, s, h, p, n, chunk)
+    if train:   # and the chunk states written, (B, chunks, H, N, P) f32
+        nbytes += 4 * b * -(-s // chunk) * h * n * p
+    bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
+    row = {"shape": [b, s, h, p, n], "chunk": chunk, "dtype": "float32",
+           "kind": kind, "max_abs_err": errs[kind], "bytes": nbytes,
+           "flops": flops, "ms": timer.ms(run),
+           # every launch of a call (SSD_FWD_LAUNCHES[kind])
+           "device_ms": timer.device_ms(run, "ssd_"),
+           "device_ms_by_kernel": {k_: timer.device_ms(run, k_)
+                                   for k_ in SSD_FWD_LAUNCHES[kind]},
+           "scratch_bytes": 4 * fwd_work_floats(b, s, h, p, n, chunk, kind,
+                                                train)}
+    if train:
+        row["with_states"] = True
+    for other in kinds:
+        if other == kind:
+            continue
+        turns = _in_turns(timer, lambda: run("wgmma"),
+                          lambda: run("mma_sync"))
+        row.update({
+            f"{other}_max_abs_err": errs[other],
+            "in_turns": {"wgmma_ms": turns["kernel_ms"],
+                         "mma_sync_ms": turns["library_ms"],
+                         "wgmma_over_mma_sync": turns["kernel_over_library"]},
+            f"{other}_device_ms_by_kernel": {
+                k_: timer.device_ms(lambda: run(other), k_)
+                for k_ in SSD_FWD_LAUNCHES[other]},
+            f"{other}_scratch_bytes": 4 * fwd_work_floats(
+                b, s, h, p, n, chunk, other, train)})
+    plain = (lambda: ssd_chunks_plain(*args, chunk=chunk)) if train else \
+        (lambda: ssd_scan_plain(*args, chunk=chunk, return_state=True))
+    row.update({"plain_ms": timer.ms(plain, iters=3 if train else 20),
+                "bound_ms": bound, "bound_by": by,
+                # the first kernel's reckoning: f32 on the CUDA cores
+                "bound_cuda_core_ms": kernel_work.bound_ms(
+                    flops, nbytes, "float32")[0],
+                "library_ms": None})
+    return row
+
+
+def _ssd_fwd_rows(torch, timer, randn, checks, timed=True):
+    """The SSD forward's row: every case of ``SSD_FWD_CASES`` (inputs from
+    ``randn`` and its generator) and of ``SSD_FWD_TRAIN`` (mamba2-1.3b's
+    and zamba2-2.7b's train shapes with the chunk states, inputs from a
+    generator of their own) through ``_ssd_fwd_case``, timed at
+    ``SSD_FWD_TIMED`` and the train shapes (with ``timed``); the build's
+    registers, spills, HMMA and HGMMA of the forward's kernels."""
+    g = randn.gen
+    timed_rows = {}
+    for (b, s, h, p, n), chunk in SSD_FWD_CASES:
+        sx, sb, sc_ = randn(b, s, h, p), randn(b, s, n) * 0.3, \
+            randn(b, s, n) * 0.3
+        sdt = torch.rand((b, s, h), generator=g, device="cuda") * 0.29 + 0.01
+        sa = torch.log(torch.arange(1, h + 1, device="cuda",
+                                    dtype=torch.float32))
+        sd = randn(h)
+        key = SSD_FWD_TIMED.get((b, s, h, p, n), "untimed")
+        row = _ssd_fwd_case(torch, timer, checks,
+                            f"ssd_scan/{b}x{s}x{h}x{p}x{n}/chunk{chunk}",
+                            (sx, sdt, sa, sb, sc_, sd), chunk, False,
+                            timed and key != "untimed")
+        if row is not None:
+            timed_rows[key] = row
+    # the forward with chunk states at the training paths' shapes,
+    # mamba2-1.3b's and zamba2-2.7b's, inputs from a generator of their own
+    rn_s = _randn_from(torch, 31)
+    for (b, s, h, p, n), key in SSD_FWD_TRAIN.items():
+        args = (rn_s(b, s, h, p),
+                torch.rand((b, s, h), generator=rn_s.gen, device="cuda")
+                * 0.29 + 0.01,
+                torch.log(torch.arange(1, h + 1, device="cuda",
+                                       dtype=torch.float32)),
+                rn_s(b, s, n) * 0.3, rn_s(b, s, n) * 0.3, rn_s(h))
+        row = _ssd_fwd_case(torch, timer, checks,
+                            f"ssd_scan/{b}x{s}x{h}x{p}x{n}/chunk128/train",
+                            args, 128, True, timed)
+        if row is not None:
+            timed_rows[key] = row
+        del args
+    out = {"route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:127",
+           "build": _ssd_build("ssd_fwd_", "ssd_scan_", "ssd_cb_")}
+    if None in timed_rows:
+        out.update(timed_rows.pop(None))
+    return {**out, "shapes": timed_rows}
 
 
 def _in_turns(timer, kernel, library, iters=10):
@@ -1480,9 +1641,6 @@ def phase_kernels(torch, timer):
     """Every kernel against its plain version on the card."""
     from repro_torch.roofline import kernel_work
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan import (ssd_chunks_plain, ssd_scan,
-                                              ssd_scan_plain,
-                                              ssd_scan_with_states)
     from repro_torch.kernels.tile_programs import PROGRAMS, get_tile_op
 
     checks, rows = [], {}
@@ -1872,89 +2030,7 @@ def phase_kernels(torch, timer):
     rows["ssd_scan_bwd"] = _ssd_bwd_rows(torch, F, timer, g, checks)
     torch.cuda.empty_cache()
 
-    # SSD scan, y and the final state: the serve shape (the path), ragged
-    # S and S below a chunk at full width, the tile edges (one step, one
-    # chunk, five chunks) at full width, a small case, and zamba2's 80
-    # heads at N 64 (its prefill, a ragged S, one step)
-    ssd_cases = [((4, 512, 64, 64, 128), 128), ((4, 510, 64, 64, 128), 128),
-                 ((4, 100, 64, 64, 128), 128), ((1, 1, 64, 64, 128), 128),
-                 ((1, 128, 64, 64, 128), 128), ((1, 640, 64, 64, 128), 128),
-                 ((2, 64, 2, 16, 16), 16), ((4, 512, 80, 64, 64), 128),
-                 ((4, 510, 80, 64, 64), 128), ((1, 1, 80, 64, 64), 128)]
-    ssd_rows = {(4, 512, 64, 64, 128): None, (4, 512, 80, 64, 64): "zamba2_n64"}
-    ssd_timed = {}
-    for (b, s, h, p, n), chunk in ssd_cases:
-        sx, sb, sc_ = randn(b, s, h, p), randn(b, s, n) * 0.3, \
-            randn(b, s, n) * 0.3
-        sdt = torch.rand((b, s, h), generator=g, device="cuda") * 0.29 + 0.01
-        sa = torch.log(torch.arange(1, h + 1, device="cuda",
-                                    dtype=torch.float32))
-        sd = randn(h)
-        args = (sx, sdt, sa, sb, sc_, sd)
-        err = _check(f"ssd_scan/{b}x{s}x{h}x{p}x{n}/chunk{chunk}",
-                     ssd_scan(*args, chunk=chunk, return_state=True),
-                     ssd_scan_plain(*args, chunk=chunk, return_state=True),
-                     SSD_TOL, checks)
-        if (b, s, h, p, n) in ssd_rows:
-            nbytes, flops = kernel_work.ssd_work(b, s, h, p, n, chunk)
-            bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
-
-            def run():
-                return ssd_scan(*args, chunk=chunk, return_state=True)
-
-            ssd_timed[ssd_rows[(b, s, h, p, n)]] = {
-                "shape": [b, s, h, p, n], "chunk": chunk, "dtype": "float32",
-                "max_abs_err": err, "bytes": nbytes, "flops": flops,
-                "ms": timer.ms(run),
-                # both launches of a call: C·Bᵀ and the scan
-                "device_ms": timer.device_ms(run, "ssd_"),
-                "plain_ms": timer.ms(lambda: ssd_scan_plain(
-                    *args, chunk=chunk, return_state=True)),
-                "bound_ms": bound,
-                "bound_by": by,
-                # the first kernel's reckoning: f32 on the CUDA cores
-                "bound_cuda_core_ms": kernel_work.bound_ms(
-                    flops, nbytes, "float32")[0],
-                "library_ms": None}
-    # the forward with chunk states at the training paths' shapes (the
-    # next rule-2 candidates: measured, not changed): mamba2-1.3b's and
-    # zamba2-2.7b's, inputs from a generator of their own
-    rn_s = _randn_from(torch, 31)
-    for (b, s, h, p, n), key in SSD_FWD_TRAIN.items():
-        args = (rn_s(b, s, h, p),
-                torch.rand((b, s, h), generator=rn_s.gen, device="cuda")
-                * 0.29 + 0.01,
-                torch.log(torch.arange(1, h + 1, device="cuda",
-                                       dtype=torch.float32)),
-                rn_s(b, s, n) * 0.3, rn_s(b, s, n) * 0.3, rn_s(h))
-        got = ssd_scan_with_states(*args, chunk=128)
-        _, states_ref, y_ref, _ = ssd_chunks_plain(*args, chunk=128)
-        err = _check(f"ssd_scan/{b}x{s}x{h}x{p}x{n}/chunk128/states",
-                     (got[0], got[2]), (y_ref, states_ref), SSD_TOL, checks)
-        del got, y_ref, states_ref
-        nbytes, flops = kernel_work.ssd_work(b, s, h, p, n, 128)
-        # and the chunk states written, (B, chunks, H, N, P) f32
-        nbytes += 4 * b * -(-s // 128) * h * n * p
-        bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
-
-        def run(args=args):
-            return ssd_scan_with_states(*args, chunk=128)
-
-        ssd_timed[key] = {
-            "shape": [b, s, h, p, n], "chunk": 128, "dtype": "float32",
-            "with_states": True, "max_abs_err": err, "bytes": nbytes,
-            "flops": flops, "ms": timer.ms(run),
-            "device_ms": timer.device_ms(run, "ssd_"),
-            "device_ms_by_kernel": {k_: timer.device_ms(run, k_) for k_ in
-                                    ("ssd_cb_kernel", "ssd_scan_kernel")},
-            "plain_ms": timer.ms(lambda: ssd_chunks_plain(
-                *args, chunk=128), iters=3),
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
-        del args
-    rows["ssd_scan"] = {
-        "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:127",
-        **ssd_timed.pop(None), "shapes": ssd_timed}
+    rows["ssd_scan"] = _ssd_fwd_rows(torch, timer, randn, checks)
     # what one launch costs under this timer, whatever its bytes: a
     # one-element copy
     one = torch.zeros(1, device="cuda")
@@ -2343,7 +2419,8 @@ def _kernel_group(name: str) -> str:
     from repro_torch.kernels.tile_programs import PROGRAMS
     if "flash_fwd_" in name:            # flash_fwd_{bf16,f32}_kernel
         return "flash_attention"
-    if "ssd_cb_kernel" in name or "ssd_scan_kernel" in name:
+    if "ssd_cb_kernel" in name or "ssd_scan_kernel" in name \
+            or "ssd_fwd_" in name:     # either forward kind's launches
         return "ssd_scan"
     if any(name.startswith(f"{p}_kernel") for p in PROGRAMS):
         return "tile"
@@ -3069,7 +3146,7 @@ def _train_kernel_group(name: str) -> str:
         return "flash_forward"
     if "ssd_bwd_" in name:
         return "ssd_backward"
-    if "ssd_scan_kernel" in name:
+    if "ssd_scan_kernel" in name or "ssd_fwd_" in name:
         return "ssd_forward"
     if "ssd_cb_kernel" in name:
         return "ssd_cb"

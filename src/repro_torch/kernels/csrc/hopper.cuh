@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
-// mbarriers, TMA tile copies and bulk copies into shared memory, warpgroup
+// mbarriers, TMA tile copies and bulk copies into shared memory and TMA
+// tile stores out of it, warpgroup
 // products (wgmma: shared-memory descriptors, fence / commit / wait, the
 // product shapes the kernels use: m64n64k16 and m64n128k16 from shared
 // memory, m64n64k16, m64n80k16 and m64n128k16 with A from registers; TF32
-// m64n64k8 and m64n128k8 with A from registers, and their 3xTF32 step)
+// m64n64k8 and m64n128k8 with A from registers, m64n64k8 from shared
+// memory, and their 3xTF32 steps)
 // and register moves between warpgroups
 // (setmaxnreg). The host part builds TMA descriptors with
 // cuTensorMapEncodeTiled of libcuda, reached through
@@ -135,6 +137,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-d tensor map at (c0, c1) written from shared memory at
+// `src`, in this thread's bulk async-group (bulk_commit, then
+// bulk_wait_read before `src` is written again)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed bulk groups have still
+// to read their shared-memory source
+template <int n>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(n) : "memory");
 }
 
 // makes this thread's ordinary writes to shared memory visible to the
@@ -496,6 +521,35 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += a . b^T: a (64 x 8 tf32) and b (64 x 8 tf32), both
+// K-major from shared memory (descriptors as desc_tf32). With both
+// operands in shared memory the warpgroup goes on at once after the
+// issue; with A in registers the issuing warps were held until the tensor
+// core had read them (PERF.md §6).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // 3xTF32 (mma.cuh's split: x = hi + lo, hi rounded to tf32, lo = x - hi):
 // d (64 x NN) += a . b^T as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into one
 // accumulator, the small terms first. b_hi and b_lo are shared-memory
@@ -517,6 +571,16 @@ __device__ __forceinline__ void wgmma_tf32x3(float (&d)[NN / 2],
     wgmma_m64n64k8_tf32_rs(d, a_hi, b_lo);
     wgmma_m64n64k8_tf32_rs(d, a_hi, b_hi);
   }
+}
+
+// wgmma_tf32x3 with A's hi and lo tiles in shared memory too (K-major
+// swizzled, as B's): d (64 x 64) += a . b^T
+__device__ __forceinline__ void wgmma_tf32x3_ss(float (&d)[32], uint64_t a_hi,
+                                                uint64_t a_lo, uint64_t b_hi,
+                                                uint64_t b_lo) {
+  wgmma_m64n64k8_tf32_ss(d, a_lo, b_hi);
+  wgmma_m64n64k8_tf32_ss(d, a_hi, b_lo);
+  wgmma_m64n64k8_tf32_ss(d, a_hi, b_hi);
 }
 
 // ----------------------------------------------------------------- host --

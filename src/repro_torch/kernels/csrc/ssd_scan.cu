@@ -17,7 +17,15 @@
 // 128-term C.B^T; mma.cuh has the split). That is 495 / 3 = 165 TFLOP/s, 0.0295 ms for the work,
 // above the 0.0233 ms that its bytes take at 3.35 TB/s.
 //
-// Two launches:
+// Two kinds of launches compute it (kernels.ssd_scan.ssd_fwd_kind picks
+// one before the launch): the wgmma kind, entry ssd_scan_fwd_sm90, for the
+// Mamba2 / Zamba2 widths (P 64, N 64 or 128, chunks of at most 128 steps;
+// four launches, "forward, wgmma (sm90)" below) where B x H leaves the
+// mma.sync kind's grid short of filling the card, and the mma.sync kind
+// here, entry ssd_scan_fwd, which takes every shape and is the faster
+// where its grid fills the card (mamba2's serve prefill of 4 rows).
+//
+// The mma.sync kind, two launches:
 // (a) ssd_cb_kernel, a block per (chunk, b, 16 x 32 tile on or below the
 //     diagonal): the causal half of C.B^T, once per (b, chunk) for all H
 //     heads, into an f32 scratch that the wrapper allocates (1 MB at the
@@ -51,9 +59,10 @@
 //     replication; x and y keep their (B, S, H, P) layout.
 //
 // Layout: x, y (B, S, H, P); dt (B, S, H); b, c (B, S, N); a_log, d_skip
-// (H,); cb scratch (B, n_chunks, L, ssd_cb_pitch(L)); h_out (B, H, N, P) or
-// null; states (B, n_chunks, H, N, P), the state entering each chunk, or
-// null. All f32 and contiguous.
+// (H,); cb scratch (B, n_chunks, L, ssd_cb_pitch(L)) (the wgmma kind: a
+// workspace, fwd_work_sm90); h_out (B, H, N, P) or null; states (B,
+// n_chunks, H, N, P), the state entering each chunk, or null. All f32 and
+// contiguous.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1514,12 +1523,14 @@ __device__ __forceinline__ void split_tile(unsigned char* bhi,
 // along one raw row, its 16-byte stores on distinct banks). With DOT, also
 // returns the thread's sum of the elements of B's rows [d0, d0 + 32)
 // times the elements at the same places of `dot`, a tile of the raw one's
-// layout.
-template <int ROWS, bool DOT>
+// layout. With SCALE, each element of raw row k is multiplied by scale[k]
+// before it is split.
+template <int ROWS, bool DOT, bool SCALE = false>
 __device__ __forceinline__ float split_tile_t(
     unsigned char* bhi, unsigned char* blo, const unsigned char* raw,
     uint32_t box_bytes, int col0, int tid,
-    const unsigned char* dot = nullptr, int d0 = 0) {
+    const unsigned char* dot = nullptr, int d0 = 0,
+    const float* scale = nullptr) {
   float sum = 0.f;
 #pragma unroll 2
   for (int it = 0; it < ROWS / 16; ++it) {
@@ -1530,7 +1541,7 @@ __device__ __forceinline__ float split_tile_t(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint32_t off = box + hopper::swz32(4 * kc + j, col & 31);
-      const float v = lds(raw, off);
+      const float v = SCALE ? scale[4 * kc + j] * lds(raw, off) : lds(raw, off);
       if (DOT && r >= d0 && r < d0 + 32) sum += v * lds(dot, off);
       const mma::Split s = mma::split(v);
       hi[j] = s.hi;
@@ -1663,6 +1674,61 @@ __device__ __forceinline__ void pipelined_product(float (&acc)[NN / 2],
 
 __device__ __forceinline__ bool every_tile(int) { return true; }
 
+// One chunk's per-head vectors by one warp, lane l taking steps 4l .. 4l +
+// 3, from the head's dt column (dtc[t H], t < Lc): dt, seg (the in-chunk
+// cumsum of dt A, in units of `unit`), exp(seg) and, where wsv is not
+// null, w = exp(seg_L - seg) dt into the workspace rows dtv, segv, esv,
+// wsv, zero past the chunk's length (seg there: its last value); the
+// chunk's decay exp(seg_L) into *decay; the lane's exp(seg) and w in e and
+// wv.
+__device__ __forceinline__ void chunk_vectors(
+    const float* __restrict__ dtc, int H, float A, int Lc, int lane,
+    float unit, float* dtv, float* segv, float* esv, float* wsv,
+    float* decay, float (&e)[4], float (&wv)[4]) {
+  float d[4], sg[4];
+  float run = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t = 4 * lane + j;
+    d[j] = t < Lc ? dtc[static_cast<int64_t>(t) * H] : 0.f;
+    run += d[j] * A;
+  }
+  float inc = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  float acc = inc - run;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc += d[j] * A;
+    sg[j] = acc;
+  }
+  // seg of the chunk's last step, from the lane that holds it
+  const int last = Lc - 1;
+  const float mine = (last & 3) == 0   ? sg[0]
+                     : (last & 3) == 1 ? sg[1]
+                     : (last & 3) == 2 ? sg[2]
+                                       : sg[3];
+  const float total = __shfl_sync(0xffffffffu, mine, last >> 2);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool ok = 4 * lane + j < Lc;
+    if (!ok) sg[j] = total;
+    e[j] = ok ? expf(sg[j]) : 0.f;
+    wv[j] = ok ? expf(total - sg[j]) * d[j] : 0.f;
+  }
+  const int o = 4 * lane;
+  *reinterpret_cast<float4*>(dtv + o) = make_float4(d[0], d[1], d[2], d[3]);
+  *reinterpret_cast<float4*>(segv + o) =
+      make_float4(unit * sg[0], unit * sg[1], unit * sg[2], unit * sg[3]);
+  *reinterpret_cast<float4*>(esv + o) = make_float4(e[0], e[1], e[2], e[3]);
+  if (wsv != nullptr)
+    *reinterpret_cast<float4*>(wsv + o) =
+        make_float4(wv[0], wv[1], wv[2], wv[3]);
+  if (lane == 0) *decay = expf(total);
+}
 
 // (b') The per-head vectors of chunk c of heads [h0, h0 + 8) of batch row b
 // (item blockIdx.x = ((b n_chunks + c) groups + group)): dt, seg (the
@@ -1738,57 +1804,17 @@ ssd_bwd_local_sm90_kernel(const __grid_constant__ CUtensorMap tm_c128,
   }
   hopper::reg_alloc<S9_CONSUMER_REGS>();
 
-  // the vectors, one warp a head: lane l takes steps 4l .. 4l + 3
+  // the vectors, one warp a head
   const int warp = tid / 32, lane = tid % 32;
   if (warp < nh) {
     const int h = h0 + warp;
-    const float A = -expf(a_log[h]);
-    const int64_t row0 = static_cast<int64_t>(b) * S + t0;
-    float d[4], sg[4];
-    float run = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = 4 * lane + j;
-      d[j] = t < Lc ? dt[(row0 + t) * H + h] : 0.f;
-      run += d[j] * A;
-    }
-    float inc = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc += v;
-    }
-    float acc = inc - run;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc += d[j] * A;
-      sg[j] = acc;
-    }
-    // seg of the chunk's last step, from the lane that holds it
-    const int last = Lc - 1;
-    const float mine = (last & 3) == 0   ? sg[0]
-                       : (last & 3) == 1 ? sg[1]
-                       : (last & 3) == 2 ? sg[2]
-                                         : sg[3];
-    const float total = __shfl_sync(0xffffffffu, mine, last >> 2);
+    const int64_t o = (static_cast<int64_t>(bc) * H + h) * S9_LP;
     float e[4], wv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = 4 * lane + j < Lc;
-      if (!ok) sg[j] = total;
-      e[j] = ok ? expf(sg[j]) : 0.f;
-      wv[j] = ok ? expf(total - sg[j]) * d[j] : 0.f;
-    }
-    const int64_t o = (static_cast<int64_t>(bc) * H + h) * S9_LP + 4 * lane;
-    *reinterpret_cast<float4*>(dtv + o) = make_float4(d[0], d[1], d[2], d[3]);
-    *reinterpret_cast<float4*>(segv + o) =
-        make_float4(sg[0], sg[1], sg[2], sg[3]);
-    *reinterpret_cast<float4*>(esv + o) = make_float4(e[0], e[1], e[2], e[3]);
-    *reinterpret_cast<float4*>(wsv + o) =
-        make_float4(wv[0], wv[1], wv[2], wv[3]);
+    chunk_vectors(dt + (static_cast<int64_t>(b) * S + t0) * H + h, H,
+                  -expf(a_log[h]), Lc, lane, 1.f, dtv + o, segv + o, esv + o,
+                  wsv + o, decay + static_cast<int64_t>(bc) * H + h, e, wv);
     *reinterpret_cast<float4*>(&sm.es[warp][4 * lane]) =
         make_float4(e[0], e[1], e[2], e[3]);
-    if (lane == 0) decay[static_cast<int64_t>(bc) * H + h] = expf(total);
   }
   if (c == 0) return;  // the first chunk's state gradient has no local part
   hopper::named_bar_sync(3, S9_CONSUMERS);  // es of every head is in
@@ -2516,6 +2542,584 @@ ssd_bwd_dbdc_sm90_kernel(const __grid_constant__ CUtensorMap tm_x128,
   }
 }
 
+// ------------------------------------------------- forward, wgmma (sm90) --
+//
+// The forward of the Mamba2 / Zamba2 widths (P 64, N 64 or 128, chunks of
+// at most 128 steps; kernels.ssd_scan.ssd_fwd_kind picks it before the
+// launch, and every other shape keeps (a) and (b) above), redesigned for
+// Hopper. It computes what the TPU kernel `_ssd_kernel`
+// (src/repro/kernels/ssd_scan.py) computes, plus the final state and the
+// chunk states, f32 in and out, every product 3xTF32 (2e-4).
+// What held (b) back (7.6x its bound at mamba2-1.3b's train shape, B 2, S
+// 4096, H 64: PERF.md §6): one block of 8 warps per (b, h) walking its 32
+// chunks in order, 128 blocks for 132 SMs (zamba2's 160: two blocks on 28
+// SMs, one on the rest); A operands built element by element from L2 with
+// an exp and a hi / lo split each, repeated by every warp job; B operands
+// split again at every k-step; B, C and C.B^T re-read for every head.
+// What bounds the work: at mamba2's train shape 21.4 GFLOP of products,
+// 0.13 ms at 165 TFLOP/s (3xTF32), and the bytes this design moves: x read
+// twice, y written, the chunk states written by the local launch, read
+// and written by the passing and read by the output launch, ~0.94 GB,
+// 0.28 ms at 3.35 TB/s.
+// What this design does: state passing (Dao & Gu 2024, §7), four launches,
+// each a grid of (b, chunk, group of 8 heads) or elementwise, so the chunks
+// run in parallel (512 blocks at that shape instead of 128):
+// (F1) ssd_cb_kernel, as (a), into rows of S9_LP floats.
+// (F2) ssd_fwd_state_sm90_kernel, a block per (b, chunk, group of 8
+//      heads): every chunk's vectors dt, seg (in log2 units) and exp(seg)
+//      (into the workspace) and decay exp(seg_L), as the backward's local
+//      block (b'), and the chunk's own state local_c = (B o w)^T . x (M =
+//      n, N = p, K = the steps) into the chunk states' slot c + 1 (the last
+//      chunk's into h_out, where the call returns the final state). w goes
+//      on x's side, so A = B^T is the same for all the block's heads: B
+//      comes once by TMA and is split into hi / lo A tiles once; x comes
+//      through a TMA ring and is scaled by w, transposed and split into B
+//      tiles (at N 128 once for both warpgroups); both operands of every
+//      product from shared memory.
+// (F3) ssd_fwd_pass_kernel, elementwise, a thread per (b, h, n, p): the
+//      chunks in order and in place, states[c] = decay[c - 1] states[c - 1]
+//      + local[c - 1] from states[0] = 0; then the final state.
+// (F4) ssd_fwd_out_sm90_kernel, a block per (b, chunk, group of 8 heads):
+//      a TMA producer warpgroup and two consumer warpgroups of the chunk's
+//      64-row halves. C.B^T (its boxes on and below the diagonal) and C
+//      come once a block for all its heads; x and h_in of every head
+//      through a TMA ring (2 stages at N 128, 6 at N 64: what shared
+//      memory leaves; the next head's tiles in flight while this one
+//      computes). Per head
+//      y = M . x + (exp(seg) o C) . h_in in one accumulator, M[t, s] =
+//      C.B^T[t, s] exp(seg_t - seg_s) dt_s for s <= t with the mask before
+//      the exponential and D folded into its diagonal (y's D x term at no
+//      cost). Every product reads both operands from
+//      shared memory (ss_product): each k-tile of x or h_in split and
+//      transposed into one B tile for both warpgroups, each splitting
+//      half; each warpgroup's A tile (M's or exp(seg) o C's rows, 16
+//      consecutive values a thread from 16-byte loads) computed and stored
+//      split while the last tile's products run. k-tiles above the
+//      diagonal are skipped, and the first chunk has no C . h_in.
+// On the H100 (PERF.md §6) these four take 0.60-0.63 of the mma.sync kind's
+// time at mamba2's and zamba2's train shapes, and 1.0-1.2x of it at their
+// serve prefills of 4 rows, which the dispatch sends to mma.sync. What
+// bounds them there: the output launch runs at about twice the time of
+// its own bytes, its products and conversions both drawing on the SM's
+// shared-memory bandwidth (an m64n64k8 TF32 product with both operands in
+// shared memory reads 4 KB in its 32 cycles); the state launch and the
+// passing near the time of their bytes.
+// Every element is split once where it is an operand; no float atomics,
+// so two calls give the same bits; a ragged last chunk runs its true
+// length (rows past it masked wherever they are read, zeros past S from
+// TMA).
+
+// (F2) Block blockIdx.x = (b n_chunks + c) groups + group, heads [h0, h0 +
+// 8). The product local_c = (B o w)^T . x takes w on x's side: A = B^T,
+// the same for every head of the block, is split into hi and lo tiles
+// (K-major, one a k-tile of 32 steps) once, from B's raw 128-step boxes,
+// which lie where the ring and the B tiles go afterwards (the producer
+// starts the ring once A is built); each k-tile of x is scaled by w,
+// split and transposed into a B tile, and both operands of every product
+// come from shared memory. At N 128 warpgroup j takes rows n of [64 j, +
+// 64) of every head, the two splitting one x tile a half each; at N 64
+// each takes every other head, with its own B tiles. Each head's 64 x 64
+// result goes out through shared memory by TMA stores, which run on while
+// the next head computes (written by the threads, the same 130 MB of
+// states cost the launch ~0.08 ms at mamba2's train shape: PERF.md §6).
+template <int NS>
+struct StateSm90Smem {
+  // the ring's stages: what shared memory leaves (3 at N 128)
+  static constexpr int ST = NS == 128 ? 3 : S9_LOCAL_STAGES;
+  unsigned char a[2][S9_LP / 32][NS * 128];  // B^T: hi, lo; NS x 32 a k-tile
+  unsigned char stage[ST][2 * S9_BOX32];     // x: 32 x 64 p
+  // x's split: 2 x (hi, lo), both warpgroups' (N 128) or each one's (N 64)
+  unsigned char bhl[(NS == 128 ? 1 : 2) * 2 * 2 * 64 * 128];
+  // each warpgroup's 64 x 64 result as two 64 x 32 boxes, stored by TMA
+  unsigned char out[2][2][S9_BOX32 * 2];
+  float w[S9_LOCAL_GROUP][S9_LP];
+  uint64_t b_full, raw_free, full[ST], empty[ST];
+};
+
+template <int NS>
+__global__ void __launch_bounds__(S9_THREADS, 1)
+ssd_fwd_state_sm90_kernel(const __grid_constant__ CUtensorMap tm_b128,
+                          const __grid_constant__ CUtensorMap tm_x32,
+                          const __grid_constant__ CUtensorMap tm_st_out,
+                          const __grid_constant__ CUtensorMap tm_h_out,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ a_log,
+                          const float* __restrict__ h_out,
+                          float* __restrict__ decay, float* __restrict__ dtv,
+                          float* __restrict__ segv, float* __restrict__ esv,
+                          int S, int H, int L) {
+  using Smem = StateSm90Smem<NS>;
+  constexpr int ST = Smem::ST;
+  constexpr bool SHARED = NS == 128;  // one x split for both warpgroups
+  constexpr uint32_t BUF = 64 * 128;  // a 64 x 32 tf32 tile
+  static_assert(sizeof(Smem::stage) + sizeof(Smem::bhl) + sizeof(Smem::out) >=
+                    NS / 32 * S9_BOX128,
+                "B's raw boxes fit where the ring and the B and out tiles go");
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  unsigned char* raw = &sm.stage[0][0];  // B's raw boxes, until A is built
+  const int tid = threadIdx.x;
+  const int n_chunks = (S + L - 1) / L;
+  const int ngl = (H + S9_LOCAL_GROUP - 1) / S9_LOCAL_GROUP;
+  const int grp = blockIdx.x % ngl, bc = blockIdx.x / ngl;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int h0 = grp * S9_LOCAL_GROUP, nh = min(S9_LOCAL_GROUP, H - h0);
+  const int n_kt = (Lc + 31) / 32;
+  // where head h0's local term goes, by TMA (the map and its first row):
+  // the state entering chunk c + 1, or for the last chunk the final
+  // state's (the passing completes it) where the call returns it, else
+  // nowhere
+  const bool last = c + 1 == n_chunks;
+  const bool wanted = !last || h_out != nullptr;
+  const CUtensorMap* tm_dst = last ? &tm_h_out : &tm_st_out;
+  const int dst_row = (last ? b * H : (bc + 1) * H) * NS;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.b_full, 1);
+    hopper::mbar_init(&sm.raw_free, S9_CONSUMERS / 32);
+    init_ring<ST>(sm.full, sm.empty);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= S9_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<S9_PRODUCER_REGS>();
+    if (tid == S9_CONSUMERS && wanted) {
+      hopper::mbar_arrive_expect_tx(&sm.b_full, NS / 32 * S9_BOX128);
+#pragma unroll
+      for (int nb = 0; nb < NS / 32; ++nb)
+        hopper::tma_load_3d(raw + nb * S9_BOX128, &tm_b128, &sm.b_full,
+                            32 * nb, t0, b);
+      hopper::mbar_wait(&sm.raw_free, 0);  // A is built: the room is free
+      for (int i = 0; i < nh * n_kt; ++i) {
+        const int s = producer_stage<ST>(sm.empty, i);
+        const int h = h0 + i / n_kt, k = i % n_kt;
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * S9_BOX32);
+        hopper::tma_load_4d(sm.stage[s], &tm_x32, &sm.full[s], 0, h,
+                            t0 + 32 * k, b);
+        hopper::tma_load_4d(sm.stage[s] + S9_BOX32, &tm_x32, &sm.full[s], 32,
+                            h, t0 + 32 * k, b);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<S9_CONSUMER_REGS>();
+
+  // the vectors, one warp a head (seg in log2 units, for the output
+  // launch's exp2); w kept for the product
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp < nh) {
+    const int h = h0 + warp;
+    const int64_t o = (static_cast<int64_t>(bc) * H + h) * S9_LP;
+    float e[4], wv[4];
+    chunk_vectors(dt + (static_cast<int64_t>(b) * S + t0) * H + h, H,
+                  -expf(a_log[h]), Lc, lane, kLog2e, dtv + o, segv + o,
+                  esv + o, nullptr, decay + static_cast<int64_t>(bc) * H + h,
+                  e, wv);
+    *reinterpret_cast<float4*>(&sm.w[warp][4 * lane]) =
+        make_float4(wv[0], wv[1], wv[2], wv[3]);
+  }
+  if (!wanted) return;  // no local term is wanted of this chunk
+
+  // A = B^T, split: warpgroup j the k-tiles 2 j, 2 j + 1
+  const Wg w = wg_of();
+  hopper::mbar_wait(&sm.b_full, 0);
+#pragma unroll
+  for (int kt = 2 * w.wg; kt < 2 * w.wg + 2; ++kt)
+    split_tile_t<NS, false>(sm.a[0][kt], sm.a[1][kt], raw + kt * 32 * 128,
+                            S9_BOX128, 0, w.tid);
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(3, S9_CONSUMERS);  // A, and every head's w, are in
+  hopper::mbar_arrive_warp(&sm.raw_free);
+
+  const int n0 = SHARED ? 64 * w.wg : 0;  // this warpgroup's rows n
+  unsigned char* bbase = &sm.bhl[0] + (SHARED ? 0 : w.wg * 4 * BUF);
+  Ring<ST> ring{sm.full, sm.empty, 0};
+  float acc[32];
+  for (int hl = 0; hl < nh; ++hl) {
+    const bool mine = SHARED || hl % 2 == w.wg;
+    const float* w_h = sm.w[hl];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hopper::fence_operand(acc);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = ring.wait();
+      unsigned char* bhi = bbase + (i & 1) * 2 * BUF;
+      unsigned char* blo = bhi + BUF;
+      // the B buffer pair i % 2 is free: the products of tile i - 2 are
+      // done (each warpgroup waited for them after issuing tile i - 1)
+      if (SHARED)
+        hopper::named_bar_sync(3, S9_CONSUMERS);
+      else if (mine)
+        wg_sync(w);
+      if (SHARED)
+        split_tile_t<32, false, true>(bhi + 32 * 128 * w.wg,
+                                      blo + 32 * 128 * w.wg, sm.stage[s],
+                                      S9_BOX32, 32 * w.wg, w.tid, nullptr, 0,
+                                      w_h + 32 * i);
+      else if (mine)
+        split_tile_t<64, false, true>(bhi, blo, sm.stage[s], S9_BOX32, 0,
+                                      w.tid, nullptr, 0, w_h + 32 * i);
+      hopper::fence_proxy_async();
+      if (SHARED)
+        hopper::named_bar_sync(3, S9_CONSUMERS);
+      else if (mine)
+        wg_sync(w);
+      ring.release(s);
+      if (!mine) continue;
+      const uint32_t a_hi = hopper::smem_u32(sm.a[0][i]) + n0 * 128;
+      const uint32_t a_lo = hopper::smem_u32(sm.a[1][i]) + n0 * 128;
+      const uint32_t b_hi = hopper::smem_u32(bhi), b_lo = b_hi + BUF;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_tf32x3_ss(acc, hopper::desc_tf32(a_hi, kk),
+                                hopper::desc_tf32(a_lo, kk),
+                                hopper::desc_tf32(b_hi, kk),
+                                hopper::desc_tf32(b_lo, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // tile i - 1's products are done
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc);
+    if (!mine) continue;
+    // the head's rows n0 .. n0 + 63 into this warpgroup's two boxes, once
+    // the last TMA store has read them, then out by TMA
+    unsigned char* ob = &sm.out[w.wg][0][0];
+    if (w.tid == 0) hopper::bulk_wait_read<0>();
+    wg_sync(w);
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int n = 16 * w.warp + w.g + 8 * hf, p = 8 * jb + 2 * w.q;
+        *reinterpret_cast<float2*>(ob + (p >> 5) * 2 * S9_BOX32 +
+                                   hopper::swz32(n, p & 31)) =
+            make_float2(acc[4 * jb + 2 * hf], acc[4 * jb + 2 * hf + 1]);
+      }
+    hopper::fence_proxy_async();
+    wg_sync(w);
+    if (w.tid == 0) {
+      const int row = dst_row + (h0 + hl) * NS + n0;
+      hopper::tma_store_2d(tm_dst, ob, 0, row);
+      hopper::tma_store_2d(tm_dst, ob + 2 * S9_BOX32, 32, row);
+      hopper::bulk_commit();
+    }
+  }
+  if (w.tid == 0) hopper::bulk_wait_read<0>();  // before the block ends
+}
+
+// (F3) states[b, c, h] = the state entering chunk c: 0 for the first, then
+// decay[b, c - 1, h] states[c - 1] + local_{c - 1} (which slot c holds), in
+// place; h_out (holding the last chunk's local term) becomes the final
+// state where it is not null. A thread per element of (b, h, N x P), its
+// locals read eight chunks ahead of the chain.
+__global__ void __launch_bounds__(THREADS)
+ssd_fwd_pass_kernel(const float* __restrict__ decay,
+                    float* __restrict__ states, float* __restrict__ h_out,
+                    int n_chunks, int H, int64_t NP, int64_t total) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (e >= total) return;
+  const int64_t bh = e / NP, i = e % NP;
+  const int64_t b = bh / H, h = bh % H;
+  const int64_t cs = H * NP;  // one chunk of the states
+  float* p = states + (b * n_chunks * H + h) * NP + i;
+  const float* dec = decay + b * n_chunks * H + h;
+  float st = 0.f;
+  p[0] = 0.f;
+  for (int c0 = 1; c0 < n_chunks; c0 += 8) {
+    float loc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < n_chunks) loc[j] = p[(c0 + j) * cs];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + j < n_chunks) {
+        st = dec[(c0 + j - 1) * H] * st + loc[j];
+        p[(c0 + j) * cs] = st;
+      }
+  }
+  if (h_out != nullptr) h_out[e] = dec[(n_chunks - 1) * H] * st + h_out[e];
+}
+
+// (F4) Block blockIdx.x = (b n_chunks + c) groups + group; warpgroup j
+// takes the chunk's steps [64 j, 64 j + 64).
+constexpr int S9_OUT_GROUP = 8;  // heads an output block takes
+// the ring's stages: what shared memory leaves beside two A tiles a
+// warpgroup (a deeper ring, 6 stages at N 128 with one A tile, ran no
+// faster: PERF.md §6)
+template <int NS>
+constexpr int out_stages() {
+  return NS == 128 ? 2 : 6;
+}
+
+// C.B^T's 32 x 32 boxes on and below the diagonal: box (tb, sb), sb <= tb,
+// holds rows [32 tb, + 32) and columns [32 sb, + 32)
+constexpr int S9_CB_BOXES = 10;
+__device__ __forceinline__ int cb_box(int tb, int sb) {
+  return tb * (tb + 1) / 2 + sb;
+}
+
+template <int NS>
+struct OutSm90Smem {
+  static constexpr int ST = out_stages<NS>();
+  unsigned char cb[S9_CB_BOXES][S9_BOX32];  // C.B^T, cb_box(tb, sb)
+  unsigned char cbuf[NS / 32][S9_BOX128];   // C: 128 t x 32 n a box
+  unsigned char stage[ST][2 * S9_BOX32];    // x or h_in: 32 x 64 p
+  unsigned char bhl[2][2 * 64 * 128];       // B: 2 x (hi, lo), both's
+  unsigned char ahl[2][2][2 * 64 * 128];    // A: each one's 2 x (hi, lo)
+  float vec[2][3][S9_LP];  // a head's dt, seg (log2 units), exp(seg)
+  uint64_t tiles_full, full[ST], empty[ST], vfull[2], vempty[2];
+};
+
+// The k-tiles [0, n) of one head's product in an output block, both
+// operands from shared memory: a warpgroup that issues its products goes
+// on at once (with A in registers the issuing warps were held until the
+// tensor core had read it, and the next tile's conversion waited: PERF.md
+// §6). The two warpgroups in step: while tile i - 1's products run, each
+// splits its half of B's rows (p of [32 wg, 32 wg + 32)) of tile i into
+// the shared buffer pair i % 2, computes its A tile (make(i, hi, lo): the
+// thread's 16 values of row tid / 2, columns [16 (tid % 2), + 16), split)
+// and stores it into its own buffer pair i % 2; then issues tile i's
+// products and waits for tile i - 1's. The block's named barrier before
+// the conversion makes sure both warpgroups' products of tile i - 2 are
+// done, the one after it that A and B are whole. A tile for which
+// takes(i) is false gets no products from this warpgroup (it still
+// splits its half of B). Returns with every product done.
+template <int ST, class Takes, class Make>
+__device__ __forceinline__ void ss_product(float (&acc)[32], Ring<ST>& ring,
+                                           int n, const Wg& w,
+                                           unsigned char* bhl,
+                                           unsigned char* ahl,
+                                           unsigned char (*stage)[2 * S9_BOX32],
+                                           const Takes& takes,
+                                           const Make& make) {
+  constexpr uint32_t BUF = 64 * 128;  // a 64 x 32 tf32 tile
+  const int r = w.tid >> 1, k0 = 16 * (w.tid & 1);
+  hopper::fence_operand(acc);
+  for (int i = 0; i < n; ++i) {
+    const int s = ring.wait();
+    unsigned char* bhi = bhl + (i & 1) * 2 * BUF;
+    unsigned char* blo = bhi + BUF;
+    unsigned char* ahi = ahl + (i & 1) * 2 * BUF;
+    unsigned char* alo = ahi + BUF;
+    const bool mine = takes(i);
+    hopper::named_bar_sync(3, S9_CONSUMERS);
+    split_tile_t<32, false>(bhi + 32 * 128 * w.wg, blo + 32 * 128 * w.wg,
+                            stage[s], S9_BOX32, 32 * w.wg, w.tid);
+    if (mine) {
+      uint32_t hi[16], lo[16];
+      make(i, hi, lo);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t o = hopper::swz32(r, k0 + 4 * j);
+        *reinterpret_cast<uint4*>(ahi + o) =
+            make_uint4(hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]);
+        *reinterpret_cast<uint4*>(alo + o) =
+            make_uint4(lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3]);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_bar_sync(3, S9_CONSUMERS);
+    ring.release(s);
+    if (mine) {
+      const uint32_t a_hi = hopper::smem_u32(ahi), a_lo = a_hi + BUF;
+      const uint32_t b_hi = hopper::smem_u32(bhi), b_lo = b_hi + BUF;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_tf32x3_ss(acc, hopper::desc_tf32(a_hi, kk),
+                                hopper::desc_tf32(a_lo, kk),
+                                hopper::desc_tf32(b_hi, kk),
+                                hopper::desc_tf32(b_lo, kk));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // tile i - 1's products are done
+    } else {
+      hopper::wgmma_wait<0>();
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+}
+
+// four f32 values at a 16-byte aligned shared-memory offset
+__device__ __forceinline__ float4 lds4(const unsigned char* base,
+                                       uint32_t off) {
+  return *reinterpret_cast<const float4*>(base + off);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(S9_THREADS, 1)
+ssd_fwd_out_sm90_kernel(const __grid_constant__ CUtensorMap tm_cb,
+                        const __grid_constant__ CUtensorMap tm_c128,
+                        const __grid_constant__ CUtensorMap tm_x32,
+                        const __grid_constant__ CUtensorMap tm_states,
+                        const float* __restrict__ dtv,
+                        const float* __restrict__ segv,
+                        const float* __restrict__ esv,
+                        const float* __restrict__ d_skip,
+                        float* __restrict__ y, int S, int H, int L) {
+  using Smem = OutSm90Smem<NS>;
+  constexpr int ST = Smem::ST;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  const int n_chunks = (S + L - 1) / L;
+  const int ngo = (H + S9_OUT_GROUP - 1) / S9_OUT_GROUP;
+  const int grp = blockIdx.x % ngo, bc = blockIdx.x / ngo;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * L, Lc = min(L, S - t0);
+  const int h0 = grp * S9_OUT_GROUP, nh = min(S9_OUT_GROUP, H - h0);
+  const int n_kc = (Lc + 31) / 32;       // k-tiles of M . x (steps s)
+  const int n_kh = c > 0 ? NS / 32 : 0;  // k-tiles of C . h_in (n)
+  if (tid == 0) {
+    hopper::mbar_init(&sm.tiles_full, 1);
+    init_ring<ST>(sm.full, sm.empty);
+    for (int v = 0; v < 2; ++v) {
+      hopper::mbar_init(&sm.vfull[v], 1);
+      hopper::mbar_init(&sm.vempty[v], S9_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= S9_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<S9_PRODUCER_REGS>();
+    if (tid != S9_CONSUMERS) return;
+    // the block's C.B^T (the chunk's boxes on and below the diagonal) and
+    // C (past the first chunk)
+    hopper::mbar_arrive_expect_tx(
+        &sm.tiles_full,
+        n_kc * (n_kc + 1) / 2 * S9_BOX32 + n_kh * S9_BOX128);
+    for (int tb = 0; tb < n_kc; ++tb)
+      for (int sb = 0; sb <= tb; ++sb)
+        hopper::tma_load_3d(sm.cb[cb_box(tb, sb)], &tm_cb, &sm.tiles_full,
+                            32 * sb, 32 * tb, bc);
+    for (int nb = 0; nb < n_kh; ++nb)
+      hopper::tma_load_3d(sm.cbuf[nb], &tm_c128, &sm.tiles_full, 32 * nb, t0,
+                          b);
+    int i = 0;
+    for (int hl = 0; hl < nh; ++hl) {
+      const int h = h0 + hl, vs = hl % 2;
+      if (hl >= 2) hopper::mbar_wait(&sm.vempty[vs], (hl / 2 - 1) & 1);
+      const int64_t o = (static_cast<int64_t>(bc) * H + h) * S9_LP;
+      hopper::mbar_arrive_expect_tx(&sm.vfull[vs], 3 * S9_LP * 4);
+      hopper::bulk_load(sm.vec[vs][0], dtv + o, S9_LP * 4, &sm.vfull[vs]);
+      hopper::bulk_load(sm.vec[vs][1], segv + o, S9_LP * 4, &sm.vfull[vs]);
+      hopper::bulk_load(sm.vec[vs][2], esv + o, S9_LP * 4, &sm.vfull[vs]);
+      for (int k = 0; k < n_kc; ++k, ++i) {  // x's 32 steps of k-tile k
+        const int s = producer_stage<ST>(sm.empty, i);
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * S9_BOX32);
+        hopper::tma_load_4d(sm.stage[s], &tm_x32, &sm.full[s], 0, h,
+                            t0 + 32 * k, b);
+        hopper::tma_load_4d(sm.stage[s] + S9_BOX32, &tm_x32, &sm.full[s], 32,
+                            h, t0 + 32 * k, b);
+      }
+      const int row = (bc * H + h) * NS;  // the head's state rows
+      for (int k = 0; k < n_kh; ++k, ++i) {  // h_in's rows n of k-tile k
+        const int s = producer_stage<ST>(sm.empty, i);
+        hopper::mbar_arrive_expect_tx(&sm.full[s], 2 * S9_BOX32);
+        hopper::tma_load_2d(sm.stage[s], &tm_states, &sm.full[s], 0,
+                            row + 32 * k);
+        hopper::tma_load_2d(sm.stage[s] + S9_BOX32, &tm_states, &sm.full[s],
+                            32, row + 32 * k);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<S9_CONSUMER_REGS>();
+
+  const Wg w = wg_of();
+  const int m0 = 64 * w.wg;  // this warpgroup's first step
+  const int64_t x_step = static_cast<int64_t>(H) * 64;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;
+  hopper::mbar_wait(&sm.tiles_full, 0);
+  Ring<ST> ring{sm.full, sm.empty, 0};
+  float acc[32];
+  for (int hl = 0; hl < nh; ++hl) {
+    const int h = h0 + hl, vs = hl % 2;
+    hopper::mbar_wait(&sm.vfull[vs], (hl / 2) & 1);
+    const float* dtv_s = sm.vec[vs][0];
+    const float* seg_s = sm.vec[vs][1];
+    const float* es_s = sm.vec[vs][2];
+    const float Dh = d_skip[h];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    // B: x's (s, p) or h_in's (n, p) tile, transposed as it is split; A:
+    // the thread's 16 values of row t at columns [k0, k0 + 16) of tile i
+    const int t = m0 + (w.tid >> 1), k0 = 16 * (w.tid & 1);
+    ss_product<ST>(
+        acc, ring, n_kc + n_kh, w, &sm.bhl[0][0], &sm.ahl[w.wg][0][0],
+        sm.stage,
+        // a k-tile of steps s with some s <= t of this warpgroup's rows
+        [&](int i) { return m0 < Lc && (i >= n_kc || 32 * i < m0 + 64); },
+        [&](int i, uint32_t(&hi)[16], uint32_t(&lo)[16]) {
+          float v[16];
+          if (i < n_kc) {
+            // M[t, s] under the mask (the exponential only there: it
+            // overflows above the diagonal), D on the diagonal
+            const int s0 = 32 * i + k0;
+            const bool live = t < Lc && s0 <= t;
+            const unsigned char* box = sm.cb[cb_box(t >> 5, i)];
+            const float st = seg_s[t];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 c4 = live ? lds4(box, hopper::swz32(t & 31,
+                                                               k0 + 4 * j))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+              const float4 sg =
+                  *reinterpret_cast<const float4*>(seg_s + s0 + 4 * j);
+              const float4 dv =
+                  *reinterpret_cast<const float4*>(dtv_s + s0 + 4 * j);
+              const float cs[4] = {c4.x, c4.y, c4.z, c4.w};
+              const float ss[4] = {sg.x, sg.y, sg.z, sg.w};
+              const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int sc = s0 + 4 * j + e;
+                const float m =
+                    live && sc <= t
+                        ? cs[e] * hopper::exp2_ftz(st - ss[e]) * ds[e]
+                        : 0.f;
+                v[4 * j + e] = live && sc == t ? m + Dh : m;
+              }
+            }
+          } else {
+            const int k = i - n_kc;
+            const bool live = t < Lc;
+            const float e = es_s[t];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 c4 = live ? lds4(sm.cbuf[k],
+                                            hopper::swz32(t, k0 + 4 * j))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+              v[4 * j] = e * c4.x;
+              v[4 * j + 1] = e * c4.y;
+              v[4 * j + 2] = e * c4.z;
+              v[4 * j + 3] = e * c4.w;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const mma::Split sp = mma::split(v[q]);
+            hi[q] = sp.hi;
+            lo[q] = sp.lo;
+          }
+        });
+    hopper::mbar_arrive_warp(&sm.vempty[vs]);  // done with the vectors
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t = m0 + 16 * w.warp + w.g + 8 * hf;
+      if (t >= Lc) continue;
+      float* yr = y + (row0 + t) * x_step + static_cast<int64_t>(h) * 64;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+        *reinterpret_cast<float2*>(yr + 8 * jb + 2 * w.q) =
+            make_float2(acc[4 * jb + 2 * hf], acc[4 * jb + 2 * hf + 1]);
+    }
+  }
+}
+
 // One k-tile of 3xTF32 through the blocks above, for the card tests: d (64
 // x 64) = a (64 x 32) . b (64 x 32)^T, a and b row-major f32, A built in
 // registers and b split into hi and lo tiles in shared memory; with raw !=
@@ -2752,6 +3356,134 @@ cudaError_t launch_bwd_sm90(const float* x, const float* dt,
   return cudaGetLastError();
 }
 
+// the wgmma forward's scratch, carved from one workspace of
+// ssd_scan_fwd_sm90_work_floats floats (each region a multiple of 32
+// floats): C.B^T (B, n_chunks, L, S9_LP), the chunks' decays (B, n_chunks,
+// H), dt, seg and exp(seg) (B, n_chunks, H, S9_LP) each, and, where the
+// caller keeps no chunk states (own_states), the states (B, n_chunks, H, N,
+// 64) that the passing needs all the same
+struct FwdWorkSm90 {
+  float *cb, *decay, *dtv, *segv, *esv, *states;
+  size_t floats;
+};
+
+FwdWorkSm90 fwd_work_sm90(float* base, int B, int S, int H, int N, int L,
+                          bool own_states) {
+  const size_t nc = (S + L - 1) / L, bnc = static_cast<size_t>(B) * nc;
+  const size_t vec = bnc * H * S9_LP;
+  const size_t sizes[6] = {bnc * L * S9_LP, bnc * H, vec, vec, vec,
+                           own_states ? bnc * H * N * 64 : 0};
+  float* p[6];
+  size_t off = 0;
+  for (int i = 0; i < 6; ++i) {
+    p[i] = base == nullptr ? nullptr : base + off;
+    off += (sizes[i] + 31) / 32 * 32;
+  }
+  return {p[0], p[1], p[2], p[3], p[4], own_states ? p[5] : nullptr, off};
+}
+
+template <int NS>
+constexpr size_t sm90_fwd_smem_bytes() {
+  const size_t a = sm90_smem_bytes<StateSm90Smem<NS>>();
+  const size_t b = sm90_smem_bytes<OutSm90Smem<NS>>();
+  return a > b ? a : b;
+}
+static_assert(sm90_fwd_smem_bytes<64>() <= 232448 &&
+                  sm90_fwd_smem_bytes<128>() <= 232448,
+              "a block's shared memory");
+
+// (F1) to (F4), each launch checked; states (B, n_chunks, H, NS, 64) or
+// null (the workspace holds them then), h_out (B, H, NS, 64) or null
+template <int NS>
+cudaError_t launch_fwd_sm90(const float* x, const float* dt,
+                            const float* a_log, const float* bm,
+                            const float* cm, const float* d_skip, float* work,
+                            float* y, float* h_out, float* states, int B,
+                            int S, int H, int L, cudaStream_t st) {
+  constexpr int P = 64;
+  const int n_chunks = (S + L - 1) / L;
+  const FwdWorkSm90 w = fwd_work_sm90(work, B, S, H, NS, L, states == nullptr);
+  float* sts = states != nullptr ? states : w.states;
+  cudaError_t err = launch_cb(bm, cm, w.cb, B, S, NS, L, S9_LP, st);
+  if (err != cudaSuccess) return err;
+
+  // TMA descriptors (dims innermost first, strides in bytes)
+  const cuuint64_t xs[3] = {P * 4ull, static_cast<cuuint64_t>(H) * P * 4,
+                            static_cast<cuuint64_t>(S) * H * P * 4};
+  const cuuint64_t xd[4] = {P, static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(S),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint32_t box_x32[4] = {32, 1, 32, 1};
+  const cuuint64_t nd[3] = {static_cast<cuuint64_t>(NS),
+                            static_cast<cuuint64_t>(S),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t ns[2] = {NS * 4ull, static_cast<cuuint64_t>(S) * NS * 4};
+  const cuuint32_t box_n128[3] = {32, 128, 1};
+  const cuuint64_t sd[2] = {P, static_cast<cuuint64_t>(B) * n_chunks * H * NS};
+  const cuuint64_t ss[1] = {P * 4ull};
+  const cuuint32_t box_s32[2] = {32, 32};
+  const cuuint64_t cd[3] = {S9_LP, static_cast<cuuint64_t>(L),
+                            static_cast<cuuint64_t>(B) * n_chunks};
+  const cuuint64_t cs[2] = {S9_LP * 4ull,
+                            static_cast<cuuint64_t>(L) * S9_LP * 4};
+  const cuuint32_t box_cb[3] = {32, 32, 1};
+  // the state launch's stores: boxes of 64 rows x 32 f32 of the states
+  // and of the final state
+  const cuuint32_t box_out[2] = {32, 64};
+  const cuuint64_t hd[2] = {P, static_cast<cuuint64_t>(B) * H * NS};
+  CUtensorMap x32, b128, c128, st32, cbm, st_out, h_out_map;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int rank;
+    const cuuint64_t* dims;
+    const cuuint64_t* strides;
+    const cuuint32_t* box;
+  } maps[7] = {{&x32, x, 4, xd, xs, box_x32},
+               {&b128, bm, 3, nd, ns, box_n128},
+               {&c128, cm, 3, nd, ns, box_n128},
+               {&st32, sts, 2, sd, ss, box_s32},
+               {&cbm, w.cb, 3, cd, cs, box_cb},
+               {&st_out, sts, 2, sd, ss, box_out},
+               // (no final state wanted: a map no block stores through)
+               {&h_out_map, h_out != nullptr ? h_out : sts, 2,
+                h_out != nullptr ? hd : sd, ss, box_out}};
+  for (const auto& m : maps)
+    if ((err = hopper::f32_tile_map(m.map, m.base, m.rank, m.dims, m.strides,
+                                    m.box)) != cudaSuccess)
+      return err;
+
+  const auto state = ssd_fwd_state_sm90_kernel<NS>;
+  const auto out = ssd_fwd_out_sm90_kernel<NS>;
+  const size_t smem_s = sm90_smem_bytes<StateSm90Smem<NS>>();
+  const size_t smem_o = sm90_smem_bytes<OutSm90Smem<NS>>();
+  if ((err = cudaFuncSetAttribute(state,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem_s))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(out,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem_o))) != cudaSuccess)
+    return err;
+
+  const int ngl = (H + S9_LOCAL_GROUP - 1) / S9_LOCAL_GROUP;
+  state<<<B * n_chunks * ngl, S9_THREADS, smem_s, st>>>(
+      b128, x32, st_out, h_out_map, dt, a_log, h_out, w.decay, w.dtv, w.segv,
+      w.esv, S, H, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int64_t NP = static_cast<int64_t>(NS) * P;
+  const int64_t elems = static_cast<int64_t>(B) * H * NP;
+  ssd_fwd_pass_kernel<<<static_cast<unsigned>((elems + THREADS - 1) / THREADS),
+                        THREADS, 0, st>>>(w.decay, sts, h_out, n_chunks, H,
+                                          NP, elems);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int ngo = (H + S9_OUT_GROUP - 1) / S9_OUT_GROUP;
+  out<<<B * n_chunks * ngo, S9_THREADS, smem_o, st>>>(
+      cbm, c128, x32, st32, w.dtv, w.segv, w.esv, d_skip, y, S, H, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -2812,6 +3544,47 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a_log,
       static_cast<float*>(h_out), static_cast<float*>(states), S, H, P, N, L,
       xvec, nvec);
   return cudaGetLastError();
+}
+
+// The forward's wgmma kind (kernels.ssd_scan.ssd_fwd_kind): floats of its
+// workspace (with_states: the caller passes the chunk states, else the
+// workspace holds them), bytes of its largest block's shared memory (0 at
+// a shape it does not take), and its four launches: y (B, S, H, P), h_out
+// (B, H, N, P) or null, states (B, n_chunks, H, N, P) or null, as
+// ssd_scan_fwd. P 64, N 64 or 128, chunks of at most 128 steps, x, b, c,
+// y, work, states and h_out 16-byte aligned; anything else returns
+// cudaErrorInvalidValue before a launch.
+size_t ssd_scan_fwd_sm90_work_floats(int B, int S, int H, int P, int N,
+                                     int chunk, int with_states) {
+  return fwd_work_sm90(nullptr, B, S, H, N, chunk < S ? chunk : S,
+                       with_states == 0)
+      .floats;
+}
+
+size_t ssd_scan_fwd_sm90_smem_bytes(int chunk, int P, int N) {
+  if (!sm90_shape(chunk, P, N)) return 0;
+  return N == 128 ? sm90_fwd_smem_bytes<128>() : sm90_fwd_smem_bytes<64>();
+}
+
+int ssd_scan_fwd_sm90(const void* x, const void* dt, const void* a_log,
+                      const void* bm, const void* cm, const void* d_skip,
+                      void* work, void* y, void* h_out, void* states, int B,
+                      int S, int H, int P, int N, int chunk, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || chunk <= 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  const int L = chunk < S ? chunk : S;
+  const void* ptrs[7] = {x, bm, cm, y, work, states, h_out};
+  for (const void* q : ptrs)
+    if (q != nullptr && !aligned16(q)) return cudaErrorInvalidValue;
+  if (x == nullptr || y == nullptr || work == nullptr ||
+      !sm90_shape(L, P, N))
+    return cudaErrorInvalidValue;
+  const auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const auto o = [](void* q) { return static_cast<float*>(q); };
+  auto* launch = N == 128 ? launch_fwd_sm90<128> : launch_fwd_sm90<64>;
+  return launch(f(x), f(dt), f(a_log), f(bm), f(cm), f(d_skip), o(work),
+                o(y), o(h_out), o(states), B, S, H, L,
+                static_cast<cudaStream_t>(stream));
 }
 
 // Floats of the workspace ssd_scan_bwd takes (the wrapper allocates it).

@@ -4,15 +4,21 @@ the one-token decode step.
 
 Replaces the TPU kernel ``_ssd_kernel`` of ``repro/kernels/ssd_scan.py``
 (launched by ``ssd_scan`` there). The kernel source is
-``csrc/ssd_scan.cu``; its header says what bounds it on the H100 and what
-its design does about that: two launches per call, C·Bᵀ once per
-(batch, chunk) into an f32 scratch, then the per-head scan on the TF32
-tensor cores in 3xTF32 (f32 accuracy). It is built by
+``csrc/ssd_scan.cu``; its notes say what bounds it on the H100 and what
+its designs do about that. The forward has two kinds of launches, picked
+by shape before the launch (:func:`ssd_fwd_kind`): ``wgmma`` at the
+Mamba2 / Zamba2 widths, four launches (C·Bᵀ once per (batch, chunk); every
+chunk's own state and per-head vectors; the states passed from chunk to
+chunk; each chunk's output from the state entering it), the products TF32
+``wgmma`` fed by TMA; ``mma_sync`` elsewhere, two launches (C·Bᵀ, then the
+per-head scan on ``mma.sync``). Every product is 3xTF32 (f32 accuracy). It
+is built by
 :mod:`repro_torch.kernels.cuda_build` at first use and called through
 ``ctypes`` on PyTorch's current stream. Unlike the TPU kernel it also
 returns the final state, so prefill seeds decode from the kernel, and,
 for training, the state entering every chunk, which the backward kernels
 (:func:`ssd_scan_bwd`, same source) read. :func:`ssd_chunks_plain`,
+:func:`ssd_passed_states_plain`, :func:`ssd_out_plain`,
 :func:`ssd_scan_bwd_plain`, :func:`ssd_state_grads_plain` and
 :func:`ssd_dbdc_plain` spell out the kernels' decompositions in torch.
 """
@@ -35,6 +41,12 @@ def _load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.ssd_scan_fwd.restype = i
+    lib.ssd_scan_fwd_sm90.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.ssd_scan_fwd_sm90.restype = i
+    lib.ssd_scan_fwd_sm90_work_floats.argtypes = [i] * 7
+    lib.ssd_scan_fwd_sm90_work_floats.restype = ctypes.c_size_t
+    lib.ssd_scan_fwd_sm90_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_scan_fwd_sm90_smem_bytes.restype = ctypes.c_size_t
     lib.ssd_scan_bwd.argtypes = [p] * 16 + [i] * 6 + [p]
     lib.ssd_scan_bwd.restype = i
     lib.ssd_scan_bwd_work_floats.argtypes = [i] * 6
@@ -157,6 +169,70 @@ def ssd_chunks_plain(x, dt, a_log, b_mat, c_mat, d_skip, *,
             + torch.einsum("bsn,bsh,bshp->bhnp", bk, w, xk)
     return (torch.stack(cbs, 1), torch.stack(states, 1),
             torch.cat(ys, 1).to(x.dtype), h)
+
+
+def ssd_passed_states_plain(x, dt, a_log, b_mat, *, chunk: int = 128):
+    """The chunk states and the final state as the forward's wgmma kind
+    computes them (Dao & Gu 2024, §7's state passing): first every chunk's
+    own term ``local_c = sum_s exp(seg_L - seg_s) dt_s B_s (x) x_s`` and
+    its decay ``exp(seg_L)``, each chunk on its own; then a pass that is
+    elementwise only, ``states[c] = decay[c - 1] states[c - 1] + local[c -
+    1]`` from ``states[0] = 0``, and the final state ``decay[-1]
+    states[-1] + local[-1]``. Returns ``(states, h)``, (B, n_chunks, H, N,
+    P) and (B, H, N, P). Chunks at their true length; f32, or f64 for f64
+    inputs, as :func:`ssd_chunks_plain`."""
+    B, S, H, P = x.shape
+    N = b_mat.shape[-1]
+    f = torch.promote_types(x.dtype, torch.float32)
+    L = min(chunk, S)
+    a = -torch.exp(a_log.to(f))
+    local, decay = [], []
+    for t0 in range(0, S, L):
+        dtk = dt[:, t0:t0 + L].to(f)
+        seg = torch.cumsum(dtk * a, dim=1)                     # (B,Lc,H)
+        w = torch.exp(seg[:, -1:] - seg) * dtk
+        local.append(torch.einsum("bsn,bsh,bshp->bhnp",
+                                  b_mat[:, t0:t0 + L].to(f), w,
+                                  x[:, t0:t0 + L].to(f)))
+        decay.append(torch.exp(seg[:, -1]))                    # (B,H)
+    h = torch.zeros((B, H, N, P), dtype=f, device=x.device)
+    states = []
+    for loc, dec in zip(local, decay):
+        states.append(h)
+        h = dec[..., None, None] * h + loc
+    return torch.stack(states, 1), h
+
+
+def ssd_out_plain(x, dt, a_log, b_mat, c_mat, d_skip, states, *,
+                  chunk: int = 128):
+    """y as the forward's wgmma kind computes it from the chunk states
+    (``states[:, c]`` the state entering chunk c, (B, n_chunks, H, N, P)):
+    per chunk and head ``y = M . x + (exp(seg) o C) . h_in``, M[t, s] =
+    (C_t . B_s) exp(seg_t - seg_s) dt_s for s <= t (the mask applied before
+    the exponential) with D added on its diagonal, which is y's ``D x``.
+    Other arguments as :func:`ssd_scan_plain`; f32, or f64 for f64
+    inputs."""
+    B, S, H, P = x.shape
+    f = torch.promote_types(x.dtype, torch.float32)
+    L = min(chunk, S)
+    a = -torch.exp(a_log.to(f))
+    ys = []
+    for c, t0 in enumerate(range(0, S, L)):
+        xk, dtk = x[:, t0:t0 + L].to(f), dt[:, t0:t0 + L].to(f)
+        bk, ck = b_mat[:, t0:t0 + L].to(f), c_mat[:, t0:t0 + L].to(f)
+        Lc = xk.shape[1]
+        seg = torch.cumsum(dtk * a, dim=1)                     # (B,Lc,H)
+        mask = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+        gap = torch.where(mask[None, :, :, None],
+                          seg[:, :, None] - seg[:, None], -torch.inf)
+        m = torch.einsum("btn,bsn->bts", ck, bk)[..., None] \
+            * torch.exp(gap) * dtk[:, None]                    # (B,t,s,H)
+        m = m + torch.eye(Lc, dtype=f, device=x.device)[None, :, :, None] \
+            * d_skip.to(f)
+        ys.append(torch.einsum("btsh,bshp->bthp", m, xk)
+                  + torch.exp(seg)[..., None]
+                  * torch.einsum("btn,bhnp->bthp", ck, states[:, c].to(f)))
+    return torch.cat(ys, 1).to(x.dtype)
 
 
 def ssd_state_grads_plain(dt, a_log, c_mat, dy, *, chunk: int = 128,
@@ -341,17 +417,51 @@ def _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk):
 # Sizes of csrc/ssd_scan.cu's shared memory and scratch, as its
 # host-side functions compute them (scan_smem_floats, bwd_dims,
 # local_smem_bytes, chunk_smem_bytes, dbdc_smem_bytes, bwd_work; for the
-# wgmma kind the Sm90 shared-memory structs and bwd_work_sm90): one
-# formula for the card and for ``meta``, where no library is loaded. The
-# card tests hold them equal to the library's exports.
+# wgmma kinds the Sm90 shared-memory structs, bwd_work_sm90 and
+# fwd_work_sm90): one formula for the card and for ``meta``, where no
+# library is loaded. The card tests hold them equal to the library's
+# exports.
 _CHUNK_WARPS = 512 // 32
 _DBDC_SMEM_BYTES = 4 * 4 * ((64 + 64) * (32 + 4) + 64)
 # the wgmma kind's ring stage (S9_STAGE bytes), the steps a chunk is
 # padded to (S9_LP) and the floats of a head's per-step parts (S9_PARTS)
 _S9_STAGE, _S9_LP = 32768, 128
 _S9_PARTS = 11 * _S9_LP + 16
-# the backward's two kinds of launches (ssd_bwd_kind)
+# the two kinds of launches of the forward (ssd_fwd_kind) and of the
+# backward (ssd_bwd_kind)
 SSD_BWD_KINDS = ("mma_sync", "wgmma")
+
+
+def _sm90_shape(L: int, P: int, N: int) -> bool:
+    return P == 64 and N in (64, 128) and 1 <= L <= _S9_LP
+
+
+# The forward's mma_sync kind runs a block per (b, h), two an SM, each
+# walking its chunks in order; the wgmma kind runs the chunks in parallel.
+# The mma_sync kind is taken at the wgmma widths only where its B·H blocks
+# keep the card's 2 x 132 block slots busier than this share, over the
+# waves they take. On the H100 (PERF.md §6) the wgmma kind is the faster at
+# B·H 128 and 160 (mamba2-1.3b's and zamba2-2.7b's train shapes: 48 and 61
+# % busy) and at zamba2's serve prefill of 4 rows (320 blocks, two waves:
+# 61 %), and the slower at mamba2's (256 blocks: 97 %).
+SSD_FWD_MMA_SYNC_FILL = 0.8
+
+
+def ssd_fwd_kind(L: int, P: int, N: int, bh: int = 0) -> str:
+    """Which forward launches a call with chunks of L steps (min(chunk,
+    S)), head dim P, state dim N and ``bh`` batch rows times heads (0: not
+    known) takes: ``"wgmma"`` (four launches, the chunks in parallel, TF32
+    wgmma in 3xTF32, operands by TMA) at P 64, N 64 or 128 and L at most
+    128 — the Mamba2 and Zamba2 widths — unless the mma_sync kind's grid
+    of bh blocks, two an SM, fills the card's block slots over its waves
+    by more than ``SSD_FWD_MMA_SYNC_FILL``; else ``"mma_sync"`` (two
+    launches, m16n8k8 mma.sync, a block per (b, h)), which takes every
+    shape. Decided before the launch, never after a failure."""
+    if not _sm90_shape(L, P, N):
+        return "mma_sync"
+    slots = 2 * H100_SXM.sm_count
+    fill = bh / (slots * -(-bh // slots)) if bh > 0 else 0.0
+    return "mma_sync" if fill > SSD_FWD_MMA_SYNC_FILL else "wgmma"
 
 
 def ssd_bwd_kind(L: int, P: int, N: int) -> str:
@@ -360,8 +470,7 @@ def ssd_bwd_kind(L: int, P: int, N: int) -> str:
     3xTF32, operands by TMA: P 64, N 64 or 128, L at most 128 — the
     Mamba2 and Zamba2 widths) or ``"mma_sync"`` (m16n8k8 mma.sync, every
     other shape), decided before the launch, never after a failure."""
-    return "wgmma" if P == 64 and N in (64, 128) and 1 <= L <= _S9_LP \
-        else "mma_sync"
+    return "wgmma" if _sm90_shape(L, P, N) else "mma_sync"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -379,17 +488,65 @@ def scan_smem_bytes(L: int, P: int, N: int) -> int:
     return 4 * (2 * Lp * pitch + _round_up(N, 16) * pitch + 4 * Lp)
 
 
-def _kind_of(L: int, P: int, N: int, kind) -> str:
+def _kind_of(L: int, P: int, N: int, kind, name="ssd_scan_bwd",
+             bh=None) -> str:
+    """``kind``, or where it is None the shape's: the backward's
+    (:func:`ssd_bwd_kind`), or with ``bh`` the forward's
+    (:func:`ssd_fwd_kind`). A kind that cannot take the shape raises."""
     if kind is None:
-        return ssd_bwd_kind(L, P, N)
+        return ssd_bwd_kind(L, P, N) if bh is None \
+            else ssd_fwd_kind(L, P, N, bh)
     if kind not in SSD_BWD_KINDS:
-        raise ValueError(f"ssd_scan_bwd: kind {kind!r}, not one of "
+        raise ValueError(f"{name}: kind {kind!r}, not one of "
                          f"{SSD_BWD_KINDS}")
-    if kind == "wgmma" and ssd_bwd_kind(L, P, N) != "wgmma":
-        raise ValueError(f"ssd_scan_bwd: the wgmma kind takes P 64, N 64 "
+    if kind == "wgmma" and not _sm90_shape(L, P, N):
+        raise ValueError(f"{name}: the wgmma kind takes P 64, N 64 "
                          f"or 128 and chunks of at most 128 steps, not L "
                          f"{L}, P {P}, N {N}")
     return kind
+
+
+def fwd_smem_bytes(L: int, P: int, N: int, kind=None) -> int:
+    """Dynamic shared memory of the forward's largest block for L steps,
+    for ``kind`` (default: the wgmma kind where the widths allow it)."""
+    if _kind_of(L, P, N, kind, "ssd_scan", 0) == "wgmma":
+        # StateSm90Smem<N> (Bᵀ's hi / lo A tiles, a ring of 3 stages at N
+        # 128 and 4 at N 64, x's hi / lo B tiles: both warpgroups' at N
+        # 128, each one's at N 64; each warpgroup's 64 x 64 result for its
+        # TMA store; the heads' w; the barriers) and OutSm90Smem<N> (C·Bᵀ's
+        # 10 boxes on and
+        # below the diagonal and C once a block, a ring of 2 stages at N 128
+        # and 6 at N 64, two hi / lo B tiles both warpgroups share, each
+        # warpgroup's two hi / lo A tiles, two heads' dt, seg and exp(seg),
+        # the barriers), + 1024 bytes to align its base
+        tile = 32 * 128                    # a 32 x 32 f32 box
+        sst = 3 if N == 128 else 4
+        state = 2 * 4 * N * 128 + sst * 2 * tile \
+            + (1 if N == 128 else 2) * 2 * 2 * 64 * 128 + 2 * 64 * 64 * 4 \
+            + 4 * 8 * _S9_LP + 8 * (2 + 2 * sst)
+        st = 2 if N == 128 else 6
+        out = (10 + (N // 32) * 4 + st * 2) * tile + 3 * 2 * 2 * 64 * 128 \
+            + 4 * 2 * 3 * _S9_LP + 8 * (1 + 2 * st + 4)
+        return 1024 + max(state, out)
+    return scan_smem_bytes(L, P, N)
+
+
+def fwd_work_floats(B: int, S: int, H: int, P: int, N: int,
+                    chunk: int = 128, kind=None, states: bool = False) -> int:
+    """Floats of one forward call's scratch for ``kind`` (default:
+    :func:`ssd_fwd_kind`'s at B·H). ``mma_sync``: C·Bᵀ (B, n_chunks, L,
+    cb_pitch(L)). ``wgmma``: C·Bᵀ in rows of 128, the chunks' decays, dt,
+    seg and exp(seg) in rows of 128, and, where the call keeps no chunk
+    states (``states`` False: the serve path), the states themselves,
+    each rounded up to 32 floats."""
+    L = min(chunk, S)
+    bnc = B * -(-S // L)
+    if _kind_of(L, P, N, kind, "ssd_scan", B * H) == "wgmma":
+        vec = bnc * H * _S9_LP
+        sizes = (bnc * L * _S9_LP, bnc * H, vec, vec, vec,
+                 0 if states else bnc * H * N * P)
+        return sum(_round_up(n, 32) for n in sizes)
+    return bnc * L * cb_pitch(L)
 
 
 def bwd_smem_bytes(L: int, P: int, N: int, kind=None) -> int:
@@ -448,19 +605,22 @@ def _smem_check(name, smem, chunk, P, N):
 
 
 def _launch_fwd(x, dt, a_log, b_mat, c_mat, d_skip, chunk, return_state,
-                with_states):
-    """The forward's two launches on CUDA tensors: ``(y, h, states)``, h
-    the final state where ``return_state``, states the (B, n_chunks, H,
-    N, P) state entering each chunk where ``with_states`` (else None)."""
+                with_states, kind):
+    """The forward's launches of ``kind`` on CUDA tensors: ``(y, h,
+    states)``, h the final state where ``return_state``, states the (B,
+    n_chunks, H, N, P) state entering each chunk where ``with_states``
+    (else None)."""
     B, S, H, P, N = _check(x, dt, a_log, b_mat, c_mat, d_skip, chunk)
     L = min(chunk, S)
+    kind = _kind_of(L, P, N, kind, "ssd_scan", B * H)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), **f32) if return_state else None
     states = torch.empty((B, -(-S // L), H, N, P), **f32) if with_states \
         else None
-    _smem_check("ssd_scan", scan_smem_bytes(L, P, N), chunk, P, N)
-    cb = torch.empty((B, -(-S // L), L, cb_pitch(L)), **f32)
+    _smem_check("ssd_scan", fwd_smem_bytes(L, P, N, kind), chunk, P, N)
+    work = torch.empty((fwd_work_floats(B, S, H, P, N, chunk, kind,
+                                        with_states),), **f32)
     if x.device.type == "meta":
         nbytes, flops = kernel_work.ssd_work(B, S, H, P, N, L)
         if with_states:      # the chunk states, written once
@@ -468,33 +628,41 @@ def _launch_fwd(x, dt, a_log, b_mat, c_mat, d_skip, chunk, return_state,
         kernel_work.record("ssd_scan", flops=flops, nbytes=nbytes)
         return y, h, states
     lib = _load()
-    err = lib.ssd_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
-        c_mat.data_ptr(), d_skip.data_ptr(), cb.data_ptr(), y.data_ptr(),
-        h.data_ptr() if h is not None else None,
-        states.data_ptr() if states is not None else None, B, S, H, P, N,
-        chunk, torch.cuda.current_stream(x.device).cuda_stream)
+    opt = [t.data_ptr() if t is not None else None for t in (h, states)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ins = [t.data_ptr() for t in (x, dt, a_log, b_mat, c_mat, d_skip)]
+    if kind == "wgmma":
+        err = lib.ssd_scan_fwd_sm90(*ins, work.data_ptr(), y.data_ptr(), *opt,
+                                    B, S, H, P, N, chunk, stream)
+    else:
+        err = lib.ssd_scan_fwd(*ins, work.data_ptr(), y.data_ptr(), *opt, B,
+                               S, H, P, N, chunk, stream)
     if err != 0:
-        raise RuntimeError("ssd_scan kernel: "
+        raise RuntimeError(f"ssd_scan kernel ({kind}): "
                            + lib.ssd_scan_error_string(err).decode())
     ssd_scan.launches += 1
     return y, h, states
 
 
 def ssd_scan(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int = 128,
-             return_state: bool = False):
+             return_state: bool = False, kind=None):
     """Chunked SSD; arguments and results as :func:`ssd_scan_plain`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels
-    (float32, contiguous) or raise; ``meta`` tensors record the kernels'
-    work with the op counter (:mod:`repro_torch.roofline.kernel_work`).
-    ``ssd_scan.launches`` counts the calls that launched them (two
-    launches each: C·Bᵀ, then the scan)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``kind`` (default: :func:`ssd_fwd_kind`'s; float32, contiguous) or
+    raise; ``meta`` tensors record the kernels' work with the op counter
+    (:mod:`repro_torch.roofline.kernel_work`). ``ssd_scan.launches`` counts
+    the calls that launched them (``SSD_FWD_LAUNCHES[kind]`` each: the
+    wgmma kind's four, C·Bᵀ, the chunks' own states, their passing, the
+    outputs; the mma_sync kind's two, C·Bᵀ and the scan). The wgmma kind
+    keeps the chunk states in its workspace here: 21 MB at zamba2-2.7b's
+    serve prefill of 4 rows of 512 steps, 33.5 MB at mamba2-1.3b's widths
+    (where the dispatch takes mma_sync)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts):
         return ssd_scan_plain(x, dt, a_log, b_mat, c_mat, d_skip,
                               chunk=chunk, return_state=return_state)
-    y, h, _ = _launch_fwd(*ts, chunk, return_state, False)
+    y, h, _ = _launch_fwd(*ts, chunk, return_state, False, kind)
     return (y, h) if return_state else y
 
 
@@ -502,18 +670,28 @@ ssd_scan.launches = 0
 
 
 def ssd_scan_with_states(x, dt, a_log, b_mat, c_mat, d_skip, *,
-                         chunk: int = 128, return_state: bool = False):
+                         chunk: int = 128, return_state: bool = False,
+                         kind=None):
     """The forward for training: ``(y, h, states)``, h the final state
     (None without ``return_state``) and states the (B, n_chunks, H, N, P)
     f32 state entering each chunk, which :func:`ssd_scan_bwd` reads. CPU
-    tensors take :func:`ssd_chunks_plain`; CUDA tensors launch the
-    forward kernels (counted in ``ssd_scan.launches``) or raise; ``meta``
-    tensors record their work."""
+    tensors take :func:`ssd_chunks_plain`; CUDA tensors launch the forward
+    kernels of ``kind`` (default: :func:`ssd_fwd_kind`'s; counted in
+    ``ssd_scan.launches``) or raise; ``meta`` tensors record their
+    work."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts):
         _, states, y, h = ssd_chunks_plain(*ts, chunk=chunk)
         return y, h if return_state else None, states
-    return _launch_fwd(*ts, chunk, return_state, True)
+    return _launch_fwd(*ts, chunk, return_state, True, kind)
+
+
+# the kernels one forward call of each kind launches, in order, as the
+# profiler names them
+SSD_FWD_LAUNCHES = {
+    "mma_sync": ("ssd_cb_kernel", "ssd_scan_kernel"),
+    "wgmma": ("ssd_cb_kernel", "ssd_fwd_state_sm90_kernel",
+              "ssd_fwd_pass_kernel", "ssd_fwd_out_sm90_kernel")}
 
 
 def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
@@ -592,25 +770,28 @@ SSD_BWD_LAUNCHES = {
 # (repro_torch.verify.grid_check.ssd_scan_models): threads of an
 # elementwise block, C·Bᵀ tiles of a block, heads a chunk block sums
 # over, dB/dC output tiles of an mma_sync block, heads of a wgmma local
-# block.
+# (and forward state) block and of a forward output block.
 SSD_THREADS = 256
 SSD_CB_TILE = (16, 32)
 SSD_BWD_GROUP = 8
 SSD_DBDC_TILE = (64, 64)
 SSD_LOCAL_GROUP = 8
+SSD_OUT_GROUP = 8
 
 
 def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132,
                  kind=None):
-    """Each launch of a forward (``ssd_cb_kernel``, ``ssd_scan_kernel``)
-    and a backward call of ``kind`` (default: :func:`ssd_bwd_kind`'s) at
-    these sizes, as the CUDA source launches them: ``{name: (grid,
+    """Each launch of a forward and a backward call of ``kind`` (default:
+    each direction's own, :func:`ssd_fwd_kind` at B·H and
+    :func:`ssd_bwd_kind`) at these sizes, as the CUDA source launches
+    them: ``{name: (grid,
     item)}``, ``item(*block_index)`` the work the block does as the
-    source decodes its index. ``ssd_scan_kernel`` walks its chunks in a
-    loop, so its grid carries the chunk as a second axis; the chunk
-    kernels are persistent (``sms`` programs at most) and are given as
-    their item count and programs instead."""
+    source decodes its index. ``ssd_scan_kernel`` (the mma_sync forward)
+    walks its chunks in a loop, so its grid carries the chunk as a second
+    axis; the chunk kernels are persistent (``sms`` programs at most) and
+    are given as their item count and programs instead."""
     L = min(chunk, S)
+    fkind = _kind_of(L, P, N, kind, "ssd_scan", B * H)
     kind = _kind_of(L, P, N, kind)
     n_chunks = -(-S // L)
     nrt = -(-L // SSD_CB_TILE[0])
@@ -621,20 +802,30 @@ def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132,
         # (chunk, batch, tile) -> (b, chunk, row tile, column tile)
         "ssd_cb_kernel": ((n_chunks, B, tiles),
                           lambda c, b, z: (b, c, z % nrt, z // nrt)),
-        # (b·h, chunk of its loop) -> (b, h, chunk)
-        "ssd_scan_kernel": ((B * H, n_chunks),
-                            lambda bh, c: (bh // H, bh % H, c)),
         # elementwise over (b, h, N x P), the chunks in its loop
         "ssd_bwd_pass_kernel": ((-(-B * H * N * P // SSD_THREADS),),
                                 lambda e: (e,)),
         "ssd_bwd_reduce_kernel": ((-(-H // SSD_THREADS),), lambda i: (i,)),
     }
+    ngl = -(-H // SSD_LOCAL_GROUP)
+
+    def groups(n):
+        # -> (b, chunk, group of heads), every chunk
+        return lambda x: (x // n // n_chunks, x // n % n_chunks, x % n)
+
+    if fkind == "wgmma":
+        ngo = -(-H // SSD_OUT_GROUP)
+        out["ssd_fwd_state_sm90_kernel"] = ((B * n_chunks * ngl,),
+                                            groups(ngl))
+        out["ssd_fwd_pass_kernel"] = out["ssd_bwd_pass_kernel"]
+        out["ssd_fwd_out_sm90_kernel"] = ((B * n_chunks * ngo,), groups(ngo))
+    else:
+        # (b·h, chunk of its loop) -> (b, h, chunk)
+        out["ssd_scan_kernel"] = ((B * H, n_chunks),
+                                  lambda bh, c: (bh // H, bh % H, c))
     if kind == "wgmma":
-        ngl = -(-H // SSD_LOCAL_GROUP)
-        # -> (b, chunk, group of SSD_LOCAL_GROUP heads), every chunk
-        out["ssd_bwd_local_sm90_kernel"] = (
-            (B * n_chunks * ngl,),
-            lambda x: (x // ngl // n_chunks, x // ngl % n_chunks, x % ngl))
+        out["ssd_bwd_local_sm90_kernel"] = ((B * n_chunks * ngl,),
+                                            groups(ngl))
         out["ssd_bwd_chunk_sm90_kernel"] = (items, min(items, sms))
         # a warp a (b, chunk, h), SSD_THREADS / 32 of them a block
         per = SSD_THREADS // 32

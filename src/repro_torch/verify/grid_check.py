@@ -660,14 +660,16 @@ def ssd_scan_models(B: int, H: int, S: int, P: int, N: int,
                     chunk: int = 128, sms: int = 132, kind=None
                     ) -> Tuple[List[GridModel], List[Finding]]:
     """The SSD scan's launches (forward and backward of ``kind``, default
-    the wrapper's ``ssd_bwd_kind``) as checkable models, from
-    :func:`repro_torch.kernels.ssd_scan.launch_grids`: each launch's
-    blocks cover its work, (b·h, chunk) for the scan, once. The persistent
-    chunk kernel's walk is certified directly (the findings returned
-    beside the models)."""
+    each direction's: the wrapper's ``ssd_fwd_kind`` at B·H and
+    ``ssd_bwd_kind``) as
+    checkable models, from :func:`repro_torch.kernels.ssd_scan.launch_grids`:
+    each launch's blocks cover its work once, (b·h, chunk) for the
+    mma_sync scan, (b, chunk, group of heads) for the wgmma forward's state
+    and output launches. The persistent chunk kernel's walk is certified
+    directly (the findings returned beside the models)."""
     from repro_torch.kernels.ssd_scan import (SSD_CB_TILE, SSD_DBDC_TILE,
-                                              SSD_LOCAL_GROUP, SSD_THREADS,
-                                              launch_grids)
+                                              SSD_LOCAL_GROUP, SSD_OUT_GROUP,
+                                              SSD_THREADS, launch_grids)
     L = min(chunk, S)
     n_chunks = -(-S // L)
     g = launch_grids(B, S, H, P, N, chunk, sms, kind)
@@ -679,7 +681,16 @@ def ssd_scan_models(B: int, H: int, S: int, P: int, N: int,
             "out", "write", block, out_shape, item or it),)))
 
     one("ssd_cb_kernel", (B, n_chunks, L, L), (1, 1) + SSD_CB_TILE)
-    one("ssd_scan_kernel", (B, H, n_chunks), (1, 1, 1))
+    if "ssd_scan_kernel" in g:
+        one("ssd_scan_kernel", (B, H, n_chunks), (1, 1, 1))
+    else:
+        # the wgmma forward: a group of heads a block, every chunk; the
+        # passing elementwise over (b, h, N x P)
+        one("ssd_fwd_state_sm90_kernel", (B, n_chunks, H),
+            (1, 1, SSD_LOCAL_GROUP))
+        one("ssd_fwd_pass_kernel", (B * H * N * P,), (SSD_THREADS,))
+        one("ssd_fwd_out_sm90_kernel", (B, n_chunks, H),
+            (1, 1, SSD_OUT_GROUP))
     one("ssd_bwd_pass_kernel", (B * H * N * P,), (SSD_THREADS,))
     one("ssd_bwd_reduce_kernel", (H,), (SSD_THREADS,))
     if "ssd_bwd_dbdc_sm90_kernel" in g:

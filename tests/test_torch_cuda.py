@@ -779,8 +779,10 @@ def test_ssd_rejects_what_it_cannot_run(cuda):
 def test_ssd_size_formulas_are_the_librarys(L, P, N, cuda):
     """The wrapper's shared-memory and scratch sizes (one formula for the
     card and for the dry run on ``meta``) equal what the CUDA source's
-    host functions compute, for the backward's mma.sync kind and, at the
-    shapes it takes, its wgmma kind (whose smem export is 0 elsewhere)."""
+    host functions compute, for the forward's and the backward's mma.sync
+    kinds and, at the shapes they take, their wgmma kinds (whose smem
+    exports are 0 elsewhere; the forward's workspace with and without the
+    chunk states)."""
     from repro_torch.kernels import ssd_scan as ssd
     lib = ssd._load()
     assert ssd.cb_pitch(L) == lib.ssd_cb_pitch(L)
@@ -788,14 +790,24 @@ def test_ssd_size_formulas_are_the_librarys(L, P, N, cuda):
     assert ssd.bwd_smem_bytes(L, P, N, "mma_sync") == \
         lib.ssd_scan_bwd_smem_bytes(L, P, N)
     sm90 = ssd.ssd_bwd_kind(L, P, N) == "wgmma"
+    assert ssd.ssd_fwd_kind(L, P, N) == ssd.ssd_bwd_kind(L, P, N)
     assert lib.ssd_scan_bwd_sm90_smem_bytes(L, P, N) == \
         (ssd.bwd_smem_bytes(L, P, N, "wgmma") if sm90 else 0)
+    assert ssd.fwd_smem_bytes(L, P, N, "mma_sync") == \
+        lib.ssd_scan_smem_bytes(L, P, N)
+    assert lib.ssd_scan_fwd_sm90_smem_bytes(L, P, N) == \
+        (ssd.fwd_smem_bytes(L, P, N, "wgmma") if sm90 else 0)
     for B, S, H in ((1, 4096, 64), (2, 1000, 7), (3, L, 9)):
         assert ssd.bwd_work_floats(B, S, H, P, N, L, "mma_sync") == \
             lib.ssd_scan_bwd_work_floats(B, S, H, P, N, L)
         if sm90:
             assert ssd.bwd_work_floats(B, S, H, P, N, L, "wgmma") == \
                 lib.ssd_scan_bwd_sm90_work_floats(B, S, H, P, N, L)
+            for states in (False, True):
+                assert ssd.fwd_work_floats(B, S, H, P, N, L, "wgmma",
+                                           states) == \
+                    lib.ssd_scan_fwd_sm90_work_floats(B, S, H, P, N, L,
+                                                      int(states))
 
 
 # the backward's train shapes (mamba2-1.3b, zamba2-2.7b) and a ragged S
@@ -925,6 +937,135 @@ def test_ssd_bwd_wgmma_refuses_what_it_cannot_run(cuda):
         ssd_scan_bwd(xb, *big[1:], torch.randn_like(big[0]), states_b,
                      chunk=128)
     assert ssd_scan_bwd.launches == before
+
+
+# the forward's wgmma kind: mamba2-1.3b's and zamba2-2.7b's widths at a
+# chunk multiple, a ragged S, S below a chunk, one step, five chunks, a
+# chunk of 64 at zamba2's 80 heads
+SSD_FWD_WGMMA = [(1, 384, 4, 64, 128, 128), (2, 300, 3, 64, 64, 128),
+                 (1, 100, 9, 64, 128, 128), (2, 1, 8, 64, 64, 128),
+                 (1, 640, 16, 64, 128, 128), (1, 256, 80, 64, 64, 64)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_FWD_WGMMA)
+def test_ssd_fwd_wgmma_matches_plain(B, S, H, P, N, chunk, cuda):
+    """The forward's wgmma kind (the dispatch's at these widths) against
+    its plain versions, f32 2e-4: a serve call's y and final state
+    (ssd_scan: the chunk states in its workspace), training's y, final
+    state and chunk states (ssd_scan_with_states, with and without the
+    final state), and the launches' decomposition: the chunk states
+    against ssd_passed_states_plain, y against ssd_out_plain of the
+    kernel's states. One call counted once."""
+    from repro_torch.kernels import ssd_scan as ssd
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    assert ssd.ssd_fwd_kind(min(chunk, S), P, N) == "wgmma"
+    before = ssd_scan.launches
+    got = ssd_scan(*xs, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    _close(got, ssd_scan_plain(*xs, chunk=chunk, return_state=True), 2e-4)
+    _, want_states, want_y, want_h = ssd_chunks_plain(*xs, chunk=chunk)
+    for return_state in (False, True):
+        y, h, states = ssd_scan_with_states(*xs, chunk=chunk,
+                                            return_state=return_state)
+        assert (h is None) != return_state
+        _close((y, states), (want_y, want_states), 2e-4)
+        if return_state:
+            _close(h, want_h, 2e-4)
+    passed, final = ssd.ssd_passed_states_plain(*xs[:4], chunk=chunk)
+    _close((states, h), (passed, final), 2e-4)
+    _close(y, ssd.ssd_out_plain(*xs, states, chunk=chunk), 2e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 64, 64, 128),
+                                   (2, 4096, 80, 64, 64),
+                                   (4, 512, 64, 64, 128),
+                                   (4, 510, 80, 64, 64)])
+def test_ssd_fwd_kinds_agree_and_repeat(shape, cuda):
+    """At the train and serve shapes both kinds run: the wgmma kind's y,
+    final state and chunk states are within 2e-4 of the mma_sync kind's
+    on the same inputs, two calls of each kind give the same bits, and the
+    dispatch's kind (wgmma but at mamba2's serve prefill of 4 rows) is
+    what a call without one gives."""
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N = shape
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    assert ssd.ssd_fwd_kind(128, P, N) == "wgmma"
+    dispatched = ssd.ssd_fwd_kind(128, P, N, B * H)
+    assert dispatched == ("mma_sync" if (B, H) == (4, 64) else "wgmma")
+    got = {k: ssd_scan_with_states(*xs, chunk=128, return_state=True,
+                                   kind=k) for k in ("wgmma", "mma_sync")}
+    _close(got["wgmma"], got["mma_sync"], 2e-4)
+    for k, want in got.items():
+        again = ssd_scan_with_states(*xs, chunk=128, return_state=True,
+                                     kind=k)
+        assert all(torch.equal(a, b) for a, b in zip(again, want)), k
+    default = ssd_scan_with_states(*xs, chunk=128, return_state=True)
+    assert all(torch.equal(a, b) for a, b in zip(default, got[dispatched]))
+
+
+def test_ssd_fwd_wgmma_refuses_what_it_cannot_run(cuda):
+    """The forward's wgmma kind is asked for only where it runs: the
+    wrappers refuse it at a P it does not take, the library's entry
+    refuses such a launch (a CUDA error, no launch), and the wrapper
+    raises on a refused launch rather than fall back to the mma_sync kind
+    or the plain version."""
+    from repro_torch.kernels import ssd_scan as ssd
+    B, S, H, P, N = 1, 64, 2, 16, 8
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    with pytest.raises(ValueError, match="wgmma kind takes"):
+        ssd_scan(*xs, chunk=32, kind="wgmma")
+    with pytest.raises(ValueError, match="wgmma kind takes"):
+        ssd_scan_with_states(*xs, chunk=32, kind="wgmma")
+    lib = ssd._load()
+    work = torch.empty((1 << 20,), device=cuda)
+    y = torch.empty_like(xs[0])
+    assert lib.ssd_scan_fwd_sm90(
+        *(t.data_ptr() for t in xs), work.data_ptr(), y.data_ptr(), None,
+        None, B, S, H, P, N, 32, torch.cuda.current_stream().cuda_stream) != 0
+    # a refused launch raises (here: an x the TMA boxes cannot take, 4
+    # bytes past a 16-byte boundary)
+    big = _ssd_inputs(1, 128, 2, 64, 64, cuda)
+    xb = torch.empty(big[0].numel() + 1, device=cuda)[1:].view(big[0].shape)
+    xb.copy_(big[0])
+    before = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="ssd_scan kernel \\(wgmma\\)"):
+        ssd_scan(xb, *big[1:], chunk=128)
+    assert ssd_scan.launches == before
+
+
+def test_ssd_autograd_takes_the_wgmma_kinds(cuda):
+    """ops.ssd under autograd at mamba2-1.3b's widths (4 heads of P 64, N
+    128, a ragged S) launches the forward's wgmma kernels, then the
+    backward's (by the profiler's kernel names and their order), and its
+    gradients equal autograd of the plain scan on the CPU (2e-4)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_LAUNCHES,
+                                              SSD_FWD_LAUNCHES)
+    xs = _ssd_inputs(1, 300, 4, 64, 128, "cpu")
+    dy = torch.randn(xs[0].shape, generator=torch.Generator().manual_seed(7))
+    leaves = [a.detach().requires_grad_() for a in xs]
+    (ops.ssd(*leaves, chunk=128) * dy).sum().backward()
+    want = [t.grad for t in leaves]
+    fwd = set(SSD_FWD_LAUNCHES["wgmma"]) - {"ssd_cb_kernel"}
+    bwd = set(SSD_BWD_LAUNCHES["wgmma"]) - {"ssd_cb_kernel"}
+    for _ in range(3):   # a profiler session can lose its records
+        leaves = [a.detach().to(cuda).requires_grad_() for a in xs]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (ops.ssd(*leaves, chunk=128) * dy.to(cuda)).sum().backward()
+            torch.cuda.synchronize()
+        starts = {}
+        for e in prof.events():
+            for name in fwd | bwd:
+                if name in e.name:
+                    starts.setdefault(name, e.time_range.start)
+        if fwd | bwd <= set(starts):
+            break
+    assert fwd | bwd <= set(starts), sorted(starts)
+    assert max(starts[n] for n in fwd) < min(starts[n] for n in bwd)
+    for g, w in zip((t.grad.cpu() for t in leaves), want, strict=True):
+        assert _norm_rel(g, w) <= 2e-4
 
 
 def test_degraded_tile_op_raises_on_the_card(cuda):

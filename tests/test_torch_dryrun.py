@@ -165,8 +165,11 @@ def test_ssd_scratch_is_counted_in_the_live_bytes(arch):
     with OpCounter() as c:
         y, h, states = ssd.ssd_scan_with_states(*args, chunk=L,
                                                 return_state=True)
-    cb = 4 * B * (S // L) * L * ssd.cb_pitch(L)
-    assert c.report.peak_live_bytes == _nbytes((y, h, states)) + cb
+    # the forward's scratch: at these widths the wgmma kind's workspace
+    # (C·Bᵀ, the decays and per-head vectors; the chunk states are y's)
+    work = 4 * ssd.fwd_work_floats(B, S, H, P, N, L, states=True)
+    assert ssd.ssd_fwd_kind(L, P, N) == "wgmma"
+    assert c.report.peak_live_bytes == _nbytes((y, h, states)) + work
     dy = _meta(B, S, H, P)
     with OpCounter() as c:
         grads = ssd.ssd_scan_bwd(*args, dy, states, chunk=L)

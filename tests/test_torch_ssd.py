@@ -514,3 +514,208 @@ def test_plain_pieces_at_the_wgmma_widths_match_jax(B, S, H, P, N, chunk):
                             chunk=chunk, group=8)
     np.testing.assert_allclose(db.numpy(), want[3], **TOL)
     np.testing.assert_allclose(dc.numpy(), want[4], **TOL)
+
+
+# -- the forward's two kinds (kernels.ssd_scan.ssd_fwd_kind) -------------------
+# the wgmma widths (P 64, N 128 and 64) at small B, H and S: chunk
+# multiples (which the Pallas kernel takes), ragged S, S below a chunk, one
+# step, a chunk of 64
+FWD_WIDE = [(1, 256, 2, 64, 128, 128), (2, 192, 3, 64, 64, 64),
+            (1, 200, 2, 64, 128, 128), (2, 100, 2, 64, 64, 128),
+            (1, 1, 2, 64, 128, 128), (2, 300, 3, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", FWD_WIDE)
+def test_state_passing_forward_matches_jnp_and_pallas(B, S, H, P, N, chunk,
+                                                      dtype):
+    """The wgmma forward's decomposition in plain torch: every chunk's own
+    state and decay, the elementwise passing (ssd_passed_states_plain),
+    then each chunk's output from the state entering it with D on M's
+    diagonal (ssd_out_plain). The chunk states equal ssd_scan_jnp's final
+    state over each chunk's prefix (zero for the first), the final state
+    and y ssd_scan_jnp's, and y the Pallas kernel's in interpret mode where
+    S is a chunk multiple; in f32 and f64 (which compute in f64), 2e-4."""
+    xs = _inputs(B, S, H, P, N, seed=22)
+    ts = [t.to(dtype) for t in _t(xs)]
+    x, dt, a_log, b, c, d = ts
+    states, h = ssd.ssd_passed_states_plain(x, dt, a_log, b, chunk=chunk)
+    y = ssd.ssd_out_plain(x, dt, a_log, b, c, d, states, chunk=chunk)
+    L = min(chunk, S)
+    assert states.shape == (B, -(-S // L), H, N, P)
+    assert states.dtype == h.dtype == y.dtype == dtype
+    assert not states[:, 0].any()
+    for ci in range(1, states.shape[1]):
+        _, want_h = ssd_scan_jnp(*_j([a[:, :ci * L] if a.ndim > 1 else a
+                                     for a in xs]),
+                                 chunk=chunk, return_state=True)
+        np.testing.assert_allclose(states[:, ci].numpy(), np.asarray(want_h),
+                                   **TOL)
+    want_y, want_h = ssd_scan_jnp(*_j(xs), chunk=chunk, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **TOL)
+    if S % L == 0:
+        want_pl = jax_ssd_scan(*_j(xs), chunk=chunk, interpret=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_pl), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 100, 3, 16, 8, 32),
+                                             (1, 7, 2, 8, 4, 16)])
+def test_state_passing_forward_matches_the_mma_sync_decomposition(
+        B, S, H, P, N, chunk):
+    """At widths the wgmma kind does not take, the same decomposition
+    equals ssd_chunks_plain's (the other kind's: the states entering
+    each chunk, y and the final state), 2e-4."""
+    ts = _t(_inputs(B, S, H, P, N, seed=23))
+    states, h = ssd.ssd_passed_states_plain(*ts[:4], chunk=chunk)
+    y = ssd.ssd_out_plain(*ts, states, chunk=chunk)
+    _, want_states, want_y, want_h = ssd_chunks_plain(*ts, chunk=chunk)
+    for got, want in ((states, want_states), (h, want_h), (y, want_y)):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,kind", [
+    (2, 4096, 64, 64, 128, 128, "wgmma"), (2, 4096, 80, 64, 64, 128, "wgmma"),
+    (2, 512, 64, 64, 128, 128, "wgmma"), (3, 4096, 64, 64, 128, 128, "wgmma"),
+    (4, 510, 80, 64, 64, 128, "wgmma"), (4, 512, 64, 64, 128, 128, "mma_sync"),
+    (8, 512, 64, 64, 128, 128, "mma_sync"),
+    (1, 1, 64, 64, 128, 128, "wgmma"), (1, 300, 4, 64, 64, 64, "wgmma"),
+    (2, 64, 2, 16, 16, 16, "mma_sync"), (1, 50, 2, 6, 5, 16, "mma_sync"),
+    (1, 512, 2, 64, 96, 128, "mma_sync"),
+    (1, 512, 2, 64, 128, 256, "mma_sync")])
+def test_forward_kind_by_shape(B, S, H, P, N, chunk, kind):
+    """mamba2-1.3b's and zamba2-2.7b's train shapes, serve prefills of 2
+    rows, 192 of mamba2's heads, zamba2's serve prefill of 4 rows (320
+    blocks of the mma_sync kind: two waves, the second a fifth full), one
+    step and a chunk of 64 take the forward's wgmma launches; mamba2's
+    serve prefill of 4 rows and of 8 (256 and 512 blocks, which fill the
+    mma_sync kind's 264 slots of two an SM), the smoke configs' small
+    shapes and an N and a chunk the TF32 tiles do not take keep mma.sync.
+    The backward's rule is the widths' alone, and the forward's without a
+    B·H."""
+    L = min(chunk, S)
+    assert ssd.ssd_fwd_kind(L, P, N, B * H) == kind
+    wide = "wgmma" if P == 64 and N in (64, 128) and L <= 128 else "mma_sync"
+    assert ssd.ssd_bwd_kind(L, P, N) == ssd.ssd_fwd_kind(L, P, N) == wide
+
+
+def test_a_forward_kind_that_cannot_take_the_shape_is_refused():
+    """A forced kind is checked before anything is allocated or recorded:
+    the wgmma kind at P 16 and an unknown kind raise, from the size
+    mirrors and from the wrappers on ``meta`` tensors."""
+    with pytest.raises(ValueError, match="wgmma kind takes"):
+        ssd.fwd_work_floats(1, 64, 2, 16, 8, 32, "wgmma")
+    with pytest.raises(ValueError, match="not one of"):
+        ssd.fwd_smem_bytes(128, 64, 128, "hopper")
+    meta = [torch.empty(s, device="meta") for s in
+            ((1, 64, 2, 16), (1, 64, 2), (2,), (1, 64, 8), (1, 64, 8), (2,))]
+    with pytest.raises(ValueError, match="ssd_scan: the wgmma kind takes"):
+        ssd.ssd_scan(*meta, chunk=32, kind="wgmma")
+    with pytest.raises(ValueError, match="not one of"):
+        ssd.ssd_scan_with_states(*meta, chunk=32, kind="hopper")
+
+
+@pytest.mark.parametrize("kind", [None, "mma_sync"])
+def test_forward_scratch_of_each_kind_is_counted_on_meta(kind):
+    """On ``meta`` (the dry run) a serve call at mamba2-1.3b's widths holds
+    y, the final state and its kind's scratch: the wgmma kind's workspace
+    (the chunk states among it) by default, C·Bᵀ alone when mma_sync is
+    forced; a training call keeps its chunk states out of the workspace."""
+    from repro_torch.roofline.op_analysis import OpCounter
+    B, S, H, P, N = 1, 512, 4, 64, 128
+    meta = [torch.empty(s, device="meta") for s in
+            ((B, S, H, P), (B, S, H), (H,), (B, S, N), (B, S, N), (H,))]
+    with OpCounter() as cnt:
+        y, h = ssd.ssd_scan(*meta, chunk=128, return_state=True, kind=kind)
+    work = ssd.fwd_work_floats(B, S, H, P, N, 128, kind)
+    assert cnt.report.peak_live_bytes == 4 * (y.numel() + h.numel() + work)
+    if kind is None:
+        assert work > 4 * H * N * P     # the states of the 4 chunks
+        assert ssd.fwd_work_floats(B, S, H, P, N, 128, states=True) \
+            == work - 4 * H * N * P
+    else:
+        assert work == 4 * 128 * ssd.cb_pitch(128)
+
+
+# the mirrors of csrc/ssd_scan.cu's forward sizes at mamba2-1.3b's and
+# zamba2-2.7b's train (B 2, S 4096, with the chunk states) and serve (B 4,
+# S 512, without) shapes, chunk 128, worked out by hand:
+# * wgmma, N 128: the output block's C·Bᵀ boxes on and below the diagonal
+#   (10 of 32 x 32 f32, 40 KB) and C (4 boxes of 128 x 32, 64 KB), its
+#   2-stage ring of 32 x 64 tiles (16 KB), the two hi / lo B tiles of 64 x
+#   32 both warpgroups share (32 KB) and each warpgroup's two hi / lo A
+#   tiles (64 KB), two heads' dt, seg and exp(seg) (3 KB), 9 barriers and 1
+#   KB to align: 225,352; the state block takes more, 226,368: Bᵀ's hi /
+#   lo tiles (128 KB), a 3-stage ring (24 KB), one pair of hi / lo x tiles
+#   (32 KB), the two warpgroups' 64 x 64 results for their TMA stores (32
+#   KB), 8 heads' w (4 KB), 8 barriers and 1 KB; N 64: the output block's
+#   two C boxes fewer and 6 stages, 17 barriers: 225,416 (the state
+#   block's 201,808);
+# * workspace floats: C·Bᵀ (B n_chunks x 128 x 128), the decays (B
+#   n_chunks x H), dt, seg and exp(seg) (B n_chunks x H x 128 each), and
+#   at the serve shapes the states (B n_chunks x H x N x 64): 1,048,576 +
+#   4,096 + 3 x 524,288; 1,048,576 + 5,120 + 3 x 655,360; 262,144 + 1,024
+#   + 3 x 131,072 + 8,388,608; 262,144 + 1,280 + 3 x 163,840 + 5,242,880.
+@pytest.mark.parametrize("shape,states,smem,floats", [
+    ((2, 4096, 64, 64, 128), True, 226_368, 2_625_536),
+    ((2, 4096, 80, 64, 64), True, 225_416, 3_019_776),
+    ((4, 512, 64, 64, 128), False, 226_368, 9_044_992),
+    ((4, 512, 80, 64, 64), False, 225_416, 5_997_824)])
+def test_forward_size_mirrors_at_the_train_and_serve_shapes(shape, states,
+                                                            smem, floats):
+    B, S, H, P, N = shape
+    assert ssd.fwd_smem_bytes(128, P, N) == smem <= H100_SXM.smem_bytes
+    assert ssd.fwd_smem_bytes(128, P, N, "wgmma") == smem
+    assert ssd.fwd_work_floats(B, S, H, P, N, 128, "wgmma", states) == floats
+    # the dispatch's by default: wgmma but at mamba2's serve shape (B·H 256)
+    default = ssd.fwd_work_floats(B, S, H, P, N, 128, states=states)
+    assert (default == floats) == ((B, H) != (4, 64))
+    # the mma_sync kind's: the scan block, C·Bᵀ in rows of cb_pitch
+    assert ssd.fwd_smem_bytes(128, P, N, "mma_sync") == \
+        ssd.scan_smem_bytes(128, P, N)
+    assert ssd.fwd_work_floats(B, S, H, P, N, 128, "mma_sync", states) == \
+        B * (S // 128) * 128 * ssd.cb_pitch(128)
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 64, 64, 128),
+                                   (2, 4096, 80, 64, 64),
+                                   (4, 510, 64, 64, 128), (1, 1, 80, 64, 64)])
+def test_forward_grids_cover_each_unit_once(shape):
+    """launch_grids at the wgmma widths: the forward's state and output
+    launches cover (b, chunk, group of 8 heads) once each, so every (b,
+    chunk, head), and the passing every (b, h, N x P) element in blocks of
+    256; the mma_sync kind's scan covers (b, h, chunk) once; by default
+    the forward's launches are its dispatch's; the static verifier's
+    models of both kinds certify."""
+    from repro_torch.verify import check_grid, ssd_scan_models
+    B, S, H, P, N = shape
+    nc = -(-S // 128)
+    g = ssd.launch_grids(B, S, H, P, N, 128, kind="wgmma")
+    assert set(ssd.SSD_FWD_LAUNCHES["wgmma"]) <= set(g)
+    assert "ssd_scan_kernel" not in g
+    fkind = ssd.ssd_fwd_kind(128, P, N, B * H)
+    assert set(ssd.SSD_FWD_LAUNCHES[fkind]) <= \
+        set(ssd.launch_grids(B, S, H, P, N, 128))
+    heads = [(b, c, h) for b in range(B) for c in range(nc) for h in range(H)]
+    for name, group in (("ssd_fwd_state_sm90_kernel", ssd.SSD_LOCAL_GROUP),
+                        ("ssd_fwd_out_sm90_kernel", ssd.SSD_OUT_GROUP)):
+        units = _covered(*g[name])
+        assert sorted(units) == [(b, c, j) for b in range(B)
+                                 for c in range(nc)
+                                 for j in range(-(-H // group))]
+        assert sorted((b, c, j * group + i) for b, c, j in units
+                      for i in range(group) if j * group + i < H) == heads
+    (blocks,), _ = g["ssd_fwd_pass_kernel"]
+    assert (blocks - 1) * 256 < B * H * N * P <= blocks * 256
+    ms = ssd.launch_grids(B, S, H, P, N, 128, kind="mma_sync")
+    assert set(ssd.SSD_FWD_LAUNCHES["mma_sync"]) <= set(ms)
+    assert sorted(_covered(*ms["ssd_scan_kernel"])) == \
+        [(b, h, c) for b in range(B) for h in range(H) for c in range(nc)]
+    for kind in (None, "wgmma", "mma_sync"):
+        models, walk = ssd_scan_models(B, H, S, P, N, 128, kind=kind)
+        assert not walk
+        names = {m.name for m in models}
+        assert set(ssd.SSD_FWD_LAUNCHES[kind or fkind]) <= names
+        for m in models:
+            assert not check_grid(m).errors(), m.name

@@ -445,11 +445,13 @@ def test_ssd_launches_certify(shape):
     models, walk = ssd_scan_models(B, H, S, P, N, chunk=128)
     assert not walk
     names = {m.name for m in models}
-    # the train widths take the backward's wgmma launches, the small shape
-    # the mma.sync ones (kernels.ssd_scan.ssd_bwd_kind)
+    # the train widths take the wgmma launches both ways, the small shape
+    # the mma.sync ones (kernels.ssd_scan.ssd_fwd_kind, ssd_bwd_kind)
     sm90 = "_sm90" if P == 64 else ""
-    assert {"ssd_cb_kernel", "ssd_scan_kernel", f"ssd_bwd_local{sm90}_kernel",
-            f"ssd_bwd_dbdc{sm90}_kernel"} <= names
+    fwd = {"ssd_fwd_state_sm90_kernel", "ssd_fwd_pass_kernel",
+           "ssd_fwd_out_sm90_kernel"} if P == 64 else {"ssd_scan_kernel"}
+    assert {"ssd_cb_kernel", f"ssd_bwd_local{sm90}_kernel",
+            f"ssd_bwd_dbdc{sm90}_kernel"} | fwd <= names
     for m in models:
         res = check_grid(m)
         assert not res.errors(), [str(f) for f in res.errors()]
@@ -458,13 +460,14 @@ def test_ssd_launches_certify(shape):
 @pytest.mark.parametrize("shape", [(2, 4096, 64, 64, 128),
                                    (2, 4096, 80, 64, 64)])
 def test_ssd_launches_of_the_mma_sync_kind_certify(shape):
-    """The train widths' other kind (what ssd_scan_bwd(kind="mma_sync")
-    launches, the yardstick chip_smoke.py times in turns) certifies too."""
+    """The train widths' other kind (what ssd_scan(kind="mma_sync") and
+    ssd_scan_bwd(kind="mma_sync") launch, the yardsticks chip_smoke.py
+    times in turns) certifies too."""
     B, S, H, P, N = shape
     models, walk = ssd_scan_models(B, H, S, P, N, chunk=128, kind="mma_sync")
     assert not walk
-    assert {"ssd_bwd_local_kernel", "ssd_bwd_dbdc_kernel"} <= \
-        {m.name for m in models}
+    assert {"ssd_scan_kernel", "ssd_bwd_local_kernel",
+            "ssd_bwd_dbdc_kernel"} <= {m.name for m in models}
     for m in models:
         assert not check_grid(m).errors(), m.name
 
