@@ -98,8 +98,10 @@ Server at full width with random seeded weights, and a training path:
   version (a bf16 case also in f32 at 2e-5), timed in turns, with its
   extraction's ops, loads and FMAs,
   its PTX's global loads, registers and spills;
-* the port's three examples (``examples``) run on the card as child
-  processes, each exiting 0.
+* the port's four examples (``examples``) run on the card as child
+  processes, each exiting 0 (serve_decode_torch's report, its decode
+  tokens/s saturated and plain and its cold and warm saturation, in the
+  phase's line).
 
 Every tile op of the run builds through a fresh saturation cache and is
 audited by the static verifier (phase ``saturation``): each launch
@@ -686,6 +688,11 @@ SSD_BWD_CASES = [((2, 4096, 64, 64, 128), 128), ((2, 4096, 80, 64, 64), 128),
 SSD_BWD_TIMED = {(2, 4096, 64, 64, 128): None,
                  (2, 4096, 80, 64, 64): "zamba2"}
 SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd")
+# the backward at a chunk over 128 steps (B, S, H, P, N), chunk -> its key
+# under the row's "shapes": mamba2-1.3b's train shape at chunk 256, which
+# the kernels run at 128-step sub-chunks from states the forward kernels
+# recompute; timed in turns against the same inputs at chunk 128
+SSD_BWD_LONG = {((2, 4096, 64, 64, 128), 256): "mamba2_chunk256"}
 # the SSD forward with chunk states at mamba2-1.3b's and zamba2-2.7b's
 # train shapes (B, S, H, P, N), by their key under ssd_scan's "shapes"
 SSD_FWD_TRAIN = {(2, 4096, 64, 64, 128): "mamba2_train_with_states",
@@ -761,6 +768,19 @@ def _tf32_unit(torch, g, checks):
             "f32_operand": min(models, key=models.get)}
 
 
+def _ssd_bwd_inputs(torch, g, b, s, h, p, n):
+    """The SSD's six inputs (x, dt, a_log, B, C, D) and an output gradient
+    dy on the card, drawn from ``g`` in that order."""
+    args = (torch.randn((b, s, h, p), generator=g, device="cuda"),
+            torch.rand((b, s, h), generator=g, device="cuda") * 0.29 + 0.01,
+            torch.log(torch.arange(1, h + 1, device="cuda",
+                                   dtype=torch.float32)),
+            torch.randn((b, s, n), generator=g, device="cuda") * 0.3,
+            torch.randn((b, s, n), generator=g, device="cuda") * 0.3,
+            torch.randn((h,), generator=g, device="cuda"))
+    return args, torch.randn((b, s, h, p), generator=g, device="cuda")
+
+
 def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
     """The SSD backward kernels against their plain version at
     ``SSD_BWD_CASES``: the kind each case takes (``ssd_bwd_kind``) and the
@@ -790,15 +810,7 @@ def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
 
     out, cases = {}, []
     for (b, s, h, p, n), chunk in SSD_BWD_CASES:
-        args = (torch.randn((b, s, h, p), generator=g, device="cuda"),
-                torch.rand((b, s, h), generator=g, device="cuda") * 0.29
-                + 0.01,
-                torch.log(torch.arange(1, h + 1, device="cuda",
-                                       dtype=torch.float32)),
-                torch.randn((b, s, n), generator=g, device="cuda") * 0.3,
-                torch.randn((b, s, n), generator=g, device="cuda") * 0.3,
-                torch.randn((h,), generator=g, device="cuda"))
-        dy = torch.randn((b, s, h, p), generator=g, device="cuda")
+        args, dy = _ssd_bwd_inputs(torch, g, b, s, h, p, n)
         tag = f"ssd_scan_bwd/{b}x{s}x{h}x{p}x{n}/chunk{chunk}"
         L = min(chunk, s)
         kind = ssd_bwd_kind(L, p, n)
@@ -901,6 +913,10 @@ def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
             "bound_by": by,
             "library_ms": None}
         del states
+    for ((b, s, h, p, n), chunk), key in SSD_BWD_LONG.items():
+        if timed:
+            out[key] = _ssd_bwd_long(torch, timer, g, checks, b, s, h, p, n,
+                                     chunk, rel_of)
     row = {"route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:140 (ssd_scan_jnp "
@@ -911,6 +927,79 @@ def _ssd_bwd_rows(torch, F, timer, g, checks, timed=True):
     if None in out:
         row.update(out.pop(None))
     return {**row, "shapes": out}
+
+
+def _ssd_bwd_long(torch, timer, g, checks, b, s, h, p, n, chunk, rel_of):
+    """One ``SSD_BWD_LONG`` case: ssd_scan_bwd at a chunk over 128 steps,
+    which launches the forward kernels at 128 (the sub-chunks' states) and
+    the backward kernels at 128. Checked: the kernels it launches (those
+    of both kinds at 128), one forward and one backward call counted,
+    every gradient norm-relative within 2e-4 of the plain backward at the
+    long chunk, two calls bitwise equal. Timed in turns against the call
+    at chunk 128 on the same inputs (its own chunk states); each launch's
+    device ms by name; the bound is the backward's work at the kernels'
+    128 steps (the recomputed forward is the design's extra)."""
+    from repro_torch.roofline import kernel_work
+    from repro_torch.kernels.ssd_scan import (
+        SSD_BWD_LAUNCHES, SSD_FWD_LAUNCHES, bwd_chunk, ssd_bwd_kind,
+        ssd_fwd_kind, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
+        ssd_scan_bwd_scratch_bytes, ssd_scan_with_states)
+    args, dy = _ssd_bwd_inputs(torch, g, b, s, h, p, n)
+    tag = f"ssd_scan_bwd/{b}x{s}x{h}x{p}x{n}/chunk{chunk}"
+    sub = bwd_chunk(chunk, s)
+    kinds = {"forward": ssd_fwd_kind(sub, p, n, b * h),
+             "backward": ssd_bwd_kind(sub, p, n)}
+    states = ssd_scan_with_states(*args, chunk=chunk)[2]
+    states_sub = ssd_scan_with_states(*args, chunk=sub)[2]
+
+    def run():
+        return ssd_scan_bwd(*args, dy, states, chunk=chunk)
+
+    def run_sub():
+        return ssd_scan_bwd(*args, dy, states_sub, chunk=sub)
+
+    want_names = set(SSD_FWD_LAUNCHES[kinds["forward"]]) \
+        | set(SSD_BWD_LAUNCHES[kinds["backward"]])
+    launched = _ssd_launched(torch, run, want_names)
+    calls = (ssd_scan.launches, ssd_scan_bwd.launches)
+    got = run()
+    calls = (ssd_scan.launches - calls[0], ssd_scan_bwd.launches - calls[1])
+    want = ssd_scan_bwd_plain(*args, dy, chunk=chunk)
+    rel = rel_of(got, want, b, s)
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, run()))
+    worst = max(max(r) for r in rel.values())
+    checks.append({"name": f"{tag}/sub_chunks", "kinds": kinds,
+                   "launched": sorted(launched), "calls": calls,
+                   "norm_rel_err": rel, "tol": SSD_TOL,
+                   "bitwise_repeat": bitwise,
+                   "ok": launched == want_names and calls == (1, 1)
+                   and bitwise and worst <= SSD_TOL
+                   and all(bool(a.isfinite().all()) for a in got)})
+    err = max(_err(a, w) for a, w in zip(got, want))
+    del got, want
+    turns = _in_turns(timer, run, run_sub)
+    nbytes, flops = kernel_work.ssd_bwd_work(b, s, h, p, n, sub)
+    bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
+    # device ms per launch, by name: C·Bᵀ (ssd_cb_kernel) launches twice a
+    # call, once for each direction
+    by_kernel = {k_: timer.device_ms(run, k_) for k_ in sorted(want_names)}
+    return {
+        "shape": [b, s, h, p, n], "chunk": chunk, "sub_chunk": sub,
+        "dtype": "float32", "kinds": kinds, "launched": sorted(launched),
+        "max_abs_err": err, "norm_rel_err": rel, "norm_rel_tol": SSD_TOL,
+        "bitwise_repeat": bitwise, "bytes": nbytes, "flops": flops,
+        "ms": timer.ms(run),
+        "in_turns": {f"chunk{chunk}_ms": turns["kernel_ms"],
+                     f"chunk{sub}_ms": turns["library_ms"],
+                     f"chunk{chunk}_over_chunk{sub}":
+                         turns["kernel_over_library"]},
+        "device_ms": sum(v or 0.0 for v in by_kernel.values())
+        + (by_kernel["ssd_cb_kernel"] or 0.0),
+        "device_ms_by_kernel": by_kernel,
+        "scratch_bytes": ssd_scan_bwd_scratch_bytes(b, s, h, p, n, chunk),
+        "plain_ms": timer.ms(lambda: ssd_scan_bwd_plain(
+            *args, dy, chunk=chunk), iters=3),
+        "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 # (B, S, H, P, N), chunk: the serve shapes (the path; timed: the row and
@@ -3625,6 +3714,10 @@ TILE_SCALARS = {"eps": 1e-6, "alpha": 0.5, "lr": 1e-3, "b1": 0.9, "b2": 0.95,
                 "wd": 0.1, "inv_bc1": 1.3, "inv_bc2": 1.1, "mu": 0.9,
                 "bias": 0.1, "norm": 3.0, "max_norm": 1.0}
 
+# serve_decode_torch's report on the card (its tokens/s saturated and
+# plain, its cold and warm saturation), which the examples phase prints
+SERVE_DECODE_REPORT = os.path.join("src", "repro_torch", "_build",
+                                   "serve_decode_report.json")
 # The port's examples by name: the arguments they take on the card (phase
 # ``examples``), those the CPU tests add to ``--device cpu``
 # (tests/test_torch_examples.py), and the lines each must print on
@@ -3639,6 +3732,9 @@ EXAMPLES = {
         "bridged function matches the original", "pipeline report:"]),
     "train_lm_torch": (["--steps", "100"], ["--tiny"], [
         "recoveries=1", "loss decreased across a simulated node failure"]),
+    "serve_decode_torch": (["--out", SERVE_DECODE_REPORT], [], [
+        "saturation ON : ", "the warm pass hit every lookup",
+        "saturated and ref decoded the same number of tokens"]),
 }
 EXAMPLES_TIMEOUT_S = 300
 
@@ -3939,11 +4035,13 @@ def phase_bridge(torch, timer):
 
 
 def phase_examples():
-    """The port's three examples (``examples/*_torch.py``) as a user runs
-    them, on the card (no device named), as child processes started
-    together: each must exit 0 within ``EXAMPLES_TIMEOUT_S`` and print
-    what it checked."""
+    """The port's examples (``examples/*_torch.py``) as a user runs them,
+    on the card (no device named), as child processes started together:
+    each must exit 0 within ``EXAMPLES_TIMEOUT_S`` and print what it
+    checked."""
     env = {**os.environ, "PYTHONPATH": SRC}
+    os.makedirs(os.path.dirname(os.path.join(ROOT, SERVE_DECODE_REPORT)),
+                exist_ok=True)
     t0 = time.perf_counter()
     children = {}
     for name, (args, _, _) in EXAMPLES.items():
@@ -3970,6 +4068,10 @@ def phase_examples():
                       "stderr_tail": err.splitlines()[-12:]
                       if child.returncode else []}
         ok &= child.returncode == 0 and not missing
+        if "--out" in EXAMPLES[name][0] and child.returncode == 0:
+            args = EXAMPLES[name][0]
+            with open(os.path.join(ROOT, args[args.index("--out") + 1])) as f:
+                runs[name]["report"] = json.load(f)
     emit({"phase": "examples", "runs": runs, "ok": ok})
     if not ok:
         raise AssertionError(f"examples: {runs}")

@@ -33,6 +33,8 @@ import hashlib
 import json
 from typing import Any, Dict, Optional
 
+from repro_torch.core.emit import emitter_cache_id
+
 # Bump when extraction/scheduling *semantics* change in a way the rules
 # fingerprint cannot see (e.g. a new beam neighborhood, a changed
 # objective): stale entries are then ignored, never reused.
@@ -98,28 +100,6 @@ def rules_fingerprint(config) -> str:
     doc = {"rules": [[r.name, repr(r.lhs), repr(r.rhs)]
                      for r in config.rules()]}
     return _digest(doc)
-
-
-# Bump an emitter's version whenever its emitted source for a fixed
-# (choice, schedule) changes: non-default emitters carry name@version in
-# the cache config fingerprint, so cached replays never mix emitters.
-_EMITTER_VERSIONS: Dict[str, int] = {"torch": 1, "triton": 1,
-                                     "triton_pipelined": 1}
-# Emitters that add no key component, so their keys equal the JAX
-# package's keys of its default emitters.
-_DEFAULT_EMITTERS = (None, "torch", "triton")
-
-
-def emitter_cache_id(name: Optional[str]) -> Optional[str]:
-    """The ``name@v{version}`` token a config fingerprint carries for a
-    non-default emitter, or None for the defaults (None, ``"torch"``,
-    ``"triton"``)."""
-    if name in _DEFAULT_EMITTERS:
-        return None
-    if name not in _EMITTER_VERSIONS:
-        raise ValueError(f"unknown emitter {name!r}; expected one of "
-                         f"{tuple(_EMITTER_VERSIONS)}")
-    return f"{name}@v{_EMITTER_VERSIONS[name]}"
 
 
 def device_profile_id(config) -> Optional[str]:

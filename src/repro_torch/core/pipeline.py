@@ -34,6 +34,7 @@ from repro_torch.runtime.guard import GuardConfig, breaker_for, run_ladder
 from .cost import CostModel, TPUCostModel
 from .dsl import KernelProgram
 from .egraph import EGraph
+from .emit import EMITTER_NAMES
 from .extract import SEARCH_STRATEGIES, ExtractionResult, extract_dag
 from .rules import (EXTENDED_RULES, PAPER_RULES, TPU_RULES, Rule,
                     SaturationReport, run_rules)
@@ -42,11 +43,6 @@ from .ssa import SSAResult, build_ssa
 from .telemetry import telemetry
 from .torchgen import TorchCodeGenerator, GeneratedKernel, GenStats
 
-# The port's emitters: "torch" (the plain version, core/torchgen.py),
-# "triton" (the Hopper tile kernel, core/tritongen.py) and
-# "triton_pipelined" (its persistent, software-pipelined form, the
-# counterpart of the TPU's "pallas_pipelined").
-EMITTER_NAMES = ("torch", "triton", "triton_pipelined")
 # Environment switch for the persistent saturation cache: a directory
 # path enables it for every SaturatorConfig that doesn't set its own
 # cache_dir (the launch entry points use this to make serving/training warm
@@ -107,7 +103,8 @@ class ScheduleConfig:
     constants. Only meaningful with cost_model="roofline" for
     extraction; always prices the cost schedule search.
 
-    ``emitter``: one of :data:`EMITTER_NAMES`. None keeps the context's
+    ``emitter``: one of :data:`EMITTER_NAMES`, a registry name of
+    :mod:`repro_torch.core.emit`. None keeps the context's
     default ("torch" in the pipeline, "triton" in make_tile_op).
     Non-default emitters enter the cache fingerprint as
     ``name@v{version}`` so cached replays never mix emitters."""

@@ -123,6 +123,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from repro_torch.runtime import chaos
 
 from .dsl import KernelProgram
+from .emit import get_emitter
 from .extract import ExtractionResult
 from .hardware import H100_SXM
 from .pipeline import SaturatorConfig, saturate_program
@@ -1251,30 +1252,31 @@ def launch_tile_kernel(kern, plan: TileCallPlan, ins, outs, svals):
 def make_tile_op(prog: KernelProgram,
                  config: Optional[SaturatorConfig] = None) -> TileOp:
     """Saturate ``prog`` and build both the Triton op and its plain
-    version. Keeps the ladder contract of the JAX package's
-    ``make_tile_op``: a build that fell to ``ref`` gets no kernel, and a
-    failed emission is recorded as a degradation, never raised."""
+    version. The Triton emitter is picked by ``config.emitter`` through
+    the registry (:mod:`repro_torch.core.emit`): None or ``"triton"``,
+    or ``"triton_pipelined"``; the ``torch`` emitter is refused. Keeps
+    the ladder contract of the JAX package's ``make_tile_op``: a build
+    that fell to ``ref`` gets no kernel, and a failed emission is
+    recorded as a degradation, never raised."""
     cfg = config or SaturatorConfig(mode="accsat", cost_model="tpu_v5e")
+    emitter = get_emitter(cfg.emitter or "triton")
+    if emitter.info.target != "triton":
+        raise ValueError(f"make_tile_op needs a triton emitter, got "
+                         f"{emitter.info.name!r}")
     sk = saturate_program(prog, cfg)
     # emission follows the configuration that built sk: a ladder-degraded
     # build carries its cheap config, and re-running the full schedule
     # search here would re-hit whatever failed
     ecfg = sk.config
-    if cfg.emitter not in (None, "triton", "triton_pipelined"):
-        raise ValueError(f"make_tile_op needs a triton emitter, got "
-                         f"{cfg.emitter!r}")
-    gen_cls = TritonPipelinedGenerator \
-        if cfg.emitter == "triton_pipelined" else TritonGenerator
     tk = None
     if sk.ladder_level != "ref":
         try:
-            tk = gen_cls(
+            tk = emitter.emit(
                 sk.ssa, sk.extraction, bulk=ecfg.use_bulk,
                 reuse_temps=ecfg.use_cse,
                 schedule=sk.kernel.schedule
                 if sk.kernel.schedule is not None else ecfg.schedule,
-                sched_cost_model=ecfg.make_schedule_cost_model(prog)
-            ).generate_triton()
+                sched_cost_model=ecfg.make_schedule_cost_model(prog))
         except Exception as e:   # ladder contract: emission never fatal
             from repro_torch.runtime.guard import classify_failure
             from .telemetry import telemetry

@@ -410,7 +410,9 @@ class _SsdFn(torch.autograd.Function):
     writes the state entering each chunk, and the backward kernels
     (:func:`ssd_scan_bwd`), which read it. With ``return_state`` the
     final state is an output too, and its gradient enters the backward's
-    reverse pass. On CPU tensors both are the plain versions."""
+    reverse pass. Any chunk the forward takes has a gradient: over 128
+    steps the backward kernels run at 128-step sub-chunks. On CPU tensors
+    both are the plain versions."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b_mat, c_mat, d_skip, chunk,

@@ -694,6 +694,16 @@ SSD_FWD_LAUNCHES = {
               "ssd_fwd_pass_kernel", "ssd_fwd_out_sm90_kernel")}
 
 
+def bwd_chunk(chunk: int, S: int) -> int:
+    """The chunk the backward kernels run at for a call with ``chunk`` over
+    S steps: ``chunk`` itself where its chunks have at most ``_S9_LP``
+    (128) steps, else ``_S9_LP``. The chunked SSD's gradients do not
+    depend on the chunk length in exact arithmetic, so a longer chunk's
+    are those of its 128-step sub-chunks (the last one partial where S is
+    not a multiple of 128)."""
+    return chunk if min(chunk, S) <= _S9_LP else _S9_LP
+
+
 def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
                  chunk: int = 128, dh_final=None, kind=None):
     """The gradients ``(dx, ddt, da_log, db, dc, dd)`` of the chunked SSD
@@ -701,11 +711,15 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
     returned the final state, its gradient ``dh_final`` (B, H, N, P) or
     None; ``states`` are the forward's chunk states
     (:func:`ssd_scan_with_states`). CPU tensors take
-    :func:`ssd_scan_bwd_plain` (which recomputes the states); CUDA
-    tensors launch the backward kernels of ``kind`` (default:
-    :func:`ssd_bwd_kind`'s; float32, contiguous, chunks of at most 128
-    steps) or raise; ``meta`` tensors record their work.
-    ``ssd_scan_bwd.launches`` counts the calls that launched them
+    :func:`ssd_scan_bwd_plain` at the kernels' chunk (it recomputes the
+    states); CUDA tensors launch the backward kernels of ``kind`` (default:
+    :func:`ssd_bwd_kind`'s; float32, contiguous) or raise; ``meta``
+    tensors record their work. The kernels take chunks of at most 128
+    steps: a longer chunk runs them at 128-step sub-chunks
+    (:func:`bwd_chunk`), from the states at the sub-chunks' boundaries,
+    which the forward kernels recompute first (one more forward call,
+    counted in ``ssd_scan.launches``; ``states`` is then checked and not
+    read). ``ssd_scan_bwd.launches`` counts the calls that launched them
     (``SSD_BWD_LAUNCHES[kind]``: C·Bᵀ, the chunks' local state gradients
     (and, in the wgmma kind, every chunk's per-head vectors), their
     passing, the per-head chunk gradients (in the wgmma kind two
@@ -713,7 +727,8 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
     the sums over chunks)."""
     ts = (x, dt, a_log, b_mat, c_mat, d_skip)
     if all(t.device.type == "cpu" for t in ts + (dy,)):
-        return ssd_scan_bwd_plain(*ts, dy, chunk=chunk, dh_final=dh_final)
+        return ssd_scan_bwd_plain(*ts, dy, chunk=bwd_chunk(chunk, x.shape[1]),
+                                  dh_final=dh_final)
     B, S, H, P, N = _check(*ts, chunk)
     L = min(chunk, S)
     want = {"dy": (dy, (B, S, H, P)),
@@ -726,16 +741,19 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
             raise ValueError(f"ssd_scan_bwd: {name} must be a contiguous "
                              f"f32 {shape} tensor on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    kind = _kind_of(L, P, N, kind)
-    _smem_check("ssd_scan_bwd", bwd_smem_bytes(L, P, N, kind), chunk, P, N)
-    if L > 128:
-        raise ValueError(f"ssd_scan_bwd: chunk {chunk}: the backward "
-                         "kernels take chunks of at most 128 steps")
-    work = torch.empty((bwd_work_floats(B, S, H, P, N, chunk, kind),),
+    bchunk = bwd_chunk(chunk, S)
+    Lb = min(bchunk, S)
+    kind = _kind_of(Lb, P, N, kind)
+    _smem_check("ssd_scan_bwd", bwd_smem_bytes(Lb, P, N, kind), chunk, P, N)
+    if bchunk != chunk:
+        # the states entering each 128-step sub-chunk, from the forward
+        # kernels at that chunk (their output y is not needed)
+        states = _launch_fwd(*ts, bchunk, False, True, None)[2]
+    work = torch.empty((bwd_work_floats(B, S, H, P, N, bchunk, kind),),
                        dtype=torch.float32, device=x.device)
     grads = [torch.empty_like(t) for t in ts]
     if x.device.type == "meta":
-        nbytes, flops = kernel_work.ssd_bwd_work(B, S, H, P, N, L)
+        nbytes, flops = kernel_work.ssd_bwd_work(B, S, H, P, N, Lb)
         kernel_work.record("ssd_scan_bwd", flops=flops, nbytes=nbytes)
         return tuple(grads)
     lib = _load()
@@ -744,7 +762,7 @@ def ssd_scan_bwd(x, dt, a_log, b_mat, c_mat, d_skip, dy, states, *,
         *(t.data_ptr() for t in ts), dy.data_ptr(), states.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None,
         work.data_ptr(), *(g.data_ptr() for g in grads), B, S, H, P, N,
-        chunk, torch.cuda.current_stream(x.device).cuda_stream)
+        bchunk, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel ({kind}): "
                            + lib.ssd_scan_error_string(err).decode())
@@ -789,7 +807,8 @@ def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132,
     source decodes its index. ``ssd_scan_kernel`` (the mma_sync forward)
     walks its chunks in a loop, so its grid carries the chunk as a second
     axis; the chunk kernels are persistent (``sms`` programs at most) and
-    are given as their item count and programs instead."""
+    are given as their item count and programs instead. A backward at a
+    chunk over 128 steps runs as at 128 (:func:`bwd_chunk`)."""
     L = min(chunk, S)
     fkind = _kind_of(L, P, N, kind, "ssd_scan", B * H)
     kind = _kind_of(L, P, N, kind)
@@ -857,8 +876,12 @@ def launch_grids(B, S, H, P, N, chunk: int = 128, sms: int = 132,
 def ssd_scan_bwd_scratch_bytes(B, S, H, P, N, chunk: int = 128,
                                kind=None) -> int:
     """Bytes of the workspace one ssd_scan_bwd call of ``kind`` allocates
-    on the card (:func:`bwd_work_floats`)."""
-    return 4 * bwd_work_floats(B, S, H, P, N, chunk, kind)
+    on the card (:func:`bwd_work_floats` at :func:`bwd_chunk`'s chunk),
+    with, for a chunk over 128 steps, the sub-chunks' states it
+    recomputes."""
+    bchunk = bwd_chunk(chunk, S)
+    states = 0 if bchunk == chunk else B * -(-S // bchunk) * H * N * P
+    return 4 * (bwd_work_floats(B, S, H, P, N, bchunk, kind) + states)
 
 
 def tf32_unit(a, b, *, raw: bool = False):

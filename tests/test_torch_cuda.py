@@ -750,13 +750,53 @@ def test_ssd_bwd_rejects_what_it_cannot_run(cuda):
         ssd_scan_bwd(*big, torch.randn_like(big[0]),
                      torch.zeros((1, 1, 1, 256, 128), device=cuda),
                      chunk=256)
-    # a chunk over 128 steps fits shared memory at small P and N, and the
-    # forward takes it, but the backward kernels refuse it
+    # a chunk over 128 steps: the backward kernels run at 128-step
+    # sub-chunks, from the states the forward kernels recompute at 128
     long = _ssd_inputs(1, 129, 2, 8, 4, cuda)
     _, _, long_states = ssd_scan_with_states(*long, chunk=129)
-    with pytest.raises(ValueError, match="at most 128"):
-        ssd_scan_bwd(*long, torch.randn_like(long[0]), long_states,
-                     chunk=129)
+    dy = torch.randn_like(long[0])
+    got = ssd_scan_bwd(*long, dy, long_states, chunk=129)
+    want = ssd_scan_bwd_plain(*long, dy, chunk=129)
+    for name, g, w in zip(("dx", "ddt", "da_log", "db", "dc", "dd"), got,
+                          want, strict=True):
+        assert g.shape == w.shape and bool(g.isfinite().all()), name
+        assert _norm_rel(g, w) <= 2e-4, (name, _norm_rel(g, w))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,kind", [
+    (1, 129, 2, 8, 4, 129, None), (1, 300, 4, 64, 64, 256, None),
+    (1, 300, 4, 64, 64, 256, "wgmma"), (2, 333, 4, 64, 128, 192, None),
+    (1, 256, 3, 16, 8, 256, "mma_sync")])
+def test_ssd_bwd_at_a_long_chunk_matches_plain(B, S, H, P, N, chunk, kind,
+                                               cuda):
+    """A chunk over 128 steps: one forward call at 128 steps (the
+    sub-chunks' states) and one backward call at 128, of the sub-chunk's
+    kind (wgmma at P 64, N 64 or 128, also when forced), every gradient
+    within 2e-4 of the plain backward at the long chunk, with and without
+    a final-state gradient; two calls give the same bits. The wgmma kind
+    still refuses the widths it cannot take."""
+    xs = _ssd_inputs(B, S, H, P, N, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    dy = torch.randn((B, S, H, P), generator=gen, device=cuda)
+    dh = torch.randn((B, H, N, P), generator=gen, device=cuda)
+    _, _, states = ssd_scan_with_states(*xs, chunk=chunk)
+    for dh_final in (None, dh):
+        fwd, bwd = ssd_scan.launches, ssd_scan_bwd.launches
+        got = ssd_scan_bwd(*xs, dy, states, chunk=chunk, dh_final=dh_final,
+                           kind=kind)
+        assert (ssd_scan.launches, ssd_scan_bwd.launches) == \
+            (fwd + 1, bwd + 1)
+        want = ssd_scan_bwd_plain(*xs, dy, chunk=chunk, dh_final=dh_final)
+        for name, g, w in zip(("dx", "ddt", "da_log", "db", "dc", "dd"),
+                              got, want, strict=True):
+            assert g.shape == w.shape and bool(g.isfinite().all()), name
+            assert _norm_rel(g, w) <= 2e-4, (name, _norm_rel(g, w))
+        again = ssd_scan_bwd(*xs, dy, states, chunk=chunk,
+                             dh_final=dh_final, kind=kind)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if P != 64:
+        with pytest.raises(ValueError, match="wgmma kind takes"):
+            ssd_scan_bwd(*xs, dy, states, chunk=chunk, kind="wgmma")
 
 
 def test_ssd_rejects_what_it_cannot_run(cuda):

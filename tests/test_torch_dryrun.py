@@ -40,6 +40,7 @@ from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.parallel import ctx, distribute, P
 from repro_torch.models import get_model
 from repro_torch.optim.adamw import update_chunks
+from repro_torch.roofline import kernel_work
 from repro_torch.roofline.op_analysis import OpCounter, tensors_bytes
 
 
@@ -198,8 +199,10 @@ def test_flash_bwd_scratch_is_counted_in_the_live_bytes(D, KH):
 
 def test_ssd_on_meta_refuses_the_chunks_the_card_refuses():
     """A chunk of 256 steps at P 128 and N 256 needs more shared memory
-    than a block may have on the card, so the dry run refuses it too;
-    the backward's 128-step limit holds there as well."""
+    than a block may have on the card, so the dry run refuses it too; a
+    backward at a chunk over 128 steps runs there as on the card: the
+    forward kernels at 128 steps for the sub-chunks' states, then the
+    backward kernels at 128, each counted with its work."""
     big = _ssd_args(1, 256, 1, 128, 256)
     assert ssd.scan_smem_bytes(256, 128, 256) > \
         ssd.H100_SXM.smem_bytes
@@ -209,9 +212,17 @@ def test_ssd_on_meta_refuses_the_chunks_the_card_refuses():
         ssd.ssd_scan_bwd(*big, _meta(1, 256, 1, 128),
                          _meta(1, 1, 1, 256, 128), chunk=256)
     long = _ssd_args(1, 129, 2, 8, 4)
-    with OpCounter(), pytest.raises(ValueError, match="at most 128"):
-        ssd.ssd_scan_bwd(*long, _meta(1, 129, 2, 8),
-                         _meta(1, 1, 2, 4, 8), chunk=129)
+    with OpCounter() as c:
+        grads = ssd.ssd_scan_bwd(*long, _meta(1, 129, 2, 8),
+                                 _meta(1, 1, 2, 4, 8), chunk=129)
+    assert [tuple(g.shape) for g in grads] == [tuple(a.shape) for a in long]
+    nbytes, flops = kernel_work.ssd_work(1, 129, 2, 8, 4, 128)
+    states = 4 * 1 * 2 * 2 * 4 * 8          # two sub-chunks' states
+    assert c.report.kernels["ssd_scan"] == {
+        "calls": 1, "flops": flops, "bytes": nbytes + states}
+    nbytes, flops = kernel_work.ssd_bwd_work(1, 129, 2, 8, 4, 128)
+    assert c.report.kernels["ssd_scan_bwd"] == {
+        "calls": 1, "flops": flops, "bytes": nbytes}
 
 
 # -- the production meshes -------------------------------------------------------

@@ -391,6 +391,84 @@ def test_gradient_is_finite_where_the_decay_overflows():
             np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
 
 
+# chunks over the backward kernels' 128 steps: a multiple of 128 and not,
+# each over several chunks with a ragged last one
+LONG_CHUNKS = [(1, 300, 2, 8, 4, 256), (2, 200, 3, 6, 5, 192)]
+
+
+@pytest.mark.parametrize("return_state", [False, True],
+                         ids=["y", "y_and_state"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", LONG_CHUNKS)
+def test_ssd_fn_at_a_long_chunk_matches_jax_grad(B, S, H, P, N, chunk,
+                                                 return_state):
+    """ops._SsdFn with the plain versions (CPU tensors): the forward at the
+    long chunk, the backward at 128-step sub-chunks (kernels.ssd_scan.
+    bwd_chunk), against ssd_scan_jnp and jax.vjp of it at the same chunk,
+    with and without the final state's gradient (2e-4)."""
+    assert ssd.bwd_chunk(chunk, S) == 128
+    xs = _inputs(B, S, H, P, N, seed=16)
+    rng = np.random.default_rng(17)
+    dy = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    dh = rng.normal(size=(B, H, N, P)).astype(np.float32) \
+        if return_state else None
+    want = _jax_vjp(xs, dy, chunk, dh)
+    leaves = [t.requires_grad_() for t in _t(xs)]
+    out = ops._SsdFn.apply(*leaves, chunk, return_state)
+    y = out[0] if return_state else out
+    np.testing.assert_allclose(
+        y.detach().numpy(), np.asarray(ssd_scan_jnp(*_j(xs), chunk=chunk)),
+        **TOL)
+    loss = (y * torch.from_numpy(dy)).sum()
+    if return_state:
+        loss = loss + (out[1] * torch.from_numpy(dh)).sum()
+    loss.backward()
+    for name, t, w in zip(GRADS, leaves, want, strict=True):
+        np.testing.assert_allclose(t.grad.numpy(), w, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", LONG_CHUNKS)
+def test_sub_chunked_backward_matches_the_plain_backward(B, S, H, P, N,
+                                                         chunk):
+    """ssd_scan_bwd at a long chunk runs at 128-step sub-chunks from the
+    states at their boundaries: on the CPU its plain version at 128, as
+    the card's kernels decompose it (the sub-chunk states, the reverse
+    state-gradient pass, dB and dC by head groups), against the plain
+    backward at the long chunk itself (2e-4). A chunk of at most 128
+    steps, or one that S does not exceed, is run as it is."""
+    assert [ssd.bwd_chunk(c, s) for c, s in ((128, 4096), (129, 129),
+                                             (129, 100), (256, 256),
+                                             (256, 100), (16, 4096))] == \
+        [128, 128, 129, 128, 256, 16]
+    x, dt, a_log, b, c, d = _t(_inputs(B, S, H, P, N, seed=18))
+    rng = np.random.default_rng(19)
+    dy = torch.from_numpy(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    dh = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(np.float32))
+    want = ssd_scan_bwd_plain(x, dt, a_log, b, c, d, dy, chunk=chunk,
+                              dh_final=dh)
+    _, _, states = ssd.ssd_scan_with_states(x, dt, a_log, b, c, d,
+                                            chunk=chunk)
+    got = ssd.ssd_scan_bwd(x, dt, a_log, b, c, d, dy, states, chunk=chunk,
+                           dh_final=dh)
+    # the card's pieces at the sub-chunk: the states the forward kernels
+    # recompute, the state gradients, dB and dC summed by head groups
+    sub = ssd.bwd_chunk(chunk, S)
+    sub_states, _ = ssd.ssd_passed_states_plain(x, dt, a_log, b, chunk=sub)
+    torch.testing.assert_close(
+        sub_states, ssd_chunks_plain(x, dt, a_log, b, c, d, chunk=sub)[1],
+        **TOL)
+    dstates = ssd_state_grads_plain(dt, a_log, c, dy, chunk=sub,
+                                    dh_final=dh)
+    dbdc = ssd_dbdc_plain(x, dt, a_log, b, c, dy, sub_states, dstates,
+                          chunk=sub, group=ssd.SSD_BWD_GROUP)
+    for name, g, w in zip(GRADS, got, want, strict=True):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL,
+                                   err_msg=name)
+    for name, g, w in zip(("db", "dc"), dbdc, want[3:5]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL,
+                                   err_msg=name)
+
+
 # the backward's kinds (kernels.ssd_scan.ssd_bwd_kind): mamba2-1.3b's and
 # zamba2-2.7b's train widths, a ragged S, one step, a shorter chunk at
 # those widths take the wgmma launches; the small shapes of chip_smoke.py

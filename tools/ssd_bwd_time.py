@@ -12,7 +12,9 @@ kernels a call launches, the six gradients against the plain version
 ms; unless ``--check-only``, at the timed shapes (``SSD_BWD_TIMED``:
 mamba2-1.3b's and zamba2-2.7b's train shapes, f32, chunk 128) also the
 f64 check, the ``mma_sync`` kind checked and timed in turns beside the
-dispatched one, and the call's time. Then the build's registers, spills,
+dispatched one, and the call's time, and ``SSD_BWD_LONG``: the backward
+at chunk 256 (128-step sub-chunks from recomputed states) checked against
+the plain backward at 256 and timed in turns against chunk 128. Then the build's registers, spills,
 HMMA and HGMMA of the backward's kernels and the TF32 unit product
 (``_tf32_unit``). Times are ``chip_smoke.Timer`` medians (L2 flushed, a
 device sleep before the start event) and the profiler's device time of
