@@ -157,7 +157,11 @@ SSD_TOL = 2e-4                            # f32, as tests/test_kernels.py
 CUDA_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 # the kernels of a library that a row of the kernels line launches
 SASS_PREFIX = {"flash_attention": "flash_fwd_",
-               "flash_attention_bwd": "flash_bwd_"}
+               "flash_attention_bwd": "flash_bwd_",
+               "flash_attention_f32": "flash_fwd_sm90_f32",
+               "flash_attention_bwd_f32": ("flash_bwd_prep_f32",
+                                           "flash_bwd_dkdv_sm90_f32",
+                                           "flash_bwd_dq_sm90_f32")}
 PIPELINED = "triton_pipelined"
 # the tile ops whose pipelined kernels a path drives (the minitron,
 # mamba2, dbrx and whisper prefills under ops.set_tile_emitter)
@@ -527,16 +531,18 @@ def _tensor_core_counts(lib):
 def _ptxas_by_kernel(log):
     """Registers and spill bytes of each kernel from ptxas's ``-v``
     report: ``{name: {"registers", "spill_stores", "spill_loads"}}``, and
-    ``"wgmma_serialized": True`` where ptxas serialized its wgmma
-    instructions (its C7512 "Potential Performance Loss" note: each
-    product then waits for the one before)."""
+    ``"wgmma_serialized": code`` where ptxas serialized its wgmma
+    instructions (a "Potential Performance Loss" note: C7512 for
+    register resources, C7520 for a wait in a divergent path, and the
+    like; each product then waits for the one before)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"C7512.*?function '([^']+)'", line)
+        m = re.search(r"\((C75\d\d)\)[^']*?serialized.*?function '([^']+)'",
+                      line)
         if m:
-            out.setdefault(_kernel_name(m.group(1)), {})[
-                "wgmma_serialized"] = True
+            out.setdefault(_kernel_name(m.group(2)), {})[
+                "wgmma_serialized"] = m.group(1)
             continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -559,7 +565,8 @@ def _ptxas_by_kernel(log):
 def phase_build():
     """Both CUDA libraries, one nvcc each, all started together. The
     wgmma kernels (``*_sm90_kernel``) must hold HGMMA instructions, spill
-    nothing and keep their wgmma pipelined (no ptxas C7512), and the
+    nothing and keep their wgmma pipelined (no ptxas C7512; the flash
+    kernels no serialization note at all, C7520 included), and the
     SSD's hold no HMMA; the SSD forward's and backward's kernels'
     registers, spills and HMMA / HGMMA counts are reported on their own
     (``ssd_fwd``, ``ssd_bwd``)."""
@@ -581,9 +588,13 @@ def phase_build():
              for key in ("ssd_fwd", "ssd_bwd")}})
     wgmma = {name: (tc[src][name], ptxas[src][name])
              for src in CUDA_SOURCES for name in tc[src] if "_sm90_" in name}
+    # C7512 refused everywhere; any serialization in the flash kernels
+    # (the SSD kernels' other notes, such as C7520, are reported)
     bad = [name for name, (n, info) in wgmma.items()
            if n["HGMMA"] == 0 or info.get("spill_stores", 0)
-           or info.get("spill_loads", 0) or info.get("wgmma_serialized")
+           or info.get("spill_loads", 0)
+           or info.get("wgmma_serialized") == "C7512"
+           or (name.startswith("flash_") and info.get("wgmma_serialized"))
            or (name.startswith("ssd_") and n["HMMA"])]
     if not wgmma or bad:
         raise AssertionError(f"wgmma kernels without HGMMA, with spills, "
@@ -1294,11 +1305,13 @@ def _norm_rel(torch, F, got, want, floor, rows=64):
     return [whole.item(), block.max().item()]
 
 
-def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal):
+def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal,
+                  entry="flash_attention_bwd_bf16"):
     """A callable running the bf16 backward on the mma.sync kernels (the
     library's entry at every head_dim; the design the wgmma kernels
     replaced at head_dim 64, 80 and 128, their yardstick) on these
-    operands."""
+    operands; with ``entry`` ``flash_attention_bwd_f32``, the f32
+    backward on the CUDA cores, the yardstick of the 3xTF32 kind."""
     from repro_torch.kernels.flash_attention import _load, _raise_on
     lib = _load()
     B, H, S, D = q.shape
@@ -1306,7 +1319,7 @@ def _mma_sync_bwd(torch, q, k, v, o, lse, do, causal):
     grads = [torch.empty_like(t) for t in (q, k, v)]
 
     def run():
-        _raise_on(lib, lib.flash_attention_bwd_bf16(
+        _raise_on(lib, getattr(lib, entry)(
             *(t.data_ptr() for t in (q, k, v, o, lse, do, scratch, *grads)),
             B, H, k.shape[1], S, D, D ** -0.5, int(causal),
             torch.cuda.current_stream().cuda_stream),
@@ -1354,7 +1367,9 @@ FLASH_BWD_BITWISE = ((2, 24, 8, 4096, 128), (2, 12, 2, 4096, 128),
 # each backward route's launches, as the profiler names them
 FLASH_BWD_LAUNCHES = {
     "wgmma": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
-    "mma_sync": ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
+    "mma_sync": ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"),
+    "wgmma_f32": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
+    "cuda_cores": ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
 # (B, H, KH, S, D), dtype, causal: the timed shapes; small f32 cases;
 # the head_dim 80 and 64 tile edges; the wgmma kernels' edges at head_dim
 # 128 (S around their 128-row work items and 64-row steps, a long ragged
@@ -1431,7 +1446,6 @@ FLASH_FWD_MMA_SYNC = [
 FLASH_FWD_TIMED = {
     ((4, 24, 8, 512, 128), "bfloat16", True): None,
     ((4, 32, 32, 512, 80), "bfloat16", True): "zamba2_d80",
-    ((4, 32, 32, 510, 80), "float32", True): "zamba2_d80_f32",
     ((4, 48, 8, 512, 128), "bfloat16", True): "dbrx",
     ((4, 12, 12, 512, 64), "bfloat16", False): "whisper_d64_full",
     ((4, 12, 12, 512, 64), "bfloat16", True): "whisper_d64",
@@ -1449,11 +1463,13 @@ FLASH_FWD_TRAIN = (((2, 24, 8, 4096, 128), True, "train_with_lse"),
                    (WHISPER_ATTN, False, "whisper_train_with_lse_full"))
 
 
-def _mma_sync_fwd(torch, q, k, v, causal, with_lse):
+def _mma_sync_fwd(torch, q, k, v, causal, with_lse,
+                  entry="flash_attention_fwd_bf16"):
     """A callable running the bf16 forward on the mma.sync kernel (the
     library's entry at every head_dim; the design the wgmma kernel
     replaced at head_dim 64, 80 and 128, its yardstick) on these
-    operands."""
+    operands; with ``entry`` ``flash_attention_fwd_f32``, the f32 forward
+    on the CUDA cores, the yardstick of the 3xTF32 kind."""
     from repro_torch.kernels.flash_attention import _load, _raise_on
     lib = _load()
     B, H, S, D = q.shape
@@ -1461,7 +1477,7 @@ def _mma_sync_fwd(torch, q, k, v, causal, with_lse):
     lse = torch.empty((B, H, S), device="cuda") if with_lse else None
 
     def run():
-        _raise_on(lib, lib.flash_attention_fwd_bf16(
+        _raise_on(lib, getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, k.shape[1], S, D,
             D ** -0.5, int(causal), torch.cuda.current_stream().cuda_stream),
@@ -1485,8 +1501,25 @@ def _flash_build_info(prefix):
 
 def _fwd_kernel_name(kind, d):
     return {"wgmma": "flash_fwd_sm90_kernel", "mma_sync":
-            "flash_fwd_bf16_kernel", "cuda_cores": "flash_fwd_f32_kernel"
-            }[kind] + f"<{d}>"
+            "flash_fwd_bf16_kernel", "cuda_cores": "flash_fwd_f32_kernel",
+            "wgmma_f32": "flash_fwd_sm90_f32_kernel"}[kind] + f"<{d}>"
+
+
+# each backward kind's kernels as the build names them (the prep and
+# delta launches of f32 take no head_dim)
+_BWD_KERNELS = {"wgmma": ("flash_bwd_prep_bf16_kernel<{d}>",
+                          "flash_bwd_dkdv_sm90_kernel<{d}>",
+                          "flash_bwd_dq_sm90_kernel<{d}>"),
+                "wgmma_f32": ("flash_bwd_prep_f32_kernel",
+                              "flash_bwd_dkdv_sm90_f32_kernel<{d}>",
+                              "flash_bwd_dq_sm90_f32_kernel<{d}>"),
+                "cuda_cores": ("flash_bwd_delta_f32_kernel",
+                               "flash_bwd_dkdv_f32_kernel<{d}>",
+                               "flash_bwd_dq_f32_kernel<{d}>")}
+
+
+def _bwd_kernel_names(kind, d):
+    return tuple(n.format(d=d) for n in _BWD_KERNELS[kind])
 
 
 def _hold_fwd(torch, F, tag, got, want, dtype, checks):
@@ -1612,11 +1645,13 @@ def _flash_fwd_rows(torch, F, timer, randn, randn_t, checks):
             **timed.pop(None), "shapes": timed}
 
 
-def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks):
+def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks,
+                    repeat=False):
     """One backward case: the kernels against their plain version,
-    element-wise and norm-relative, and at ``FLASH_BWD_BITWISE`` two calls
-    bitwise equal. ``(operands, max_abs_err, norm_rel, bitwise)``, the
-    operands ``(q, k, v, o, lse, dout)``, bitwise None where unchecked."""
+    element-wise and norm-relative, and at ``FLASH_BWD_BITWISE`` (bf16)
+    or with ``repeat`` two calls bitwise equal. ``(operands, max_abs_err,
+    norm_rel, bitwise)``, the operands ``(q, k, v, o, lse, dout)``,
+    bitwise None where unchecked."""
     from repro_torch.kernels.flash_attention import (
         _launch_fwd, flash_attention_bwd, flash_attention_bwd_plain)
     b, h, kh, s_, d = shape
@@ -1632,7 +1667,7 @@ def _flash_bwd_case(torch, F, randn, shape, dtype, causal, checks):
     rel = _check_norm_rel(torch, F, tag, zip(("dq", "dk", "dv"), got, want),
                           want[2], dtype, checks)
     bitwise = None
-    if shape in FLASH_BWD_BITWISE and dtype == "bfloat16":
+    if repeat or (shape in FLASH_BWD_BITWISE and dtype == "bfloat16"):
         again = flash_attention_bwd(*ops, causal=causal)
         bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
         checks.append({"name": f"{tag}/bitwise_repeat", "ok": bitwise})
@@ -1691,6 +1726,212 @@ def _flash_bwd_rows(torch, F, timer, randn, randn_t, checks):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/models/layers.py:151 (_flash_bwd, jnp; "
                         "no TPU kernel)", **row, "shapes": out}
+
+
+# f32 at head_dim 64, 80 and 128: the 3xTF32 wgmma kind, each timed shape
+# also on the CUDA-core kernels it replaced there (checked against the
+# plain version and timed in turns: kind, CUDA cores, CUDA cores, kind).
+# The forward at the f32 serve-parity prefills' attention (4 x 510: zamba2,
+# dbrx, qwen2-vl, whisper's decoder (causal) and encoder / cross
+# (full), granite and nemo's group of 4, mistral-large's 12, arctic's 7),
+# by key under the flash_attention_f32 row's "shapes" (None: the row,
+# zamba2's)
+FLASH_F32_FWD = {((4, 32, 32, 510, 80), True): None,
+                 ((4, 48, 8, 510, 128), True): "dbrx",
+                 ((4, 12, 2, 510, 128), True): "qwen2vl",
+                 ((4, 12, 12, 510, 64), True): "whisper_causal",
+                 ((4, 12, 12, 510, 64), False): "whisper_full",
+                 ((4, 32, 8, 510, 128), True): "granite_nemo",
+                 ((4, 96, 8, 510, 128), True): "mistral_large",
+                 ((4, 56, 8, 510, 128), True): "arctic"}
+# the training-parity phases' attention (B 1 x S 512), the forward with
+# the row lse and the backward, two calls of each bitwise equal; by key
+# (None: the backward row, minitron-4b's; the forward's under
+# "train_<key>")
+FLASH_F32_TRAIN = {((1, 24, 8, 512, 128), True): None,
+                   ((1, 32, 32, 512, 80), True): "zamba2",
+                   ((1, 12, 12, 512, 64), True): "whisper_causal",
+                   ((1, 12, 12, 512, 64), False): "whisper_full",
+                   ((1, 48, 8, 512, 128), True): "dbrx",
+                   ((1, 12, 2, 512, 128), True): "qwen2vl",
+                   ((1, 96, 8, 512, 128), True): "mistral_large"}
+# the kind's edges, forward (with the lse) and backward: S around its
+# 32-row steps and 64- and 128-row items and a long ragged S, GQA and MHA
+# at each head_dim, causal and full
+FLASH_F32_EDGES = [((1, h, kh, s_, d), causal)
+                   for s_ in (1, 31, 33, 64, 65, 127, 129, 257, 1000)
+                   for causal in (True, False)
+                   for h, kh, d in ((12, 2, 128), (6, 6, 64), (4, 2, 80))]
+
+
+def _f32_fwd_row(torch, F, timer, randn, shape, causal, with_lse, checks,
+                 built):
+    """One timed f32 forward: the kind the dispatch picks against the
+    plain version (and its lse), two calls bitwise equal, the CUDA-core
+    kernel on the same inputs held to the same limits and timed in turns
+    beside it, SDPA's f32 forward, the bound at 3xTF32 and by bytes with
+    the f32 units' beside it."""
+    from repro_torch.roofline import kernel_work
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention_fwd_plain, flash_attention_plain,
+        fwd_kernel)
+    (q, k, v), want, err, rel, lse_err = _flash_fwd_case(
+        torch, F, randn, shape, "float32", causal, checks, with_lse)
+    b, h, kh, s_, d = shape
+    kind = fwd_kernel(d, torch.float32)
+    tag = f"flash_attention/float32/{'x'.join(map(str, shape))}/" \
+          f"{'causal' if causal else 'full'}"
+
+    def run():
+        return _launch_fwd(q, k, v, causal, None, with_lse=with_lse)
+
+    first, again = run(), run()
+    bitwise = all(x is None or torch.equal(x, y)
+                  for x, y in zip(first, again))
+    checks.append({"name": f"{tag}/bitwise_repeat", "ok": bitwise})
+    del first, again
+    cores = _mma_sync_fwd(torch, q, k, v, causal, with_lse,
+                          entry="flash_attention_fwd_f32")
+    cores_err, cores_rel, _ = _hold_fwd(
+        torch, F, f"flash_attention_cuda_cores/{tag[16:]}", cores(), want,
+        "float32", checks)
+    turns = _in_turns(timer, run, cores)
+    flops, nbytes = kernel_work.flash_fwd_work(b, h, kh, s_, d, 4, causal,
+                                               with_lse)
+    bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
+    plain = flash_attention_fwd_plain if with_lse else flash_attention_plain
+    return {"shape": list(shape), "dtype": "float32", "causal": causal,
+            "with_lse": with_lse, "kernels": kind, "max_abs_err": err,
+            "norm_rel_err": rel, "lse_max_abs_err": lse_err,
+            "bitwise_repeat": bitwise, "flops": flops, "bytes": nbytes,
+            "ms": timer.ms(run),
+            "device_ms": timer.device_ms(run, "flash_fwd_"),
+            "plain_ms": timer.ms(lambda: plain(q, k, v, causal=causal),
+                                 iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "bound_cuda_core_ms": kernel_work.bound_ms(flops, nbytes,
+                                                       "float32")[0],
+            "library_ms": timer.ms(_sdpa(F, q, k, v, causal)),
+            "cuda_cores_ms": sum(turns["library_ms"]) / 2,
+            "cuda_cores_max_abs_err": cores_err,
+            "cuda_cores_norm_rel_err": cores_rel,
+            "in_turns_vs_cuda_cores": {
+                "kind_ms": turns["kernel_ms"],
+                "cuda_cores_ms": turns["library_ms"],
+                "kind_over_cuda_cores": turns["kernel_over_library"]},
+            "build": {k_: built.get(_fwd_kernel_name(k_, d))
+                      for k_ in (kind, "cuda_cores")}}
+
+
+def _f32_bwd_row(torch, F, timer, randn, shape, causal, checks, built):
+    """One timed f32 backward: the kind the dispatch picks against the
+    plain version, two calls bitwise equal, each launch's device ms, the
+    CUDA-core kernels on the same operands (held to the same limits and
+    timed in turns beside it), SDPA's f32 backward (autograd), the bound
+    at 3xTF32 and by bytes with the f32 units' beside it."""
+    from repro_torch.roofline import kernel_work
+    from repro_torch.kernels.flash_attention import (
+        bwd_kernel, flash_attention_bwd, flash_attention_bwd_plain)
+    ops, err, rel, bitwise = _flash_bwd_case(
+        torch, F, randn, shape, "float32", causal, checks, repeat=True)
+    b, h, kh, s_, d = shape
+    q, k, v, o, lse, do = ops
+    kind = bwd_kernel(d, torch.float32)
+    tag = f"flash_attention_bwd_cuda_cores/float32/" \
+          f"{'x'.join(map(str, shape))}/{'causal' if causal else 'full'}"
+
+    def run():
+        return flash_attention_bwd(*ops, causal=causal)
+
+    want = flash_attention_bwd_plain(*ops, causal=causal)
+    cores = _mma_sync_bwd(torch, *ops, causal,
+                          entry="flash_attention_bwd_f32")
+    got = cores()
+    cores_err = _check(tag, got, want, FLASH_TOL["float32"], checks)
+    cores_rel = _check_norm_rel(torch, F, tag, zip(("dq", "dk", "dv"), got,
+                                                   want),
+                                want[2], "float32", checks)
+    del got, want
+    turns = _in_turns(timer, run, cores)
+    flops, nbytes = kernel_work.flash_bwd_work(b, h, kh, s_, d, "float32",
+                                               causal)
+    bound, by = kernel_work.bound_ms(flops, nbytes, "tf32x3")
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    lo = _sdpa(F, lq, lk, lv, causal)()
+    row = {"shape": list(shape), "dtype": "float32", "causal": causal,
+           "kernels": kind, "max_abs_err": err, "norm_rel_err": rel,
+           "norm_rel_tol": FLASH_REL_TOL["float32"],
+           "bitwise_repeat": bitwise, "flops": flops, "bytes": nbytes,
+           "ms": timer.ms(run), "device_ms": timer.device_ms(run,
+                                                             "flash_bwd_"),
+           "device_ms_by_kernel": {k_: timer.device_ms(run, k_)
+                                   for k_ in FLASH_BWD_LAUNCHES[kind]},
+           "plain_ms": timer.ms(lambda: flash_attention_bwd_plain(
+               *ops, causal=causal), iters=5),
+           "bound_ms": bound, "bound_by": by,
+           "bound_cuda_core_ms": kernel_work.bound_ms(flops, nbytes,
+                                                      "float32")[0],
+           "library_ms": timer.ms(lambda: torch.autograd.grad(
+               lo, (lq, lk, lv), do, retain_graph=True)),
+           "cuda_cores_ms": sum(turns["library_ms"]) / 2,
+           "cuda_cores_max_abs_err": cores_err,
+           "cuda_cores_norm_rel_err": cores_rel,
+           "in_turns_vs_cuda_cores": {
+               "kind_ms": turns["kernel_ms"],
+               "cuda_cores_ms": turns["library_ms"],
+               "kind_over_cuda_cores": turns["kernel_over_library"]},
+           "build": {k_: {n: built.get(n) for n in _bwd_kernel_names(k_, d)}
+                     for k_ in (kind, "cuda_cores")}}
+    del lo, lq, lk, lv
+    return row
+
+
+def _flash_f32_rows(torch, F, timer, checks, timed=True,
+                    ways=("forward", "backward")):
+    """The f32 flash kernels of ``ways`` at ``FLASH_F32_EDGES`` (the
+    forward with the lse, the backward, against the plain versions), then
+    with ``timed`` at ``FLASH_F32_FWD`` and ``FLASH_F32_TRAIN``
+    (``_f32_fwd_row``, ``_f32_bwd_row``): the rows ``flash_attention_f32``
+    and ``flash_attention_bwd_f32``. Inputs from a generator of their own
+    (seed 31), the backward's from another (seed 37)."""
+    fwd_on, bwd_on = "forward" in ways, "backward" in ways
+    randn, randn_b = _randn_from(torch, 31), _randn_from(torch, 37)
+    for shape, causal in FLASH_F32_EDGES:
+        if fwd_on:
+            _flash_fwd_case(torch, F, randn, shape, "float32", causal,
+                            checks, with_lse=True)
+        if bwd_on:
+            _flash_bwd_case(torch, F, randn_b, shape, "float32", causal,
+                            checks)
+    if not timed:
+        return {}
+    built = _flash_build_info("flash_")
+    fwd, bwd = {}, {}
+    for (shape, causal), key in FLASH_F32_FWD.items() if fwd_on else ():
+        fwd[key] = _f32_fwd_row(torch, F, timer, randn, shape, causal, False,
+                                checks, built)
+    for (shape, causal), key in FLASH_F32_TRAIN.items():
+        if fwd_on:
+            fwd[f"train_{key or 'minitron'}"] = _f32_fwd_row(
+                torch, F, timer, randn, shape, causal, True, checks, built)
+        if bwd_on:
+            bwd[key] = _f32_bwd_row(torch, F, timer, randn_b, shape, causal,
+                                    checks, built)
+    source = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    rows = {}
+    if fwd_on:
+        rows["flash_attention_f32"] = {
+            "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/flash_attention.py:147 "
+                        "(_attn_kernel, :66-120), f32 calls",
+            **fwd.pop(None), "shapes": fwd}
+    if bwd_on:
+        rows["flash_attention_bwd_f32"] = {
+            "route": "cuda", "source": source,
+            "replaces": "src/repro/models/layers.py:151 (_flash_bwd, jnp; "
+                        "no TPU kernel), f32 calls",
+            **bwd.pop(None), "shapes": bwd}
+    return rows
 
 
 def _randn_from(torch, seed):
@@ -2116,6 +2357,8 @@ def phase_kernels(torch, timer):
     rows["flash_attention_bwd"] = _flash_bwd_rows(torch, F, timer, randn,
                                                   randn_t, checks)
     torch.cuda.empty_cache()
+    rows.update(_flash_f32_rows(torch, F, timer, checks))
+    torch.cuda.empty_cache()
     rows["ssd_scan_bwd"] = _ssd_bwd_rows(torch, F, timer, g, checks)
     torch.cuda.empty_cache()
 
@@ -2365,6 +2608,42 @@ def _f32(tree):
     return tree.float()
 
 
+# the 3xTF32 flash kernels' launches in the f32 parity phases (the
+# kernels line's flash_attention_f32 and flash_attention_bwd_f32 rows)
+F32_FLASH_LAUNCHES = {"flash_attention_f32": 0, "flash_attention_bwd_f32": 0}
+
+
+def _f32_flash_reset():
+    """Every flash kind's launch counts to 0, before a parity run."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches_by_kind = dict.fromkeys(fn.launches_by_kind, 0)
+
+
+def _f32_flash_read(cfg, phase, backward=False):
+    """The flash launches by kind since ``_f32_flash_reset``: an f32 model
+    with attention at a head_dim of ``F32_WGMMA_HEAD_DIMS`` must have
+    launched the wgmma_f32 kind, and no other, forward (and backward
+    where asked); its launches join ``F32_FLASH_LAUNCHES``."""
+    from repro_torch.kernels.flash_attention import (F32_WGMMA_HEAD_DIMS,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    got = {"forward": dict(flash_attention.launches_by_kind),
+           "backward": dict(flash_attention_bwd.launches_by_kind)}
+    if cfg.n_heads and cfg.head_dim in F32_WGMMA_HEAD_DIMS:
+        for way in ("forward", "backward")[:2 if backward else 1]:
+            n = got[way]
+            if n["wgmma_f32"] == 0 or sum(n.values()) != n["wgmma_f32"]:
+                raise AssertionError(f"{phase}: the f32 flash {way} launched "
+                                     f"{n}, expected the wgmma_f32 kind "
+                                     f"only")
+    F32_FLASH_LAUNCHES["flash_attention_f32"] += got["forward"]["wgmma_f32"]
+    F32_FLASH_LAUNCHES["flash_attention_bwd_f32"] += \
+        got["backward"]["wgmma_f32"]
+    return got
+
+
 def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None,
                      prefill_arg=None, cfg=None):
     """A 4 x 510 prefill and two decode ticks of the served model with
@@ -2401,7 +2680,9 @@ def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None,
             outs.append(logits)
         return outs
 
+    _f32_flash_reset()
     kern, kern_ms = _timed_ms(torch, run)
+    flash = _f32_flash_read(cfg, phase)
     ops.set_impl("torch")
     try:
         plain, plain_ms = _timed_ms(torch, run)
@@ -2415,6 +2696,7 @@ def phase_parity_f32(torch, srv, tokens, phase, tol, n_layers=None,
           if srv is None else "the served weights in f32",
           "prefill_and_2_ticks_ms": kern_ms,
           "plain_prefill_and_2_ticks_ms": plain_ms,
+          "flash_launches_by_kind": flash,
           "max_abs_logit_diff": {"prefill": errs[0], "tick1": errs[1],
                                  "tick2": errs[2]},
           "tol": tol,
@@ -2900,7 +3182,12 @@ def phase_parity_train(torch, arch=TRAIN["arch"], spec=PARITY_TRAIN,
         mem[stage] = torch.cuda.memory_allocated() / 1e9
 
     at("model")
+    _f32_flash_reset()
+    t0 = time.perf_counter()
     loss_k, grads_k = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    flash = _f32_flash_read(cfg, phase, backward=True)
     at("grads")
     ops.set_impl("torch")
     try:
@@ -2950,6 +3237,7 @@ def phase_parity_train(torch, arch=TRAIN["arch"], spec=PARITY_TRAIN,
               rel.items(), key=lambda kv: -kv[1])[:6]),
           "update_rel_err_max": max(upd.values()),
           "update_leaves": len(upd), "update_skips": list(skip),
+          "grads_s": kern_s, "flash_launches_by_kind": flash,
           "mem_gb": mem, "ok": ok})
     if not ok:
         raise AssertionError(f"{phase}: loss {loss_err}, grads "
@@ -4106,6 +4394,11 @@ def phase_verify(torch):
         for causal in (True, False):
             rep.extend(check_flash_bwd_work(B, H, KH, S, causal, sms))
             rep.grids_checked += 2
+    # the f32 backward's lists at the f32 parity phases' shapes
+    for (B, H, KH, S, D), causal in [*FLASH_F32_FWD, *FLASH_F32_TRAIN]:
+        rep.extend(check_flash_bwd_work(B, H, KH, S, causal, sms,
+                                        kind="wgmma_f32"))
+        rep.grids_checked += 2
     ssd = {"mamba2": (4, 512, 64, 64, 128), "zamba2": (4, 512, 80, 64, 64),
            "train_mamba2": (2, 4096, 64, 64, 128),
            "train_zamba2": (2, 4096, 80, 64, 64)}
@@ -4342,7 +4635,7 @@ def main() -> int:
             train[name] = train.get(name, 0) + n
     steps = {"prefill": {}, "decode": {}, "train": train}
     for paths in (dense, ssm, hybrid, moe, piped, vlm, encdec, train,
-                  opsd, *new_serves.values()):
+                  opsd, *new_serves.values(), F32_FLASH_LAUNCHES):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
     for paths in (dense_steps, ssm_steps, hybrid_steps, moe_steps,
@@ -4357,7 +4650,9 @@ def main() -> int:
              "bitwise_repeat", "norm_rel_err", "norm_rel_err_vs_f64",
              "scratch_bytes", "in_turns", "kernels", "in_turns_vs_mma_sync",
              "mma_sync_max_abs_err", "mma_sync_norm_rel_err", "build",
-             "kind", "cases", "tf32_unit", "mma_sync_device_ms_by_kernel")
+             "kind", "cases", "tf32_unit", "mma_sync_device_ms_by_kernel",
+             "cuda_cores_ms", "in_turns_vs_cuda_cores",
+             "cuda_cores_max_abs_err", "cuda_cores_norm_rel_err")
     for name, r in rows.items():
         src = os.path.basename(r["source"])
         kernels.append({"name": name, "route": r["route"],

@@ -20,7 +20,7 @@
 // addresses of an ldmatrix 176 bytes apart, in distinct bank quads, and the
 // products take 5 k-steps of 16 and 10 n-tiles of 8.
 //
-// Three forward entry points, chosen by the wrapper from the input dtype
+// Four forward entry points, chosen by the wrapper from the input dtype
 // and head_dim before it launches (never as a fallback after a failure):
 //
 // bf16 at head_dim 64, 80 and 128 (every model path): Hopper's warpgroup
@@ -53,11 +53,16 @@
 // - Any S: rows past S load as zeros (cp.async zero fill) and are masked
 //   or not stored.
 //
-// f32 (the f32 smoke and parity runs only): scalar f32 FMAs on the CUDA
-// cores, each thread register-blocking a 4 x 4 tile of the 64 x 64 score
-// block and a 4 x D/16 tile of the output; K and V share one padded f32
-// buffer (~81 KB at D = 128). TF32 tensor cores would miss the 2e-3 f32
-// tolerance, and this path is not on the model's bf16 path.
+// f32 at head_dim 64, 80 and 128 (the f32 parity and training-parity
+// runs): 3xTF32 warpgroup products fed by TMA, flash_fwd_sm90_f32_kernel;
+// its design is described with it, after the bf16 wgmma forward. One TF32
+// pass would miss the f32 tolerance (about 8e-4 norm-relative a product);
+// three (x = hi + lo) hold it with room to spare (about 3.5e-7).
+//
+// f32 at head_dim 16 and 32, and the yardstick at every head_dim: scalar
+// f32 FMAs on the CUDA cores, each thread register-blocking a 4 x 4 tile of
+// the 64 x 64 score block and a 4 x D/16 tile of the output; K and V share
+// one padded f32 buffer (~81 KB at D = 128).
 //
 // Both forward entries also write each query row's natural-log log-sum-exp
 // (m + log l, as the JAX package's blocked forward) into an f32 (B, H, S)
@@ -506,8 +511,9 @@ cudaError_t launch_f32(const Args& a) {
 // forward makes of P before P V. The query (or kv) tiles of the walk are
 // double-buffered by 16-byte cp.async, as the forward's kv tiles.
 // f32: the same blocks on the CUDA cores (16 x 16 threads, a 4 x 4 tile of
-// each score block and a 4 x D/16 tile of each gradient a thread), for the
-// f32 parity runs, as the forward.
+// each score block and a 4 x D/16 tile of each gradient a thread), at
+// head_dim 16 and 32 and as the yardstick; 64, 80 and 128 take the 3xTF32
+// wgmma kernels further down.
 //
 // What bounds it on the H100: at the dense training path's attention
 // (bf16, B 2, H 24, KH 8, S 4096, D 128, causal) the backward is 5 products
@@ -1894,18 +1900,19 @@ struct FwdSmem {
   uint64_t v_full[FWD_STAGES], v_empty[FWD_STAGES];
 };
 
-// one kv tile's online-softmax step on a consumer's 64 x 128 scores `s`
+// one kv tile's online-softmax step on a consumer's 64 x 4NH scores `s`
 // (raw logits in; on return p = exp2(s * sl2 - m * sl2), masked ones 0):
 // updates the thread's two rows' max m (raw units) and unrounded sum l,
 // and sets alpha, the factor l was and O is to be rescaled by
-__device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float sl2,
-                                             int k0, int row0, int qd, int S,
-                                             bool causal, bool mask) {
+template <int NH>
+__device__ __forceinline__ void softmax_tile(float (&s)[NH], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float sl2, int k0, int row0,
+                                             int qd, int S, bool causal,
+                                             bool mask) {
   if (mask) {
 #pragma unroll
-    for (int jj = 0; jj < FWD_BN / 8; ++jj)
+    for (int jj = 0; jj < NH / 4; ++jj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = k0 + 8 * jj + 2 * qd + (i & 1);
@@ -1915,7 +1922,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int jj = 0; jj < FWD_BN / 8; ++jj)
+  for (int jj = 0; jj < NH / 4; ++jj)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       mx[i >> 1] = fmaxf(mx[i >> 1], s[4 * jj + i]);
@@ -1931,7 +1938,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[FWD_BN / 2],
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int jj = 0; jj < FWD_BN / 8; ++jj)
+  for (int jj = 0; jj < NH / 4; ++jj)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float p =
@@ -2155,6 +2162,962 @@ cudaError_t launch_fwd_sm90(const Args& a) {
   return cudaGetLastError();
 }
 
+// ------------------------------------ f32 on 3xTF32 wgmma (sm90) --
+//
+// The f32 forward and backward at head_dim 64, 80 and 128, entries
+// flash_attention_fwd_f32_sm90 and flash_attention_bwd_f32_sm90 (the
+// wrapper's fwd_kernel / bwd_kernel choose them before the launch; 16 and
+// 32 keep the CUDA-core kernels above, entries flash_attention_fwd_f32 and
+// flash_attention_bwd_f32, which run at every head_dim and are the
+// yardstick chip_smoke.py times beside these). The forward replaces the
+// TPU kernel `_attn_kernel` (src/repro/kernels/flash_attention.py:66-120)
+// for f32 calls; the backward replaces none (the JAX package's backward is
+// jnp, `_flash_bwd`).
+//
+// What bounds them: at zamba2's f32 parity shape (4, 32, 32, 510, 80,
+// causal) the forward's two products are 5.34 GFLOP against 83.6 MB: 0.032
+// ms at 165 TFLOP/s (TF32's 495 over three passes) and 0.025 ms by bytes;
+// the backward's five products at (1, 32, 32, 512, 80) 3.36 GFLOP, 0.020
+// ms, against 0.0125 ms of bytes: the tensor cores bound both, as three
+// TF32 passes a product. The CUDA-core kernels reach about 17 TFLOP/s of
+// the f32 units' 67 (PERF.md §6).
+//
+// Precision. One TF32 pass keeps 10 mantissa bits of each operand (about
+// 8e-4 norm-relative on a 64 x 80 . 80 x 64 tile of normal values: it
+// misses f32 flash's 1e-3 / 2e-3 limits by little and the 2e-4 of a
+// careful f32 product by far); three passes, x = hi + lo, a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi, keep about 21 bits (1.5e-7, as a plain f32
+// product's 1.0e-7 to 2.0e-7; tests/test_torch_flash_f32.py models it).
+// The tensor core reads the top 19 bits of an f32 operand (it truncates;
+// PERF.md §6, PR 30), so the raw f32 value serves as hi and only lo =
+// x - trunc_tf32(x), rounded to tf32, is written (tf32_lo): a K-major TMA
+// tile is its own hi, and its lo is the same layout, elementwise
+// (lo_copy).
+//
+// Layout. TMA writes f32 boxes of 32 columns (128 bytes) with the 128-byte
+// swizzle; a row of D is f32_boxes(D) boxes (at D 80 the third is zero
+// past column 80); a k-step of 8 advances 32 bytes inside a box. TF32
+// wgmma reads both operands K-major, so the three products that contract
+// over a stored row index (P.V in the forward; dV += P^T dO, dK += dS^T
+// Q and dQ += dS K in the backward) take a transposed copy of V, dO, Q or
+// K, hi and lo, written by the consumers in the pass that makes lo
+// (transpose_split). Their A operand is the f32 accumulator of the
+// product before (P, dS): the accumulator holds columns 2q and 2q + 1 of
+// each 8 where a TF32 A fragment wants q and q + 4, so the transposed
+// copies store their columns in that order within each 8 (pos8 below), and
+// the accumulator is the A fragment as it stands (acc_to_tf32).
+//
+// Forward (flash_fwd_sm90_f32_kernel): as the bf16 wgmma forward, a
+// persistent grid of one block an SM ordering its 128-row work items by
+// fwd_item (flash_attention.fwd_schedule models it), a producer warp and
+// two consumer warpgroups of 64 query rows. Q arrives once an item by
+// TMA; each consumer keeps its A lo in registers (D / 2 a thread) and
+// reads Q itself from shared memory as A hi. K and V come by TMA in a
+// 2-stage ring of 32-row tiles. Both consumers convert each tile together
+// (K's lo; V^T's hi and lo) into one of two buffers while the other
+// consumer's products run: one 256-thread barrier a tile. S = Q K^T is 64 x 32 a
+// consumer (m64n32k8, A lo from registers, the other two terms from
+// shared memory); P = exp2(S * scale * log2 e - m) in f32 (not rounded:
+// the f32 plain version does not round it), its hi and lo the A of
+// O += P V (m64nDk8, D = 64, 80, 128).
+//
+// Backward: a prep launch (delta = rowsum(dO * O), lse * log2 e, both in
+// rows padded to 128, +inf past S) and two persistent launches over
+// bwd_schedule's lists of 64-row work items, each block a producer warp
+// and two consumer warpgroups on the same 64 rows that split the five
+// products: in dk/dv (64 kv rows, 32 queries a step, the group's H / KH
+// heads in turn), consumer 0 makes S^T = K Q^T and P^T, hands P^T to
+// consumer 1 through shared memory (double-buffered, mbarriers) and adds
+// dV += P^T dO; consumer 1 makes dP^T = V dO^T, dS^T = P^T (dP^T - delta)
+// * scale and adds dK += dS^T Q: each holds one D / 2 accumulator and its
+// A's lo (K or V) in registers. In dq (64 query rows, 32 kv rows a step)
+// consumer 0 makes S and P; consumer 1 dP, dS and dQ += dS K. The GQA sum
+// over a group stays in the dk/dv block; every gradient element is summed
+// by one warpgroup in one order, with no atomics: two calls give the same
+// bits. P and dS stay f32 (their hi and lo), as the plain version and the
+// JAX backward keep them.
+//
+// Shared memory: at D 128 a 64 x 128 f32 tile is 32 KB and every operand
+// needs two or three copies, so the 32-row steps; the dk/dv walk's raw
+// ring has one stage at D 128 (208 KB a block), two elsewhere.
+
+constexpr int F3_BM = 128;    // forward: query rows of a work item
+constexpr int F3_BN = 32;     // rows a step of every walk
+constexpr int F3_ITEM = 64;   // backward: rows of a work item
+constexpr int F3_STAGES = 2;  // the forward's and dq's rings
+static_assert(F3_BN == 32, "the transposed copies are one 32-column box");
+
+__host__ __device__ constexpr int f32_boxes(int D) { return (D + 31) / 32; }
+
+__host__ __device__ constexpr int f3_dkdv_stages(int D) {
+  return D == 128 ? 1 : 2;
+}
+
+// x - trunc_tf32(x) (exact in f32; the tensor core reads x as
+// trunc_tf32(x)), rounded to tf32 as it is written: the tensor core
+// would truncate it, and truncating lo too leaves the product biased
+// toward zero (3.5e-7 norm-relative against 1.5e-7; PERF.md §6, PR 33)
+__device__ __forceinline__ float tf32_lo(float x) {
+  const float lo = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float((__float_as_uint(lo) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float lds_f32(const void* base, uint32_t off) {
+  return *reinterpret_cast<const float*>(
+      static_cast<const unsigned char*>(base) + off);
+}
+
+// lo of every element of `bytes` bytes of raw tiles, into dst (the same
+// layout), by threads t of n
+__device__ __forceinline__ void lo_copy(void* dst, const void* src,
+                                        int bytes, int t, int n) {
+  const float4* s = static_cast<const float4*>(src);
+  float4* d = static_cast<float4*>(dst);
+  for (int c = t; c < bytes / 16; c += n) {
+    const float4 v = s[c];
+    d[c] = make_float4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+}
+
+// B tiles for a product over a stored row index: the R (= 32) rows x D
+// columns of a raw tile (f32_boxes(D) boxes of R rows, R * 128 bytes
+// apart) as hi (the raw value) and lo tiles of D rows x R columns, one
+// K-major swizzled box each. Within each 8 columns, position p holds row
+// pos8: p < 4 row 2p, p >= 4 row 2(p - 4) + 1 (the k order of an
+// accumulator as a register A fragment). A thread writes one 16-byte chunk
+// (4 positions of one row) a step; a warp's reads fall along one raw row.
+template <int D, int R>
+__device__ __forceinline__ void transpose_split(float* hi, float* lo,
+                                                const float* raw, int t,
+                                                int n) {
+  static_assert(R == 32, "one output box");
+  constexpr int KC = R / 4;
+  const unsigned char* rb = reinterpret_cast<const unsigned char*>(raw);
+  unsigned char* hb = reinterpret_cast<unsigned char*>(hi);
+  unsigned char* lb = reinterpret_cast<unsigned char*>(lo);
+  for (int u = t; u < D * KC; u += n) {
+    const int d = u % D, kc = u / D;
+    const uint32_t box = (d >> 5) * (R * 128);
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = lds_f32(rb, box + hopper::swz32(8 * (kc >> 1) + 2 * j + (kc & 1),
+                                             d & 31));
+    const uint32_t o = hopper::swz32(d, 4 * kc);
+    *reinterpret_cast<float4*>(hb + o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(lb + o) = make_float4(
+        tf32_lo(v[0]), tf32_lo(v[1]), tf32_lo(v[2]), tf32_lo(v[3]));
+  }
+}
+
+// lo of the TF32 register A fragments (k-steps of 8 over D columns) of
+// rows r and r + 8 of a raw tile (boxes box_bytes apart), q = lane % 4
+template <int D>
+__device__ __forceinline__ void a_lo_from(uint32_t (&a)[D / 8][4],
+                                          const float* tile,
+                                          uint32_t box_bytes, int r, int q) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t box = (kk >> 2) * box_bytes;
+    const int k = 8 * (kk & 3) + q;
+    a[kk][0] = __float_as_uint(tf32_lo(lds_f32(tile, box + hopper::swz32(r, k))));
+    a[kk][1] =
+        __float_as_uint(tf32_lo(lds_f32(tile, box + hopper::swz32(r + 8, k))));
+    a[kk][2] =
+        __float_as_uint(tf32_lo(lds_f32(tile, box + hopper::swz32(r, k + 4))));
+    a[kk][3] = __float_as_uint(
+        tf32_lo(lds_f32(tile, box + hopper::swz32(r + 8, k + 4))));
+  }
+}
+
+// a 64 x 2NH f32 accumulator (NH a thread) as TF32 register A fragments,
+// hi (the raw bits) and lo, k-step kk from columns [8kk, 8kk + 8) in pos8's
+// order
+template <int NH>
+__device__ __forceinline__ void acc_to_tf32(const float (&c)[NH],
+                                            uint32_t (&hi)[NH / 4][4],
+                                            uint32_t (&lo)[NH / 4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NH / 4; ++kk) {
+    const float v[4] = {c[4 * kk], c[4 * kk + 2], c[4 * kk + 1],
+                        c[4 * kk + 3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[kk][i] = __float_as_uint(v[i]);
+      lo[kk][i] = __float_as_uint(tf32_lo(v[i]));
+    }
+  }
+}
+
+// acc (64 x 32) = A . B^T over D in 3xTF32, issued: A's lo in registers
+// (a_lo_from), A (as hi) and B raw K-major in shared memory (boxes a_box
+// and b_box bytes apart), B's lo (lo_copy of B) at b_lo. The small terms
+// a_lo.b_hi and a_hi.b_lo go to `small`, a_hi.b_hi to `acc`, both zeroed
+// here; once waited for, acc_add folds small into acc. The tensor core
+// adds each k-step's products to its accumulator truncated, not
+// rounded: three passes into one accumulator made S and dP three times
+// as biased as one (PERF.md §6, PR 33); the two chains also run side by
+// side.
+template <int D>
+__device__ __forceinline__ void product_ab(float (&acc)[16], float (&small)[16],
+                                           const uint32_t (&a_lo)[D / 8][4],
+                                           uint32_t a, uint32_t a_box,
+                                           uint32_t b, uint32_t b_lo,
+                                           uint32_t b_box) {
+#pragma unroll
+  for (int x = 0; x < 16; ++x) acc[x] = small[x] = 0.f;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t in = (kk & 3) * 32, ab = (kk >> 2) * a_box,
+                   bb = (kk >> 2) * b_box;
+    const uint64_t da = hopper::desc_sw128(a + ab + in, 0, 1024);
+    const uint64_t db = hopper::desc_sw128(b + bb + in, 0, 1024);
+    hopper::wgmma_m64n32k8_tf32_rs(small, a_lo[kk], db);
+    hopper::wgmma_m64n32k8_tf32_ss(
+        small, da, hopper::desc_sw128(b_lo + bb + in, 0, 1024));
+    hopper::wgmma_m64n32k8_tf32_ss(acc, da, db);
+  }
+  hopper::wgmma_commit();
+}
+
+__device__ __forceinline__ void acc_add(float (&acc)[16],
+                                        float (&small)[16]) {
+  hopper::fence_operand(acc);
+  hopper::fence_operand(small);
+#pragma unroll
+  for (int x = 0; x < 16; ++x) acc[x] += small[x];
+}
+
+// acc (64 x D) += P . T^T over P's 8KS columns: P in registers (hi and lo
+// from acc_to_tf32), T's hi and lo (D x 8KS) from transpose_split
+template <int D, int KS>
+__device__ __forceinline__ void product_t(float (&acc)[D / 2],
+                                          const uint32_t (&hi)[KS][4],
+                                          const uint32_t (&lo)[KS][4],
+                                          uint32_t t_hi, uint32_t t_lo) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    hopper::wgmma_tf32x3<D>(acc, hi[kk], lo[kk], hopper::desc_tf32(t_hi, kk),
+                            hopper::desc_tf32(t_lo, kk));
+}
+
+// rows row and row + 8 of a thread's f32 (64 x D) accumulator into an
+// (S, D) f32 matrix, rows at or past S skipped
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out,
+                                               const float (&acc)[D / 2],
+                                               int row, int S, int qd) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= S) continue;
+    float* p = out + static_cast<int64_t>(row + 8 * h) * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(p + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int D>
+struct F3FwdSmem {
+  static constexpr int NB = f32_boxes(D);
+  float q[NB][F3_BM][32];
+  float k[F3_STAGES][NB][F3_BN][32];
+  float v[F3_STAGES][NB][F3_BN][32];
+  float k_lo[2][NB][F3_BN][32];
+  float vt_hi[2][D][F3_BN];
+  float vt_lo[2][D][F3_BN];
+  uint64_t q_full, q_empty, kv_full[F3_STAGES], kv_empty[F3_STAGES];
+};
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_sm90_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          float* __restrict__ o, float* __restrict__ lse,
+                          int B, int H, int KH, int S, float scale,
+                          int causal) {
+  using Smem = F3FwdSmem<D>;
+  constexpr int NB = Smem::NB;
+  constexpr uint32_t Q_BOX = F3_BM * 128, KV_BOX = F3_BN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < F3_STAGES; ++s) {
+      hopper::mbar_init(&sm.kv_full[s], 1);
+      hopper::mbar_init(&sm.kv_empty[s], SM90_CONSUMERS / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + F3_BM - 1) / F3_BM;
+  const int rep = H / KH;
+  const int BH = B * H, n_items = BH * n_qt;
+  auto n_kv = [&](int q0) {
+    return ((causal ? min(S, q0 + F3_BM) : S) + F3_BN - 1) / F3_BN;
+  };
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<FWD_PRODUCER_REGS>();
+    if (tid == SM90_CONSUMERS) {
+      int n = 0;              // kv tiles loaded
+      uint32_t q_par = 1;     // empty barriers: the first waits pass
+      for (int r = 0, i; (i = fwd_item(r)) < n_items; ++r) {
+        const int bh = i % BH, q0 = (n_qt - 1 - i / BH) * F3_BM;
+        const int bkh = bh / H * KH + bh % H / rep;
+        hopper::mbar_wait(&sm.q_empty, q_par);
+        q_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.q_full, NB * Q_BOX);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          hopper::tma_load_3d(sm.q[c], &tm_q, &sm.q_full, 32 * c, q0, bh);
+        const int nk = n_kv(q0);
+        for (int j = 0; j < nk; ++j, ++n) {
+          const int st = n % F3_STAGES;
+          hopper::mbar_wait(&sm.kv_empty[st], ((n / F3_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&sm.kv_full[st], 2 * NB * KV_BOX);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_3d(sm.k[st][c], &tm_k, &sm.kv_full[st], 32 * c,
+                                j * F3_BN, bkh);
+            hopper::tma_load_3d(sm.v[st][c], &tm_v, &sm.kv_full[st], 32 * c,
+                                j * F3_BN, bkh);
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 query rows each
+    hopper::reg_alloc<FWD_CONSUMER_REGS>();
+    const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const float sl2 = scale * kLog2e;
+    const uint32_t q_s = hopper::smem_u32(&sm.q[0][64 * wg][0]);
+    uint32_t q_par = 0;
+    int tc = 0;  // kv tiles converted (tile tc: stage tc % 2, buffer tc & 1)
+    // the next kv tile's K lo and V^T hi / lo, by both consumers
+    auto convert = [&]() {
+      const int st = tc % F3_STAGES, buf = tc & 1;
+      hopper::mbar_wait(&sm.kv_full[st], (tc / F3_STAGES) & 1);
+      lo_copy(sm.k_lo[buf], sm.k[st], NB * KV_BOX, tid, SM90_CONSUMERS);
+      transpose_split<D, F3_BN>(sm.vt_hi[buf][0], sm.vt_lo[buf][0],
+                                sm.v[st][0][0], tid, SM90_CONSUMERS);
+      hopper::fence_proxy_async();
+      ++tc;
+    };
+    for (int r = 0, i; (i = fwd_item(r)) < n_items; ++r) {
+      const int bh = i % BH, q0 = (n_qt - 1 - i / BH) * F3_BM;
+      const int r_lo = q0 + 64 * wg;          // this warpgroup's first row
+      const int row0 = r_lo + 16 * warp + g;  // this thread's: row0, row0 + 8
+      const int nk = n_kv(q0);
+      hopper::mbar_wait(&sm.q_full, q_par);
+      q_par ^= 1;
+      uint32_t qlo[D / 8][4];
+      a_lo_from<D>(qlo, &sm.q[0][0][0], Q_BOX, 64 * wg + 16 * warp + g, qd);
+      float acc[D / 2], alpha[2];
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+      convert();  // tile 0
+      hopper::named_bar_sync(1, SM90_CONSUMERS);
+      for (int j = 0; j < nk; ++j) {
+        const int t = tc - 1, st = t % F3_STAGES, buf = t & 1;
+        const int k0 = j * F3_BN;
+        // every tile of the item, for both consumers: a consumer whose rows
+        // all come before a causal tile's first key gets p = 0 from it,
+        // alpha = 1; skipping its products (a branch around wgmma that
+        // ptxas cannot prove warpgroup-uniform) serialized every product
+        // of the kernel (ptxas C7520)
+        float s[F3_BN / 2], s_lo[F3_BN / 2];
+        uint32_t phi[F3_BN / 8][4], plo[F3_BN / 8][4];
+        product_ab<D>(s, s_lo, qlo, q_s, Q_BOX, hopper::smem_u32(sm.k[st][0]),
+                      hopper::smem_u32(sm.k_lo[buf][0]), KV_BOX);
+        hopper::wgmma_wait<0>();
+        acc_add(s, s_lo);
+        hopper::mbar_arrive_warp(&sm.kv_empty[st]);  // raw K and V done
+        softmax_tile(s, m, l, alpha, sl2, k0, row0, qd, S, causal,
+                     k0 + F3_BN > S || (causal && k0 + F3_BN - 1 > r_lo));
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x >> 1) & 1];
+        acc_to_tf32(s, phi, plo);
+        hopper::fence_operand(acc);
+        hopper::wgmma_fence();
+        product_t<D, F3_BN / 8>(acc, phi, plo,
+                                hopper::smem_u32(sm.vt_hi[buf][0]),
+                                hopper::smem_u32(sm.vt_lo[buf][0]));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(acc);
+        hopper::fence_operand(phi);
+        hopper::fence_operand(plo);
+        // the next tile into the other buffer, after P V: the conversion's
+        // loops (trip counts by thread) between a product's issue and its
+        // wait would be a divergent path there as well
+        if (j + 1 < nk) convert();
+        hopper::named_bar_sync(1, SM90_CONSUMERS);
+      }
+      hopper::mbar_arrive_warp(&sm.q_empty);  // the next Q loads meanwhile
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
+#pragma unroll
+        for (int x = 0; x < D / 8; ++x) {
+          acc[4 * x + 2 * h] *= inv;
+          acc[4 * x + 2 * h + 1] *= inv;
+        }
+        const int row = row0 + 8 * h;
+        if (lse != nullptr && qd == 0 && row < S)
+          lse[static_cast<int64_t>(bh) * S + row] = row_lse(m[h] * scale, l[h]);
+      }
+      store_rows_f32<D>(o + static_cast<int64_t>(bh) * S * D, acc, row0, S,
+                        qd);
+    }
+  }
+}
+
+// delta = rowsum(dO * O) and lse2 = lse * log2(e) of every query row into
+// (B * H, S_pad) rows, a warp a row; rows past S get delta 0 and lse2 +inf
+// (P = 0)
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_f32_kernel(const float* __restrict__ o,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ delta, float* __restrict__ lse2,
+                          int S, int S_pad, int64_t rows, int D) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int64_t bh = row / S_pad;
+  const int i = static_cast<int>(row % S_pad);
+  const int64_t src = bh * S + i;
+  float s = 0.f;
+  if (i < S)
+    for (int d = lane; d < D; d += 32) s += o[src * D + d] * dout[src * D + d];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    delta[row] = s;
+    lse2[row] = i < S ? lse[src] * kLog2e : INFINITY;
+  }
+}
+
+template <int D>
+struct F3DkdvSmem {
+  static constexpr int NB = f32_boxes(D), ST = f3_dkdv_stages(D);
+  float k[NB][F3_ITEM][32];
+  float v[NB][F3_ITEM][32];
+  float q[ST][NB][F3_BN][32];
+  float dout[ST][NB][F3_BN][32];
+  float q_lo[NB][F3_BN][32];             // consumer 0: S^T's B lo
+  float dot_hi[D][F3_BN], dot_lo[D][F3_BN];  // consumer 0: dV's B
+  float do_lo[NB][F3_BN][32];            // consumer 1: dP^T's B lo
+  float qt_hi[D][F3_BN], qt_lo[D][F3_BN];    // consumer 1: dK's B
+  float p[2][F3_ITEM * F3_BN];           // P^T, consumer 0 to 1
+  float lse2[ST][F3_BN];
+  float delta[ST][F3_BN];
+  uint64_t kv_full, kv_empty, q_full[ST], q_empty[ST], p_full[2], p_empty[2];
+};
+
+template <int D>
+struct F3DqSmem {
+  static constexpr int NB = f32_boxes(D);
+  float q[NB][F3_ITEM][32];
+  float dout[NB][F3_ITEM][32];
+  float k[F3_STAGES][NB][F3_BN][32];
+  float v[F3_STAGES][NB][F3_BN][32];
+  float k_lo[NB][F3_BN][32];             // consumer 0: S's B lo
+  float v_lo[NB][F3_BN][32];             // consumer 1: dP's B lo
+  float kt_hi[D][F3_BN], kt_lo[D][F3_BN];    // consumer 1: dQ's B
+  float p[2][F3_ITEM * F3_BN];           // P, consumer 0 to 1
+  float lse2[F3_ITEM];
+  float delta[F3_ITEM];
+  uint64_t q_full, q_empty, kv_full[F3_STAGES], kv_empty[F3_STAGES];
+  uint64_t p_full[2], p_empty[2];
+};
+
+// a consumer's 64 x 32 tile (16 floats a thread) into / out of a buffer
+// of the exchange, 16 bytes a thread a store, ct = tid % 128
+__device__ __forceinline__ void put_tile(float* buf, const float (&s)[16],
+                                         int ct) {
+  float4* b = reinterpret_cast<float4*>(buf);
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    b[x * 128 + ct] =
+        make_float4(s[4 * x], s[4 * x + 1], s[4 * x + 2], s[4 * x + 3]);
+}
+
+__device__ __forceinline__ void get_tile(float (&s)[16], const float* buf,
+                                         int ct) {
+  const float4* b = reinterpret_cast<const float4*>(buf);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float4 v = b[x * 128 + ct];
+    s[4 * x] = v.x;
+    s[4 * x + 1] = v.y;
+    s[4 * x + 2] = v.z;
+    s[4 * x + 3] = v.w;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_bwd_dkdv_sm90_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const float* __restrict__ lse2,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ work,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int H, int KH, int S, int S_pad, float scale,
+                               int causal) {
+  using Smem = F3DkdvSmem<D>;
+  constexpr int NB = Smem::NB, ST = Smem::ST;
+  constexpr uint32_t KV_BOX = F3_ITEM * 128, Q_BOX = F3_BN * 128;
+  constexpr uint32_t KV_BYTES = 2 * NB * KV_BOX;
+  constexpr uint32_t Q_BYTES = 2 * NB * Q_BOX + 2 * F3_BN * 4;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.kv_full, 1);
+    hopper::mbar_init(&sm.kv_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&sm.q_full[s], 1);
+      hopper::mbar_init(&sm.q_empty[s], SM90_CONSUMERS / 32);
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&sm.p_full[b], 4);
+      hopper::mbar_init(&sm.p_empty[b], 4);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_kt = (S + F3_ITEM - 1) / F3_ITEM;
+  const int n_qt = (S + F3_BN - 1) / F3_BN;
+  const int rep = H / KH;
+  const int first = work[blockIdx.x], last = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<FWD_PRODUCER_REGS>();
+    if (tid == SM90_CONSUMERS) {
+      int n = 0;  // query steps loaded
+      uint32_t kv_par = 1;
+      for (int w = first; w < last; ++w) {
+        const int bkh = items[w] / n_kt, kv0 = items[w] % n_kt * F3_ITEM;
+        const int b = bkh / KH, kh = bkh % KH;
+        const int qt0 = causal ? kv0 / F3_BN : 0, nq = n_qt - qt0;
+        hopper::mbar_wait(&sm.kv_empty, kv_par);
+        kv_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.kv_full, KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(sm.k[c], &tm_k, &sm.kv_full, 32 * c, kv0, bkh);
+          hopper::tma_load_3d(sm.v[c], &tm_v, &sm.kv_full, 32 * c, kv0, bkh);
+        }
+        for (int it = 0; it < rep * nq; ++it, ++n) {
+          const int bh = b * H + kh * rep + it / nq;
+          const int q0 = (qt0 + it % nq) * F3_BN, st = n % ST;
+          hopper::mbar_wait(&sm.q_empty[st], ((n / ST) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&sm.q_full[st], Q_BYTES);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_3d(sm.q[st][c], &tm_q, &sm.q_full[st], 32 * c,
+                                q0, bh);
+            hopper::tma_load_3d(sm.dout[st][c], &tm_do, &sm.q_full[st],
+                                32 * c, q0, bh);
+          }
+          const int64_t row = static_cast<int64_t>(bh) * S_pad + q0;
+          hopper::bulk_load(sm.lse2[st], lse2 + row, F3_BN * 4,
+                            &sm.q_full[st]);
+          hopper::bulk_load(sm.delta[st], delta + row, F3_BN * 4,
+                            &sm.q_full[st]);
+        }
+      }
+    }
+  } else {  // consumer 0: S^T, P^T, dV; consumer 1: dP^T, dS^T, dK
+    hopper::reg_alloc<FWD_CONSUMER_REGS>();
+    const int wg = tid / 128, ct = tid % 128, warp = ct / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int rl = 16 * warp + g;  // this thread's rows of the item: rl, rl + 8
+    const float sl2 = scale * kLog2e;
+    const float* a_tile = wg == 0 ? &sm.k[0][0][0] : &sm.v[0][0][0];
+    const uint32_t a_s = hopper::smem_u32(a_tile);
+    int n = 0;
+    uint32_t kv_par = 0;
+    for (int w = first; w < last; ++w) {
+      const int bkh = items[w] / n_kt, kv0 = items[w] % n_kt * F3_ITEM;
+      const int qt0 = causal ? kv0 / F3_BN : 0, nq = n_qt - qt0;
+      hopper::mbar_wait(&sm.kv_full, kv_par);
+      kv_par ^= 1;
+      // K's lo (consumer 0) or V's (consumer 1): made once an item, or at
+      // D 128 each step (kept, its 64 registers a thread beside dK or dV
+      // serialized the products: ptxas C7512)
+      constexpr bool kLoEachStep = D == 128;
+      uint32_t alo[D / 8][4];
+      if (!kLoEachStep) a_lo_from<D>(alo, a_tile, KV_BOX, rl, qd);
+      float acc[D / 2];  // dV (consumer 0) or dK (consumer 1)
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+      for (int it = 0; it < rep * nq; ++it, ++n) {
+        const int q0 = (qt0 + it % nq) * F3_BN, st = n % ST, pb = n & 1;
+        hopper::mbar_wait(&sm.q_full[st], (n / ST) & 1);
+        // this consumer's tiles of the step (its products of the last
+        // step are done: every warp waited for them)
+        hopper::named_bar_sync(1 + wg, 128);
+        if (wg == 0) {
+          lo_copy(sm.q_lo, sm.q[st], NB * Q_BOX, ct, 128);
+          transpose_split<D, F3_BN>(sm.dot_hi[0], sm.dot_lo[0],
+                                    sm.dout[st][0][0], ct, 128);
+        } else {
+          lo_copy(sm.do_lo, sm.dout[st], NB * Q_BOX, ct, 128);
+          transpose_split<D, F3_BN>(sm.qt_hi[0], sm.qt_lo[0], sm.q[st][0][0],
+                                    ct, 128);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(1 + wg, 128);
+        // S^T = K Q^T or dP^T = V dO^T: 64 kv rows x 32 queries
+        if (kLoEachStep) a_lo_from<D>(alo, a_tile, KV_BOX, rl, qd);
+        float s[F3_BN / 2], s_lo[F3_BN / 2];
+        product_ab<D>(
+            s, s_lo, alo, a_s, KV_BOX,
+            hopper::smem_u32(wg == 0 ? &sm.q[st][0][0][0]
+                                     : &sm.dout[st][0][0][0]),
+            hopper::smem_u32(wg == 0 ? &sm.q_lo[0][0][0]
+                                     : &sm.do_lo[0][0][0]),
+            Q_BOX);
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(alo);  // read by the products until here
+        acc_add(s, s_lo);
+        uint32_t hi[F3_BN / 8][4], lo[F3_BN / 8][4];
+        if (wg == 0) {
+          // P^T = exp2(S^T * scale * log2(e) - lse2[query]); padded
+          // queries have lse2 = +inf
+          const float* ls = sm.lse2[st];
+          const bool mask = causal && kv0 + F3_ITEM - 1 > q0;
+#pragma unroll
+          for (int jj = 0; jj < F3_BN / 8; ++jj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const int c = 8 * jj + 2 * qd + (x & 1);
+              float p = hopper::exp2_ftz(s[4 * jj + x] * sl2 - ls[c]);
+              if (mask && kv0 + rl + 8 * (x >> 1) > q0 + c) p = 0.f;
+              s[4 * jj + x] = p;
+            }
+          hopper::mbar_arrive_warp(&sm.q_empty[st]);
+          hopper::mbar_wait(&sm.p_empty[pb], ((n >> 1) & 1) ^ 1);
+          put_tile(sm.p[pb], s, ct);
+          hopper::mbar_arrive_warp(&sm.p_full[pb]);
+          acc_to_tf32(s, hi, lo);
+          hopper::fence_operand(acc);
+          hopper::wgmma_fence();
+          product_t<D, F3_BN / 8>(acc, hi, lo, hopper::smem_u32(sm.dot_hi[0]),
+                                  hopper::smem_u32(sm.dot_lo[0]));  // dV
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+        } else {
+          // dS^T = P^T (dP^T - delta[query]) * scale
+          const float* dl = sm.delta[st];
+          float p[F3_BN / 2];
+          hopper::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);
+          get_tile(p, sm.p[pb], ct);
+          hopper::mbar_arrive_warp(&sm.p_empty[pb]);
+#pragma unroll
+          for (int jj = 0; jj < F3_BN / 8; ++jj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              s[4 * jj + x] = p[4 * jj + x] *
+                              (s[4 * jj + x] - dl[8 * jj + 2 * qd + (x & 1)]) *
+                              scale;
+          hopper::mbar_arrive_warp(&sm.q_empty[st]);
+          acc_to_tf32(s, hi, lo);
+          hopper::fence_operand(acc);
+          hopper::wgmma_fence();
+          product_t<D, F3_BN / 8>(acc, hi, lo, hopper::smem_u32(sm.qt_hi[0]),
+                                  hopper::smem_u32(sm.qt_lo[0]));  // dK
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_operand(acc);
+        hopper::fence_operand(hi);
+        hopper::fence_operand(lo);
+      }
+      hopper::mbar_arrive_warp(&sm.kv_empty);  // K and V reloaded meanwhile
+      store_rows_f32<D>((wg == 0 ? dv : dk) + static_cast<int64_t>(bkh) * S * D,
+                        acc, kv0 + rl, S, qd);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_bwd_dq_sm90_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const float* __restrict__ lse2,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ work,
+                             float* __restrict__ dq, int H, int KH, int S,
+                             int S_pad, float scale, int causal) {
+  using Smem = F3DqSmem<D>;
+  constexpr int NB = Smem::NB;
+  constexpr uint32_t Q_BOX = F3_ITEM * 128, KV_BOX = F3_BN * 128;
+  constexpr uint32_t Q_BYTES = 2 * NB * Q_BOX + 2 * F3_ITEM * 4;
+  constexpr uint32_t KV_BYTES = 2 * NB * KV_BOX;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, SM90_CONSUMERS / 32);
+#pragma unroll
+    for (int s = 0; s < F3_STAGES; ++s) {
+      hopper::mbar_init(&sm.kv_full[s], 1);
+      hopper::mbar_init(&sm.kv_empty[s], SM90_CONSUMERS / 32);
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&sm.p_full[b], 4);
+      hopper::mbar_init(&sm.p_empty[b], 4);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + F3_ITEM - 1) / F3_ITEM;
+  const int rep = H / KH;
+  const int first = work[blockIdx.x], last = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+  // kv steps a query tile walks: up to its last row if causal
+  auto n_kv = [&](int q0) {
+    return ((causal ? min(S, q0 + F3_ITEM) : S) + F3_BN - 1) / F3_BN;
+  };
+
+  if (tid >= SM90_CONSUMERS) {  // the producer warpgroup
+    hopper::reg_dealloc<FWD_PRODUCER_REGS>();
+    if (tid == SM90_CONSUMERS) {
+      int n = 0;  // kv steps loaded
+      uint32_t q_par = 1;
+      for (int w = first; w < last; ++w) {
+        const int bh = items[w] / n_qt, q0 = items[w] % n_qt * F3_ITEM;
+        const int bkh = bh / H * KH + bh % H / rep;
+        hopper::mbar_wait(&sm.q_empty, q_par);
+        q_par ^= 1;
+        hopper::mbar_arrive_expect_tx(&sm.q_full, Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(sm.q[c], &tm_q, &sm.q_full, 32 * c, q0, bh);
+          hopper::tma_load_3d(sm.dout[c], &tm_do, &sm.q_full, 32 * c, q0, bh);
+        }
+        const int64_t row = static_cast<int64_t>(bh) * S_pad + q0;
+        hopper::bulk_load(sm.lse2, lse2 + row, F3_ITEM * 4, &sm.q_full);
+        hopper::bulk_load(sm.delta, delta + row, F3_ITEM * 4, &sm.q_full);
+        const int nk = n_kv(q0);
+        for (int j = 0; j < nk; ++j, ++n) {
+          const int st = n % F3_STAGES;
+          hopper::mbar_wait(&sm.kv_empty[st], ((n / F3_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&sm.kv_full[st], KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_3d(sm.k[st][c], &tm_k, &sm.kv_full[st], 32 * c,
+                                j * F3_BN, bkh);
+            hopper::tma_load_3d(sm.v[st][c], &tm_v, &sm.kv_full[st], 32 * c,
+                                j * F3_BN, bkh);
+          }
+        }
+      }
+    }
+  } else {  // consumer 0: S and P; consumer 1: dP, dS and dQ
+    hopper::reg_alloc<FWD_CONSUMER_REGS>();
+    const int wg = tid / 128, ct = tid % 128, warp = ct / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int rl = 16 * warp + g;  // this thread's rows of the item: rl, rl + 8
+    const float sl2 = scale * kLog2e;
+    const float* a_tile = wg == 0 ? &sm.q[0][0][0] : &sm.dout[0][0][0];
+    const uint32_t a_s = hopper::smem_u32(a_tile);
+    int n = 0;
+    uint32_t q_par = 0;
+    for (int w = first; w < last; ++w) {
+      const int bh = items[w] / n_qt, q0 = items[w] % n_qt * F3_ITEM;
+      const int nk = n_kv(q0);
+      hopper::mbar_wait(&sm.q_full, q_par);
+      q_par ^= 1;
+      uint32_t alo[D / 8][4];  // Q's lo (consumer 0) or dO's (consumer 1)
+      a_lo_from<D>(alo, a_tile, Q_BOX, rl, qd);
+      // lse2 (consumer 0) or delta (consumer 1) of the thread's two rows
+      const float* rows = wg == 0 ? sm.lse2 : sm.delta;
+      const float rv[2] = {rows[rl], rows[rl + 8]};
+      float acc[D / 2];  // dQ (consumer 1)
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+      for (int j = 0; j < nk; ++j, ++n) {
+        const int k0 = j * F3_BN, st = n % F3_STAGES, pb = n & 1;
+        hopper::mbar_wait(&sm.kv_full[st], (n / F3_STAGES) & 1);
+        hopper::named_bar_sync(1 + wg, 128);
+        if (wg == 0) {
+          lo_copy(sm.k_lo, sm.k[st], NB * KV_BOX, ct, 128);
+        } else {
+          lo_copy(sm.v_lo, sm.v[st], NB * KV_BOX, ct, 128);
+          transpose_split<D, F3_BN>(sm.kt_hi[0], sm.kt_lo[0], sm.k[st][0][0],
+                                    ct, 128);
+        }
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(1 + wg, 128);
+        // S = Q K^T or dP = dO V^T: 64 queries x 32 kv rows
+        float s[F3_BN / 2], s_lo[F3_BN / 2];
+        product_ab<D>(
+            s, s_lo, alo, a_s, Q_BOX,
+            hopper::smem_u32(wg == 0 ? &sm.k[st][0][0][0]
+                                     : &sm.v[st][0][0][0]),
+            hopper::smem_u32(wg == 0 ? &sm.k_lo[0][0][0]
+                                     : &sm.v_lo[0][0][0]),
+            KV_BOX);
+        hopper::wgmma_wait<0>();
+        acc_add(s, s_lo);
+        hopper::mbar_arrive_warp(&sm.kv_empty[st]);  // raw K and V done
+        if (wg == 0) {
+          const bool mask = (causal && k0 + F3_BN - 1 > q0) || k0 + F3_BN > S;
+#pragma unroll
+          for (int jj = 0; jj < F3_BN / 8; ++jj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const int col = k0 + 8 * jj + 2 * qd + (x & 1);
+              const int row = q0 + rl + 8 * (x >> 1);
+              float p = hopper::exp2_ftz(s[4 * jj + x] * sl2 - rv[x >> 1]);
+              if (mask && (col >= S || (causal && col > row))) p = 0.f;
+              s[4 * jj + x] = p;
+            }
+          hopper::mbar_wait(&sm.p_empty[pb], ((n >> 1) & 1) ^ 1);
+          put_tile(sm.p[pb], s, ct);
+          hopper::mbar_arrive_warp(&sm.p_full[pb]);
+        } else {
+          // dS = P (dP - delta[row]) * scale, then dQ += dS K
+          float p[F3_BN / 2];
+          hopper::mbar_wait(&sm.p_full[pb], (n >> 1) & 1);
+          get_tile(p, sm.p[pb], ct);
+          hopper::mbar_arrive_warp(&sm.p_empty[pb]);
+#pragma unroll
+          for (int x = 0; x < F3_BN / 2; ++x)
+            s[x] = p[x] * (s[x] - rv[(x >> 1) & 1]) * scale;
+          uint32_t hi[F3_BN / 8][4], lo[F3_BN / 8][4];
+          acc_to_tf32(s, hi, lo);
+          hopper::fence_operand(acc);
+          hopper::wgmma_fence();
+          product_t<D, F3_BN / 8>(acc, hi, lo, hopper::smem_u32(sm.kt_hi[0]),
+                                  hopper::smem_u32(sm.kt_lo[0]));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_operand(acc);
+          hopper::fence_operand(hi);
+          hopper::fence_operand(lo);
+        }
+      }
+      hopper::mbar_arrive_warp(&sm.q_empty);  // the next Q, dO load meanwhile
+      if (wg == 1)
+        store_rows_f32<D>(dq + static_cast<int64_t>(bh) * S * D, acc, q0 + rl,
+                          S, qd);
+    }
+  }
+}
+
+// TMA descriptor of n contiguous (s, d) f32 matrices, boxes of `rows` rows
+// x 32 columns (one 128-byte swizzled row), zeros past the edges
+inline cudaError_t f32_rows_map(CUtensorMap* map, const void* base, int d,
+                                int s, int n, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 4,
+                                 static_cast<cuuint64_t>(s) * d * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  return hopper::f32_tile_map(map, base, 3, dims, strides, box);
+}
+
+template <int D>
+cudaError_t launch_fwd_sm90_f32(const Args& a) {
+  if (a.fwd_programs <= 0) return cudaErrorInvalidValue;
+  const int n_items = a.B * a.H * ((a.S + F3_BM - 1) / F3_BM);
+  const int programs = a.fwd_programs < n_items ? a.fwd_programs : n_items;
+  constexpr size_t smem = sm90_smem_bytes<F3FwdSmem<D>>();
+  auto kern = flash_fwd_sm90_f32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = f32_rows_map(&tq, a.q, D, a.S, a.B * a.H, F3_BM)) != cudaSuccess ||
+      (err = f32_rows_map(&tk, a.k, D, a.S, a.B * a.KH, F3_BN)) != cudaSuccess ||
+      (err = f32_rows_map(&tv, a.v, D, a.S, a.B * a.KH, F3_BN)) != cudaSuccess)
+    return err;
+  kern<<<programs, SM90_THREADS, smem, a.stream>>>(
+      tq, tk, tv, static_cast<float*>(a.o), a.lse, a.B, a.H, a.KH, a.S,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_sm90_f32(const Args& a) {
+  if (a.dkdv_work == nullptr || a.dq_work == nullptr ||
+      a.dkdv_programs <= 0 || a.dq_programs <= 0)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem_kv = sm90_smem_bytes<F3DkdvSmem<D>>();
+  constexpr size_t smem_q = sm90_smem_bytes<F3DqSmem<D>>();
+  auto dkdv = flash_bwd_dkdv_sm90_f32_kernel<D>;
+  auto dqk = flash_bwd_dq_sm90_f32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_kv));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H, BKH = a.B * a.KH;
+  CUtensorMap q_kv, do_kv, k_kv, v_kv, q_q, do_q, k_q, v_q;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int n, rows;
+  } maps[8] = {{&q_kv, a.q, BH, F3_BN},     {&do_kv, a.dout, BH, F3_BN},
+               {&k_kv, a.k, BKH, F3_ITEM},  {&v_kv, a.v, BKH, F3_ITEM},
+               {&q_q, a.q, BH, F3_ITEM},    {&do_q, a.dout, BH, F3_ITEM},
+               {&k_q, a.k, BKH, F3_BN},     {&v_q, a.v, BKH, F3_BN}};
+  for (const auto& m : maps)
+    if ((err = f32_rows_map(m.map, m.base, D, a.S, m.n, m.rows)) !=
+        cudaSuccess)
+      return err;
+  const int S_pad = (a.S + SM90_PAD - 1) / SM90_PAD * SM90_PAD;
+  const int64_t rows = static_cast<int64_t>(BH) * S_pad;
+  float* delta = a.delta;
+  float* lse2 = a.delta + rows;
+  flash_bwd_prep_f32_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const float*>(a.o), static_cast<const float*>(a.dout), a.lse,
+      delta, lse2, a.S, S_pad, rows, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkdv<<<a.dkdv_programs, SM90_THREADS, smem_kv, a.stream>>>(
+      q_kv, do_kv, k_kv, v_kv, lse2, delta, a.dkdv_work,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.KH, a.S,
+      S_pad, a.scale, a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<a.dq_programs, SM90_THREADS, smem_q, a.stream>>>(
+      q_q, do_q, k_q, v_q, lse2, delta, a.dq_work, static_cast<float*>(a.dq),
+      a.H, a.KH, a.S, S_pad, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ dispatch --
 
 using Launch = cudaError_t (*)(const Args&);
@@ -2241,6 +3204,22 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                  stream), D);
 }
 
+// f32 q, k, v, o on 3xTF32 wgmma, at head_dim 64, 80 and 128 only, as
+// flash_attention_fwd_bf16_sm90 takes them. Returns a cudaError_t.
+int flash_attention_fwd_f32_sm90(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int H, int KH,
+                                 int S, int D, float scale, int causal,
+                                 int programs, void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
+    return cudaErrorInvalidValue;
+  Args a = fwd_args(q, k, v, o, lse, B, H, KH, S, scale, causal, stream);
+  a.fwd_programs = programs;
+  return D == 64    ? launch_fwd_sm90_f32<64>(a)
+         : D == 80  ? launch_fwd_sm90_f32<80>(a)
+         : D == 128 ? launch_fwd_sm90_f32<128>(a)
+                    : cudaErrorInvalidValue;
+}
+
 // The backward of a bf16 call on the mma.sync kernels: dq (B, H, S, D),
 // dk and dv (B, KH, S, D), from q, k, v, o, the forward's lse and dout;
 // delta is an f32 scratch of B * H * S. Three launches. Returns a
@@ -2290,6 +3269,31 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
   if (B * H > 65535) return cudaErrorInvalidValue;
   return dispatch(kBwdF32, bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv,
                                     B, H, KH, S, scale, causal, stream), D);
+}
+
+// The backward of an f32 call on 3xTF32 wgmma, at head_dim 64, 80 and 128
+// only, as flash_attention_bwd_bf16_sm90 takes it (its work lists from
+// flash_attention.bwd_schedule's 64-row items). Returns a cudaError_t.
+int flash_attention_bwd_f32_sm90(const void* q, const void* k, const void* v,
+                                 const void* o, const void* lse,
+                                 const void* dout, void* delta, void* dq,
+                                 void* dk, void* dv, int B, int H, int KH,
+                                 int S, int D, float scale, int causal,
+                                 const int* dkdv_work, int dkdv_programs,
+                                 const int* dq_work, int dq_programs,
+                                 void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH != 0)
+    return cudaErrorInvalidValue;
+  Args a = bwd_args(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KH, S,
+                    scale, causal, stream);
+  a.dkdv_work = dkdv_work;
+  a.dq_work = dq_work;
+  a.dkdv_programs = dkdv_programs;
+  a.dq_programs = dq_programs;
+  return D == 64    ? launch_bwd_sm90_f32<64>(a)
+         : D == 80  ? launch_bwd_sm90_f32<80>(a)
+         : D == 128 ? launch_bwd_sm90_f32<128>(a)
+                    : cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int err) {

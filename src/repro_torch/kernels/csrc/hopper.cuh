@@ -4,8 +4,8 @@
 // products (wgmma: shared-memory descriptors, fence / commit / wait, the
 // product shapes the kernels use: m64n64k16 and m64n128k16 from shared
 // memory, m64n64k16, m64n80k16 and m64n128k16 with A from registers; TF32
-// m64n64k8 and m64n128k8 with A from registers, m64n64k8 from shared
-// memory, and their 3xTF32 steps)
+// m64n32k8, m64n64k8, m64n80k8 and m64n128k8 with A from registers,
+// m64n32k8 and m64n64k8 from shared memory, and 3xTF32 steps)
 // and register moves between warpgroups
 // (setmaxnreg). The host part builds TMA descriptors with
 // cuTensorMapEncodeTiled of libcuda, reached through
@@ -550,22 +550,98 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32],
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 32, f32) += a . b^T: a (64 x 8 tf32) from registers (the fragment
+// above), b (32 x 8 tf32) K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80, f32) += a . b^T: a (64 x 8 tf32) from registers (the fragment
+// above), b (80 x 8 tf32) K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n80k8_tf32_rs(float (&d)[40],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += a . b^T: a (64 x 8 tf32) and b (32 x 8 tf32), both
+// K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // 3xTF32 (mma.cuh's split: x = hi + lo, hi rounded to tf32, lo = x - hi):
 // d (64 x NN) += a . b^T as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into one
 // accumulator, the small terms first. b_hi and b_lo are shared-memory
 // tiles of the same K-major swizzled layout; hi holds values exact in
 // tf32, so the product reads them the same whether the tensor core rounds
-// or truncates an f32 operand.
+// or truncates an f32 operand. (The f32 flash kernels pass the raw f32
+// values as hi instead, which the tensor core reads truncated, and lo =
+// x - trunc(x) rounded: flash_attention.cu's tf32_lo.)
 template <int NN>
 __device__ __forceinline__ void wgmma_tf32x3(float (&d)[NN / 2],
                                              const uint32_t (&a_hi)[4],
                                              const uint32_t (&a_lo)[4],
                                              uint64_t b_hi, uint64_t b_lo) {
-  static_assert(NN == 64 || NN == 128, "a wgmma N of 64 or 128");
+  static_assert(NN == 64 || NN == 80 || NN == 128,
+                "a wgmma N of 64, 80 or 128");
   if constexpr (NN == 128) {
     wgmma_m64n128k8_tf32_rs(d, a_lo, b_hi);
     wgmma_m64n128k8_tf32_rs(d, a_hi, b_lo);
     wgmma_m64n128k8_tf32_rs(d, a_hi, b_hi);
+  } else if constexpr (NN == 80) {
+    wgmma_m64n80k8_tf32_rs(d, a_lo, b_hi);
+    wgmma_m64n80k8_tf32_rs(d, a_hi, b_lo);
+    wgmma_m64n80k8_tf32_rs(d, a_hi, b_hi);
   } else {
     wgmma_m64n64k8_tf32_rs(d, a_lo, b_hi);
     wgmma_m64n64k8_tf32_rs(d, a_hi, b_lo);

@@ -12,9 +12,11 @@ The wrapper picks the kernel by dtype and head_dim before it launches
 (:func:`fwd_kernel`): bf16 (the model's path) runs Hopper's warpgroup
 products (``wgmma``, tiles brought in by TMA, a persistent grid that
 orders its own work, modelled by :func:`fwd_schedule`) at the head dims
-of ``WGMMA_HEAD_DIMS`` and ``mma.sync`` at the others; f32 runs on the
-CUDA cores, whose full f32 products hold the f32 tolerance that TF32
-would miss. None is a fallback for another: a launch that fails
+of ``WGMMA_HEAD_DIMS`` and ``mma.sync`` at the others; f32 runs the same
+kind of design in 3xTF32 (``wgmma_f32``: each product as three TF32
+passes over x = hi + lo, which hold the f32 tolerance that one TF32 pass
+would miss) at ``F32_WGMMA_HEAD_DIMS`` and the CUDA cores' full f32 FMAs
+at the others. None is a fallback for another: a launch that fails
 raises.
 
 Training differentiates it as the JAX package's ``jax.custom_vjp`` of
@@ -25,7 +27,8 @@ package's backward is jnp), with ``flash_attention_bwd_plain`` its
 plain version. In bf16 the backward runs Hopper's warpgroup products
 (``wgmma``, tiles brought in by TMA, a persistent grid) at the head dims
 of ``WGMMA_HEAD_DIMS`` and ``mma.sync`` at the others
-(:func:`bwd_kernel`); the wgmma kernels walk work lists that
+(:func:`bwd_kernel`), in f32 3xTF32 ``wgmma`` at ``F32_WGMMA_HEAD_DIMS``
+and the CUDA cores at the others; the wgmma kernels walk work lists that
 :func:`bwd_schedule` orders on the host.
 """
 from __future__ import annotations
@@ -48,14 +51,27 @@ DTYPES = (torch.float32, torch.bfloat16)
 # (:func:`fwd_kernel`, :func:`bwd_kernel`)
 _FWD = {"cuda_cores": "flash_attention_fwd_f32",
         "mma_sync": "flash_attention_fwd_bf16",
-        "wgmma": "flash_attention_fwd_bf16_sm90"}
+        "wgmma": "flash_attention_fwd_bf16_sm90",
+        "wgmma_f32": "flash_attention_fwd_f32_sm90"}
 _BWD = {"cuda_cores": "flash_attention_bwd_f32",
         "mma_sync": "flash_attention_bwd_bf16",
-        "wgmma": "flash_attention_bwd_bf16_sm90"}
+        "wgmma": "flash_attention_bwd_bf16_sm90",
+        "wgmma_f32": "flash_attention_bwd_f32_sm90"}
+# the kinds whose kernels run a persistent grid over Hopper's warpgroup
+# products (the forward takes the SM count, the backward work lists)
+SM90_KINDS = ("wgmma", "wgmma_f32")
 # head dims whose bf16 forward and backward run the wgmma kernels (rows of
 # 64-column TMA boxes, 80 as two with the second zero-filled past column
 # 80); the others run the mma.sync kernels
 WGMMA_HEAD_DIMS = (64, 80, 128)
+# head dims whose f32 forward and backward run the 3xTF32 wgmma kernels
+# (rows of 32-column f32 TMA boxes, 80 as three with the third zero-filled
+# past column 80); 16 and 32 keep the CUDA-core kernels. The rule: the
+# wgmma_f32 kind takes a head dim only where the card timed it at least as
+# fast as the CUDA-core kernels, in turns in one call, forward and
+# backward (tools/flash_fwd_time.py and tools/flash_bwd_time.py with
+# --dtype float32; PERF.md §6).
+F32_WGMMA_HEAD_DIMS = (64, 80, 128)
 FWD_ITEM = 128       # query rows of a wgmma forward work item
 FWD_STEP = 128       # kv rows per step of its walk
 BWD_KV_ITEM = 128    # kv rows of a dk/dv work item
@@ -63,6 +79,12 @@ BWD_KV_STEP = 64     # query rows per step of its walk
 BWD_Q_ITEM = 128     # query rows of a dq work item
 BWD_Q_STEP = 64      # kv rows per step of its walk
 BWD_PAD = 128        # the wgmma kernels' lse and delta rows, padded
+# each wgmma backward kind's (dk/dv item, its step, dq item, its step) in
+# rows: the bf16 kernels' above; the f32 kernels' 64-row items walked in
+# steps of 32 (a 64 x 128 f32 tile is 32 KB, and its copies fill the
+# block's shared memory)
+BWD_ROWS = {"wgmma": (BWD_KV_ITEM, BWD_KV_STEP, BWD_Q_ITEM, BWD_Q_STEP),
+            "wgmma_f32": (64, 32, 64, 32)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,12 +94,13 @@ def _load() -> ctypes.CDLL:
     fwd = [p] * 5 + [i] * 5 + [ctypes.c_float, i]
     for kind, entry in _FWD.items():
         fn = getattr(lib, entry)
-        fn.argtypes = fwd + ([i, p] if kind == "wgmma" else [p])
+        fn.argtypes = fwd + ([i, p] if kind in SM90_KINDS else [p])
         fn.restype = i
     bwd = [p] * 10 + [i] * 5 + [ctypes.c_float, i]
     for kind, entry in _BWD.items():
         fn = getattr(lib, entry)
-        fn.argtypes = bwd + ([p, i, p, i, p] if kind == "wgmma" else [p])
+        fn.argtypes = bwd + ([p, i, p, i, p] if kind in SM90_KINDS
+                             else [p])
         fn.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -211,29 +234,32 @@ def _kind(head_dim: int, dtype: torch.dtype, what: str) -> str:
     if head_dim not in HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"{what}: head_dim {head_dim}, dtype {dtype}")
     if dtype == torch.float32:
-        return "cuda_cores"
+        return "wgmma_f32" if head_dim in F32_WGMMA_HEAD_DIMS \
+            else "cuda_cores"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def fwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
     """Which forward kernel a call of this head_dim and dtype launches:
     ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``), ``"mma_sync"`` (bf16 at
-    the other head dims) or ``"cuda_cores"`` (f32), decided before the
-    launch, never after a failure."""
+    the other head dims), ``"wgmma_f32"`` (f32 at
+    ``F32_WGMMA_HEAD_DIMS``) or ``"cuda_cores"`` (f32 at the others),
+    decided before the launch, never after a failure."""
     return _kind(head_dim, dtype, "flash_attention")
 
 
 def bwd_kernel(head_dim: int, dtype: torch.dtype) -> str:
     """Which backward kernels a call of this head_dim and dtype launches:
-    ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``), ``"mma_sync"`` (bf16
-    at the other head dims) or ``"cuda_cores"`` (f32), decided before the
-    launch, never after a failure."""
+    as :func:`fwd_kernel` (``"wgmma"``, ``"mma_sync"``, ``"wgmma_f32"``
+    or ``"cuda_cores"``), decided before the launch, never after a
+    failure."""
     return _kind(head_dim, dtype, "flash_attention_bwd")
 
 
 # query rows of a forward block or work item of each kind (FWD_BM, TC_BM
 # and BM in the source)
-FWD_BLOCK_M = {"wgmma": FWD_ITEM, "mma_sync": 64, "cuda_cores": 64}
+FWD_BLOCK_M = {"wgmma": FWD_ITEM, "wgmma_f32": FWD_ITEM, "mma_sync": 64,
+               "cuda_cores": 64}
 
 
 def fwd_launch(B: int, H: int, KH: int, S: int, D: int, dtype: torch.dtype,
@@ -241,8 +267,9 @@ def fwd_launch(B: int, H: int, KH: int, S: int, D: int, dtype: torch.dtype,
     """The forward launch as ``csrc/flash_attention.cu`` makes it for the
     kind of kernel :func:`fwd_kernel` picks: ``(grid, item)``, ``item``
     of a grid index the ``(b, h, query tile, kv head)`` it computes, the
-    tile of ``FWD_BLOCK_M[kind]`` rows. The wgmma kernel's ``programs``
-    persistent programs (the SMs) take the items in the order
+    tile of ``FWD_BLOCK_M[kind]`` rows. The wgmma kernels' (bf16 and
+    f32) ``programs`` persistent programs (the SMs) take the items in the
+    order
     :func:`fwd_schedule` models: its grid here is that order, program
     after program, one index a work item. The mma.sync
     kernel takes (b·h, tile) blocks, heaviest (last) tile first; the f32
@@ -250,7 +277,7 @@ def fwd_launch(B: int, H: int, KH: int, S: int, D: int, dtype: torch.dtype,
     kind = fwd_kernel(D, dtype)
     n_t = -(-S // FWD_BLOCK_M[kind])
     group = H // KH
-    if kind == "wgmma":
+    if kind in SM90_KINDS:
         _, items = fwd_schedule(B, H, S, programs)
         return (len(items),), lambda x: (
             items[x] // n_t // H, items[x] // n_t % H, items[x] % n_t,
@@ -280,43 +307,46 @@ def _lpt(work: List[int], programs: int) -> Tuple[List[int], List[int]]:
     return starts, [i for items in lists for i in items]
 
 
-def bwd_work(B: int, H: int, KH: int, S: int, causal: bool):
-    """The wgmma backward's work items and their work in steps of 64 rows:
-    ``{"dkdv": [...], "dq": [...]}``. A dk/dv item ``bkh * n + t`` (b, kv
-    head, ``BWD_KV_ITEM``-row kv tile t of n) walks its group's H / KH
-    query heads over the query tiles that see its rows; a dq item
-    ``bh * n + t`` walks the kv tiles up to its tile's last row."""
-    n_q = -(-S // BWD_KV_STEP)
-    n_kt = -(-S // BWD_KV_ITEM)
-    dkdv = [H // KH * (n_q - (t * BWD_KV_ITEM // BWD_KV_STEP if causal
-                              else 0))
+def bwd_work(B: int, H: int, KH: int, S: int, causal: bool,
+             kind: str = "wgmma"):
+    """A wgmma backward kind's work items and their work in steps
+    (``BWD_ROWS[kind]``: 64 rows for the bf16 kernels, 32 for the f32
+    ones): ``{"dkdv": [...], "dq": [...]}``. A dk/dv item ``bkh * n + t``
+    (b, kv head, kv tile t of n) walks its group's H / KH query heads over
+    the query steps that see its rows; a dq item ``bh * n + t`` walks the
+    kv steps up to its tile's last row."""
+    kv_item, kv_step, q_item, q_step = BWD_ROWS[kind]
+    n_q = -(-S // kv_step)
+    n_kt = -(-S // kv_item)
+    dkdv = [H // KH * (n_q - (t * kv_item // kv_step if causal else 0))
             for _ in range(B * KH) for t in range(n_kt)]
-    n_qt = -(-S // BWD_Q_ITEM)
-    dq = [-(-(min(S, (t + 1) * BWD_Q_ITEM) if causal else S) // BWD_Q_STEP)
+    n_qt = -(-S // q_item)
+    dq = [-(-(min(S, (t + 1) * q_item) if causal else S) // q_step)
           for _ in range(B * H) for t in range(n_qt)]
     return {"dkdv": dkdv, "dq": dq}
 
 
 @functools.lru_cache(maxsize=64)
 def bwd_schedule(B: int, H: int, KH: int, S: int, causal: bool,
-                 programs: int):
+                 programs: int, kind: str = "wgmma"):
     """``{"dkdv": (starts, items), "dq": (starts, items)}``: each launch's
-    work items (:func:`bwd_work`) dealt to at most ``programs`` programs
-    of a persistent grid (one block an SM), heaviest first, each to the
-    least loaded program (:func:`_lpt`), so that the causal triangle
-    leaves no tail. Items of equal work keep their index order, which
-    puts the heads of a group side by side."""
+    work items (:func:`bwd_work` of ``kind``) dealt to at most
+    ``programs`` programs of a persistent grid (one block an SM),
+    heaviest first, each to the least loaded program (:func:`_lpt`), so
+    that the causal triangle leaves no tail. Items of equal work keep
+    their index order, which puts the heads of a group side by side."""
     return {name: _lpt(work, programs)
-            for name, work in bwd_work(B, H, KH, S, causal).items()}
+            for name, work in bwd_work(B, H, KH, S, causal, kind).items()}
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_work_tensors(B, H, KH, S, causal, device):
+def _bwd_work_tensors(B, H, KH, S, causal, device, kind="wgmma"):
     """``bwd_schedule`` on the card as int32 ``[starts | items]`` tensors,
     with their program counts, for the dk/dv and the dq launch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = []
-    for starts, items in bwd_schedule(B, H, KH, S, causal, sms).values():
+    for starts, items in bwd_schedule(B, H, KH, S, causal, sms,
+                                      kind).values():
         out += [torch.tensor(starts + items, dtype=torch.int32,
                              device=device), len(starts) - 1]
     return out
@@ -374,7 +404,7 @@ def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), B, H, KH, S, D, scale,
             int(causal)]
-    if kind == "wgmma":
+    if kind in SM90_KINDS:
         args.append(torch.cuda.get_device_properties(
             q.device).multi_processor_count)
     lib = _load()
@@ -382,6 +412,7 @@ def _launch_fwd(q, k, v, causal: bool, scale: Optional[float],
         *args, torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_kind[kind] += 1
     return o, lse
 
 
@@ -421,7 +452,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     gradient is wanted; ``meta`` tensors take the same path, which
     records the kernel's work with the op counter
     (:mod:`repro_torch.roofline.kernel_work`) in place of a launch.
-    ``flash_attention.launches`` counts forward launches."""
+    ``flash_attention.launches`` counts forward launches, and
+    ``flash_attention.launches_by_kind`` each kind's (:func:`fwd_kernel`)."""
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -431,6 +463,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kind = dict.fromkeys(_FWD, 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
@@ -438,8 +471,9 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)``: the plain
     version on CPU tensors, else the backward kernels (:func:`bwd_kernel`;
     a prep or delta launch, dk/dv, dq: three launches, counted once in
-    ``flash_attention_bwd.launches``; on ``meta`` their work, recorded)
-    or an error."""
+    ``flash_attention_bwd.launches`` and in its kind's
+    ``flash_attention_bwd.launches_by_kind``; on ``meta`` their work,
+    recorded) or an error."""
     if _on_cpu(q, k, v, o, lse, dout):
         return flash_attention_bwd_plain(q, k, v, o, lse, dout,
                                          causal=causal, scale=scale)
@@ -450,8 +484,9 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
         return dq, dk, dv
     kernel = bwd_kernel(D, q.dtype)
     # delta (and, for the wgmma kernels, lse * log2 e), rows padded there
-    rows = B * H * (-(-S // BWD_PAD) * BWD_PAD if kernel == "wgmma" else S)
-    scratch = torch.empty(rows * (2 if kernel == "wgmma" else 1),
+    sm90 = kernel in SM90_KINDS
+    rows = B * H * (-(-S // BWD_PAD) * BWD_PAD if sm90 else S)
+    scratch = torch.empty(rows * (2 if sm90 else 1),
                           dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
         flops, nbytes = kernel_work.flash_bwd_work(
@@ -463,19 +498,21 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
             lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, D,
             scale, int(causal)]
-    if kernel == "wgmma":
+    if sm90:
         dkdv_work, n_dkdv, dq_work, n_dq = _bwd_work_tensors(
-            B, H, KH, S, bool(causal), q.device)
+            B, H, KH, S, bool(causal), q.device, kernel)
         args += [dkdv_work.data_ptr(), n_dkdv, dq_work.data_ptr(), n_dq]
     lib = _load()
     _raise_on(lib, getattr(lib, _BWD[kernel])(
         *args, torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_kind[kernel] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kind = dict.fromkeys(_BWD, 0)
 
 
 def decode_attention(q, k_cache, v_cache, *, scale: Optional[float] = None):

@@ -599,20 +599,22 @@ def flash_attention_model(B: int, H: int, KH: int, S: int, D: int,
 
 
 def check_flash_bwd_work(B: int, H: int, KH: int, S: int, causal: bool,
-                         programs: int, schedule=None) -> List[Finding]:
-    """Certify the wgmma flash backward's work lists
-    (``bwd_schedule``, or a given ``schedule`` of the same form): each
+                         programs: int, schedule=None,
+                         kind: str = "wgmma") -> List[Finding]:
+    """Certify a wgmma flash backward kind's work lists
+    (``bwd_schedule`` of ``kind``: ``"wgmma"``, bf16, or ``"wgmma_f32"``,
+    f32; or a given ``schedule`` of the same form): each
     launch's lists are well formed (``starts`` from 0, non-decreasing,
     ending at the item count, at most ``programs`` programs), deal every
     work item exactly once, and each item's heads are in range (a dk/dv
     item's kv head and its group's query heads, a dq item's query head
     and its kv head ``h // group``)."""
-    from repro_torch.kernels.flash_attention import (BWD_KV_ITEM,
-                                                     BWD_Q_ITEM, bwd_schedule)
+    from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_schedule
     sched = schedule if schedule is not None else \
-        bwd_schedule(B, H, KH, S, causal, programs)
+        bwd_schedule(B, H, KH, S, causal, programs, kind)
     group = H // KH
-    n_tiles = {"dkdv": -(-S // BWD_KV_ITEM), "dq": -(-S // BWD_Q_ITEM)}
+    kv_item, _, q_item, _ = BWD_ROWS[kind]
+    n_tiles = {"dkdv": -(-S // kv_item), "dq": -(-S // q_item)}
     heads = {"dkdv": B * KH, "dq": B * H}
     out: List[Finding] = []
     for launch in ("dkdv", "dq"):

@@ -1922,3 +1922,124 @@ def test_kernels_launch_on_the_shards_under_dtensor(nccl_mesh):
     assert moved == plain
     assert moved["flash_attention"] == moved["flash_attention_bwd"] == 2
     assert all(n > 0 for n in moved.values()), moved
+
+
+# -- f32 on 3xTF32 wgmma ----------------------------------------------------
+# the f32 training-parity phases' attention (B 1 x S 512): minitron,
+# zamba2, whisper, dbrx, qwen2-vl, mistral-large
+FLASH_F32_PARITY = [(1, 24, 8, 512, 128), (1, 32, 32, 512, 80),
+                    (1, 12, 12, 512, 64), (1, 48, 8, 512, 128),
+                    (1, 12, 2, 512, 128), (1, 96, 8, 512, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_F32_PARITY,
+                         ids=["x".join(map(str, c)) for c in FLASH_F32_PARITY])
+def test_flash_f32_wgmma_matches_plain_and_repeats(shape, causal, cuda):
+    """At head_dim 64, 80 and 128 an f32 call launches the 3xTF32 kind,
+    forward and backward (each counted under its kind), within f32
+    flash's 2e-3 element-wise and 1e-3 norm-relative of the plain version
+    (o, lse, dq, dk, dv), and two calls give the same bits."""
+    from repro_torch.kernels.flash_attention import bwd_kernel, fwd_kernel
+    D = shape[-1]
+    assert fwd_kernel(D, torch.float32) == bwd_kernel(D, torch.float32) \
+        == "wgmma_f32"
+    q, k, v, do = _flash_grad_inputs(shape, torch.float32, cuda)
+    fwd0 = flash_attention.launches_by_kind["wgmma_f32"]
+    bwd0 = flash_attention_bwd.launches_by_kind["wgmma_f32"]
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    o2, lse2 = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_kind["wgmma_f32"] == fwd0 + 2
+    assert flash_attention_bwd.launches_by_kind["wgmma_f32"] == bwd0 + 2
+    want_o, want_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    _close(o, want_o, 2e-3)
+    _norm_rel_close((o, o, o), (want_o, want_o, want_o), 1e-3)
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _close(got, want, 2e-3)
+    _norm_rel_close(got, want, FLASH_BWD_REL[torch.float32])
+    for name, a, b in zip(("dq", "dk", "dv"), got, again, strict=True):
+        assert torch.equal(a, b), name
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 6, 2, 1000, 128), (1, 4, 4, 257, 80),
+                                   (1, 6, 2, 129, 64)],
+                         ids=["d128_gqa3", "d80_mha", "d64_gqa3"])
+def test_flash_f32_wgmma_matches_cuda_cores(shape, causal, cuda):
+    """The 3xTF32 kind against the CUDA-core kernels it replaced at these
+    head dims (the library's f32 entries, which take every head_dim), on
+    the same operands: forward, lse and backward within f32 flash's
+    2e-3."""
+    smoke = _chip_smoke()
+    q, k, v, do = _flash_grad_inputs(shape, torch.float32, cuda)
+    o, lse = _launch_fwd(q, k, v, causal, None, with_lse=True)
+    o_c, lse_c = smoke._mma_sync_fwd(torch, q, k, v, causal, True,
+                                     entry="flash_attention_fwd_f32")()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    cores = smoke._mma_sync_bwd(torch, q, k, v, o, lse, do, causal,
+                                entry="flash_attention_bwd_f32")()
+    torch.cuda.synchronize()
+    _close(o, o_c, 2e-3)
+    torch.testing.assert_close(lse, lse_c, atol=2e-3, rtol=0)
+    _close(tuple(got), tuple(cores), 2e-3)
+
+
+@pytest.mark.parametrize("D,H,KH,programs,lists", [
+    (32, 4, 2, 132, True), (16, 4, 2, 132, True), (128, 6, 4, 132, True),
+    (128, 4, 2, 0, True), (80, 4, 2, 132, False)],
+    ids=["head_dim_32", "head_dim_16", "h_not_a_multiple_of_kh",
+         "no_programs", "missing_work_list"])
+def test_flash_f32_sm90_refuses_what_it_cannot_run(D, H, KH, programs, lists,
+                                                   cuda):
+    """The f32 wgmma entries refuse a head_dim they have no instance for,
+    H % KH != 0, a forward grid of no programs and a backward without its
+    work lists (an error, not unwritten outputs); the CUDA-core entries
+    take head_dims 16 and 32, and the wrapper sends them there."""
+    from repro_torch.kernels.flash_attention import (_bwd_work_tensors,
+                                                     _load, _raise_on,
+                                                     fwd_kernel)
+    q = torch.zeros((1, H, 64, D), device=cuda)
+    kv = torch.zeros((1, KH, 64, D), device=cuda)
+    o, lse = torch.empty_like(q), torch.zeros((1, H, 64), device=cuda)
+    lib = _load()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.flash_attention_fwd_f32_sm90(
+        q.data_ptr(), kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None, 1, H,
+        KH, 64, D, 0.25, 1, programs, stream)
+    work = [None, 0, None, 0]
+    if lists and H % KH == 0:
+        dkdv_work, n_dkdv, dq_work, n_dq = _bwd_work_tensors(
+            1, H, KH, 64, True, q.device, "wgmma_f32")
+        work = [dkdv_work.data_ptr(), n_dkdv, dq_work.data_ptr(), n_dq]
+    scratch = torch.empty(2 * H * 128, device=cuda)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kv), \
+        torch.empty_like(kv)
+    bwd_err = lib.flash_attention_bwd_f32_sm90(
+        *(t.data_ptr() for t in (q, kv, kv, o, lse, q, scratch, dq, dk, dv)),
+        1, H, KH, 64, D, 0.25, 1, *work, stream)
+    if programs and lists and D in (64, 80, 128) and H % KH == 0:
+        assert err == 0 and bwd_err == 0
+        return
+    assert err != 0 or bwd_err != 0
+    with pytest.raises(RuntimeError, match="flash_attention kernel"):
+        _raise_on(lib, err or bwd_err, "flash_attention")
+    if D in (16, 32):
+        assert err != 0 and bwd_err != 0
+        assert fwd_kernel(D, torch.float32) == "cuda_cores"
+        assert lib.flash_attention_fwd_f32(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), o.data_ptr(), None,
+            1, H, KH, 64, D, 0.25, 1, stream) == 0

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Check and time the port's flash-attention backward on one NVIDIA GPU.
 
-    python3 tools/flash_bwd_time.py [--src DIR] [--check-only]
+    python3 tools/flash_bwd_time.py [--src DIR] [--dtype float32]
+                                    [--check-only]
 
 Builds ``flash_attention.cu`` of the tree at ``--src`` (default: this
 checkout's ``src``), prints what ptxas reported for its backward kernels
@@ -17,9 +18,16 @@ and the ``mma.sync`` backward at the same shape (the library's
 ``flash_attention_bwd_bf16`` entry). Times are ``chip_smoke.Timer``
 medians (L2 flushed, a device sleep before the start event);
 ``device_ms`` is the profiler's kernel time per call. Run it on two
-trees in one call to compare them on one card. Prints the card's name
-and power limit, then one JSON object per line; exits non-zero if a
-check fails.
+trees in one call to compare them on one card.
+
+With ``--dtype float32`` it runs the f32 backward instead: the f32 cases
+of ``FLASH_BWD_CASES`` and ``FLASH_F32_EDGES`` against the plain version,
+then (unless ``--check-only``) at ``FLASH_F32_TRAIN``, the training-parity
+shapes, the kind the dispatch picks (3xTF32 ``wgmma`` at head_dim 64, 80
+and 128) timed in turns against the CUDA-core kernels, each launch's
+device ms, SDPA's f32 backward as the library's, the bound at 3xTF32 and
+by bytes (``_flash_f32_rows``). Prints the card's name and power limit,
+then one JSON object per line; exits non-zero if a check fails.
 """
 from __future__ import annotations
 
@@ -40,6 +48,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, ROOT)
@@ -49,8 +59,8 @@ def main() -> int:
         print("flash_bwd_time: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import (FLASH_BWD_CASES, FLASH_BWD_TIMED, Timer,
-                            _flash_bwd_case, _mma_sync_bwd, _ptxas_by_kernel,
-                            _sdpa, _tensor_core_counts)
+                            _flash_bwd_case, _flash_f32_rows, _mma_sync_bwd,
+                            _ptxas_by_kernel, _sdpa, _tensor_core_counts)
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,7 +81,7 @@ def main() -> int:
 
     ok = True
     for shape, dtype, causal in FLASH_BWD_CASES:
-        if dtype != "bfloat16":
+        if dtype != args.dtype:
             continue
         checks = []
         _, err, rel, same = _flash_bwd_case(torch, F, randn, shape, dtype,
@@ -81,6 +91,20 @@ def main() -> int:
         _emit({"check": list(shape), "causal": causal, "ok": good,
                "max_abs_err": err, "norm_rel_err": rel,
                "bitwise_repeat": same})
+    if args.dtype == "float32":
+        checks = []
+        rows = _flash_f32_rows(torch, F, Timer(torch), checks,
+                               timed=ok and not args.check_only,
+                               ways=("backward",))
+        failed = [c for c in checks if not c["ok"]]
+        ok &= not failed
+        _emit({"f32_checks": len(checks), "failed": failed})
+        for r in rows.values():
+            for key, row in {"row": r, **r.pop("shapes")}.items():
+                _emit({"timed": key, **{k: v for k, v in row.items()
+                                        if k not in ("source", "replaces",
+                                                     "route")}})
+        return 0 if ok else 1
     if not ok or args.check_only:
         return 0 if ok else 1
     timer = Timer(torch)
